@@ -1,0 +1,108 @@
+"""TACC: the runtime dispatch table (paper §4.2, Appendix C).
+
+Counterpart of ``repro/core/tacc.py``.  A table maps ``(op, variant)`` to a
+callable and is consulted on every call.  Variants in the port:
+
+* ``"cuda"`` -> the hand-written Hopper kernels (``repro_torch.kernels``),
+* ``"cpu"``  -> plain-torch implementations (the registered defaults).
+
+Where the reference resolves from JAX's global platform, the port resolves
+from the **device type of the first tensor argument** of each call, so a CUDA
+tensor reaches the kernel and a CPU tensor the plain path.  An explicit
+``variant=`` or a :func:`set_platform` pin overrides that, for tests.  There
+is no ``interpret`` variant: a CUDA kernel has no interpreter, and its plain
+version stands beside it instead.  The collective policy fields
+(``policy_fields``) arrive with the training slice.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Any, Callable, Dict
+
+import torch
+
+_lock = threading.Lock()
+_TABLE: Dict[str, Dict[str, Callable[..., Any]]] = {}
+_DEFAULT_VARIANT: Dict[str, str] = {}
+_PLATFORM: str | None = None     # pin; None -> per-call device type
+
+
+class TaccError(KeyError):
+    pass
+
+
+def register(op: str, variant: str, *, default: bool = False) -> Callable:
+    """Decorator: register ``fn`` as the ``variant`` implementation of ``op``."""
+
+    def deco(fn: Callable) -> Callable:
+        with _lock:
+            _TABLE.setdefault(op, {})[variant] = fn
+            if default or op not in _DEFAULT_VARIANT:
+                _DEFAULT_VARIANT[op] = variant
+        return fn
+
+    return deco
+
+
+def set_platform(platform: str | None) -> None:
+    """Pin the platform (paper: ``taccSetPlatform``); None unpins, so each
+    call resolves from its tensors' device again."""
+    global _PLATFORM
+    _PLATFORM = platform
+
+
+def get_platform() -> str | None:
+    """The pinned platform, or None when calls resolve per device."""
+    return _PLATFORM
+
+
+def get_default(op: str) -> str:
+    try:
+        return _DEFAULT_VARIANT[op]
+    except KeyError:
+        raise TaccError(f"no default variant registered for op {op!r}; "
+                        f"registered ops: {sorted(_TABLE)}") from None
+
+
+def _device_type(args) -> str | None:
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return a.device.type
+    return None
+
+
+def resolve_variant(op: str, variant: str | None = None,
+                    device_type: str | None = None) -> str:
+    """explicit ``variant`` -> pinned platform -> ``device_type`` -> default."""
+    impls = _TABLE.get(op)
+    if not impls:
+        raise TaccError(f"unknown op {op!r}; registered: {sorted(_TABLE)}")
+    if variant is not None:
+        if variant not in impls:
+            raise TaccError(
+                f"op {op!r} has no variant {variant!r}; has {sorted(impls)}")
+        return variant
+    plat = _PLATFORM or device_type
+    if plat in impls:
+        return plat
+    return get_default(op)
+
+
+def resolve(op: str, variant: str | None = None,
+            device_type: str | None = None) -> Callable[..., Any]:
+    return _TABLE[op][resolve_variant(op, variant, device_type)]
+
+
+def dispatch(op: str, *args: Any, variant: str | None = None,
+             **kwargs: Any) -> Any:
+    """Call the implementation resolved for these arguments."""
+    vname = resolve_variant(op, variant, _device_type(args))
+    return _TABLE[op][vname](*args, **kwargs)
+
+
+def table() -> Dict[str, Dict[str, str]]:
+    """Readable dump of the function table (paper Appendix C analogue)."""
+    with _lock:
+        return {op: {v: f"{fn.__module__}.{fn.__qualname__}"
+                     for v, fn in impls.items()}
+                for op, impls in sorted(_TABLE.items())}

@@ -1,0 +1,39 @@
+"""Model-layout kernel wrappers and their TACC registrations.
+
+Counterpart of ``repro/kernels/ops.py``.  The hand-written CUDA kernels are
+the ``cuda`` entry points; the plain-torch paths stay the ``cpu`` defaults,
+and TACC picks per call from the device of the first tensor argument.
+"""
+from __future__ import annotations
+
+from repro_torch.core import tacc
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+
+# ---------------------------------------------------------------------------
+# attention: model layout (B, S, H, d) -> kernel layout (B, H, S, d)
+# ---------------------------------------------------------------------------
+
+@tacc.register("attention", "cuda")
+def flash_attention(q, k, v, *, kind="causal", window=0, q_offset=0,
+                    k_offset=0, k_len=None, chunk=None, scale=None):
+    """Model-layout wrapper for the flash kernel.
+
+    Decode (Sq < 8) and offset cases go to ``chunked_attention``, as in the
+    reference (``repro/kernels/ops.py:48``): a shape rule, not a catch-all for
+    kernel failures.  Ragged lengths need no padding here: the kernel masks
+    its loads and stores, which matches the reference's pad-to-128 with
+    ``k_len`` = Sk and padded query rows sliced off.
+    """
+    from repro_torch.models.attention import chunked_attention
+    Sq = q.shape[1]
+    if Sq < 8 or q_offset != 0 or k_offset != 0:
+        return chunked_attention(q, k, v, kind=kind, window=window,
+                                 q_offset=q_offset, k_offset=k_offset,
+                                 k_len=k_len, chunk=chunk or 512, scale=scale)
+    eff_k_len = k.shape[1] if k_len is None else k_len
+    # transpose views: the kernel reads the model layout through its strides
+    out = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), kind=kind, window=window,
+                              k_len=eff_k_len, scale=scale)
+    return out.transpose(1, 2)

@@ -22,6 +22,12 @@ except ImportError:  # keeps tier-1 green on hosts without hypothesis
     pass
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips where "
+        "torch.cuda.is_available() is false")
+
+
 @pytest.fixture(scope="session")
 def mesh3():
     """(pod=2, data=2, model=2) mesh."""

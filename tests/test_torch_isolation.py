@@ -1,0 +1,77 @@
+"""The port stands alone: no JAX, nothing of ``repro``, and no silent CPU.
+
+Each check runs in a fresh interpreter, so the modules loaded by the test
+process itself (which imports both packages elsewhere) do not count.
+"""
+import json
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+SRC = ROOT / "src"
+PORT = SRC / "repro_torch"
+
+
+def _run(args, cwd=ROOT, with_src=True, timeout=240):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    if with_src:
+        env["PYTHONPATH"] = str(SRC)
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+FOREIGN = r"(jax|jaxlib|repro)(\.|$)"
+
+PROBE = f"""
+import importlib, json, pkgutil, re, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+from repro_torch.launch import serve
+done = serve.main(["--device", "cpu", "--reduced", "--batch", "2",
+                   "--prompt-len", "16", "--max-new", "3"])
+assert len(done) == 2 and all(len(r.out) == 3 for r in done)
+print(json.dumps(sorted(m for m in sys.modules if re.match(r"{FOREIGN}", m))))
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    r = _run(["-c", PROBE])
+    assert r.returncode == 0, r.stderr
+    assert "served 2 reqs, 6 tokens" in r.stdout
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
+
+
+def test_port_sources_name_neither_jax_nor_repro():
+    pat = re.compile(rf"^\s*(import|from)\s+{FOREIGN}", re.M)
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [str(p.relative_to(ROOT)) for p in files if pat.search(p.read_text())]
+    assert bad == []
+
+
+def test_serve_entry_point_raises_without_a_card():
+    r = _run(["-m", "repro_torch.launch.serve", "--reduced"])
+    assert r.returncode != 0
+    assert "torch.cuda.is_available() is false" in r.stderr
+    assert "served" not in r.stdout
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, alone):
+    if alone:                      # a directory with chip_smoke.py and nothing else
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+        r = _run(["chip_smoke.py"], cwd=tmp_path, with_src=False)
+    else:
+        r = _run(["chip_smoke.py"])
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
