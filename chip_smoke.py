@@ -23,8 +23,24 @@ Phases, in order; any failure exits non-zero before the last line:
    yardstick the port never calls) and the bound (host clock for prefill,
    decode and tokens/s in phase 4); then the card's busy share in prefill
    and decode from a torch.profiler trace;
-6. a JSON line listing every ported kernel;
-7. the last line, ``{"ok": true, "device": {...}}``.
+6. ring kernels vs plain: the fused ring reduce-scatter and all-gather
+   (``csrc/ring_dma.cu``) against the plain versions of their schedules,
+   and ``collective_reduce`` against its plain version, case by case, bit
+   for bit;
+7. collectives at full width: ``hetccl.tree_all_reduce`` of a gradient tree
+   shaped like full-width smollm-135m (f32, every parameter, 651 MB per
+   rank) on a ThreadMesh of ranks sharing the card: (pod=2, data=2) in modes
+   hier and pipelined, backends xla and pallas, and hier/pallas with a bf16
+   cross stage; (pod=4, data=1) hier.  The counts are set to 0 just before
+   the (pod=2, data=2) hier/pallas run and read just after: the fused
+   kernels must have run.  Pallas must equal xla bit for bit in f32, and
+   both lie close to a float64 sum over ranks.  One more run pins the rings
+   to the emulated schedule, whose accumulate launches ``collective_reduce``.
+   Then host-clock times (backends in turns) and the card's busy share;
+8. times of the collective kernels at the largest bucket's shape, with
+   their bounds and library yardsticks;
+9. a JSON line listing every ported kernel;
+10. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs the repository around it: run alone, or where
 ``torch.cuda.is_available()`` is false, it exits non-zero and prints no result.
@@ -77,6 +93,33 @@ N_REQUESTS, PROMPT_LEN, MAX_NEW, SEED = 8, 512, 32, 0
 # inputs).  f32: the same weights in f32, sums taken in another order only.
 BF16_LOGITS_REL_TOL = 0.25
 F32_LOGITS_REL_TOL = 1e-4
+
+# Ring kernels against the plain versions of their schedules: both do the
+# same adds in the same order, so the limit is bitwise equality.  Cases:
+# (kind, ring length n, rings in the launch, direction, stripes, input
+# dtype, wire dtype); c elements per chunk, ragged on purpose.
+RING_C = 1_000_003
+RING_CASES = (
+    [("rs", n, 1, d, k, "float32", w) for n in (2, 3, 4, 5) for d in (1, -1)
+     for k in (1, 2) for w in ("float32", "bfloat16")]
+    + [("rs", 3, 1, 1, 2, "bfloat16", "bfloat16"), ("rs", 4, 1, -1, 1, "bfloat16", "bfloat16"),
+       ("rs", 2, 2, 1, 1, "float32", "float32"), ("rs", 3, 2, -1, 2, "float32", "bfloat16")]
+    + [("ag", n, 1, d, k, "float32", None) for n in (2, 3, 4, 5) for d in (1, -1)
+       for k in (1, 2)]
+    + [("ag", 3, 1, 1, 2, "bfloat16", None), ("ag", 2, 2, -1, 1, "float32", None)])
+# collective_reduce: incoming dtype, length
+REDUCE_CASES = [("float32", RING_C), ("bfloat16", RING_C), ("float32", 7), ("bfloat16", 4097)]
+
+COLL_ARCH = "smollm-135m"
+COLL_SEED = 1000
+# relative L2 of the all-reduced tree against a float64 sum over ranks.  f32:
+# the ring adds in f32 in its own order; four unit normals per element.
+COLL_F32_REL_TOL = 1e-6
+# bf16 cross stage: the shard is rounded to bf16 before the ring, each hop
+# rounds the running partial, the result is rounded once more.  Twice the
+# reading on an H100 (2.45e-3, PERF.md).
+COLL_BF16_REL_TOL = 5e-3
+COLL_TIMING_REPS = 5
 
 
 class SmokeFailure(RuntimeError):
@@ -409,6 +452,290 @@ def phase_times(fa, torch, case):
     return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
 
 
+# ---------------------------------------------------------------------------
+# Collective path: ring kernels, full-width tree_all_reduce, kernel times
+# ---------------------------------------------------------------------------
+
+def ring_case_inputs(torch, gen, kind, n, n_rings, in_dtype, c=RING_C):
+    """Per-rank inputs of one launch: rings of length n, unit normals."""
+    R = n * n_rings
+    rings = [list(range(i * n, (i + 1) * n)) for i in range(n_rings)]
+    shape = (n, c) if kind == "rs" else (c,)
+    xs = [torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, in_dtype))
+          for _ in range(R)]
+    return xs, rings
+
+
+def run_ring_case(torch, ring_dma, case, xs, rings):
+    """(kernel outputs, plain outputs) of one case."""
+    kind, n, _, d, k, _, w = case
+    if kind == "rs":
+        kw = dict(direction=d, n_stripes=k, wire_dtype=getattr(torch, w))
+        return (ring_dma.reduce_scatter_fused(xs, rings, **kw),
+                ring_dma.reduce_scatter_fused_plain(xs, rings, **kw))
+    kw = dict(direction=d, n_stripes=k)
+    return (ring_dma.all_gather_fused(xs, rings, **kw),
+            ring_dma.all_gather_fused_plain(xs, rings, **kw))
+
+
+def bitwise_error(outs, wants):
+    """(all equal bit for bit, largest absolute difference)."""
+    import torch
+    same = all(o.shape == w.shape and o.dtype == w.dtype and torch.equal(o, w)
+               for o, w in zip(outs, wants))
+    diff = max((o.double() - w.double()).abs().max().item() for o, w in zip(outs, wants))
+    return same, diff
+
+
+def phase_ring_kernels(torch, ring_dma, cr):
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    failed = []
+    worst = {"ring_reduce_scatter": 0.0, "ring_all_gather": 0.0, "collective_reduce": 0.0}
+    for case in RING_CASES:
+        kind, n, n_rings, d, k, dt, w = case
+        xs, rings = ring_case_inputs(torch, gen, kind, n, n_rings, dt)
+        outs, wants = run_ring_case(torch, ring_dma, case, xs, rings)
+        torch.cuda.synchronize()
+        same, diff = bitwise_error(outs, wants)
+        extra = ""
+        if kind == "rs" and dt == w == "float32":
+            # and both against the float64 sum over each ring's ranks
+            want = [sum(xs[r].double() for r in ring)[ring.index(rk)]
+                    for ring in rings for rk in ring]
+            rel = max(((o.double() - t).norm() / t.norm()).item()
+                      for o, t in zip(outs, want))
+            extra = f"  rel_l2 vs f64 sum {rel:.2e}"
+            same = same and rel <= COLL_F32_REL_TOL
+        name = (f"{kind} n={n} rings={n_rings} dir={d:+d} stripes={k} in={dt}"
+                + (f" wire={w}" if w else ""))
+        key = "ring_reduce_scatter" if kind == "rs" else "ring_all_gather"
+        worst[key] = max(worst[key], diff)
+        print(f"  {name:62s} max_abs_err {diff:.3e}{extra}  {'ok' if same else 'FAIL'}")
+        if not same:
+            failed.append(name)
+    for inc_dt, length in REDUCE_CASES:
+        acc = torch.randn(length, generator=gen, device="cuda")
+        inc = torch.randn(length, generator=gen, device="cuda").to(getattr(torch, inc_dt))
+        out, want = cr.collective_reduce(acc, inc), cr.collective_reduce_plain(acc, inc)
+        same, diff = bitwise_error([out], [want])
+        name = f"collective_reduce f32 + {inc_dt} n={length}"
+        worst["collective_reduce"] = max(worst["collective_reduce"], diff)
+        print(f"  {name:62s} max_abs_err {diff:.3e}  {'ok' if same else 'FAIL'}")
+        if not same:
+            failed.append(name)
+    check(not failed, f"ring kernels disagree with their plain versions in {failed}")
+    return len(RING_CASES) + len(REDUCE_CASES), worst
+
+
+def grad_shapes(get_config, build):
+    """Leaf shapes of full-width smollm-135m's parameter tree."""
+    from repro_torch.models.common import tree_map_meta
+    model = build(get_config(COLL_ARCH))
+    return model, tree_map_meta(lambda m: tuple(m.shape), model.abstract_params())
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [lf for k in sorted(tree) for lf in _leaves(tree[k])]
+    return [tree]
+
+
+def make_grads(torch, shapes, R):
+    """Per-rank f32 gradient trees, values from a seeded generator per rank."""
+    out = []
+    for r in range(R):
+        gen = torch.Generator(device="cuda").manual_seed(COLL_SEED + r)
+        out.append(_tree_map(lambda shp: torch.randn(shp, generator=gen, device="cuda"),
+                             shapes))
+    return out
+
+
+def tree_rel_err(torch, got, grads):
+    """Relative L2 of ``got`` against the float64 sum of every rank's tree."""
+    num = den = 0.0
+    for i, g in enumerate(_leaves(got)):
+        want = sum(_leaves(t)[i].double() for t in grads)
+        num += (g.double() - want).norm().item() ** 2
+        den += want.norm().item() ** 2
+    return (num / den) ** 0.5
+
+
+def trees_equal(torch, a, b):
+    return all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def phase_collectives(torch, hetccl, tacc, mesh_mod, ring_dma, cr, get_config, build):
+    model, shapes = grad_shapes(get_config, build)
+    n_params = model.n_params()
+    print(f"  gradient tree of {COLL_ARCH}: {n_params} parameters, "
+          f"{n_params * 4 / 1e6:.1f} MB of f32 per rank")
+    results = {"n_params": n_params, "bytes_per_rank": n_params * 4}
+
+    def run(m, grads, mode, backend, **kw):
+        cfg = hetccl.HetCCLConfig(mode=mode, backend=backend, **kw)
+        outs = m.run(lambda t: hetccl.tree_all_reduce(t, cfg), grads)
+        torch.cuda.synchronize()
+        check(all(trees_equal(torch, outs[0], o) for o in outs[1:]),
+              f"{mode}/{backend}: the ranks' results differ")
+        return outs[0]
+
+    m22 = mesh_mod.ThreadMesh({"pod": 2, "data": 2}, device="cuda")
+    grads = make_grads(torch, shapes, m22.size)
+    run(m22, grads, "hier", "pallas")                 # warm-up: kernels, scratch, allocator
+    run(m22, grads, "hier", "xla")
+
+    cr.launches = ring_dma.rs_launches = ring_dma.ag_launches = 0
+    main = run(m22, grads, "hier", "pallas")
+    launches = {"ring_reduce_scatter": ring_dma.rs_launches,
+                "ring_all_gather": ring_dma.ag_launches}
+    print(f"  (pod=2, data=2) hier/pallas launches per tree_all_reduce: {launches}")
+    check(launches["ring_reduce_scatter"] > 0 and launches["ring_all_gather"] > 0,
+          "the fused ring kernels did not run on the collective path")
+
+    readings = {}
+    for mode in ("hier", "pipelined"):
+        ref = run(m22, grads, mode, "xla")
+        got = main if mode == "hier" else run(m22, grads, mode, "pallas")
+        same = trees_equal(torch, got, ref)
+        rel = {b: tree_rel_err(torch, t, grads) for b, t in (("xla", ref), ("pallas", got))}
+        ok = same and max(rel.values()) <= COLL_F32_REL_TOL
+        print(f"  (pod=2, data=2) {mode:9s} f32: pallas == xla bit for bit: {same}; "
+              f"rel L2 vs f64 sum: xla {rel['xla']:.3e}, pallas {rel['pallas']:.3e} "
+              f"(limit {COLL_F32_REL_TOL:.0e})  {'ok' if ok else 'FAIL'}")
+        check(ok, f"{mode}: pallas and xla disagree or miss the f64 sum")
+        readings[f"{mode}_f32_rel_l2"] = rel
+        del ref, got
+
+    bf = run(m22, grads, "hier", "pallas", cross_dtype=torch.bfloat16)
+    rel_bf = tree_rel_err(torch, bf, grads)
+    del bf
+    print(f"  (pod=2, data=2) hier/pallas bf16 cross stage: rel L2 vs f64 sum {rel_bf:.3e} "
+          f"(limit {COLL_BF16_REL_TOL:.0e})  {'ok' if rel_bf <= COLL_BF16_REL_TOL else 'FAIL'}")
+    check(rel_bf <= COLL_BF16_REL_TOL, "bf16 cross stage beyond its limit")
+    readings["hier_bf16_rel_l2"] = rel_bf
+
+    # the emulated schedule on the card: ppermute hops + collective_reduce
+    prev = {op: tacc.get_default(op) for op in ring_dma.SCHEDULE_OPS}
+    for op in ring_dma.SCHEDULE_OPS:
+        tacc.set_default(op, "emulated")
+    try:
+        cr.launches = ring_dma.rs_launches = ring_dma.ag_launches = 0
+        emu = run(m22, grads, "hier", "pallas")
+        reduce_launches = cr.launches
+        fused_in_pinned = ring_dma.rs_launches + ring_dma.ag_launches
+    finally:
+        for op, variant in prev.items():
+            tacc.set_default(op, variant)
+    same = trees_equal(torch, emu, main)
+    print(f"  rings pinned to the emulated schedule: collective_reduce launches "
+          f"{reduce_launches}, fused launches {fused_in_pinned}; equal to the fused "
+          f"run bit for bit: {same}  {'ok' if same else 'FAIL'}")
+    check(same and reduce_launches > 0 and fused_in_pinned == 0,
+          "the emulated schedule on the card disagrees or did not launch collective_reduce")
+    launches["collective_reduce"] = reduce_launches
+    del emu, main
+
+    # host-clock times, backends in turns, then the card's busy share
+    def timed(mode, backend):
+        cfg = hetccl.HetCCLConfig(mode=mode, backend=backend)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m22.run(lambda g: hetccl.tree_all_reduce(g, cfg), grads)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    times = {}
+    for mode in ("hier", "pipelined"):
+        ms = {"xla": [], "pallas": []}
+        for _ in range(COLL_TIMING_REPS):
+            for b in ("xla", "pallas"):
+                ms[b].append(timed(mode, b))
+        times[mode] = {b: statistics.median(v) for b, v in ms.items()}
+    busy = {}
+    for b in ("xla", "pallas"):
+        cfg = hetccl.HetCCLConfig(mode="hier", backend=b)
+        busy[b] = device_busy_share(
+            torch, lambda: m22.run(lambda g: hetccl.tree_all_reduce(g, cfg), grads), 1)
+    print(f"  tree_all_reduce host-clock ms (median of {COLL_TIMING_REPS}, backends in "
+          f"turns): {json.dumps(times)}; card busy share hier: {json.dumps(busy)}")
+    results.update(readings=readings, launches=launches, host_ms=times, busy=busy)
+
+    buckets = hetccl._make_buckets(_leaves(grads[0]), hetccl.HetCCLConfig().bucket_bytes)
+    big = max(sum(_leaves(grads[0])[i].numel() for i in b) for b in buckets)
+    results["largest_bucket_elems"] = big
+    del grads
+
+    m41 = mesh_mod.ThreadMesh({"pod": 4, "data": 1}, device="cuda")
+    grads = make_grads(torch, shapes, m41.size)
+    ring_dma.rs_launches = 0
+    got = run(m41, grads, "hier", "pallas")
+    rs4 = ring_dma.rs_launches
+    ref = run(m41, grads, "hier", "xla")
+    same = trees_equal(torch, got, ref)
+    rel = tree_rel_err(torch, got, grads)
+    ok = same and rel <= COLL_F32_REL_TOL and rs4 > 0
+    print(f"  (pod=4, data=1) hier f32: {rs4} fused reduce-scatter launches; pallas == xla "
+          f"bit for bit: {same}; rel L2 vs f64 sum {rel:.3e}  {'ok' if ok else 'FAIL'}")
+    check(ok, "(pod=4, data=1): pallas and xla disagree or miss the f64 sum")
+    results["pod4_rel_l2"] = rel
+    return results
+
+
+def phase_collective_times(torch, ring_dma, cr, big):
+    """Each collective kernel at the largest bucket's shape in the (pod=2,
+    data=2) hier run: ranks 4, rings of 2 over "pod", c = bucket / 2."""
+    R, n = 4, 2
+    c = big // n
+    rings = [[0, 2], [1, 3]]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    xs = [torch.randn(n, c, generator=gen, device="cuda") for _ in range(R)]
+    ag_in = [torch.randn(c, generator=gen, device="cuda") for _ in range(R)]
+    out = {}
+
+    def rs(check=False):
+        return ring_dma.reduce_scatter_fused(xs, rings, check=check)
+
+    def ag(check=False):
+        return ring_dma.all_gather_fused(ag_in, rings, check=check)
+
+    # f32 throughout: input, wire, output 4 bytes
+    rs_bytes = R * n * c * 4 + R * c * 4
+    ag_bytes = R * c * 4 + R * n * c * 4
+    wire_bytes = (R // n) * n * (n - 1) * c * 4
+    order = [r for ring in rings for r in ring]          # the ranks ring by ring
+    stacked = torch.stack([xs[r] for r in order]).view(R // n, n, n, c)
+    ag_stack = torch.stack([ag_in[r] for r in order]).view(R // n, 1, n, c)
+    for name, fn, plain, lib, nbytes in (
+            ("ring_reduce_scatter", rs,
+             lambda: ring_dma.reduce_scatter_fused_plain(xs, rings),
+             lambda: stacked.sum(1), rs_bytes),
+            ("ring_all_gather", ag,
+             lambda: ring_dma.all_gather_fused_plain(ag_in, rings),
+             lambda: ag_stack.expand(R // n, n, n, c).contiguous(), ag_bytes)):
+        fn(check=True)
+        ms = median_ms(fn)
+        ring_dma.check_errors()
+        out[name] = {"ms": ms, "plain_ms": median_ms(plain, reps=3, trials=3, warmup=1),
+                     "library_ms": median_ms(lib), "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes", "wire_bound_ms": wire_bytes / HBM_BYTES_PER_S * 1e3,
+                     "shape": f"R={R} n={n} c={c} f32"}
+    m = c // 2                                 # one stream of a chunk, the emulated step
+    acc = torch.randn(m, generator=gen, device="cuda")
+    inc = torch.randn(m, generator=gen, device="cuda")
+    out["collective_reduce"] = {
+        "ms": median_ms(lambda: cr.collective_reduce(acc, inc)),
+        "plain_ms": median_ms(lambda: cr.collective_reduce_plain(acc, inc)),
+        "library_ms": median_ms(lambda: torch.add(acc, inc)),
+        "bound_ms": 3 * m * 4 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "shape": f"n={m} f32 + f32"}
+    for name, t in out.items():
+        print(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes)"
+              + (f", ring wire bytes alone {t['wire_bound_ms']:.4f} ms" if "wire_bound_ms" in t
+                 else ""))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -420,10 +747,12 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core import tacc
+    from repro_torch.core import hetccl, tacc
+    from repro_torch.core import mesh as mesh_mod
     from repro_torch.kernels import _build
+    from repro_torch.kernels import collective_reduce as cr
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ring_dma
     from repro_torch.models import build
     from repro_torch.serve import engine
 
@@ -463,8 +792,23 @@ def main() -> int:
     serve.update(measure_busy())
     print(json.dumps({"serve": serve, "device": name, "nvidia_smi": smi.splitlines()[0]}))
 
-    print("[6] kernels")
-    print(json.dumps({"kernels": [{
+    print("[6] ring kernels vs plain")
+    n_ring_cases, ring_err = phase_ring_kernels(torch, ring_dma, cr)
+
+    print("[7] collectives at full width")
+    coll = phase_collectives(torch, hetccl, tacc, mesh_mod, ring_dma, cr, get_config, build)
+
+    print("[8] collective kernel times")
+    ctimes = phase_collective_times(torch, ring_dma, cr, coll["largest_bucket_elems"])
+    print(json.dumps({"collectives": coll, "kernel_times": ctimes, "device": name,
+                      "nvidia_smi": smi.splitlines()[0]}))
+
+    print("[9] kernels")
+    sources = {"collective_reduce": ("collective_reduce.cu",
+                                     "src/repro/kernels/collective_reduce.py:84"),
+               "ring_reduce_scatter": ("ring_dma.cu", "src/repro/kernels/ring_dma.py:252"),
+               "ring_all_gather": ("ring_dma.cu", "src/repro/kernels/ring_dma.py:383")}
+    kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -480,7 +824,17 @@ def main() -> int:
         "library_ms": library_ms,
         "check": "pass",
         "cases_checked": len(cases),
-    }]}))
+    }]
+    for kname, (src, replaces) in sources.items():
+        t = ctimes[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
+            "launches": coll["launches"][kname], "max_abs_err": ring_err[kname],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "check": "pass (bitwise)", "cases_checked": n_ring_cases, "shape": t["shape"]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,6 +1,12 @@
-"""Port core: the TACC runtime dispatch table.
+"""Port core: the TACC runtime dispatch table, the meshes of ranks, the
+collectives and the HetCCL front door.
 
-The collectives, the HetCCL front door, balancing, topology and the
-simulator arrive with the training slice (ROADMAP A2).
+    tacc         runtime dispatch (kernels by device, collectives by mode)
+    device       where entry points run (cuda unless asked for cpu)
+    mesh         ThreadMesh / DistMesh: the counterpart of shard_map's axes
+    collectives  flat / hier / pipelined collectives, xla rings
+    hetccl       HetCCLConfig, install/use, all_reduce ... tree_all_reduce
+
+Balancing, topology and the simulator are not ported yet.
 """
 from repro_torch.core import tacc  # noqa: F401

@@ -1,0 +1,355 @@
+"""HetCCL public API: the drop-in collective layer (paper §4, Fig 2b).
+
+Counterpart of ``repro/core/hetccl.py:42-510``.  Applications call these
+functions inside a mesh (``core.mesh``); dispatch is communicator-scoped
+(DESIGN.md §12): the active :class:`repro_torch.comm.Communicator` resolves
+each call's payload to a ``CommPolicy`` from its per-op, size-classed
+``PolicyTable``, and TACC routes to the *flat*, *hier* or *pipelined*
+implementation at run time.  :func:`install` swaps the backend under an
+unmodified application (the paper's LD_PRELOAD trick); :func:`uninstall`
+and :func:`use` restore it.  :class:`HetCCLConfig` is the single-policy
+facade, compiled into a one-row table.
+
+:func:`tree_all_reduce` is the bucketed gradient all-reduce (leaves
+flattened into fixed-size fusion buckets, each reduced as reduce-scatter
+then all-gather on a wavefront across buckets).
+
+Not ported yet: the collective watchdog and the tracer hooks of the
+reference's ``_call`` (``hetccl.py:290-356``); they come with the
+observability and elastic slice (ROADMAP A10).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Sequence
+
+import torch
+
+from repro_torch.comm.communicator import Communicator, from_config
+from repro_torch.comm.policy import CommPolicy, PolicyTable
+from repro_torch.core import collectives as _coll
+from repro_torch.core import tacc
+from repro_torch.transport.stripe import MAX_STRIPES
+
+_SWAPPABLE_OPS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
+                  "broadcast", "reduce")
+
+
+@dataclasses.dataclass(frozen=True)
+class HetCCLConfig:
+    """Runtime configuration of the collective layer.
+
+    mode:        "flat" | "hier" | "pipelined" | "auto" ("hier" iff a pod
+                 axis is present).
+    local_axes:  intra-island mesh axes carrying data parallelism.
+    pod_axis:    the island boundary axis (None on single-island meshes).
+    bucket_bytes: gradient fusion bucket size.
+    cross_dtype: optional dtype of the cross-island stage (compression on
+                 the slow links).
+    n_channels:  pipeline channel count of the "pipelined" mode.
+    pipeline_chunk_bytes: alternative channel sizing (bytes per chunk).
+    backend:     "xla" | "pallas" ring implementation (orthogonal to mode):
+                 "pallas" takes the rings of ``repro_torch.kernels.ring_dma``
+                 (fused CUDA kernels on a ThreadMesh on the card, their
+                 emulated schedule elsewhere).
+    n_stripes:   per-link stripes of the pallas rings (collapsed to 1 for
+                 xla).
+    wire_quant:  the wire codec (ROADMAP A4): None only, for now.
+    """
+
+    mode: str = "auto"
+    local_axes: tuple[str, ...] = ("data",)
+    pod_axis: str | None = "pod"
+    bucket_bytes: int = 64 * 1024 * 1024
+    cross_dtype: Any = None
+    n_channels: int = 4
+    pipeline_chunk_bytes: int | None = None
+    backend: str = "xla"
+    n_stripes: int = 1
+    wire_quant: str | None = None
+
+    def resolved_mode(self) -> str:
+        if self.mode == "auto":
+            return "hier" if self.pod_axis else "flat"
+        if self.mode not in ("flat", "hier", "pipelined"):
+            raise ValueError(
+                f"unknown collective mode {self.mode!r}; "
+                "expected flat | hier | pipelined | auto")
+        return self.mode
+
+    def resolved_backend(self) -> str:
+        if self.backend not in _coll.RING_BACKENDS:
+            raise ValueError(
+                f"unknown collective backend {self.backend!r}; "
+                f"expected one of {_coll.RING_BACKENDS}")
+        return self.backend
+
+    def resolved_stripes(self) -> int:
+        """Effective stripe count: validated, capped, 1 for xla."""
+        if int(self.n_stripes) < 1:
+            raise ValueError(f"n_stripes must be >= 1, got {self.n_stripes}")
+        if self.resolved_backend() != "pallas":
+            return 1
+        return min(int(self.n_stripes), MAX_STRIPES)
+
+    def dp_axes(self) -> tuple[str, ...]:
+        """Pod-major: the gather order of flat and hier all_gather."""
+        return ((self.pod_axis,) if self.pod_axis else ()) + self.local_axes
+
+    def to_policy(self) -> CommPolicy:
+        return CommPolicy(mode=self.resolved_mode(),
+                          backend=self.resolved_backend(),
+                          n_channels=max(int(self.n_channels), 1),
+                          n_stripes=self.resolved_stripes(),
+                          cross_dtype=self.cross_dtype,
+                          wire_quant=(self.wire_quant
+                                      if self.resolved_backend() == "pallas"
+                                      else None))
+
+    def to_table(self) -> PolicyTable:
+        """A single-policy config is a one-row policy table."""
+        return PolicyTable.single(self.to_policy())
+
+    def communicator(self) -> Communicator:
+        return from_config(self)
+
+
+_CURRENT = from_config(HetCCLConfig(pod_axis=None))
+# (previous communicator, TACC defaults before each install), LIFO
+_INSTALL_STACK: list[tuple[Communicator, dict[str, str]]] = []
+
+
+def _as_communicator(cfg) -> Communicator:
+    """None -> the active communicator; HetCCLConfig -> its facade compile;
+    Communicator -> as is."""
+    if cfg is None:
+        return _CURRENT
+    if isinstance(cfg, Communicator):
+        return cfg
+    return from_config(cfg)
+
+
+def install(config: "HetCCLConfig | Communicator") -> Communicator:
+    """Swap the active collective backend (the LD_PRELOAD analogue); returns
+    the communicator it displaced.  Installing exactly the communicator the
+    latest install displaced undoes that install."""
+    return _install(config, allow_undo=True)
+
+
+def _install(config, *, allow_undo: bool) -> Communicator:
+    global _CURRENT
+    c = _as_communicator(config)      # validates before mutating any state
+    prev = _CURRENT
+    if allow_undo and _INSTALL_STACK and c == _INSTALL_STACK[-1][0]:
+        uninstall()
+        return prev
+    prev_defaults = {op: tacc.get_default(op) for op in _SWAPPABLE_OPS}
+    _INSTALL_STACK.append((prev, prev_defaults))
+    _CURRENT = c
+    for op in _SWAPPABLE_OPS:
+        tacc.set_default(op, c.default_variant(op))
+    return prev
+
+
+def uninstall() -> Communicator:
+    """Undo the most recent :func:`install` (communicator and TACC
+    defaults); a no-op returning the current one when nothing is installed."""
+    global _CURRENT
+    if not _INSTALL_STACK:
+        return _CURRENT
+    prev, prev_defaults = _INSTALL_STACK.pop()
+    _CURRENT = prev
+    for op, variant in prev_defaults.items():
+        tacc.set_default(op, variant)
+    return prev
+
+
+@contextlib.contextmanager
+def use(config: "HetCCLConfig | Communicator"):
+    """``with hetccl.use(cfg): ...`` installs ``cfg`` and restores the
+    previous backend on exit, even on an exception."""
+    _install(config, allow_undo=False)
+    try:
+        yield config
+    finally:
+        uninstall()
+
+
+def current() -> Communicator:
+    """The active communicator (flat, no pod axis, when nothing is
+    installed)."""
+    return _CURRENT
+
+
+def _payload_bytes(op: str, x, c: Communicator) -> int:
+    """The logical payload the policy table keys on: for all_gather the
+    gathered buffer, for the others the input."""
+    nbytes = x.numel() * x.element_size()
+    if op == "all_gather" and c.table.rows:
+        nbytes *= _coll.axis_world(c.dp_axes())
+    return nbytes
+
+
+def _call(op: str, x, cfg, **kw):
+    """Resolve this payload's policy from the communicator's table, then let
+    tacc.dispatch map exactly the fields the resolved variant declared."""
+    c = _as_communicator(cfg)
+    pol = c.policy(op, _payload_bytes(op, x, c))
+    variant = c.variant_for(op, pol)
+    if variant == "pipelined" and c.pipeline_chunk_bytes:
+        kw.setdefault("pipeline_chunk_bytes", c.pipeline_chunk_bytes)
+    return tacc.dispatch(op, x, c.local_axes, c.pod_axis,
+                         variant=variant, policy=pol, **kw)
+
+
+def all_reduce(x, cfg=None, **kw):
+    """Sum ``x`` across the DP world (pod-major flat group); identical on
+    every DP rank.  ``cfg``: communicator or HetCCLConfig override."""
+    return _call("all_reduce", x, cfg, **kw)
+
+
+def all_gather(x, cfg=None, **kw):
+    """Concatenate every DP rank's ``x`` along ``dim`` (default 0),
+    pod-major."""
+    return _call("all_gather", x, cfg, **kw)
+
+
+def reduce_scatter(x, cfg=None, **kw):
+    """Sum across the DP world, keep this rank's 1/world shard of ``dim``."""
+    return _call("reduce_scatter", x, cfg, **kw)
+
+
+def all_to_all(x, cfg=None, **kw):
+    """Split ``split_axis`` world-ways; rank j keeps chunk j of every rank,
+    concatenated on ``concat_axis``."""
+    return _call("all_to_all", x, cfg, **kw)
+
+
+def broadcast(x, cfg=None, **kw):
+    """Every rank receives root's ``x`` (``root``, default 0)."""
+    return _call("broadcast", x, cfg, **kw)
+
+
+def reduce(x, cfg=None, **kw):
+    """Sum across the DP world; only ``root`` keeps it, the others get
+    zeros."""
+    return _call("reduce", x, cfg, **kw)
+
+
+def p2p(x, axis: str, perm: Sequence[tuple[int, int]]):
+    """Raw point-to-point permute over ``axis``; ranks not named as a
+    destination receive zeros."""
+    return tacc.dispatch("p2p", x, axis, perm)
+
+
+def world_size(cfg=None) -> int:
+    """Total DP ranks of ``cfg``'s axes in the active mesh."""
+    return _coll.axis_world(_as_communicator(cfg).dp_axes())
+
+
+# ---------------------------------------------------------------------------
+# Bucketed gradient reduction (DDP-style fusion).
+# ---------------------------------------------------------------------------
+
+def _flatten(tree):
+    """Leaves of a tree of dicts (sorted keys, as JAX orders them), lists and
+    tuples, and a function that rebuilds the tree from new leaves."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [_flatten(tree[k]) for k in keys]
+    elif isinstance(tree, (list, tuple)):
+        keys = None
+        parts = [_flatten(v) for v in tree]
+    else:
+        return [tree], lambda leaves: leaves[0]
+    sizes = [len(p[0]) for p in parts]
+    leaves = [lf for p in parts for lf in p[0]]
+
+    def rebuild(new):
+        out, off = [], 0
+        for (_, build), sz in zip(parts, sizes):
+            out.append(build(new[off:off + sz]))
+            off += sz
+        if keys is not None:
+            return dict(zip(keys, out))
+        return type(tree)(out)
+
+    return leaves, rebuild
+
+
+def _dtype_name(t) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+def _make_buckets(leaves, bucket_bytes: int) -> list[list[int]]:
+    """Group leaf indices into ~bucket_bytes fusion buckets of equal dtype."""
+    order = sorted(range(len(leaves)), key=lambda i: _dtype_name(leaves[i]))
+    buckets: list[list[int]] = []
+    cur: list[int] = []
+    cur_bytes = 0
+    cur_dtype = None
+    for i in order:
+        lf = leaves[i]
+        nbytes = lf.numel() * lf.element_size()
+        if cur and (lf.dtype != cur_dtype or cur_bytes + nbytes > bucket_bytes):
+            buckets.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(i)
+        cur_dtype = lf.dtype
+        cur_bytes += nbytes
+    if cur:
+        buckets.append(cur)
+    return buckets
+
+
+def tree_all_reduce(tree, cfg=None, *, mean_by=None):
+    """All-reduce every leaf of ``tree``, fused into ~bucket_bytes buckets.
+
+    Leaves are grouped by dtype into buckets, and each bucket's all-reduce is
+    decomposed into reduce-scatter -> all-gather on a wavefront across
+    buckets (bucket i's all-gather next to bucket i+1's reduce-scatter).
+    With a ``cross_dtype`` policy each bucket takes the fused all_reduce
+    instead (cross-stage compression only exists there).  ``mean_by``:
+    optional scalar every floating leaf is divided by after the reduction.
+    """
+    c = _as_communicator(cfg)
+    leaves, rebuild = _flatten(tree)
+    buckets = _make_buckets(leaves, c.bucket_bytes)
+    world = world_size(c)
+
+    flats, pads = [], []
+    for bucket in buckets:
+        flat = torch.cat([leaves[i].reshape(-1) for i in bucket]) \
+            if len(bucket) > 1 else leaves[bucket[0]].reshape(-1)
+        pad = (-flat.shape[0]) % max(world, 1)
+        if pad:
+            flat = torch.nn.functional.pad(flat, (0, pad))
+        flats.append(flat)
+        pads.append(pad)
+
+    big = max((f.numel() * f.element_size() for f in flats), default=0)
+    if world > 1 and c.policy("all_reduce", big).cross_dtype is None:
+        reduced = _coll.software_pipeline(
+            flats,
+            (lambda f: reduce_scatter(f, c, dim=0),
+             lambda s: all_gather(s, c, dim=0)))
+    elif world > 1:
+        reduced = _coll.software_pipeline(flats, (lambda f: all_reduce(f, c),))
+    else:
+        reduced = flats
+
+    out = list(leaves)
+    for bucket, red, pad in zip(buckets, reduced, pads):
+        if pad:
+            red = red[:red.shape[0] - pad]
+        off = 0
+        for i in bucket:
+            sz = leaves[i].numel()
+            out[i] = red[off:off + sz].reshape(leaves[i].shape)
+            off += sz
+    if mean_by is not None:
+        out = [o / torch.as_tensor(mean_by, dtype=o.dtype, device=o.device)
+               if o.is_floating_point() else o for o in out]
+    return rebuild(out)
+

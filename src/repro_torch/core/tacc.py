@@ -4,26 +4,35 @@ Counterpart of ``repro/core/tacc.py``.  A table maps ``(op, variant)`` to a
 callable and is consulted on every call.  Variants in the port:
 
 * ``"cuda"`` -> the hand-written Hopper kernels (``repro_torch.kernels``),
-* ``"cpu"``  -> plain-torch implementations (the registered defaults).
+* ``"cpu"``  -> plain-torch implementations (the registered defaults),
+
+and for the collectives (``repro_torch.core.collectives``) ``"flat"``,
+``"hier"`` and ``"pipelined"``, which :func:`repro_torch.core.hetccl.install`
+swaps by setting defaults.
 
 Where the reference resolves from JAX's global platform, the port resolves
 from the **device type of the first tensor argument** of each call, so a CUDA
 tensor reaches the kernel and a CPU tensor the plain path.  An explicit
 ``variant=`` or a :func:`set_platform` pin overrides that, for tests.  There
 is no ``interpret`` variant: a CUDA kernel has no interpreter, and its plain
-version stands beside it instead.  The collective policy fields
-(``policy_fields``) arrive with the training slice.
+version stands beside it instead.
+
+Collective registrations declare the **policy fields** they consume
+(``policy_fields=``): :func:`dispatch` with ``policy=CommPolicy(...)`` maps
+exactly those fields onto keyword arguments, and nothing else (DESIGN.md
+§12).
 """
 from __future__ import annotations
 
 import threading
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
 _lock = threading.Lock()
 _TABLE: Dict[str, Dict[str, Callable[..., Any]]] = {}
 _DEFAULT_VARIANT: Dict[str, str] = {}
+_POLICY_FIELDS: Dict[Tuple[str, str], Tuple[str, ...]] = {}
 _PLATFORM: str | None = None     # pin; None -> per-call device type
 
 
@@ -31,12 +40,19 @@ class TaccError(KeyError):
     pass
 
 
-def register(op: str, variant: str, *, default: bool = False) -> Callable:
-    """Decorator: register ``fn`` as the ``variant`` implementation of ``op``."""
+def register(op: str, variant: str, *, default: bool = False,
+             policy_fields: Tuple[str, ...] = ()) -> Callable:
+    """Decorator: register ``fn`` as the ``variant`` implementation of ``op``.
+
+    ``policy_fields`` names the ``CommPolicy`` fields this implementation
+    takes as keyword parameters; :func:`dispatch` with ``policy=`` maps
+    exactly these.
+    """
 
     def deco(fn: Callable) -> Callable:
         with _lock:
             _TABLE.setdefault(op, {})[variant] = fn
+            _POLICY_FIELDS[(op, variant)] = tuple(policy_fields)
             if default or op not in _DEFAULT_VARIANT:
                 _DEFAULT_VARIANT[op] = variant
         return fn
@@ -56,12 +72,29 @@ def get_platform() -> str | None:
     return _PLATFORM
 
 
+def set_default(op: str, variant: str) -> None:
+    with _lock:
+        if op not in _TABLE or variant not in _TABLE[op]:
+            raise TaccError(f"no implementation registered for ({op!r}, {variant!r})")
+        _DEFAULT_VARIANT[op] = variant
+
+
 def get_default(op: str) -> str:
     try:
         return _DEFAULT_VARIANT[op]
     except KeyError:
         raise TaccError(f"no default variant registered for op {op!r}; "
                         f"registered ops: {sorted(_TABLE)}") from None
+
+
+def policy_fields(op: str, variant: str) -> Tuple[str, ...]:
+    """The policy fields declared by the ``(op, variant)`` registration."""
+    return _POLICY_FIELDS.get((op, variant), ())
+
+
+def variants(op: str) -> list[str]:
+    with _lock:
+        return sorted(_TABLE.get(op, {}))
 
 
 def _device_type(args) -> str | None:
@@ -94,9 +127,17 @@ def resolve(op: str, variant: str | None = None,
 
 
 def dispatch(op: str, *args: Any, variant: str | None = None,
-             **kwargs: Any) -> Any:
-    """Call the implementation resolved for these arguments."""
+             policy: Any = None, **kwargs: Any) -> Any:
+    """Call the implementation resolved for these arguments.
+
+    With ``policy=`` (a ``CommPolicy``), the fields the resolved registration
+    declared via ``policy_fields`` become keyword arguments, and only those;
+    explicit ``kwargs`` win over them.
+    """
     vname = resolve_variant(op, variant, _device_type(args))
+    if policy is not None:
+        for f in _POLICY_FIELDS.get((op, vname), ()):
+            kwargs.setdefault(f, getattr(policy, f))
     return _TABLE[op][vname](*args, **kwargs)
 
 

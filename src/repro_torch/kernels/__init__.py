@@ -1,10 +1,15 @@
 """Hand-written Hopper kernels (CUDA C++ in ``csrc/``), resolved via TACC.
 
-flash_attention -- online-softmax attention forward (causal/bidir/window,
-                   k_len, GQA); replaces the Pallas ``_flash_kernel``
+flash_attention   -- online-softmax attention forward (causal/bidir/window,
+                     k_len, GQA); replaces the Pallas ``_flash_kernel``
+collective_reduce -- a ring step's accumulate, acc (f32) + incoming (f32 or
+                     bf16); replaces the Pallas ``_reduce_kernel``
+ring_dma          -- fused ring reduce-scatter / all-gather over every rank
+                     of a ThreadMesh on one card, and their emulated
+                     schedules; replaces ``_rs_dma_kernel`` / ``_ag_dma_kernel``
 
 Each kernel has its plain-torch version beside it (``ref.py``), which the
 wrapper runs for CPU tensors; ``ops.py`` holds the model-layout wrappers and
 the TACC registrations.  Sources are built by ``_build.py`` at first use.
 """
-from repro_torch.kernels import ops  # noqa: F401  (registers TACC entries)
+from repro_torch.kernels import ops, ring_dma  # noqa: F401  (register TACC entries)

@@ -20,15 +20,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("flash_attention",)
+SOURCES = ("flash_attention", "collective_reduce", "ring_dma")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()          # ranks of a ThreadMesh may load from their threads
 
 
 def _nvcc() -> str:
@@ -82,8 +84,9 @@ def build(names=SOURCES) -> dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = _loaded[name] = ctypes.CDLL(str(lib_path(name)))
-    return lib
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = _loaded[name] = ctypes.CDLL(str(lib_path(name)))
+        return lib

@@ -7,6 +7,8 @@ and TACC picks per call from the device of the first tensor argument.
 from __future__ import annotations
 
 from repro_torch.core import tacc
+from repro_torch.kernels import ref
+from repro_torch.kernels.collective_reduce import collective_reduce
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 
 
@@ -37,3 +39,11 @@ def flash_attention(q, k, v, *, kind="causal", window=0, q_offset=0,
                               v.transpose(1, 2), kind=kind, window=window,
                               k_len=eff_k_len, scale=scale)
     return out.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# collective local reduction: acc (f32) + incoming (wire dtype) -> f32
+# ---------------------------------------------------------------------------
+
+tacc.register("collective_reduce", "cpu", default=True)(ref.collective_reduce)
+tacc.register("collective_reduce", "cuda")(collective_reduce)

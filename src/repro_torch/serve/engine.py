@@ -15,18 +15,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.models import Model
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; raises for CUDA when no card is present
-    rather than running anywhere else."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device 'cuda' was requested but torch.cuda.is_available() is "
-            "false; pass device='cpu' (--device cpu) to run on the CPU")
-    return dev
 
 
 @dataclasses.dataclass

@@ -1,25 +1,30 @@
-"""The port's CUDA flash-attention kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Every test here needs an NVIDIA card: each is marked ``cuda`` and skips where
-``torch.cuda.is_available()`` is false.  The kernel is held to the limits of
-``chip_smoke.py`` (``ATTN_LIMITS``), and planted faults in copies of the
-kernel source must fail them.  The file imports nothing of JAX, so it also
-runs where JAX is not installed:
+``torch.cuda.is_available()`` is false.  The flash-attention kernel is held to
+the limits of ``chip_smoke.py`` (``ATTN_LIMITS``); the collective kernels
+(``collective_reduce``, the fused ring reduce-scatter and all-gather) bit for
+bit.  Planted faults in copies of the kernel sources must fail those checks,
+and a ring fault that stalls the protocol must raise within seconds.  The
+file imports nothing of JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -s --noconftest tests/test_torch_cuda.py
 """
 import ctypes
 import importlib.util
 import subprocess
+import time
 from pathlib import Path
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import hetccl, mesh  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import collective_reduce as cr  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ring_dma  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -109,16 +114,15 @@ FAULTS = {
 }
 
 
-@pytest.fixture(scope="module")
-def faulty_libs(tmp_path_factory):
-    """Each planted fault compiled from a copy of the kernel source, one nvcc
-    per copy, all started together."""
+def _compile_faults(tmp_path_factory, source, faults):
+    """Each planted fault compiled from a copy of ``csrc/<source>.cu``, one
+    nvcc per copy, all started together."""
     if not torch.cuda.is_available():
         pytest.skip(NO_CARD)
-    src = (_build.CSRC / "flash_attention.cu").read_text()
-    out_dir = tmp_path_factory.mktemp("faulty_kernels")
+    src = (_build.CSRC / f"{source}.cu").read_text()
+    out_dir = tmp_path_factory.mktemp(f"faulty_{source}")
     procs = {}
-    for name, (good, bad, _) in FAULTS.items():
+    for name, (good, bad, _) in faults.items():
         assert src.count(good) == 1, f"{name}: {good!r} is not in the source once"
         cu = out_dir / f"{name}.cu"
         cu.write_text(src.replace(good, bad))
@@ -132,6 +136,11 @@ def faulty_libs(tmp_path_factory):
         assert proc.returncode == 0, log
         libs[name] = ctypes.CDLL(str(so))
     return libs
+
+
+@pytest.fixture(scope="module")
+def faulty_libs(tmp_path_factory):
+    return _compile_faults(tmp_path_factory, "flash_attention", FAULTS)
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
@@ -148,3 +157,110 @@ def test_planted_fault_fails_the_limits(gen, faulty_libs, monkeypatch, fault):
           f"\n  {' ' * len(fault)}  fault  {smoke.format_error(bad, 'bfloat16')}")
     assert smoke.within_limits(good, "bfloat16")
     assert not smoke.within_limits(bad, "bfloat16")
+
+
+# ---------------------------------------------------------------------------
+# Collective kernels: collective_reduce and the fused rings, bit for bit
+# ---------------------------------------------------------------------------
+
+RING_TEST_C = 100_003
+
+
+@pytest.mark.parametrize("case", smoke.RING_CASES,
+                         ids=["-".join(str(v) for v in c) for c in smoke.RING_CASES])
+def test_ring_kernel_matches_plain_bitwise(gen, case):
+    kind, n, n_rings = case[:3]
+    xs, rings = smoke.ring_case_inputs(torch, gen, kind, n, n_rings, case[5], RING_TEST_C)
+    before = ring_dma.rs_launches + ring_dma.ag_launches
+    outs, wants = smoke.run_ring_case(torch, ring_dma, case, xs, rings)
+    torch.cuda.synchronize()
+    assert ring_dma.rs_launches + ring_dma.ag_launches == before + 1
+    same, diff = smoke.bitwise_error(outs, wants)
+    assert same, diff
+
+
+@pytest.mark.parametrize("inc_dtype,length", smoke.REDUCE_CASES)
+def test_collective_reduce_matches_plain_bitwise(gen, inc_dtype, length):
+    acc = torch.randn(length, generator=gen, device="cuda")
+    inc = torch.randn(length, generator=gen, device="cuda").to(getattr(torch, inc_dtype))
+    before = cr.launches
+    got = cr.collective_reduce(acc, inc)
+    assert cr.launches == before + 1
+    assert smoke.bitwise_error([got], [cr.collective_reduce_plain(acc, inc)])[0]
+
+
+@pytest.mark.parametrize("mode", ["flat", "hier", "pipelined"])
+def test_thread_mesh_pallas_equals_xla_on_the_card(gen, mode):
+    """On a CUDA ThreadMesh the pallas backend launches the fused kernels and
+    gives the xla rings' bits (f32) in hier and pipelined mode; flat xla is
+    one psum over all ranks, flat pallas a ring per axis, so there the sums
+    run in another order (rtol 1e-6)."""
+    m = mesh.ThreadMesh({"pod": 2, "data": 2}, device="cuda")
+    xs = [torch.randn(1000, 37, generator=gen, device="cuda") for _ in range(4)]
+    outs = {}
+    for b in ("xla", "pallas"):
+        before = ring_dma.rs_launches + ring_dma.ag_launches
+        cfg = hetccl.HetCCLConfig(mode=mode, backend=b, n_channels=2)
+        outs[b] = m.run(lambda v: hetccl.all_reduce(v, cfg), xs)
+        launched = ring_dma.rs_launches + ring_dma.ag_launches - before
+        assert (launched > 0) == (b == "pallas")
+    for a, b in zip(outs["xla"], outs["pallas"]):
+        if mode == "flat":
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+        else:
+            assert torch.equal(a, b)
+
+
+def test_fused_ring_raises_instead_of_falling_back(gen):
+    """A wire dtype the kernel does not take raises on the card; nothing
+    falls back to the emulated schedule."""
+    m = mesh.ThreadMesh({"pod": 2}, device="cuda")
+    xs = [torch.randn(8, generator=gen, device="cuda") for _ in range(2)]
+    with pytest.raises(ValueError, match="wire dtype"):
+        m.run(lambda v: ring_dma.ring_reduce_scatter(v, "pod", wire_dtype=torch.float16), xs)
+
+
+# name -> (text in csrc/ring_dma.cu, its faulty replacement, the ring case
+# (kind, n, rings, direction, stripes, input, wire) that reaches the fault)
+RING_FAULTS = {
+    "credit_never_signalled": (
+        "if (s + 2 <= n - 2) cta_signal(cap_flag(g, g.src[r], par, k), tag(g, s));", "",
+        ("rs", 4, 1, 1, 1, "float32", "float32")),
+    "wrong_parity_slot_read": (
+        "to_float(__ldcg(slot_me + par * c + e))",
+        "to_float(__ldcg(slot_me + (par ^ 1) * c + e))",
+        ("rs", 3, 1, 1, 2, "float32", "float32")),
+    "bf16_rounding_skipped": (
+        "return __float2bfloat16_rn(v);",
+        "return __ushort_as_bfloat16((unsigned short)(__float_as_uint(v) >> 16));",
+        ("rs", 4, 1, -1, 1, "float32", "bfloat16")),
+}
+
+
+@pytest.fixture(scope="module")
+def faulty_ring_libs(tmp_path_factory):
+    return _compile_faults(tmp_path_factory, "ring_dma", RING_FAULTS)
+
+
+@pytest.mark.parametrize("fault", sorted(RING_FAULTS))
+def test_planted_ring_fault_fails(gen, faulty_ring_libs, monkeypatch, fault):
+    case = RING_FAULTS[fault][2]
+    xs, rings = smoke.ring_case_inputs(torch, gen, case[0], case[1], case[2], case[5],
+                                       RING_TEST_C)
+    good, wants = smoke.run_ring_case(torch, ring_dma, case, xs, rings)
+    assert smoke.bitwise_error(good, wants)[0]
+    monkeypatch.setattr(ring_dma, "_lib", ring_dma.bind(faulty_ring_libs[fault]))
+    t0 = time.perf_counter()
+    try:
+        bad, _ = smoke.run_ring_case(torch, ring_dma, case, xs, rings)
+        torch.cuda.synchronize()
+        same, diff = smoke.bitwise_error(bad, wants)
+        reading = f"max_abs_err {diff:.3e}, bitwise equal: {same}"
+        raised = None
+    except ring_dma.RingProtocolError as e:
+        same, raised = False, e
+        reading = f"raised after {time.perf_counter() - t0:.2f} s: {e}"
+    print(f"\n  {fault}: {reading}")
+    assert not same
+    if fault == "credit_never_signalled":
+        assert raised is not None and time.perf_counter() - t0 < 30

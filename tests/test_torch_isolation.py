@@ -40,6 +40,12 @@ from repro_torch.launch import serve
 done = serve.main(["--device", "cpu", "--reduced", "--batch", "2",
                    "--prompt-len", "16", "--max-new", "3"])
 assert len(done) == 2 and all(len(r.out) == 3 for r in done)
+import torch
+from repro_torch.core import hetccl, mesh
+cfg = hetccl.HetCCLConfig(mode="pipelined", backend="pallas", n_channels=2)
+outs = mesh.ThreadMesh({{"pod": 2, "data": 2}}, device="cpu").run(
+    lambda v: hetccl.all_reduce(v, cfg), [torch.full((6, 5), float(r)) for r in range(4)])
+assert all(torch.equal(o, torch.full((6, 5), 6.0)) for o in outs)
 print(json.dumps(sorted(m for m in sys.modules if re.match(r"{FOREIGN}", m))))
 """
 
@@ -57,6 +63,16 @@ def test_port_sources_name_neither_jax_nor_repro():
     assert len(files) > 10
     bad = [str(p.relative_to(ROOT)) for p in files if pat.search(p.read_text())]
     assert bad == []
+
+
+def test_thread_mesh_raises_without_a_card():
+    import torch
+
+    from repro_torch.core import mesh
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        mesh.ThreadMesh({"pod": 2, "data": 2})
 
 
 def test_serve_entry_point_raises_without_a_card():
