@@ -39,8 +39,29 @@ Phases, in order; any failure exits non-zero before the last line:
    Then host-clock times (backends in turns) and the card's busy share;
 8. times of the collective kernels at the largest bucket's shape, with
    their bounds and library yardsticks;
-9. a JSON line listing every ported kernel;
-10. the last line, ``{"ok": true, "device": {...}}``.
+9. codec kernels vs plain: ``quant_int8`` and ``dq_accum_int8``
+   (``csrc/quant.cu``) against their plain versions, case by case, bit for
+   bit (NaN where NaN), up to the largest bucket's hop shape;
+10. flash backward vs plain: ``flash_attention_bwd``
+   (``csrc/flash_attention_bwd.cu``) against its plain version at the
+   training shape and the edge cases, each with its limits, and the
+   forward's row logsumexp against its plain version;
+11. training at full width: ZeRO-1 steps of full-width smollm-135m (bf16
+   parameters, f32 master state, weights from a seed) on a ThreadMesh
+   (pod=2, data=2), ``uniform_plan(2, 4, micro_batch=2)``, seq 512, one
+   memorize batch, in three runs from the same init: ``backend="pallas",
+   wire_quant="int8"`` with error feedback (the main path), ``"pallas"``
+   without a codec (the fused ring kernels) and ``"xla"``.  The counts are set
+   to 0 just before each run and read just after; each kernel must have run
+   the times the step implies.  Step-0 loss is the same in all three, losses
+   are finite and fall, and the int8 run ends within a stated limit of the
+   run without a codec.  Then ms per step (runs in turns), tokens/s, the
+   split of a step, the card's busy share and the peak memory;
+12. times of the codec kernels at the largest bucket's hop shape and of the
+   flash backward at the training shape, with their bounds, plain versions
+   and (flash backward) SDPA's autograd as the yardstick;
+13. a JSON line listing every kernel;
+14. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs the repository around it: run alone, or where
 ``torch.cuda.is_available()`` is false, it exits non-zero and prints no result.
@@ -120,6 +141,38 @@ COLL_F32_REL_TOL = 1e-6
 # reading on an H100 (2.45e-3, PERF.md).
 COLL_BF16_REL_TOL = 5e-3
 COLL_TIMING_REPS = 5
+
+# Flash backward against its plain version (dq, dk, dv, each against the
+# plain f32 gradient): relative L2 of the whole tensor, and the worst row's
+# error over the larger of its own norm and the mean row norm (a row's own
+# norm can be 0: the first query row of a causal mask has dq = 0 exactly).
+# bf16: P and dS are rounded to bf16 for the products that take them.
+# Limits: about 3 times the largest reading over these cases on an H100
+# (1.70e-3 and 3.87e-3 in bf16, 7.80e-7 and 1.22e-6 in f32; PERF.md).
+BWD_LIMITS = {"bfloat16": (5e-3, 1e-2), "float32": (3e-6, 4e-6)}
+# (name, B, Hq, Hkv, S, d, kind, window, k_len, dtype, model_layout)
+BWD_CASES = [
+    ("train", 2, 9, 3, 512, 64, "causal", 0, None, "bfloat16", True),
+    ("train_f32", 2, 9, 3, 512, 64, "causal", 0, None, "float32", True),
+    ("ragged_s300_bidir_klen201", 1, 4, 2, 300, 64, "bidir", 0, 201, "bfloat16", False),
+    ("window48_d32", 2, 4, 1, 256, 32, "causal", 48, None, "bfloat16", False),
+    ("d128_hq8_hkv2", 1, 8, 2, 200, 128, "causal", 0, None, "bfloat16", False),
+    ("f32_d128_bidir_window40_klen130", 1, 4, 1, 150, 128, "bidir", 40, 130, "float32", False),
+    ("f32_d32_s100", 2, 4, 2, 100, 32, "causal", 0, None, "float32", True),
+]
+# Codec cases: (name, rows of 512, fill); each also as an odd-width view
+QUANT_ROWS = [("one_row", 1, "randn"), ("seven_rows", 7, "randn"), ("zero_chunks", 1000, "zeros"),
+              ("half_way", 600, "half"), ("nan_chunk", 300, "nan"), ("wide_range", 5000, "randn")]
+
+TRAIN_SEQ, TRAIN_MICRO_BATCH, TRAIN_STEPS, TRAIN_LR = 512, 2, 5, 1e-3
+TRAIN_RUNS = {"int8_ef": dict(backend="pallas", wire_quant="int8"),
+              "pallas": dict(backend="pallas"), "xla": dict(backend="xla")}
+# The int8 run's final loss against the run without a codec, absolute.  The
+# codec quantizes the gradients (with error feedback) and the parameter
+# all-gather (ROADMAP C2); 5 steps at lr 1e-3 from one init.  About 3 times
+# the reading on an H100 (5.25e-2, PERF.md).
+TRAIN_INT8_LOSS_TOL = 0.15
+TRAIN_TIMING_REPS = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -736,6 +789,326 @@ def phase_collective_times(torch, ring_dma, cr, big):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training path: codec kernels, flash backward, full-width ZeRO-1 steps
+# ---------------------------------------------------------------------------
+
+def same_bits(a, b):
+    """Equal bit for bit (f32: NaN where NaN, the other bits equal)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype != torch.float32:
+        return bool(torch.equal(a, b))
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(a[~na].view(torch.int32),
+                                                          b[~nb].view(torch.int32)))
+
+
+def quant_inputs(torch, gen, rows, fill):
+    x = torch.randn(rows, 512, generator=gen, device="cuda")
+    if fill == "zeros":
+        x[::3] = 0.0
+    elif fill == "half":                 # absmax 127 -> scale 1; k + 0.5 values
+        x = (torch.arange(rows * 512, device="cuda") % 254 - 127).float().reshape(rows, 512) + 0.5
+        x[:, 0] = 127.0
+    elif fill == "nan":
+        x[::7, 11] = float("nan")
+    else:                                # chunks at scales from 1e-3 to 1e3
+        x = x * torch.exp(torch.randn(rows, 1, generator=gen, device="cuda") * 3)
+    return x
+
+
+def phase_quant_kernels(torch, quant, ref, hop_rows):
+    """Both codec kernels against their plain versions, bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    failed, n = [], 0
+    for name, rows, fill in QUANT_ROWS + [("bucket_hop", hop_rows, "randn")]:
+        x = quant_inputs(torch, gen, rows, fill)
+        acc = torch.randn(rows, 512, generator=gen, device="cuda")
+        odd = x.reshape(-1)[1:1 + 509 * max(rows - 1, 1)].reshape(-1, 509)   # unaligned
+        for label, xx, aa in ((name, x, acc),
+                              (name + "_odd509", odd, acc.reshape(-1)[3:3 + odd.numel()]
+                               .reshape(odd.shape))):
+            c, sc = quant.wire_quantize_int8(xx)
+            c2, sc2 = ref.wire_quantize(xx)
+            d = quant.wire_dequant_accum_int8(aa, c, sc)
+            d2 = ref.wire_dequant_accum(aa, c, sc)
+            torch.cuda.synchronize()
+            ok = same_bits(c, c2) and same_bits(sc, sc2) and same_bits(d, d2)
+            n += 1
+            print(f"  {label:28s} ({tuple(xx.shape)[0]} x {xx.shape[1]}) codes, scales, "
+                  f"dequantize-accumulate bit for bit: {ok}  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(label)
+    check(not failed, f"codec kernels disagree with their plain versions in {failed}")
+    return n
+
+
+def bwd_error(got, want):
+    """Max abs, relative L2, and the worst row's error over the larger of its
+    own norm and the mean row norm, of (..., S, d)."""
+    diff = got.float() - want.float()
+    rows = want.float().norm(dim=-1)
+    return {"max_abs_err": diff.abs().max().item(),
+            "rel_l2": (diff.norm() / want.float().norm()).item(),
+            "worst_row": (diff.norm(dim=-1) / rows.clamp(min=rows.mean())).max().item()}
+
+
+def phase_flash_bwd(torch, fa, ref):
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    failed, results = [], {}
+    for name, B, Hq, Hkv, S, d, kind, window, k_len, dt, model_layout in BWD_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = attention_inputs(gen, B, Hq, Hkv, S, S, d, dtype, model_layout)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        kl = S if k_len is None else k_len
+        kw = dict(kind=kind, window=window, k_len=kl)
+        o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        lse_plain = ref.attention_lse(q, k, **kw)
+        got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse_plain, **kw)
+        torch.cuda.synchronize()
+        errs = [bwd_error(g, w) for g, w in zip(got, want)]
+        worst = {key: max(e[key] for e in errs) for key in errs[0]}
+        lse_err = (lse - lse_plain).abs().max().item()
+        rel_lim, row_lim = BWD_LIMITS[dt]
+        ok = (worst["rel_l2"] <= rel_lim and worst["worst_row"] <= row_lim and lse_err <= 1e-4
+              and all(bool(torch.isfinite(g).all()) for g in got))
+        print(f"  {name:32s} {dt:8s} dq/dk/dv worst: max_abs_err {worst['max_abs_err']:.3e} "
+              f"rel_l2 {worst['rel_l2']:.3e} (limit {rel_lim:.0e}) worst_row "
+              f"{worst['worst_row']:.3e} (limit {row_lim:.0e}); lse max abs err {lse_err:.2e}"
+              f"  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+        results[name] = {**worst, "lse_err": lse_err,
+                         "inputs": (q, k, v, o, do, lse), "kw": kw}
+    check(not failed, f"flash backward disagrees with its plain version in {failed}")
+    return results
+
+
+def train_counts(n_layers, n_micro, R, n_leaves, n_buckets, n_pods):
+    """Launches one ZeRO-1 step implies on R ranks (remat: the forward runs
+    twice per layer).  The codec per rank: error feedback compresses each
+    leaf (1 quantize, 1 decode); each bucket's quantized ring reduce-scatter
+    quantizes and decodes both streams on each hop, its all-gather encodes
+    once and decodes its own chunk and each hop's; each parameter's
+    all-gather the same."""
+    hops = n_pods - 1
+    q = n_leaves + n_buckets * (2 * hops + 1) + n_leaves
+    dq = n_leaves + n_buckets * (2 * hops + 1 + hops) + n_leaves * (1 + hops)
+    return {"flash_attention_fwd": 2 * n_layers * n_micro * R,
+            "flash_attention_bwd": n_layers * n_micro * R,
+            "quant_int8": q * R, "dq_accum_int8": dq * R}
+
+
+def phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters):
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import balance
+    from repro_torch.core.tree import leaves as tree_leaves
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.train import optim
+    from repro_torch.train.trainer import make_train_program
+    cfg = get_config(ARCH)
+    model = build(cfg)
+    m = mesh_mod.ThreadMesh({"pod": 2, "data": 2}, device="cuda")
+    plan = balance.uniform_plan(2, 4, micro_batch=TRAIN_MICRO_BATCH)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED), dtype=torch.bfloat16)
+    batch = synthetic_batch(SEED, 0, plan.n_micro_max, plan.micro_batch * m.size,
+                            TRAIN_SEQ, cfg.vocab)
+    n_tokens = int(np.prod(batch["tokens"].shape))
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, bf16 params, f32 master "
+          f"state; mesh {m.shape}, plan {plan.micro_per_pod} micro-steps of {plan.micro_batch} x "
+          f"{TRAIN_SEQ} per rank, {n_tokens} tokens per step; remat on")
+    progs = {name: make_train_program(model, m, RunConfig(collective_mode="hier",
+                                                          learning_rate=TRAIN_LR, **kw), plan)
+             for name, kw in TRAIN_RUNS.items()}
+    leaves = tree_leaves(params)
+    n_buckets = len(hetccl._make_buckets([p.float() for p in leaves],
+                                         progs["int8_ef"].comm.bucket_bytes))
+    want = train_counts(cfg.n_layers, plan.n_micro_max, m.size, len(leaves), n_buckets, 2)
+
+    # warm-up step of each run (cuBLAS, allocator), then the checked runs
+    for prog in progs.values():
+        prog.step_fn(prog.init_fn(params), batch)
+    torch.cuda.synchronize()
+    runs, launches = {}, {}
+    for name, prog in progs.items():
+        state = prog.init_fn(params)
+        if name == "int8_ef":
+            check(all("ef" in s["opt"] for s in state), "int8 run: no error-feedback state")
+            torch.cuda.reset_peak_memory_stats()
+        counters.reset()
+        losses = []
+        for _ in range(TRAIN_STEPS):
+            state, met = prog.step_fn(state, batch)
+            losses.append(met["loss"].item())
+        torch.cuda.synchronize()
+        launches[name] = counters.read()
+        if name == "int8_ef":
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        runs[name] = {"losses": losses, "grad_norm": met["grad_norm"].item(),
+                      "tokens": int(met["tokens"].item())}
+        print(f"  {name:8s} losses {['%.6f' % x for x in losses]}; launches {launches[name]}")
+        del state
+    for name, r in runs.items():
+        check(all(np.isfinite(r["losses"])), f"{name}: non-finite loss")
+        check(r["losses"][-1] < r["losses"][0], f"{name}: the loss did not fall: {r['losses']}")
+        check(r["tokens"] == n_tokens, f"{name}: {r['tokens']} tokens counted, {n_tokens} fed")
+    first = {name: r["losses"][0] for name, r in runs.items()}
+    check(len(set(first.values())) == 1, f"step-0 losses differ: {first}")
+    gap = abs(runs["int8_ef"]["losses"][-1] - runs["pallas"]["losses"][-1])
+    print(f"  step-0 loss equal in all three runs: {first['xla']:.6f}; final loss int8 - none: "
+          f"{gap:.4e} (limit {TRAIN_INT8_LOSS_TOL})  {'ok' if gap <= TRAIN_INT8_LOSS_TOL else 'FAIL'}")
+    check(gap <= TRAIN_INT8_LOSS_TOL, "the int8 run strays beyond its limit")
+    steps = TRAIN_STEPS
+    for key, per_step in want.items():
+        got = launches["int8_ef"][key]
+        print(f"  int8_ef {key}: {got} launches in {steps} steps, {per_step} per step expected  "
+              f"{'ok' if got == per_step * steps else 'FAIL'}")
+        check(got == per_step * steps, f"{key}: {got} launches, {per_step * steps} expected")
+    check(launches["pallas"]["ring_reduce_scatter"] == n_buckets * steps
+          and launches["pallas"]["ring_all_gather"] == (n_buckets + len(leaves)) * steps,
+          f"the run without a codec did not launch the fused rings per bucket and leaf: "
+          f"{launches['pallas']}")
+    check(launches["xla"]["ring_reduce_scatter"] == 0 and launches["int8_ef"]["quant_int8"] > 0,
+          "a run took another route than its backend")
+
+    # host-clock ms per step, runs in turns; the split of one int8 step
+    states = {name: prog.init_fn(params) for name, prog in progs.items()}
+    ms = {name: [] for name in progs}
+    for _ in range(TRAIN_TIMING_REPS):
+        for name, prog in progs.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            states[name], _ = prog.step_fn(states[name], batch)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t) * 1e3)
+    step_ms = {name: statistics.median(v) for name, v in ms.items()}
+    split = step_split(torch, mesh_mod, optim, hetccl, progs["int8_ef"], states, batch)
+    busy = device_busy_share(
+        torch, lambda: progs["int8_ef"].step_fn(states["int8_ef"], batch), 1)
+    print(f"  ms per step (host clock, median of {TRAIN_TIMING_REPS}, runs in turns): "
+          f"{json.dumps({k: round(v, 1) for k, v in step_ms.items()})}; tokens/s "
+          f"{json.dumps({k: round(n_tokens / v * 1e3, 1) for k, v in step_ms.items()})}")
+    print(f"  int8 step split (rank 0, ms): {json.dumps(split)}; card busy share of an int8 "
+          f"step {busy}; peak memory {peak_gib:.2f} GiB")
+    return {"runs": runs, "launches": launches, "expected_per_step": want,
+            "n_buckets": n_buckets, "step_ms": step_ms,
+            "tokens_per_s": {k: n_tokens / v * 1e3 for k, v in step_ms.items()},
+            "split_ms": split, "device_busy": busy, "peak_gib": peak_gib,
+            "tokens_per_step": n_tokens}
+
+
+def step_split(torch, mesh_mod, optim, hetccl, prog, states, batch):
+    """One step with rank 0's phases timed on the host clock, each ended by a
+    device synchronise (the ranks share the card, so the others' work counts
+    in the phase it overlaps): forward+backward, ef_apply, tree_all_reduce,
+    and the optimizer with the parameter all-gather."""
+    split = {"forward_backward": 0.0, "ef_apply": 0.0, "tree_all_reduce": 0.0,
+             "optimizer_and_param_all_gather": 0.0}
+    orig = {"ef_apply": optim.ef_apply, "tree_all_reduce": hetccl.tree_all_reduce,
+            "zero1_step": optim.zero1_step}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            if mesh_mod.current()[1] != 0:
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            split[key] += (time.perf_counter() - t) * 1e3
+            return out
+        return run
+
+    optim.ef_apply = timed("ef_apply", orig["ef_apply"])
+    hetccl.tree_all_reduce = timed("tree_all_reduce", orig["tree_all_reduce"])
+    optim.zero1_step = timed("zero1", orig["zero1_step"])
+    split["zero1"] = 0.0
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        states["int8_ef"], _ = prog.step_fn(states["int8_ef"], batch)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t) * 1e3
+    finally:
+        optim.ef_apply, hetccl.tree_all_reduce, optim.zero1_step = (
+            orig["ef_apply"], orig["tree_all_reduce"], orig["zero1_step"])
+    zero1 = split.pop("zero1")
+    split["optimizer_and_param_all_gather"] = zero1 - split["ef_apply"] - split["tree_all_reduce"]
+    split["forward_backward"] = total - zero1
+    split["step"] = total
+    return {k: round(v, 2) for k, v in split.items()}
+
+
+def phase_train_kernel_times(torch, quant, ref, fa, hop_rows, bwd_case):
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = quant_inputs(torch, gen, hop_rows, "randn")
+    acc = torch.randn(hop_rows, 512, generator=gen, device="cuda")
+    codes, scales = quant.wire_quantize_int8(x)
+    n = x.numel()
+    out = {
+        "quant_int8": {
+            "ms": median_ms(lambda: quant.wire_quantize_int8(x)),
+            "plain_ms": median_ms(lambda: ref.wire_quantize(x)),
+            "library_ms": None,
+            "bound_ms": (n * 4 + n + hop_rows * 4) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "shape": f"({hop_rows}, 512) f32 -> int8 codes + f32 scales"},
+        "dq_accum_int8": {
+            "ms": median_ms(lambda: quant.wire_dequant_accum_int8(acc, codes, scales)),
+            "plain_ms": median_ms(lambda: ref.wire_dequant_accum(acc, codes, scales)),
+            "library_ms": None,
+            "bound_ms": (n * 4 + n + hop_rows * 4 + n * 4) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "shape": f"({hop_rows}, 512) f32 + int8 codes"}}
+    q, k, v, o, do, lse = bwd_case["inputs"]
+    kw = bwd_case["kw"]
+    B, Hq, S, d = q.shape
+    lse_plain = ref.attention_lse(q, k, **kw)
+    elem = q.element_size()
+    nbytes = (q.numel() * 3 + k.numel() * 2) * elem + lse.numel() * 4         + (q.numel() + 2 * k.numel()) * 4                     # dq, dk, dv written in f32
+    flops = 5 * 2 * d * B * Hq * valid_pairs(S, S, kw["kind"], kw["window"], kw["k_len"])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).removeprefix("torch.")] * 1e3
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=kw["kind"] == "causal",
+                                            enable_gqa=True)
+    out["flash_attention_bwd"] = {
+        "ms": median_ms(lambda: fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)),
+        "plain_ms": median_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, do, lse_plain,
+                                                                   **kw), reps=5),
+        "library_ms": median_ms(lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do,
+                                                            retain_graph=True)),
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "shape": f"q {tuple(q.shape)} k/v {tuple(k.shape)} {str(q.dtype).removeprefix('torch.')}"
+                 f" {kw['kind']}"}
+    for name, t in out.items():
+        lib = f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None else "none"
+        print(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"library {lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return out
+
+
+class Counters:
+    """The launch counts of every kernel wrapper of the port."""
+
+    def __init__(self, fa, quant, ring_dma, cr):
+        self.mods = (fa, quant, ring_dma, cr)
+
+    def reset(self):
+        fa, quant, ring_dma, cr = self.mods
+        fa.launches = fa.bwd_launches = quant.quant_launches = quant.dq_launches = 0
+        ring_dma.rs_launches = ring_dma.ag_launches = cr.launches = 0
+
+    def read(self):
+        fa, quant, ring_dma, cr = self.mods
+        return {"flash_attention_fwd": fa.launches, "flash_attention_bwd": fa.bwd_launches,
+                "quant_int8": quant.quant_launches, "dq_accum_int8": quant.dq_launches,
+                "ring_reduce_scatter": ring_dma.rs_launches,
+                "ring_all_gather": ring_dma.ag_launches, "collective_reduce": cr.launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -752,7 +1125,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import collective_reduce as cr
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops, ring_dma
+    from repro_torch.kernels import ops, quant, ref, ring_dma
     from repro_torch.models import build
     from repro_torch.serve import engine
 
@@ -803,7 +1176,27 @@ def main() -> int:
     print(json.dumps({"collectives": coll, "kernel_times": ctimes, "device": name,
                       "nvidia_smi": smi.splitlines()[0]}))
 
-    print("[9] kernels")
+    # the quantized ring's hop in the (pod=2, data=2) hier reduce-scatter of
+    # the largest bucket: local shard big/2, pod chunk big/4, a stream big/8
+    hop_rows = -(-coll["largest_bucket_elems"] // 8 // 512)
+
+    print("[9] codec kernels vs plain")
+    n_quant_cases = phase_quant_kernels(torch, quant, ref, hop_rows)
+
+    print("[10] flash backward vs plain")
+    bwd = phase_flash_bwd(torch, fa, ref)
+
+    print("[11] training at full width")
+    counters = Counters(fa, quant, ring_dma, cr)
+    train = phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters)
+
+    print("[12] training kernel times")
+    ttimes = phase_train_kernel_times(torch, quant, ref, fa, hop_rows, bwd["train"])
+    print(json.dumps({"train": train, "flash_bwd_errors": {
+        k: {kk: vv for kk, vv in v.items() if kk not in ("inputs", "kw")} for k, v in bwd.items()},
+        "kernel_times": ttimes, "device": name, "nvidia_smi": smi.splitlines()[0]}))
+
+    print("[13] kernels")
     sources = {"collective_reduce": ("collective_reduce.cu",
                                      "src/repro/kernels/collective_reduce.py:84"),
                "ring_reduce_scatter": ("ring_dma.cu", "src/repro/kernels/ring_dma.py:252"),
@@ -834,6 +1227,29 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "check": "pass (bitwise)", "cases_checked": n_ring_cases, "shape": t["shape"]})
+    train_launches = train["launches"]["int8_ef"]
+    kernels[0]["train_launches"] = train_launches["flash_attention_fwd"]
+    tb = ttimes["flash_attention_bwd"]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:31",
+        "note": "backward of the forward kernel; the TPU kernel is forward-only and the "
+                "reference differentiates its plain attention",
+        "launches": train_launches["flash_attention_bwd"],
+        "max_abs_err": bwd["train"]["max_abs_err"], "rel_l2": bwd["train"]["rel_l2"],
+        "worst_row": bwd["train"]["worst_row"], "ms": tb["ms"], "plain_ms": tb["plain_ms"],
+        "bound_ms": tb["bound_ms"], "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
+        "check": "pass", "cases_checked": len(bwd), "shape": tb["shape"]})
+    for kname, replaces in (("quant_int8", "src/repro/kernels/quant.py:152"),
+                            ("dq_accum_int8", "src/repro/kernels/quant.py:161")):
+        t = ttimes[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": "src/repro_torch/kernels/csrc/quant.cu",
+            "replaces": replaces, "launches": train_launches[kname], "max_abs_err": 0.0,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "check": "pass (bitwise)",
+            "cases_checked": n_quant_cases, "shape": t["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

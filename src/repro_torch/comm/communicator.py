@@ -8,8 +8,7 @@ CommPolicy``.
 
 Not ported yet: the transport binding (a link inventory that clamps stripes
 to an island's healthy links; one card has no links), the tracer binding
-(ROADMAP A10) and ``deadline_table`` (the elastic slice).  A ``wire_quant``
-codec raises ``NotImplementedError``: its kernels are ROADMAP A4.
+(ROADMAP A10) and ``deadline_table`` (the elastic slice).
 """
 from __future__ import annotations
 
@@ -40,11 +39,9 @@ def _resolve_policy(p: CommPolicy, pod_axis: str | None,
     """Compile one table row: "auto" mode against the group's pod axis,
     stripes collapsed for xla (one ppermute is one logical transfer) and
     clamped to ``stripe_cap``, ``wire_quant`` collapsed to None for the xla
-    backend and non-ring ops."""
-    if p.wire_quant is not None:
-        raise NotImplementedError(
-            f"wire_quant={p.wire_quant!r}: the wire codec and its kernels are "
-            "not in the port yet (ROADMAP A4)")
+    backend and non-ring ops (only the pallas rings carry a quantized
+    payload; ``op`` None means the row applies to every op and keeps the
+    codec)."""
     mode = p.mode
     if mode == "auto":
         mode = "hier" if pod_axis else "flat"

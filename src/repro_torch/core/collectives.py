@@ -56,8 +56,8 @@ def resolve_ring_backend(backend: str, *, bidir: bool = False,
                          n_stripes: int = 1, wire_quant: str | None = None):
     """(reduce_scatter, all_gather) ring primitives for ``backend``:
     ``"xla"`` the ppermute rings here, ``"pallas"`` the rings of
-    :mod:`repro_torch.kernels.ring_dma` with ``n_stripes`` (and the codec,
-    ROADMAP A4) bound in."""
+    :mod:`repro_torch.kernels.ring_dma` with ``n_stripes`` and the
+    ``wire_quant`` codec bound in (the xla rings carry no codec)."""
     if backend == "pallas":
         from repro_torch.kernels import ring_dma
         rs = (ring_dma.ring_reduce_scatter_bidir if bidir
@@ -383,12 +383,16 @@ def hier_all_reduce(x, axes: Axis, pod_axis: str | None = "pod", *,
                     n_stripes: int = 1, wire_quant: str | None = None):
     """AllReduce = local ReduceScatter -> cross-pod ring AllReduce -> local
     AllGather.  ``cross_dtype`` casts the payload only while it crosses the
-    pod boundary; ``backend="pallas"`` keeps an f32 accumulator under it."""
+    pod boundary; ``backend="pallas"`` keeps an f32 accumulator under it.  A
+    ``wire_quant`` codec on the pallas rings supersedes ``cross_dtype`` (the
+    codec owns the wire format)."""
     local = _axes_tuple(axes)
     if not pod_axis:
         return mesh.psum(x, local)
     cross_rs, cross_ag = resolve_ring_backend(backend, n_stripes=n_stripes,
                                               wire_quant=wire_quant)
+    if wire_quant is not None and backend == "pallas":
+        cross_dtype = None
     D = _local_world(local)
     P = mesh.axis_size(pod_axis)
     shape, dtype = x.shape, x.dtype
@@ -542,6 +546,8 @@ def pipelined_all_reduce(x, axes: Axis, pod_axis: str | None = "pod", *,
     chunks = list(flat.chunk(C)) if C > 1 else [flat]
     cross_ring_rs, cross_ring_ag = resolve_ring_backend(
         backend, bidir=bidir, n_stripes=n_stripes, wire_quant=wire_quant)
+    if wire_quant is not None and backend == "pallas":
+        cross_dtype = None       # the codec owns the wire format
     cast = cross_dtype is not None and cross_dtype != dtype
 
     def local_rs(c):

@@ -30,6 +30,7 @@ from repro_torch.comm.communicator import Communicator, from_config
 from repro_torch.comm.policy import CommPolicy, PolicyTable
 from repro_torch.core import collectives as _coll
 from repro_torch.core import tacc
+from repro_torch.core.tree import flatten as _flatten
 from repro_torch.transport.stripe import MAX_STRIPES
 
 _SWAPPABLE_OPS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
@@ -55,7 +56,8 @@ class HetCCLConfig:
                  emulated schedule elsewhere).
     n_stripes:   per-link stripes of the pallas rings (collapsed to 1 for
                  xla).
-    wire_quant:  the wire codec (ROADMAP A4): None only, for now.
+    wire_quant:  the per-chunk wire codec of the pallas rings (None | "int8"
+                 | "fp8", DESIGN.md §17); collapsed to None for xla.
     """
 
     mode: str = "auto"
@@ -251,32 +253,6 @@ def world_size(cfg=None) -> int:
 # ---------------------------------------------------------------------------
 # Bucketed gradient reduction (DDP-style fusion).
 # ---------------------------------------------------------------------------
-
-def _flatten(tree):
-    """Leaves of a tree of dicts (sorted keys, as JAX orders them), lists and
-    tuples, and a function that rebuilds the tree from new leaves."""
-    if isinstance(tree, dict):
-        keys = sorted(tree)
-        parts = [_flatten(tree[k]) for k in keys]
-    elif isinstance(tree, (list, tuple)):
-        keys = None
-        parts = [_flatten(v) for v in tree]
-    else:
-        return [tree], lambda leaves: leaves[0]
-    sizes = [len(p[0]) for p in parts]
-    leaves = [lf for p in parts for lf in p[0]]
-
-    def rebuild(new):
-        out, off = [], 0
-        for (_, build), sz in zip(parts, sizes):
-            out.append(build(new[off:off + sz]))
-            off += sz
-        if keys is not None:
-            return dict(zip(keys, out))
-        return type(tree)(out)
-
-    return leaves, rebuild
-
 
 def _dtype_name(t) -> str:
     return str(t.dtype).removeprefix("torch.")

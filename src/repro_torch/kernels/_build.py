@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("flash_attention", "collective_reduce", "ring_dma")
+SOURCES = ("flash_attention", "flash_attention_bwd", "collective_reduce", "ring_dma",
+           "quant")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()          # ranks of a ThreadMesh may load from their threads

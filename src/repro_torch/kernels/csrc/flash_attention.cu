@@ -35,6 +35,12 @@
 // output is cast to the input type.  Ragged Sq and Sk are handled by masked
 // loads (zero rows) and masked stores, not by padding in device memory.
 //
+// The row logsumexp for the backward (csrc/flash_attention_bwd.cu): given a
+// non-null `lse` (B, Hq, Sq) f32 buffer, each valid query row also writes
+// m + log(max(l, 1e-30)), the logsumexp of its scaled, masked scores (m the
+// running maximum, l the running sum of exp(s - m)).  With a null pointer the
+// kernel does exactly what it did without this output.
+//
 // Simple first: no TMA, wgmma, cp.async pipelining or warp specialisation yet.
 
 #include <cuda_bf16.h>
@@ -50,6 +56,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, Hq, Sq) contiguous, or null
   int B, Hq, Hkv, Sq, Sk;
   // element strides of the (B, H, S, d) views; the d stride is 1
   long long q_sb, q_sh, q_ss;
@@ -285,6 +292,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16(Params p) {
   for (int i = 0; i < 2; ++i) {
     const int r = r0 + 8 * i;
     if (r >= p.Sq) continue;
+    if (p.lse != nullptr && t == 0)
+      p.lse[((long long)b * p.Hq + h) * p.Sq + r] = m_r[i] + logf(l_tot[i]);
     __nv_bfloat16* orow = og + r * p.o_ss;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
@@ -401,6 +410,8 @@ __global__ void __launch_bounds__(kSimtThreads) flash_fwd_f32(Params p) {
 
   if (r < p.Sq) {
     const float lt = fmaxf(l, 1e-30f);
+    if (p.lse != nullptr && sub == 0)
+      p.lse[((long long)b * p.Hq + h) * p.Sq + r] = m + logf(lt);
 #pragma unroll
     for (int c = 0; c < NC; ++c) og[r * p.o_ss + sub + 4 * c] = acc[c] / lt;
   }
@@ -420,18 +431,18 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  d: 32, 64 or 128.  Returns the CUDA error
-// code of the launch (0 on success); the kernel runs on `stream` and nothing is
-// synchronised here.
+// dtype: 0 = float32, 1 = bfloat16.  d: 32, 64 or 128.  lse: (B, Hq, Sq) f32
+// or null.  Returns the CUDA error code of the launch (0 on success); the
+// kernel runs on `stream` and nothing is synchronised here.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int dtype, int B, int Hq, int Hkv, int Sq, int Sk,
+                        float* lse, int dtype, int B, int Hq, int Hkv, int Sq, int Sk,
                         int d, long long q_sb, long long q_sh, long long q_ss,
                         long long k_sb, long long k_sh, long long k_ss,
                         long long v_sb, long long v_sh, long long v_ss,
                         long long o_sb, long long o_sh, long long o_ss,
                         int causal, int window, int k_len, float scale,
                         void* stream) {
-  const Params p{q,    k,    v,    o,    B,    Hq,   Hkv,    Sq,     Sk,
+  const Params p{q,    k,    v,    o,    lse,  B,    Hq,   Hkv,    Sq,     Sk,
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,   v_sh,   v_ss,
                  o_sb, o_sh, o_ss, causal, window, k_len, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,9 +1,12 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its wrapper.
+"""Flash attention: the hand-written Hopper kernels and their wrappers.
 
-Counterpart of ``repro/kernels/flash_attention.py``; the kernel
+Counterpart of ``repro/kernels/flash_attention.py``; the forward kernel
 (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel ``_flash_kernel``
-there.  Its source note says what bounds it on an H100 and what its design
-does about that.
+there.  The backward kernel (``csrc/flash_attention_bwd.cu``) has no TPU
+counterpart (the reference differentiates its plain attention): it takes the
+forward's row logsumexp and recomputes the probabilities.
+:class:`FlashAttention` joins the two for autograd.  Each source note says
+what bounds the kernel on an H100 and what its design does about that.
 
 ``flash_attention_fwd`` takes the kernel layout of the reference,
 q ``(B, Hq, Sq, d)`` and k, v ``(B, Hkv, Sk, d)``, as strided views: the last
@@ -11,20 +14,26 @@ dimension must be dense, the others may have any stride, so callers in model
 layout ``(B, S, H, d)`` pass ``transpose(1, 2)`` views without a copy.  The
 output has the memory layout of ``q`` (``torch.empty_like``).
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor it
-runs the plain version, ``ref.attention``.  Nothing falls back from the one to
-the other.  ``launches`` counts kernel launches and nothing else.
+On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
+runs the plain version (``ref.attention`` and ``ref.attention_lse``,
+``ref.attention_bwd``).  Nothing falls back from the one to the other.
+``launches`` and ``bwd_launches`` count kernel launches and nothing else; the
+rank threads of a mesh and autograd's own thread bump them, under a lock.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref
 from repro_torch.kernels.ref import attention as flash_attention_plain
+from repro_torch.kernels.ref import attention_bwd as flash_attention_bwd_plain
 
 launches = 0          # kernel launches made by flash_attention_fwd
+bwd_launches = 0      # kernel launches (three passes each) by flash_attention_bwd
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # 64: smollm and the other served configs; 128: the larger dense configs;
@@ -32,12 +41,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 
 _fn = None
+_bwd_fn = None
+_lock = threading.Lock()
 
 
 def bind(lib: ctypes.CDLL):
     """(launch, error_string) of a loaded ``flash_attention`` library."""
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -46,14 +57,35 @@ def bind(lib: ctypes.CDLL):
     return fn, lib.flash_attention_error_string
 
 
+def bind_bwd(lib: ctypes.CDLL):
+    """(launch, error_string) of a loaded ``flash_attention_bwd`` library."""
+    fn = lib.flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 15
+                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return fn, lib.flash_attention_bwd_error_string
+
+
 def _kernel():
     global _fn
-    if _fn is None:
-        _fn = bind(_build.load("flash_attention"))
-    return _fn
+    with _lock:
+        if _fn is None:
+            _fn = bind(_build.load("flash_attention"))
+        return _fn
 
 
-def _check(q, k, v, kind, window, k_len):
+def _bwd_kernel():
+    global _bwd_fn
+    with _lock:
+        if _bwd_fn is None:
+            _bwd_fn = bind_bwd(_build.load("flash_attention_bwd"))
+        return _bwd_fn
+
+
+def _check(q, k, v, kind, window, k_len, extra=()):
     B, Hq, Sq, d = q.shape
     Bk, Hkv, Sk, dk = k.shape
     if v.shape != k.shape or (Bk, dk) != (B, d):
@@ -72,7 +104,7 @@ def _check(q, k, v, kind, window, k_len):
         raise ValueError(f"window={window}, k_len={k_len}, Sk={Sk}")
     # the bf16 route loads 16-byte vectors, the f32 route single floats
     align = 8 if q.dtype == torch.bfloat16 else 1
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.stride(-1) != 1 or any(s % align for s in t.stride()[:-1]) \
@@ -82,8 +114,11 @@ def _check(q, k, v, kind, window, k_len):
 
 
 def flash_attention_fwd(q, k, v, *, kind: str = "causal", window: int = 0,
-                        k_len: int | None = None, scale: float | None = None):
-    """q: (B, Hq, Sq, d);  k, v: (B, Hkv, Sk, d) -> (B, Hq, Sq, d) in q.dtype.
+                        k_len: int | None = None, scale: float | None = None,
+                        return_lse: bool = False):
+    """q: (B, Hq, Sq, d);  k, v: (B, Hkv, Sk, d) -> (B, Hq, Sq, d) in q.dtype,
+    and with ``return_lse`` also the f32 row logsumexp (B, Hq, Sq) of the
+    scaled, masked scores, which the backward takes.
 
     kind: "causal" | "bidir"; window: sliding window (0 = none); k_len: only
     keys ``< k_len`` are attended (default Sk); scale: default d ** -0.5.
@@ -93,23 +128,108 @@ def flash_attention_fwd(q, k, v, *, kind: str = "causal", window: int = 0,
     k_len = Sk if k_len is None else int(k_len)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kind=kind, window=window,
-                                     k_len=k_len, scale=scale)
+        o = flash_attention_plain(q, k, v, kind=kind, window=window,
+                                  k_len=k_len, scale=scale)
+        if not return_lse:
+            return o
+        return o, ref.attention_lse(q, k, kind=kind, window=window, k_len=k_len,
+                                    scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention route for device {q.device}")
     _check(q, k, v, kind, window, k_len)
     B, Hq, Sq, d = q.shape
     o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if o.numel() == 0:
-        return o
+        return (o, lse) if return_lse else o
     fn, err_str = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr() if return_lse else None,
              _DTYPE_CODE[q.dtype], B, Hq, k.shape[1], Sq, Sk, d,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
              int(kind == "causal"), int(window), k_len, float(scale), stream)
     if err:
         raise RuntimeError(f"flash_attention_fwd launch failed: "
                            f"{err_str(err).decode()} (cuda error {err})")
-    launches += 1
-    return o
+    with _lock:
+        launches += 1
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, kind: str = "causal",
+                        window: int = 0, k_len: int | None = None,
+                        scale: float | None = None):
+    """Gradients (dq, dk, dv) in f32 of the forward's output ``o`` against
+    the incoming ``do`` (both (B, Hq, Sq, d), q's dtype), given the
+    forward's ``lse`` (B, Hq, Sq) f32; dk, dv summed over the query heads of
+    each kv head.  Shapes, dtypes and masks as :func:`flash_attention_fwd`.
+    """
+    global bwd_launches
+    Sk = k.shape[2]
+    k_len = Sk if k_len is None else int(k_len)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, kind=kind, window=window,
+                                         k_len=k_len, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention route for device {q.device}")
+    if do.dtype != q.dtype or do.stride(-1) != 1 or do.data_ptr() % 16 or \
+            (q.dtype == torch.bfloat16 and any(st % 8 for st in do.stride()[:-1])):
+        do = do.to(q.dtype).contiguous()
+    _check(q, k, v, kind, window, k_len, extra=(("o", o), ("do", do)))
+    B, Hq, Sq, d = q.shape
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype}, do {tuple(do.shape)}: "
+                         f"q's shape {tuple(q.shape)} and dtype {q.dtype} expected")
+    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: ({B}, {Hq}, {Sq}) f32 expected")
+    lse = lse.contiguous()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.empty((B, Hq, Sq, d), **f32)
+    dk = torch.empty(tuple(k.shape), **f32)
+    dv = torch.empty(tuple(v.shape), **f32)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, Hq, Sq), **f32)
+    fn, err_str = _bwd_kernel()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             _DTYPE_CODE[q.dtype], B, Hq, k.shape[1], Sq, Sk, d,
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+             *do.stride()[:3], int(kind == "causal"), int(window), k_len, float(scale),
+             stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd launch failed: "
+                           f"{err_str(err).decode()} (cuda error {err})")
+    with _lock:
+        bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash kernels in both directions (kernel layout).
+
+        o = FlashAttention.apply(q, k, v, kind, window, k_len, scale)
+
+    The forward saves q, k, v, o and the row logsumexp; the backward launches
+    the backward kernel.  On CPU tensors both directions run their plain
+    versions.  Autograd runs the backward on its own thread, outside any mesh
+    rank: nothing here may call a collective.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, kind="causal", window=0, k_len=None, scale=None):
+        o, lse = flash_attention_fwd(q, k, v, kind=kind, window=window, k_len=k_len,
+                                     scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(kind=kind, window=window, k_len=k_len, scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, **ctx.opts)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None

@@ -6,10 +6,12 @@ and TACC picks per call from the device of the first tensor argument.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core import tacc
-from repro_torch.kernels import ref
+from repro_torch.kernels import quant, ref
 from repro_torch.kernels.collective_reduce import collective_reduce
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import FlashAttention, flash_attention_fwd
 
 
 # ---------------------------------------------------------------------------
@@ -19,13 +21,16 @@ from repro_torch.kernels.flash_attention import flash_attention_fwd
 @tacc.register("attention", "cuda")
 def flash_attention(q, k, v, *, kind="causal", window=0, q_offset=0,
                     k_offset=0, k_len=None, chunk=None, scale=None):
-    """Model-layout wrapper for the flash kernel.
+    """Model-layout wrapper for the flash kernels.
 
     Decode (Sq < 8) and offset cases go to ``chunked_attention``, as in the
     reference (``repro/kernels/ops.py:48``): a shape rule, not a catch-all for
     kernel failures.  Ragged lengths need no padding here: the kernel masks
     its loads and stores, which matches the reference's pad-to-128 with
-    ``k_len`` = Sk and padded query rows sliced off.
+    ``k_len`` = Sk and padded query rows sliced off.  When autograd records
+    (grad enabled and an input requires grad) the call goes through
+    :class:`FlashAttention`, whose backward is the backward kernel; otherwise
+    through the forward kernel alone.
     """
     from repro_torch.models.attention import chunked_attention
     Sq = q.shape[1]
@@ -35,9 +40,13 @@ def flash_attention(q, k, v, *, kind="causal", window=0, q_offset=0,
                                  k_len=k_len, chunk=chunk or 512, scale=scale)
     eff_k_len = k.shape[1] if k_len is None else k_len
     # transpose views: the kernel reads the model layout through its strides
-    out = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), kind=kind, window=window,
-                              k_len=eff_k_len, scale=scale)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out = FlashAttention.apply(qt, kt, vt, kind, window, eff_k_len, scale)
+    else:
+        out = flash_attention_fwd(qt, kt, vt, kind=kind, window=window,
+                                  k_len=eff_k_len, scale=scale)
     return out.transpose(1, 2)
 
 
@@ -47,3 +56,13 @@ def flash_attention(q, k, v, *, kind="causal", window=0, q_offset=0,
 
 tacc.register("collective_reduce", "cpu", default=True)(ref.collective_reduce)
 tacc.register("collective_reduce", "cuda")(collective_reduce)
+
+
+# ---------------------------------------------------------------------------
+# wire codec (DESIGN.md §17): (nchunks, chunk) quantize / dequantize-accumulate
+# ---------------------------------------------------------------------------
+
+tacc.register("wire_quantize", "cpu", default=True)(ref.wire_quantize)
+tacc.register("wire_quantize", "cuda")(quant.wire_quantize_cuda)
+tacc.register("wire_dequant_accum", "cpu", default=True)(ref.wire_dequant_accum)
+tacc.register("wire_dequant_accum", "cuda")(quant.wire_dequant_accum_cuda)

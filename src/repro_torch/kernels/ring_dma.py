@@ -1,9 +1,9 @@
 """Ring collectives with in-kernel reduction (the ``backend="pallas"`` rings,
 DESIGN.md §10): the hand-written Hopper kernels and their schedules.
 
-Counterpart of ``repro/kernels/ring_dma.py`` (all but the ``_quant_*``
-functions: the wire codec is ROADMAP A4).  Two ways to run a ring, chosen in
-the open as the reference's ``_on_tpu()`` chooses:
+Counterpart of ``repro/kernels/ring_dma.py``.  Two ways to run a ring
+without a codec, chosen in the open as the reference's ``_on_tpu()``
+chooses:
 
 * **fused**, when every rank of the ring is a :class:`ThreadMesh` rank on one
   CUDA device: one launch of ``csrc/ring_dma.cu`` covers every rank of the
@@ -26,6 +26,13 @@ kernel's protocol for all ranks of a launch, with its parity slots, stripes
 and credits as counters, stepped in order on the host.  The wrappers run it
 for CPU tensors; the card checks hold the kernels against it bit for bit.
 
+With a ``wire_quant`` codec (DESIGN.md §17) a ring takes the quantized
+emulated schedule on every device, as the reference does on every platform
+(:func:`_quant_rs_emulated`, :func:`_quant_ag_emulated`): the hop carries int8
+codes and an f32 scale sidecar through ``ppermute``, and the codec's compute
+is TACC ``wire_quantize`` / ``wire_dequant_accum`` (the ``csrc/quant.cu``
+kernels on CUDA tensors).  The fused kernels never carry a codec.
+
 ``n_stripes`` splits each wire hop into that many per-link parts, each with
 its own slot and flag (DESIGN.md §11); the result is bit-equal to the
 unstriped ring.  All per-rank functions run inside a mesh (``core.mesh``).
@@ -41,7 +48,7 @@ import torch
 
 from repro_torch.core import mesh, tacc
 from repro_torch.core.collectives import chunked
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, quant
 from repro_torch.transport.stripe import MAX_STRIPES
 
 # Double-buffer depth: streams per ring step, whose hops overlap the other
@@ -120,6 +127,62 @@ def _rs_emulated(chunks, axis: str, direction: int, wire_dtype,
             new = _reduce(cur, _striped_hop(blk, axis, perm, n_stripes))
         acc[recv_idx] = new
     return acc[idx]
+
+
+def _quant_hop(blk, axis: str, perm, n_stripes: int, codec: str):
+    """One quantized wire hop: per-chunk absmax encode; the byte codes ride
+    the striped per-link hops like an uncompressed payload, the f32 scale
+    sidecar rides one ppermute."""
+    codes, scales = quant.quantize(blk, codec=codec)
+    return (_striped_hop(codes, axis, perm, n_stripes),
+            mesh.ppermute(scales, axis, perm))
+
+
+def _quant_rs_emulated(chunks, axis: str, direction: int, codec: str,
+                       n_stripes: int = 1):
+    """Quantized ring reduce-scatter: :func:`_rs_emulated`'s wave structure
+    with each hop's payload quantized.  Every step re-quantizes the running
+    partial it forwards (each of the NUM_BUFFERS streams on its own
+    512-grid), and the receiver dequantize-accumulates into the f32
+    accumulator, which never narrows."""
+    n = chunks.shape[0]
+    idx = mesh.axis_index(axis)
+    perm = _ring_perm(n, direction)
+    acc = list(chunks.float().unbind(0))
+    c = chunks.shape[1]
+    h = c // NUM_BUFFERS if c >= NUM_BUFFERS else 0
+    for s in range(n - 1):
+        send_idx = (idx - direction * (s + 1)) % n
+        recv_idx = (idx - direction * (s + 2)) % n
+        blk = acc[send_idx]
+        cur = acc[recv_idx]
+        if h:
+            r0, rs0 = _quant_hop(blk[:h], axis, perm, n_stripes, codec)
+            r1, rs1 = _quant_hop(blk[h:], axis, perm, n_stripes, codec)
+            new = torch.cat([quant.dequantize_accumulate(cur[:h], r0, rs0, codec=codec),
+                             quant.dequantize_accumulate(cur[h:], r1, rs1, codec=codec)], 0)
+        else:
+            rc, rs = _quant_hop(blk, axis, perm, n_stripes, codec)
+            new = quant.dequantize_accumulate(cur, rc, rs, codec=codec)
+        acc[recv_idx] = new
+    return acc[idx]
+
+
+def _quant_ag_emulated(x, axis: str, direction: int, codec: str, n_stripes: int = 1):
+    """Quantized ring all-gather: the chunk is encoded once and its codes are
+    forwarded verbatim, so every rank decodes the same grid value for every
+    chunk, its own included.  (n, c, ...) f32 on the codec grid."""
+    n = mesh.axis_size(axis)
+    idx = mesh.axis_index(axis)
+    perm = _ring_perm(n, direction)
+    codes, scales = quant.quantize(x, codec=codec)
+    out = [None] * n
+    out[idx] = quant.dequantize(codes, scales, codec=codec)
+    for s in range(n - 1):
+        codes = _striped_hop(codes, axis, perm, n_stripes)
+        scales = mesh.ppermute(scales, axis, perm)
+        out[(idx - direction * (s + 1)) % n] = quant.dequantize(codes, scales, codec=codec)
+    return torch.stack(out, 0)
 
 
 @tacc.register("ring_all_gather", "emulated")
@@ -502,25 +565,22 @@ def _schedule(op: str) -> str:
 # (direction, wire_dtype, n_stripes) default to the xla rings' behaviour.
 # ---------------------------------------------------------------------------
 
-def _no_wire_quant(wire_quant):
-    if wire_quant is not None:
-        raise NotImplementedError(f"wire_quant={wire_quant!r}: the wire codec is not "
-                                  "in the port yet (ROADMAP A4)")
-
-
 def ring_reduce_scatter(x, axis: str, *, direction: int = 1, wire_dtype=None,
                         n_stripes: int = 1, wire_quant: str | None = None):
     """x (n*c, ...) tiled on dim 0 -> this rank's reduced chunk (c, ...).
 
     The accumulator is f32 whatever x.dtype is (the collective_reduce
     contract); ``wire_dtype`` narrows only the bytes on the wire.  The result
-    is cast back to x.dtype.
+    is cast back to x.dtype.  ``wire_quant`` replaces the dtype cast with the
+    per-chunk codec (the quantized emulated schedule on every device).
     """
-    _no_wire_quant(wire_quant)
     n = mesh.axis_size(axis)
     if n == 1:
         return x
     chunks = chunked(x, n)
+    if wire_quant is not None:
+        return _quant_rs_emulated(chunks, axis, direction, wire_quant,
+                                  n_stripes).to(x.dtype)
     wire = wire_dtype if wire_dtype is not None else x.dtype
     op = "ring_reduce_scatter"
     out = tacc.dispatch(op, chunks, axis, direction, wire, n_stripes,
@@ -551,7 +611,9 @@ def ring_reduce_scatter_bidir(x, axis: str, *, wire_dtype=None, n_stripes: int =
                             n_stripes=n_stripes, wire_quant=wire_quant)], 0)
 
 
-def _ag(x, axis, direction, n_stripes):
+def _ag(x, axis, direction, n_stripes, wire_quant=None):
+    if wire_quant is not None:
+        return _quant_ag_emulated(x, axis, direction, wire_quant, n_stripes).to(x.dtype)
     op = "ring_all_gather"
     return tacc.dispatch(op, x, axis, direction, n_stripes, variant=_schedule(op))
 
@@ -559,27 +621,27 @@ def _ag(x, axis, direction, n_stripes):
 def ring_all_gather(x, axis: str, *, direction: int = 1, n_stripes: int = 1,
                     wire_quant: str | None = None):
     """x (c, ...) per-rank chunk -> (n*c, ...) rank-major, exactly (no
-    reduction, no dtype change)."""
-    _no_wire_quant(wire_quant)
+    reduction, no dtype change); with ``wire_quant`` every chunk is encoded
+    once and decoded on every rank alike."""
     n = mesh.axis_size(axis)
     if n == 1:
         return x
-    out = _ag(x, axis, direction, n_stripes)
+    out = _ag(x, axis, direction, n_stripes, wire_quant)
     return out.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
 
 
 def ring_all_gather_bidir(x, axis: str, *, n_stripes: int = 1,
                           wire_quant: str | None = None):
     """Bidirectional ring all-gather (each half in its own direction)."""
-    _no_wire_quant(wire_quant)
     n = mesh.axis_size(axis)
     if n == 1:
         return x
     c = x.shape[0]
     if c < 2:
-        return ring_all_gather(x, axis, n_stripes=n_stripes)
+        return ring_all_gather(x, axis, n_stripes=n_stripes, wire_quant=wire_quant)
     h = c // 2
-    out = torch.cat([_ag(x[:h], axis, 1, n_stripes), _ag(x[h:], axis, -1, n_stripes)], 1)
+    out = torch.cat([_ag(x[:h], axis, 1, n_stripes, wire_quant),
+                     _ag(x[h:], axis, -1, n_stripes, wire_quant)], 1)
     return out.reshape((n * c,) + tuple(x.shape[1:]))
 
 

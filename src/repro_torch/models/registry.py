@@ -2,9 +2,9 @@
 
 Counterpart of ``repro/models/registry.py:24-113``.  ``build(cfg)`` gives a
 :class:`Model` with ``abstract_params`` / ``init`` / ``n_params`` /
-``prefill`` / ``decode`` / ``cache_metas``.  There is no sharding context:
-the reference's ``ctx`` arguments place tensors on a mesh, and one card has
-none.  Loss and training arrive with the training slice (ROADMAP A5).
+``loss`` / ``prefill`` / ``decode`` / ``cache_metas``.  There is no sharding
+context: the reference's ``ctx`` arguments place tensors on a mesh, and one
+card has none.
 """
 from __future__ import annotations
 
@@ -33,6 +33,20 @@ class Model:
 
     def n_params(self) -> int:
         return sum(math.prod(m.shape) for m in meta_leaves(self.abstract_params()))
+
+    def loss(self, params, batch, *, remat: bool = False):
+        """(sum of token CE losses, token count, aux) for ``batch`` with
+        "tokens" and "labels" (B, S) and an optional f32 "mask"; the dense
+        family's aux is 0.  ``remat``: activation checkpointing per block."""
+        hidden = tf.forward_lm(params, batch["tokens"], self.cfg, remat=remat)
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(batch["labels"].shape, dtype=torch.float32,
+                              device=hidden.device)
+        loss_sum, count = tf.lm_loss_from_hidden(params, hidden, batch["labels"],
+                                                 mask, self.cfg, remat=remat)
+        return loss_sum, count, torch.zeros((), dtype=torch.float32,
+                                            device=hidden.device)
 
     def prefill(self, params, batch, max_len: int | None = None):
         return tf.prefill_lm(params, batch["tokens"], self.cfg, max_len=max_len)

@@ -1,11 +1,12 @@
-"""Decoder LM, dense family: parameters, blocks, forward, prefill, decode.
+"""Decoder LM, dense family: parameters, blocks, forward, loss, prefill, decode.
 
 Counterpart of the dense path of ``repro/models/transformer.py``.  The
 reference scans over stacked layer parameters under ``jax.checkpoint``; the
-port loops over the same stacked tensors in Python (eager PyTorch has no
-trace to keep small, and serving needs no remat).  The MoE, SSM, hybrid,
-VLM and enc-dec families wait for their slices (ROADMAP A6-A8), and with
-them the rolling window cache.
+port loops over the same stacked tensors in Python, and with ``remat`` wraps
+each block (and each chunk of the loss) in ``torch.utils.checkpoint``
+(non-reentrant), which recomputes the block's forward inside the backward.
+The MoE, SSM, hybrid, VLM and enc-dec families wait for their slices
+(ROADMAP A6-A8), and with them the rolling window cache.
 
 bf16 rounding points follow the reference: the projections are matmuls in
 the activation dtype (f32 accumulation inside, result rounded to it),
@@ -14,8 +15,11 @@ f32 before the cast back.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -146,14 +150,52 @@ def _positions_for(tokens, offset=0):
     return pos[None, :].expand(B, S)
 
 
-def forward_lm(params, tokens, cfg: ModelConfig):
+def _block_out(p, positions, cfg, x):
+    return dense_block(p, x, positions, cfg)[0]
+
+
+def forward_lm(params, tokens, cfg: ModelConfig, *, remat: bool = False):
     """Token ids (B, S) -> final normed hidden states (B, S, D).  The dense
-    family has no auxiliary losses, so the reference's ``aux`` is dropped."""
+    family has no auxiliary losses, so the reference's ``aux`` is dropped.
+    ``remat``: activation checkpointing per block (the reference's
+    ``jax.checkpoint`` over the scan body)."""
     positions = _positions_for(tokens)
     x = embed_lookup(params["embed"], tokens).to(_dtype(cfg))
     for i in range(cfg.n_layers):
-        x, _ = dense_block(layer_params(params["blocks"], i), x, positions, cfg)
+        fn = functools.partial(_block_out, layer_params(params["blocks"], i),
+                               positions, cfg)
+        x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _chunk_loss(head, pad_mask, xs, ls, ms):
+    logits = (xs @ head.to(xs.dtype)).float()
+    logits = logits.masked_fill(pad_mask, -1e30)          # mask the vocab pad
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, ls[:, None])[:, 0]
+    return torch.sum((lse - gold) * ms)
+
+
+def lm_loss_from_hidden(params, x, labels, mask, cfg: ModelConfig, *,
+                        remat: bool = False):
+    """Chunked cross-entropy over ``cfg.loss_chunk`` tokens at a time, the
+    vocab padding masked with -1e30.  Returns (sum of token losses, token
+    count), f32.  With ``remat`` each chunk's logits are recomputed in the
+    backward instead of kept (the reference checkpoints the chunk body)."""
+    B, S, D = x.shape
+    T = B * S
+    xf = x.reshape(T, D)
+    lf = labels.reshape(T).long()
+    mf = mask.reshape(T).float()
+    chunk = min(cfg.loss_chunk, T)
+    head = params["lm_head"]
+    pad_mask = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, T, chunk):
+        part = (head, pad_mask, xf[lo:lo + chunk], lf[lo:lo + chunk], mf[lo:lo + chunk])
+        loss_sum = loss_sum + (checkpoint(_chunk_loss, *part, use_reentrant=False)
+                               if remat else _chunk_loss(*part))
+    return loss_sum, mf.sum()
 
 
 def lm_logits(params, x, cfg: ModelConfig):

@@ -1,0 +1,196 @@
+"""AdamW with ZeRO-1 state partitioning, every DP collective through HetCCL.
+
+Counterpart of ``repro/train/optim.py`` (paper §5.3, Appendix D.4), ZeRO-1
+part.  Parameters are replicated across the data-parallel ranks; the f32
+master copy and the Adam moments are *flat shards*, each DP rank owning
+1/W of every tensor.  Per step: error-feedback compression of the local
+gradients when a wire codec resolves (DESIGN.md §17), then HetCCL
+``tree_all_reduce`` of the gradients, the local shard update, and a HetCCL
+``all_gather`` of the updated parameters (Table 3: "All-Gather (OS),
+All-Reduce (G)").
+
+Every function here is per-rank code: it runs inside a mesh of ranks
+(``core.mesh``), as the reference's runs inside the train ``shard_map``.
+ZeRO-3 needs ``fsdp_all_gather`` inside the forward, which the port does not
+have yet: ``zero3_init_opt`` and ``zero3_step`` raise (ROADMAP A5).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import RunConfig
+from repro_torch.core import hetccl, mesh
+from repro_torch.core.tree import flatten, leaves, tree_map
+from repro_torch.kernels import quant
+
+_ZERO3 = ("ZeRO-3 needs fsdp_all_gather (parameters gathered per layer inside the "
+          "forward), which the port does not have yet: ROADMAP A5")
+
+
+def ef_codec(rc: RunConfig) -> str | None:
+    """The wire codec error feedback compensates for, or None when EF is off.
+
+    ``rc.error_feedback``: "auto" enables EF iff the gradient reductions
+    quantize (a ``wire_quant`` codec on the large reduce_scatter /
+    all_reduce rows once ``rc.wire_quant`` is composed into the table, or
+    the facade's codec under ``backend="pallas"``); "on" also requires a
+    codec to resolve; "off" disables EF (quantize without compensation).
+    """
+    if rc.error_feedback not in ("auto", "on", "off"):
+        raise ValueError(f"unknown error_feedback {rc.error_feedback!r}; "
+                         "expected 'auto', 'on' or 'off'")
+    if rc.error_feedback == "off":
+        return None
+    codec = None
+    if rc.policies is not None:
+        table = rc.policies.with_wire_quant(rc.wire_quant)
+        for op in ("reduce_scatter", "all_reduce"):
+            p = table.lookup(op, "large")
+            if p.backend == "pallas" and p.wire_quant:
+                codec = p.wire_quant
+                break
+    elif rc.wire_quant and rc.backend == "pallas":
+        codec = rc.wire_quant
+    if codec is None and rc.error_feedback == "on":
+        raise ValueError("error_feedback='on' but no wire_quant codec resolves: set "
+                         "RunConfig.wire_quant (with backend='pallas') or plan a policy "
+                         "table with quantized gradient rows")
+    return codec
+
+
+def ef_init(params):
+    """Rank-local EF residuals: one flat f32 zero array per parameter leaf,
+    the full leaf's size (each rank keeps the error of its own
+    contribution)."""
+    return tree_map(lambda p: torch.zeros(p.numel(), dtype=torch.float32,
+                                          device=p.device), params)
+
+
+def ef_apply(grads, residuals, codec: str):
+    """Per-leaf error-feedback compression before the quantized collective:
+    each local gradient is projected onto the codec's grid
+    (:func:`quant.ef_compress` of ``g + residual``) and the projection error
+    becomes the new residual.  Returns ``(compressed_grads, new_residuals)``."""
+    gs, rebuild = flatten(grads)
+    pairs = [quant.ef_compress(g.float().reshape(-1), r, codec=codec)
+             for g, r in zip(gs, leaves(residuals))]
+    return (rebuild([c.reshape(g.shape) for (c, _), g in zip(pairs, gs)]),
+            rebuild([r for _, r in pairs]))
+
+
+def dp_rank_and_world(dp_axes: tuple[str, ...]) -> tuple[int, int]:
+    """Flat DP rank and world size of the calling rank; ``dp_axes``
+    pod-major, so the rank order is HetCCL's all_gather order."""
+    rank, world = 0, 1
+    for a in dp_axes:
+        n = mesh.axis_size(a)
+        rank = rank * n + mesh.axis_index(a)
+        world *= n
+    return rank, world
+
+
+def _pad_len(n: int, w: int) -> int:
+    return -(-n // w) * w
+
+
+def _f32(x: float, like) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def adam_update(g, m, v, master, step: int, rc: RunConfig, decay_mask: float = 1.0):
+    """One AdamW update in f32, all arguments shard-shaped; ``step`` is the
+    number of updates before this one.  The bias corrections are taken in
+    f32, as the reference takes them from its f32 step counter."""
+    g = g.float()
+    m = rc.beta1 * m + (1 - rc.beta1) * g
+    v = rc.beta2 * v + (1 - rc.beta2) * g * g
+    t = _f32(step + 1.0, g)
+    mhat = m / (1 - torch.pow(_f32(rc.beta1, g), t))
+    vhat = v / (1 - torch.pow(_f32(rc.beta2, g), t))
+    upd = mhat / (torch.sqrt(vhat) + rc.eps) + rc.weight_decay * decay_mask * master
+    return master - rc.learning_rate * upd, m, v
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1: flat-sharded optimizer state
+# ---------------------------------------------------------------------------
+
+def _shard_of(flat, rank: int, world: int):
+    pad = _pad_len(flat.numel(), world) - flat.numel()
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    n = flat.numel() // world
+    return flat[rank * n:(rank + 1) * n]
+
+
+def zero1_init_opt(params, dp_world: int):
+    """Zero f32 moments, each 1/W of its tensor; ``"master"`` is filled by
+    :func:`zero1_master_from_params`."""
+    def one(p):
+        return torch.zeros(_pad_len(p.numel(), dp_world) // dp_world,
+                           dtype=torch.float32, device=p.device)
+
+    return {"m": tree_map(one, params), "v": tree_map(one, params), "master": None}
+
+
+def zero1_master_from_params(params, dp_axes):
+    """This rank's flat f32 master shard of every parameter."""
+    rank, world = dp_rank_and_world(dp_axes)
+    return tree_map(lambda p: _shard_of(p.reshape(-1).float(), rank, world).clone(),
+                    params)
+
+
+def zero1_step(params, grads, opt, step: int, rc: RunConfig, comm):
+    """Full ZeRO-1 step.  ``grads``: this rank's un-reduced gradient sums
+    (scaled by 1/tokens).  Returns ``(new_params, new_opt, grad_norm)``.
+    ``comm``: the program's communicator (or a ``HetCCLConfig``); every
+    collective resolves its policy from it."""
+    rank, world = dp_rank_and_world(comm.dp_axes())
+    ef = opt.get("ef")
+    if ef is not None:
+        grads, ef = ef_apply(grads, ef, ef_codec(rc))
+    grads = hetccl.tree_all_reduce(grads, comm)
+
+    gnorm = global_norm(grads)
+    scale = clip_scale(gnorm, rc.grad_clip)
+
+    def one(p, g, m, v, master):
+        g_sh = _shard_of(g.reshape(-1).float() * scale, rank, world)
+        decay = 0.0 if p.dim() <= 1 else 1.0          # no decay on norms/biases
+        new_master, m, v = adam_update(g_sh, m, v, master, step, rc, decay)
+        # the parameter AllGather (the ZeRO-1 optimizer-state gather, Table 3)
+        full = hetccl.all_gather(new_master.to(p.dtype), comm, dim=0)
+        return full[:p.numel()].reshape(p.shape), m, v, new_master
+
+    ps, rebuild = flatten(params)
+    out = [one(*args) for args in zip(ps, leaves(grads), leaves(opt["m"]),
+                                      leaves(opt["v"]), leaves(opt["master"]))]
+    new_opt = {"m": rebuild([o[1] for o in out]), "v": rebuild([o[2] for o in out]),
+               "master": rebuild([o[3] for o in out])}
+    if ef is not None:
+        new_opt["ef"] = ef
+    return rebuild([o[0] for o in out]), new_opt, gnorm
+
+
+def zero3_init_opt(params):
+    raise NotImplementedError(_ZERO3)
+
+
+def zero3_step(params, grads, opt, step, rc, comm, fsdp_leaf_mask):
+    raise NotImplementedError(_ZERO3)
+
+
+# ---------------------------------------------------------------------------
+# Gradient norms / clipping
+# ---------------------------------------------------------------------------
+
+def global_norm(tree):
+    """sqrt of the sum of squares of every leaf, f32 (a 0-dim tensor)."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves(tree)))
+
+
+def clip_scale(gnorm, max_norm: float):
+    """min(1, max_norm / (gnorm + 1e-6)), or 1 when ``max_norm`` is 0."""
+    if not max_norm:
+        return torch.ones((), dtype=torch.float32, device=gnorm.device)
+    return torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)

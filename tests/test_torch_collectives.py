@@ -299,8 +299,15 @@ def test_install_use_and_facade():
 
 
 def test_wire_quant_and_unknown_backend_are_refused():
-    with pytest.raises(NotImplementedError, match="A4"):
-        hetccl.HetCCLConfig(backend="pallas", wire_quant="int8").communicator()
+    """An unknown codec and an unknown backend are refused; a known codec
+    binds on the pallas backend and collapses to None for xla."""
+    with pytest.raises(ValueError, match="wire_quant"):
+        hetccl.HetCCLConfig(backend="pallas", wire_quant="int4").communicator()
+    c = hetccl.HetCCLConfig(backend="pallas", wire_quant="int8").communicator()
+    assert c.policy("all_reduce", 1 << 30).wire_quant == "int8"
+    assert c.policy("all_gather", 1 << 30).wire_quant == "int8"
+    assert hetccl.HetCCLConfig(backend="xla", wire_quant="int8").communicator() \
+        .policy("all_reduce", 1 << 30).wire_quant is None
     with pytest.raises(ValueError):
         hetccl.HetCCLConfig(backend="cuda").resolved_backend()
     from repro_torch.core import collectives as coll

@@ -264,3 +264,173 @@ def test_planted_ring_fault_fails(gen, faulty_ring_libs, monkeypatch, fault):
     assert not same
     if fault == "credit_never_signalled":
         assert raised is not None and time.perf_counter() - t0 < 30
+
+
+# ---------------------------------------------------------------------------
+# Training path: the codec kernels (bit for bit), the flash backward (the
+# limits of chip_smoke.py's BWD_LIMITS), planted faults, a training run
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import quant, ref  # noqa: E402
+
+
+@pytest.mark.parametrize("name,rows,fill", smoke.QUANT_ROWS + [("bucket_hop", 6912, "randn")],
+                         ids=[c[0] for c in smoke.QUANT_ROWS] + ["bucket_hop"])
+def test_codec_kernels_match_plain_bitwise(gen, name, rows, fill):
+    x = smoke.quant_inputs(torch, gen, rows, fill)
+    acc = torch.randn(rows, 512, generator=gen, device="cuda")
+    for xx, aa in ((x, acc), (x.reshape(-1)[1:1 + 509 * max(rows - 1, 1)].reshape(-1, 509),
+                              acc.reshape(-1)[3:3 + 509 * max(rows - 1, 1)].reshape(-1, 509))):
+        before = (quant.quant_launches, quant.dq_launches)
+        c, s = quant.wire_quantize_int8(xx)
+        d = quant.wire_dequant_accum_int8(aa, c, s)
+        torch.cuda.synchronize()
+        assert (quant.quant_launches, quant.dq_launches) == (before[0] + 1, before[1] + 1)
+        c2, s2 = ref.wire_quantize(xx)
+        assert smoke.same_bits(c, c2) and smoke.same_bits(s, s2)
+        assert smoke.same_bits(d, ref.wire_dequant_accum(aa, c, s))
+
+
+def _bwd_case(gen, case):
+    name, B, Hq, Hkv, S, d, kind, window, k_len, dt, model_layout = case
+    dtype = getattr(torch, dt)
+    q, k, v = smoke.attention_inputs(gen, B, Hq, Hkv, S, S, d, dtype, model_layout)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    kw = dict(kind=kind, window=window, k_len=S if k_len is None else k_len)
+    o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, ref.attention_lse(q, k, **kw), **kw)
+    return (q, k, v, o, do, lse), kw, want
+
+
+def _bwd_within_limits(got, want, dt):
+    rel_lim, row_lim = smoke.BWD_LIMITS[dt]
+    errs = [smoke.bwd_error(g, w) for g, w in zip(got, want)]
+    return all(e["rel_l2"] <= rel_lim and e["worst_row"] <= row_lim for e in errs), errs
+
+
+@pytest.mark.parametrize("case", smoke.BWD_CASES, ids=[c[0] for c in smoke.BWD_CASES])
+def test_flash_bwd_matches_plain(gen, case):
+    args, kw, want = _bwd_case(gen, case)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 1
+    ok, errs = _bwd_within_limits(got, want, case[9])
+    assert ok, errs
+    # no atomics: a second launch gives the same bits
+    again = fa.flash_attention_bwd(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_function_on_the_card_matches_plain_autograd(gen):
+    """FlashAttention.apply on CUDA tensors (both kernels) against autograd of
+    the plain attention, f32, in model layout through ops.flash_attention."""
+    q = torch.randn(2, 130, 9, 64, generator=gen, device="cuda", requires_grad=True)
+    k = torch.randn(2, 130, 3, 64, generator=gen, device="cuda", requires_grad=True)
+    v = torch.randn(2, 130, 3, 64, generator=gen, device="cuda", requires_grad=True)
+    do = torch.randn(2, 130, 9, 64, generator=gen, device="cuda")
+    before = (fa.launches, fa.bwd_launches)
+    out = ops.flash_attention(q, k, v, kind="causal")
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    plain = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2)).transpose(1, 2)
+    want = torch.autograd.grad(plain, (q, k, v), do)
+    for g, w in zip(got, want):
+        assert smoke.bwd_error(g, w)["rel_l2"] <= smoke.BWD_LIMITS["float32"][0]
+
+
+# name -> (source, text in it, its faulty replacement, the case that reaches it)
+TRAIN_FAULTS = {
+    "roundf_for_rintf": ("quant", "rintf(", "roundf(", ("half_way", 600, "half")),
+    "fma_in_dq_accum": ("quant", "return __fadd_rn(acc, __fmul_rn(static_cast<float>(c), s));",
+                        "return acc + static_cast<float>(c) * s;", ("wide_range", 5000, "randn")),
+    "gqa_head_skipped_in_dkdv": (
+        "flash_attention_bwd",
+        "for (int h = hk * group; h < (hk + 1) * group; ++h) {\n"
+        "    const long long row_base = ((long long)b * p.Hq + h) * p.Sq;\n"
+        "    for (int qt = t0; qt < t1; ++qt) {\n      const int q0 = qt * kMmaB;",
+        "for (int h = hk * group; h < (hk + 1) * group - 1; ++h) {\n"
+        "    const long long row_base = ((long long)b * p.Hq + h) * p.Sq;\n"
+        "    for (int qt = t0; qt < t1; ++qt) {\n      const int q0 = qt * kMmaB;",
+        smoke.BWD_CASES[0]),
+    "causal_mask_dropped_in_bwd": ("flash_attention_bwd", "if (p.causal) ok = ok && r >= c;",
+                                   "", smoke.BWD_CASES[0]),
+}
+
+
+@pytest.fixture(scope="module")
+def faulty_train_libs(tmp_path_factory):
+    libs = {}
+    for source in ("quant", "flash_attention_bwd"):
+        libs.update(_compile_faults(tmp_path_factory, source, {
+            name: (good, bad, case) for name, (src, good, bad, case) in TRAIN_FAULTS.items()
+            if src == source}))
+    return libs
+
+
+@pytest.mark.parametrize("fault", sorted(TRAIN_FAULTS))
+def test_planted_training_fault_fails(gen, faulty_train_libs, monkeypatch, fault):
+    source, _, _, case = TRAIN_FAULTS[fault]
+    if source == "quant":
+        _, rows, fill = case
+        x = smoke.quant_inputs(torch, gen, rows, fill)
+        acc = torch.randn(rows, 512, generator=gen, device="cuda")
+        c, s = ref.wire_quantize(x)
+        want = (c, s, ref.wire_dequant_accum(acc, c, s))
+
+        def run():
+            cc, ss = quant.wire_quantize_int8(x)
+            return cc, ss, quant.wire_dequant_accum_int8(acc, c, s)
+
+        good = run()
+        monkeypatch.setattr(quant, "_lib", quant.bind(faulty_train_libs[fault]))
+        bad = run()
+        torch.cuda.synchronize()
+        same = [smoke.same_bits(a, b) for a, b in zip(bad, want)]
+        print(f"\n  {fault}: codes, scales, dequantize-accumulate bit for bit: {same}")
+        assert all(smoke.same_bits(a, b) for a, b in zip(good, want))
+        assert not all(same)
+        return
+    args, kw, want = _bwd_case(gen, case)
+    good_ok, _ = _bwd_within_limits(fa.flash_attention_bwd(*args, **kw), want, case[9])
+    monkeypatch.setattr(fa, "_bwd_fn", fa.bind_bwd(faulty_train_libs[fault]))
+    bad_ok, errs = _bwd_within_limits(fa.flash_attention_bwd(*args, **kw), want, case[9])
+    print(f"\n  {fault}: dq/dk/dv errors {[{k: f'{v:.3e}' for k, v in e.items()} for e in errs]}")
+    assert good_ok and not bad_ok
+
+
+def test_two_training_steps_on_the_card(gen):
+    """A reduced model, bf16 parameters, int8 codec with error feedback, on a
+    CUDA ThreadMesh (pod=2, data=2): finite falling losses and the launches
+    the step implies."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import balance
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models import build
+    from repro_torch.train.trainer import make_train_program
+    cfg = get_config("smollm-135m").reduced()
+    model = build(cfg)
+    m = mesh.ThreadMesh({"pod": 2, "data": 2}, device="cuda")
+    plan = balance.uniform_plan(2, 4, micro_batch=2)
+    prog = make_train_program(model, m, RunConfig(collective_mode="hier", backend="pallas",
+                                                  wire_quant="int8", learning_rate=3e-3),
+                              plan)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
+    state = prog.init_fn(params)
+    batch = synthetic_batch(0, 0, plan.n_micro_max, plan.micro_batch * 4, 128, cfg.vocab)
+    counters = smoke.Counters(fa, quant, ring_dma, cr)
+    counters.reset()
+    losses = []
+    for _ in range(2):
+        state, met = prog.step_fn(state, batch)
+        losses.append(met["loss"].item())
+    got = counters.read()
+    n_buckets = len(hetccl._make_buckets([p.float() for p in leaves(params)],
+                                         prog.comm.bucket_bytes))
+    want = smoke.train_counts(cfg.n_layers, plan.n_micro_max, 4, len(leaves(params)),
+                              n_buckets, 2)
+    assert all(got[k] == 2 * v for k, v in want.items()), (got, want)
+    assert all(map(lambda x: x == x and abs(x) < 1e4, losses)) and losses[1] < losses[0]

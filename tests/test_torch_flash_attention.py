@@ -11,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jax_ops  # noqa: E402
@@ -92,3 +93,84 @@ def test_tacc_resolves_from_the_tensor_device():
         tacc.set_platform(None)
     with pytest.raises(tacc.TaccError):
         tacc.resolve("attention", variant="interpret")
+
+
+# ---------------------------------------------------------------------------
+# Backward: the plain version the kernel is held to, and the autograd Function
+# ---------------------------------------------------------------------------
+
+BWD_CASES = [("causal", 0, None, 4, 2), ("bidir", 0, None, 4, 4), ("causal", 24, None, 6, 2),
+             ("bidir", 0, 53, 4, 1), ("causal", 0, 61, 3, 3)]
+
+
+@pytest.mark.parametrize("kind,window,k_len,Hq,Hkv", BWD_CASES)
+def test_attention_bwd_plain_matches_jax_vjp(kind, window, k_len, Hq, Hkv):
+    """``ref.attention_bwd`` (which the CUDA backward is held to on the card)
+    against ``jax.vjp`` of the reference's dense attention, f32, rtol 1e-5
+    (atol 1e-6 for the exact zeros of masked keys); the row logsumexp
+    against ``jax.nn.logsumexp`` of the same masked scores."""
+    from repro.kernels import ref as jax_ref
+    from repro_torch.kernels import ref
+    rng = np.random.RandomState(7)
+    B, S, d = 2, 80, 32
+    q, do = ((rng.randn(B, Hq, S, d) * 0.7).astype(np.float32) for _ in range(2))
+    k, v = ((rng.randn(B, Hkv, S, d) * 0.7).astype(np.float32) for _ in range(2))
+    kw = dict(kind=kind, window=window, k_len=k_len)
+    o, vjp = jax.vjp(lambda a, b, c: jax_ref.attention(a, b, c, **kw), q, k, v)
+    want = vjp(jnp.asarray(do))
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    lse = ref.attention_lse(qt, kt, **kw)
+    got = ref.attention_bwd(qt, kt, vt, torch.from_numpy(np.array(o)), dot, lse, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6)
+    s = jnp.einsum("bhgqd,bhkd->bhgqk", jnp.asarray(q).reshape(B, Hkv, Hq // Hkv, S, d)
+                   * d ** -0.5, jnp.asarray(k))
+    qp, kp = np.arange(S)[:, None], np.arange(S)[None, :]
+    valid = np.ones((S, S), bool) if kind == "bidir" else qp >= kp
+    if window:
+        valid &= qp - kp < window
+    if k_len is not None:
+        valid &= kp < k_len
+    want_lse = jax.nn.logsumexp(jnp.where(valid, s, -1e30), axis=-1).reshape(B, Hq, S)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind,window,k_len,Hq,Hkv", BWD_CASES[:3])
+def test_flash_attention_function_on_cpu_matches_autograd(kind, window, k_len, Hq, Hkv):
+    """``FlashAttention.apply`` on CPU tensors (both directions plain)
+    against torch autograd of ``ref.attention``; no kernel is counted."""
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(2, Hq, 48, 32, generator=g, requires_grad=True)
+    k = torch.randn(2, Hkv, 48, 32, generator=g, requires_grad=True)
+    v = torch.randn(2, Hkv, 48, 32, generator=g, requires_grad=True)
+    do = torch.randn(2, Hq, 48, 32, generator=g)
+    before = (fa.launches, fa.bwd_launches)
+    o = fa.FlashAttention.apply(q, k, v, kind, window, k_len, None)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    o2 = ref.attention(q, k, v, kind=kind, window=window, k_len=k_len)
+    want = torch.autograd.grad(o2, (q, k, v), do)
+    torch.testing.assert_close(o, o2, rtol=1e-6, atol=1e-6)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert (fa.launches, fa.bwd_launches) == before
+
+
+def test_ops_attention_records_through_the_function_only_under_grad():
+    """The model-layout entry takes FlashAttention when autograd records and
+    the forward alone otherwise (on CPU tensors both are plain)."""
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn(1, 40, 4, 32, generator=g, requires_grad=True)
+    k = torch.randn(1, 40, 2, 32, generator=g, requires_grad=True)
+    v = torch.randn(1, 40, 2, 32, generator=g, requires_grad=True)
+    out = ops.flash_attention(q, k, v, kind="causal")
+    fn = out.grad_fn.next_functions[0][0]              # under the final transpose
+    assert "FlashAttention" in type(fn).__name__
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v, kind="causal").grad_fn is None
+    want = attn_mod.dense_reference(q, k, v, kind="causal")
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    dq, = torch.autograd.grad(out.sum(), (q,))
+    dq2, = torch.autograd.grad(want.sum(), (q,))
+    torch.testing.assert_close(dq, dq2, rtol=1e-4, atol=1e-5)

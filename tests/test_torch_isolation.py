@@ -46,6 +46,14 @@ cfg = hetccl.HetCCLConfig(mode="pipelined", backend="pallas", n_channels=2)
 outs = mesh.ThreadMesh({{"pod": 2, "data": 2}}, device="cpu").run(
     lambda v: hetccl.all_reduce(v, cfg), [torch.full((6, 5), float(r)) for r in range(4)])
 assert all(torch.equal(o, torch.full((6, 5), 6.0)) for o in outs)
+from repro_torch.core import balance
+from repro_torch.data import pipeline
+from repro_torch.kernels import quant
+from repro_torch.launch import train
+from repro_torch.train import optim, trainer
+hist = train.main(["--device", "cpu", "--steps", "1", "--seq", "16", "--backend", "pallas",
+                   "--wire-quant", "int8"])
+assert len(hist) == 1
 print(json.dumps(sorted(m for m in sys.modules if re.match(r"{FOREIGN}", m))))
 """
 
@@ -54,6 +62,7 @@ def test_port_imports_neither_jax_nor_repro():
     r = _run(["-c", PROBE])
     assert r.returncode == 0, r.stderr
     assert "served 2 reqs, 6 tokens" in r.stdout
+    assert "error_feedback=True" in r.stdout and "tokens/s" in r.stdout
     assert json.loads(r.stdout.strip().splitlines()[-1]) == []
 
 
@@ -80,6 +89,13 @@ def test_serve_entry_point_raises_without_a_card():
     assert r.returncode != 0
     assert "torch.cuda.is_available() is false" in r.stderr
     assert "served" not in r.stdout
+
+
+def test_train_entry_point_raises_without_a_card():
+    r = _run(["-m", "repro_torch.launch.train", "--reduced"])
+    assert r.returncode != 0
+    assert "torch.cuda.is_available() is false" in r.stderr
+    assert "step" not in r.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -209,10 +209,3 @@ def test_schedule_is_emulated_off_the_card():
         lambda _: (ring_dma._schedule("ring_reduce_scatter"),
                    ring_dma._schedule("ring_all_gather")), [None, None])
     assert seen == [("emulated", "emulated")] * 2
-
-
-def test_wire_quant_names_its_roadmap_item():
-    m = mesh.ThreadMesh({"pod": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        m.run(lambda v: ring_dma.ring_reduce_scatter(v, "pod", wire_quant="int8"),
-              [torch.zeros(4), torch.zeros(4)])

@@ -1,0 +1,406 @@
+"""The port's training path against the JAX package's: data, plans, loss and
+gradients, AdamW, and whole ZeRO-1 steps on a mesh of ranks.
+
+Inputs come from seeded numpy RandomStates and the JAX ``init`` (carried
+across with ``convert.params_from_jax``); the batches from
+``synthetic_batch``, which both packages compute alike.  The JAX trainer runs
+on ``mesh3`` (pod=2, data=2, model=2), the port's on a CPU
+``ThreadMesh({"pod": 2, "data": 2})``, reduced smollm-135m in f32.
+
+Tolerances, from the readings on these inputs.  The reduced model at its
+random init is ill-conditioned: a relative perturbation of 1e-7 of its
+parameters moves its gradients by 4.8e-4 of each leaf's largest element
+(``test_reduced_model_is_ill_conditioned_at_init``, the port alone), so the
+two packages' gradients, each rounded its own way, agree to 3.8e-4 of it,
+and Adam's first update moves every weight by +-lr whatever the size of its
+gradient.  Whole
+steps therefore agree at step 0 to 1e-5 (reading 4.8e-7) and drift after:
+losses within 1e-2 over 3 steps (largest reading 5.1e-3), parameters within
+a relative L2 of 2e-3 (reading 6.6e-4).  With the int8 codec the parameter
+all-gather lands on the int8 grid (ROADMAP C2), where a weight one rounding
+apart can take the neighbouring code: relative L2 1e-2 (reading 3.9e-3).
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs.base import RunConfig as JaxRunConfig  # noqa: E402
+from repro.core import balance as jax_balance  # noqa: E402
+from repro.data import pipeline as jax_pipeline  # noqa: E402
+from repro.models import Ctx  # noqa: E402
+from repro.models import build as jax_build  # noqa: E402
+from repro.train import optim as jax_optim  # noqa: E402
+from repro.train.trainer import make_train_program as jax_make_train_program  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import RunConfig  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.core import balance, mesh  # noqa: E402
+from repro_torch.core.tree import flatten, leaves  # noqa: E402
+from repro_torch.data import pipeline  # noqa: E402
+from repro_torch.models import build  # noqa: E402
+from repro_torch.train import optim  # noqa: E402
+from repro_torch.train.trainer import make_train_program  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+CFG = get_config("smollm-135m").reduced()
+JCFG = jax_get_config("smollm-135m").reduced()
+MODEL, JMODEL = build(CFG), jax_build(JCFG)
+KEY = 42
+SEQ = 64
+STEP0_ATOL, LOSS_ATOL = 1e-5, 1e-2
+PARAM_REL_L2 = {None: 2e-3, "int8": 1e-2}
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the mesh's rank threads are the parallelism, and
+    a run repeats bit for bit whatever the host's core count."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _jax_params():
+    return jax.tree.map(np.asarray, jax.device_get(
+        JMODEL.init(jax.random.PRNGKey(KEY), dtype="float32")))
+
+
+def _port_params():
+    return params_from_jax(_jax_params(), metas=MODEL.abstract_params())
+
+
+def _rel_l2(got, want) -> float:
+    num = sum(float(((g - w) ** 2).sum()) for g, w in zip(got, want))
+    return (num / sum(float((w ** 2).sum()) for w in want)) ** 0.5
+
+
+# ---------------------------------------------------------------------------
+# Data and plans
+# ---------------------------------------------------------------------------
+
+def test_synthetic_batch_and_plans_match_the_reference():
+    for args in ((0, 0, 2, 4, 64, 512), (7, 3, 1, 3, 17, 49152), (2**40, 10**6, 3, 2, 5, 97)):
+        want, got = jax_pipeline.synthetic_batch(*args), pipeline.synthetic_batch(*args)
+        for k in ("tokens", "labels"):
+            assert got[k].dtype == want[k].dtype == np.int32
+            np.testing.assert_array_equal(got[k], want[k])
+    for speeds, total, mn in (((2.0, 1.0), 4, 1), ((2.0, 1.0), 12, 1), ((5, 1, 1), 6, 1),
+                              ((1.0, 1.0, 3.0, 0.5), 11, 2), ((1.0,), 3, 1)):
+        want = jax_balance.make_plan([jax_balance.PodProfile(f"p{i}", s)
+                                      for i, s in enumerate(speeds)], total, 2, mn)
+        got = balance.make_plan([balance.PodProfile(f"p{i}", s)
+                                 for i, s in enumerate(speeds)], total, 2, mn)
+        assert (got.micro_per_pod, got.n_micro_max, got.micro_batch, got.weights,
+                got.total_micro) == (want.micro_per_pod, want.n_micro_max, want.micro_batch,
+                                     want.weights, want.total_micro)
+        np.testing.assert_array_equal(got.live_mask(), want.live_mask())
+    fields = ("pod_names", "micro_per_pod", "n_micro_max", "micro_batch")
+    for args in ((2, 4, 1), (4, 8, 2)):
+        assert [getattr(balance.uniform_plan(*args), f) for f in fields] == \
+            [getattr(jax_balance.uniform_plan(*args), f) for f in fields]
+    with pytest.raises(ValueError):
+        balance.uniform_plan(3, 4, 1)
+    plan = balance.make_plan([balance.PodProfile("a", 2.0), balance.PodProfile("b", 1.0)], 4, 1)
+    jplan = jax_balance.make_plan([jax_balance.PodProfile("a", 2.0),
+                                   jax_balance.PodProfile("b", 1.0)], 4, 1)
+    pipe = pipeline.DataPipeline(seed=3, plan=plan, dp_world=4, seq_len=16, vocab=512)
+    jpipe = jax_pipeline.DataPipeline(seed=3, plan=jplan, dp_world=4, seq_len=16, vocab=512)
+    np.testing.assert_array_equal(pipe.batch_at(5)["tokens"], jpipe.batch_at(5)["tokens"])
+    assert pipe.tokens_per_step() == jpipe.tokens_per_step()
+    it = pipe.iter_from(2)
+    step, b = next(it)
+    assert step == 2
+    np.testing.assert_array_equal(b["labels"], jpipe.batch_at(2)["labels"])
+
+
+# ---------------------------------------------------------------------------
+# Loss, gradients, AdamW
+# ---------------------------------------------------------------------------
+
+def test_model_loss_and_grads_match_jax():
+    """``Model.loss`` and its gradients against ``jax.value_and_grad`` of the
+    reference's: loss rtol 1e-6; each gradient leaf within 1e-3 of its
+    largest element (reading 3.8e-4; see the module note); a mask; and
+    ``remat`` gives the same bits as without."""
+    jp = _jax_params()
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, CFG.vocab, (2, 48)).astype(np.int32)
+    labs = rng.randint(0, CFG.vocab, (2, 48)).astype(np.int32)
+    mask = (rng.rand(2, 48) > 0.25).astype(np.float32)
+    ctx = Ctx(rules={"_axis_sizes": {}, "_zero_stage": 1}, manual=False, dp_axes=("data",))
+
+    def jloss(p):
+        ls, cnt, aux = JMODEL.loss(p, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labs),
+                                       "mask": jnp.asarray(mask)}, ctx)
+        return ls, cnt
+
+    (jls, jcnt), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jp)
+    ps, rebuild = flatten(params_from_jax(jp, metas=MODEL.abstract_params()))
+    batch = {"tokens": torch.from_numpy(toks).long(), "labels": torch.from_numpy(labs).long(),
+             "mask": torch.from_numpy(mask)}
+    out = {}
+    for remat in (False, True):
+        req = [p.clone().requires_grad_() for p in ps]
+        ls, cnt, aux = MODEL.loss(rebuild(req), batch, remat=remat)
+        assert aux.item() == 0.0
+        out[remat] = (ls.detach(), cnt, torch.autograd.grad(ls, req))
+    ls, cnt, grads = out[False]
+    np.testing.assert_allclose(ls.item(), float(jls), rtol=1e-6)
+    assert cnt.item() == float(jcnt) == mask.sum()
+    worst = max(np.abs(g.numpy() - np.asarray(w)).max() / np.abs(np.asarray(w)).max()
+                for g, w in zip(grads, jax.tree.leaves(jg)))
+    print(f"\n  gradients: worst leaf's max abs difference over its largest element {worst:.3e}")
+    assert worst <= 1e-3
+    assert torch.equal(out[True][0], ls)
+    assert all(torch.equal(a, b) for a, b in zip(out[True][2], grads))
+
+
+def test_reduced_model_is_ill_conditioned_at_init():
+    """The reading behind the tolerances of this file: multiplying every
+    parameter by (1 + 1e-7 N(0, 1)) moves the gradients by far more than
+    1e-7 (the port alone, f32, CPU)."""
+    rng = np.random.RandomState(0)
+    toks = torch.from_numpy(rng.randint(0, CFG.vocab, (2, 48))).long()
+    labs = torch.from_numpy(rng.randint(0, CFG.vocab, (2, 48))).long()
+    ps, rebuild = flatten(_port_params())
+    gen = torch.Generator().manual_seed(1)
+    noisy = [p * (1 + 1e-7 * torch.randn(p.shape, generator=gen)) for p in ps]
+
+    def grads(leaves_):
+        req = [p.clone().requires_grad_() for p in leaves_]
+        ls, _, _ = MODEL.loss(rebuild(req), {"tokens": toks, "labels": labs})
+        return torch.autograd.grad(ls, req)
+
+    moved = max(((a - b).abs().max() / a.abs().max()).item()
+                for a, b in zip(grads(ps), grads(noisy)))
+    print(f"\n  a 1e-7 relative parameter perturbation moves the gradients by {moved:.3e} "
+          "of each leaf's largest element")
+    assert moved > 1e-5
+
+
+@pytest.mark.parametrize("step", [0, 6])
+def test_adam_update_matches_the_reference(step):
+    rng = np.random.RandomState(step)
+    g, m, master = (rng.randn(1000).astype(np.float32) for _ in range(3))
+    v = np.abs(rng.randn(1000)).astype(np.float32)
+    kw = dict(learning_rate=3e-3, weight_decay=0.1)
+    want = jax.jit(lambda *a: jax_optim.adam_update(*a[:4], jnp.asarray(step, jnp.int32),
+                                                    JaxRunConfig(**kw), 1.0))(g, m, v, master)
+    got = optim.adam_update(*(torch.from_numpy(a) for a in (g, m, v, master)), step,
+                            RunConfig(**kw), 1.0)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-7)
+
+
+def test_error_feedback_resolution_matches_the_reference():
+    for kw in (dict(), dict(wire_quant="int8"), dict(wire_quant="int8", backend="pallas"),
+               dict(wire_quant="fp8", backend="pallas", error_feedback="off"),
+               dict(wire_quant="int8", backend="pallas", error_feedback="on")):
+        assert optim.ef_codec(RunConfig(**kw)) == jax_optim.ef_codec(JaxRunConfig(**kw))
+    with pytest.raises(ValueError):
+        optim.ef_codec(RunConfig(error_feedback="on"))
+    with pytest.raises(ValueError):
+        optim.ef_codec(RunConfig(error_feedback="sometimes"))
+
+
+def test_zero3_names_its_roadmap_item():
+    m = mesh.ThreadMesh({"pod": 2, "data": 2}, device="cpu")
+    with pytest.raises(NotImplementedError, match="A5"):
+        make_train_program(MODEL, m, RunConfig(zero_stage=3), balance.uniform_plan(2, 4, 1))
+    with pytest.raises(NotImplementedError, match="fsdp_all_gather"):
+        optim.zero3_init_opt({})
+
+
+# ---------------------------------------------------------------------------
+# Whole ZeRO-1 steps against the JAX trainer
+# ---------------------------------------------------------------------------
+
+def _jax_run(mesh3, rc_kw, plan, n_steps):
+    prog = jax_make_train_program(JMODEL, mesh3, JaxRunConfig(**rc_kw), plan)
+    state = prog.init_fn(jax.random.PRNGKey(KEY))
+    losses = []
+    for s in range(n_steps):
+        nm, gmb, _ = prog.batch_shape(SEQ)
+        b = jax_pipeline.synthetic_batch(0, s, nm, gmb, SEQ, JCFG.vocab)
+        state, met = prog.step_fn(state, {k: jnp.asarray(v) for k, v in b.items()})
+        losses.append(float(met["loss"]))
+    return losses, state
+
+
+def _port_run(m, rc_kw, plan, n_steps, params=None):
+    prog = make_train_program(MODEL, m, RunConfig(**rc_kw), plan)
+    state = prog.init_fn(_port_params() if params is None else params)
+    losses, tokens = [], []
+    for s in range(n_steps):
+        nm, gmb, _ = prog.batch_shape(SEQ)
+        state, met = prog.step_fn(state, pipeline.synthetic_batch(0, s, nm, gmb, SEQ,
+                                                                  CFG.vocab))
+        losses.append(met["loss"].item())
+        tokens.append(met["tokens"].item())
+    return losses, tokens, state
+
+
+TRAIN_CASES = {  # id -> (RunConfig fields beyond the common ones, plan)
+    "flat-xla": (dict(collective_mode="flat", backend="xla"), None),
+    "flat-pallas": (dict(collective_mode="flat", backend="pallas"), None),
+    "hier-xla": (dict(collective_mode="hier", backend="xla"), None),
+    "hier-pallas": (dict(collective_mode="hier", backend="pallas"), None),
+    "hier-pallas-int8-ef": (dict(collective_mode="hier", backend="pallas",
+                                 wire_quant="int8"), None),
+    "hier-pallas-int8-no-ef": (dict(collective_mode="hier", backend="pallas",
+                                    wire_quant="int8", error_feedback="off"), None),
+    "hier-xla-plan-3-1": (dict(collective_mode="hier", backend="xla"), (2.0, 1.0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRAIN_CASES))
+def test_trainer_matches_jax(mesh3, one_thread, case):
+    """3 steps of the port's trainer against the JAX trainer from the same
+    init and batches (tolerances in the module note); the EF state is
+    present iff error feedback resolves on; every rank ends with the same
+    parameters."""
+    extra, speeds = TRAIN_CASES[case]
+    rc_kw = dict(zero_stage=1, learning_rate=1e-3, param_dtype="float32", **extra)
+    if speeds is None:
+        plan, jplan = balance.uniform_plan(2, 4, 1), jax_balance.uniform_plan(2, 4, 1)
+    else:
+        plan = balance.make_plan([balance.PodProfile(f"p{i}", s)
+                                  for i, s in enumerate(speeds)], 4, 1)
+        jplan = jax_balance.make_plan([jax_balance.PodProfile(f"p{i}", s)
+                                       for i, s in enumerate(speeds)], 4, 1)
+        assert plan.micro_per_pod == jplan.micro_per_pod == (3, 1)
+    want, jstate = _jax_run(mesh3, rc_kw, jplan, 3)
+    m = mesh.ThreadMesh({"pod": 2, "data": 2}, device="cpu")
+    got, tokens, state = _port_run(m, rc_kw, plan, 3)
+    print(f"\n  {case}: losses JAX {want}\n  {' ' * len(case)}         port {got}")
+    assert abs(got[0] - want[0]) <= STEP0_ATOL
+    np.testing.assert_allclose(got, want, rtol=0, atol=LOSS_ATOL)
+    assert tokens == [plan.total_micro * plan.micro_batch * 2 * SEQ] * 3
+    codec = optim.ef_codec(RunConfig(**rc_kw))
+    assert all(("ef" in s["opt"]) == (codec is not None) for s in state)
+    assert ("ef" in jstate["opt"]) == (codec is not None)
+    jleaves = [np.asarray(x) for x in jax.tree.leaves(jax.device_get(jstate["params"]))]
+    rel = _rel_l2([p.numpy() for p in leaves(state[0]["params"])], jleaves)
+    print(f"  {' ' * len(case)}  params relative L2 {rel:.3e}")
+    assert rel <= PARAM_REL_L2[extra.get("wire_quant")]
+    for s in state[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(leaves(s["params"]),
+                                                     leaves(state[0]["params"])))
+
+
+DIST_RANK = r"""
+import sys, torch, torch.distributed as dist, numpy as np
+torch.set_num_threads(1)
+from repro_torch.configs import get_config
+from repro_torch.configs.base import RunConfig
+from repro_torch.core import balance, mesh
+from repro_torch.core.tree import leaves
+from repro_torch.data.pipeline import synthetic_batch
+from repro_torch.models import build
+from repro_torch.train.trainer import make_train_program
+rank, init, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+cfg = get_config("smollm-135m").reduced()
+m = mesh.DistMesh({"pod": 2, "data": 1}, device="cpu")
+prog = make_train_program(build(cfg), m, RunConfig(collective_mode="hier", backend="pallas",
+                          wire_quant="int8", param_dtype="float32", learning_rate=1e-3),
+                          balance.uniform_plan(2, 2, 1))
+state = prog.init_fn(torch.load(sys.argv[4]))
+losses = []
+for s in range(2):
+    nm, gmb, _ = prog.batch_shape(32)
+    state, met = prog.step_fn(state, synthetic_batch(0, s, nm, gmb, 32, cfg.vocab))
+    losses.append(met["loss"].item())
+torch.save({"losses": losses, "params": leaves(state["params"]),
+            "ef": leaves(state["opt"]["ef"])}, out)
+dist.destroy_process_group()
+"""
+
+
+def test_dist_mesh_gloo_matches_thread_mesh(tmp_path, one_thread):
+    """2 steps on a gloo DistMesh (pod=2, data=1, one process per rank), int8
+    with EF, against the same program on a ThreadMesh: the same bits."""
+    params = _port_params()
+    torch.save(params, tmp_path / "params.pt")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    init = f"file://{tmp_path / 'rendezvous'}"
+    procs = [subprocess.Popen([sys.executable, "-c", DIST_RANK, str(r), init,
+                               str(tmp_path / f"out{r}.pt"), str(tmp_path / "params.pt")],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    for p in procs:
+        log, _ = p.communicate(timeout=240)
+        assert p.returncode == 0, log
+    m = mesh.ThreadMesh({"pod": 2, "data": 1}, device="cpu")
+    prog = make_train_program(MODEL, m, RunConfig(collective_mode="hier", backend="pallas",
+                                                  wire_quant="int8", param_dtype="float32",
+                                                  learning_rate=1e-3),
+                              balance.uniform_plan(2, 2, 1))
+    state = prog.init_fn(params)
+    losses = []
+    for s in range(2):
+        nm, gmb, _ = prog.batch_shape(32)
+        state, met = prog.step_fn(state, pipeline.synthetic_batch(0, s, nm, gmb, 32, CFG.vocab))
+        losses.append(met["loss"].item())
+    for r in range(2):
+        got = torch.load(tmp_path / f"out{r}.pt")
+        assert got["losses"] == losses
+        assert all(torch.equal(a, b) for a, b in zip(got["params"], leaves(state[r]["params"])))
+        assert all(torch.equal(a, b) for a, b in zip(got["ef"], leaves(state[r]["opt"]["ef"])))
+
+
+# ---------------------------------------------------------------------------
+# The 50-step memorize run (the reference's DESIGN.md §17 convergence setup)
+# ---------------------------------------------------------------------------
+
+MEMORIZE = {"f32": dict(), "int8-ef": dict(wire_quant="int8", backend="pallas"),
+            "int8-no-ef": dict(wire_quant="int8", backend="pallas", error_feedback="off")}
+# the reference's final losses on this setup (jax 0.9.0, CPU), ROADMAP C2
+JAX_MEMORIZE_FINAL = {"f32": 0.0471, "int8-ef": 0.0794, "int8-no-ef": 0.0688}
+
+
+@pytest.mark.parametrize("run", sorted(MEMORIZE))
+def test_memorize_batch_50_steps(one_thread, run):
+    """50 steps on one batch at lr 1e-2 (reduced smollm, f32 parameters,
+    hier), as the reference's ``test_wire_quant_ef_convergence``.  The
+    reference fails its own gate there (EF ends farther from f32 than no EF,
+    ROADMAP C2), so this asserts what both packages satisfy: finite losses
+    and a final loss at least 1.0 below the first.  The final loss is
+    printed beside the reference's.  ``remat`` is off: it gives the same
+    bits (test_model_loss_and_grads_match_jax) in a third of the time."""
+    m = mesh.ThreadMesh({"pod": 2, "data": 2}, device="cpu")
+    prog = make_train_program(MODEL, m, RunConfig(collective_mode="hier", learning_rate=1e-2,
+                                                  param_dtype="float32", remat=False,
+                                                  **MEMORIZE[run]),
+                              balance.uniform_plan(2, 4, 1))
+    state = prog.init_fn(_port_params())
+    nm, gmb, _ = prog.batch_shape(SEQ)
+    batch = pipeline.synthetic_batch(0, 0, nm, gmb, SEQ, CFG.vocab)
+    losses = []
+    for _ in range(50):
+        state, met = prog.step_fn(state, batch)
+        losses.append(met["loss"].item())
+    print(f"\n  memorize {run}: first {losses[0]:.4f}, final {losses[-1]:.4f} "
+          f"(reference final {JAX_MEMORIZE_FINAL[run]})")
+    assert np.isfinite(losses).all()
+    assert losses[-1] < losses[0] - 1.0
+
+
+def test_train_launcher_runs_on_the_cpu(capsys):
+    from repro_torch.launch import train
+    hist = train.main(["--device", "cpu", "--steps", "2", "--seq", "32", "--backend", "pallas",
+                       "--wire-quant", "int8"])
+    assert len(hist) == 2 and np.isfinite(hist).all()
+    out = capsys.readouterr().out
+    assert "error_feedback=True" in out and "tokens/s" in out
