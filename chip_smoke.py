@@ -60,13 +60,39 @@ Phases, in order; any failure exits non-zero before the last line:
 12. times of the codec kernels at the largest bucket's hop shape and of the
    flash backward at the training shape, with their bounds, plain versions
    and (flash backward) SDPA's autograd as the yardstick;
-13. a JSON line listing every kernel;
-14. the last line, ``{"ok": true, "device": {...}}``.
+13. grouped matmul vs plain: ``grouped_matmul`` (``csrc/grouped_matmul.cu``)
+   against its plain version, case by case (``GMM_CASES``: the sweep shapes
+   of tests/test_kernels.py in f32 and bf16, Mixtral's prefill and decode
+   shapes, moonshot's expert shape, zero rows, views of stacked weights),
+   each with its limits (``GMM_LIMITS``);
+14. MoE serving at full width: mixtral-8x7b (d_model 4096, 8 experts top-2
+   of d_ff 14336, window 4096) cut to 8 of its 32 layers, bf16, weights from
+   a seed, answers 8 requests of 512 prompt tokens, 32 new tokens each,
+   through ``Batcher``; the counts set to 0 just before and read just after:
+   3 x 8 x 33 = 792 grouped-matmul launches, 8 flash.  In one more prefill
+   every grouped matmul and every layer's expert FFN against their plain
+   versions on the same inputs (the hard gate); then the last-position
+   logits against expert_ffn pinned to the plain composition, gated on the
+   requests whose routes and drops agree in every layer; tokens/s, prefill
+   and decode ms, busy share, peak memory;
+15. the sliding window at full width: the same model, 1 request of 4608
+   prompt tokens and 16 new: flash with window 4096 at Sq 4608, the rolling
+   cache (4096 slots), decode through ``window_decode_attention``, 408
+   grouped-matmul launches, and the same comparisons but the per-layer one;
+16. grouped-matmul times at Mixtral's prefill and decode shapes, with the
+   plain version, ``torch.bmm`` (a yardstick the port never calls) and the
+   bound;
+17. a JSON line listing every kernel;
+18. the last line, ``{"ok": true, "device": {...}}``.
+
+Each phase prints its wall time.
 
 It needs the repository around it: run alone, or where
 ``torch.cuda.is_available()`` is false, it exits non-zero and prints no result.
 """
+import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -91,6 +117,8 @@ KERNEL_CASES = [
     ("d32_reduced", 2, 4, 2, 200, 200, 32, "causal", 0, None, "bfloat16", True),
     ("f32", 2, 9, 3, 512, 512, 64, "causal", 0, None, "float32", True),
     ("f32_d128_bidir_window48_klen150", 1, 4, 1, 150, 200, 128, "bidir", 48, 150, "float32", False),
+    # mixtral's window prefill (phase 15): d 128, GQA 32/8, window 4096 < Sq
+    ("mixtral_window4096", 1, 32, 8, 4608, 4608, 128, "causal", 4096, None, "bfloat16", True),
 ]
 
 # Kernel against its plain version, both errors relative to the plain output:
@@ -173,6 +201,60 @@ TRAIN_RUNS = {"int8_ef": dict(backend="pallas", wire_quant="int8"),
 # the reading on an H100 (5.25e-2, PERF.md).
 TRAIN_INT8_LOSS_TOL = 0.15
 TRAIN_TIMING_REPS = 2
+
+
+# The MoE slice: full-width mixtral-8x7b cut to 8 of its 32 layers (every
+# kernel at its published shape; 23.7 GB of bf16 weights), weights from a seed.
+MOE_ARCH, MOE_LAYERS = "mixtral-8x7b", 8
+MOE_REQUESTS, MOE_PROMPT, MOE_NEW = 8, 512, 32
+WINDOW_PROMPT, WINDOW_NEW = 4608, 16       # past the 4096 window: rolling cache
+
+# Grouped matmul against its plain version, both errors relative to the plain
+# output: (relative L2 of the whole output, worst row's L2 error over the
+# larger of its own norm and the mean row norm; a dropped token's row is 0).
+# bf16: both sum exact products in f32 and round once, so they differ only
+# where the two sums' order flips a rounding, by one ulp (2**-8 to 2**-7 of
+# the value).  f32: the same sums in another order (fmaf in the kernel).
+GMM_LIMITS = {"bfloat16": (1e-3, 5e-3), "float32": (1e-6, 4e-6)}
+# expert_ffn through the kernel against the same composition through the
+# plain version: h1 and h3 may differ by an ulp, which SiLU, the product and
+# w2 carry into the output.
+FFN_LIMITS = {"bfloat16": (5e-3, 2e-2), "float32": (1e-6, 4e-6)}
+# Last-position logits (relative L2) of the served model through the kernel
+# against expert_ffn pinned to the plain composition: gated on the requests
+# whose routes and drops agree in every layer (routing is discontinuous: a
+# request whose routes differ anywhere is compared but not gated), and on
+# every request of a plain run that replays the kernel run's routes.
+# bf16: random weights amplify rounding from layer to layer (the MoE
+# outputs' drift is printed per layer), as in the dense serve phase; 0.1 was
+# stated before the first reading and missed (0.020 to 0.160 over the 8
+# requests, routes replayed, on an H100; PERF.md), so the limit is twice the
+# largest reading.  The tight end-to-end check is f32: the same model's
+# first MOE_F32_LAYERS layers in f32, where both routes differ only in the
+# order of f32 sums.
+MOE_LOGITS_REL_TOL = {"bfloat16": 0.3, "float32": 1e-4}
+MOE_F32_LAYERS = 2
+# (name, G, M, K, N, dtype, layout): "dense"; "zero_rows" (a capacity buffer
+# with dropped tokens' rows zero); "layer_view" (w a layer slice of a stacked
+# (L, G, K, N') tensor, columns 24..24+N, 16-byte aligned rows); "odd_view"
+# (columns from 3: unaligned rows, the kernel's plain-load path).
+GMM_CASES = [
+    *[(f"sweep_{G}x{M}x{K}x{N}", G, M, K, N, dt, "dense")
+      for G, M, K, N in ((4, 200, 96, 160), (1, 128, 128, 128), (8, 64, 300, 48))
+      for dt in ("float32", "bfloat16")],
+    ("mixtral_prefill_w13", 8, 1280, 4096, 14336, "bfloat16", "dense"),
+    ("mixtral_prefill_w2", 8, 1280, 14336, 4096, "bfloat16", "dense"),
+    ("mixtral_decode_w13", 8, 2, 4096, 14336, "bfloat16", "dense"),
+    ("mixtral_decode_w2", 8, 2, 14336, 4096, "bfloat16", "dense"),
+    ("mixtral_window_w13", 8, 1440, 4096, 14336, "bfloat16", "zero_rows"),
+    ("moonshot_expert", 64, 240, 2048, 1408, "bfloat16", "dense"),
+    ("zero_rows", 8, 300, 512, 640, "bfloat16", "zero_rows"),
+    ("layer_view", 8, 100, 512, 1000, "bfloat16", "layer_view"),
+    ("odd_view", 4, 33, 256, 500, "bfloat16", "odd_view"),
+    ("ragged_k100_m9", 5, 9, 100, 70, "bfloat16", "dense"),
+    ("f32_reduced_expert", 4, 80, 128, 128, "float32", "dense"),
+    ("f32_ragged_views", 3, 77, 129, 65, "float32", "odd_view"),
+]
 
 
 class SmokeFailure(RuntimeError):
@@ -1090,23 +1172,456 @@ def phase_train_kernel_times(torch, quant, ref, fa, hop_rows, bwd_case):
     return out
 
 
+# ---------------------------------------------------------------------------
+# MoE path: grouped matmul, full-width mixtral serving, sliding window
+# ---------------------------------------------------------------------------
+
+def gmm_inputs(torch, gen, G, M, K, N, dtype, layout):
+    """x (G, M, K) unit normals, w (G, K, N) normals of std K**-0.5, laid out
+    as ``layout`` says (see GMM_CASES)."""
+    dt = getattr(torch, dtype)
+    x = torch.randn(G, M, K, generator=gen, device="cuda").to(dt)
+    if layout == "zero_rows":                        # drops: every 3rd row, the tail
+        x[:, ::3] = 0
+        x[:, M - M // 5:] = 0
+    lead = {"layer_view": 24, "odd_view": 3}.get(layout, 0)
+    width = N + lead + (8 if lead else 0)
+    stacked = torch.randn(2 if lead else 1, G, K, width, generator=gen,
+                          device="cuda").mul_(K ** -0.5).to(dt)
+    w = stacked[-1, :, :, lead:lead + N]
+    return x, w
+
+
+def gmm_error(out, want):
+    """Max abs, relative L2, and the worst row's L2 error over the larger of
+    its own norm and the mean row norm, of (..., N)."""
+    diff = out.float() - want.float()
+    rows = want.float().norm(dim=-1)
+    return {"max_abs_err": diff.abs().max().item(),
+            "rel_l2": (diff.norm() / want.float().norm()).item(),
+            "worst_row": (diff.norm(dim=-1) / rows.clamp(min=rows.mean())).max().item()}
+
+
+def gmm_ok(err, dtype_name, limits=GMM_LIMITS):
+    rel_lim, row_lim = limits[dtype_name]
+    return err["rel_l2"] <= rel_lim and err["worst_row"] <= row_lim
+
+
+def format_gmm(err, dtype_name, limits=GMM_LIMITS):
+    rel_lim, row_lim = limits[dtype_name]
+    return (f"max_abs_err {err['max_abs_err']:.3e}  rel_l2 {err['rel_l2']:.3e} "
+            f"(limit {rel_lim:.0e})  worst_row {err['worst_row']:.3e} (limit {row_lim:.0e})")
+
+
+def phase_gmm_kernels(torch, gmm, ref):
+    """The kernel against its plain version, case by case."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    results, failed = {}, []
+    for name, G, M, K, N, dt, layout in GMM_CASES:
+        x, w = gmm_inputs(torch, gen, G, M, K, N, dt, layout)
+        out = gmm.grouped_matmul(x, w)
+        want = ref.grouped_matmul(x, w)
+        torch.cuda.synchronize()
+        check(out.shape == want.shape and out.dtype == want.dtype,
+              f"{name}: output {tuple(out.shape)} {out.dtype}")
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        err = gmm_error(out, want)
+        zero_rows_ok = True
+        if layout == "zero_rows":                   # a dropped token's row stays 0
+            zero_rows_ok = bool((out[x.abs().amax(-1) == 0] == 0).all())
+        ok = gmm_ok(err, dt) and zero_rows_ok
+        print(f"  {name:22s} ({G},{M},{K})@({G},{K},{N}) {dt:8s} {layout:10s} "
+              f"{format_gmm(err, dt)}{'' if zero_rows_ok else ' ZERO ROWS NOT ZERO'}  "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+        results[name] = err
+        del x, w, out, want
+    check(not failed, f"grouped_matmul disagrees with its plain version in {failed}")
+    return results
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """``obj.name`` set to ``value`` inside the block, restored after."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+@contextlib.contextmanager
+def patched_variant(tacc, op, variant, fn):
+    """The TACC registration (op, variant) replaced by ``fn`` inside the block."""
+    old = tacc.resolve(op, variant)
+    tacc.register(op, variant)(fn)
+    try:
+        yield
+    finally:
+        tacc.register(op, variant)(old)
+
+
+@contextlib.contextmanager
+def route_log(torch, moe_mod, log):
+    """Appends (expert ids (T, k), kept (T, k), output (T, D)) of every
+    moe_ffn call."""
+    orig_dispatch, orig_ffn = moe_mod.dispatch_slots, moe_mod.moe_ffn
+
+    def rec(expert_idx, n_experts, capacity):
+        order, tok_of, slot, keep = orig_dispatch(expert_idx, n_experts, capacity)
+        kept = torch.empty_like(keep)
+        kept[order] = keep
+        log.append([expert_idx.clone(), kept.reshape(expert_idx.shape)])
+        return order, tok_of, slot, keep
+
+    def rec_ffn(*args, **kw):
+        out, aux = orig_ffn(*args, **kw)
+        log[-1].append(out)
+        return out, aux
+
+    with patched(moe_mod, "dispatch_slots", rec), patched(moe_mod, "moe_ffn", rec_ffn):
+        yield
+
+
+def moe_model(torch, get_config, build):
+    """Full-width mixtral-8x7b cut to MOE_LAYERS layers, bf16, weights from SEED."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    model = build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    return cfg, model, params
+
+
+def phase_moe_layers(torch, tacc, gmm, ref, model, params, batch):
+    """In one prefill, each grouped matmul against its plain version on the
+    same inputs, and each layer's expert_ffn against the same composition
+    through the plain version: the hard gate, which routing cannot blur."""
+    gmm_errs, ffn_errs = [], []
+    kernel_gmm = gmm.grouped_matmul
+    kernel_ffn = tacc.resolve("expert_ffn", "cuda")
+
+    def rec_gmm(x, w):
+        out = kernel_gmm(x, w)
+        gmm_errs.append(gmm_error(out, ref.grouped_matmul(x, w)))
+        return out
+
+    def rec_ffn(buf, w1, w3, w2):
+        out = kernel_ffn(buf, w1, w3, w2)
+        with patched(gmm, "grouped_matmul", ref.grouped_matmul):
+            want = kernel_ffn(buf, w1, w3, w2)
+        ffn_errs.append(gmm_error(out, want))
+        return out
+
+    with patched(gmm, "grouped_matmul", rec_gmm), \
+            patched_variant(tacc, "expert_ffn", "cuda", rec_ffn), torch.inference_mode():
+        model.prefill(params, batch)
+    L = model.cfg.n_layers
+    worst_gmm = {key: max(e[key] for e in gmm_errs) for key in gmm_errs[0]}
+    worst_ffn = {key: max(e[key] for e in ffn_errs) for key in ffn_errs[0]}
+    ok_gmm = len(gmm_errs) == 3 * L and all(gmm_ok(e, "bfloat16") for e in gmm_errs)
+    ok_ffn = len(ffn_errs) == L and all(gmm_ok(e, "bfloat16", FFN_LIMITS) for e in ffn_errs)
+    print(f"  per layer ({len(gmm_errs)} grouped matmuls), worst: "
+          f"{format_gmm(worst_gmm, 'bfloat16')}  {'ok' if ok_gmm else 'FAIL'}")
+    print(f"  per layer ({len(ffn_errs)} expert_ffn against the plain composition), worst: "
+          f"{format_gmm(worst_ffn, 'bfloat16', FFN_LIMITS)}  {'ok' if ok_ffn else 'FAIL'}")
+    check(ok_gmm and ok_ffn, "grouped_matmul or expert_ffn disagrees with its plain "
+                             "version on a layer's inputs")
+    return {"gmm": worst_gmm, "expert_ffn": worst_ffn}
+
+
+@contextlib.contextmanager
+def replayed_routes(torch, moe_mod, log):
+    """moe.route returning, call by call, the expert ids recorded in ``log``,
+    with the gates taken from this call's own probabilities at those ids."""
+    orig = moe_mod.route
+    calls = iter(log)
+
+    def replay(x, router, top_k):
+        logits, probs, _, _ = orig(x, router, top_k)
+        idx = next(calls)[0]
+        gates = probs.gather(1, idx)
+        return logits, probs, gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9), idx
+
+    with patched(moe_mod, "route", replay):
+        yield
+
+
+def compare_to_plain(torch, tacc, gmm, ref, moe_mod, model, params, batch):
+    """Last-position logits and routes of a prefill through the kernel against
+    prefills with expert_ffn pinned to the plain composition.  Free-running,
+    the plain run's routes and drops may differ (routing is discontinuous):
+    counted and reported, and the requests whose routes and drops agree in
+    every layer gated on MOE_LOGITS_REL_TOL.  Replaying the kernel run's
+    expert ids (gates from the plain run's own probabilities), every route
+    and drop agrees by construction and every request is gated."""
+    kernel_ffn = tacc.resolve("expert_ffn", "cuda")
+
+    def plain_ffn(buf, w1, w3, w2):
+        with patched(gmm, "grouped_matmul", ref.grouped_matmul):
+            return kernel_ffn(buf, w1, w3, w2)
+
+    def run(plain, replay=None):
+        log = []
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(patched_variant(tacc, "expert_ffn", "cuda", plain_ffn))
+            if replay is not None:
+                stack.enter_context(replayed_routes(torch, moe_mod, replay))
+            stack.enter_context(route_log(torch, moe_mod, log))
+            stack.enter_context(torch.inference_mode())
+            logits = model.prefill(params, batch)[0][:, -1].float()
+        check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+        return logits, log
+
+    B, S = batch["tokens"].shape
+
+    def differences(ra, rb):
+        """(route differences, drop differences where the route agrees) per
+        request, summed over layers, and per layer."""
+        routes = torch.zeros(B, dtype=torch.long, device=batch["tokens"].device)
+        drops = torch.zeros_like(routes)
+        per_layer = []
+        for (ia, ka, _), (ib, kb, _) in zip(ra, rb):
+            r = (ia != ib).sum(-1).reshape(B, S).sum(-1)
+            d = ((ia == ib) & (ka != kb)).sum(-1).reshape(B, S).sum(-1)
+            routes += r
+            drops += d
+            per_layer.append((int(r.sum()), int(d.sum())))
+        return routes, drops, per_layer
+
+    def rel(a, b):
+        return (a - b).norm(dim=-1) / b.norm(dim=-1)
+
+    lk, rk = run(False)
+    lp, rp = run(True)
+    lr, rr = run(True, replay=rk)
+    routes, drops, per_layer = differences(rk, rp)
+    agree = (routes + drops) == 0
+    free = rel(lk, lp)
+    n_agree = int(agree.sum())
+    worst_free = free[agree].max().item() if n_agree else None
+    r2, d2, _ = differences(rk, rr)
+    check(int(r2.sum()) == 0 and int(d2.sum()) == 0, "replayed routes differ")
+    replayed = rel(lk, lr)
+    drift = [(((a[2].float() - b[2].float()).norm() / b[2].float().norm()).item())
+             for a, b in zip(rk, rr)]
+    limit = MOE_LOGITS_REL_TOL[model.cfg.dtype]
+    out = {"assignments": len(rk) * B * S * rk[0][0].shape[1],
+           "routes_differing": int(routes.sum()), "drops_differing": int(drops.sum()),
+           "per_layer_routes_drops_differing": per_layer, "rows_agreeing": n_agree, "rows": B,
+           "rel_l2_free_rows_agreeing_max": worst_free, "rel_l2_free": free.tolist(),
+           "rel_l2_replayed": replayed.tolist(), "rel_l2_replayed_max": replayed.max().item(),
+           "moe_output_rel_l2_by_layer_replayed": drift,
+           "same_argmax_free": (lk.argmax(-1) == lp.argmax(-1)).float().mean().item(),
+           "same_argmax_replayed": (lk.argmax(-1) == lr.argmax(-1)).float().mean().item()}
+    print(f"  kernel vs plain expert_ffn, free-running: of {out['assignments']} (token, expert) "
+          f"assignments {out['routes_differing']} routes and {out['drops_differing']} drops "
+          f"differ (per layer {per_layer}); {n_agree} of {B} requests agree in every layer "
+          f"(logits rel L2 there: max {'-' if worst_free is None else f'{worst_free:.3e}'}); "
+          f"all requests {['%.3e' % v for v in out['rel_l2_free']]}")
+    print(f"  kernel vs plain expert_ffn, kernel routes replayed: last-position logits rel L2 "
+          f"{['%.3e' % v for v in out['rel_l2_replayed']]} (limit {limit}); same argmax "
+          f"{out['same_argmax_replayed']:.3f}; MoE output rel L2 by layer "
+          f"{['%.2e' % v for v in drift]}")
+    check(worst_free is None or worst_free <= limit,
+          f"logits of requests whose routes agree differ by {worst_free}")
+    check(out["rel_l2_replayed_max"] <= limit,
+          f"logits with replayed routes differ by {out['rel_l2_replayed_max']:.3e}")
+    return out
+
+
+def phase_moe_serve(torch, np, fa, gmm, ref, tacc, moe_mod, attn_mod, engine, build, counters,
+                    cfg, model, params, n_requests, prompt_len, max_new, window_run):
+    """``n_requests`` x ``prompt_len`` prompt tokens x ``max_new`` new ones,
+    greedy, through ``Batcher``; launch counts from the counters set to 0 just
+    before and read just after.  ``window_run``: the prompt is past the window,
+    so the cache must be the rolling one and decode go through
+    ``window_decode_attention``."""
+    dev = torch.device("cuda")
+    max_len = prompt_len + max_new
+    progs = engine.make_serve_programs(model, seq_len=prompt_len, max_len=max_len,
+                                       device=dev)
+    rng = np.random.RandomState(SEED + prompt_len)
+    prompts = [rng.randint(0, cfg.vocab, prompt_len).astype(np.int32)
+               for _ in range(n_requests)]
+    finite = [torch.ones((), dtype=torch.bool, device=dev)]
+
+    def watched(fn):
+        def run(*args):
+            logits, cache = fn(*args)
+            finite[0] = finite[0] & torch.isfinite(logits).all()
+            return logits, cache
+        return run
+
+    watched_progs = dataclasses.replace(progs, prefill_fn=watched(progs.prefill_fn),
+                                        decode_fn=watched(progs.decode_fn))
+
+    def serve(new):
+        reqs = [engine.Request(i, p, new) for i, p in enumerate(prompts)]
+        return engine.Batcher(watched_progs, params, batch_slots=n_requests,
+                              prompt_len=prompt_len, max_len=max_len).run(reqs)
+
+    serve(2)                                          # warm-up
+    torch.cuda.synchronize()
+    window_calls = [0]
+    orig_wda = attn_mod.window_decode_attention
+
+    def counted_wda(*a, **kw):
+        window_calls[0] += 1
+        return orig_wda(*a, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    with patched(attn_mod, "window_decode_attention", counted_wda):
+        counters.reset()
+        t0 = time.perf_counter()
+        done = serve(max_new)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = counters.read()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    L = cfg.n_layers
+    want_gmm = 3 * L * (max_new + 1)
+    n_tok = sum(len(r.out) for r in done)
+    print(f"  served {len(done)} requests x {prompt_len} prompt tokens, {n_tok} new tokens "
+          f"in {serve_s:.3f} s; grouped_matmul launches {launches['grouped_matmul']} "
+          f"(3 x {L} layers x {max_new + 1} forwards = {want_gmm}), flash "
+          f"{launches['flash_attention_fwd']} ({L} per prefill), window_decode_attention "
+          f"calls {window_calls[0]}")
+    check(launches["grouped_matmul"] == want_gmm,
+          f"grouped_matmul launched {launches['grouped_matmul']} times, {want_gmm} expected")
+    check(launches["flash_attention_fwd"] == L, "flash kernel not launched once per layer")
+    check(len(done) == n_requests and all(len(r.out) == max_new for r in done),
+          "not every request got its tokens")
+    check(all(0 <= t < cfg.vocab for r in done for t in r.out), "a token is outside the vocab")
+    check(bool(finite[0]), "non-finite logits in the serve run")
+    check(window_calls[0] == (L * max_new if window_run else 0),
+          f"window_decode_attention ran {window_calls[0]} times")
+
+    toks = torch.as_tensor(np.stack(prompts).astype(np.int64), device=dev)
+    batch = {"tokens": toks}
+    out = {"arch": cfg.name, "n_layers": L, "requests": len(done), "prompt_len": prompt_len,
+           "new_tokens_per_request": max_new, "serve_s": serve_s,
+           "tokens_per_s": n_tok / serve_s, "launches": launches,
+           "window_decode_calls": window_calls[0], "peak_gib": peak_gib}
+    _, cache = progs.prefill_fn(params, batch)
+    W = cfg.window
+    rolling = cache["k"].shape[2] == W
+    print(f"  cache after prefill: k {tuple(cache['k'].shape)}, pos {cache['pos']}; rolling "
+          f"window cache: {rolling}")
+    check(rolling == window_run and cache["pos"] == prompt_len,
+          "the cache is not the one the prompt length calls for")
+    del cache
+    if not window_run:
+        out["layer_worst_error"] = phase_moe_layers(torch, tacc, gmm, ref, model, params, batch)
+    out["vs_plain"] = compare_to_plain(torch, tacc, gmm, ref, moe_mod, model, params, batch)
+    if not window_run:                 # the same comparison in f32, first layers only
+        cfg32 = dataclasses.replace(cfg, n_layers=MOE_F32_LAYERS, dtype="float32")
+        p32 = _tree_map(lambda t: t.float(), {
+            **{k: v for k, v in params.items() if k != "blocks"},
+            "blocks": _tree_map(lambda t: t[:MOE_F32_LAYERS], params["blocks"])})
+        print(f"  f32, first {MOE_F32_LAYERS} layers:")
+        out["vs_plain_f32"] = compare_to_plain(torch, tacc, gmm, ref, moe_mod, build(cfg32),
+                                               p32, batch)
+        del p32
+
+    def timed(fn, reps):
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ms)
+
+    out["prefill_ms"] = timed(lambda: progs.prefill_fn(params, batch), 3)
+    _, cache = progs.prefill_fn(params, batch)
+    cur = toks[:, -1:]
+
+    def step():
+        nonlocal cache
+        _, cache = progs.decode_fn(params, cache, cur)
+
+    out["decode_ms_per_step"] = timed(step, max_new - 2)
+    out["device_busy_prefill"] = device_busy_share(
+        torch, lambda: progs.prefill_fn(params, batch), 1)
+    _, cache = progs.prefill_fn(params, batch)
+    out["device_busy_decode"] = device_busy_share(torch, step, max_new // 2)
+    del cache
+    print(f"  prefill {out['prefill_ms']:.2f} ms (batch {n_requests} x {prompt_len}), decode "
+          f"{out['decode_ms_per_step']:.2f} ms per step, {out['tokens_per_s']:.1f} tokens/s end "
+          f"to end; card busy share prefill {out['device_busy_prefill']}, decode "
+          f"{out['device_busy_decode']}; peak memory {peak_gib:.2f} GiB")
+    return out
+
+
+GMM_TIMED = {"prefill_w13": (8, 1280, 4096, 14336), "prefill_w2": (8, 1280, 14336, 4096),
+             "decode_w13": (8, 2, 4096, 14336), "decode_w2": (8, 2, 14336, 4096)}
+
+
+def phase_moe_kernel_times(torch, gmm, ref):
+    """The kernel at Mixtral's prefill (C 1280) and decode (C 2) shapes, its
+    plain version, torch.bmm (the yardstick; the port never calls it) and the
+    bound: the larger of FLOPs over the bf16 peak and bytes (x, w read once,
+    out written once) over the memory rate."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for name, (G, M, K, N) in GMM_TIMED.items():
+        x, w = gmm_inputs(torch, gen, G, M, K, N, "bfloat16", "dense")
+        t_ops = 2 * G * M * K * N / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = (x.numel() + w.numel() + G * M * N) * 2 / HBM_BYTES_PER_S * 1e3
+        kernel = lambda: gmm.grouped_matmul(x, w)          # noqa: E731
+        library = lambda: torch.bmm(x, w)                  # noqa: E731
+        ms = [median_ms(kernel, reps=10), median_ms(library, reps=10)]
+        ms += [median_ms(library, reps=10), median_ms(kernel, reps=10)]   # in turns
+        out[name] = {"ms": statistics.median([ms[0], ms[3]]),
+                     "library_ms": statistics.median([ms[1], ms[2]]),
+                     "plain_ms": median_ms(lambda: ref.grouped_matmul(x, w), reps=2,
+                                           trials=3, warmup=1),
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "shape": f"({G},{M},{K})@({G},{K},{N}) bf16"}
+        t = out[name]
+        print(f"  grouped_matmul {name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, torch.bmm {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}); kernel / bound "
+              f"{t['ms'] / t['bound_ms']:.2f}")
+        del x, w
+    return out
+
+
 class Counters:
     """The launch counts of every kernel wrapper of the port."""
 
-    def __init__(self, fa, quant, ring_dma, cr):
-        self.mods = (fa, quant, ring_dma, cr)
+    def __init__(self, fa, quant, ring_dma, cr, gmm):
+        self.mods = (fa, quant, ring_dma, cr, gmm)
 
     def reset(self):
-        fa, quant, ring_dma, cr = self.mods
+        fa, quant, ring_dma, cr, gmm = self.mods
         fa.launches = fa.bwd_launches = quant.quant_launches = quant.dq_launches = 0
-        ring_dma.rs_launches = ring_dma.ag_launches = cr.launches = 0
+        ring_dma.rs_launches = ring_dma.ag_launches = cr.launches = gmm.launches = 0
 
     def read(self):
-        fa, quant, ring_dma, cr = self.mods
+        fa, quant, ring_dma, cr, gmm = self.mods
         return {"flash_attention_fwd": fa.launches, "flash_attention_bwd": fa.bwd_launches,
                 "quant_int8": quant.quant_launches, "dq_accum_int8": quant.dq_launches,
                 "ring_reduce_scatter": ring_dma.rs_launches,
-                "ring_all_gather": ring_dma.ag_launches, "collective_reduce": cr.launches}
+                "ring_all_gather": ring_dma.ag_launches, "collective_reduce": cr.launches,
+                "grouped_matmul": gmm.launches}
+
+
+@contextlib.contextmanager
+def phase(label, walls):
+    """Prints ``label``, runs the block, prints and records its wall time."""
+    print(label)
+    t = time.perf_counter()
+    try:
+        yield
+    finally:
+        walls[label] = time.perf_counter() - t
+        print(f"  ({label.split()[0]} wall time {walls[label]:.1f} s)")
 
 
 def main() -> int:
@@ -1125,78 +1640,113 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import collective_reduce as cr
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gmm
     from repro_torch.kernels import ops, quant, ref, ring_dma
+    from repro_torch.models import attention as attn_mod
     from repro_torch.models import build
+    from repro_torch.models import moe as moe_mod
     from repro_torch.serve import engine
 
-    print("[1] device")
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(f"  torch: {name}; torch {torch.__version__}, cuda {torch.version.cuda}")
-    print(smi.splitlines()[0])              # nvidia-smi's name, power.limit
+    walls = {}
+    with phase("[1] device", walls):
+        name = torch.cuda.get_device_name(0)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+        print(f"  torch: {name}; torch {torch.__version__}, cuda {torch.version.cuda}")
+        print(smi.splitlines()[0])              # nvidia-smi's name, power.limit
+    card = {"device": name, "nvidia_smi": smi.splitlines()[0]}
 
-    print("[2] build")
-    t0 = time.perf_counter()
-    logs = _build.build()
-    build_s = time.perf_counter() - t0
-    print(f"  built {', '.join(logs)} in {build_s:.1f} s")
-    for src, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  {src}: {line.strip()}")
+    with phase("[2] build", walls):
+        logs = _build.build()
+        print(f"  built {', '.join(logs)}")
+        for src, log in logs.items():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line or "smem" in line:
+                    print(f"  {src}: {line.strip()}")
 
-    print("[3] kernel vs plain")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"  torch.backends.cuda.matmul.allow_tf32 = "
-          f"{torch.backends.cuda.matmul.allow_tf32}, "
-          f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
-    cases = phase_kernels(fa, torch)
+    with phase("[3] kernel vs plain", walls):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"  torch.backends.cuda.matmul.allow_tf32 = "
+              f"{torch.backends.cuda.matmul.allow_tf32}, "
+              f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
+        cases = phase_kernels(fa, torch)
 
-    print("[4] serve")
-    serve, launches, measure_busy = phase_serve(torch, np, fa, ops, tacc, get_config, build,
-                                  engine)
+    with phase("[4] serve", walls):
+        serve, launches, measure_busy = phase_serve(torch, np, fa, ops, tacc, get_config,
+                                                    build, engine)
 
-    print("[5] times")
-    main_case = cases["serve_prefill"]
-    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = phase_times(fa, torch, main_case)
-    serve.update(measure_busy())
-    print(json.dumps({"serve": serve, "device": name, "nvidia_smi": smi.splitlines()[0]}))
+    with phase("[5] times", walls):
+        main_case = cases["serve_prefill"]
+        kernel_ms, plain_ms, library_ms, bound_ms, bound_by = phase_times(fa, torch, main_case)
+        serve.update(measure_busy())
+        print(json.dumps({"serve": serve, **card}))
 
-    print("[6] ring kernels vs plain")
-    n_ring_cases, ring_err = phase_ring_kernels(torch, ring_dma, cr)
+    with phase("[6] ring kernels vs plain", walls):
+        n_ring_cases, ring_err = phase_ring_kernels(torch, ring_dma, cr)
 
-    print("[7] collectives at full width")
-    coll = phase_collectives(torch, hetccl, tacc, mesh_mod, ring_dma, cr, get_config, build)
+    with phase("[7] collectives at full width", walls):
+        coll = phase_collectives(torch, hetccl, tacc, mesh_mod, ring_dma, cr, get_config,
+                                 build)
 
-    print("[8] collective kernel times")
-    ctimes = phase_collective_times(torch, ring_dma, cr, coll["largest_bucket_elems"])
-    print(json.dumps({"collectives": coll, "kernel_times": ctimes, "device": name,
-                      "nvidia_smi": smi.splitlines()[0]}))
+    with phase("[8] collective kernel times", walls):
+        ctimes = phase_collective_times(torch, ring_dma, cr, coll["largest_bucket_elems"])
+        print(json.dumps({"collectives": coll, "kernel_times": ctimes, **card}))
 
     # the quantized ring's hop in the (pod=2, data=2) hier reduce-scatter of
     # the largest bucket: local shard big/2, pod chunk big/4, a stream big/8
     hop_rows = -(-coll["largest_bucket_elems"] // 8 // 512)
 
-    print("[9] codec kernels vs plain")
-    n_quant_cases = phase_quant_kernels(torch, quant, ref, hop_rows)
+    with phase("[9] codec kernels vs plain", walls):
+        n_quant_cases = phase_quant_kernels(torch, quant, ref, hop_rows)
 
-    print("[10] flash backward vs plain")
-    bwd = phase_flash_bwd(torch, fa, ref)
+    with phase("[10] flash backward vs plain", walls):
+        bwd = phase_flash_bwd(torch, fa, ref)
 
-    print("[11] training at full width")
-    counters = Counters(fa, quant, ring_dma, cr)
-    train = phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters)
+    counters = Counters(fa, quant, ring_dma, cr, gmm)
+    with phase("[11] training at full width", walls):
+        train = phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters)
 
-    print("[12] training kernel times")
-    ttimes = phase_train_kernel_times(torch, quant, ref, fa, hop_rows, bwd["train"])
-    print(json.dumps({"train": train, "flash_bwd_errors": {
-        k: {kk: vv for kk, vv in v.items() if kk not in ("inputs", "kw")} for k, v in bwd.items()},
-        "kernel_times": ttimes, "device": name, "nvidia_smi": smi.splitlines()[0]}))
+    with phase("[12] training kernel times", walls):
+        ttimes = phase_train_kernel_times(torch, quant, ref, fa, hop_rows, bwd["train"])
+        print(json.dumps({"train": train, "flash_bwd_errors": {
+            k: {kk: vv for kk, vv in v.items() if kk not in ("inputs", "kw")}
+            for k, v in bwd.items()}, "kernel_times": ttimes, **card}))
+    for v in bwd.values():                       # the training phases' tensors
+        v.pop("inputs")
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    print("[13] kernels")
+    with phase("[13] grouped matmul vs plain", walls):
+        gmm_cases = phase_gmm_kernels(torch, gmm, ref)
+
+    moe = {}
+    with phase(f"[14] MoE serve: {MOE_ARCH} at full width, {MOE_LAYERS} layers", walls):
+        moe_cfg, moe_model_, moe_params = moe_model(torch, get_config, build)
+        print(f"  {moe_cfg.name}: {moe_cfg.n_layers} of 32 layers, d_model {moe_cfg.d_model}, "
+              f"{moe_cfg.n_heads}/{moe_cfg.n_kv_heads} heads x {moe_cfg.head_dim_}, "
+              f"{moe_cfg.n_experts} experts top-{moe_cfg.top_k} of d_ff {moe_cfg.d_ff_expert}, "
+              f"window {moe_cfg.window}, vocab {moe_cfg.vocab}, {moe_cfg.dtype}, "
+              f"{moe_model_.n_params() / 1e9:.2f}B params")
+        moe["serve"] = phase_moe_serve(
+            torch, np, fa, gmm, ref, tacc, moe_mod, attn_mod, engine, build, counters, moe_cfg,
+            moe_model_, moe_params, MOE_REQUESTS, MOE_PROMPT, MOE_NEW, window_run=False)
+
+    with phase(f"[15] sliding window at full width: 1 x {WINDOW_PROMPT} + {WINDOW_NEW}", walls):
+        moe["window"] = phase_moe_serve(
+            torch, np, fa, gmm, ref, tacc, moe_mod, attn_mod, engine, build, counters, moe_cfg,
+            moe_model_, moe_params, 1, WINDOW_PROMPT, WINDOW_NEW, window_run=True)
+    del moe_params, moe_model_
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with phase("[16] MoE kernel times", walls):
+        gtimes = phase_moe_kernel_times(torch, gmm, ref)
+        print(json.dumps({"moe": moe, "gmm_errors": gmm_cases, "kernel_times": gtimes,
+                          "phase_wall_s": walls, **card}))
+
+    print("[17] kernels")
     sources = {"collective_reduce": ("collective_reduce.cu",
                                      "src/repro/kernels/collective_reduce.py:84"),
                "ring_reduce_scatter": ("ring_dma.cu", "src/repro/kernels/ring_dma.py:252"),
@@ -1229,6 +1779,7 @@ def main() -> int:
             "check": "pass (bitwise)", "cases_checked": n_ring_cases, "shape": t["shape"]})
     train_launches = train["launches"]["int8_ef"]
     kernels[0]["train_launches"] = train_launches["flash_attention_fwd"]
+    kernels[0]["mixtral_launches"] = moe["serve"]["launches"]["flash_attention_fwd"]
     tb = ttimes["flash_attention_bwd"]
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
@@ -1250,6 +1801,21 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "check": "pass (bitwise)",
             "cases_checked": n_quant_cases, "shape": t["shape"]})
+    tp, td = gtimes["prefill_w13"], gtimes["decode_w13"]
+    err = gmm_cases["mixtral_prefill_w13"]
+    kernels.append({
+        "name": "grouped_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+        "replaces": "src/repro/kernels/grouped_matmul.py:25",
+        "launches": moe["serve"]["launches"]["grouped_matmul"],
+        "max_abs_err": err["max_abs_err"], "rel_l2": err["rel_l2"],
+        "worst_row": err["worst_row"], "ms": tp["ms"], "plain_ms": tp["plain_ms"],
+        "bound_ms": tp["bound_ms"], "bound_by": tp["bound_by"], "library_ms": tp["library_ms"],
+        "shape": tp["shape"], "decode_ms": td["ms"], "decode_plain_ms": td["plain_ms"],
+        "decode_bound_ms": td["bound_ms"], "decode_bound_by": td["bound_by"],
+        "decode_library_ms": td["library_ms"], "decode_shape": td["shape"],
+        "window_launches": moe["window"]["launches"]["grouped_matmul"],
+        "check": "pass", "cases_checked": len(gmm_cases)})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,12 +1,12 @@
 """Model architecture config: the port's own copy of ``ModelConfig``.
 
-Counterpart of ``repro/configs/base.py:10-134``, reduced to the fields of the
-dense family that the port serves and trains (plus ``window``, which
-``models.transformer.check_supported`` rejects until the mixtral slice).  Each
-field and the ``reduced()`` cut are the reference's, so a config means the
-same model in both packages; the MoE, SSM, hybrid, encoder-decoder and VLM
-fields arrive with their slices.  ``RunConfig`` is the reference's
-(``base.py:158-204``), every field included.
+Counterpart of ``repro/configs/base.py:10-138``, reduced to the fields of the
+families that the port runs: dense, and MoE with its sliding window
+(mixtral).  Each field, ``n_params`` / ``n_active_params`` and the
+``reduced()`` cut are the reference's, so a config means the same model in
+both packages; the SSM, hybrid, encoder-decoder and VLM fields arrive with
+their slices.  ``RunConfig`` is the reference's (``base.py:158-204``), every
+field included.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from repro_torch.comm.policy import PolicyTable
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # the port serves "dense" only
+    family: str                     # dense | moe
     n_layers: int
     d_model: int
     n_heads: int
@@ -27,7 +27,13 @@ class ModelConfig:
     vocab: int
     head_dim: int = 0               # 0 -> d_model // n_heads
     rope_theta: float = 10_000.0
-    window: int = 0                 # sliding window (mixtral)
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    # --- sliding window (mixtral) ---
+    window: int = 0
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     attn_chunk: int = 512           # KV chunk of the plain online-softmax path
@@ -42,6 +48,24 @@ class ModelConfig:
         """Vocab rounded up to 128 (padding logits are masked)."""
         return -(-self.vocab // 128) * 128
 
+    def n_params(self) -> float:
+        """Analytic parameter count of the reference (norms not counted)."""
+        d, hd = self.d_model, self.head_dim_
+        attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
+        mlp = 3 * d * self.d_ff if self.d_ff else 0
+        moe = 0
+        if self.n_experts:
+            mlp = 0
+            moe = self.n_experts * 3 * d * self.d_ff_expert + d * self.n_experts
+        return float(self.n_layers * (attn + mlp + moe) + 2 * self.vocab * d)
+
+    def n_active_params(self) -> float:
+        """Active parameters per token (an MoE token uses top_k experts)."""
+        if not self.n_experts:
+            return self.n_params()
+        expert = 3 * self.d_model * self.d_ff_expert
+        return float(self.n_params() - self.n_layers * (self.n_experts - self.top_k) * expert)
+
     def reduced(self) -> "ModelConfig":
         """A tiny same-family config for CPU smoke tests (the reference's cut)."""
         return dataclasses.replace(
@@ -53,7 +77,10 @@ class ModelConfig:
             n_kv_heads=min(self.n_kv_heads, 2),
             head_dim=32,
             d_ff=256 if self.d_ff else 0,
+            d_ff_expert=128 if self.d_ff_expert else 0,
             vocab=512,
+            n_experts=min(self.n_experts, 4),
+            top_k=min(self.top_k, 2),
             window=min(self.window, 64) if self.window else 0,
             attn_chunk=64,
             loss_chunk=1024,

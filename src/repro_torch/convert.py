@@ -4,7 +4,10 @@ The port keeps the reference's tree layout one for one, so the conversion is
 a leaf-by-leaf copy: ``embed (V, D)``, ``final_norm (D,)``,
 ``lm_head (D, V)``, ``blocks.{ln1, ln2} (L, D)``,
 ``blocks.attn.{wq, wk, wv} (L, D, H, hd)``, ``blocks.attn.wo (L, Hq, hd, D)``,
-``blocks.mlp.{w1, w3} (L, D, F)``, ``blocks.mlp.w2 (L, F, D)``.  The input
+and the FFN: dense ``blocks.mlp.{w1, w3} (L, D, F)``, ``blocks.mlp.w2
+(L, F, D)``, or MoE ``blocks.moe.router (L, D, E)``, ``blocks.moe.{w1, w3}
+(L, E, D, F)``, ``blocks.moe.w2 (L, E, F, D)``.  With ``metas`` every key
+and shape of the tree is checked against the port's, the MoE leaves too.  The input
 is a nested dict of numpy arrays (``jax.tree.map(np.asarray, params)`` on the
 JAX side); this module imports nothing of JAX.
 """

@@ -5,6 +5,8 @@ flash_attention   -- online-softmax attention forward (causal/bidir/window,
                      Pallas ``_flash_kernel``; its backward
                      (``csrc/flash_attention_bwd.cu``) has no TPU
                      counterpart, and ``FlashAttention`` joins the two
+grouped_matmul    -- (G, M, K) @ (G, K, N) with an f32 accumulator, the MoE
+                     expert FFN's product; replaces ``_gmm_kernel``
 quant             -- the int8 wire codec: per-chunk absmax quantize and
                      dequantize-accumulate; replaces ``_quant_int8_kernel``
                      and ``_dq_accum_kernel``

@@ -7,8 +7,10 @@ and TACC picks per call from the device of the first tensor argument.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import tacc
+from repro_torch.kernels import grouped_matmul as gmm
 from repro_torch.kernels import quant, ref
 from repro_torch.kernels.collective_reduce import collective_reduce
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention_fwd
@@ -48,6 +50,29 @@ def flash_attention(q, k, v, *, kind="causal", window=0, q_offset=0,
         out = flash_attention_fwd(qt, kt, vt, kind=kind, window=window,
                                   k_len=eff_k_len, scale=scale)
     return out.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# grouped matmul / expert FFN
+# ---------------------------------------------------------------------------
+
+tacc.register("grouped_matmul", "cpu", default=True)(ref.grouped_matmul)
+tacc.register("grouped_matmul", "cuda")(gmm.grouped_matmul)
+
+
+@tacc.register("expert_ffn", "cuda")
+def expert_ffn_gmm(buf, w1, w3, w2):
+    """SwiGLU over the capacity buffer via three grouped matmuls, the
+    counterpart of the reference's ``expert_ffn_pallas``.  buf (E, C, D);
+    w1, w3 (E, D, F); w2 (E, F, D).  SiLU runs in f32 and is cast back before
+    the product with h3, as there (the ``cpu`` variant,
+    ``models.moe.expert_ffn_ref``, keeps the reference's compute-dtype SiLU).
+    ``gmm.grouped_matmul`` is looked up at each call, so a caller may wrap it.
+    """
+    h1 = gmm.grouped_matmul(buf, w1)
+    h3 = gmm.grouped_matmul(buf, w3)
+    h = F.silu(h1.float()).to(buf.dtype) * h3
+    return gmm.grouped_matmul(h, w2)
 
 
 # ---------------------------------------------------------------------------

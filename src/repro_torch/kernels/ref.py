@@ -1,11 +1,12 @@
 """Plain-torch oracles for the port's kernels (kernel-layout signatures).
 
-Counterpart of ``repro/kernels/ref.py``: ``attention``, ``collective_reduce``
-(``ref.py:73-74``) and plain ring oracles; the wire codec's plain versions
-(``repro/kernels/quant.py:59-128``, the software fp8 codec included); and the
-attention forward's row logsumexp and its backward, which the reference gets
-from autodiff and the port's backward kernel computes.  The oracles of the
-grouped matmul and the SSD scan arrive with their kernels.
+Counterpart of ``repro/kernels/ref.py``: ``attention``, ``grouped_matmul``
+(``ref.py:33-37``), ``collective_reduce`` (``ref.py:73-74``) and plain ring
+oracles; the wire codec's plain versions (``repro/kernels/quant.py:59-128``,
+the software fp8 codec included); and the attention forward's row logsumexp
+and its backward, which the reference gets from autodiff and the port's
+backward kernel computes.  The oracle of the SSD scan arrives with its
+kernel.
 """
 from __future__ import annotations
 
@@ -80,6 +81,12 @@ def attention_bwd(q, k, v, o, do, lse, *, kind="causal", window=0, k_len=None,
     dk = torch.einsum("bhgqk,bhgqd->bhkd", ds,
                       q.float().reshape(B, Hkv, g, Sq, d)) * scale
     return dq.reshape(B, Hq, Sq, d), dk, dv
+
+
+def grouped_matmul(x, w):
+    """x (G,M,K) @ w (G,K,N) -> (G,M,N), f32 accumulation, in x.dtype."""
+    out = torch.einsum("gmk,gkn->gmn", x.float(), w.float())
+    return out.to(x.dtype)
 
 
 def collective_reduce(acc, incoming):

@@ -1,4 +1,5 @@
-"""Serving launcher of the port: prefill/decode a dense architecture.
+"""Serving launcher of the port: prefill/decode a dense or MoE architecture
+(smollm-135m, mixtral-8x7b, moonshot-v1-16b-a3b).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         [--batch 4] [--prompt-len 32] [--max-new 16] [--reduced|--full-size] \\

@@ -1,10 +1,11 @@
 """Attention: chunked online-softmax in plain torch, dispatch, KV cache.
 
-Counterpart of ``repro/models/attention.py:24-127``.  ``chunked_attention``
+Counterpart of ``repro/models/attention.py:24-158``.  ``chunked_attention``
 is the ``cpu`` (default) TACC variant and the decode path; on a CUDA tensor
 ``attention`` dispatches to the flash kernel (``repro_torch.kernels.ops``).
-The window-cache functions (``window_cache_update``,
-``window_decode_attention``) wait for the MoE/mixtral slice (ROADMAP A6).
+The rolling window cache of sliding-window models (mixtral):
+``window_cache_update`` and ``window_decode_attention``, plain torch on every
+device, as in the reference.
 
 Supports causal, bidirectional, sliding-window, GQA and decode against a KV
 cache.  Softmax statistics accumulate in f32.
@@ -119,3 +120,33 @@ def cache_update(cache_k, cache_v, k_new, v_new, pos):
     cache_k[:, pos:pos + S] = k_new.to(cache_k.dtype)
     cache_v[:, pos:pos + S] = v_new.to(cache_v.dtype)
     return cache_k, cache_v
+
+
+def window_cache_update(cache_k, cache_v, k_new, v_new, pos):
+    """Rolling cache of size W (sliding-window decode): one step at slot
+    ``pos % W``, written in place like :func:`cache_update`."""
+    W = cache_k.shape[1]
+    slot = pos % W
+    cache_k[:, slot:slot + k_new.shape[1]] = k_new.to(cache_k.dtype)
+    cache_v[:, slot:slot + v_new.shape[1]] = v_new.to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def window_decode_attention(q, cache_k, cache_v, pos, window: int):
+    """Decode against a rolling window cache: slot i holds the largest
+    position p <= pos with p % W == i; keys outside (pos - window, pos] or
+    before position 0 are masked."""
+    W = cache_k.shape[1]
+    dev = q.device
+    slots = torch.arange(W, device=dev)
+    k_pos = pos - torch.remainder(pos % W - slots, W)        # (W,) global positions
+    B, _, Hq, hd = q.shape
+    Hkv = cache_k.shape[2]
+    g = Hq // Hkv
+    qf = (q.float() * hd ** -0.5).reshape(B, 1, Hkv, g, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, cache_k.float())
+    valid = (k_pos <= pos) & (k_pos > pos - window) & (k_pos >= 0)
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bhgqd", p, cache_v.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(B, 1, Hq, hd).to(q.dtype)

@@ -36,17 +36,17 @@ class Model:
 
     def loss(self, params, batch, *, remat: bool = False):
         """(sum of token CE losses, token count, aux) for ``batch`` with
-        "tokens" and "labels" (B, S) and an optional f32 "mask"; the dense
-        family's aux is 0.  ``remat``: activation checkpointing per block."""
-        hidden = tf.forward_lm(params, batch["tokens"], self.cfg, remat=remat)
+        "tokens" and "labels" (B, S) and an optional f32 "mask"; aux is the
+        forward's MoE aux losses (0 for the dense family).  ``remat``:
+        activation checkpointing per block."""
+        hidden, aux = tf.forward_lm(params, batch["tokens"], self.cfg, remat=remat)
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones(batch["labels"].shape, dtype=torch.float32,
                               device=hidden.device)
         loss_sum, count = tf.lm_loss_from_hidden(params, hidden, batch["labels"],
                                                  mask, self.cfg, remat=remat)
-        return loss_sum, count, torch.zeros((), dtype=torch.float32,
-                                            device=hidden.device)
+        return loss_sum, count, aux
 
     def prefill(self, params, batch, max_len: int | None = None):
         return tf.prefill_lm(params, batch["tokens"], self.cfg, max_len=max_len)

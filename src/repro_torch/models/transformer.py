@@ -1,12 +1,13 @@
-"""Decoder LM, dense family: parameters, blocks, forward, loss, prefill, decode.
+"""Decoder LM, dense and MoE families: parameters, blocks, forward, loss,
+prefill, decode.
 
-Counterpart of the dense path of ``repro/models/transformer.py``.  The
-reference scans over stacked layer parameters under ``jax.checkpoint``; the
-port loops over the same stacked tensors in Python, and with ``remat`` wraps
-each block (and each chunk of the loss) in ``torch.utils.checkpoint``
-(non-reentrant), which recomputes the block's forward inside the backward.
-The MoE, SSM, hybrid, VLM and enc-dec families wait for their slices
-(ROADMAP A6-A8), and with them the rolling window cache.
+Counterpart of the dense and MoE paths of ``repro/models/transformer.py``,
+the sliding window's rolling cache included (mixtral).  The reference scans
+over stacked layer parameters under ``jax.checkpoint``; the port loops over
+the same stacked tensors in Python, and with ``remat`` wraps each block (and
+each chunk of the loss) in ``torch.utils.checkpoint`` (non-reentrant), which
+recomputes the block's forward inside the backward.  The SSM, hybrid, VLM
+and enc-dec families wait for their slices (ROADMAP A7-A8).
 
 bf16 rounding points follow the reference: the projections are matmuls in
 the activation dtype (f32 accumulation inside, result rounded to it),
@@ -23,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (ParamMeta, apply_rope, embed_lookup,
                                        rms_norm)
 
@@ -32,13 +34,10 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    """Dense and MoE, each with or without a sliding window."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not in the port yet (ROADMAP A6-A8)")
-    if cfg.window:
-        raise NotImplementedError(
-            "the rolling window cache arrives with the MoE/mixtral slice "
-            "(ROADMAP A6)")
+            f"family {cfg.family!r} is not in the port yet (ROADMAP A7-A8)")
 
 
 # ---------------------------------------------------------------------------
@@ -64,20 +63,34 @@ def _mlp_metas(cfg: ModelConfig, L: int) -> dict:
     }
 
 
+def _moe_metas(cfg: ModelConfig, L: int) -> dict:
+    D, E, F_ = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    return {
+        "router": ParamMeta((L, D, E), ("layers", "embed", "experts")),
+        "w1": ParamMeta((L, E, D, F_), ("layers", "experts", "embed", "expert_mlp")),
+        "w3": ParamMeta((L, E, D, F_), ("layers", "experts", "embed", "expert_mlp")),
+        "w2": ParamMeta((L, E, F_, D), ("layers", "experts", "expert_mlp", "embed")),
+    }
+
+
 def abstract_params(cfg: ModelConfig) -> dict:
-    """Meta tree of the dense family.  Vocab dims use padded_vocab."""
+    """Meta tree of the dense and MoE families.  Vocab dims use padded_vocab."""
     check_supported(cfg)
     D, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
+    blocks = {
+        "ln1": ParamMeta((L, D), ("layers", "embed"), "ones"),
+        "ln2": ParamMeta((L, D), ("layers", "embed"), "ones"),
+        "attn": _attn_metas(cfg, L),
+    }
+    if cfg.family == "moe":
+        blocks["moe"] = _moe_metas(cfg, L)
+    else:
+        blocks["mlp"] = _mlp_metas(cfg, L)
     return {
         "embed": ParamMeta((V, D), ("vocab", "embed"), "normal", 0.02),
         "final_norm": ParamMeta((D,), ("embed",), "ones"),
         "lm_head": ParamMeta((D, V), ("embed", "vocab")),
-        "blocks": {
-            "ln1": ParamMeta((L, D), ("layers", "embed"), "ones"),
-            "ln2": ParamMeta((L, D), ("layers", "embed"), "ones"),
-            "attn": _attn_metas(cfg, L),
-            "mlp": _mlp_metas(cfg, L),
-        },
+        "blocks": blocks,
     }
 
 
@@ -105,7 +118,9 @@ def attn_sublayer(p, h, positions, cfg: ModelConfig, *, kind="causal",
     """Attention over pre-normed input ``h``.  Returns (output, new_cache).
 
     cache: (k, v) buffers of this layer for decode, updated in place;
-    pos: current cache length.
+    pos: current cache length.  A cache exactly ``cfg.window`` long is the
+    rolling window cache (the reference's rule: a test of shape, not of
+    position); any other is linear.
     """
     q, k, v = _qkv(p, h, positions, cfg)
     new_cache = None
@@ -113,10 +128,15 @@ def attn_sublayer(p, h, positions, cfg: ModelConfig, *, kind="causal",
         out = attn_mod.attention(q, k, v, kind=kind, window=cfg.window,
                                  chunk=cfg.attn_chunk)
     else:
-        ck, cv = attn_mod.cache_update(*cache, k, v, pos)
-        out = attn_mod.attention(q, ck, cv, kind=kind, window=cfg.window,
-                                 q_offset=pos, k_len=pos + q.shape[1],
-                                 chunk=cfg.attn_chunk)
+        ck, cv = cache
+        if cfg.window and ck.shape[1] == cfg.window:
+            ck, cv = attn_mod.window_cache_update(ck, cv, k, v, pos)
+            out = attn_mod.window_decode_attention(q, ck, cv, pos, cfg.window)
+        else:
+            ck, cv = attn_mod.cache_update(ck, cv, k, v, pos)
+            out = attn_mod.attention(q, ck, cv, kind=kind, window=cfg.window,
+                                     q_offset=pos, k_len=pos + q.shape[1],
+                                     chunk=cfg.attn_chunk)
         new_cache = (ck, cv)
     proj = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(h.dtype))
     return proj, new_cache
@@ -130,14 +150,27 @@ def mlp_sublayer(p, h, cfg: ModelConfig):
     return torch.einsum("bsf,fd->bsd", hh, p["w2"].to(h.dtype))
 
 
+def ffn_sublayer(p, h2, cfg: ModelConfig):
+    """The block's FFN over pre-normed ``h2`` (B, S, D): the MoE over all
+    B*S tokens at once, or the dense MLP.  Returns (output, aux dict)."""
+    if "moe" in p:
+        B, S, D = h2.shape
+        out, aux = moe_mod.moe_ffn(h2.reshape(B * S, D), p["moe"],
+                                   n_experts=cfg.n_experts, top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor)
+        return out.reshape(B, S, D), aux
+    return mlp_sublayer(p["mlp"], h2, cfg), {}
+
+
 def dense_block(p, x, positions, cfg, cache=None, pos=None):
+    """One block; returns (x, new_cache, aux) (aux is {} for the dense MLP)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a, new_cache = attn_sublayer(p["attn"], h, positions, cfg, cache=cache,
                                  pos=pos)
     x = x + a
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + mlp_sublayer(p["mlp"], h2, cfg)
-    return x, new_cache
+    f, aux = ffn_sublayer(p, h2, cfg)
+    return x + f, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -151,21 +184,26 @@ def _positions_for(tokens, offset=0):
 
 
 def _block_out(p, positions, cfg, x):
-    return dense_block(p, x, positions, cfg)[0]
+    """(x, the block's aux loss term) of one block, for the forward's loop."""
+    x, _, a = dense_block(p, x, positions, cfg)
+    return x, (a["moe_aux"] * 0.01 + a["moe_z"] * 1e-3) if a else 0.0
 
 
 def forward_lm(params, tokens, cfg: ModelConfig, *, remat: bool = False):
-    """Token ids (B, S) -> final normed hidden states (B, S, D).  The dense
-    family has no auxiliary losses, so the reference's ``aux`` is dropped.
-    ``remat``: activation checkpointing per block (the reference's
-    ``jax.checkpoint`` over the scan body)."""
+    """Token ids (B, S) -> (final normed hidden states (B, S, D), aux), aux
+    the f32 sum over layers of ``moe_aux`` * 0.01 + ``moe_z`` * 1e-3 (0 for
+    the dense family), as in the reference.  ``remat``: activation
+    checkpointing per block (the reference's ``jax.checkpoint`` over the scan
+    body)."""
     positions = _positions_for(tokens)
     x = embed_lookup(params["embed"], tokens).to(_dtype(cfg))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         fn = functools.partial(_block_out, layer_params(params["blocks"], i),
                                positions, cfg)
-        x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, a = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+        aux = aux + a
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def _chunk_loss(head, pad_mask, xs, ls, ms):
@@ -211,9 +249,11 @@ def lm_logits(params, x, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def cache_metas(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """Meta tree of the decode cache; ``pos`` is kept on the host as an int."""
+    """Meta tree of the decode cache; ``pos`` is kept on the host as an int.
+    With a sliding window the cache holds ``min(max_len, window)`` positions."""
     hd = cfg.head_dim_
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, hd)
+    S = min(max_len, cfg.window) if cfg.window else max_len
+    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, hd)
     axes = ("layers", "cbatch", "cseq", "kv_heads", "head")
     return {"k": ParamMeta(shape, axes, "zeros"),
             "v": ParamMeta(shape, axes, "zeros"),
@@ -231,8 +271,8 @@ def decode_lm(params, cache, tokens, cfg: ModelConfig):
     positions = _positions_for(tokens, offset=pos)
     x = embed_lookup(params["embed"], tokens).to(_dtype(cfg))
     for i in range(cfg.n_layers):
-        x, _ = dense_block(layer_params(params["blocks"], i), x, positions, cfg,
-                           cache=(cache["k"][i], cache["v"][i]), pos=pos)
+        x, _, _ = dense_block(layer_params(params["blocks"], i), x, positions, cfg,
+                              cache=(cache["k"][i], cache["v"][i]), pos=pos)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(params, x, cfg)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
@@ -240,15 +280,21 @@ def decode_lm(params, cache, tokens, cfg: ModelConfig):
 
 def prefill_lm(params, tokens, cfg: ModelConfig, *, max_len: int | None = None):
     """Prefill: forward over the prompt, returning last-position logits + a
-    cache of capacity ``max_len`` (>= S) positioned at S, ready for decode."""
+    cache positioned at S, ready for decode.  The cache holds ``max_len``
+    (>= S) positions, except with a sliding window and S >= window: then it
+    is the rolling cache of ``window`` slots, the last ``window`` positions
+    at slot ``pos % window`` (the reference's rule)."""
     B, S = tokens.shape
     max_len = max(max_len or S, S)
     dtype = _dtype(cfg)
     positions = _positions_for(tokens)
     x = embed_lookup(params["embed"], tokens).to(dtype)
-    shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.head_dim_)
+    Sc = min(S, cfg.window) if cfg.window else S
+    rolling = bool(cfg.window) and Sc == cfg.window
+    shape = (cfg.n_layers, B, Sc if rolling else max_len, cfg.n_kv_heads, cfg.head_dim_)
     ks = torch.zeros(shape, dtype=dtype, device=x.device)
     vs = torch.zeros(shape, dtype=dtype, device=x.device)
+    slots = torch.arange(S - Sc, S, device=x.device) % Sc if rolling else None
     for i in range(cfg.n_layers):
         p = layer_params(params["blocks"], i)
         hn = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -257,10 +303,15 @@ def prefill_lm(params, tokens, cfg: ModelConfig, *, max_len: int | None = None):
                                  chunk=cfg.attn_chunk)
         x = x + torch.einsum("bshk,hkd->bsd", out, p["attn"]["wo"].to(x.dtype))
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp_sublayer(p["mlp"], h2, cfg)
-        # written in place where the reference pads k/v out to max_len
-        ks[i, :, :S] = k
-        vs[i, :, :S] = v
+        x = x + ffn_sublayer(p, h2, cfg)[0]
+        # written in place where the reference pads k/v out to max_len (or
+        # scatters the last window into a new rolling cache)
+        if rolling:
+            ks[i][:, slots] = k[:, -Sc:]
+            vs[i][:, slots] = v[:, -Sc:]
+        else:
+            ks[i, :, :S] = k
+            vs[i, :, :S] = v
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(params, x[:, -1:], cfg)
     return logits, {"k": ks, "v": vs, "pos": S}

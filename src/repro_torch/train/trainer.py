@@ -73,6 +73,10 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
     ``rc.policies`` is set, else the single-policy facade."""
     if rc.zero_stage != 1:
         raise NotImplementedError(f"zero_stage={rc.zero_stage}: " + optim._ZERO3)
+    if model.cfg.family == "moe":
+        raise NotImplementedError(
+            "MoE training needs the grouped-matmul backward and the aux-loss "
+            "gradients, which are not ported yet (ROADMAP A6)")
     local_axes, pod_axis = _dp_axes_of(mesh)
     cross = getattr(torch, rc.cross_dtype) if rc.cross_dtype else None
     hcfg = hetccl.HetCCLConfig(

@@ -2,9 +2,9 @@
 
 Every test here needs an NVIDIA card: each is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false.  The flash-attention kernel is held to
-the limits of ``chip_smoke.py`` (``ATTN_LIMITS``); the collective kernels
-(``collective_reduce``, the fused ring reduce-scatter and all-gather) bit for
-bit.  Planted faults in copies of the kernel sources must fail those checks,
+the limits of ``chip_smoke.py`` (``ATTN_LIMITS``), the grouped matmul to
+``GMM_LIMITS``; the collective kernels (``collective_reduce``, the fused ring
+reduce-scatter and all-gather) bit for bit.  Planted faults in copies of the kernel sources must fail those checks,
 and a ring fault that stalls the protocol must raise within seconds.  The
 file imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -24,6 +24,7 @@ from repro_torch.core import hetccl, mesh  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import collective_reduce as cr  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import grouped_matmul as gmm  # noqa: E402
 from repro_torch.kernels import ops, ring_dma  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -421,7 +422,7 @@ def test_two_training_steps_on_the_card(gen):
     params = model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
     state = prog.init_fn(params)
     batch = synthetic_batch(0, 0, plan.n_micro_max, plan.micro_batch * 4, 128, cfg.vocab)
-    counters = smoke.Counters(fa, quant, ring_dma, cr)
+    counters = smoke.Counters(fa, quant, ring_dma, cr, gmm)
     counters.reset()
     losses = []
     for _ in range(2):
@@ -434,3 +435,162 @@ def test_two_training_steps_on_the_card(gen):
                               n_buckets, 2)
     assert all(got[k] == 2 * v for k, v in want.items()), (got, want)
     assert all(map(lambda x: x == x and abs(x) < 1e4, losses)) and losses[1] < losses[0]
+
+
+# ---------------------------------------------------------------------------
+# MoE path: the grouped matmul (the limits of chip_smoke.py's GMM_LIMITS)
+# ---------------------------------------------------------------------------
+
+def _gmm_case(gen, case):
+    name, G, M, K, N, dt, layout = case
+    x, w = smoke.gmm_inputs(torch, gen, G, M, K, N, dt, layout)
+    return x, w, ref.grouped_matmul(x, w)
+
+
+@pytest.mark.parametrize("case", smoke.GMM_CASES, ids=[c[0] for c in smoke.GMM_CASES])
+def test_gmm_matches_plain(gen, case):
+    x, w, want = _gmm_case(gen, case)
+    before = gmm.launches
+    got = gmm.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert gmm.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == want.shape and got.is_contiguous()
+    err = smoke.gmm_error(got, want)
+    assert smoke.gmm_ok(err, case[5]), smoke.format_gmm(err, case[5])
+    if case[6] == "zero_rows":
+        assert bool((got[x.abs().amax(-1) == 0] == 0).all())
+    assert torch.equal(got, gmm.grouped_matmul(x, w))        # no atomics: same bits
+
+
+@pytest.mark.parametrize("bad", ["dtype", "mixed_dtype", "groups", "depth", "last_stride",
+                                 "rank"])
+def test_gmm_raises_on_what_it_does_not_take(gen, bad):
+    x = torch.randn(4, 8, 64, generator=gen, device="cuda").bfloat16()
+    w = torch.randn(4, 64, 32, generator=gen, device="cuda").bfloat16()
+    if bad == "dtype":
+        x, w = x.half(), w.half()
+    elif bad == "mixed_dtype":
+        w = w.float()
+    elif bad == "groups":
+        w = w[:3]
+    elif bad == "depth":
+        w = w[:, :48]
+    elif bad == "last_stride":
+        w = torch.randn(4, 64, 64, generator=gen, device="cuda").bfloat16()[..., ::2]
+    else:
+        x = x[0]
+    before = gmm.launches
+    with pytest.raises(ValueError):
+        gmm.grouped_matmul(x, w)
+    assert gmm.launches == before
+
+
+def test_gmm_raises_where_autograd_needs_its_backward(gen):
+    x = torch.randn(2, 8, 64, generator=gen, device="cuda", requires_grad=True)
+    w = torch.randn(2, 64, 32, generator=gen, device="cuda")
+    with pytest.raises(NotImplementedError, match="backward"):
+        gmm.grouped_matmul(x, w)
+    with torch.no_grad():
+        assert gmm.grouped_matmul(x, w).shape == (2, 8, 32)
+
+
+def test_expert_ffn_on_the_card_takes_the_kernel(gen):
+    """moe_ffn on CUDA tensors reaches expert_ffn_gmm: three launches, and the
+    output within FFN_LIMITS of the same composition through the plain gmm."""
+    from repro_torch.core import tacc
+    from repro_torch.models import moe
+    T, D, F, E = 96, 256, 384, 4
+    x = torch.randn(T, D, generator=gen, device="cuda").bfloat16()
+    p = {"router": torch.randn(D, E, generator=gen, device="cuda").bfloat16(),
+         "w1": (torch.randn(E, D, F, generator=gen, device="cuda") / 16).bfloat16(),
+         "w3": (torch.randn(E, D, F, generator=gen, device="cuda") / 16).bfloat16(),
+         "w2": (torch.randn(E, F, D, generator=gen, device="cuda") / 20).bfloat16()}
+    before = gmm.launches
+    out, aux = moe.moe_ffn(x, p, n_experts=E, top_k=2, capacity_factor=1.25)
+    assert gmm.launches == before + 3
+    assert tacc.resolve("expert_ffn", device_type="cuda") is ops.expert_ffn_gmm
+    with smoke.patched(gmm, "grouped_matmul", ref.grouped_matmul):
+        want, aux_plain = moe.moe_ffn(x, p, n_experts=E, top_k=2, capacity_factor=1.25)
+    assert gmm.launches == before + 3
+    err = smoke.gmm_error(out, want)
+    assert smoke.gmm_ok(err, "bfloat16", smoke.FFN_LIMITS), err
+    again, _ = moe.moe_ffn(x, p, n_experts=E, top_k=2, capacity_factor=1.25)
+    assert torch.equal(out, again)                            # a fixed combine order
+    assert float(aux["moe_dropped"]) == float(aux_plain["moe_dropped"])
+
+
+# name -> (text in csrc/grouped_matmul.cu, its faulty replacement, the case
+# of GMM_CASES that reaches the fault)
+GMM_FAULTS = {
+    "last_k_tile_skipped": ("const int n_ktiles = (p.K + kBK - 1) / kBK;",
+                            "const int n_ktiles = (p.K + kBK - 1) / kBK - 1;",
+                            "mixtral_prefill_w13"),
+    "group_reads_group0_weights": (
+        "static_cast<const __nv_bfloat16*>(p.w) + g * p.w_sg;",
+        "static_cast<const __nv_bfloat16*>(p.w) + 0 * p.w_sg;", "mixtral_decode_w2"),
+    "row_mask_off_by_one": ("const bool row_ok = gm < p.M;", "const bool row_ok = gm < p.M - 1;",
+                            "mixtral_decode_w13"),
+}
+
+
+@pytest.fixture(scope="module")
+def faulty_gmm_libs(tmp_path_factory):
+    return _compile_faults(tmp_path_factory, "grouped_matmul", GMM_FAULTS)
+
+
+@pytest.mark.parametrize("fault", sorted(GMM_FAULTS))
+def test_planted_gmm_fault_fails_the_limits(gen, faulty_gmm_libs, monkeypatch, fault):
+    case = next(c for c in smoke.GMM_CASES if c[0] == GMM_FAULTS[fault][2])
+    x, w, want = _gmm_case(gen, case)
+    good = gmm.grouped_matmul(x, w)
+    monkeypatch.setattr(gmm, "_fn", gmm.bind(faulty_gmm_libs[fault]))
+    bad = gmm.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    eg, eb = smoke.gmm_error(good, want), smoke.gmm_error(bad, want)
+    print(f"\n  {fault}: kernel {smoke.format_gmm(eg, case[5])}"
+          f"\n  {' ' * len(fault)}  fault  {smoke.format_gmm(eb, case[5])}")
+    assert smoke.gmm_ok(eg, case[5])
+    assert not smoke.gmm_ok(eb, case[5])
+
+
+# name -> (text in csrc/grouped_matmul.cu, its replacement): the block tiles
+# the kernel did not take, timed against the kernel in turns (-s prints them)
+GMM_TILE_VARIANTS = {
+    "decode_without_16_row_tile": (
+        "if (M <= 16) return launch_bf16<16, 128, 1, 8>(p, vec, st);", "", None),
+    "prefill_128x256_tile": (
+        "return launch_bf16<128, 128, 2, 4>(p, vec, st);",
+        "return launch_bf16<128, 256, 2, 4>(p, vec, st);", None),
+}
+
+
+@pytest.fixture(scope="module")
+def tile_variant_libs(tmp_path_factory):
+    return _compile_faults(tmp_path_factory, "grouped_matmul", GMM_TILE_VARIANTS)
+
+
+@pytest.mark.parametrize("variant,shapes", [
+    ("decode_without_16_row_tile", [(8, 2, 4096, 14336), (8, 2, 14336, 4096),
+                                    (8, 1, 4096, 14336)]),
+    ("prefill_128x256_tile", [(8, 1280, 4096, 14336), (64, 240, 2048, 1408)])])
+def test_gmm_tile_choice(gen, tile_variant_libs, monkeypatch, variant, shapes):
+    """The kernel's block tiles against the ones it did not take: the 16-row
+    tile for M <= 16 is faster at decode than the 128-row tile alone, and a
+    128x256 tile is not faster at prefill than 128x128."""
+    kernel = gmm._kernel()
+    other = gmm.bind(tile_variant_libs[variant])
+    for G, M, K, N in shapes:
+        x, w = smoke.gmm_inputs(torch, gen, G, M, K, N, "bfloat16", "dense")
+        ms = {"kernel": [], variant: []}
+        for fns in ((kernel, other), (other, kernel)):             # in turns
+            for fn in fns:
+                monkeypatch.setattr(gmm, "_fn", fn)
+                ms["kernel" if fn is kernel else variant].append(
+                    smoke.median_ms(lambda: gmm.grouped_matmul(x, w), reps=10))
+        best = {k: min(v) for k, v in ms.items()}
+        print(f"\n  ({G},{M},{K})@({G},{K},{N}) bf16: kernel {ms['kernel']} ms, "
+              f"{variant} {ms[variant]} ms")
+        if variant == "decode_without_16_row_tile":
+            assert best["kernel"] < best[variant]
+        else:
+            assert best["kernel"] <= 1.05 * best[variant]

@@ -40,6 +40,11 @@ from repro_torch.launch import serve
 done = serve.main(["--device", "cpu", "--reduced", "--batch", "2",
                    "--prompt-len", "16", "--max-new", "3"])
 assert len(done) == 2 and all(len(r.out) == 3 for r in done)
+done = serve.main(["--arch", "mixtral-8x7b", "--device", "cpu", "--reduced", "--batch", "2",
+                   "--prompt-len", "80", "--max-new", "3"])
+assert len(done) == 2 and all(len(r.out) == 3 for r in done)
+from repro_torch.kernels import grouped_matmul, ops
+from repro_torch.models import moe
 import torch
 from repro_torch.core import hetccl, mesh
 cfg = hetccl.HetCCLConfig(mode="pipelined", backend="pallas", n_channels=2)
@@ -62,6 +67,7 @@ def test_port_imports_neither_jax_nor_repro():
     r = _run(["-c", PROBE])
     assert r.returncode == 0, r.stderr
     assert "served 2 reqs, 6 tokens" in r.stdout
+    assert "arch=mixtral-8x7b-reduced: served 2 reqs, 6 tokens" in r.stdout
     assert "error_feedback=True" in r.stdout and "tokens/s" in r.stdout
     assert json.loads(r.stdout.strip().splitlines()[-1]) == []
 

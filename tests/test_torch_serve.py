@@ -99,7 +99,8 @@ def test_forward_lm_logits_match_jax(models, jax_interpret):
     toks = _tokens(cfg, 2, 40, 3)
     jx, _ = jax_tf.forward_lm(jparams, toks, jax_get_config("smollm-135m").reduced(), CTX)
     want = jax_tf.lm_logits(jparams, jx, jax_get_config("smollm-135m").reduced(), CTX)
-    x = tf.forward_lm(params, torch.from_numpy(toks).long(), cfg)
+    x, aux = tf.forward_lm(params, torch.from_numpy(toks).long(), cfg)
+    assert float(aux) == 0.0                  # the dense family has no aux losses
     _close(tf.lm_logits(params, x, cfg), want)
 
 
