@@ -1,11 +1,11 @@
 """Model architecture config: the port's own copy of ``ModelConfig``.
 
 Counterpart of ``repro/configs/base.py:10-138``, reduced to the fields of the
-families that the port runs: dense, and MoE with its sliding window
-(mixtral).  Each field, ``n_params`` / ``n_active_params`` and the
-``reduced()`` cut are the reference's, so a config means the same model in
-both packages; the SSM, hybrid, encoder-decoder and VLM fields arrive with
-their slices.  ``RunConfig`` is the reference's (``base.py:158-204``), every
+families that the port runs: dense, MoE with its sliding window (mixtral),
+SSM (Mamba2 / SSD) and the SSM + shared-attention hybrid (zamba2).  Each
+field, ``n_params`` / ``n_active_params`` and the ``reduced()`` cut are the
+reference's, so a config means the same model in both packages; the
+encoder-decoder and VLM fields arrive with their slices.  ``RunConfig`` is the reference's (``base.py:158-204``), every
 field included.
 """
 from __future__ import annotations
@@ -18,7 +18,7 @@ from repro_torch.comm.policy import PolicyTable
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe
+    family: str                     # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -32,6 +32,15 @@ class ModelConfig:
     top_k: int = 0
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
+    # --- SSM (Mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_groups: int = 1
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+    # --- hybrid (zamba2) ---
+    attn_every: int = 0             # shared attention block every k ssm layers
     # --- sliding window (mixtral) ---
     window: int = 0
     norm_eps: float = 1e-5
@@ -48,8 +57,17 @@ class ModelConfig:
         """Vocab rounded up to 128 (padding logits are masked)."""
         return -(-self.vocab // 128) * 128
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim if self.ssm_state else 0
+
     def n_params(self) -> float:
-        """Analytic parameter count of the reference (norms not counted)."""
+        """Analytic parameter count of the reference (norms not counted; the
+        hybrid's shared block counted once)."""
         d, hd = self.d_model, self.head_dim_
         attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
         mlp = 3 * d * self.d_ff if self.d_ff else 0
@@ -57,6 +75,15 @@ class ModelConfig:
         if self.n_experts:
             mlp = 0
             moe = self.n_experts * 3 * d * self.d_ff_expert + d * self.n_experts
+        ssm = 0
+        if self.ssm_state:
+            din, gn = self.d_inner, self.ssm_groups * self.ssm_state
+            proj_in = d * (2 * din + 2 * gn + self.n_ssm_heads)
+            ssm = proj_in + din * d + self.ssm_conv * (din + 2 * gn)
+        if self.family == "ssm":
+            return float(self.n_layers * ssm + 2 * self.vocab * d)
+        if self.family == "hybrid":
+            return float(self.n_layers * ssm + attn + 3 * d * self.d_ff + 2 * self.vocab * d)
         return float(self.n_layers * (attn + mlp + moe) + 2 * self.vocab * d)
 
     def n_active_params(self) -> float:
@@ -71,7 +98,8 @@ class ModelConfig:
         return dataclasses.replace(
             self,
             name=self.name + "-reduced",
-            n_layers=min(self.n_layers, 4),
+            n_layers=min(self.n_layers,
+                         4 if self.family != "hybrid" else 2 * max(self.attn_every, 1)),
             d_model=128,
             n_heads=min(self.n_heads, 4),
             n_kv_heads=min(self.n_kv_heads, 2),
@@ -81,6 +109,9 @@ class ModelConfig:
             vocab=512,
             n_experts=min(self.n_experts, 4),
             top_k=min(self.top_k, 2),
+            ssm_state=min(self.ssm_state, 16),
+            ssm_headdim=32 if self.ssm_state else self.ssm_headdim,
+            ssm_chunk=32,
             window=min(self.window, 64) if self.window else 0,
             attn_chunk=64,
             loss_chunk=1024,

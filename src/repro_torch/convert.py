@@ -6,8 +6,13 @@ a leaf-by-leaf copy: ``embed (V, D)``, ``final_norm (D,)``,
 ``blocks.attn.{wq, wk, wv} (L, D, H, hd)``, ``blocks.attn.wo (L, Hq, hd, D)``,
 and the FFN: dense ``blocks.mlp.{w1, w3} (L, D, F)``, ``blocks.mlp.w2
 (L, F, D)``, or MoE ``blocks.moe.router (L, D, E)``, ``blocks.moe.{w1, w3}
-(L, E, D, F)``, ``blocks.moe.w2 (L, E, F, D)``.  With ``metas`` every key
-and shape of the tree is checked against the port's, the MoE leaves too.  The input
+(L, E, D, F)``, ``blocks.moe.w2 (L, E, F, D)``; SSM ``blocks.{ln, w_z, w_x,
+w_B, w_C, w_dt, conv_x, conv_B, conv_C, A_log, dt_bias, D, gnorm, out_proj}``
+stacked over (L,); hybrid the same Mamba2 leaves under ``groups``
+(n_groups, attn_every, ...) and ``tail`` (n_layers % attn_every, ...), and
+the unstacked shared block ``shared.{ln1, ln2} (D,)``, ``shared.attn``,
+``shared.mlp``.  With ``metas`` every key and shape of the tree is checked
+against the port's, whatever the family.  The input
 is a nested dict of numpy arrays (``jax.tree.map(np.asarray, params)`` on the
 JAX side); this module imports nothing of JAX.
 """

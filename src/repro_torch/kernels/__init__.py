@@ -12,6 +12,9 @@ quant             -- the int8 wire codec: per-chunk absmax quantize and
                      and ``_dq_accum_kernel``
 collective_reduce -- a ring step's accumulate, acc (f32) + incoming (f32 or
                      bf16); replaces the Pallas ``_reduce_kernel``
+ssd_scan          -- the Mamba2 SSD chunked scan, an (N, P) f32 state carried
+                     in shared memory per (batch, head), the final state as
+                     an output; replaces ``_ssd_kernel``
 ring_dma          -- fused ring reduce-scatter / all-gather over every rank
                      of a ThreadMesh on one card, and their emulated
                      schedules, and the quantized rings; replaces

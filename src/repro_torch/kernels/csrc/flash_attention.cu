@@ -431,7 +431,7 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  d: 32, 64 or 128.  lse: (B, Hq, Sq) f32
+// dtype: 0 = float32, 1 = bfloat16.  d: 32, 64, 112 or 128.  lse: (B, Hq, Sq) f32
 // or null.  Returns the CUDA error code of the launch (0 on success); the
 // kernel runs on `stream` and nothing is synchronised here.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -451,6 +451,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     switch (d) {
       case 32: return launch(flash_fwd_bf16<32>, grid, kMmaThreads, MmaTile<32>::SMEM, st, p);
       case 64: return launch(flash_fwd_bf16<64>, grid, kMmaThreads, MmaTile<64>::SMEM, st, p);
+      case 112: return launch(flash_fwd_bf16<112>, grid, kMmaThreads, MmaTile<112>::SMEM, st, p);
       case 128: return launch(flash_fwd_bf16<128>, grid, kMmaThreads, MmaTile<128>::SMEM, st, p);
     }
   } else if (dtype == 0) {
@@ -458,6 +459,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     switch (d) {
       case 32: return launch(flash_fwd_f32<32>, grid, kSimtThreads, SimtTile<32>::SMEM, st, p);
       case 64: return launch(flash_fwd_f32<64>, grid, kSimtThreads, SimtTile<64>::SMEM, st, p);
+      case 112: return launch(flash_fwd_f32<112>, grid, kSimtThreads, SimtTile<112>::SMEM, st, p);
       case 128: return launch(flash_fwd_f32<128>, grid, kSimtThreads, SimtTile<128>::SMEM, st, p);
     }
   }

@@ -37,8 +37,11 @@ bwd_launches = 0      # kernel launches (three passes each) by flash_attention_b
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # 64: smollm and the other served configs; 128: the larger dense configs;
-# 32: every reduced config (the serve launcher's default, ``--reduced``)
-HEAD_DIMS = (32, 64, 128)
+# 112: zamba2's shared attention (3584 / 32); 32: every reduced config (the
+# serve launcher's default, ``--reduced``)
+HEAD_DIMS = (32, 64, 112, 128)
+# the backward kernel's: training zamba2 waits for SSM training (ROADMAP A7)
+BWD_HEAD_DIMS = (32, 64, 128)
 
 _fn = None
 _bwd_fn = None
@@ -180,6 +183,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, kind: str = "causal",
         do = do.to(q.dtype).contiguous()
     _check(q, k, v, kind, window, k_len, extra=(("o", o), ("do", do)))
     B, Hq, Sq, d = q.shape
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in the backward's {BWD_HEAD_DIMS}")
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype}, do {tuple(do.shape)}: "
                          f"q's shape {tuple(q.shape)} and dtype {q.dtype} expected")

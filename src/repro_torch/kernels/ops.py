@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from repro_torch.core import tacc
 from repro_torch.kernels import grouped_matmul as gmm
 from repro_torch.kernels import quant, ref
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.collective_reduce import collective_reduce
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention_fwd
 
@@ -73,6 +74,15 @@ def expert_ffn_gmm(buf, w1, w3, w2):
     h3 = gmm.grouped_matmul(buf, w3)
     h = F.silu(h1.float()).to(buf.dtype) * h3
     return gmm.grouped_matmul(h, w2)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan: the model's layout, (y without D*x, final state), one launch per
+# call.  The op sits one level above the reference's per-chunk ``ssd_chunk``
+# (ROADMAP C1): ``models/ssm.py`` registers the ``cpu`` chunk loop.
+# ---------------------------------------------------------------------------
+
+tacc.register("ssd_scan", "cuda")(ssd.ssd_scan_model)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,8 @@ Counterpart of ``repro/kernels/ref.py``: ``attention``, ``grouped_matmul``
 oracles; the wire codec's plain versions (``repro/kernels/quant.py:59-128``,
 the software fp8 codec included); and the attention forward's row logsumexp
 and its backward, which the reference gets from autodiff and the port's
-backward kernel computes.  The oracle of the SSD scan arrives with its
-kernel.
+backward kernel computes; and the SSD chunked scan (``ref.py:40-70``),
+with the final state the model needs beside its output.
 """
 from __future__ import annotations
 
@@ -87,6 +87,41 @@ def grouped_matmul(x, w):
     """x (G,M,K) @ w (G,K,N) -> (G,M,N), f32 accumulation, in x.dtype."""
     out = torch.einsum("gmk,gkn->gmn", x.float(), w.float())
     return out.to(x.dtype)
+
+
+def ssd_scan_states(x, dt, a_cum, B_in, C_in, init_state=None):
+    """Kernel-layout SSD scan with its state.  x (B,H,nc,Q,P), dt/a_cum
+    (B,H,nc,Q) (a_cum the within-chunk cumsum of dt*A), B_in/C_in
+    (B,H,nc,Q,N), init_state (B,H,N,P) or None (zeros) -> (y (B,H,nc,Q,P)
+    f32, final state (B,H,N,P) f32).  The exponent is masked before the exp
+    (for i < j it is positive and may overflow)."""
+    Bb, H, nc, Q, P = x.shape
+    N = B_in.shape[-1]
+    a = a_cum.float()
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    xdt = x.float() * dt.float()[..., None]
+    s = (torch.zeros((Bb, H, N, P), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    ys = []
+    for c in range(nc):
+        ac = a[:, :, c]                                       # (B,H,Q)
+        Bc, Cc, xc = B_in[:, :, c].float(), C_in[:, :, c].float(), xdt[:, :, c]
+        diff = torch.where(causal, ac[..., :, None] - ac[..., None, :], 0.0)
+        L = torch.where(causal, torch.exp(diff), 0.0)
+        scores = torch.einsum("bhin,bhjn->bhij", Cc, Bc)
+        y = torch.einsum("bhij,bhjp->bhip", scores * L, xc)
+        y = y + torch.einsum("bhin,bhnp->bhip", Cc, s) * torch.exp(ac)[..., None]
+        decay_end = torch.exp(ac[..., -1:] - ac)              # (B,H,Q)
+        s_new = torch.einsum("bhjn,bhjp->bhnp", Bc * decay_end[..., None], xc)
+        s = torch.exp(ac[..., -1])[..., None, None] * s + s_new
+        ys.append(y)
+    return torch.stack(ys, dim=2), s
+
+
+def ssd_scan(x, dt, a_cum, B_in, C_in):
+    """Kernel-layout SSD oracle (the reference's signature) -> y
+    (B,H,nc,Q,P) in x.dtype."""
+    return ssd_scan_states(x, dt, a_cum, B_in, C_in)[0].to(x.dtype)
 
 
 def collective_reduce(acc, incoming):

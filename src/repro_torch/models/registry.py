@@ -37,7 +37,7 @@ class Model:
     def loss(self, params, batch, *, remat: bool = False):
         """(sum of token CE losses, token count, aux) for ``batch`` with
         "tokens" and "labels" (B, S) and an optional f32 "mask"; aux is the
-        forward's MoE aux losses (0 for the dense family).  ``remat``:
+        forward's MoE aux losses (0 for the other families).  ``remat``:
         activation checkpointing per block."""
         hidden, aux = tf.forward_lm(params, batch["tokens"], self.cfg, remat=remat)
         mask = batch.get("mask")

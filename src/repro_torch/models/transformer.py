@@ -1,18 +1,25 @@
-"""Decoder LM, dense and MoE families: parameters, blocks, forward, loss,
-prefill, decode.
+"""Decoder LM, dense / MoE / SSM / hybrid families: parameters, blocks,
+forward, loss, prefill, decode.
 
-Counterpart of the dense and MoE paths of ``repro/models/transformer.py``,
-the sliding window's rolling cache included (mixtral).  The reference scans
-over stacked layer parameters under ``jax.checkpoint``; the port loops over
-the same stacked tensors in Python, and with ``remat`` wraps each block (and
-each chunk of the loss) in ``torch.utils.checkpoint`` (non-reentrant), which
-recomputes the block's forward inside the backward.  The SSM, hybrid, VLM
-and enc-dec families wait for their slices (ROADMAP A7-A8).
+Counterpart of those paths of ``repro/models/transformer.py``, the sliding
+window's rolling cache included (mixtral).  The reference scans over stacked
+layer parameters under ``jax.checkpoint``; the port loops over the same
+stacked tensors in Python, and with ``remat`` wraps each block (and each
+chunk of the loss) in ``torch.utils.checkpoint`` (non-reentrant), which
+recomputes the block's forward inside the backward.  The SSM family
+(mamba2) stacks Mamba2 blocks; the hybrid (zamba2) runs ``n_layers //
+attn_every`` groups of ``attn_every`` Mamba2 blocks, each group followed by
+one shared attention + MLP block (its weights shared, its KV cache one per
+group), then a tail of the ``n_layers % attn_every`` blocks left.  The VLM
+and enc-dec families wait for their slice (ROADMAP A8).
 
 bf16 rounding points follow the reference: the projections are matmuls in
 the activation dtype (f32 accumulation inside, result rounded to it),
 ``rms_norm`` keeps f32 statistics, RoPE multiplies in f32, and SiLU runs in
-f32 before the cast back.
+f32 before the cast back.  The Mamba2 block keeps the reference's points
+too: the short convolutions sum in f32 and SiLU runs in f32 before the cast
+back, dt = softplus(f32), and the SSD state is f32 (``ssd_scan`` returns it
+so; the cache keeps it so).
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamMeta, apply_rope, embed_lookup,
                                        rms_norm)
 
@@ -34,32 +42,35 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Dense and MoE, each with or without a sliding window."""
-    if cfg.family not in ("dense", "moe"):
+    """Dense and MoE (each with or without a sliding window), SSM, hybrid."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not in the port yet (ROADMAP A7-A8)")
+            f"family {cfg.family!r} is not in the port yet (ROADMAP A8)")
 
 
 # ---------------------------------------------------------------------------
 # Parameter metadata
 # ---------------------------------------------------------------------------
 
-def _attn_metas(cfg: ModelConfig, L: int) -> dict:
+def _attn_metas(cfg: ModelConfig, L: int | None = None) -> dict:
+    """Stacked over L layers, or one block's (the hybrid's shared block)."""
     D, Hq, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    pre, pax = ((L,), ("layers",)) if L else ((), ())
     return {
-        "wq": ParamMeta((L, D, Hq, hd), ("layers", "embed", "q_heads", "head")),
-        "wk": ParamMeta((L, D, Hkv, hd), ("layers", "embed", "kv_heads", "head")),
-        "wv": ParamMeta((L, D, Hkv, hd), ("layers", "embed", "kv_heads", "head")),
-        "wo": ParamMeta((L, Hq, hd, D), ("layers", "q_heads", "head", "embed")),
+        "wq": ParamMeta(pre + (D, Hq, hd), pax + ("embed", "q_heads", "head")),
+        "wk": ParamMeta(pre + (D, Hkv, hd), pax + ("embed", "kv_heads", "head")),
+        "wv": ParamMeta(pre + (D, Hkv, hd), pax + ("embed", "kv_heads", "head")),
+        "wo": ParamMeta(pre + (Hq, hd, D), pax + ("q_heads", "head", "embed")),
     }
 
 
-def _mlp_metas(cfg: ModelConfig, L: int) -> dict:
+def _mlp_metas(cfg: ModelConfig, L: int | None = None) -> dict:
     D, F_ = cfg.d_model, cfg.d_ff
+    pre, pax = ((L,), ("layers",)) if L else ((), ())
     return {
-        "w1": ParamMeta((L, D, F_), ("layers", "embed", "mlp")),
-        "w2": ParamMeta((L, F_, D), ("layers", "mlp", "embed")),
-        "w3": ParamMeta((L, D, F_), ("layers", "embed", "mlp")),
+        "w1": ParamMeta(pre + (D, F_), pax + ("embed", "mlp")),
+        "w2": ParamMeta(pre + (F_, D), pax + ("mlp", "embed")),
+        "w3": ParamMeta(pre + (D, F_), pax + ("embed", "mlp")),
     }
 
 
@@ -73,25 +84,58 @@ def _moe_metas(cfg: ModelConfig, L: int) -> dict:
     }
 
 
+def _ssm_metas(cfg: ModelConfig, pre: tuple[int, ...], pax: tuple[str, ...]) -> dict:
+    """A Mamba2 block's parameters, stacked over the leading dims ``pre``."""
+    D, din = cfg.d_model, cfg.d_inner
+    G, N, H, W = cfg.ssm_groups, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_conv
+    return {
+        "ln": ParamMeta(pre + (D,), pax + ("embed",), "ones"),
+        "w_z": ParamMeta(pre + (D, din), pax + ("embed", "inner")),
+        "w_x": ParamMeta(pre + (D, din), pax + ("embed", "inner")),
+        "w_B": ParamMeta(pre + (D, G * N), pax + ("embed", "state")),
+        "w_C": ParamMeta(pre + (D, G * N), pax + ("embed", "state")),
+        "w_dt": ParamMeta(pre + (D, H), pax + ("embed", "ssm_heads")),
+        "conv_x": ParamMeta(pre + (W, din), pax + ("conv", "inner"), "normal", 0.5),
+        "conv_B": ParamMeta(pre + (W, G * N), pax + ("conv", "state"), "normal", 0.5),
+        "conv_C": ParamMeta(pre + (W, G * N), pax + ("conv", "state"), "normal", 0.5),
+        "A_log": ParamMeta(pre + (H,), pax + ("ssm_heads",), "zeros"),
+        "dt_bias": ParamMeta(pre + (H,), pax + ("ssm_heads",), "zeros"),
+        "D": ParamMeta(pre + (H,), pax + ("ssm_heads",), "ones"),
+        "gnorm": ParamMeta(pre + (din,), pax + ("inner",), "ones"),
+        "out_proj": ParamMeta(pre + (din, D), pax + ("inner", "embed")),
+    }
+
+
 def abstract_params(cfg: ModelConfig) -> dict:
-    """Meta tree of the dense and MoE families.  Vocab dims use padded_vocab."""
+    """Meta tree of every family the port runs.  Vocab dims use padded_vocab."""
     check_supported(cfg)
     D, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
-    blocks = {
-        "ln1": ParamMeta((L, D), ("layers", "embed"), "ones"),
-        "ln2": ParamMeta((L, D), ("layers", "embed"), "ones"),
-        "attn": _attn_metas(cfg, L),
-    }
-    if cfg.family == "moe":
-        blocks["moe"] = _moe_metas(cfg, L)
-    else:
-        blocks["mlp"] = _mlp_metas(cfg, L)
-    return {
+    base = {
         "embed": ParamMeta((V, D), ("vocab", "embed"), "normal", 0.02),
         "final_norm": ParamMeta((D,), ("embed",), "ones"),
         "lm_head": ParamMeta((D, V), ("embed", "vocab")),
-        "blocks": blocks,
     }
+    if cfg.family == "ssm":
+        base["blocks"] = _ssm_metas(cfg, (L,), ("layers",))
+    elif cfg.family == "hybrid":
+        n_groups, leftover = divmod(L, cfg.attn_every)
+        base["groups"] = _ssm_metas(cfg, (n_groups, cfg.attn_every), ("group", "layers"))
+        if leftover:
+            base["tail"] = _ssm_metas(cfg, (leftover,), ("layers",))
+        base["shared"] = {"ln1": ParamMeta((D,), ("embed",), "ones"),
+                          "ln2": ParamMeta((D,), ("embed",), "ones"),
+                          "attn": _attn_metas(cfg), "mlp": _mlp_metas(cfg)}
+    else:
+        base["blocks"] = {
+            "ln1": ParamMeta((L, D), ("layers", "embed"), "ones"),
+            "ln2": ParamMeta((L, D), ("layers", "embed"), "ones"),
+            "attn": _attn_metas(cfg, L),
+        }
+        if cfg.family == "moe":
+            base["blocks"]["moe"] = _moe_metas(cfg, L)
+        else:
+            base["blocks"]["mlp"] = _mlp_metas(cfg, L)
+    return base
 
 
 def layer_params(blocks: dict, i: int) -> dict:
@@ -163,7 +207,8 @@ def ffn_sublayer(p, h2, cfg: ModelConfig):
 
 
 def dense_block(p, x, positions, cfg, cache=None, pos=None):
-    """One block; returns (x, new_cache, aux) (aux is {} for the dense MLP)."""
+    """One block; returns (x, new_cache, aux) (aux is {} for the dense MLP).
+    Also the hybrid's shared block (``ln1``, ``attn``, ``ln2``, ``mlp``)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a, new_cache = attn_sublayer(p["attn"], h, positions, cfg, cache=cache,
                                  pos=pos)
@@ -171,6 +216,83 @@ def dense_block(p, x, positions, cfg, cache=None, pos=None):
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     f, aux = ffn_sublayer(p, h2, cfg)
     return x + f, new_cache, aux
+
+
+def _prefill_block(p, x, positions, cfg):
+    """``dense_block`` over a whole prompt, also returning its k and v."""
+    hn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(p["attn"], hn, positions, cfg)
+    out = attn_mod.attention(q, k, v, kind="causal", window=cfg.window,
+                             chunk=cfg.attn_chunk)
+    x = x + torch.einsum("bshk,hkd->bsd", out, p["attn"]["wo"].to(x.dtype))
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + ffn_sublayer(p, h2, cfg)[0], k, v
+
+
+def _silu_to(t, dtype):
+    return F.silu(t.float()).to(dtype)
+
+
+def _ssm_in(p, x, cfg):
+    """The block's input projections of the normed x: (z, x, B, C, dt), each
+    a matmul in x's type (the reference's einsums)."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    return tuple(torch.einsum("bsd,de->bse", h, p[w].to(x.dtype))
+                 for w in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
+
+
+def _ssm_out(p, x, y, z, cfg):
+    """Gate, group norm and output projection of the SSD output y (B,S,H,P)."""
+    y = y.reshape(x.shape[0], x.shape[1], cfg.d_inner)
+    y = rms_norm(y * _silu_to(z, y.dtype), p["gnorm"], cfg.norm_eps)
+    return x + torch.einsum("bse,ed->bsd", y, p["out_proj"].to(x.dtype))
+
+
+def _ssd_args(p, x, xin, Bp, Cp, dt, cfg):
+    """(x (B,S,H,P), dt f32, A, B (B,S,G,N), C) of the SSD from the block's
+    post-conv projections; dt = softplus(dt + dt_bias) in f32."""
+    B_, S = x.shape[:2]
+    H, Pd, G, N = cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_groups, cfg.ssm_state
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    return (xin.reshape(B_, S, H, Pd), dt, A, Bp.reshape(B_, S, G, N),
+            Cp.reshape(B_, S, G, N))
+
+
+def ssm_block(p, x, cfg: ModelConfig, state=None, conv=None):
+    """Mamba2 block.  With ``state`` ({"s"}) and ``conv`` ({"x", "B", "C"},
+    the last W - 1 pre-conv projections) one decode step, returning (x,
+    ({"s": new}, {"x", "B", "C": new})); else the whole sequence, (x, None)."""
+    z, xin, Bp, Cp, dt = _ssm_in(p, x, cfg)
+    new_state = None
+    if state is None:
+        xin, Bp, Cp = (_silu_to(ssm_mod.causal_conv1d(t, p[w]), x.dtype)
+                       for t, w in ((xin, "conv_x"), (Bp, "conv_B"), (Cp, "conv_C")))
+        xh, dt, A, Bh, Ch = _ssd_args(p, x, xin, Bp, Cp, dt, cfg)
+        y, _ = ssm_mod.ssd_scan(xh, dt, A, Bh, Ch, p["D"], cfg.ssm_chunk)
+    else:
+        (xin, cx), (Bp, cB), (Cp, cC) = (
+            ssm_mod.conv_decode_step(conv[k], t, p[w])
+            for k, t, w in (("x", xin, "conv_x"), ("B", Bp, "conv_B"), ("C", Cp, "conv_C")))
+        xin, Bp, Cp = (_silu_to(t, x.dtype) for t in (xin, Bp, Cp))
+        xh, dt, A, Bh, Ch = _ssd_args(p, x, xin, Bp, Cp, dt, cfg)
+        y, s_new = ssm_mod.ssd_decode_step(state["s"], xh, dt, A, Bh, Ch, p["D"])
+        new_state = ({"s": s_new}, {"x": cx, "B": cB, "C": cC})
+    return _ssm_out(p, x, y, z, cfg), new_state
+
+
+def ssm_prefill_block(p, x, cfg: ModelConfig):
+    """SSM block that also returns its final (ssd, conv) states for decoding:
+    (x, {"s": (B,H,N,P) f32}, {"x", "B", "C": the last W - 1 pre-conv
+    projections})."""
+    z, xin0, Bp0, Cp0, dt = _ssm_in(p, x, cfg)
+    W = cfg.ssm_conv
+    conv_states = {"x": xin0[:, -(W - 1):], "B": Bp0[:, -(W - 1):], "C": Cp0[:, -(W - 1):]}
+    xin, Bp, Cp = (_silu_to(ssm_mod.causal_conv1d(t, p[w]), x.dtype)
+                   for t, w in ((xin0, "conv_x"), (Bp0, "conv_B"), (Cp0, "conv_C")))
+    xh, dt, A, Bh, Ch = _ssd_args(p, x, xin, Bp, Cp, dt, cfg)
+    y, final_state = ssm_mod.ssd_scan(xh, dt, A, Bh, Ch, p["D"], cfg.ssm_chunk)
+    return _ssm_out(p, x, y, z, cfg), {"s": final_state}, conv_states
 
 
 # ---------------------------------------------------------------------------
@@ -189,17 +311,39 @@ def _block_out(p, positions, cfg, x):
     return x, (a["moe_aux"] * 0.01 + a["moe_z"] * 1e-3) if a else 0.0
 
 
+def _ssm_out_only(p, positions, cfg, x):
+    return ssm_block(p, x, cfg)[0], 0.0
+
+
+def _layers(params, cfg):
+    """(kind, block params) in the order the model runs them: "dense" (dense
+    and MoE blocks), "ssm" (Mamba2 blocks) and the hybrid's "shared" block
+    after each group of ``attn_every`` Mamba2 blocks, then its tail."""
+    if cfg.family != "hybrid":
+        kind = "ssm" if cfg.family == "ssm" else "dense"
+        return [(kind, layer_params(params["blocks"], i)) for i in range(cfg.n_layers)]
+    out = []
+    for gi in range(cfg.n_layers // cfg.attn_every):
+        gp = layer_params(params["groups"], gi)
+        out += [("ssm", layer_params(gp, li)) for li in range(cfg.attn_every)]
+        out.append(("shared", params["shared"]))
+    if "tail" in params:
+        out += [("ssm", layer_params(params["tail"], li))
+                for li in range(params["tail"]["ln"].shape[0])]
+    return out
+
+
 def forward_lm(params, tokens, cfg: ModelConfig, *, remat: bool = False):
     """Token ids (B, S) -> (final normed hidden states (B, S, D), aux), aux
     the f32 sum over layers of ``moe_aux`` * 0.01 + ``moe_z`` * 1e-3 (0 for
-    the dense family), as in the reference.  ``remat``: activation
+    the other families), as in the reference.  ``remat``: activation
     checkpointing per block (the reference's ``jax.checkpoint`` over the scan
     body)."""
     positions = _positions_for(tokens)
     x = embed_lookup(params["embed"], tokens).to(_dtype(cfg))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        fn = functools.partial(_block_out, layer_params(params["blocks"], i),
+    for kind, p in _layers(params, cfg):
+        fn = functools.partial(_ssm_out_only if kind == "ssm" else _block_out, p,
                                positions, cfg)
         x, a = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
         aux = aux + a
@@ -248,16 +392,81 @@ def lm_logits(params, x, cfg: ModelConfig):
 # Caches
 # ---------------------------------------------------------------------------
 
+def _ssm_state_metas(cfg: ModelConfig, batch: int, pre, pax) -> dict:
+    H, Pd, N, W = cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_conv
+    GN, din = cfg.ssm_groups * N, cfg.d_inner
+    return {
+        "s": ParamMeta(pre + (batch, H, N, Pd), pax + ("cbatch", "ssm_heads", "state", "head"),
+                       "zeros"),
+        "conv_x": ParamMeta(pre + (batch, W - 1, din), pax + ("cbatch", "conv", "inner"), "zeros"),
+        "conv_B": ParamMeta(pre + (batch, W - 1, GN), pax + ("cbatch", "conv", "state"), "zeros"),
+        "conv_C": ParamMeta(pre + (batch, W - 1, GN), pax + ("cbatch", "conv", "state"), "zeros"),
+    }
+
+
 def cache_metas(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     """Meta tree of the decode cache; ``pos`` is kept on the host as an int.
-    With a sliding window the cache holds ``min(max_len, window)`` positions."""
+    With a sliding window the cache holds ``min(max_len, window)`` positions.
+    SSM: per layer the SSD state ``s`` and the conv states; hybrid: those
+    under ``groups`` (n_groups, attn_every, ...) and ``tail``, and the shared
+    block's k/v once per group."""
     hd = cfg.head_dim_
+    pos = ParamMeta((), (), "zeros")
+    if cfg.family == "ssm":
+        return {**_ssm_state_metas(cfg, batch, (cfg.n_layers,), ("layers",)), "pos": pos}
+    if cfg.family == "hybrid":
+        n_groups, leftover = divmod(cfg.n_layers, cfg.attn_every)
+        kv = ParamMeta((n_groups, batch, max_len, cfg.n_kv_heads, hd),
+                       ("group", "cbatch", "cseq", "kv_heads", "head"), "zeros")
+        out = {"groups": _ssm_state_metas(cfg, batch, (n_groups, cfg.attn_every),
+                                          ("group", "layers")),
+               "shared_k": kv, "shared_v": kv, "pos": pos}
+        if leftover:
+            out["tail"] = _ssm_state_metas(cfg, batch, (leftover,), ("layers",))
+        return out
     S = min(max_len, cfg.window) if cfg.window else max_len
     shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, hd)
     axes = ("layers", "cbatch", "cseq", "kv_heads", "head")
     return {"k": ParamMeta(shape, axes, "zeros"),
             "v": ParamMeta(shape, axes, "zeros"),
-            "pos": ParamMeta((), (), "zeros")}
+            "pos": pos}
+
+
+def zeros_cache(metas: dict, dtype: torch.dtype, device) -> dict:
+    """A cache of zeros from its meta tree: the SSD state ``s`` in f32 (as
+    ``ssd_scan`` returns it), ``pos`` the int 0, every other leaf in
+    ``dtype``."""
+    def one(name, m):
+        if not m.shape:
+            return 0
+        return torch.zeros(m.shape, dtype=torch.float32 if name == "s" else dtype,
+                           device=device)
+    return {k: zeros_cache(v, dtype, device) if isinstance(v, dict) else one(k, v)
+            for k, v in metas.items()}
+
+
+def _ssm_cache_layers(cache, cfg):
+    """Per-block views of an SSM or hybrid cache, in the order of ``_layers``:
+    a Mamba2 block's states {"s", "conv_x", "conv_B", "conv_C"}, and a shared
+    block's (k, v) of its group."""
+    if cfg.family == "ssm":
+        states = {k: v for k, v in cache.items() if k != "pos"}
+        return [layer_params(states, i) for i in range(cfg.n_layers)]
+    out = []
+    for gi in range(cfg.n_layers // cfg.attn_every):
+        gst = layer_params(cache["groups"], gi)
+        out += [layer_params(gst, li) for li in range(cfg.attn_every)]
+        out.append((cache["shared_k"][gi], cache["shared_v"][gi]))
+    if "tail" in cache:
+        out += [layer_params(cache["tail"], li) for li in range(cache["tail"]["s"].shape[0])]
+    return out
+
+
+def _set_ssm_states(st, s, conv):
+    """Write a Mamba2 block's new states into its cache views ``st``."""
+    st["s"].copy_(s["s"])
+    for k in ("x", "B", "C"):
+        st[f"conv_{k}"].copy_(conv[k])
 
 
 # ---------------------------------------------------------------------------
@@ -266,16 +475,25 @@ def cache_metas(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 
 def decode_lm(params, cache, tokens, cfg: ModelConfig):
     """One decode step.  tokens (B, 1) -> (logits (B, 1, V), cache).  The
-    cache's k/v buffers are updated in place and returned with pos + 1."""
+    cache's buffers (k/v; SSD and conv states) are updated in place and
+    returned with pos + 1."""
     pos = int(cache["pos"])
     positions = _positions_for(tokens, offset=pos)
     x = embed_lookup(params["embed"], tokens).to(_dtype(cfg))
-    for i in range(cfg.n_layers):
-        x, _, _ = dense_block(layer_params(params["blocks"], i), x, positions, cfg,
-                              cache=(cache["k"][i], cache["v"][i]), pos=pos)
+    if cfg.family in ("ssm", "hybrid"):
+        views = _ssm_cache_layers(cache, cfg)
+    else:
+        views = [(cache["k"][i], cache["v"][i]) for i in range(cfg.n_layers)]
+    for (kind, p), view in zip(_layers(params, cfg), views):
+        if kind == "ssm":
+            x, (s, conv) = ssm_block(p, x, cfg, state=view, conv={
+                k: view[f"conv_{k}"] for k in ("x", "B", "C")})
+            _set_ssm_states(view, s, conv)
+        else:
+            x, _, _ = dense_block(p, x, positions, cfg, cache=view, pos=pos)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(params, x, cfg)
-    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    return logits, {**cache, "pos": pos + 1}
 
 
 def prefill_lm(params, tokens, cfg: ModelConfig, *, max_len: int | None = None):
@@ -289,6 +507,8 @@ def prefill_lm(params, tokens, cfg: ModelConfig, *, max_len: int | None = None):
     dtype = _dtype(cfg)
     positions = _positions_for(tokens)
     x = embed_lookup(params["embed"], tokens).to(dtype)
+    if cfg.family in ("ssm", "hybrid"):
+        return _prefill_ssm(params, x, positions, cfg, max_len)
     Sc = min(S, cfg.window) if cfg.window else S
     rolling = bool(cfg.window) and Sc == cfg.window
     shape = (cfg.n_layers, B, Sc if rolling else max_len, cfg.n_kv_heads, cfg.head_dim_)
@@ -296,14 +516,7 @@ def prefill_lm(params, tokens, cfg: ModelConfig, *, max_len: int | None = None):
     vs = torch.zeros(shape, dtype=dtype, device=x.device)
     slots = torch.arange(S - Sc, S, device=x.device) % Sc if rolling else None
     for i in range(cfg.n_layers):
-        p = layer_params(params["blocks"], i)
-        hn = rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = _qkv(p["attn"], hn, positions, cfg)
-        out = attn_mod.attention(q, k, v, kind="causal", window=cfg.window,
-                                 chunk=cfg.attn_chunk)
-        x = x + torch.einsum("bshk,hkd->bsd", out, p["attn"]["wo"].to(x.dtype))
-        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + ffn_sublayer(p, h2, cfg)[0]
+        x, k, v = _prefill_block(layer_params(params["blocks"], i), x, positions, cfg)
         # written in place where the reference pads k/v out to max_len (or
         # scatters the last window into a new rolling cache)
         if rolling:
@@ -315,3 +528,23 @@ def prefill_lm(params, tokens, cfg: ModelConfig, *, max_len: int | None = None):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(params, x[:, -1:], cfg)
     return logits, {"k": ks, "v": vs, "pos": S}
+
+
+def _prefill_ssm(params, x, positions, cfg: ModelConfig, max_len: int):
+    """``prefill_lm`` of the SSM and hybrid families: each Mamba2 block's SSD
+    state (f32) and last W - 1 pre-conv projections, and each shared block's
+    k/v in a linear cache of ``max_len`` positions, written in place into a
+    cache of zeros (the reference pads k/v out to max_len)."""
+    B, S = x.shape[:2]
+    cache = zeros_cache(cache_metas(cfg, B, max_len), x.dtype, x.device)
+    cache["pos"] = S
+    for (kind, p), view in zip(_layers(params, cfg), _ssm_cache_layers(cache, cfg)):
+        if kind == "ssm":
+            x, s, conv = ssm_prefill_block(p, x, cfg)
+            _set_ssm_states(view, s, conv)
+        else:
+            x, k, v = _prefill_block(p, x, positions, cfg)
+            view[0][:, :S] = k
+            view[1][:, :S] = v
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return lm_logits(params, x[:, -1:], cfg), cache

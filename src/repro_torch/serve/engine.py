@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import Model
+from repro_torch.models.transformer import zeros_cache
 
 
 @dataclasses.dataclass
@@ -27,10 +28,10 @@ class ServePrograms:
     decode_fn: Callable[[Any, dict, torch.Tensor], tuple]
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        dtype = getattr(torch, self.model.cfg.dtype)
-        metas = self.model.cache_metas(batch, max_len)
-        return {k: torch.zeros(m.shape, dtype=dtype, device=self.device)
-                if m.shape else 0 for k, m in metas.items()}
+        """Zeros over the model's (possibly nested) cache metas: f32 for the
+        SSD state ``s``, the int 0 for ``pos``, ``cfg.dtype`` elsewhere."""
+        return zeros_cache(self.model.cache_metas(batch, max_len),
+                           getattr(torch, self.model.cfg.dtype), self.device)
 
 
 def make_serve_programs(model: Model, seq_len: int, max_len: int | None = None,

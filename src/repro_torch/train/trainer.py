@@ -77,6 +77,10 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
         raise NotImplementedError(
             "MoE training needs the grouped-matmul backward and the aux-loss "
             "gradients, which are not ported yet (ROADMAP A6)")
+    if model.cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{model.cfg.family} training needs a backward of the SSD scan kernel, "
+            "which is not ported yet (ROADMAP A7)")
     local_axes, pod_axis = _dp_axes_of(mesh)
     cross = getattr(torch, rc.cross_dtype) if rc.cross_dtype else None
     hcfg = hetccl.HetCCLConfig(

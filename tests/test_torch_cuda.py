@@ -3,7 +3,7 @@
 Every test here needs an NVIDIA card: each is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false.  The flash-attention kernel is held to
 the limits of ``chip_smoke.py`` (``ATTN_LIMITS``), the grouped matmul to
-``GMM_LIMITS``; the collective kernels (``collective_reduce``, the fused ring
+``GMM_LIMITS``, the SSD scan to ``SSD_LIMITS``; the collective kernels (``collective_reduce``, the fused ring
 reduce-scatter and all-gather) bit for bit.  Planted faults in copies of the kernel sources must fail those checks,
 and a ring fault that stalls the protocol must raise within seconds.  The
 file imports nothing of JAX, so it also runs where JAX is not installed:
@@ -26,6 +26,7 @@ from repro_torch.kernels import collective_reduce as cr  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gmm  # noqa: E402
 from repro_torch.kernels import ops, ring_dma  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -422,7 +423,7 @@ def test_two_training_steps_on_the_card(gen):
     params = model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
     state = prog.init_fn(params)
     batch = synthetic_batch(0, 0, plan.n_micro_max, plan.micro_batch * 4, 128, cfg.vocab)
-    counters = smoke.Counters(fa, quant, ring_dma, cr, gmm)
+    counters = smoke.Counters(fa, quant, ring_dma, cr, gmm, ssd)
     counters.reset()
     losses = []
     for _ in range(2):
@@ -594,3 +595,143 @@ def test_gmm_tile_choice(gen, tile_variant_libs, monkeypatch, variant, shapes):
             assert best["kernel"] < best[variant]
         else:
             assert best["kernel"] <= 1.05 * best[variant]
+
+
+# ---------------------------------------------------------------------------
+# SSM path: the SSD scan (SSD_LIMITS of chip_smoke.py) and flash at d 112
+# ---------------------------------------------------------------------------
+
+def _ssd_case(gen, name):
+    case = next(c for c in smoke.SSD_CASES if c[0] == name)
+    return smoke.ssd_inputs(torch, gen, *case[1:])
+
+
+@pytest.mark.parametrize("name", [c[0] for c in smoke.SSD_CASES])
+def test_ssd_matches_plain(gen, name):
+    inp = _ssd_case(gen, name)
+    before = ssd.launches
+    got = smoke.ssd_run(ssd, ref, inp, plain=False)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    want = smoke.ssd_run(ssd, ref, inp, plain=True)
+    errs, ok, dt = smoke.ssd_errors(got, want)
+    assert ok, {k: smoke.format_gmm(e, dt, smoke.SSD_LIMITS) for k, e in errs.items()}
+    again = smoke.ssd_run(ssd, ref, inp, plain=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)   # no atomics
+
+
+@pytest.mark.parametrize("bad", ["dtype", "mixed_dtype", "head_dim", "groups", "last_stride",
+                                 "shared_memory", "ragged_chunk", "init_shape"])
+def test_ssd_raises_on_what_it_does_not_take(gen, bad):
+    B, S, H, P, G, N, Q = 2, 128, 4, 32, 2, 16, 64
+    kw = dict(B=B, S=S, H=H, P=P, G=G, N=N)
+    if bad == "head_dim":
+        kw["P"] = 48
+    elif bad == "groups":
+        kw["G"] = 3
+    elif bad == "shared_memory":
+        kw.update(P=128, N=256)
+    inp = smoke.ssd_inputs(torch, gen, kw["B"], kw["S"], kw["H"], kw["P"], kw["G"], kw["N"], Q,
+                           "bfloat16", 1.0, bad == "init_shape", "model")
+    x, Bm, Cm, init = inp["x"], inp["B"], inp["C"], inp["init"]
+    if bad == "dtype":
+        x, Bm, Cm = x.half(), Bm.half(), Cm.half()
+    elif bad == "mixed_dtype":
+        Bm = Bm.float()
+    elif bad == "last_stride":
+        x = torch.randn(B, S, H, 2 * P, generator=gen, device="cuda").bfloat16()[..., ::2]
+    elif bad == "ragged_chunk":
+        Q = 48
+    elif bad == "init_shape":
+        init = init[:, :, :-1]
+    before = ssd.launches
+    with pytest.raises(ValueError):
+        ssd.ssd_scan_model(x, inp["dt"], inp["a"], Bm, Cm, Q, init)
+    assert ssd.launches == before
+
+
+def test_ssd_raises_where_autograd_needs_its_backward(gen):
+    inp = _ssd_case(gen, "g2_h8")
+    x = inp["x"].float().requires_grad_()
+    Bm, Cm = inp["B"].float(), inp["C"].float()
+    with pytest.raises(NotImplementedError, match="backward"):
+        ssd.ssd_scan_model(x, inp["dt"], inp["a"], Bm, Cm, inp["Q"])
+    with torch.no_grad():
+        y, s = ssd.ssd_scan_model(x, inp["dt"], inp["a"], Bm, Cm, inp["Q"])
+    assert y.shape == x.shape and s.dtype == torch.float32
+
+
+def test_ssd_scan_on_the_card_takes_the_kernel(gen):
+    """models.ssm.ssd_scan on CUDA tensors reaches the kernel through the
+    TACC op "ssd_scan": one launch, and (y, final state) within SSD_LIMITS of
+    the op pinned to its plain variant (the reference's chunk loop)."""
+    from repro_torch.core import tacc
+    from repro_torch.models import ssm
+    B, S, H, P, G, N = 2, 512, 8, 64, 2, 64
+    x = torch.randn(B, S, H, P, generator=gen, device="cuda").bfloat16()
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen, device="cuda"))
+    A = -torch.exp(0.25 * torch.randn(H, generator=gen, device="cuda"))
+    Bm, Cm = ((0.5 * torch.randn(B, S, G, N, generator=gen, device="cuda")).bfloat16()
+              for _ in range(2))
+    D = torch.randn(H, generator=gen, device="cuda")
+    init = torch.randn(B, H, N, P, generator=gen, device="cuda")
+    assert tacc.resolve("ssd_scan", device_type="cuda") is ssd.ssd_scan_model
+    before = ssd.launches
+    got = ssm.ssd_scan(x, dt, A, Bm, Cm, D, 256, init_state=init)
+    assert ssd.launches == before + 1
+    with smoke.patched_variant(tacc, "ssd_scan", "cuda", tacc.resolve("ssd_scan", "cpu")):
+        want = ssm.ssd_scan(x, dt, A, Bm, Cm, D, 256, init_state=init)
+    assert ssd.launches == before + 1
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    errs = {"y": smoke.gmm_error(got[0], want[0]), "state": smoke.gmm_error(got[1], want[1])}
+    assert smoke.gmm_ok(errs["y"], "bfloat16", smoke.SSD_LIMITS), errs
+    assert smoke.gmm_ok(errs["state"], "float32", smoke.SSD_LIMITS), errs
+
+
+@pytest.mark.parametrize("case", smoke.FLASH_D112_CASES, ids=[c[0] for c in smoke.FLASH_D112_CASES])
+def test_flash_d112_matches_plain(gen, case):
+    _, B, Hq, Hkv, Sq, Sk, d, kind, window, k_len, dt, model_layout = case
+    q, k, v = smoke.attention_inputs(gen, B, Hq, Hkv, Sq, Sk, d, getattr(torch, dt),
+                                     model_layout)
+    before = fa.launches
+    got = fa.flash_attention_fwd(q, k, v, kind=kind)
+    assert fa.launches == before + 1
+    _assert_within_limits(got, fa.flash_attention_plain(q, k, v, kind=kind))
+
+
+def test_flash_backward_raises_at_d112(gen):
+    q, k, v = _inputs(gen, 1, 2, 2, 64, 64, 112, torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="backward"):
+        fa.flash_attention_bwd(q, k, v, o, torch.ones_like(o), lse)
+
+
+# name -> (text in csrc/ssd_scan.cu, its faulty replacement, the case of
+# SSD_CASES that reaches the fault)
+SSD_FAULTS = {
+    "state_not_carried": ("s_next[e] = chunk_decay * s_cur[e];", "s_next[e] = 0.f;",
+                          "slow_decay"),
+    "state_updated_before_rows_read_it": ("const float* s_read = s_cur;",
+                                          "const float* s_read = s_next;", "slow_decay"),
+    "head_reads_group0": ("const int g = h / (p.H / p.G);", "const int g = 0;", "g2_h8"),
+}
+
+
+@pytest.fixture(scope="module")
+def faulty_ssd_libs(tmp_path_factory):
+    return _compile_faults(tmp_path_factory, "ssd_scan", SSD_FAULTS)
+
+
+@pytest.mark.parametrize("fault", sorted(SSD_FAULTS))
+def test_planted_ssd_fault_fails_the_limits(gen, faulty_ssd_libs, monkeypatch, fault):
+    inp = _ssd_case(gen, SSD_FAULTS[fault][2])
+    want = smoke.ssd_run(ssd, ref, inp, plain=True)
+    good = smoke.ssd_errors(smoke.ssd_run(ssd, ref, inp, plain=False), want)
+    monkeypatch.setattr(ssd, "_fn", ssd.bind(faulty_ssd_libs[fault]))
+    bad = smoke.ssd_errors(smoke.ssd_run(ssd, ref, inp, plain=False), want)
+    torch.cuda.synchronize()
+    for label, (errs, _, dt) in (("kernel", good), ("fault ", bad)):
+        print(f"\n  {fault} {label}: " + "  ".join(
+            f"{k} {smoke.format_gmm(e, dt, smoke.SSD_LIMITS)}" for k, e in errs.items()))
+    assert good[1]
+    assert not bad[1]
