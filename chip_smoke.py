@@ -8,8 +8,9 @@ Phases, in order; any failure exits non-zero before the last line:
 1. device: torch's name for the card, and nvidia-smi's name and power limit;
 2. build: every kernel source of the port compiled with nvcc for sm_90a;
 3. kernel vs plain: ``flash_attention_fwd`` on the card against its plain
-   version at the serving prefill shape and the edge cases, each case with
-   its tolerance;
+   version at the main path's prefill shapes (smollm, Mixtral's prefill and
+   its window run) and the edge cases (``KERNEL_CASES``), each case with its
+   tolerance;
 4. serve: full-width smollm-135m (30 layers, d_model 576, bf16, weights made
    from a seed) answers 8 requests of 512 prompt tokens, 32 new tokens each,
    through ``repro_torch.serve.engine.Batcher``.  The launch counts are set to
@@ -20,9 +21,12 @@ Phases, in order; any failure exits non-zero before the last line:
    with a prefill whose attention is pinned to the plain variant;
 5. times: CUDA events around back-to-back calls after warm-up, medians, for
    the kernel, its plain version, ``F.scaled_dot_product_attention`` (a
-   yardstick the port never calls) and the bound (host clock for prefill,
-   decode and tokens/s in phase 4); then the card's busy share in prefill
-   and decode from a torch.profiler trace;
+   yardstick the port never calls; with a boolean mask where a window
+   binds) and the bound, at smollm's, Mixtral's prefill and Mixtral's window
+   shapes, and the kernel's and SDPA's device time from a CUDA graph replay
+   (host clock for prefill, decode and tokens/s in phase 4); the wrapper's
+   host time per call; then the card's busy share in prefill and decode
+   from a torch.profiler trace;
 6. ring kernels vs plain: the fused ring reduce-scatter and all-gather
    (``csrc/ring_dma.cu``) against the plain versions of their schedules,
    and ``collective_reduce`` against its plain version, case by case, bit
@@ -104,7 +108,8 @@ Phases, in order; any failure exits non-zero before the last line:
 20. SSD kernel times at both prefill shapes with the plain version and the
    bounds (bytes and bf16 operations; the f32-FMA bound printed beside),
    and the flash forward at d 112 with its plain version, SDPA and bound;
-21. a JSON line listing every kernel;
+21. a JSON line listing every kernel (the flash forward with its four
+   main-path shapes under ``shapes``);
 22. the last line, ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.
@@ -137,11 +142,21 @@ KERNEL_CASES = [
     ("window64", 2, 9, 3, 512, 512, 64, "causal", 64, None, "bfloat16", False),
     ("bidir_sq100_sk300", 2, 4, 2, 100, 300, 64, "bidir", 0, None, "bfloat16", False),
     ("d32_reduced", 2, 4, 2, 200, 200, 32, "causal", 0, None, "bfloat16", True),
+    # d 112 with a k_len cut, Sq ragged against the 128-row q tile
+    ("d112_klen250_sq333", 2, 8, 2, 333, 400, 112, "bidir", 0, 250, "bfloat16", True),
+    # Sq below one consumer warpgroup's 64 rows
+    ("causal_sq40_d128", 3, 8, 2, 40, 40, 128, "causal", 0, None, "bfloat16", True),
     ("f32", 2, 9, 3, 512, 512, 64, "causal", 0, None, "float32", True),
     ("f32_d128_bidir_window48_klen150", 1, 4, 1, 150, 200, 128, "bidir", 48, 150, "float32", False),
+    # mixtral's prefill (phase 14): d 128, GQA 32/8, its window 4096 > Sq
+    ("mixtral_prefill", 8, 32, 8, 512, 512, 128, "causal", 4096, None, "bfloat16", True),
     # mixtral's window prefill (phase 15): d 128, GQA 32/8, window 4096 < Sq
     ("mixtral_window4096", 1, 32, 8, 4608, 4608, 128, "causal", 4096, None, "bfloat16", True),
 ]
+# The flash forward's main-path shapes (the kernel case timed for each, in
+# phase 5, and zamba2's in phase 20) and the launch count each one's run reads
+FLASH_TIMED = {"smollm": "serve_prefill", "mixtral_prefill": "mixtral_prefill",
+               "mixtral_window": "mixtral_window4096", "zamba2": "zamba2_d112"}
 
 # Kernel against its plain version, both errors relative to the plain output:
 # (relative L2 of the whole output, worst relative L2 of one output row).  The
@@ -371,6 +386,27 @@ def median_ms(fn, reps=20, trials=7, warmup=3):
     return statistics.median(s.elapsed_time(e) / reps for s, e in pairs)
 
 
+def graph_ms(fn, reps=20):
+    """Device time of one call: ``reps`` calls captured in a CUDA graph and
+    replayed (CUDA events, median), so the host's time to launch a call is
+    not in it; set beside ``median_ms`` where a call's host time is near its
+    device time."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = median_ms(graph.replay, reps=3) / reps
+    del graph
+    return ms
+
+
 def attention_inputs(gen, B, Hq, Hkv, Sq, Sk, d, dtype, model_layout):
     """q (B,Hq,Sq,d), k/v (B,Hkv,Sk,d); as transpose views of (B,S,H,d)
     tensors when ``model_layout``, the way the model's prefill passes them."""
@@ -412,7 +448,7 @@ def valid_pairs(Sq, Sk, kind, window, k_len):
     import numpy as np
     qp = np.arange(Sq)[:, None]
     kp = np.arange(Sk)[None, :]
-    valid = kp < k_len
+    valid = (kp < k_len) & (qp >= 0)            # (Sq, Sk) whatever the mask
     if kind == "causal":
         valid = valid & (qp >= kp)
     if window:
@@ -654,21 +690,66 @@ def device_busy_share(torch, fn, reps):
 
 
 def phase_times(fa, torch, case):
+    """Kernel, plain and SDPA times (CUDA events, medians) of one flash case,
+    with its bound and errors.  SDPA takes no window: where the window binds
+    (window < Sq) it gets the same pairs as an explicit boolean mask, which
+    sends it to a kernel other than its flash one, and is labelled so."""
     import torch.nn.functional as F
     q, k, v = case["inputs"]
     kind, window, k_len = case["kind"], case["window"], case["k_len"]
+    Sq, Sk = q.shape[2], k.shape[2]
     kernel_ms = median_ms(lambda: fa.flash_attention_fwd(
         q, k, v, kind=kind, window=window, k_len=k_len))
     plain_ms = median_ms(lambda: fa.flash_attention_plain(
         q, k, v, kind=kind, window=window, k_len=k_len), reps=10)
-    library_ms = median_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=kind == "causal", enable_gqa=True))
+    if window and window < Sq:
+        qp = torch.arange(Sq, device=q.device)[:, None]
+        kp = torch.arange(Sk, device=q.device)[None, :]
+        mask = (kp < k_len) & (qp - kp < window)
+        if kind == "causal":
+            mask = mask & (qp >= kp)
+        library = "sdpa with a boolean mask"
+        library_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), reps=5)
+    else:
+        library = "sdpa"
+        library_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=kind == "causal", enable_gqa=True))
+    kernel_graph_ms = graph_ms(lambda: fa.flash_attention_fwd(
+        q, k, v, kind=kind, window=window, k_len=k_len))
+    library_graph_ms = None if window and window < Sq else graph_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=kind == "causal",
+                                               enable_gqa=True))
     bound_ms, bound_by = bound(q, k, v, kind, window, k_len)
     print(f"  flash_attention_fwd at {tuple(q.shape)} / {tuple(k.shape)} "
-          f"{str(q.dtype).removeprefix('torch.')} {kind}: kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, library (sdpa) {library_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
-    return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
+          f"{str(q.dtype).removeprefix('torch.')} {kind} window {window}: kernel "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library ({library}) "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); kernel / bound "
+          f"{kernel_ms / bound_ms:.2f}, kernel / library {kernel_ms / library_ms:.2f}; "
+          f"replayed in a CUDA graph: kernel {kernel_graph_ms:.4f} ms, library "
+          + ("none" if library_graph_ms is None else f"{library_graph_ms:.4f} ms"))
+    return {"shape": [list(q.shape), list(k.shape)], "kind": kind, "window": window,
+            "ms": kernel_ms, "plain_ms": plain_ms, "library": library,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "graph_ms": kernel_graph_ms, "library_graph_ms": library_graph_ms,
+            **{key: case[key] for key in ("max_abs_err", "rel_l2", "worst_row_rel_l2")}}
+
+
+def host_us_per_call(fa, torch, case, calls=200):
+    """Host time of one ``flash_attention_fwd`` call (checks, allocations,
+    four tensor maps, the launch), enqueued back to back: the host clock
+    over ``calls`` calls, without a synchronise inside."""
+    q, k, v = case["inputs"]
+    kw = {key: case[key] for key in ("kind", "window", "k_len")}
+    for _ in range(10):
+        fa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fa.flash_attention_fwd(q, k, v, **kw)
+    host_us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return host_us
 
 
 # ---------------------------------------------------------------------------
@@ -2004,9 +2085,7 @@ def phase_ssm_kernel_times(torch, ssd, ref, fa, flash_case):
               f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
               f"f32-FMA bound {f32_bound_ms:.4f} ms; kernel / bound {t['ms'] / bound_ms:.2f}")
         del inp
-    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = phase_times(fa, torch, flash_case)
-    out["flash_d112"] = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by}
+    out["flash_d112"] = phase_times(fa, torch, flash_case)
     return out
 
 
@@ -2099,9 +2178,14 @@ def main() -> int:
 
     with phase("[5] times", walls):
         main_case = cases["serve_prefill"]
-        kernel_ms, plain_ms, library_ms, bound_ms, bound_by = phase_times(fa, torch, main_case)
+        flash_times = {name: phase_times(fa, torch, cases[FLASH_TIMED[name]])
+                       for name in ("smollm", "mixtral_prefill", "mixtral_window")}
+        host_us = host_us_per_call(fa, torch, main_case)
+        print(f"  flash_attention_fwd host time per call at {FLASH_TIMED['smollm']}: "
+              f"{host_us:.1f} us")
         serve.update(measure_busy())
-        print(json.dumps({"serve": serve, **card}))
+        print(json.dumps({"serve": serve, "flash_times": flash_times,
+                          "flash_host_us_per_call": host_us, **card}))
 
     with phase("[6] ring kernels vs plain", walls):
         n_ring_cases, ring_err = phase_ring_kernels(torch, ring_dma, cr)
@@ -2191,6 +2275,7 @@ def main() -> int:
         print(json.dumps({"ssm": ssm, "ssd_errors": ssd_cases, "flash_d112_errors": {
             k: {kk: vv for kk, vv in v.items() if kk != "inputs"} for k, v in flash112.items()},
             "kernel_times": stimes, "phase_wall_s": walls, **card}))
+    flash_times["zamba2"] = stimes["flash_d112"]
     flash112.clear()
 
     print("[21] kernels")
@@ -2198,6 +2283,7 @@ def main() -> int:
                                      "src/repro/kernels/collective_reduce.py:84"),
                "ring_reduce_scatter": ("ring_dma.cu", "src/repro/kernels/ring_dma.py:252"),
                "ring_all_gather": ("ring_dma.cu", "src/repro/kernels/ring_dma.py:383")}
+    t = flash_times["smollm"]
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -2207,13 +2293,14 @@ def main() -> int:
         "max_abs_err": main_case["max_abs_err"],
         "rel_l2": main_case["rel_l2"],
         "worst_row_rel_l2": main_case["worst_row_rel_l2"],
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
         "check": "pass",
         "cases_checked": len(cases),
+        "host_us_per_call": host_us,
     }]
     for kname, (src, replaces) in sources.items():
         t = ctimes[kname]
@@ -2232,6 +2319,12 @@ def main() -> int:
     kernels[0]["d112_plain_ms"] = stimes["flash_d112"]["plain_ms"]
     kernels[0]["d112_bound_ms"] = stimes["flash_d112"]["bound_ms"]
     kernels[0]["d112_library_ms"] = stimes["flash_d112"]["library_ms"]
+    shape_launches = {"smollm": launches,
+                      "mixtral_prefill": moe["serve"]["launches"]["flash_attention_fwd"],
+                      "mixtral_window": moe["window"]["launches"]["flash_attention_fwd"],
+                      "zamba2": ssm[HYBRID_ARCH]["launches"]["flash_attention_fwd"]}
+    kernels[0]["shapes"] = {name: {"launches": shape_launches[name], **flash_times[name]}
+                            for name in FLASH_TIMED}
     tb = ttimes["flash_attention_bwd"]
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",

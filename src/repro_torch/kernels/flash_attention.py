@@ -74,10 +74,11 @@ def bind_bwd(lib: ctypes.CDLL):
 
 def _kernel():
     global _fn
-    with _lock:
-        if _fn is None:
-            _fn = bind(_build.load("flash_attention"))
-        return _fn
+    if _fn is None:
+        with _lock:
+            if _fn is None:
+                _fn = bind(_build.load("flash_attention"))
+    return _fn
 
 
 def _bwd_kernel():
@@ -105,13 +106,15 @@ def _check(q, k, v, kind, window, k_len, extra=()):
         raise ValueError(f"kind {kind!r}")
     if window < 0 or not 0 <= k_len <= Sk:
         raise ValueError(f"window={window}, k_len={k_len}, Sk={Sk}")
-    # the bf16 route loads 16-byte vectors, the f32 route single floats
+    # the bf16 route's tensor maps take strides of 16 bytes, the f32 route's
+    # loads single floats; written out, as this runs on every launch
     align = 8 if q.dtype == torch.bfloat16 else 1
+    dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
-        if t.device != q.device:
+        if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.stride(-1) != 1 or any(s % align for s in t.stride()[:-1]) \
-                or t.data_ptr() % 16:
+        st = t.stride()
+        if st[3] != 1 or st[0] % align or st[1] % align or st[2] % align or t.data_ptr() % 16:
             raise ValueError(f"{name} strides {t.stride()} / alignment not "
                              "taken by the kernel")
 
@@ -147,11 +150,15 @@ def flash_attention_fwd(q, k, v, *, kind: str = "causal", window: int = 0,
     if o.numel() == 0:
         return (o, lse) if return_lse else o
     fn, err_str = _kernel()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # the raw handle of the current stream: torch.cuda.current_stream() builds
+    # a Stream object, a few microseconds on a path that is host-bound
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
+    qs, ks, vs, os_ = q.stride(), k.stride(), v.stride(), o.stride()
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr() if return_lse else None,
              _DTYPE_CODE[q.dtype], B, Hq, k.shape[1], Sq, Sk, d,
-             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+             qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+             os_[0], os_[1], os_[2],
              int(kind == "causal"), int(window), k_len, float(scale), stream)
     if err:
         raise RuntimeError(f"flash_attention_fwd launch failed: "

@@ -25,7 +25,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import collective_reduce as cr  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gmm  # noqa: E402
-from repro_torch.kernels import ops, ring_dma  # noqa: E402
+from repro_torch.kernels import ops, ref, ring_dma  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -71,6 +71,22 @@ def test_kernel_matches_plain(gen, kind, window, k_len, dtype, B, Hq, Hkv, S, d)
     _assert_within_limits(got, want)
 
 
+@pytest.mark.parametrize("case", smoke.KERNEL_CASES, ids=[c[0] for c in smoke.KERNEL_CASES])
+def test_smoke_kernel_cases_match_plain(gen, case):
+    """chip_smoke's flash cases (the main path's shapes, d 112 with a k_len
+    cut and Sq 333, Sq 40, ...) within ``ATTN_LIMITS``, the logsumexp too."""
+    name, B, Hq, Hkv, Sq, Sk, d, kind, window, k_len, dt, model_layout = case
+    q, k, v = smoke.attention_inputs(gen, B, Hq, Hkv, Sq, Sk, d, getattr(torch, dt),
+                                     model_layout)
+    kl = Sk if k_len is None else k_len
+    got, lse = fa.flash_attention_fwd(q, k, v, kind=kind, window=window, k_len=kl,
+                                      return_lse=True)
+    _assert_within_limits(got, fa.flash_attention_plain(q, k, v, kind=kind, window=window,
+                                                        k_len=kl))
+    want_lse = ref.attention_lse(q, k, kind=kind, window=window, k_len=kl)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+
+
 def test_model_layout_views_match_plain(gen):
     """ops.flash_attention hands the kernel transpose views of (B, S, H, d)."""
     q = torch.randn(2, 77, 9, 64, generator=gen, device="cuda").bfloat16()
@@ -106,13 +122,23 @@ def test_kernel_raises_on_what_it_does_not_take(gen, bad):
 FAULTS = {
     "diagonal_key_dropped": ("ok = ok && r >= c;", "ok = ok && r > c;",
                              (2, 9, 3, 512, 64, "causal", 0)),
-    "corr_rescale_skipped": ("corr[i] = expf(m_r[i] - m_new);", "corr[i] = 1.f;",
+    "corr_rescale_skipped": ("corr[i] = fast_exp2(m_r[i] - m_new);", "corr[i] = 1.f;",
                              (2, 9, 3, 512, 64, "causal", 0)),
     "partial_key_tile_dropped": ("t1 = (kend + bk - 1) / bk;", "t1 = kend / bk;",
                                  (2, 9, 3, 300, 64, "causal", 0)),
     "window_one_key_wide": ("ok = ok && (r - c) < p.window;",
                             "ok = ok && (r - c) <= p.window;",
                             (2, 9, 3, 512, 64, "causal", 64)),
+    # the consumers read the next slot of the k/v ring: a tile not yet
+    # loaded or a stale one
+    "kv_ring_stage_flipped": ("const uint32_t k_tile = ring + s * T::kStageBytes;",
+                              "const uint32_t k_tile = ring + (s + 1) % ST * T::kStageBytes;",
+                              (2, 9, 3, 512, 64, "causal", 0)),
+    # TMA fills what lies past the tensor with NaN, not zeros: at S 256 only
+    # the padding of d 112 to 128 lies past it, so Q K^T meets NaN columns
+    "d112_zero_fill_dropped": ("CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE",
+                               "CU_TENSOR_MAP_FLOAT_OOB_FILL_NAN_REQUEST_ZERO_FMA",
+                               (2, 8, 2, 256, 112, "causal", 0)),
 }
 
 
