@@ -42,7 +42,8 @@ Phases, in order; any failure exits non-zero before the last line:
    to the emulated schedule, whose accumulate launches ``collective_reduce``.
    Then host-clock times (backends in turns) and the card's busy share;
 8. times of the collective kernels at the largest bucket's shape, with
-   their bounds and library yardsticks;
+   their bounds and library yardsticks, and the all-gather's own traffic
+   ((4n - 3) c elements per rank) beside its bound;
 9. codec kernels vs plain: ``quant_int8`` and ``dq_accum_int8``
    (``csrc/quant.cu``) against their plain versions, case by case, bit for
    bit (NaN where NaN), up to the largest bucket's hop shape;
@@ -67,13 +68,15 @@ Phases, in order; any failure exits non-zero before the last line:
 13. grouped matmul vs plain: ``grouped_matmul`` (``csrc/grouped_matmul.cu``)
    against its plain version, case by case (``GMM_CASES``: the sweep shapes
    of tests/test_kernels.py in f32 and bf16, Mixtral's prefill and decode
-   shapes, moonshot's expert shape, zero rows, views of stacked weights),
-   each with its limits (``GMM_LIMITS``);
+   shapes, moonshot's expert shape, zero rows, views of stacked weights, the
+   wgmma route's ragged edges), each with its limits (``GMM_LIMITS``) and
+   the route it took; every route must be reached;
 14. MoE serving at full width: mixtral-8x7b (d_model 4096, 8 experts top-2
    of d_ff 14336, window 4096) cut to 8 of its 32 layers, bf16, weights from
    a seed, answers 8 requests of 512 prompt tokens, 32 new tokens each,
    through ``Batcher``; the counts set to 0 just before and read just after:
-   3 x 8 x 33 = 792 grouped-matmul launches, 8 flash.  In one more prefill
+   3 x 8 x 33 = 792 grouped-matmul launches (the prefill's 24 on the wgmma
+   route, decode's 768 on the 16-row route), 8 flash.  In one more prefill
    every grouped matmul and every layer's expert FFN against their plain
    versions on the same inputs (the hard gate); then the last-position
    logits against expert_ffn pinned to the plain composition, gated on the
@@ -82,10 +85,11 @@ Phases, in order; any failure exits non-zero before the last line:
 15. the sliding window at full width: the same model, 1 request of 4608
    prompt tokens and 16 new: flash with window 4096 at Sq 4608, the rolling
    cache (4096 slots), decode through ``window_decode_attention``, 408
-   grouped-matmul launches, and the same comparisons but the per-layer one;
-16. grouped-matmul times at Mixtral's prefill and decode shapes, with the
-   plain version, ``torch.bmm`` (a yardstick the port never calls) and the
-   bound;
+   grouped-matmul launches (24 wgmma, 384 16-row), and the same comparisons
+   but the per-layer one;
+16. grouped-matmul times at Mixtral's prefill, decode and window-run prefill
+   shapes, with the route taken, the plain version, ``torch.bmm`` (a
+   yardstick the port never calls) and the bound;
 17. SSD kernel vs plain: ``ssd_scan`` (``csrc/ssd_scan.cu``) against its
    plain version case by case (``SSD_CASES``: both models' prefill shapes,
    f32 and bf16, dt near 20, one chunk, a chunk of 100, G = 2, an initial
@@ -109,7 +113,8 @@ Phases, in order; any failure exits non-zero before the last line:
    bounds (bytes and bf16 operations; the f32-FMA bound printed beside),
    and the flash forward at d 112 with its plain version, SDPA and bound;
 21. a JSON line listing every kernel (the flash forward with its four
-   main-path shapes under ``shapes``);
+   main-path shapes under ``shapes``, the grouped matmul's launches per
+   route under ``routes``);
 22. the last line, ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.
@@ -192,7 +197,10 @@ RING_CASES = (
        ("rs", 2, 2, 1, 1, "float32", "float32"), ("rs", 3, 2, -1, 2, "float32", "bfloat16")]
     + [("ag", n, 1, d, k, "float32", None) for n in (2, 3, 4, 5) for d in (1, -1)
        for k in (1, 2)]
-    + [("ag", 3, 1, 1, 2, "bfloat16", None), ("ag", 2, 2, -1, 1, "float32", None)])
+    + [("ag", 3, 1, 1, 2, "bfloat16", None), ("ag", 2, 2, -1, 1, "float32", None),
+       # bf16 at an odd c: 2-byte words, rows 2c bytes apart, so the copies
+       # into the output row 1 take the scalar head, stores and tail
+       ("ag", 2, 2, 1, 1, "bfloat16", None)])
 # collective_reduce: incoming dtype, length
 REDUCE_CASES = [("float32", RING_C), ("bfloat16", RING_C), ("float32", 7), ("bfloat16", 4097)]
 
@@ -272,11 +280,13 @@ FFN_LIMITS = {"bfloat16": (5e-3, 2e-2), "float32": (1e-6, 4e-6)}
 MOE_LOGITS_REL_TOL = {"bfloat16": 0.3, "float32": 1e-4}
 MOE_F32_LAYERS = 2
 # (name, G, M, K, N, dtype, layout): "dense"; "zero_rows" (a capacity buffer
-# with dropped tokens' rows zero); "layer_view" (w a layer slice of a stacked
-# (L, G, K, N') tensor, columns 24..24+N, 16-byte aligned rows); "odd_view"
-# (columns from 3: unaligned rows, the kernel's plain-load path).
+# with dropped tokens' rows zero); "layer" (w the last layer of a stacked
+# (2, G, K, N) tensor, as the model passes it); "layer_view" (w a layer slice
+# of a stacked (2, G, K, N') tensor, columns 24..24+N, 16-byte aligned rows);
+# "odd_view" (columns from 3: unaligned rows, the mma.sync routes'
+# plain-load path).  Phase 13 prints the route each case takes.
 GMM_CASES = [
-    *[(f"sweep_{G}x{M}x{K}x{N}", G, M, K, N, dt, "dense")
+    *[(f"sweep_{G}x{M}x{K}x{N}_{dt}", G, M, K, N, dt, "dense")
       for G, M, K, N in ((4, 200, 96, 160), (1, 128, 128, 128), (8, 64, 300, 48))
       for dt in ("float32", "bfloat16")],
     ("mixtral_prefill_w13", 8, 1280, 4096, 14336, "bfloat16", "dense"),
@@ -291,6 +301,13 @@ GMM_CASES = [
     ("ragged_k100_m9", 5, 9, 100, 70, "bfloat16", "dense"),
     ("f32_reduced_expert", 4, 80, 128, 128, "float32", "dense"),
     ("f32_ragged_views", 3, 77, 129, 65, "float32", "odd_view"),
+    # the wgmma route's edges: M not a multiple of 128, N not of 256, K not of
+    # 64; M below one consumer warpgroup's 64 rows; K below one stage; a
+    # layer of Mixtral's stacked weights with a ragged M
+    ("wgmma_edges", 3, 200, 264, 392, "bfloat16", "zero_rows"),
+    ("wgmma_m40_n136", 2, 40, 128, 136, "bfloat16", "dense"),
+    ("wgmma_k24", 2, 100, 24, 64, "bfloat16", "dense"),
+    ("mixtral_layer_m1000", 8, 1000, 4096, 14336, "bfloat16", "layer"),
 ]
 
 # The SSM slice: full-width mamba2-2.7b (64 layers, 2.83 B parameters) and
@@ -1002,6 +1019,11 @@ def phase_collective_times(torch, ring_dma, cr, big):
     rs_bytes = R * n * c * 4 + R * c * 4
     ag_bytes = R * c * 4 + R * n * c * 4
     wire_bytes = (R // n) * n * (n - 1) * c * 4
+    # what the all-gather kernel itself moves per rank: step 0 reads the
+    # chunk once and writes the own row and the downstream slot; each later
+    # step forwards a slot (read c, write c); every step copies a slot out
+    # (read c, write c): (2n - 2) c read and (2n - 1) c written, 5c at n = 2
+    ag_traffic = R * (4 * n - 3) * c * 4
     order = [r for ring in rings for r in ring]          # the ranks ring by ring
     stacked = torch.stack([xs[r] for r in order]).view(R // n, n, n, c)
     ag_stack = torch.stack([ag_in[r] for r in order]).view(R // n, 1, n, c)
@@ -1019,6 +1041,13 @@ def phase_collective_times(torch, ring_dma, cr, big):
                      "library_ms": median_ms(lib), "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                      "bound_by": "bytes", "wire_bound_ms": wire_bytes / HBM_BYTES_PER_S * 1e3,
                      "shape": f"R={R} n={n} c={c} f32"}
+    t = out["ring_all_gather"]
+    t["traffic_bytes"] = ag_traffic
+    t["traffic_ms"] = ag_traffic / HBM_BYTES_PER_S * 1e3
+    print(f"  ring_all_gather's own traffic: (4n - 3) c x 4 B x R = {ag_traffic / 1e9:.4f} GB, "
+          f"{t['traffic_ms']:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s, against the bound's "
+          f"{ag_bytes / 1e9:.4f} GB; kernel at {ag_traffic / t['ms'] / 1e9:.3f} TB/s of its "
+          f"own traffic; {ring_dma._scratch[('cuda:0', R)].ctas} CTAs per rank")
     m = c // 2                                 # one stream of a chunk, the emulated step
     acc = torch.randn(m, generator=gen, device="cuda")
     inc = torch.randn(m, generator=gen, device="cuda")
@@ -1351,7 +1380,8 @@ def gmm_inputs(torch, gen, G, M, K, N, dtype, layout):
         x[:, M - M // 5:] = 0
     lead = {"layer_view": 24, "odd_view": 3}.get(layout, 0)
     width = N + lead + (8 if lead else 0)
-    stacked = torch.randn(2 if lead else 1, G, K, width, generator=gen,
+    layers = 2 if lead or layout == "layer" else 1
+    stacked = torch.randn(layers, G, K, width, generator=gen,
                           device="cuda").mul_(K ** -0.5).to(dt)
     w = stacked[-1, :, :, lead:lead + N]
     return x, w
@@ -1395,14 +1425,17 @@ def phase_gmm_kernels(torch, gmm, ref):
         if layout == "zero_rows":                   # a dropped token's row stays 0
             zero_rows_ok = bool((out[x.abs().amax(-1) == 0] == 0).all())
         ok = gmm_ok(err, dt) and zero_rows_ok
-        print(f"  {name:22s} ({G},{M},{K})@({G},{K},{N}) {dt:8s} {layout:10s} "
+        route = gmm.route(x, w)
+        print(f"  {name:22s} ({G},{M},{K})@({G},{K},{N}) {dt:8s} {layout:10s} {route:6s} "
               f"{format_gmm(err, dt)}{'' if zero_rows_ok else ' ZERO ROWS NOT ZERO'}  "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(name)
-        results[name] = err
+        results[name] = {**err, "route": route}
         del x, w, out, want
     check(not failed, f"grouped_matmul disagrees with its plain version in {failed}")
+    routes = sorted({v["route"] for v in results.values()})
+    check(routes == sorted(gmm.ROUTES), f"the cases reached the routes {routes} only")
     return results
 
 
@@ -1656,6 +1689,11 @@ def phase_moe_serve(torch, np, fa, gmm, ref, tacc, moe_mod, attn_mod, engine, bu
           f"calls {window_calls[0]}")
     check(launches["grouped_matmul"] == want_gmm,
           f"grouped_matmul launched {launches['grouped_matmul']} times, {want_gmm} expected")
+    routes = {r: launches[f"grouped_matmul_{r}"] for r in gmm.ROUTES}
+    want_routes = {"f32": 0, "mma16": 3 * L * max_new, "mma128": 0, "wgmma": 3 * L}
+    print(f"  grouped_matmul launches per route: {routes} (prefill 3 x {L} on wgmma, decode "
+          f"3 x {L} x {max_new} on the 16-row route)")
+    check(routes == want_routes, f"grouped_matmul routes {routes}, {want_routes} expected")
     check(launches["flash_attention_fwd"] == L, "flash kernel not launched once per layer")
     check(len(done) == n_requests and all(len(r.out) == max_new for r in done),
           "not every request got its tokens")
@@ -1723,12 +1761,14 @@ def phase_moe_serve(torch, np, fa, gmm, ref, tacc, moe_mod, attn_mod, engine, bu
 
 
 GMM_TIMED = {"prefill_w13": (8, 1280, 4096, 14336), "prefill_w2": (8, 1280, 14336, 4096),
-             "decode_w13": (8, 2, 4096, 14336), "decode_w2": (8, 2, 14336, 4096)}
+             "decode_w13": (8, 2, 4096, 14336), "decode_w2": (8, 2, 14336, 4096),
+             "window_w13": (8, 1440, 4096, 14336), "window_w2": (8, 1440, 14336, 4096)}
 
 
 def phase_moe_kernel_times(torch, gmm, ref):
-    """The kernel at Mixtral's prefill (C 1280) and decode (C 2) shapes, its
-    plain version, torch.bmm (the yardstick; the port never calls it) and the
+    """The kernel at Mixtral's prefill (C 1280), decode (C 2) and window-run
+    prefill (C 1440) shapes, its plain version, torch.bmm (the yardstick; the
+    port never calls it) and the
     bound: the larger of FLOPs over the bf16 peak and bytes (x, w read once,
     out written once) over the memory rate."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1747,12 +1787,12 @@ def phase_moe_kernel_times(torch, gmm, ref):
                                            trials=3, warmup=1),
                      "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                     "shape": f"({G},{M},{K})@({G},{K},{N}) bf16"}
+                     "shape": f"({G},{M},{K})@({G},{K},{N}) bf16", "route": gmm.route(x, w)}
         t = out[name]
-        print(f"  grouped_matmul {name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, torch.bmm {t['library_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}); kernel / bound "
-              f"{t['ms'] / t['bound_ms']:.2f}")
+        print(f"  grouped_matmul {name} at {t['shape']} ({t['route']} route): kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.bmm {t['library_ms']:.4f} "
+              f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); kernel / bound "
+              f"{t['ms'] / t['bound_ms']:.2f}, kernel / torch.bmm {t['ms'] / t['library_ms']:.2f}")
         del x, w
     return out
 
@@ -2098,7 +2138,8 @@ class Counters:
     def reset(self):
         fa, quant, ring_dma, cr, gmm, ssd = self.mods
         fa.launches = fa.bwd_launches = quant.quant_launches = quant.dq_launches = 0
-        ring_dma.rs_launches = ring_dma.ag_launches = cr.launches = gmm.launches = 0
+        ring_dma.rs_launches = ring_dma.ag_launches = cr.launches = 0
+        gmm.reset_counts()
         ssd.launches = 0
 
     def read(self):
@@ -2107,7 +2148,8 @@ class Counters:
                 "quant_int8": quant.quant_launches, "dq_accum_int8": quant.dq_launches,
                 "ring_reduce_scatter": ring_dma.rs_launches,
                 "ring_all_gather": ring_dma.ag_launches, "collective_reduce": cr.launches,
-                "grouped_matmul": gmm.launches, "ssd_scan": ssd.launches}
+                "grouped_matmul": gmm.launches, "ssd_scan": ssd.launches,
+                **{f"grouped_matmul_{r}": n for r, n in gmm.route_launches.items()}}
 
 
 @contextlib.contextmanager
@@ -2360,6 +2402,9 @@ def main() -> int:
         "decode_bound_ms": td["bound_ms"], "decode_bound_by": td["bound_by"],
         "decode_library_ms": td["library_ms"], "decode_shape": td["shape"],
         "window_launches": moe["window"]["launches"]["grouped_matmul"],
+        "routes": {r: moe["serve"]["launches"][f"grouped_matmul_{r}"] for r in gmm.ROUTES},
+        "prefill_w2_ms": gtimes["prefill_w2"]["ms"],
+        "prefill_w2_library_ms": gtimes["prefill_w2"]["library_ms"],
         "check": "pass", "cases_checked": len(gmm_cases)})
     tm, tz = stimes["mamba2_prefill"], stimes["zamba2_prefill"]
     err = ssd_cases["mamba2_prefill"]

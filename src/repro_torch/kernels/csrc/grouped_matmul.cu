@@ -8,40 +8,66 @@
 // is x: tokens dropped by the dispatch are zero rows and flow through.  The
 // reference pads M, K and N to its 128 blocks in the wrapper (ops.py:76-84);
 // here the ragged edges are masked in the kernel (zero-filled loads, masked
-// stores), so nothing is padded or copied in device memory.  x and w may be
-// strided views (the stacked (L, E, D, F) expert weights are passed as layer
-// slices): only the last dimension of each must be dense.
+// or clipped stores), so nothing is padded or copied in device memory.  x and
+// w may be strided views (the stacked (L, E, D, F) expert weights are passed
+// as layer slices): only the last dimension of each must be dense.
 //
 // What bounds it on an H100: at Mixtral's prefill (G 8, M = capacity 1280,
 // K 4096, N 14336, bf16) the product is 1.20 TFLOP against 1.32 GB moved, so
 // the tensor cores bound it (1.216 ms at 989 TFLOP/s against 0.39 ms of
 // bytes).  At decode (M = 2) it is 1.9 GFLOP against the 940 MB of weights,
-// which bound it (0.281 ms at 3.35 TB/s).  The design: a ring of kStages
-// shared-memory stages fed by cp.async, so several weight tiles are in flight
-// while the tensor cores work on the current one; blocks that share a weight
-// tile are neighbours in launch order (the M tiles are blockIdx.x), so a
-// weight tile comes from device memory once and from L2 for the other M
-// tiles; and a 16-row block tile for small M, so the decode shape spends its
-// block on weight bytes and not on 128 rows of zeros.
+// which bound it (0.281 ms at 3.35 TB/s).
 //
-// Two routes by input type:
-//  * bf16: tensor cores through mma.sync.m16n8k16 (bf16 in, f32 accumulate),
-//    operands brought from shared memory with ldmatrix (.trans for w, which is
-//    stored K-major).  bf16 products are exact in f32, so the result differs
-//    from the plain version (an f32 einsum of the upcast inputs) only in the
-//    order of the f32 sums before the one rounding.  Shared rows are padded by
-//    16 bytes, which puts the 8 rows of each ldmatrix on distinct banks, for
-//    any K or N (the row pitch in shared memory does not depend on them).
-//    Tiles come in with 16-byte cp.async copies when every row of x and w
-//    starts 16-byte aligned, else with plain loads (the kVec template flag).
+// Four routes, chosen by the wrapper from dtype, shapes, strides and
+// alignment before the launch (grouped_matmul.py::route):
+//  * wgmma (bf16, M > 16, every operand describable by TMA: bases 16-byte
+//    aligned, every stride but the last a multiple of 8 elements).  The
+//    prefill route, built the Hopper way:
+//    - TMA loads over 3-D tensor maps (cols, rows, G) with the caller's
+//      strides and 128-byte swizzle.  The out-of-bounds fill gives zeros for
+//      ragged M, N and K (rows past M never reach the next group: G is its
+//      own dimension), and the store clips them.
+//    - Warp specialisation: one producer warpgroup (one thread of it issues
+//      every copy) keeps a ring of kWStages stages of (128 x 64 of x, 64 x
+//      256 of w) in flight on full / empty mbarriers; two consumer
+//      warpgroups, 64 rows each, issue wgmma.m64n256k16 on what has arrived
+//      (x K-major; w stored (K, N) row-major, so MN-major: the transpose
+//      bit), one k stage's group kept in flight while the next is waited
+//      for.  setmaxnreg re-balances the register pool: 40 for the producer,
+//      232 for the consumers.
+//    - Persistent blocks, one per SM, walk the 128 x 256 output tiles in
+//      the order (g, N tile, M tile), M fastest: the blocks in flight share
+//      a few weight tiles, which come from device memory once and from L2
+//      for the other M tiles.  The tile counter runs on across tiles, so the
+//      producer loads the next tile while the consumers store this one.
+//    - Epilogue: the f32 sums rounded to bf16 into two 64 x 64 staging
+//      boxes per consumer warpgroup (swizzled as the out map), each written
+//      by a TMA store, which drops rows past M and columns past N.
+//    - Every mbarrier wait traps after about 2 s: a protocol fault fails the
+//      launch instead of hanging the card.
+//  * 16-row mma.sync (bf16, M <= 16: decode): tensor cores through
+//    mma.sync.m16n8k16 fed by a cp.async ring, a 16 x 128 block tile, so the
+//    decode shape spends its block on weight bytes and not on 128 rows of
+//    zeros.
+//  * 128 x 128 mma.sync (bf16 that TMA cannot describe: an odd K stride, an
+//    unaligned view): the same ring and fragments at 128 x 128.  Both
+//    mma.sync routes bring operands from shared memory with ldmatrix (.trans
+//    for w), shared rows padded by 16 bytes (the 8 rows of each ldmatrix on
+//    distinct banks); tiles come in with 16-byte cp.async copies when every
+//    row of x and w starts 16-byte aligned, else with plain loads (kVec).
 //  * f32: full f32 on the CUDA cores, one fmaf per product, never TF32: the
 //    plain version is an f32 einsum, and TF32 would keep 10 mantissa bits.
-//
-// Simple first: no TMA, wgmma, warp specialisation or persistent blocks yet.
+// bf16 products are exact in f32, so every bf16 route differs from the plain
+// version (an f32 einsum of the upcast inputs) only in the order of the f32
+// sums before the one rounding.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -335,6 +361,317 @@ __global__ void __launch_bounds__(kThreads) gmm_f32(Params p) {
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 prefill route: TMA, wgmma, a producer warpgroup, two consumer warpgroups
+// ---------------------------------------------------------------------------
+
+constexpr int kWBM = 128;          // tile rows: two consumer warpgroups x 64
+constexpr int kWBN = 256;          // tile columns: one m64n256k16 per warpgroup and k step
+constexpr int kWBK = 64;           // K per stage: one 128-byte swizzle row of x
+constexpr int kWStages = 4;        // ring stages in flight (4 x 48 KB)
+constexpr int kWConsumers = 256;   // threads of the two consumer warpgroups
+// and a producer warpgroup, of which one thread issues every copy: the
+// block's register pool is sized for 384 threads at launch (168 each), and
+// setmaxnreg moves registers within it: 128 x 40 + 256 x 232 = 384 x 168.
+constexpr int kWThreads = kWConsumers + 128;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kBox = 64;           // columns per TMA box: one 128-byte swizzle row
+constexpr int kRowBytes = 128;     // bytes of a box row in shared memory
+constexpr int kABytes = kWBM * kWBK * 2;          // x stage: one box of 128 rows
+constexpr int kBBytes = kWBK * kWBN * 2;          // w stage: kWBN / 64 boxes of 64 rows
+constexpr int kWStageBytes = kABytes + kBBytes;
+constexpr int kOutBox = 64 * kBox * 2;            // a 64 x 64 staging box of out
+constexpr int kOutBufs = 2;                       // staging boxes per consumer warpgroup
+constexpr int kStoreBar = 1;       // named barriers kStoreBar + warpgroup
+// 1024-byte alignment slack (the 128-byte swizzle), the ring, the staging
+// boxes, then the full and empty mbarriers
+constexpr int kWSmem = 1024 + kWStages * kWStageBytes + 2 * kOutBufs * kOutBox + 16 * kWStages;
+// An mbarrier wait that lasts this long (about 2 s) is a protocol fault: the
+// kernel traps, so the launch fails instead of hanging the card.
+constexpr long long kWaitCycles = 1ll << 32;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Returns once the phase of parity `parity` has completed; traps after
+// kWaitCycles.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > kWaitCycles) __trap();
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// One box of a 3-D (cols, rows, G) tensor map into shared memory; completion
+// is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int g) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(g), "r"(bar)
+      : "memory");
+}
+
+// One box from shared memory into the 3-D tensor map; the bulk group tracks
+// completion.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int col, int row,
+                                          int g) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(col), "r"(row), "r"(g)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (B128).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (m64 x n256, f32) = (scale_d ? d : 0) + a (smem, K-major) * b (smem, MN-major).
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Output tiles in the order (g, N tile, M tile), M fastest.
+struct TileGrid {
+  int n_m, n_n, n_k, n_tiles;
+  __device__ TileGrid(const Params& p)
+      : n_m((p.M + kWBM - 1) / kWBM),
+        n_n((p.N + kWBN - 1) / kWBN),
+        n_k((p.K + kWBK - 1) / kWBK),
+        n_tiles(p.G * n_m * n_n) {}
+  __device__ void decode(int t, int& g, int& m0, int& n0) const {
+    m0 = (t % n_m) * kWBM;
+    const int rest = t / n_m;
+    n0 = (rest % n_n) * kWBN;
+    g = rest / n_n;
+  }
+};
+
+// Persistent: block b takes tiles b, b + gridDim.x, ...  Shared memory
+// (1024-byte aligned): the ring of kWStages stages, each the x box (128 rows
+// x 128 bytes) then the w boxes (kWBN / 64 boxes of 64 rows x 128 bytes);
+// the staging boxes, kOutBufs per consumer warpgroup; the mbarriers full[],
+// empty[].
+__global__ void __launch_bounds__(kWThreads, 1)
+    gmm_wgmma(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+              const __grid_constant__ CUtensorMap tm_o, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t stage_out = ring + kWStages * kWStageBytes;
+  const uint32_t full_bar = stage_out + 2 * kOutBufs * kOutBox;
+  const uint32_t empty_bar = full_bar + 8 * kWStages;
+  const TileGrid tg(p);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, kWConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWConsumers) {
+    // Producer warpgroup: one thread issues every copy.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kWConsumers) {
+      int it = 0;  // stages issued so far: the ring's position
+      for (int t = blockIdx.x; t < tg.n_tiles; t += gridDim.x) {
+        int g, m0, n0;
+        tg.decode(t, g, m0, n0);
+        for (int kt = 0; kt < tg.n_k; ++kt, ++it) {
+          const int s = it % kWStages;
+          // the consumers released this stage's previous k step (passes at
+          // once on the first round)
+          mbar_wait(empty_bar + 8 * s, ((it / kWStages) & 1) ^ 1);
+          mbar_expect_tx(full_bar + 8 * s, kWStageBytes);
+          const uint32_t a = ring + s * kWStageBytes;
+          const int k0 = kt * kWBK;
+          tma_load(a, &tm_x, full_bar + 8 * s, k0, m0, g);
+#pragma unroll
+          for (int j = 0; j < kWBN / kBox; ++j)
+            tma_load(a + kABytes + j * kWBK * kRowBytes, &tm_w, full_bar + 8 * s, n0 + j * kBox,
+                     k0, g);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroups: rows wg * 64 .. wg * 64 + 63 of each tile.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const bool storer = threadIdx.x % 128 == 0;
+    float acc[kWBN / 2];
+#pragma unroll
+    for (int e = 0; e < kWBN / 2; ++e) acc[e] = 0.f;
+    int it = 0;
+    for (int t = blockIdx.x; t < tg.n_tiles; t += gridDim.x) {
+      int g, m0, n0;
+      tg.decode(t, g, m0, n0);
+      for (int kt = 0; kt < tg.n_k; ++kt, ++it) {
+        const int s = it % kWStages;
+        mbar_wait(full_bar + 8 * s, (it / kWStages) & 1);
+        const uint32_t a = ring + s * kWStageBytes + wg * 64 * kRowBytes;
+        const uint32_t b = ring + s * kWStageBytes + kABytes;
+        fence_regs(acc);
+        wgmma_fence();
+        // four k steps of 16 columns (32 bytes) inside the 128-byte swizzle
+        // row; x K-major (8-row groups 1024 bytes apart), w MN-major (16
+        // rows of 128 bytes per k step, its 64-column boxes kWBK rows apart)
+#pragma unroll
+        for (int kk = 0; kk < kWBK / 16; ++kk)
+          wgmma_n256(acc, smem_desc(a + kk * 32, 16, 1024),
+                     smem_desc(b + kk * 16 * kRowBytes, kWBK * kRowBytes, 1024), kt > 0 || kk > 0);
+        wgmma_commit();
+        fence_regs(acc);
+        // the previous k step's products are done: release its stage
+        if (kt > 0) {
+          wgmma_wait<1>();
+          fence_regs(acc);
+          mbar_arrive(empty_bar + 8 * ((it - 1) % kWStages));
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(empty_bar + 8 * ((it - 1) % kWStages));
+
+      // Epilogue: this warpgroup's 64 x 256 in four 64 x 64 boxes, rounded to
+      // bf16 into a staging box in the out map's swizzled layout and stored
+      // by TMA; two staging boxes, so one is filled while the other's store
+      // reads it.  A box wholly past M or N is not stored.
+      const int row0 = m0 + wg * 64;
+#pragma unroll
+      for (int j = 0; j < kWBN / kBox; ++j) {
+        const uint32_t buf = stage_out + (wg * kOutBufs + (j & 1)) * kOutBox;
+        // the store that last read this staging box has finished reading it
+        if (storer) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+        named_bar_sync(kStoreBar + wg, 128);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int lr = warp * 16 + lane / 4 + 8 * i;  // row within the warpgroup
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {  // 8-column groups of the box
+            const int n = j * 8 + c;     // 8-column group of the tile
+            st_shared(buf + lr * kRowBytes + ((c ^ (lr % 8)) * 16) + (lane & 3) * 4,
+                      pack_f32(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]));
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        named_bar_sync(kStoreBar + wg, 128);
+        if (storer) {
+          if (row0 < p.M && n0 + j * kBox < p.N) tma_store(&tm_o, buf, n0 + j * kBox, row0, g);
+          // a group per box, empty where nothing was stored, so "all but the
+          // newest group" above always means the box's previous store
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        }
+      }
+    }
+    if (storer) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, const Params& p) {
   if (smem > 48 * 1024) {
@@ -354,32 +691,115 @@ cudaError_t launch_bf16(const Params& p, int vec, cudaStream_t st) {
              : launch(gmm_bf16<BM, BN, WM, WN, false>, grid, smem, st, p);
 }
 
+// Errors of the tensor-map encoder come back as kMapError + CUresult.
+constexpr int kMapError = 100000;
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so that the
+// library needs no -lcuda.
+PFN_cuTensorMapEncodeTiled_v12000 encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The 3-D map (cols, rows, G) of a bf16 (G, rows, cols) view with element
+// strides s_row, s_g (cols dense): boxes of 64 columns x `box_rows` rows,
+// 128-byte swizzle, zeros for what lies past the extents.
+int encode_map(CUtensorMap* map, const void* ptr, int cols, int rows, int G, long long s_row,
+               long long s_g, int box_rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encoder();
+  if (encode == nullptr) return kMapError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)G};
+  const cuuint64_t strides[2] = {(cuuint64_t)s_row * 2, (cuuint64_t)s_g * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(r);
+}
+
+constexpr int kMaxDevices = 64;
+
+// Streaming multiprocessors of the current device, read once per device.
+int sm_count(int& sms) {
+  static int counts[kMaxDevices] = {};
+  static std::mutex lock;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> guard(lock);
+  if (counts[dev] == 0) {
+    e = cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  sms = counts[dev];
+  return cudaSuccess;
+}
+
+int launch_wgmma(const Params& p, cudaStream_t stream) {
+  CUtensorMap tm_x, tm_w, tm_o;
+  int err = encode_map(&tm_x, p.x, p.K, p.M, p.G, p.x_sm, p.x_sg, kWBM);
+  if (!err) err = encode_map(&tm_w, p.w, p.N, p.K, p.G, p.w_sk, p.w_sg, kWBK);
+  if (!err) err = encode_map(&tm_o, p.out, p.N, p.M, p.G, p.o_sm, p.o_sg, 64);
+  if (err) return err;
+  cudaError_t e =
+      cudaFuncSetAttribute(gmm_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
+  if (e != cudaSuccess) return e;
+  int sms = 0;
+  err = sm_count(sms);
+  if (err) return err;
+  const long long tiles = (long long)p.G * ((p.M + kWBM - 1) / kWBM) * ((p.N + kWBN - 1) / kWBN);
+  const dim3 grid(static_cast<unsigned>(tiles < sms ? tiles : sms));
+  gmm_wgmma<<<grid, kWThreads, kWSmem, stream>>>(tm_x, tm_w, tm_o, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and out alike).  vec: 1 when x and
-// w start 16-byte aligned and every row stride of both is a multiple of 8
-// elements (bf16 only).  Returns the CUDA error code of the launch (0 on
-// success); the kernel runs on `stream` and nothing is synchronised here.
-int grouped_matmul(const void* x, const void* w, void* out, int dtype, int G, int M, int K,
+// route: 0 f32 (float32 in and out), 1 the 16-row mma.sync tile, 2 the 128 x
+// 128 mma.sync tile, 3 wgmma + TMA (bf16 routes: x, w and out bfloat16).
+// vec (mma.sync routes): 1 when x and w start 16-byte aligned and every row
+// stride of both is a multiple of 8 elements.  Returns 0 on success, else the
+// CUDA error code of the launch, or 100000 + the CUresult of a tensor map the
+// wgmma route could not encode; the kernel runs on `stream` and nothing is
+// synchronised here.
+int grouped_matmul(const void* x, const void* w, void* out, int route, int G, int M, int K,
                    int N, long long x_sg, long long x_sm, long long w_sg, long long w_sk,
                    long long o_sg, long long o_sm, int vec, void* stream) {
   const Params p{x, w, out, G, M, K, N, x_sg, x_sm, w_sg, w_sk, o_sg, o_sm};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (G < 1 || G > 65535 || M < 1 || K < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1) {
-    if (M <= 16) return launch_bf16<16, 128, 1, 8>(p, vec, st);
-    return launch_bf16<128, 128, 2, 4>(p, vec, st);
-  }
-  if (dtype == 0) {
-    const dim3 grid((M + kSimtBM - 1) / kSimtBM, (N + kSimtBN - 1) / kSimtBN, G);
-    return launch(gmm_f32, grid, 0, st, p);
+  switch (route) {
+    case 0: {
+      const dim3 grid((M + kSimtBM - 1) / kSimtBM, (N + kSimtBN - 1) / kSimtBN, G);
+      return launch(gmm_f32, grid, 0, st, p);
+    }
+    case 1: return launch_bf16<16, 128, 1, 8>(p, vec, st);
+    case 2: return launch_bf16<128, 128, 2, 4>(p, vec, st);
+    case 3: return launch_wgmma(p, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* grouped_matmul_error_string(int err) {
+  if (err >= kMapError) return "cuTensorMapEncodeTiled failed (CUresult = code - 100000)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

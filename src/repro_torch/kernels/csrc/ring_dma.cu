@@ -32,8 +32,17 @@
 // Per rank and step the reduce-scatter reads a chunk slice of the input,
 // the partial and the slot and writes the remote slot and the partial;
 // one card's "wire" is HBM, so these kernels time the protocol plus HBM
-// traffic, not a link.  Simple first: scalar, coalesced element loops; no
-// TMA, cp.async.bulk or multimem stores yet.
+// traffic, not a link.  The reduce-scatter's copies are scalar, coalesced
+// element loops.  The all-gather's are 16-byte vectors, four in flight per
+// thread (loads with an L2 256-byte prefetch hint, streaming stores), with a
+// scalar head and tail where a piece's bounds fall inside a
+// vector; a destination whose alignment mod 16 differs from the source's
+// takes the loaded vectors as scalar stores.  Its step 0 reads the input
+// once and writes both the own output row and the downstream slot, so no
+// staging copy into the own slot is made: at n = 2 a rank reads 2c and
+// writes 3c elements.  Slots lie `pitch` elements apart, c rounded up to a
+// whole number of 16-byte vectors, so every slot starts 16-byte aligned.
+// No TMA, cp.async.bulk or multimem stores yet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,12 +61,13 @@ constexpr int kErrCredit = 2;     // a credit never came
 struct Ring {
   int R, n, direction, stripes, ctas;
   long long c;                         // elements per chunk
+  long long pitch;                     // elements from one slot to the next (>= c, 16-byte multiple)
   int pos[kMaxRanks];                  // position of each rank in its ring
   int dst[kMaxRanks];                  // downstream neighbour (global rank)
   int src[kMaxRanks];                  // upstream neighbour
   const void* in[kMaxRanks];
   void* out[kMaxRanks];
-  void* slots;                         // [R][2][c] in the wire type
+  void* slots;                         // [R][2][pitch] in the wire type
   float* acc;                          // [R][2][c] partials (reduce-scatter)
   unsigned long long* data_flags;      // [R][2][kNumBuffers][kMaxStripes][ctas]
   unsigned long long* cap_flags;       // [R][2][ctas]
@@ -156,8 +166,8 @@ __global__ void __launch_bounds__(kThreads) ring_rs_kernel(const Ring g) {
   const In* x = static_cast<const In*>(g.in[r]);
   float* out = static_cast<float*>(g.out[r]);
   float* acc = g.acc + (long long)r * 2 * c;
-  const Wire* slot_me = static_cast<const Wire*>(g.slots) + (long long)r * 2 * c;
-  Wire* slot_dst = static_cast<Wire*>(g.slots) + (long long)g.dst[r] * 2 * c;
+  const Wire* slot_me = static_cast<const Wire*>(g.slots) + (long long)r * 2 * g.pitch;
+  Wire* slot_dst = static_cast<Wire*>(g.slots) + (long long)g.dst[r] * 2 * g.pitch;
 
   for (int s = 0; s < n - 1; ++s) {
     const int par = s & 1;
@@ -170,7 +180,7 @@ __global__ void __launch_bounds__(kThreads) ring_rs_kernel(const Ring g) {
       const long long p1 = cut(lo, hi, p + 1, pieces);
       for (long long e = cut(lo, hi, p, pieces) + threadIdx.x; e < p1; e += blockDim.x) {
         const float v = s == 0 ? to_float(x[send + e]) : acc[((s - 1) & 1) * c + e];
-        slot_dst[par * c + e] = to_wire<Wire>(v);
+        slot_dst[par * g.pitch + e] = to_wire<Wire>(v);
       }
       cta_signal(data_flag(g, g.dst[r], par, p / S, p % S, k), tag(g, s));
     }
@@ -179,7 +189,7 @@ __global__ void __launch_bounds__(kThreads) ring_rs_kernel(const Ring g) {
       if (!cta_wait(g, data_flag(g, r, par, p / S, p % S, k), tag(g, s), kErrData, r, s)) return;
       const long long p1 = cut(lo, hi, p + 1, pieces);
       for (long long e = cut(lo, hi, p, pieces) + threadIdx.x; e < p1; e += blockDim.x) {
-        const float v = to_float(x[recv + e]) + to_float(__ldcg(slot_me + par * c + e));
+        const float v = to_float(x[recv + e]) + to_float(__ldcg(slot_me + par * g.pitch + e));
         if (s == n - 2)
           out[e] = v;
         else
@@ -191,6 +201,75 @@ __global__ void __launch_bounds__(kThreads) ring_rs_kernel(const Ring g) {
   }
 }
 
+constexpr int kUnroll = 4;        // 16-byte vectors in flight per thread
+
+// 16 bytes around L1 (ld.global.cg), asking L2 to fetch the whole 256-byte
+// block (on an H100 this beat the same load without the hint).
+__device__ __forceinline__ uint4 ld_cg_256(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.cg.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// dst[k][e] = src[e] for e in [a, b) and each of the ND destinations, by the
+// whole CTA.  Loads go around L1 (a slot is written by another CTA).  Scalar
+// until src is 16-byte aligned, then kUnroll 16-byte vectors per thread per
+// round (all loaded, through ld_cg_256, before any is stored), then a scalar
+// tail; a destination not aligned with src mod 16 takes each vector as V
+// scalar stores.  Vector stores are streaming (st.global.cs, evict first):
+// on an H100 that beat plain stores, and plain stores to the slots with the
+// copy-out read backwards (to meet the slot's last lines in L2).
+template <typename T, int ND>
+__device__ __forceinline__ void copy_piece(T* const (&dst)[ND], const T* src, long long a,
+                                           long long b) {
+  constexpr int V = 16 / sizeof(T);
+  const long long mis = (reinterpret_cast<uintptr_t>(src + a) % 16) / sizeof(T);
+  const long long head = min(b - a, mis ? V - mis : 0ll);
+  for (long long e = a + threadIdx.x; e < a + head; e += blockDim.x) {
+    const T v = __ldcg(src + e);
+#pragma unroll
+    for (int k = 0; k < ND; ++k) dst[k][e] = v;
+  }
+  const long long v0 = a + head;                // first element of the vector body
+  const long long nv = (b - v0) / V;            // whole vectors
+  const uint4* sv = reinterpret_cast<const uint4*>(src + v0);
+  bool vec[ND];
+#pragma unroll
+  for (int k = 0; k < ND; ++k) vec[k] = reinterpret_cast<uintptr_t>(dst[k] + v0) % 16 == 0;
+  for (long long i0 = threadIdx.x; i0 < nv; i0 += (long long)kUnroll * blockDim.x) {
+    uint4 r[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = i0 + (long long)u * blockDim.x;
+      if (i < nv) r[u] = ld_cg_256(sv + i);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = i0 + (long long)u * blockDim.x;
+      if (i >= nv) break;
+#pragma unroll
+      for (int k = 0; k < ND; ++k) {
+        T* d = dst[k] + v0 + i * V;
+        if (vec[k]) {
+          __stcs(reinterpret_cast<uint4*>(d), r[u]);
+        } else {
+          const T* w = reinterpret_cast<const T*>(&r[u]);
+#pragma unroll
+          for (int q = 0; q < V; ++q) d[q] = w[q];
+        }
+      }
+    }
+  }
+  for (long long e = v0 + nv * V + threadIdx.x; e < b; e += blockDim.x) {
+    const T v = __ldcg(src + e);
+#pragma unroll
+    for (int k = 0; k < ND; ++k) dst[k][e] = v;
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ring_ag_kernel(const Ring g) {
   const int r = blockIdx.y, k = blockIdx.x;
@@ -199,23 +278,23 @@ __global__ void __launch_bounds__(kThreads) ring_ag_kernel(const Ring g) {
   const long long lo = c * k / g.ctas, hi = c * (k + 1) / g.ctas;
   const T* x = static_cast<const T*>(g.in[r]);
   T* out = static_cast<T*>(g.out[r]);
-  T* slot_me = static_cast<T*>(g.slots) + (long long)r * 2 * c;
-  T* slot_dst = static_cast<T*>(g.slots) + (long long)g.dst[r] * 2 * c;
+  const T* slot_me = static_cast<const T*>(g.slots) + (long long)r * 2 * g.pitch;
+  T* slot_dst = static_cast<T*>(g.slots) + (long long)g.dst[r] * 2 * g.pitch;
 
-  for (long long e = lo + threadIdx.x; e < hi; e += blockDim.x) {
-    const T v = x[e];
-    slot_me[e] = v;                    // slot 0 holds what goes out at step 0
-    out[my * c + e] = v;
-  }
-  __syncthreads();
   for (int s = 0; s < n - 1; ++s) {
     const int par = s & 1, nxt = par ^ 1;
     // the downstream rank drained its slot nxt at step s - 1
     if (s >= 1 && !cta_wait(g, cap_flag(g, r, nxt, k), tag(g, s - 1), kErrCredit, r, s)) return;
     for (int j = 0; j < S; ++j) {
-      const long long p1 = cut(lo, hi, j + 1, S);
-      for (long long e = cut(lo, hi, j, S) + threadIdx.x; e < p1; e += blockDim.x)
-        slot_dst[nxt * c + e] = __ldcg(slot_me + par * c + e);
+      const long long p0 = cut(lo, hi, j, S), p1 = cut(lo, hi, j + 1, S);
+      if (s == 0) {
+        // the own chunk, read once: into the own output row and downstream
+        T* const to[2] = {out + my * c, slot_dst + nxt * g.pitch};
+        copy_piece(to, x, p0, p1);
+      } else {
+        T* const to[1] = {slot_dst + nxt * g.pitch};
+        copy_piece(to, slot_me + par * g.pitch, p0, p1);
+      }
       cta_signal(data_flag(g, g.dst[r], nxt, 0, j, k), tag(g, s));
     }
     // slot par is sent and was copied out at step s - 1: upstream may write it
@@ -223,9 +302,8 @@ __global__ void __launch_bounds__(kThreads) ring_ag_kernel(const Ring g) {
     const long long from = (long long)wrap(my - d * (s + 1), n) * c;
     for (int j = 0; j < S; ++j) {
       if (!cta_wait(g, data_flag(g, r, nxt, 0, j, k), tag(g, s), kErrData, r, s)) return;
-      const long long p1 = cut(lo, hi, j + 1, S);
-      for (long long e = cut(lo, hi, j, S) + threadIdx.x; e < p1; e += blockDim.x)
-        out[from + e] = __ldcg(slot_me + nxt * c + e);
+      T* const to[1] = {out + from};
+      copy_piece(to, slot_me + nxt * g.pitch, cut(lo, hi, j, S), cut(lo, hi, j + 1, S));
     }
     __syncthreads();
   }
@@ -269,18 +347,21 @@ int ring_ctas(int R) {
 
 int ring_max_ranks() { return kMaxRanks; }
 
-// One cooperative launch of the ring over R ranks.  pos/dst/src: host arrays
+// One cooperative launch of the ring over R ranks.  c elements per chunk;
+// pitch: elements from one slot to the next, at least c (the wrapper rounds
+// c up to a 16-byte multiple).  pos/dst/src: host arrays
 // of R ints; in_ptrs/out_ptrs: host arrays of R device pointers.  flags holds
 // the data flags then the credit flags (see Ring).  Zeroes the error word
 // first; returns a cudaError_t (0: launched).
-int ring_launch(int kind, int in_code, int wire_code, int R, int n, long long c, int direction,
+int ring_launch(int kind, int in_code, int wire_code, int R, int n, long long c, long long pitch,
+                int direction,
                 int stripes, int ctas, const int* pos, const int* dst, const int* src,
                 const unsigned long long* in_ptrs, const unsigned long long* out_ptrs,
                 void* slots, float* acc, unsigned long long* flags, int* err,
                 unsigned long long seq, void* stream) {
   KernelFn fn = pick(kind, in_code, wire_code);
   if (fn == nullptr || R < 1 || R > kMaxRanks || n < 2 || stripes < 1 ||
-      stripes > kMaxStripes || ctas < 1)
+      stripes > kMaxStripes || ctas < 1 || pitch < c)
     return (int)cudaErrorInvalidValue;
   Ring g;
   g.R = R;
@@ -289,6 +370,7 @@ int ring_launch(int kind, int in_code, int wire_code, int R, int n, long long c,
   g.stripes = stripes;
   g.ctas = ctas;
   g.c = c;
+  g.pitch = pitch;
   for (int i = 0; i < R; ++i) {
     g.pos[i] = pos[i];
     g.dst[i] = dst[i];

@@ -334,6 +334,21 @@ def all_gather_fused_plain(inputs, rings, *, direction: int = 1, n_stripes: int 
     return [o.reshape((n,) + tuple(inputs[r].shape)) for r, o in enumerate(out)]
 
 
+def slot_pitch(c: int, esize: int) -> int:
+    """Elements from one receive slot to the next for chunks of ``c``
+    elements of ``esize`` bytes: c rounded up to a whole number of 16-byte
+    vectors, so every slot starts 16-byte aligned whatever c is."""
+    per = 16 // esize
+    return -(-c // per) * per
+
+
+def scratch_sizes(R: int, c: int, esize: int, reduce: bool) -> tuple[int, int]:
+    """(f32 partial elements, slot bytes) a launch over R ranks needs: two
+    slots per rank at :func:`slot_pitch` in the ``esize``-byte wire type,
+    and (reduce-scatter) two f32 partial chunks per rank."""
+    return (R * 2 * c if reduce else 0), R * 2 * slot_pitch(c, esize) * esize
+
+
 class _Scratch:
     """Slots, partials, flags and the error word of the launches over R ranks
     on one device: allocated before a launch, grown when a larger payload
@@ -367,7 +382,7 @@ def bind(lib: ctypes.CDLL):
     lib.ring_ctas.restype = ctypes.c_int
     lib.ring_max_ranks.restype = ctypes.c_int
     lib.ring_launch.argtypes = (
-        [ctypes.c_int] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+        [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
         + [ctypes.POINTER(ctypes.c_int)] * 3
         + [ctypes.POINTER(ctypes.c_ulonglong)] * 2
         + [ctypes.c_void_p] * 4 + [ctypes.c_ulonglong, ctypes.c_void_p])
@@ -388,8 +403,8 @@ def _kernel():
 _ERRORS = {1: "a slot's ready flag never came", 2: "a credit never came"}
 
 
-def _launch(kind, in_code, wire_code, n, c, direction, S, pos, dst, src, ins, outs,
-            acc_elems, slot_bytes, check):
+def _launch(kind, in_code, wire_code, esize, n, c, direction, S, pos, dst, src, ins, outs,
+            check):
     """One launch over every rank of ``ins``; raises on a refused launch and,
     with ``check``, on a timed-out wait (it synchronises to read the error
     word; without it the word is left for :func:`check_errors`)."""
@@ -405,11 +420,12 @@ def _launch(kind, in_code, wire_code, n, c, direction, S, pos, dst, src, ins, ou
         if ctas < 1:
             raise RuntimeError(f"the ring kernel cannot keep {R} ranks resident at once")
         sc = _scratch[key] = _Scratch(device, R, ctas)
-    sc.reserve(acc_elems, slot_bytes)
+    sc.reserve(*scratch_sizes(R, c, esize, kind == 0))
     ints = ctypes.c_int * R
     ptrs = ctypes.c_ulonglong * R
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.ring_launch(kind, in_code, wire_code, R, n, c, direction, S, sc.ctas,
+    err = lib.ring_launch(kind, in_code, wire_code, R, n, c, slot_pitch(c, esize),
+                          direction, S, sc.ctas,
                           ints(*pos), ints(*dst), ints(*src),
                           ptrs(*(t.data_ptr() for t in ins)),
                           ptrs(*(t.data_ptr() for t in outs)),
@@ -469,8 +485,8 @@ def reduce_scatter_fused(inputs, rings, *, direction: int = 1, wire_dtype=None,
         return outs
     S = _clamp_stripes(n_stripes, c)
     wire_bytes = torch.empty((), dtype=wire).element_size()
-    _launch(0, _RS_CODE[xs[0].dtype], _RS_CODE[wire], n, c, direction, S, pos, dst, src,
-            xs, outs, R * 2 * c, R * 2 * c * wire_bytes, check)
+    _launch(0, _RS_CODE[xs[0].dtype], _RS_CODE[wire], wire_bytes, n, c, direction, S, pos,
+            dst, src, xs, outs, check)
     rs_launches += 1
     return outs
 
@@ -505,8 +521,7 @@ def all_gather_fused(inputs, rings, *, direction: int = 1, n_stripes: int = 1,
     if c:
         S = _clamp_stripes(n_stripes, c)
         esize = 4 if word == torch.int32 else 2
-        _launch(1, esize, 0, n, c, direction, S, pos, dst, src, xs, outs,
-                0, R * 2 * c * esize, check)
+        _launch(1, esize, 0, esize, n, c, direction, S, pos, dst, src, xs, outs, check)
         ag_launches += 1
     return [o.view(torch.uint8).view(dtype).reshape((n,) + shape) for o in outs]
 

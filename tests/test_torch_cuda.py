@@ -255,13 +255,28 @@ RING_FAULTS = {
         "if (s + 2 <= n - 2) cta_signal(cap_flag(g, g.src[r], par, k), tag(g, s));", "",
         ("rs", 4, 1, 1, 1, "float32", "float32")),
     "wrong_parity_slot_read": (
-        "to_float(__ldcg(slot_me + par * c + e))",
-        "to_float(__ldcg(slot_me + (par ^ 1) * c + e))",
+        "to_float(__ldcg(slot_me + par * g.pitch + e))",
+        "to_float(__ldcg(slot_me + (par ^ 1) * g.pitch + e))",
         ("rs", 3, 1, 1, 2, "float32", "float32")),
     "bf16_rounding_skipped": (
         "return __float2bfloat16_rn(v);",
         "return __ushort_as_bfloat16((unsigned short)(__float_as_uint(v) >> 16));",
         ("rs", 4, 1, -1, 1, "float32", "bfloat16")),
+    # the all-gather's scalar tail reads the element after its own: most
+    # pieces of c 100003 end inside a vector, so their tails come out shifted
+    "ag_tail_reads_one_over": (
+        "for (long long e = v0 + nv * V + threadIdx.x; e < b; e += blockDim.x) {\n"
+        "    const T v = __ldcg(src + e);",
+        "for (long long e = v0 + nv * V + threadIdx.x; e < b; e += blockDim.x) {\n"
+        "    const T v = __ldcg(src + e + 1);",
+        ("ag", 2, 2, 1, 1, "float32", None)),
+    # a rank reads its own slots one 16-byte vector per slot off the pitch its
+    # upstream writes them at (ranks past 0 read shifted data)
+    "ag_slot_pitch_off_by_one_vector": (
+        "const T* slot_me = static_cast<const T*>(g.slots) + (long long)r * 2 * g.pitch;",
+        "const T* slot_me = static_cast<const T*>(g.slots) + (long long)r * 2 * (g.pitch - 16 / "
+        "sizeof(T));",
+        ("ag", 3, 1, -1, 2, "bfloat16", None)),
 }
 
 
@@ -547,11 +562,21 @@ def test_expert_ffn_on_the_card_takes_the_kernel(gen):
 
 
 # name -> (text in csrc/grouped_matmul.cu, its faulty replacement, the case
-# of GMM_CASES that reaches the fault)
+# of GMM_CASES that reaches the fault): the wgmma route at Mixtral's prefill
+# shapes and edges, the mma.sync routes at decode and an unaligned view
 GMM_FAULTS = {
+    "wgmma_last_k_stage_skipped": ("n_k((p.K + kWBK - 1) / kWBK),",
+                                   "n_k((p.K + kWBK - 1) / kWBK - 1),", "mixtral_prefill_w13"),
+    "wgmma_weight_map_group_pinned_0": (
+        "n0 + j * kBox,\n                     k0, g);", "n0 + j * kBox,\n                     k0, 0);",
+        "mixtral_prefill_w2"),
+    # the consumers read the w boxes of the next ring stage: a k step not yet
+    # loaded or a stale one
+    "wgmma_consumer_reads_next_stage": (
+        "const uint32_t b = ring + s * kWStageBytes + kABytes;",
+        "const uint32_t b = ring + (s + 1) % kWStages * kWStageBytes + kABytes;", "wgmma_edges"),
     "last_k_tile_skipped": ("const int n_ktiles = (p.K + kBK - 1) / kBK;",
-                            "const int n_ktiles = (p.K + kBK - 1) / kBK - 1;",
-                            "mixtral_prefill_w13"),
+                            "const int n_ktiles = (p.K + kBK - 1) / kBK - 1;", "odd_view"),
     "group_reads_group0_weights": (
         "static_cast<const __nv_bfloat16*>(p.w) + g * p.w_sg;",
         "static_cast<const __nv_bfloat16*>(p.w) + 0 * p.w_sg;", "mixtral_decode_w2"),
@@ -574,53 +599,46 @@ def test_planted_gmm_fault_fails_the_limits(gen, faulty_gmm_libs, monkeypatch, f
     bad = gmm.grouped_matmul(x, w)
     torch.cuda.synchronize()
     eg, eb = smoke.gmm_error(good, want), smoke.gmm_error(bad, want)
-    print(f"\n  {fault}: kernel {smoke.format_gmm(eg, case[5])}"
+    print(f"\n  {fault} ({gmm.route(x, w)} route): kernel {smoke.format_gmm(eg, case[5])}"
           f"\n  {' ' * len(fault)}  fault  {smoke.format_gmm(eb, case[5])}")
     assert smoke.gmm_ok(eg, case[5])
     assert not smoke.gmm_ok(eb, case[5])
 
 
-# name -> (text in csrc/grouped_matmul.cu, its replacement): the block tiles
-# the kernel did not take, timed against the kernel in turns (-s prints them)
-GMM_TILE_VARIANTS = {
-    "decode_without_16_row_tile": (
-        "if (M <= 16) return launch_bf16<16, 128, 1, 8>(p, vec, st);", "", None),
-    "prefill_128x256_tile": (
-        "return launch_bf16<128, 128, 2, 4>(p, vec, st);",
-        "return launch_bf16<128, 256, 2, 4>(p, vec, st);", None),
+# each route against the one it was chosen over, timed in turns (-s prints
+# the readings): the 16-row mma.sync tile at decode against the 128 x 128
+# tile, and wgmma + TMA at prefill against the 128 x 128 mma.sync tile
+ROUTE_CHOICES = {
+    "decode_16_row_tile": ("mma16", "mma128", [(8, 2, 4096, 14336), (8, 2, 14336, 4096),
+                                               (8, 1, 4096, 14336)]),
+    "prefill_wgmma": ("wgmma", "mma128", [(8, 1280, 4096, 14336), (8, 1280, 14336, 4096),
+                                          (64, 240, 2048, 1408)]),
 }
 
 
-@pytest.fixture(scope="module")
-def tile_variant_libs(tmp_path_factory):
-    return _compile_faults(tmp_path_factory, "grouped_matmul", GMM_TILE_VARIANTS)
-
-
-@pytest.mark.parametrize("variant,shapes", [
-    ("decode_without_16_row_tile", [(8, 2, 4096, 14336), (8, 2, 14336, 4096),
-                                    (8, 1, 4096, 14336)]),
-    ("prefill_128x256_tile", [(8, 1280, 4096, 14336), (64, 240, 2048, 1408)])])
-def test_gmm_tile_choice(gen, tile_variant_libs, monkeypatch, variant, shapes):
-    """The kernel's block tiles against the ones it did not take: the 16-row
-    tile for M <= 16 is faster at decode than the 128-row tile alone, and a
-    128x256 tile is not faster at prefill than 128x128."""
-    kernel = gmm._kernel()
-    other = gmm.bind(tile_variant_libs[variant])
+@pytest.mark.parametrize("choice", sorted(ROUTE_CHOICES))
+def test_gmm_tile_choice(gen, monkeypatch, choice):
+    """The route the wrapper takes is faster than the one it was chosen over
+    on the same inputs (both are the same function: each within
+    ``GMM_LIMITS`` of the plain version)."""
+    taken, other, shapes = ROUTE_CHOICES[choice]
+    chosen = gmm.route
     for G, M, K, N in shapes:
         x, w = smoke.gmm_inputs(torch, gen, G, M, K, N, "bfloat16", "dense")
-        ms = {"kernel": [], variant: []}
-        for fns in ((kernel, other), (other, kernel)):             # in turns
-            for fn in fns:
-                monkeypatch.setattr(gmm, "_fn", fn)
-                ms["kernel" if fn is kernel else variant].append(
-                    smoke.median_ms(lambda: gmm.grouped_matmul(x, w), reps=10))
+        assert chosen(x, w) == taken
+        want = ref.grouped_matmul(x, w)
+        ms = {taken: [], other: []}
+        for order in ((taken, other), (other, taken)):               # in turns
+            for r in order:
+                monkeypatch.setattr(gmm, "route", lambda a, b, r=r: r)
+                before = gmm.route_launches[r]
+                assert smoke.gmm_ok(smoke.gmm_error(gmm.grouped_matmul(x, w), want), "bfloat16")
+                assert gmm.route_launches[r] == before + 1
+                ms[r].append(smoke.median_ms(lambda: gmm.grouped_matmul(x, w), reps=10))
         best = {k: min(v) for k, v in ms.items()}
-        print(f"\n  ({G},{M},{K})@({G},{K},{N}) bf16: kernel {ms['kernel']} ms, "
-              f"{variant} {ms[variant]} ms")
-        if variant == "decode_without_16_row_tile":
-            assert best["kernel"] < best[variant]
-        else:
-            assert best["kernel"] <= 1.05 * best[variant]
+        print(f"\n  ({G},{M},{K})@({G},{K},{N}) bf16: {taken} {ms[taken]} ms, "
+              f"{other} {ms[other]} ms")
+        assert best[taken] < best[other]
 
 
 # ---------------------------------------------------------------------------
