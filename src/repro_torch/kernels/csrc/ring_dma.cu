@@ -3,46 +3,57 @@
 //
 // Replace src/repro/kernels/ring_dma.py::_rs_dma_kernel and ::_ag_dma_kernel,
 // the Pallas TPU kernels of the backend="pallas" cross-island rings.  Same
-// functions and the same protocol: each ring step's payload is split into
-// kNumBuffers streams and n_stripes stripes, each with its own receive slot
-// per step parity and its own ready flag; a receiver credits its upstream
-// sender once it has drained a slot, and a sender takes that credit before
-// it reuses the slot two steps later.  Credits are only issued where a
-// matching wait exists.  The reduce-scatter keeps an f32 accumulator and puts
-// the running partial on the wire in the wire dtype, rounded to nearest even
-// at every step, exactly where the reference's emulated schedule casts, so
-// the sums come out bit for bit as there.
+// functions and the same ring schedule: each ring step's payload is split
+// into kNumBuffers streams and n_stripes stripes ("pieces"), each with its
+// own flag per step parity; a rank credits its neighbour once it has
+// drained a buffer of that parity, and the neighbour takes that credit
+// before it reuses the buffer two steps later.  Credits are only issued
+// where a matching wait exists.  The reduce-scatter keeps an f32
+// accumulator and puts the running partial on the wire in the wire dtype,
+// rounded to nearest even at every step, exactly where the reference's
+// emulated schedule casts, so the sums come out bit for bit as there.
 //
 // One launch covers every rank of the mesh that shares this device: grid
 // (ctas, R).  CTA k of rank r owns the contiguous column slice k of every
 // chunk and runs the whole ring protocol for that slice with CTA k of its
-// neighbours, so CTAs of one rank never wait for each other.  A "wire hop"
-// is a store of the sender straight into the receiver's slot in device
-// memory (the counterpart of the remote copy), then a fence and a release
-// store of the slot's flag; the receiver spins on the flag with acquire
-// loads and reads the slot around L1.  Because CTAs wait for CTAs of other
-// ranks, every CTA of the launch must be resident at once: the launch is
-// cooperative and fails if the grid does not fit.  Every wait gives up
-// after kSpinTimeoutNs of %globaltimer, writes the error word and returns,
-// and every other wait then stops too: a protocol fault becomes an error
-// that the wrapper raises, not a hung card.  Flags carry a per-call tag
-// (seq, step), so the buffers are reused across calls without a memset.
+// neighbours, so CTAs of one rank never wait for each other.  A flag is set
+// by a fence and a release store after the CTA's writes; a waiter spins on
+// it with acquire loads and then reads the data around L1.  Because CTAs
+// wait for CTAs of other ranks, every CTA of the launch must be resident at
+// once: the launch is cooperative and fails if the grid does not fit.
+// Every wait gives up after kSpinTimeoutNs of %globaltimer, writes the
+// error word and returns, and every other wait then stops too: a protocol
+// fault becomes an error that the wrapper raises, not a hung card.  Flags
+// carry a per-call tag (seq, step), so the buffers are reused across calls
+// without a memset.
 //
-// What bounds it on an H100: no arithmetic to speak of, so device memory.
-// Per rank and step the reduce-scatter reads a chunk slice of the input,
-// the partial and the slot and writes the remote slot and the partial;
+// The reduce-scatter pulls.  At step s rank r reads its upstream rank's
+// payload in place (the input chunk at s = 0, else the upstream's f32
+// partial of step s - 1), rounds it to the wire type, adds its own input
+// chunk in f32 and writes its own partial (parity s & 1), or the output at
+// the last step.  The upstream sets one "partial written" flag per piece
+// and parity; the reader waits on it (s >= 1; inputs are ready at launch)
+// and credits the upstream once it has read that parity, and the upstream
+// takes the credit before it overwrites the parity two steps later.  No
+// slot is written: a rank moves 3c elements per step (read the payload,
+// read its own chunk, write), where storing into a receive slot moved 5c.
+// Across cards (ROADMAP A3) the same read becomes a peer load over NVLink.
+//
+// What bounds it on an H100: no arithmetic to speak of, so device memory;
 // one card's "wire" is HBM, so these kernels time the protocol plus HBM
-// traffic, not a link.  The reduce-scatter's copies are scalar, coalesced
-// element loops.  The all-gather's are 16-byte vectors, four in flight per
-// thread (loads with an L2 256-byte prefetch hint, streaming stores), with a
-// scalar head and tail where a piece's bounds fall inside a
-// vector; a destination whose alignment mod 16 differs from the source's
-// takes the loaded vectors as scalar stores.  Its step 0 reads the input
-// once and writes both the own output row and the downstream slot, so no
-// staging copy into the own slot is made: at n = 2 a rank reads 2c and
-// writes 3c elements.  Slots lie `pitch` elements apart, c rounded up to a
-// whole number of 16-byte vectors, so every slot starts 16-byte aligned.
-// No TMA, cp.async.bulk or multimem stores yet.
+// traffic, not a link.  The copies move 16-byte vectors with several in
+// flight per thread (loads around L1 with an L2 256-byte prefetch hint,
+// streaming stores), with a scalar head and tail where a piece's bounds fall
+// inside a vector.  The reduce-scatter works in units of eight elements
+// keyed to its f32 destination's alignment; a source whose address is not
+// 16-byte aligned at a unit (an input row of an odd c) takes the unit as
+// scalar loads; bf16 sources unpack eight values per vector.  The
+// all-gather's step 0 reads the input once and writes both the own output
+// row and the downstream slot, so no staging copy into the own slot is
+// made: at n = 2 a rank reads 2c and writes 3c elements.  Slots and
+// partials lie `pitch` elements apart, c rounded up to a whole number of
+// 16-byte vectors, so every one starts 16-byte aligned.  No TMA,
+// cp.async.bulk or multimem stores yet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,20 +66,21 @@ constexpr int kMaxStripes = 8;    // transport.stripe.MAX_STRIPES
 constexpr int kMaxRanks = 64;
 constexpr int kThreads = 512;
 constexpr unsigned long long kSpinTimeoutNs = 2000000000ull;
-constexpr int kErrData = 1;       // a slot's ready flag never came
+constexpr int kErrData = 1;       // a slot's or a partial's data flag never came
 constexpr int kErrCredit = 2;     // a credit never came
 
 struct Ring {
   int R, n, direction, stripes, ctas;
   long long c;                         // elements per chunk
-  long long pitch;                     // elements from one slot to the next (>= c, 16-byte multiple)
+  long long pitch;                     // elements from one slot (all-gather) or f32 partial
+                                       // (reduce-scatter) to the next: >= c, 16-byte multiple
   int pos[kMaxRanks];                  // position of each rank in its ring
   int dst[kMaxRanks];                  // downstream neighbour (global rank)
   int src[kMaxRanks];                  // upstream neighbour
   const void* in[kMaxRanks];
   void* out[kMaxRanks];
-  void* slots;                         // [R][2][pitch] in the wire type
-  float* acc;                          // [R][2][c] partials (reduce-scatter)
+  void* slots;                         // [R][2][pitch] (all-gather)
+  float* acc;                          // [R][2][pitch] f32 partials (reduce-scatter)
   unsigned long long* data_flags;      // [R][2][kNumBuffers][kMaxStripes][ctas]
   unsigned long long* cap_flags;       // [R][2][ctas]
   int* err;                            // code, rank, step, cta
@@ -156,52 +168,8 @@ __device__ __forceinline__ long long cut(long long lo, long long hi, int p, int 
   return lo + (hi - lo) * p / pieces;
 }
 
-template <typename In, typename Wire>
-__global__ void __launch_bounds__(kThreads) ring_rs_kernel(const Ring g) {
-  const int r = blockIdx.y, k = blockIdx.x;
-  const int n = g.n, d = g.direction, my = g.pos[r], S = g.stripes;
-  const long long c = g.c;
-  const long long lo = c * k / g.ctas, hi = c * (k + 1) / g.ctas;
-  const int pieces = kNumBuffers * S;
-  const In* x = static_cast<const In*>(g.in[r]);
-  float* out = static_cast<float*>(g.out[r]);
-  float* acc = g.acc + (long long)r * 2 * c;
-  const Wire* slot_me = static_cast<const Wire*>(g.slots) + (long long)r * 2 * g.pitch;
-  Wire* slot_dst = static_cast<Wire*>(g.slots) + (long long)g.dst[r] * 2 * g.pitch;
-
-  for (int s = 0; s < n - 1; ++s) {
-    const int par = s & 1;
-    const long long send = (long long)wrap(my - d * (s + 1), n) * c;
-    const long long recv = (long long)wrap(my - d * (s + 2), n) * c;
-    // the downstream rank drained this parity's slot at step s - 2
-    if (s >= 2 && !cta_wait(g, cap_flag(g, r, par, k), tag(g, s - 2), kErrCredit, r, s)) return;
-    // every stripe of every stream goes out before any wait
-    for (int p = 0; p < pieces; ++p) {
-      const long long p1 = cut(lo, hi, p + 1, pieces);
-      for (long long e = cut(lo, hi, p, pieces) + threadIdx.x; e < p1; e += blockDim.x) {
-        const float v = s == 0 ? to_float(x[send + e]) : acc[((s - 1) & 1) * c + e];
-        slot_dst[par * g.pitch + e] = to_wire<Wire>(v);
-      }
-      cta_signal(data_flag(g, g.dst[r], par, p / S, p % S, k), tag(g, s));
-    }
-    // stream 0 reduces while stream 1 may still be arriving
-    for (int p = 0; p < pieces; ++p) {
-      if (!cta_wait(g, data_flag(g, r, par, p / S, p % S, k), tag(g, s), kErrData, r, s)) return;
-      const long long p1 = cut(lo, hi, p + 1, pieces);
-      for (long long e = cut(lo, hi, p, pieces) + threadIdx.x; e < p1; e += blockDim.x) {
-        const float v = to_float(x[recv + e]) + to_float(__ldcg(slot_me + par * g.pitch + e));
-        if (s == n - 2)
-          out[e] = v;
-        else
-          acc[par * c + e] = v;
-      }
-    }
-    // this parity's slot is drained: upstream may reuse it at step s + 2
-    if (s + 2 <= n - 2) cta_signal(cap_flag(g, g.src[r], par, k), tag(g, s));
-  }
-}
-
-constexpr int kUnroll = 4;        // 16-byte vectors in flight per thread
+constexpr int kUnroll = 4;        // all-gather: 16-byte vectors in flight per thread
+constexpr int kRsUnroll = 2;      // reduce-scatter: units of eight elements in flight per thread
 
 // 16 bytes around L1 (ld.global.cg), asking L2 to fetch the whole 256-byte
 // block (on an H100 this beat the same load without the hint).
@@ -267,6 +235,129 @@ __device__ __forceinline__ void copy_piece(T* const (&dst)[ND], const T* src, lo
     const T v = __ldcg(src + e);
 #pragma unroll
     for (int k = 0; k < ND; ++k) dst[k][e] = v;
+  }
+}
+
+// Eight elements of a reduce-scatter stream from p into v, as f32: one or
+// two 16-byte vectors when `vec` (the address is 16-byte aligned), else
+// scalar loads; all around L1 (a partial is written by another CTA).
+__device__ __forceinline__ void load8(float (&v)[8], const float* p, bool vec) {
+  if (vec) {
+    const uint4 a = ld_cg_256(reinterpret_cast<const uint4*>(p));
+    const uint4 b = ld_cg_256(reinterpret_cast<const uint4*>(p + 4));
+    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = __uint_as_float(w[q]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = __ldcg(p + q);
+  }
+}
+
+__device__ __forceinline__ void load8(float (&v)[8], const __nv_bfloat16* p, bool vec) {
+  if (vec) {
+    const uint4 a = ld_cg_256(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      v[2 * q] = __uint_as_float(w[q] << 16);             // the lower address
+      v[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = to_float(__ldcg(p + q));
+  }
+}
+
+// One element of a reduce-scatter step: the own chunk plus the upstream
+// payload rounded to the wire type, in f32.
+template <typename Wire>
+__device__ __forceinline__ float add_hop(float own, float payload) {
+  return own + to_float(to_wire<Wire>(payload));
+}
+
+// dst[e] = x[e] + wire(up[e]) for e in [a, b), by the whole CTA: up is the
+// upstream rank's payload (its input row or its f32 partial), x the own
+// input row, dst the own f32 partial or output.  Scalar until dst is 16-byte
+// aligned, then units of eight elements, kRsUnroll units per thread per round
+// (all loaded before any is stored), then a scalar tail.  A source takes
+// its units as vectors where its address is 16-byte aligned at the unit
+// start, else as scalar loads.  Stores are streaming (st.global.cs).
+template <typename Wire, typename U, typename X>
+__device__ __forceinline__ void reduce_piece(float* dst, const U* up, const X* x, long long a,
+                                             long long b) {
+  constexpr int V = 8;
+  const long long mis = (reinterpret_cast<uintptr_t>(dst + a) % 16) / 4;
+  const long long head = min(b - a, mis ? 4 - mis : 0ll);
+  for (long long e = a + threadIdx.x; e < a + head; e += blockDim.x)
+    dst[e] = add_hop<Wire>(to_float(x[e]), to_float(__ldcg(up + e)));
+  const long long v0 = a + head;                // first element of the unit body
+  const long long nv = (b - v0) / V;            // whole units
+  const bool vu = reinterpret_cast<uintptr_t>(up + v0) % 16 == 0;
+  const bool vx = reinterpret_cast<uintptr_t>(x + v0) % 16 == 0;
+  for (long long i0 = threadIdx.x; i0 < nv; i0 += (long long)kRsUnroll * blockDim.x) {
+    float pu[kRsUnroll][V], px[kRsUnroll][V];
+#pragma unroll
+    for (int u = 0; u < kRsUnroll; ++u) {
+      const long long i = i0 + (long long)u * blockDim.x;
+      if (i < nv) {
+        load8(pu[u], up + v0 + i * V, vu);
+        load8(px[u], x + v0 + i * V, vx);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRsUnroll; ++u) {
+      const long long i = i0 + (long long)u * blockDim.x;
+      if (i >= nv) break;
+      float o[V];
+#pragma unroll
+      for (int q = 0; q < V; ++q) o[q] = add_hop<Wire>(px[u][q], pu[u][q]);
+      float4* dv = reinterpret_cast<float4*>(dst + v0 + i * V);
+      __stcs(dv, make_float4(o[0], o[1], o[2], o[3]));
+      __stcs(dv + 1, make_float4(o[4], o[5], o[6], o[7]));
+    }
+  }
+  for (long long e = v0 + nv * V + threadIdx.x; e < b; e += blockDim.x)
+    dst[e] = add_hop<Wire>(to_float(x[e]), to_float(__ldcg(up + e)));
+}
+
+template <typename In, typename Wire>
+__global__ void __launch_bounds__(kThreads, 2) ring_rs_kernel(const Ring g) {
+  const int r = blockIdx.y, k = blockIdx.x;
+  const int n = g.n, d = g.direction, my = g.pos[r], S = g.stripes, up = g.src[r];
+  const long long c = g.c;
+  const long long lo = c * k / g.ctas, hi = c * (k + 1) / g.ctas;
+  const int pieces = kNumBuffers * S;
+  const In* x = static_cast<const In*>(g.in[r]);
+  const In* x_up = static_cast<const In*>(g.in[up]);
+  float* out = static_cast<float*>(g.out[r]);
+  float* acc = g.acc + (long long)r * 2 * g.pitch;
+  const float* acc_up = g.acc + (long long)up * 2 * g.pitch;
+
+  for (int s = 0; s < n - 1; ++s) {
+    const int par = s & 1;
+    const bool last = s == n - 2;
+    // the chunk whose partial the upstream rank holds after step s - 1
+    const long long recv = (long long)wrap(my - d * (s + 2), n) * c;
+    // the downstream rank read this parity's partial of step s - 2 at step s - 1
+    if (s >= 2 && !last && !cta_wait(g, cap_flag(g, r, par, k), tag(g, s - 2), kErrCredit, r, s))
+      return;
+    float* dst = last ? out : acc + par * g.pitch;
+    for (int p = 0; p < pieces; ++p) {
+      const long long p0 = cut(lo, hi, p, pieces), p1 = cut(lo, hi, p + 1, pieces);
+      if (s == 0) {
+        reduce_piece<Wire>(dst, x_up + recv, x + recv, p0, p1);
+      } else {
+        if (!cta_wait(g, data_flag(g, up, par ^ 1, p / S, p % S, k), tag(g, s - 1), kErrData, r,
+                      s))
+          return;
+        reduce_piece<Wire>(dst, acc_up + (par ^ 1) * g.pitch, x + recv, p0, p1);
+      }
+      if (!last) cta_signal(data_flag(g, r, par, p / S, p % S, k), tag(g, s));
+    }
+    // the upstream's partial of step s - 1 is read: it may overwrite that
+    // parity at step s + 1, where it waits for this credit
+    if (s >= 1 && s + 1 <= n - 3) cta_signal(cap_flag(g, up, par ^ 1, k), tag(g, s - 1));
   }
 }
 
@@ -348,8 +439,9 @@ int ring_ctas(int R) {
 int ring_max_ranks() { return kMaxRanks; }
 
 // One cooperative launch of the ring over R ranks.  c elements per chunk;
-// pitch: elements from one slot to the next, at least c (the wrapper rounds
-// c up to a 16-byte multiple).  pos/dst/src: host arrays
+// pitch: elements from one slot (all-gather, wire type) or partial
+// (reduce-scatter, f32) to the next, at least c (the wrapper rounds c up to
+// a 16-byte multiple).  pos/dst/src: host arrays
 // of R ints; in_ptrs/out_ptrs: host arrays of R device pointers.  flags holds
 // the data flags then the credit flags (see Ring).  Zeroes the error word
 // first; returns a cudaError_t (0: launched).

@@ -22,9 +22,11 @@ chooses:
 
 Each fused schedule also has a plain-torch version
 (:func:`reduce_scatter_fused_plain`, :func:`all_gather_fused_plain`): the
-kernel's protocol for all ranks of a launch, with its parity slots, stripes
-and credits as counters, stepped in order on the host.  The wrappers run it
-for CPU tensors; the card checks hold the kernels against it bit for bit.
+kernel's protocol for all ranks of a launch, stepped in order on the host,
+with its flags and credits as counters (the reduce-scatter's per pulled
+partial in a :class:`PullLedger`, the all-gather's per parity slot).  The
+wrappers run it for CPU tensors; the card checks hold the kernels against
+it bit for bit.
 
 With a ``wire_quant`` codec (DESIGN.md §17) a ring takes the quantized
 emulated schedule on every device, as the reference does on every platform
@@ -34,8 +36,8 @@ is TACC ``wire_quantize`` / ``wire_dequant_accum`` (the ``csrc/quant.cu``
 kernels on CUDA tensors).  The fused kernels never carry a codec.
 
 ``n_stripes`` splits each wire hop into that many per-link parts, each with
-its own slot and flag (DESIGN.md §11); the result is bit-equal to the
-unstriped ring.  All per-rank functions run inside a mesh (``core.mesh``).
+its own flag (and, in the all-gather, its own slot; DESIGN.md §11); the
+result is bit-equal to the unstriped ring.  All per-rank functions run inside a mesh (``core.mesh``).
 """
 from __future__ import annotations
 
@@ -64,7 +66,7 @@ _RS_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 class RingProtocolError(RuntimeError):
     """The ring protocol failed: a wait of the fused kernel timed out on the
-    card, or its plain version found a slot or credit out of order."""
+    card, or its plain version found a slot, partial or credit out of order."""
 
 
 def _ring_perm(n: int, direction: int) -> list[tuple[int, int]]:
@@ -235,58 +237,95 @@ def _check_inputs(inputs):
                              f"{[(tuple(t.shape), t.dtype, str(t.device)) for t in inputs]}")
 
 
+class PullLedger:
+    """The fused reduce-scatter's flags and credits as counters, for the
+    plain version that steps its protocol on the host.
+
+    ``write`` is a rank's store of one piece (stream, stripe) of its partial
+    of a step, ``read`` the downstream rank's pull of it; ``give`` and
+    ``take`` are the downstream's credit for a parity and the writer's wait
+    for it.  A read of a piece that was not written, a write over a piece
+    that was not read and a credit taken before it was given raise
+    :class:`RingProtocolError`, and :meth:`close` raises if any counter is
+    not back at zero."""
+
+    def __init__(self):
+        self.unread = collections.Counter()     # (rank, parity, stream, stripe)
+        self.credit = collections.Counter()     # (rank, parity)
+
+    def write(self, rank: int, step: int, piece):
+        key = (rank, step % 2, *piece)
+        if self.unread[key]:
+            raise RingProtocolError(f"rank {rank} step {step}: partial {key} overwritten "
+                                    "before it was read")
+        self.unread[key] += 1
+
+    def read(self, rank: int, step: int, piece):
+        key = (rank, step % 2, *piece)
+        if not self.unread[key]:
+            raise RingProtocolError(f"partial {key} of step {step} read before it was written")
+        self.unread[key] -= 1
+
+    def give(self, rank: int, parity: int):
+        self.credit[(rank, parity)] += 1
+
+    def take(self, rank: int, step: int):
+        key = (rank, step % 2)
+        if self.credit[key] < 1:
+            raise RingProtocolError(f"rank {rank} step {step}: no credit for parity {key[1]}")
+        self.credit[key] -= 1
+
+    def close(self):
+        if any(self.unread.values()) or any(self.credit.values()):
+            raise RingProtocolError("partials or credits left over at the end: "
+                                    f"{+self.unread} {+self.credit}")
+
+
 def reduce_scatter_fused_plain(inputs, rings, *, direction: int = 1,
                                wire_dtype=None, n_stripes: int = 1):
-    """Plain version of the fused reduce-scatter: the kernel's protocol for
-    every rank of a launch, stepped in order.
+    """Plain version of the fused reduce-scatter: the kernel's pull protocol
+    for every rank of a launch, stepped in order.
 
     inputs[r]: rank r's chunks (n, c) -> list of rank r's reduced chunk
-    (c,), f32.  Receive slots per (rank, parity, stream, stripe), ready
-    flags and credits are counters; a send into a slot that was not drained,
-    a receive from a slot that was not filled and a credit taken before it
-    was given all raise, and every counter must be back at zero at the end.
+    (c,), f32.  At step s each rank pulls its upstream's payload (the input
+    chunk at s = 0, else the upstream's partial of step s - 1, kept per
+    rank and parity), rounds it to the wire dtype and adds its own chunk in
+    f32, piece by piece (NUM_BUFFERS streams x stripes); a :class:`PullLedger`
+    checks every read, overwrite and credit, and must drain at the end.
     """
     _check_inputs(inputs)
     R = len(inputs)
-    n, pos, dst, src = _ring_tables(rings, direction, R)
+    n, pos, _, src = _ring_tables(rings, direction, R)
     xs = [t.reshape(n, -1) for t in inputs]
     c = xs[0].shape[1]
     wire = wire_dtype or inputs[0].dtype
     S = _clamp_stripes(n_stripes, c)
-    pieces = [(p // S, p % S, lo, hi)
+    pieces = [((p // S, p % S), lo, hi)
               for p, (lo, hi) in enumerate(_pieces(c, NUM_BUFFERS * S))]
-    slots, ready, credit = {}, collections.Counter(), collections.Counter()
-    partial = [None] * R
+    ledger = PullLedger()
+    partial = {}                        # (rank, parity) -> its (c,) f32 partial or output
     for s in range(n - 1):
-        par = s % 2
-        for r in range(R):                                   # sends
-            if s >= 2:
-                if credit[(r, par)] < 1:
-                    raise RingProtocolError(f"rank {r} step {s}: no credit for slot {par}")
-                credit[(r, par)] -= 1
-            send_idx = (pos[r] - direction * (s + 1)) % n
-            val = xs[r][send_idx].float() if s == 0 else partial[r]
-            for b, j, lo, hi in pieces:
-                key = (dst[r], par, b, j)
-                if ready[key]:
-                    raise RingProtocolError(f"rank {r} step {s}: slot {key} not drained")
-                slots[key] = val[lo:hi].to(wire)
-                ready[key] += 1
-        for r in range(R):                                   # receives
-            recv_idx = (pos[r] - direction * (s + 2)) % n
-            new = torch.empty(c, dtype=torch.float32, device=xs[r].device)
-            for b, j, lo, hi in pieces:
-                key = (r, par, b, j)
-                if not ready[key]:
-                    raise RingProtocolError(f"rank {r} step {s}: slot {key} empty")
-                ready[key] -= 1
-                new[lo:hi] = xs[r][recv_idx, lo:hi].float() + slots[key].float()
-            partial[r] = new
-            if s + 2 <= n - 2:
-                credit[(src[r], par)] += 1
-    if any(ready.values()) or any(credit.values()):
-        raise RingProtocolError("slots or credits left over at the end")
-    return partial
+        last = s == n - 2
+        for r in range(R):
+            up = src[r]
+            recv = (pos[r] - direction * (s + 2)) % n
+            if 2 <= s and not last:
+                ledger.take(r, s)
+            out = partial[(r, s % 2)] = torch.empty(c, dtype=torch.float32,
+                                                    device=xs[r].device)
+            for piece, lo, hi in pieces:
+                if s == 0:
+                    payload = xs[up][recv, lo:hi].float()
+                else:
+                    ledger.read(up, s - 1, piece)
+                    payload = partial[(up, (s - 1) % 2)][lo:hi]
+                out[lo:hi] = xs[r][recv, lo:hi].float() + payload.to(wire).float()
+                if not last:
+                    ledger.write(r, s, piece)
+            if 1 <= s <= n - 4:
+                ledger.give(up, (s - 1) % 2)
+    ledger.close()
+    return [partial[(r, (n - 2) % 2)] for r in range(R)]
 
 
 def all_gather_fused_plain(inputs, rings, *, direction: int = 1, n_stripes: int = 1):
@@ -343,10 +382,13 @@ def slot_pitch(c: int, esize: int) -> int:
 
 
 def scratch_sizes(R: int, c: int, esize: int, reduce: bool) -> tuple[int, int]:
-    """(f32 partial elements, slot bytes) a launch over R ranks needs: two
-    slots per rank at :func:`slot_pitch` in the ``esize``-byte wire type,
-    and (reduce-scatter) two f32 partial chunks per rank."""
-    return (R * 2 * c if reduce else 0), R * 2 * slot_pitch(c, esize) * esize
+    """(f32 partial elements, slot bytes) a launch over R ranks needs: the
+    reduce-scatter two f32 partials per rank at the f32 :func:`slot_pitch`
+    and no slots, since it pulls; the all-gather two slots per rank at
+    :func:`slot_pitch` in its ``esize``-byte words."""
+    if reduce:
+        return R * 2 * slot_pitch(c, 4), 0
+    return 0, R * 2 * slot_pitch(c, esize) * esize
 
 
 class _Scratch:
@@ -400,12 +442,13 @@ def _kernel():
         return _lib
 
 
-_ERRORS = {1: "a slot's ready flag never came", 2: "a credit never came"}
+_ERRORS = {1: "a data flag (a slot's or a partial's) never came", 2: "a credit never came"}
 
 
 def _launch(kind, in_code, wire_code, esize, n, c, direction, S, pos, dst, src, ins, outs,
             check):
-    """One launch over every rank of ``ins``; raises on a refused launch and,
+    """One launch over every rank of ``ins`` (``esize``: bytes of an f32
+    partial, 4, or of an all-gather word); raises on a refused launch and,
     with ``check``, on a timed-out wait (it synchronises to read the error
     word; without it the word is left for :func:`check_errors`)."""
     lib = _kernel()
@@ -484,8 +527,7 @@ def reduce_scatter_fused(inputs, rings, *, direction: int = 1, wire_dtype=None,
     if c == 0:
         return outs
     S = _clamp_stripes(n_stripes, c)
-    wire_bytes = torch.empty((), dtype=wire).element_size()
-    _launch(0, _RS_CODE[xs[0].dtype], _RS_CODE[wire], wire_bytes, n, c, direction, S, pos,
+    _launch(0, _RS_CODE[xs[0].dtype], _RS_CODE[wire], 4, n, c, direction, S, pos,  # f32 partials
             dst, src, xs, outs, check)
     rs_launches += 1
     return outs

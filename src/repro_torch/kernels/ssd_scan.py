@@ -16,15 +16,22 @@ points launch it:
   place: nothing is expanded to H heads.
 
 x, B_in and C_in are float32 or bfloat16, all alike; dt and a_cum are cast
-to f32.  The head dim P is 16, 32, 64 or 128; one block's shared memory
-(two (N, P) f32 states and the tiles) must fit in 227 KB.
+to f32.  The dtype alone picks the kernel's route (:func:`route`): bfloat16
+takes ``"mma"`` (tensor cores, N a multiple of 8 and at most 128), float32
+``"f32"`` (FMA on the CUDA cores).  The head dim P is 16, 32, 64 or 128;
+one block's shared memory must fit in 227 KB.  The built library says which
+shapes a route takes and what a block of it takes
+(:func:`kernel_smem_bytes`); :func:`smem_bytes` is the same layout in
+Python, for planning without a card.
 
 On a CUDA tensor a wrapper launches the kernel or raises; on a CPU tensor it
 runs the plain version (``ref.ssd_scan``, and :func:`ssd_scan_model_plain`
 over ``ref.ssd_scan_states``).  Nothing falls back from the one to the
 other.  The kernel has no backward: on a CUDA tensor that autograd would
 need a gradient of, the wrappers raise (SSM training is ROADMAP A7).
-``launches`` counts kernel launches and nothing else, under a lock.
+``launches`` counts kernel launches and nothing else, under a lock;
+``route_launches`` counts them per route, and its values sum to
+``launches``.
 """
 from __future__ import annotations
 
@@ -36,6 +43,8 @@ import torch
 from repro_torch.kernels import _build, ref
 
 launches = 0          # kernel launches made by ssd_scan and ssd_scan_model
+ROUTES = ("f32", "mma")                  # in the order of the C dtype codes
+route_launches = dict.fromkeys(ROUTES, 0)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -49,11 +58,20 @@ def bind(lib: ctypes.CDLL):
     """(launch, error_string) of a loaded ``ssd_scan`` library."""
     fn = lib.ssd_scan
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-                   + [ctypes.c_longlong] * 18 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 18 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return fn, lib.ssd_scan_error_string
+
+
+def reset_counts():
+    """Set ``launches`` and every ``route_launches`` count to 0."""
+    global launches
+    with _lock:
+        launches = 0
+        for r in ROUTES:
+            route_launches[r] = 0
 
 
 def _kernel():
@@ -64,10 +82,50 @@ def _kernel():
         return _fn
 
 
-def smem_bytes(N: int, P: int, Q: int) -> int:
-    """Shared memory of one block (``smem_floats`` in the source, x 4)."""
-    nt = -(-Q // 64)
-    return 4 * (2 * N * P + 2 * 64 * (N + 1) + 64 * P + 64 * 65 + 2 * nt * 64)
+def route(dtype) -> str:
+    """The kernel's route for inputs of ``dtype``: "mma" for bfloat16 (tensor
+    cores), "f32" for float32 (FMA).  The dtype alone decides."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"dtype {dtype}: the kernel takes float32 or bfloat16")
+    return ROUTES[_DTYPE_CODE[dtype]]
+
+
+def smem_bytes(N: int, P: int, Q: int, dtype=torch.bfloat16) -> int:
+    """Shared memory of one block of the route for ``dtype``, from the
+    source's layout; a launch sizes it in C (:func:`kernel_smem_bytes`, which
+    the card tests and chip_smoke hold this to).  mma (``mma_layout`` in the
+    source): the f32 state (N rounded up to 16 rows of P + 4), two bf16 tiles
+    of 64 rows of B (N + 8 wide) and of x (P + 8), and a, dt and the update's
+    factors of the chunk in f32.  f32 (``smem_floats``): two f32 states, the
+    C and B tiles, x * dt, the score tile, a and dt."""
+    rows = -(-Q // 64) * 64
+    if route(dtype) == "mma":
+        NP = -(-N // 16) * 16
+        return 4 * NP * (P + 4) + 2 * 2 * 64 * (NP + 8) + 2 * 2 * 64 * (P + 8) + 3 * 4 * rows
+    return 4 * (2 * N * P + 2 * 64 * (N + 1) + 64 * P + 64 * 65 + 2 * rows)
+
+
+def _lib():
+    """The checkout's library, with its shape queries bound."""
+    lib = _build.load("ssd_scan")
+    lib.ssd_scan_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+    lib.ssd_scan_blocks_per_sm.restype = ctypes.c_int
+    lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def kernel_smem_bytes(N: int, P: int, Q: int, dtype=torch.bfloat16) -> int:
+    """Shared memory that a launch of the route's kernel gives one block at
+    these shapes, from the built library; -1 where the route does not take
+    them (the launch would refuse them).  Needs nvcc."""
+    return _lib().ssd_scan_smem_bytes(_DTYPE_CODE[dtype], N, P, Q)
+
+
+def blocks_per_sm(N: int, P: int, Q: int, dtype=torch.bfloat16) -> int:
+    """Blocks of the route's kernel that one SM holds at once, from the
+    card's occupancy calculator (needs the card and the built kernel)."""
+    return _lib().ssd_scan_blocks_per_sm(_DTYPE_CODE[dtype], N, P, Q)
 
 
 def _check(x, bc, init_state, H, G, N, P, Q):
@@ -78,9 +136,10 @@ def _check(x, bc, init_state, H, G, N, P, Q):
         raise ValueError(f"head dim {P} not in {HEAD_DIMS}")
     if G < 1 or H % G:
         raise ValueError(f"{H} heads are not a multiple of {G} groups")
-    if smem_bytes(N, P, Q) > MAX_SMEM:
-        raise ValueError(f"state {N} x {P} with chunk {Q} needs {smem_bytes(N, P, Q)} "
-                         f"bytes of shared memory, more than {MAX_SMEM}")
+    if kernel_smem_bytes(N, P, Q, x.dtype) < 0:
+        raise ValueError(f"state {N} x {P} with chunk {Q}: the {route(x.dtype)} route does "
+                         f"not take it (at most {MAX_SMEM} bytes of shared memory a block; "
+                         "on the mma route, bfloat16, N a multiple of 8 up to 128)")
     for name, t in (("x", x), ("B", bc[0]), ("C", bc[1])):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -96,6 +155,13 @@ def _check(x, bc, init_state, H, G, N, P, Q):
             "ssd_scan has no backward kernel yet (SSM training, ROADMAP A7)")
 
 
+def _rows_aligned(t, strides) -> bool:
+    """Every row of ``t`` (last dimension dense) starts 16-byte aligned:
+    the base, and each of the (b, h or g, s) ``strides`` in bytes."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s * es % 16 == 0 for s in strides)
+
+
 def _launch(x, dt, a, bm, cm, init_state, y, fin, *, H, G, N, P, Q, nc, strides):
     """One launch; ``strides`` holds the (b, h, s) strides of x, dt, a, y and
     the (b, g, s) strides of B and C, in that order (x, dt, a, B, C, y)."""
@@ -103,16 +169,20 @@ def _launch(x, dt, a, bm, cm, init_state, y, fin, *, H, G, N, P, Q, nc, strides)
     fn, err_str = _kernel()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     init = None if init_state is None else init_state.float().contiguous()
+    r = route(x.dtype)
+    vec = (_rows_aligned(x, strides[0:3]) and _rows_aligned(bm, strides[9:12])
+           and _rows_aligned(cm, strides[12:15]))
     err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
              None if init is None else init.data_ptr(), y.data_ptr(),
              None if fin is None else fin.data_ptr(), _DTYPE_CODE[x.dtype],
              int(y.dtype == torch.float32), x.shape[0], H, G, N, P, Q, nc,
-             *strides, stream)
+             *strides, int(vec), stream)
     if err:
-        raise RuntimeError(f"ssd_scan launch failed: {err_str(err).decode()} "
+        raise RuntimeError(f"ssd_scan launch failed ({r} route): {err_str(err).decode()} "
                            f"(cuda error {err})")
     with _lock:
         launches += 1
+        route_launches[r] += 1
 
 
 def _route(x):

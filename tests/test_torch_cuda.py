@@ -251,19 +251,35 @@ def test_fused_ring_raises_instead_of_falling_back(gen):
 # name -> (text in csrc/ring_dma.cu, its faulty replacement, the ring case
 # (kind, n, rings, direction, stripes, input, wire) that reaches the fault)
 RING_FAULTS = {
+    # the reduce-scatter's reader never credits its upstream, which waits for
+    # the credit before it overwrites a parity (from n = 5 on): must raise
     "credit_never_signalled": (
-        "if (s + 2 <= n - 2) cta_signal(cap_flag(g, g.src[r], par, k), tag(g, s));", "",
-        ("rs", 4, 1, 1, 1, "float32", "float32")),
+        "if (s >= 1 && s + 1 <= n - 3) cta_signal(cap_flag(g, up, par ^ 1, k), tag(g, s - 1));",
+        "", ("rs", 5, 1, 1, 1, "float32", "float32")),
+    # the all-gather copies out the slot of the other parity
     "wrong_parity_slot_read": (
-        "to_float(__ldcg(slot_me + par * g.pitch + e))",
-        "to_float(__ldcg(slot_me + (par ^ 1) * g.pitch + e))",
-        ("rs", 3, 1, 1, 2, "float32", "float32")),
+        "copy_piece(to, slot_me + nxt * g.pitch, cut(lo, hi, j, S), cut(lo, hi, j + 1, S));",
+        "copy_piece(to, slot_me + par * g.pitch, cut(lo, hi, j, S), cut(lo, hi, j + 1, S));",
+        ("ag", 3, 1, 1, 2, "float32", None)),
+    # the reduce-scatter pulls the upstream's partial of the other parity
+    "pull_reads_other_parity": (
+        "reduce_piece<Wire>(dst, acc_up + (par ^ 1) * g.pitch, x + recv, p0, p1);",
+        "reduce_piece<Wire>(dst, acc_up + par * g.pitch, x + recv, p0, p1);",
+        ("rs", 4, 1, 1, 2, "float32", "float32")),
     "bf16_rounding_skipped": (
         "return __float2bfloat16_rn(v);",
         "return __ushort_as_bfloat16((unsigned short)(__float_as_uint(v) >> 16));",
         ("rs", 4, 1, -1, 1, "float32", "bfloat16")),
-    # the all-gather's scalar tail reads the element after its own: most
-    # pieces of c 100003 end inside a vector, so their tails come out shifted
+    # the reduce-scatter's scalar tail reads the elements after its own: most
+    # pieces of c 100003 end inside a unit of eight, so their tails come out
+    # shifted
+    "rs_tail_reads_one_over": (
+        "for (long long e = v0 + nv * V + threadIdx.x; e < b; e += blockDim.x)\n"
+        "    dst[e] = add_hop<Wire>(to_float(x[e]), to_float(__ldcg(up + e)));",
+        "for (long long e = v0 + nv * V + threadIdx.x; e < b; e += blockDim.x)\n"
+        "    dst[e] = add_hop<Wire>(to_float(x[e + 1]), to_float(__ldcg(up + e + 1)));",
+        ("rs", 2, 2, 1, 1, "float32", "float32")),
+    # the all-gather's scalar tail reads the element after its own
     "ag_tail_reads_one_over": (
         "for (long long e = v0 + nv * V + threadIdx.x; e < b; e += blockDim.x) {\n"
         "    const T v = __ldcg(src + e);",
@@ -653,19 +669,43 @@ def _ssd_case(gen, name):
 @pytest.mark.parametrize("name", [c[0] for c in smoke.SSD_CASES])
 def test_ssd_matches_plain(gen, name):
     inp = _ssd_case(gen, name)
-    before = ssd.launches
+    route = ssd.route(inp["x"].dtype)
+    before, before_route = ssd.launches, ssd.route_launches[route]
     got = smoke.ssd_run(ssd, ref, inp, plain=False)
     torch.cuda.synchronize()
-    assert ssd.launches == before + 1
+    assert ssd.launches == before + 1 and ssd.route_launches[route] == before_route + 1
+    assert route == ("mma" if inp["x"].dtype == torch.bfloat16 else "f32")
     want = smoke.ssd_run(ssd, ref, inp, plain=True)
     errs, ok, dt = smoke.ssd_errors(got, want)
     assert ok, {k: smoke.format_gmm(e, dt, smoke.SSD_LIMITS) for k, e in errs.items()}
+    scale = next(c for c in smoke.SSD_CASES if c[0] == name)[9]
+    if route == "mma" and dt == "float32" and scale >= 1.0:
+        assert smoke.ssd_mma_ok(errs), errs
     again = smoke.ssd_run(ssd, ref, inp, plain=False)
     assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)   # no atomics
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_layout_matches_the_library(dtype):
+    """kernels/ssd_scan.py's smem_bytes against the shared memory a launch
+    gives a block (the library's, -1 where the route refuses the shapes), and
+    two blocks per SM at both models' shapes on the mma route."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    for P in ssd.HEAD_DIMS:
+        for N in (8, 12, 16, 24, 64, 128, 136, 256):
+            for Q in (32, 100, 256):
+                want = ssd.smem_bytes(N, P, Q, dtype)
+                takes = want <= ssd.MAX_SMEM and (
+                    dtype == torch.float32 or (N % 8 == 0 and N <= 128))
+                assert ssd.kernel_smem_bytes(N, P, Q, dtype) == (want if takes else -1), (N, P, Q)
+    if dtype == torch.bfloat16:
+        assert all(ssd.blocks_per_sm(N, 64, 256, dtype) >= 2 for N in (128, 64))
+
+
 @pytest.mark.parametrize("bad", ["dtype", "mixed_dtype", "head_dim", "groups", "last_stride",
-                                 "shared_memory", "ragged_chunk", "init_shape"])
+                                 "shared_memory", "ragged_chunk", "init_shape",
+                                 "mma_state_size"])
 def test_ssd_raises_on_what_it_does_not_take(gen, bad):
     B, S, H, P, G, N, Q = 2, 128, 4, 32, 2, 16, 64
     kw = dict(B=B, S=S, H=H, P=P, G=G, N=N)
@@ -675,6 +715,8 @@ def test_ssd_raises_on_what_it_does_not_take(gen, bad):
         kw["G"] = 3
     elif bad == "shared_memory":
         kw.update(P=128, N=256)
+    elif bad == "mma_state_size":             # the mma route takes N % 8 == 0
+        kw["N"] = 12
     inp = smoke.ssd_inputs(torch, gen, kw["B"], kw["S"], kw["H"], kw["P"], kw["G"], kw["N"], Q,
                            "bfloat16", 1.0, bad == "init_shape", "model")
     x, Bm, Cm, init = inp["x"], inp["B"], inp["C"], inp["init"]
@@ -692,6 +734,31 @@ def test_ssd_raises_on_what_it_does_not_take(gen, bad):
     with pytest.raises(ValueError):
         ssd.ssd_scan_model(x, inp["dt"], inp["a"], Bm, Cm, Q, init)
     assert ssd.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_unaligned_views_match_plain(gen, dtype):
+    """x, B and C as column views of wider tensors whose rows lie an odd
+    number of elements apart: rows not 16-byte aligned, so the mma route
+    loads its tiles element by element (no cp.async); within SSD_LIMITS of
+    the plain version, both routes."""
+    B, S, H, P, G, N, Q = 2, 512, 8, 64, 2, 64, 256
+    dt_ = getattr(torch, dtype)
+    inp = smoke.ssd_inputs(torch, gen, B, S, H, P, G, N, Q, dtype, 1.0, True, "model")
+
+    def odd_view(t):
+        wide = torch.zeros(*t.shape[:-1], t.shape[-1] + 5, dtype=dt_, device="cuda")
+        wide[..., 3:3 + t.shape[-1]] = t
+        return wide[..., 3:3 + t.shape[-1]]
+
+    views = {k: odd_view(inp[k]) for k in ("x", "B", "C")}
+    assert views["B"].stride(1) * views["B"].element_size() % 16
+    got = ssd.ssd_scan_model(views["x"], inp["dt"], inp["a"], views["B"], views["C"], Q,
+                             inp["init"])
+    want = ssd.ssd_scan_model_plain(inp["x"], inp["dt"], inp["a"], inp["B"], inp["C"], Q,
+                                    inp["init"])
+    errs, ok, dt = smoke.ssd_errors(got, want)
+    assert ok, {k: smoke.format_gmm(e, dt, smoke.SSD_LIMITS) for k, e in errs.items()}
 
 
 def test_ssd_raises_where_autograd_needs_its_backward(gen):
@@ -751,14 +818,42 @@ def test_flash_backward_raises_at_d112(gen):
 
 
 # name -> (text in csrc/ssd_scan.cu, its faulty replacement, the case of
-# SSD_CASES that reaches the fault)
+# SSD_CASES that reaches the fault).  The mma route (bf16 cases) first, then
+# the f32 route, which kept its code.
 SSD_FAULTS = {
-    "state_not_carried": ("s_next[e] = chunk_decay * s_cur[e];", "s_next[e] = 0.f;",
-                          "slow_decay"),
-    "state_updated_before_rows_read_it": ("const float* s_read = s_cur;",
-                                          "const float* s_read = s_next;", "slow_decay"),
-    "head_reads_group0": ("const int g = h / (p.H / p.G);", "const int g = 0;", "g2_h8"),
+    "state_not_carried": ("const float keep = expf(a_last);", "const float keep = 0.f;",
+                          "slow_decay_bf16"),
+    # the state update runs before the rows, which then read the new state
+    "state_updated_before_rows_read_it": (
+        "    mma_rows<P>(p, ch);\n    mma_state<P>(p, ch, a_last);",
+        "    mma_state<P>(p, ch, a_last);\n    mma_rows<P>(p, ch);", "slow_decay_bf16"),
+    "head_reads_group0": ("const int group = h / (p.H / p.G);", "const int group = 0;", "g2_h8"),
+    # every f32 operand goes in as hi + mid only
+    "lo_split_part_dropped": (
+        "const __nv_bfloat162 l = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);",
+        "const __nv_bfloat162 l = __floats2bfloat162_rn(0.f, 0.f);", "mamba2_dt_to_20"),
+    # the diagonal block's mask drops the diagonal (j == i)
+    "diagonal_mask_off_by_one": ("const bool in_mask = j <= i && i < Q;",
+                                 "const bool in_mask = j < i && i < Q;", "one_chunk"),
+    # no wait for the tile of a step: its buffer may be read before the
+    # copies land.  A race: where a step's work hides the copies' latency
+    # the output comes out right, so the case is one whose phases are one
+    # step each (chunks of 32), where every tile is read right after it is
+    # issued
+    "cp_async_wait_one_stage_short": ("cp_async_wait<0>();  // tile k has landed",
+                                      "cp_async_wait<1>();  // tile k has landed", "q32_g16"),
+    "f32_route_state_not_carried": ("s_next[e] = chunk_decay * s_cur[e];", "s_next[e] = 0.f;",
+                                    "slow_decay"),
+    "f32_route_state_updated_before_rows_read_it": ("const float* s_read = s_cur;",
+                                                    "const float* s_read = s_next;",
+                                                    "slow_decay"),
 }
+# Faults whose error stays inside SSD_LIMITS and must fail the mma route's
+# own check (SSD_MMA_REL_L2 of chip_smoke.py) instead.  hi + mid keep 16 bits
+# of every f32 operand: the error comes out near 2.5e-6 (the CPU emulation in
+# tests/test_torch_ssm.py reads 2.5e-6 against 9e-8 for three parts), under
+# the f32 limit of 2e-5, which was set for a route that rounds no operand.
+SSD_FAULTS_UNDER_LIMITS = {"lo_split_part_dropped"}
 
 
 @pytest.fixture(scope="module")
@@ -778,4 +873,7 @@ def test_planted_ssd_fault_fails_the_limits(gen, faulty_ssd_libs, monkeypatch, f
         print(f"\n  {fault} {label}: " + "  ".join(
             f"{k} {smoke.format_gmm(e, dt, smoke.SSD_LIMITS)}" for k, e in errs.items()))
     assert good[1]
-    assert not bad[1]
+    if fault in SSD_FAULTS_UNDER_LIMITS:
+        assert smoke.ssd_mma_ok(good[0]) and not smoke.ssd_mma_ok(bad[0])
+    else:
+        assert not bad[1]

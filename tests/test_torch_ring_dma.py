@@ -147,6 +147,91 @@ def test_fused_plain_checks_its_protocol():
         assert torch.equal(o.reshape(-1), w)
 
 
+class _RecordingLedger(ring_dma.PullLedger):
+    """A PullLedger that also logs every event it checks, in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.events = []
+
+    def write(self, rank, step, piece):
+        self.events.append(("write", rank, step, piece))
+        super().write(rank, step, piece)
+
+    def read(self, rank, step, piece):
+        self.events.append(("read", rank, step, piece))
+        super().read(rank, step, piece)
+
+    def give(self, rank, parity):
+        self.events.append(("give", rank, parity))
+        super().give(rank, parity)
+
+    def take(self, rank, step):
+        self.events.append(("take", rank, step))
+        super().take(rank, step)
+
+
+def _replay(events):
+    ledger = ring_dma.PullLedger()
+    for kind, *args in events:
+        getattr(ledger, kind)(*args)
+    ledger.close()
+
+
+def _pull_events(monkeypatch):
+    """The ledger events of a good plain reduce-scatter over one ring of 5
+    (credits exist only from n = 5 on), two stripes."""
+    rec = []
+
+    def ledger():
+        rec.append(_RecordingLedger())
+        return rec[-1]
+
+    monkeypatch.setattr(ring_dma, "PullLedger", ledger)
+    g = torch.Generator().manual_seed(1)
+    ring_dma.reduce_scatter_fused_plain([torch.randn(5, 11, generator=g) for _ in range(5)],
+                                        [[0, 1, 2, 3, 4]], n_stripes=2)
+    monkeypatch.undo()
+    return rec[0].events
+
+
+@pytest.mark.parametrize("fault", ["reader_skips_written_wait", "writer_skips_credit",
+                                   "credit_taken_before_given", "counter_left_over"])
+def test_plain_pull_protocol_raises_on_faults(monkeypatch, fault):
+    """The plain reduce-scatter's ledger turns each fault of the pull
+    protocol into RingProtocolError: a reader that pulls a partial before
+    its "written" flag (its read moved ahead of the write), a writer that
+    skips its credit wait (its overwrite moved ahead of the downstream's
+    read of that parity), a credit taken before it was given, and a counter
+    left over (the last read dropped).  The good run's events replay
+    cleanly."""
+    events = _pull_events(monkeypatch)
+    kinds = [e[0] for e in events]
+    assert kinds.count("take") == kinds.count("give") > 0
+    _replay(events)
+    ev = list(events)
+    if fault == "reader_skips_written_wait":
+        i = next(i for i, e in enumerate(ev) if e[0] == "read")
+        w = ev.index(("write", *ev[i][1:]))
+        ev.insert(w, ev.pop(i))
+    elif fault == "writer_skips_credit":
+        t = kinds.index("take")
+        rank, step = ev[t][1:]
+        w = next(i for i in range(t, len(ev)) if ev[i][:3] == ("write", rank, step))
+        r = ev.index(("read", rank, step - 2, ev[w][3]))
+        del ev[t]
+        ev.insert(r, ev.pop(w - 1))
+    elif fault == "credit_taken_before_given":
+        t = kinds.index("take")
+        rank, step = ev[t][1:]
+        gv = max(i for i in range(t) if ev[i] == ("give", rank, step % 2))
+        ev.insert(gv, ev.pop(t))
+    else:
+        del ev[max(i for i, e in enumerate(ev) if e[0] == "read")]
+    with pytest.raises(ring_dma.RingProtocolError):
+        _replay(ev)
+
+
 @pytest.mark.parametrize("n", [2, 4])
 def test_narrow_wire_matches_jax_mixed_ring(n):
     """wire_dtype=bf16 with the f32 accumulator equals the reference's

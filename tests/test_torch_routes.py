@@ -119,18 +119,23 @@ def test_slot_pitch(esize, c, want4, want2):
 @pytest.mark.parametrize("R,c,esize", [(4, 1_000_003, 4), (4, 1_000_003, 2), (2, 7, 4),
                                        (3, 100_003, 2), (4, 14_155_776, 4)])
 def test_scratch_holds_every_slot_at_the_pitch(kind, R, c, esize):
-    """_Scratch reserves what scratch_sizes says: two slots per rank at the
-    pitch (the last slot's last element inside it, every slot 16-byte
-    aligned), and f32 partials only for the reduce-scatter."""
+    """_Scratch reserves what scratch_sizes says: for the all-gather two
+    slots per rank at the pitch of its ``esize``-byte words and no partials;
+    for the reduce-scatter, which pulls, no slots and two f32 partials per
+    rank at the f32 pitch (whatever the wire's size).  The last buffer's
+    last element lies inside the reservation, and every buffer starts
+    16-byte aligned."""
     acc_elems, slot_bytes = ring_dma.scratch_sizes(R, c, esize, kind == "rs")
-    pitch = ring_dma.slot_pitch(c, esize)
-    assert slot_bytes == R * 2 * pitch * esize
-    assert acc_elems == (R * 2 * c if kind == "rs" else 0)
-    offsets = [(r * 2 + par) * pitch * esize for r in range(R) for par in (0, 1)]
+    unit = 4 if kind == "rs" else esize
+    pitch = ring_dma.slot_pitch(c, unit)
+    assert slot_bytes == (0 if kind == "rs" else R * 2 * pitch * esize)
+    assert acc_elems == (R * 2 * pitch if kind == "rs" else 0)
+    offsets = [(r * 2 + par) * pitch * unit for r in range(R) for par in (0, 1)]
     assert all(o % 16 == 0 for o in offsets)
-    assert offsets[-1] + c * esize <= slot_bytes
+    assert offsets[-1] + c * unit <= max(slot_bytes, acc_elems * 4)
     sc = ring_dma._Scratch("cpu", R, ctas=3)
     sc.reserve(acc_elems, slot_bytes)
     assert sc.slots.numel() == slot_bytes and sc.acc.numel() == acc_elems
     sc.reserve(*ring_dma.scratch_sizes(R, c // 2 + 1, esize, kind == "rs"))
-    assert sc.slots.numel() == slot_bytes and sc.seq == 2           # kept, not shrunk
+    assert sc.slots.numel() == slot_bytes and sc.acc.numel() == acc_elems   # kept
+    assert sc.seq == 2

@@ -40,6 +40,8 @@ multiple of it, so the prefill/decode consistency runs 31 + 1 against 32
 chunk 32 is refused by both packages.
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -70,6 +72,11 @@ from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 from repro_torch.train.trainer import make_train_program  # noqa: E402
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
 
 TOL = 1e-5                    # atol and rtol of the function-level f32 checks
 REL = {"ssm": 1e-4, "hybrid": 1e-3}   # of the largest |value| (module docstring)
@@ -206,6 +213,126 @@ def test_decode_step_and_convs_match_jax():
     ty, tst = ssm.conv_decode_step(_t(cs), _t(xn), _t(w))
     _close(ty, jy)
     _close(tst, jst)
+
+
+# ---------------------------------------------------------------------------
+# The mma route's arithmetic (csrc/ssd_scan.cu, bfloat16 inputs), emulated
+# ---------------------------------------------------------------------------
+
+def _split3(v):
+    """v (f32) as three bf16-valued f32 parts hi + mid + lo, each the
+    round-to-nearest of what the parts before it leave (split_pair)."""
+    hi = v.bfloat16().float()
+    mid = (v - hi).bfloat16().float()
+    return hi, mid, (v - hi - mid).bfloat16().float()
+
+
+def _mma_route_emulation(x, dt, a, Bm, Cm, init=None):
+    """The bf16 route's arithmetic in plain torch, at the kernel's layout:
+    x (B,H,nc,Q,P), dt and a (B,H,nc,Q), B and C (B,H,nc,Q,N), all f32
+    holding bf16 values but dt and a -> (y f32, final state).  Products of
+    two bf16 values are exact in f32, so an f32 matmul of bf16-valued
+    operands is what the tensor cores compute (f32 sums in another order).
+    C.B^T takes C and B as they are; W = S o exp(a_i - a_j) o dt_j (dt folded
+    in, the exponent masked first) goes in as three parts against x; C.s
+    against the state's three parts; the update's (exp(a_Q - a_j) dt_j
+    B_j)^T in three parts against x.  A test helper, on no path."""
+    Bb, H, nc, Q, P = x.shape
+    s = torch.zeros(Bb, H, Bm.shape[-1], P) if init is None else init.float().clone()
+    causal = torch.ones(Q, Q, dtype=torch.bool).tril()
+    zero = torch.zeros(())
+    ys = []
+    for c in range(nc):
+        ac, dtc, xc, Bc, Cc = a[:, :, c], dt[:, :, c], x[:, :, c], Bm[:, :, c], Cm[:, :, c]
+        diff = torch.where(causal, ac[..., :, None] - ac[..., None, :], zero)
+        W = torch.where(causal, (Cc @ Bc.transpose(-1, -2)) * torch.exp(diff)
+                        * dtc[..., None, :], zero)
+        y = sum(Cc @ part for part in _split3(s)) * torch.exp(ac)[..., None]
+        ys.append(y + sum(part @ xc for part in _split3(W)))
+        Bd = (torch.exp(ac[..., -1:] - ac) * dtc)[..., None] * Bc
+        s = torch.exp(ac[..., -1])[..., None, None] * s + sum(
+            part.transpose(-1, -2) @ xc for part in _split3(Bd))
+    return torch.stack(ys, 2), s
+
+
+def _ssd_inputs(rng, B, H, nc, Q, P, N, dt_scale):
+    """The chip_smoke SSD inputs at the kernel's layout, from numpy: x unit
+    normals and B, C normals of std 0.5 rounded to bf16 values, dt = scale *
+    softplus(normal), A = -exp(0.25 * normal), f32."""
+    def bf16(v):
+        return torch.from_numpy(v.astype(np.float32)).bfloat16().float().numpy()
+
+    x = bf16(rng.randn(B, H, nc, Q, P))
+    dt = (dt_scale * np.log1p(np.exp(rng.randn(B, H, nc, Q)))).astype(np.float32)
+    A = -np.exp(0.25 * rng.randn(H)).astype(np.float32)
+    a_cum = np.cumsum(dt * A[None, :, None, None], axis=3).astype(np.float32)
+    Bi, Ci = (bf16(0.5 * rng.randn(B, H, nc, Q, N)) for _ in range(2))
+    return x, dt, a_cum, Bi, Ci
+
+
+def _within_f32_limits(got, want):
+    err = smoke.gmm_error(got, torch.from_numpy(np.array(want, np.float32)))
+    assert smoke.gmm_ok(err, "float32", smoke.SSD_LIMITS), smoke.format_gmm(
+        err, "float32", smoke.SSD_LIMITS)
+
+
+# (B, H, nc, Q, P, N, dt scale): Mamba2's P 64 and N 128 at a reduced
+# sequence, zamba2's N 64, dt near 20 (a falls by thousands within a chunk),
+# one ragged N and a chunk of 64
+MMA_EMU_CASES = [(1, 2, 3, 256, 64, 128, 1.0), (2, 2, 2, 128, 64, 64, 1.0),
+                 (1, 2, 2, 256, 64, 128, 8.0), (2, 3, 4, 64, 32, 24, 0.01)]
+
+
+@pytest.mark.parametrize("case", MMA_EMU_CASES, ids=["-".join(map(str, c)) for c in MMA_EMU_CASES])
+def test_mma_route_arithmetic_matches_jax_ref_and_pallas(case):
+    """The bf16 route's arithmetic (three-part splits, f32 sums) against the
+    JAX oracle and the Pallas kernel in interpret mode, on the same
+    bf16-valued inputs in f32, within SSD_LIMITS' f32 values."""
+    args = _ssd_inputs(np.random.RandomState(sum(case[:6])), *case)
+    got, _ = _mma_route_emulation(*map(_t, args))
+    _within_f32_limits(got, jax_ref.ssd_scan(*map(jnp.asarray, args)))
+    _within_f32_limits(got, ssd_scan_pallas(*map(jnp.asarray, args), interpret=True))
+
+
+def test_mma_route_arithmetic_with_an_initial_state_matches_jax():
+    """With an initial state, dt near 20 and near 0.1 (the slow decay carries
+    the state through every chunk): y and the final state against the JAX
+    model's ssd_scan (D = 0), within SSD_LIMITS' f32 values."""
+    B, S, H, P, G, N, Q = 2, 384, 4, 32, 1, 64, 128
+    nc = S // Q
+    for dt_scale in (8.0, 0.1):
+        rng = np.random.RandomState(11)
+        bf16 = lambda v: _t(v).bfloat16().float()  # noqa: E731
+        x = bf16(rng.randn(B, S, H, P))
+        dt = _t(dt_scale * np.log1p(np.exp(rng.randn(B, S, H))))
+        A = _t(-np.exp(0.25 * rng.randn(H)))
+        Bi, Ci = (bf16(0.5 * rng.randn(B, S, G, N)) for _ in range(2))
+        init = _t(rng.randn(B, H, N, P))
+        jy, js = jax_ssm.ssd_scan(*(jnp.asarray(t.numpy()) for t in (x, dt, A, Bi, Ci)),
+                                  jnp.zeros(H), Q, init_state=jnp.asarray(init.numpy()))
+        a_cum = torch.cumsum((dt * A).reshape(B, nc, Q, H), 2).reshape(B, S, H)
+        y, s = _mma_route_emulation(
+            *(ssd._to_kernel_layout(t, nc, Q) for t in (x, dt, a_cum)),
+            *(ssd._to_kernel_layout(t, nc, Q, H) for t in (Bi, Ci)), init)
+        _within_f32_limits(y.movedim(1, 3).reshape(B, S, H, P), jy)
+        _within_f32_limits(s, js)
+
+
+def _smem_blocks_per_sm(smem):
+    """Blocks whose shared memory one H100 SM holds: 233472 bytes, of which
+    the runtime keeps 1024 per block."""
+    return 233472 // (smem + 1024)
+
+
+def test_mma_route_fits_two_blocks_per_sm():
+    """The mma route's shared memory (smem_bytes, the source's mma_layout)
+    lets two blocks share an SM at both models' shapes, N 128 (mamba2) and
+    N 64 (zamba2), P 64, Q 256; the f32 route's layout did not at N 128."""
+    for N in (128, 64):
+        assert ssd.smem_bytes(N, 64, 256, torch.bfloat16) <= ssd.MAX_SMEM
+        assert _smem_blocks_per_sm(ssd.smem_bytes(N, 64, 256, torch.bfloat16)) >= 2
+    assert _smem_blocks_per_sm(ssd.smem_bytes(128, 64, 256, torch.float32)) == 1
+    assert ssd.route(torch.bfloat16) == "mma" and ssd.route(torch.float32) == "f32"
 
 
 def test_ssd_ops_resolve_per_device():
