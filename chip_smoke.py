@@ -42,7 +42,8 @@ Phases, in order; any failure exits non-zero before the last line:
    to the emulated schedule, whose accumulate launches ``collective_reduce``.
    Then host-clock times (backends in turns) and the card's busy share;
 8. times of the collective kernels at the largest bucket's shape, with
-   their bounds and library yardsticks, and each ring kernel's own traffic
+   their bounds and library yardsticks (``collective_reduce`` in turns with
+   ``torch.add``, 8 rounds, the spread printed), and each ring kernel's own traffic
    beside its bound: the all-gather's (4n - 3) c elements per rank, the
    reduce-scatter's 3 (n - 1) c (it pulls its upstream's payload; storing
    into a receive slot moved 5 (n - 1) c);
@@ -65,8 +66,10 @@ Phases, in order; any failure exits non-zero before the last line:
    run without a codec.  Then ms per step (runs in turns), tokens/s, the
    split of a step, the card's busy share and the peak memory;
 12. times of the codec kernels at the largest bucket's hop shape and of the
-   flash backward at the training shape, with their bounds, plain versions
-   and (flash backward) SDPA's autograd as the yardstick;
+   flash backward at the training shape, with their bounds and plain
+   versions; the yardsticks timed in turns with the kernels: ``torch.addcmul``
+   for ``dq_accum_int8``, SDPA's autograd for the flash backward (also both
+   replayed from CUDA graphs, so the host's time per call is not in them);
 13. grouped matmul vs plain: ``grouped_matmul`` (``csrc/grouped_matmul.cu``)
    against its plain version, case by case (``GMM_CASES``: the sweep shapes
    of tests/test_kernels.py in f32 and bf16, Mixtral's prefill and decode
@@ -78,7 +81,7 @@ Phases, in order; any failure exits non-zero before the last line:
    a seed, answers 8 requests of 512 prompt tokens, 32 new tokens each,
    through ``Batcher``; the counts set to 0 just before and read just after:
    3 x 8 x 33 = 792 grouped-matmul launches (the prefill's 24 on the wgmma
-   route, decode's 768 on the 16-row route), 8 flash.  In one more prefill
+   route, decode's 768 on the mma16 decode route), 8 flash.  In one more prefill
    every grouped matmul and every layer's expert FFN against their plain
    versions on the same inputs (the hard gate); then the last-position
    logits against expert_ffn pinned to the plain composition, gated on the
@@ -87,11 +90,12 @@ Phases, in order; any failure exits non-zero before the last line:
 15. the sliding window at full width: the same model, 1 request of 4608
    prompt tokens and 16 new: flash with window 4096 at Sq 4608, the rolling
    cache (4096 slots), decode through ``window_decode_attention``, 408
-   grouped-matmul launches (24 wgmma, 384 16-row), and the same comparisons
+   grouped-matmul launches (24 wgmma, 384 mma16), and the same comparisons
    but the per-layer one;
 16. grouped-matmul times at Mixtral's prefill, decode and window-run prefill
    shapes, with the route taken, the plain version, ``torch.bmm`` (a
-   yardstick the port never calls) and the bound;
+   yardstick the port never calls; in turns, and at the decode shapes also
+   replayed from CUDA graphs) and the bound;
 17. SSD kernel vs plain: ``ssd_scan`` (``csrc/ssd_scan.cu``) against its
    plain version case by case (``SSD_CASES``: both models' prefill shapes,
    f32 and bf16, dt near 20, a slow decay in both types, one chunk, chunks
@@ -238,6 +242,9 @@ BWD_CASES = [
     ("d128_hq8_hkv2", 1, 8, 2, 200, 128, "causal", 0, None, "bfloat16", False),
     ("f32_d128_bidir_window40_klen130", 1, 4, 1, 150, 128, "bidir", 40, 130, "float32", False),
     ("f32_d32_s100", 2, 4, 2, 100, 32, "causal", 0, None, "float32", True),
+    # a GQA group of 16: the bf16 dK/dV pass's clusters hold 8 blocks, so
+    # each rank takes two heads
+    ("gqa16_cluster8", 1, 16, 1, 256, 64, "causal", 0, None, "bfloat16", False),
 ]
 # Codec cases: (name, rows of 512, fill); each also as an odd-width view
 QUANT_ROWS = [("one_row", 1, "randn"), ("seven_rows", 7, "randn"), ("zero_chunks", 1000, "zeros"),
@@ -423,25 +430,37 @@ def median_ms(fn, reps=20, trials=7, warmup=3):
     return statistics.median(s.elapsed_time(e) / reps for s, e in pairs)
 
 
-def graph_ms(fn, reps=20):
+def graph_ms(fn, reps=20, stream=None):
     """Device time of one call: ``reps`` calls captured in a CUDA graph and
     replayed (CUDA events, median), so the host's time to launch a call is
     not in it; set beside ``median_ms`` where a call's host time is near its
-    device time."""
+    device time.  ``stream``: warm up and capture on it (autograd's backward
+    runs on its forward's stream, so a backward is captured on that one)."""
     import torch
-    side = torch.cuda.Stream()
+    side = stream if stream is not None else torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(reps):
             fn()
     ms = median_ms(graph.replay, reps=3) / reps
     del graph
     return ms
+
+
+def in_turns(fns, rounds=4, timer=median_ms):
+    """Each of ``fns`` ({name: fn}) timed ``rounds`` times by ``timer``, the
+    order reversed every other round (A B, B A, ...): {name: [ms, ...]}."""
+    names = list(fns)
+    out = {n: [] for n in names}
+    for r in range(rounds):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            out[n].append(timer(fns[n]))
+    return out
 
 
 def attention_inputs(gen, B, Hq, Hkv, Sq, Sk, d, dtype, model_layout):
@@ -1085,12 +1104,19 @@ def phase_collective_times(torch, ring_dma, cr, big):
     m = c // 2                                 # one stream of a chunk, the emulated step
     acc = torch.randn(m, generator=gen, device="cuda")
     inc = torch.randn(m, generator=gen, device="cuda")
+    # the kernel against torch.add in turns, 8 rounds: medians and spreads
+    reads = in_turns({"ms": lambda: cr.collective_reduce(acc, inc),
+                      "library_ms": lambda: torch.add(acc, inc)}, rounds=8)
     out["collective_reduce"] = {
-        "ms": median_ms(lambda: cr.collective_reduce(acc, inc)),
         "plain_ms": median_ms(lambda: cr.collective_reduce_plain(acc, inc)),
-        "library_ms": median_ms(lambda: torch.add(acc, inc)),
         "bound_ms": 3 * m * 4 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "shape": f"n={m} f32 + f32"}
+    for key, ms in reads.items():
+        out["collective_reduce"][key] = statistics.median(ms)
+        out["collective_reduce"][key + "_readings"] = ms
+    print(f"  collective_reduce in turns with torch.add, 8 rounds: kernel readings "
+          f"{min(reads['ms']):.4f}-{max(reads['ms']):.4f} ms, torch.add "
+          f"{min(reads['library_ms']):.4f}-{max(reads['library_ms']):.4f} ms")
     for name, t in out.items():
         print(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
               f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes)"
@@ -1367,11 +1393,16 @@ def phase_train_kernel_times(torch, quant, ref, fa, hop_rows, bwd_case):
             "bound_ms": (n * 4 + n + hop_rows * 4) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "shape": f"({hop_rows}, 512) f32 -> int8 codes + f32 scales"},
         "dq_accum_int8": {
-            "ms": median_ms(lambda: quant.wire_dequant_accum_int8(acc, codes, scales)),
             "plain_ms": median_ms(lambda: ref.wire_dequant_accum(acc, codes, scales)),
-            "library_ms": None,
             "bound_ms": (n * 4 + n + hop_rows * 4 + n * 4) / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "shape": f"({hop_rows}, 512) f32 + int8 codes"}}
+    # the yardstick: one call, acc + codes * scales in f32 (on the card's
+    # elementwise kernel an FMA may fuse it; the kernel rounds twice, C4)
+    reads = in_turns({"ms": lambda: quant.wire_dequant_accum_int8(acc, codes, scales),
+                      "library_ms": lambda: torch.addcmul(acc, codes, scales)})
+    for key, ms in reads.items():
+        out["dq_accum_int8"][key] = statistics.median(ms)
+        out["dq_accum_int8"][key + "_readings"] = ms
     q, k, v, o, do, lse = bwd_case["inputs"]
     kw = bwd_case["kw"]
     B, Hq, S, d = q.shape
@@ -1381,22 +1412,37 @@ def phase_train_kernel_times(torch, quant, ref, fa, hop_rows, bwd_case):
     flops = 5 * 2 * d * B * Hq * valid_pairs(S, S, kw["kind"], kw["window"], kw["k_len"])
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(q.dtype).removeprefix("torch.")] * 1e3
-    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=kw["kind"] == "causal",
-                                            enable_gqa=True)
-    out["flash_attention_bwd"] = {
-        "ms": median_ms(lambda: fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)),
+    t = out["flash_attention_bwd"] = {
         "plain_ms": median_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, do, lse_plain,
                                                                    **kw), reps=5),
-        "library_ms": median_ms(lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do,
-                                                            retain_graph=True)),
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "shape": f"q {tuple(q.shape)} k/v {tuple(k.shape)} {str(q.dtype).removeprefix('torch.')}"
                  f" {kw['kind']}"}
+    # the kernel and SDPA's backward (autograd of F.scaled_dot_product_attention,
+    # the yardstick) in turns, back to back and replayed from CUDA graphs; all
+    # on one side stream, where SDPA's forward ran, so its backward is captured
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=kw["kind"] == "causal",
+                                                enable_gqa=True)
+        fns = {"": lambda: fa.flash_attention_bwd(q, k, v, o, do, lse, **kw),
+               "library_": lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do,
+                                                       retain_graph=True)}
+        for prefix, ms in in_turns(fns).items():
+            t[prefix + "ms"] = statistics.median(ms)
+            t[prefix + "ms_readings"] = ms
+        for prefix, ms in in_turns(fns, timer=lambda fn: graph_ms(fn, stream=side)).items():
+            t[prefix + "graph_ms"] = statistics.median(ms)
+            t[prefix + "graph_ms_readings"] = ms
+    torch.cuda.current_stream().wait_stream(side)
     for name, t in out.items():
         lib = f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None else "none"
         print(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-              f"library {lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+              f"library {lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+              + (f"; CUDA graph: kernel {t['graph_ms']:.4f} ms, library "
+                 f"{t['library_graph_ms']:.4f} ms" if "graph_ms" in t else ""))
     return out
 
 
@@ -1726,7 +1772,7 @@ def phase_moe_serve(torch, np, fa, gmm, ref, tacc, moe_mod, attn_mod, engine, bu
     routes = {r: launches[f"grouped_matmul_{r}"] for r in gmm.ROUTES}
     want_routes = {"f32": 0, "mma16": 3 * L * max_new, "mma128": 0, "wgmma": 3 * L}
     print(f"  grouped_matmul launches per route: {routes} (prefill 3 x {L} on wgmma, decode "
-          f"3 x {L} x {max_new} on the 16-row route)")
+          f"3 x {L} x {max_new} on mma16)")
     check(routes == want_routes, f"grouped_matmul routes {routes}, {want_routes} expected")
     check(launches["flash_attention_fwd"] == L, "flash kernel not launched once per layer")
     check(len(done) == n_requests and all(len(r.out) == max_new for r in done),
@@ -1821,12 +1867,20 @@ def phase_moe_kernel_times(torch, gmm, ref):
                                            trials=3, warmup=1),
                      "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                     "shape": f"({G},{M},{K})@({G},{K},{N}) bf16", "route": gmm.route(x, w)}
+                     "shape": f"({G},{M},{K})@({G},{K},{N}) bf16", "route": gmm.route(x, w),
+                     "ms_readings": [ms[0], ms[3]], "library_ms_readings": [ms[1], ms[2]]}
         t = out[name]
+        if name.startswith("decode"):      # and replayed from CUDA graphs, in turns
+            for key, g in in_turns({"graph_ms": kernel, "library_graph_ms": library},
+                                   timer=lambda fn: graph_ms(fn, reps=10)).items():
+                t[key] = statistics.median(g)
+                t[key + "_readings"] = g
         print(f"  grouped_matmul {name} at {t['shape']} ({t['route']} route): kernel "
               f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.bmm {t['library_ms']:.4f} "
               f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); kernel / bound "
-              f"{t['ms'] / t['bound_ms']:.2f}, kernel / torch.bmm {t['ms'] / t['library_ms']:.2f}")
+              f"{t['ms'] / t['bound_ms']:.2f}, kernel / torch.bmm {t['ms'] / t['library_ms']:.2f}"
+              + (f"; CUDA graph: kernel {t['graph_ms']:.4f} ms, torch.bmm "
+                 f"{t['library_graph_ms']:.4f} ms" if "graph_ms" in t else ""))
         del x, w
     return out
 
@@ -2437,6 +2491,7 @@ def main() -> int:
         "max_abs_err": bwd["train"]["max_abs_err"], "rel_l2": bwd["train"]["rel_l2"],
         "worst_row": bwd["train"]["worst_row"], "ms": tb["ms"], "plain_ms": tb["plain_ms"],
         "bound_ms": tb["bound_ms"], "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
+        "graph_ms": tb["graph_ms"], "library_graph_ms": tb["library_graph_ms"],
         "check": "pass", "cases_checked": len(bwd), "shape": tb["shape"]})
     for kname, replaces in (("quant_int8", "src/repro/kernels/quant.py:152"),
                             ("dq_accum_int8", "src/repro/kernels/quant.py:161")):
@@ -2460,6 +2515,12 @@ def main() -> int:
         "shape": tp["shape"], "decode_ms": td["ms"], "decode_plain_ms": td["plain_ms"],
         "decode_bound_ms": td["bound_ms"], "decode_bound_by": td["bound_by"],
         "decode_library_ms": td["library_ms"], "decode_shape": td["shape"],
+        "decode_graph_ms": td["graph_ms"], "decode_library_graph_ms": td["library_graph_ms"],
+        "decode_w2_ms": gtimes["decode_w2"]["ms"],
+        "decode_w2_graph_ms": gtimes["decode_w2"]["graph_ms"],
+        "decode_w2_library_graph_ms": gtimes["decode_w2"]["library_graph_ms"],
+        "decode_w2_library_ms": gtimes["decode_w2"]["library_ms"],
+        "decode_w2_bound_ms": gtimes["decode_w2"]["bound_ms"],
         "window_launches": moe["window"]["launches"]["grouped_matmul"],
         "routes": {r: moe["serve"]["launches"][f"grouped_matmul_{r}"] for r in gmm.ROUTES},
         "prefill_w2_ms": gtimes["prefill_w2"]["ms"],

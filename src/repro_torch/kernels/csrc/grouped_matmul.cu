@@ -16,7 +16,7 @@
 // K 4096, N 14336, bf16) the product is 1.20 TFLOP against 1.32 GB moved, so
 // the tensor cores bound it (1.216 ms at 989 TFLOP/s against 0.39 ms of
 // bytes).  At decode (M = 2) it is 1.9 GFLOP against the 940 MB of weights,
-// which bound it (0.281 ms at 3.35 TB/s).
+// which bound it (0.2806 ms at 3.35 TB/s).
 //
 // Four routes, chosen by the wrapper from dtype, shapes, strides and
 // alignment before the launch (grouped_matmul.py::route):
@@ -45,16 +45,39 @@
 //      by a TMA store, which drops rows past M and columns past N.
 //    - Every mbarrier wait traps after about 2 s: a protocol fault fails the
 //      launch instead of hanging the card.
-//  * 16-row mma.sync (bf16, M <= 16: decode): tensor cores through
-//    mma.sync.m16n8k16 fed by a cp.async ring, a 16 x 128 block tile, so the
-//    decode shape spends its block on weight bytes and not on 128 rows of
-//    zeros.
+//  * decode (bf16, M <= 16), a weight stream: at M = 2 the route moves 940 MB
+//    of weights for 1.9 GFLOP, so it is the memory rate or nothing.
+//    - Persistent blocks, one per SM, each an equal run of units: a unit is
+//      64 K rows of a 512-column tile of one group, taken in the order (g,
+//      tile, K), K fastest.  Equal runs leave no tail wave; a tile cut by a
+//      run's end is split-K between consecutive blocks.
+//    - A producer warp (its lane 0) keeps a ring of kSStages units in flight
+//      through TMA on full / empty mbarriers: the unit's eight 64 x 64 w
+//      boxes and x's box; 128-byte swizzle, zeros past M, K and N; the
+//      weights under an L2 evict-first policy (they are read once).  3 x 66 KB per
+//      SM, 26 MB across the card, against the 3.4 MB that 3.35 TB/s x 1 us
+//      needs.  x rides with its unit: read once per K slice, from L2.
+//    - Eight consumer warps, one w box each, compute out^T = w^T x^T with
+//      mma.sync.m16n8k16: w^T through ldmatrix.trans as the A operand, x^T
+//      as the n8 B operand, so M <= 8 spends no tensor-core work on a
+//      16-row tile of zeros (M <= 16: two n8 tiles).
+//    - Split-K in a fixed order: each part of a split tile goes to an f32
+//      scratch slot; the last of its blocks to arrive (a per-tile counter,
+//      which that block resets) sums the parts in ascending block order,
+//      rounds once and stores.  Repeated launches give the same bits.
+//    Where TMA cannot describe x or w (an unaligned row), the route runs the
+//    16 x 128 mma.sync tile below with plain loads instead.
+//    The unit's shape, the warps, the ring's depth, the L2 policy and a
+//    one-copy 4-D map were each timed in turns against alternatives
+//    (DESIGN_TORCH.md section 14).
 //  * 128 x 128 mma.sync (bf16 that TMA cannot describe: an odd K stride, an
-//    unaligned view): the same ring and fragments at 128 x 128.  Both
-//    mma.sync routes bring operands from shared memory with ldmatrix (.trans
-//    for w), shared rows padded by 16 bytes (the 8 rows of each ldmatrix on
-//    distinct banks); tiles come in with 16-byte cp.async copies when every
-//    row of x and w starts 16-byte aligned, else with plain loads (kVec).
+//    unaligned view): tensor cores through mma.sync.m16n8k16 fed by a
+//    cp.async ring of kStages stages; the 16 x 128 tile of the same kernel
+//    takes the decode route's unaligned rows.  Operands come from shared
+//    memory with ldmatrix (.trans for w), shared rows padded by 16 bytes (the
+//    8 rows of each ldmatrix on distinct banks); tiles come in with 16-byte
+//    cp.async copies when every row of x and w starts 16-byte aligned, else
+//    with plain loads (kVec).
 //  * f32: full f32 on the CUDA cores, one fmaf per product, never TF32: the
 //    plain version is an f32 einsum, and TF32 would keep 10 mantissa bits.
 // bf16 products are exact in f32, so every bf16 route differs from the plain
@@ -443,6 +466,23 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// L2 policy for data read once: evict it first.
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
+  return pol;
+}
+
+// tma_load under the L2 policy `pol`.
+__device__ __forceinline__ void tma_load_hint(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int col, int row, int g, uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(g), "r"(bar), "l"(pol)
+      : "memory");
+}
+
 // One box from shared memory into the 3-D tensor map; the bulk group tracks
 // completion.
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int col, int row,
@@ -769,20 +809,276 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 decode route (M <= 16): the weight stream
+// ---------------------------------------------------------------------------
+
+constexpr int kSBK = 64;                          // K rows of a unit (one ring stage): 16 to 256
+constexpr int kSBoxes = 8;                        // 64-column w boxes per unit
+constexpr int kSBN = kSBoxes * kBox;              // columns of a tile
+constexpr int kSStages = 3;                       // ring stages per block
+constexpr int kSWBytes = kSBK * kRowBytes;        // one w box: kSBK rows x 128 bytes
+constexpr int kSXBoxes = (kSBK + kBox - 1) / kBox; // x boxes of a unit, 64 K each
+constexpr int kSXBytes = 16 * kRowBytes;          // an x box: up to 16 rows x 64 k
+constexpr int kSStageBytes = kSBoxes * kSWBytes + kSXBoxes * kSXBytes;  // a 1024-byte multiple
+constexpr int kSConsumers = 256;                  // consumer warps, kSBoxes / kSWarps w boxes each
+constexpr int kSWarps = kSConsumers / 32;
+constexpr int kSThreads = kSConsumers + 32;       // and a producer warp
+constexpr int kSGroups = 4 * kSBoxes / kSWarps;   // 16-column groups of a consumer warp
+constexpr int kSSmem = 1024 + kSStages * kSStageBytes + 16 * kSStages;
+constexpr int kSFinishBar = 1;                    // named barrier of the consumer warps
+static_assert(kSBoxes % kSWarps == 0 && kSBK % 16 == 0 && kSBK <= 256, "stream unit shape");
+static_assert(kSSmem <= 232448, "the ring fits in shared memory");
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t ld_shared(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// The split of the (g, column tile, unit) sequence, K fastest, over the
+// grid: block b takes units [b U / blocks, (b + 1) U / blocks).  The same
+// arithmetic as grouped_matmul.py::stream_plan.
+struct Stream {
+  int n_tiles, ku;  // column tiles per group, units per tile
+  long long units;
+  int blocks;
+  __device__ Stream(const Params& p, int nb)
+      : n_tiles((p.N + kSBN - 1) / kSBN),
+        ku((p.K + kSBK - 1) / kSBK),
+        units((long long)p.G * n_tiles * ku),
+        blocks(nb) {}
+  __device__ long long start(int b) const { return (long long)b * units / blocks; }
+  // the block whose run holds unit u
+  __device__ int owner(long long u) const {
+    return (int)(((u + 1) * blocks + units - 1) / units - 1);
+  }
+  // scratch slot of block b's part of tile t: 0 for the first tile of its
+  // run, 1 for the last (a block splits at most those two)
+  __device__ int slot(int b, long long t) const {
+    return 2 * b + (t == start(b) / ku ? 0 : 1);
+  }
+};
+
+// Persistent: one block per SM takes an equal run of units.
+// Shared memory (1024-byte aligned for the 128-byte swizzle): a ring of
+// kSStages stages, each kSBoxes w boxes (kSBK K rows x 64 columns) and
+// kSXBoxes x boxes (8 MT rows x 64 K), then the full and empty mbarriers.
+// The producer warp's lane 0 issues every copy; each consumer warp
+// multiplies its kSBoxes / kSWarps boxes: out^T (its columns x M) = w^T x^T, w^T as
+// ldmatrix.trans A fragments, x^T as B fragments (M <= 8 fills the n8 side:
+// no 16-row tile of zeros).  A tile whose units all lie in
+// the block's run is rounded and stored; a part of a tile goes to the f32
+// scratch `part`, and the last of the tile's blocks to arrive (a counter per
+// tile in `arrivals`, reset by that block) sums every part in ascending block
+// order, rounds once and stores.
+template <int MT>
+__global__ void __launch_bounds__(kSThreads, 1)
+    gmm_stream(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+               const Params p,
+               float* __restrict__ part, int* __restrict__ arrivals) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int finisher;
+  const uint32_t ring = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t full_bar = ring + kSStages * kSStageBytes;
+  const uint32_t empty_bar = full_bar + 8 * kSStages;
+  const Stream sp(p, gridDim.x);
+  const long long u_begin = sp.start(blockIdx.x), u_end = sp.start(blockIdx.x + 1);
+  constexpr uint32_t kTx = kSBoxes * kSWBytes + kSXBoxes * MT * 8 * kRowBytes;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSStages; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, kSWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kSConsumers) {
+    if (threadIdx.x == kSConsumers) {
+      const uint64_t stream_once = evict_first_policy();  // the weights are read once
+      int it = 0;
+      for (long long u = u_begin; u < u_end; ++u, ++it) {
+        const int s = it % kSStages;
+        mbar_wait(empty_bar + 8 * s, ((it / kSStages) & 1) ^ 1);
+        mbar_expect_tx(full_bar + 8 * s, kTx);
+        const long long t = u / sp.ku;
+        const int k0 = (int)(u - t * sp.ku) * kSBK;
+        const int g = (int)(t / sp.n_tiles);
+        const int n0 = (int)(t % sp.n_tiles) * kSBN;
+        const uint32_t st = ring + s * kSStageBytes;
+#pragma unroll
+        for (int j = 0; j < kSBoxes; ++j)
+          tma_load_hint(st + j * kSWBytes, &tm_w, full_bar + 8 * s, n0 + j * kBox, k0, g,
+                        stream_once);
+#pragma unroll
+        for (int j = 0; j < kSXBoxes; ++j)
+          tma_load(st + kSBoxes * kSWBytes + j * kSXBytes, &tm_x, full_bar + 8 * s, k0 + j * kBox,
+                   0, g);
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int lm = lane >> 3, li = lane & 7;  // ldmatrix: matrix and row of this lane's address
+  int it = 0;
+  long long u = u_begin;
+  while (u < u_end) {
+    const long long t = u / sp.ku;
+    const long long t_begin = t * sp.ku, t_end = t_begin + sp.ku;
+    const long long seg_end = t_end < u_end ? t_end : u_end;
+    const bool whole = u == t_begin && seg_end == t_end;
+    float acc[kSGroups][MT][4];
+#pragma unroll
+    for (int j = 0; j < kSGroups; ++j)
+#pragma unroll
+      for (int m = 0; m < MT; ++m) acc[j][m][0] = acc[j][m][1] = acc[j][m][2] = acc[j][m][3] = 0.f;
+
+    // acc += this warp's boxes of stage s times the stage's x
+    auto mma_unit = [&](int s) {
+      const uint32_t wbox = ring + s * kSStageBytes + warp * (kSBoxes / kSWarps) * kSWBytes;
+      const uint32_t xbox = ring + s * kSStageBytes + kSBoxes * kSWBytes;
+#pragma unroll
+      for (int kk = 0; kk < kSBK / 16; ++kk) {
+        // B fragments: x[m][k0 + kk*16 + 2tq (+8)], rows of the swizzled x
+        // box kk / 4
+        uint32_t bx[MT][2];
+        const uint32_t xb = xbox + (kk / 4) * kSXBytes;
+        const int c = 2 * (kk % 4);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const int row = m * 8 + gq;
+          bx[m][0] = ld_shared(xb + row * kRowBytes + ((c ^ (row & 7)) << 4) + tq * 4);
+          bx[m][1] = ld_shared(xb + row * kRowBytes + (((c + 1) ^ (row & 7)) << 4) + tq * 4);
+        }
+        // A fragments: w^T (16 columns x 16 k) by ldmatrix.trans of the k
+        // rows kk*16 + (lm / 2) * 8 + li of box j / 4, 16-byte chunk
+        // 2 (j % 4) + lm % 2
+        const int krow = kk * 16 + (lm >> 1) * 8 + li;
+#pragma unroll
+        for (int j = 0; j < kSGroups; ++j) {
+          uint32_t a[4];
+          ldsm_x4_trans(a, wbox + (j / 4) * kSWBytes + krow * kRowBytes +
+                               (((2 * (j % 4) + (lm & 1)) ^ li) << 4));
+#pragma unroll
+          for (int m = 0; m < MT; ++m) mma_16816(acc[j][m], a, bx[m][0], bx[m][1]);
+        }
+      }
+    };
+    for (; u < seg_end; ++u, ++it) {
+      const int s = it % kSStages;
+      mbar_wait(full_bar + 8 * s, (it / kSStages) & 1);
+      mma_unit(s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar + 8 * s);
+    }
+
+    // acc[j][m]: rows (columns of out) n0 + warp*kSGroups*16 + j*16 + gq
+    // (+8), columns (rows of out) m*8 + 2tq (+1)
+    const int g = (int)(t / sp.n_tiles);
+    const int ncol = (int)(t % sp.n_tiles) * kSBN + warp * kSGroups * 16 + gq;
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.out) + g * p.o_sg;
+    if (!whole) {
+      float4* mine = reinterpret_cast<float4*>(part) +
+                     ((long long)sp.slot(blockIdx.x, t) * kSConsumers + threadIdx.x) * kSGroups * MT;
+#pragma unroll
+      for (int j = 0; j < kSGroups; ++j)
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          mine[j * MT + m] = make_float4(acc[j][m][0], acc[j][m][1], acc[j][m][2], acc[j][m][3]);
+      __threadfence();
+      named_bar_sync(kSFinishBar, kSConsumers);
+      const int b_first = sp.owner(t_begin), b_last = sp.owner(t_end - 1);
+      if (threadIdx.x == 0) {
+        const int arrived = atomicAdd(arrivals + b_first, 1);
+        finisher = arrived == b_last - b_first;
+        if (finisher) arrivals[b_first] = 0;  // ready for the next launch
+      }
+      named_bar_sync(kSFinishBar, kSConsumers);
+      if (!finisher) continue;
+      __threadfence();
+#pragma unroll
+      for (int j = 0; j < kSGroups; ++j)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) acc[j][m][0] = acc[j][m][1] = acc[j][m][2] = acc[j][m][3] = 0.f;
+      for (int b = b_first; b <= b_last; ++b) {
+        const float4* theirs = reinterpret_cast<const float4*>(part) +
+                               ((long long)sp.slot(b, t) * kSConsumers + threadIdx.x) * kSGroups * MT;
+#pragma unroll
+        for (int j = 0; j < kSGroups; ++j)
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            const float4 v = __ldcg(theirs + j * MT + m);
+            acc[j][m][0] += v.x;
+            acc[j][m][1] += v.y;
+            acc[j][m][2] += v.z;
+            acc[j][m][3] += v.w;
+          }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kSGroups; ++j)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int n = ncol + j * 16 + (e >> 1) * 8;
+          const int r = m * 8 + 2 * tq + (e & 1);
+          if (n < p.N && r < p.M) og[r * p.o_sm + n] = __float2bfloat16(acc[j][m][e]);
+        }
+  }
+}
+
+// The decode route: the weight stream where TMA can describe x and w (bases
+// 16-byte aligned, every stride but the last a positive multiple of 8
+// elements: `blocks` > 0), else the 16 x 128 mma.sync tile with plain loads.
+int launch_decode(const Params& p, int blocks, float* part, int* arrivals, cudaStream_t stream) {
+  if (blocks <= 0) {
+    const dim3 grid((p.M + 15) / 16, (p.N + 127) / 128, p.G);
+    return launch(gmm_bf16<16, 128, 1, 8, false>, dim3(grid), Tile<16, 128>::SMEM, stream, p);
+  }
+  if (p.M > 16) return cudaErrorInvalidValue;
+  const int mt = p.M <= 8 ? 1 : 2;
+  CUtensorMap tm_x, tm_w;
+  int err = encode_map(&tm_x, p.x, p.K, p.M, p.G, p.x_sm, p.x_sg, 8 * mt);
+  if (!err) err = encode_map(&tm_w, p.w, p.N, p.K, p.G, p.w_sk, p.w_sg, kSBK);
+  if (err) return err;
+  auto kernel = mt == 1 ? gmm_stream<1> : gmm_stream<2>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSSmem);
+  if (e != cudaSuccess) return e;
+  kernel<<<blocks, kSThreads, kSSmem, stream>>>(tm_x, tm_w, p, part, arrivals);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// route: 0 f32 (float32 in and out), 1 the 16-row mma.sync tile, 2 the 128 x
+// route: 0 f32 (float32 in and out), 1 decode (M <= 16: the weight stream,
+// or the 16-row mma.sync tile where TMA cannot describe x or w), 2 the 128 x
 // 128 mma.sync tile, 3 wgmma + TMA (bf16 routes: x, w and out bfloat16).
-// vec (mma.sync routes): 1 when x and w start 16-byte aligned and every row
-// stride of both is a multiple of 8 elements.  Returns 0 on success, else the
-// CUDA error code of the launch, or 100000 + the CUresult of a tensor map the
-// wgmma route could not encode; the kernel runs on `stream` and nothing is
+// vec (route 2): 1 when x and w start 16-byte aligned and every row stride of
+// both is a multiple of 8 elements.  blocks (route 1): the weight stream's
+// grid (grouped_matmul.py::stream_plan), 0 for the 16-row tile; part: its f32
+// scratch, 2 x 128 x 16 x ceil(M / 8) floats per block; arrivals: `blocks`
+// ints, zero before the first launch, left zero by every launch (launches
+// that share them run in order on one stream).  Returns 0 on success, else
+// the CUDA error code of the launch, or 100000 + the CUresult of a tensor map
+// that could not be encoded; the kernel runs on `stream` and nothing is
 // synchronised here.
 int grouped_matmul(const void* x, const void* w, void* out, int route, int G, int M, int K,
                    int N, long long x_sg, long long x_sm, long long w_sg, long long w_sk,
-                   long long o_sg, long long o_sm, int vec, void* stream) {
+                   long long o_sg, long long o_sm, int vec, int blocks, float* part,
+                   int* arrivals, void* stream) {
   const Params p{x, w, out, G, M, K, N, x_sg, x_sm, w_sg, w_sk, o_sg, o_sm};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (G < 1 || G > 65535 || M < 1 || K < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -791,11 +1087,23 @@ int grouped_matmul(const void* x, const void* w, void* out, int route, int G, in
       const dim3 grid((M + kSimtBM - 1) / kSimtBM, (N + kSimtBN - 1) / kSimtBN, G);
       return launch(gmm_f32, grid, 0, st, p);
     }
-    case 1: return launch_bf16<16, 128, 1, 8>(p, vec, st);
+    case 1: return launch_decode(p, blocks, part, arrivals, st);
     case 2: return launch_bf16<128, 128, 2, 4>(p, vec, st);
     case 3: return launch_wgmma(p, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The decode route's weight stream: 0 columns of a tile (kSBN), 1 K rows of
+// a unit (kSBK), 2 consumer threads (kSConsumers); grouped_matmul.py's
+// stream_plan holds the same numbers.
+int grouped_matmul_stream_geometry(int which) {
+  switch (which) {
+    case 0: return kSBN;
+    case 1: return kSBK;
+    case 2: return kSConsumers;
+  }
+  return -1;
 }
 
 const char* grouped_matmul_error_string(int err) {

@@ -22,6 +22,7 @@ rank threads of a mesh and autograd's own thread bump them, under a lock.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import threading
 
@@ -33,7 +34,7 @@ from repro_torch.kernels.ref import attention as flash_attention_plain
 from repro_torch.kernels.ref import attention_bwd as flash_attention_bwd_plain
 
 launches = 0          # kernel launches made by flash_attention_fwd
-bwd_launches = 0      # kernel launches (three passes each) by flash_attention_bwd
+bwd_launches = 0      # kernel launches (two passes each in bf16, three in f32) by flash_attention_bwd
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # 64: smollm and the other served configs; 128: the larger dense configs;
@@ -42,6 +43,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 112, 128)
 # the backward kernel's: training zamba2 waits for SSM training (ROADMAP A7)
 BWD_HEAD_DIMS = (32, 64, 128)
+
+# csrc/flash_attention_bwd.cu's kMaxCluster: the portable thread-block cluster
+MAX_CLUSTER = 8
 
 _fn = None
 _bwd_fn = None
@@ -61,11 +65,11 @@ def bind(lib: ctypes.CDLL):
 
 
 def bind_bwd(lib: ctypes.CDLL):
-    """(launch, error_string) of a loaded ``flash_attention_bwd`` library."""
+    """(launch, error_string) of a loaded ``flash_attention_bwd`` library;
+    the launch takes its 35 integer arguments packed in one int64 array
+    (the order is in the source's note)."""
     fn = lib.flash_attention_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] * 15
-                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -83,10 +87,21 @@ def _kernel():
 
 def _bwd_kernel():
     global _bwd_fn
-    with _lock:
-        if _bwd_fn is None:
-            _bwd_fn = bind_bwd(_build.load("flash_attention_bwd"))
-        return _bwd_fn
+    if _bwd_fn is None:
+        with _lock:
+            if _bwd_fn is None:
+                _bwd_fn = bind_bwd(_build.load("flash_attention_bwd"))
+    return _bwd_fn
+
+
+def bwd_cluster(group: int) -> tuple[int, int]:
+    """The bf16 backward's dK/dV pass for a GQA group of ``group`` q heads per
+    kv head: (blocks per thread-block cluster, heads per block).  The
+    cluster is the largest divisor of the group up to ``MAX_CLUSTER``; rank r
+    takes the consecutive heads ``r * m .. r * m + m - 1``, and the cluster
+    sums its ranks' dK and dV in ascending rank order."""
+    cs = next(c for c in range(min(group, MAX_CLUSTER), 0, -1) if group % c == 0)
+    return cs, group // cs
 
 
 def _check(q, k, v, kind, window, k_len, extra=()):
@@ -200,19 +215,20 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, kind: str = "causal",
     lse = lse.contiguous()
     f32 = dict(dtype=torch.float32, device=q.device)
     dq = torch.empty((B, Hq, Sq, d), **f32)
-    dk = torch.empty(tuple(k.shape), **f32)
-    dv = torch.empty(tuple(v.shape), **f32)
+    dk = torch.empty(k.shape, **f32)
+    dv = torch.empty(v.shape, **f32)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, Hq, Sq), **f32)
     fn, err_str = _bwd_kernel()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             _DTYPE_CODE[q.dtype], B, Hq, k.shape[1], Sq, Sk, d,
-             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-             *do.stride()[:3], int(kind == "causal"), int(window), k_len, float(scale),
-             stream)
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
+    args = array.array("q", (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _DTYPE_CODE[q.dtype], B, Hq, k.shape[1], Sq, Sk, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], *do.stride()[:3],
+        int(kind == "causal"), int(window), k_len))
+    err = fn(args.buffer_info()[0], float(scale), stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd launch failed: "
                            f"{err_str(err).decode()} (cuda error {err})")

@@ -399,21 +399,23 @@ def test_flash_function_on_the_card_matches_plain_autograd(gen):
         assert smoke.bwd_error(g, w)["rel_l2"] <= smoke.BWD_LIMITS["float32"][0]
 
 
+_BWD_CASE = {c[0]: c for c in smoke.BWD_CASES}
 # name -> (source, text in it, its faulty replacement, the case that reaches it)
 TRAIN_FAULTS = {
     "roundf_for_rintf": ("quant", "rintf(", "roundf(", ("half_way", 600, "half")),
     "fma_in_dq_accum": ("quant", "return __fadd_rn(acc, __fmul_rn(static_cast<float>(c), s));",
                         "return acc + static_cast<float>(c) * s;", ("wide_range", 5000, "randn")),
+    # each cluster rank of the dK/dV pass takes one head fewer: at group 16
+    # (clusters of 8, two heads a rank) every second head is left out
     "gqa_head_skipped_in_dkdv": (
-        "flash_attention_bwd",
-        "for (int h = hk * group; h < (hk + 1) * group; ++h) {\n"
-        "    const long long row_base = ((long long)b * p.Hq + h) * p.Sq;\n"
-        "    for (int qt = t0; qt < t1; ++qt) {\n      const int q0 = qt * kMmaB;",
-        "for (int h = hk * group; h < (hk + 1) * group - 1; ++h) {\n"
-        "    const long long row_base = ((long long)b * p.Hq + h) * p.Sq;\n"
-        "    for (int qt = t0; qt < t1; ++qt) {\n      const int q0 = qt * kMmaB;",
-        smoke.BWD_CASES[0]),
-    "causal_mask_dropped_in_bwd": ("flash_attention_bwd", "if (p.causal) ok = ok && r >= c;",
+        "flash_attention_bwd", "const int n_heads = group / cs;",
+        "const int n_heads = group / cs - 1;", _BWD_CASE["gqa16_cluster8"]),
+    # the cluster sum starts at rank 1: one head's dK/dV partial left out
+    "head_partial_left_out_of_cluster_sum": (
+        "flash_attention_bwd", "for (int rr = 0; rr < cs; ++rr) {",
+        "for (int rr = 1; rr < cs; ++rr) {", smoke.BWD_CASES[0]),
+    # the bf16 route's causal limit of a row's keys dropped
+    "causal_mask_dropped_in_bwd": ("flash_attention_bwd", "if (p.causal) hi = min(hi, r + 1);",
                                    "", smoke.BWD_CASES[0]),
 }
 
@@ -594,10 +596,24 @@ GMM_FAULTS = {
     "last_k_tile_skipped": ("const int n_ktiles = (p.K + kBK - 1) / kBK;",
                             "const int n_ktiles = (p.K + kBK - 1) / kBK - 1;", "odd_view"),
     "group_reads_group0_weights": (
-        "static_cast<const __nv_bfloat16*>(p.w) + g * p.w_sg;",
-        "static_cast<const __nv_bfloat16*>(p.w) + 0 * p.w_sg;", "mixtral_decode_w2"),
-    "row_mask_off_by_one": ("const bool row_ok = gm < p.M;", "const bool row_ok = gm < p.M - 1;",
+        "tma_load_hint(st + j * kSWBytes, &tm_w, full_bar + 8 * s, n0 + j * kBox, k0, g,",
+        "tma_load_hint(st + j * kSWBytes, &tm_w, full_bar + 8 * s, n0 + j * kBox, k0, 0,",
+        "mixtral_decode_w2"),
+    # the x map one row short: the last row of x reads as zeros
+    "row_mask_off_by_one": ("encode_map(&tm_x, p.x, p.K, p.M, p.G, p.x_sm, p.x_sg, 8 * mt);",
+                            "encode_map(&tm_x, p.x, p.K, p.M - 1, p.G, p.x_sm, p.x_sg, 8 * mt);",
                             "mixtral_decode_w13"),
+    # the decode route's split-K: the first block's part of a split tile
+    # left out of the sum
+    "split_k_part_dropped": ("for (int b = b_first; b <= b_last; ++b) {",
+                             "for (int b = b_first + 1; b <= b_last; ++b) {",
+                             "mixtral_decode_w13"),
+    # the consumers' wait one stage short: each unit is read before the wait
+    # for its copies (the ring's protocol is kept, so nothing hangs)
+    "stream_ring_wait_one_stage_short": (
+        "mbar_wait(full_bar + 8 * s, (it / kSStages) & 1);\n      mma_unit(s);",
+        "mma_unit(s);\n      mbar_wait(full_bar + 8 * s, (it / kSStages) & 1);",
+        "mixtral_decode_w2"),
 }
 
 
@@ -619,6 +635,42 @@ def test_planted_gmm_fault_fails_the_limits(gen, faulty_gmm_libs, monkeypatch, f
           f"\n  {' ' * len(fault)}  fault  {smoke.format_gmm(eb, case[5])}")
     assert smoke.gmm_ok(eg, case[5])
     assert not smoke.gmm_ok(eb, case[5])
+
+
+# the decode route's cases: Mixtral's decode shapes (the weight stream), one
+# and sixteen rows, a layer slice of stacked weights, and rows TMA cannot
+# describe (the 16-row mma.sync tile): (G, M, K, N, layout)
+DECODE_REPEATS = {"mixtral_w13": (8, 2, 4096, 14336, "dense"),
+                  "mixtral_w2": (8, 2, 14336, 4096, "dense"),
+                  "m1": (8, 1, 4096, 14336, "dense"),
+                  "m16_ragged": (3, 16, 1000, 696, "dense"),
+                  "layer_slice": (8, 2, 4096, 14336, "layer"),
+                  "aligned_column_view": (8, 5, 512, 1000, "layer_view"),
+                  "unaligned_view": (4, 9, 256, 500, "odd_view")}
+
+
+def test_gmm_stream_geometry_matches_the_library(gen):
+    """The wrapper plans the weight stream (scratch, grid) with the library's
+    tile and unit shape, which the module's constants state."""
+    _, _, geometry = gmm._kernel()
+    assert geometry == (gmm.STREAM_BN, gmm.STREAM_BK, gmm.STREAM_THREADS)
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_REPEATS))
+def test_gmm_decode_route_repeats_bit_for_bit(gen, case):
+    """The decode route within GMM_LIMITS of the plain version, and three
+    launches give the same bits (the split-K parts are summed in one order)."""
+    G, M, K, N, layout = DECODE_REPEATS[case]
+    x, w = smoke.gmm_inputs(torch, gen, G, M, K, N, "bfloat16", layout)
+    assert gmm.route(x, w) == "mma16"
+    want = ref.grouped_matmul(x, w)
+    before = gmm.route_launches["mma16"]
+    outs = [gmm.grouped_matmul(x, w) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert gmm.route_launches["mma16"] == before + 3
+    err = smoke.gmm_error(outs[0], want)
+    assert smoke.gmm_ok(err, "bfloat16"), smoke.format_gmm(err, "bfloat16")
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
 # each route against the one it was chosen over, timed in turns (-s prints

@@ -136,6 +136,79 @@ def test_attention_bwd_plain_matches_jax_vjp(kind, window, k_len, Hq, Hkv):
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=1e-6, atol=1e-6)
 
 
+def _cluster_dkdv(q, k, v, o, do, lse, kind, window, k_len, tile=64, skip_rank=None):
+    """The bf16 backward's dK/dV decomposition in plain torch (f32): per kv
+    head, cluster rank r of ``fa.bwd_cluster(group)`` runs over its heads in
+    ascending order and, per head, over 64-row query tiles, adding each
+    tile's P^T dO and dS^T Q to one running sum; the cluster then sums its
+    ranks in ascending order (and scales dK once).  ``skip_rank``: leave
+    that rank's partial out of the sum."""
+    from repro_torch.kernels import ref
+    B, Hq, Sq, d = q.shape
+    Hkv = k.shape[1]
+    group = Hq // Hkv
+    cs, m = fa.bwd_cluster(group)
+    scale = d ** -0.5
+    s = ref._scores(q, k, kind, window, k_len, scale)       # (B, Hkv, g, Sq, Sk), masked
+    p = torch.exp(s - lse.reshape(B, Hkv, group, Sq, 1))
+    dof = do.reshape(B, Hkv, group, Sq, d)
+    delta = (dof * o.reshape(B, Hkv, group, Sq, d)).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", dof, v) - delta)
+    qg = q.reshape(B, Hkv, group, Sq, d)
+    ranks_dk, ranks_dv = [], []
+    for r in range(cs):
+        dk = torch.zeros_like(k)
+        dv = torch.zeros_like(v)
+        for h in range(r * m, (r + 1) * m):
+            for q0 in range(0, Sq, tile):
+                rows = slice(q0, q0 + tile)
+                dv = dv + torch.einsum("bhqk,bhqd->bhkd", p[:, :, h, rows], dof[:, :, h, rows])
+                dk = dk + torch.einsum("bhqk,bhqd->bhkd", ds[:, :, h, rows], qg[:, :, h, rows])
+        ranks_dk.append(dk)
+        ranks_dv.append(dv)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for r, (a, b) in enumerate(zip(ranks_dk, ranks_dv)):
+        if r != skip_rank:
+            dk, dv = dk + a, dv + b
+    return dk * scale, dv
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (4, 2), (6, 2), (8, 2), (16, 1)])
+@pytest.mark.parametrize("kind,window,k_len", [("causal", 0, None), ("causal", 24, None),
+                                               ("bidir", 0, 61)])
+def test_backward_cluster_partials_match_jax_vjp(kind, window, k_len, Hq, Hkv):
+    """The bf16 backward's per-head dK/dV partials, summed in the kernel's
+    order (``bwd_cluster``: heads ascending within a rank, ranks ascending
+    within the cluster), against ``jax.vjp`` of the reference's dense
+    attention, f32, groups 1, 2, 3, 4 and 16 (a group larger than the
+    cluster of 8): rtol 1e-5 and atol 1e-6 of the tensor's largest
+    magnitude (sums over 150 query rows taken tile by tile, in another order
+    than the reference's).  Leaving one rank's partial out misses it by far."""
+    from repro.kernels import ref as jax_ref
+    from repro_torch.kernels import ref
+    rng = np.random.RandomState(11)
+    B, S, d = 2, 150, 32
+    q, do = ((rng.randn(B, Hq, S, d) * 0.7).astype(np.float32) for _ in range(2))
+    k, v = ((rng.randn(B, Hkv, S, d) * 0.7).astype(np.float32) for _ in range(2))
+    kw = dict(kind=kind, window=window, k_len=k_len)
+    o, vjp = jax.vjp(lambda a, b, c: jax_ref.attention(a, b, c, **kw), q, k, v)
+    _, want_dk, want_dv = vjp(jnp.asarray(do))
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    lse = ref.attention_lse(qt, kt, **kw)
+    dk, dv = _cluster_dkdv(qt, kt, vt, torch.from_numpy(np.array(o)), dot, lse, **kw)
+    for got, want in ((dk, want_dk), (dv, want_dv)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
+    cs, m = fa.bwd_cluster(Hq // Hkv)
+    assert cs * m == Hq // Hkv and cs <= fa.MAX_CLUSTER
+    if Hq // Hkv == 16:
+        assert (cs, m) == (8, 2)
+    if cs > 1:                     # one rank's heads left out of the cluster sum
+        _, short = _cluster_dkdv(qt, kt, vt, torch.from_numpy(np.array(o)), dot, lse, **kw,
+                                 skip_rank=0)
+        assert not np.allclose(short.numpy(), np.asarray(want_dv), rtol=1e-2, atol=1e-2)
+
+
 @pytest.mark.parametrize("kind,window,k_len,Hq,Hkv", BWD_CASES[:3])
 def test_flash_attention_function_on_cpu_matches_autograd(kind, window, k_len, Hq, Hkv):
     """``FlashAttention.apply`` on CPU tensors (both directions plain)

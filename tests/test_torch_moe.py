@@ -126,6 +126,56 @@ def test_grouped_matmul_plain_matches_jax_pallas(G, M, K, N, dtype):
     assert torch.equal(got, ref.grouped_matmul(xt, wt))
 
 
+def _stream_emulation(x, w, plan):
+    """The decode route's arithmetic in plain torch: for each tile, each
+    block's part (its units' K rows, an f32 sum of the bf16 products) in
+    ascending block order, summed in f32 and rounded once to bf16."""
+    G, M, K = x.shape
+    N = w.shape[2]
+    out = torch.empty(G, M, N, dtype=torch.float32)
+    ku = plan.units_per_tile
+    for t in range(G * plan.n_tiles):
+        g, nt = divmod(t, plan.n_tiles)
+        cols = slice(nt * plan.bn, min(N, (nt + 1) * plan.bn))
+        acc = torch.zeros(M, cols.stop - cols.start)
+        for b in plan.parts(t):
+            u0, u1 = max(plan.start(b), t * ku), min(plan.start(b + 1), (t + 1) * ku)
+            k0, k1 = (u0 - t * ku) * plan.bk, min(K, (u1 - t * ku) * plan.bk)
+            acc = acc + x[g, :, k0:k1].float() @ w[g, k0:k1, cols].float()
+        out[g, :, cols] = acc
+    return out.to(x.dtype)
+
+
+# (G, M, K, N, SMs): ragged K and N against the 128-row units and 256-column
+# tiles; few SMs, so that tiles split into two and three parts
+STREAM_EMULATION_CASES = [(3, 2, 1000, 600, 5), (2, 9, 520, 300, 7), (4, 16, 392, 264, 3),
+                          (1, 1, 1800, 256, 4)]
+
+
+@pytest.mark.parametrize("G,M,K,N,sms", STREAM_EMULATION_CASES)
+def test_decode_stream_split_k_matches_jax_pallas(G, M, K, N, sms):
+    """The decode route's partition (``stream_plan``) and its ascending f32
+    sum of split-K parts, emulated in plain torch, against the JAX Pallas
+    gmm in interpret mode: within one bf16 ulp per element, as the plain
+    version is.  A part left out of the sum misses that by far."""
+    rng = np.random.RandomState(G * 100 + K)
+    (xj, xt), (wj, wt) = _bf16_pair(rng.randn(G, M, K)), _bf16_pair(rng.randn(G, K, N) * 0.1)
+    plan = gmm.stream_plan(G, M, K, N, sms)
+    assert max(len(plan.parts(t)) for t in range(G * plan.n_tiles)) >= 2
+    want = _np(jax_ops.grouped_matmul(xj, wj, interpret=True))
+    got = _stream_emulation(xt, wt, plan)
+    assert _within_one_ulp(got.float().numpy(), want).all()
+    t = next(t for t in range(G * plan.n_tiles) if len(plan.parts(t)) >= 2)
+    g, nt = divmod(t, plan.n_tiles)
+    b = plan.parts(t)[0]
+    u0, u1 = max(plan.start(b), t * plan.units_per_tile), plan.start(b + 1)
+    k0, k1 = (u0 - t * plan.units_per_tile) * plan.bk, (u1 - t * plan.units_per_tile) * plan.bk
+    cols = slice(nt * plan.bn, min(N, (nt + 1) * plan.bn))
+    short = got.float().clone()
+    short[g, :, cols] -= xt[g, :, k0:k1].float() @ wt[g, k0:k1, cols].float()
+    assert not _within_one_ulp(short.numpy(), want).all()
+
+
 def test_grouped_matmul_registered_routes():
     from repro_torch.core import tacc
     assert tacc.resolve("grouped_matmul", device_type="cpu") is ref.grouped_matmul

@@ -359,3 +359,24 @@ def test_quantized_tree_all_reduce_matches_jax(jax_mesh, mode):
     for i, w in enumerate(want):
         port = np.stack([leaves(g)[i].numpy() for g in got])
         _assert_within_ulps(port, w, 2, of=np.abs(stacked[i]).sum(0).max())
+
+
+def test_addcmul_yardstick_is_the_dequantize_accumulate():
+    """``torch.addcmul(acc, codes, scales)``, the one-call yardstick that
+    chip_smoke.py times beside ``dq_accum_int8`` (the port never calls it),
+    computes the same function: f32 out, and within one f32 ulp of the sum
+    plus one of the product of ``acc + codes.float() * scales`` (the plain
+    version rounds the product and the sum; the CPU's addcmul fuses them)."""
+    rng = np.random.RandomState(5)
+    acc = torch.from_numpy(rng.randn(300, 512).astype(np.float32))
+    x = torch.from_numpy((rng.randn(300, 512) * np.exp(rng.randn(300, 1) * 3)).astype(np.float32))
+    codes, scales = quant.wire_quantize_int8(x)
+    got = torch.addcmul(acc, codes, scales)
+    want = ref.wire_dequant_accum(acc, codes, scales)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(want, acc + codes.float() * scales)
+
+    def ulp(t):
+        return torch.nextafter(t.abs(), torch.full_like(t, np.inf)) - t.abs()
+
+    assert bool(((got - want).abs() <= ulp(want) + ulp(codes.float() * scales)).all())

@@ -5,6 +5,9 @@ functions of shapes, strides, dtypes and alignment: no card, no launch.
   ``csrc/grouped_matmul.cu`` a grouped matmul takes.  Tensors on the
   ``meta`` device carry shapes, strides and byte offsets without memory, so
   Mixtral's full-width shapes cost nothing here.
+* ``grouped_matmul.stream_plan``: how the decode route's weight stream
+  splits a call over the card's SMs (blocks, units, split-K parts), at
+  Mixtral's full-width decode shapes.
 * ``ring_dma.slot_pitch`` and ``ring_dma.scratch_sizes``: where the fused
   rings' receive slots lie, and how much scratch a launch reserves.
 """
@@ -100,6 +103,74 @@ def test_gmm_route_counts_on_the_cpu_stay_zero():
                                torch.einsum("gmk,gkn->gmn", x.float(), w.float()),
                                rtol=1e-2, atol=1e-2)
     assert gmm.launches == 0 and set(gmm.route_launches.values()) == {0}
+
+
+# (name, x, w, SMs): Mixtral-8x7B's decode gmm (w13 and w2, as the model
+# passes them: a layer of the stacked weights), one row, sixteen rows, and a
+# small call with fewer units than SMs
+STREAM_CASES = [
+    ("mixtral_decode_w13", _meta(8, 2, 4096), _layer(32, 8, 4096, 14336), 132),
+    ("mixtral_decode_w2", _meta(8, 2, 14336), _layer(32, 8, 14336, 4096), 132),
+    ("mixtral_decode_m1", _meta(8, 1, 4096), _meta(8, 4096, 14336), 132),
+    ("m16_ragged", _meta(3, 16, 1000), _meta(3, 1000, 696), 132),
+    ("fewer_units_than_sms", _meta(5, 9, 104), _meta(5, 104, 72), 132),
+]
+
+
+@pytest.mark.parametrize("name,x,w,sms", STREAM_CASES, ids=[c[0] for c in STREAM_CASES])
+def test_stream_plan_splits_the_units_evenly(name, x, w, sms):
+    """The decode route's plan from shapes alone (meta tensors): the call
+    takes the weight stream, every unit belongs to exactly one block's run,
+    runs differ by at most one unit, every tile's parts are consecutive
+    blocks (at most two where a run is longer than a tile), and the scratch
+    holds two part slots per block."""
+    G, M, K = x.shape
+    N = w.shape[2]
+    assert gmm.route(x, w) == "mma16" and gmm._tma_rows(x, w)
+    plan = gmm.stream_plan(G, M, K, N, sms)
+    assert plan.blocks == min(sms, plan.units)
+    assert plan.units == G * -(-N // gmm.STREAM_BN) * -(-K // gmm.STREAM_BK)
+    runs = [plan.start(b + 1) - plan.start(b) for b in range(plan.blocks)]
+    assert plan.start(0) == 0 and plan.start(plan.blocks) == plan.units
+    assert max(runs) - min(runs) <= 1 and min(runs) >= 1
+    owners = [plan.owner(u) for u in range(plan.units)]
+    assert owners == sorted(owners)
+    assert all(plan.start(b) <= u < plan.start(b + 1) for u, b in enumerate(owners))
+    parts = [plan.parts(t) for t in range(G * plan.n_tiles)]
+    assert all(p.step == 1 and len(p) >= 1 for p in parts)
+    if min(runs) >= plan.units_per_tile:
+        assert max(len(p) for p in parts) <= 2
+    assert plan.scratch_floats == plan.blocks * 2 * plan.threads * 16 * plan.m_tiles
+    if name.startswith("mixtral_decode"):       # one block per SM, equal shares
+        assert plan.blocks == sms and max(runs) == -(-plan.units // sms)
+        assert plan.units * plan.bk * plan.bn * 2 >= K * N * G * 2
+
+
+def test_stream_plan_at_mixtral_decode_in_numbers():
+    """Mixtral's decode gmm on 132 SMs: w13 224 tiles (28 per expert, each 64
+    units of 64 K rows), w2 64 tiles (8 per expert, each 224 units); 14336
+    units, 108 or 109 per block; split tiles in two parts at most."""
+    for (K, N), tiles, per_tile in (((4096, 14336), 224, 64), ((14336, 4096), 64, 224)):
+        plan = gmm.stream_plan(8, 2, K, N, 132)
+        assert (plan.G * plan.n_tiles, plan.units_per_tile, plan.units) == (tiles, per_tile, 14336)
+        runs = {plan.start(b + 1) - plan.start(b) for b in range(132)}
+        assert runs == {108, 109}
+        assert max(len(plan.parts(t)) for t in range(tiles)) == (2 if per_tile < 108 else 3)
+
+
+def test_stream_plan_takes_the_library_geometry():
+    """Planned with another unit shape (as ``grouped_matmul`` does with the
+    loaded library's geometry), the same call splits into that shape's units."""
+    plan = gmm.stream_plan(8, 2, 4096, 14336, 132, geometry=(256, 128, 128))
+    assert (plan.n_tiles, plan.units_per_tile, plan.blocks) == (56, 32, 132)
+    assert plan.scratch_floats == 132 * 2 * 128 * 16
+
+
+def test_decode_rows_tma_cannot_describe_take_the_16_row_tile():
+    """An unaligned view stays on the decode route, without the stream."""
+    x = _meta(4, 9, 256)
+    w = _layer(2, 4, 256, 500, lead=3, pad=8)
+    assert gmm.route(x, w) == "mma16" and not gmm._tma_rows(x, w)
 
 
 @pytest.mark.parametrize("esize", [4, 2])
