@@ -43,13 +43,14 @@ Phases, in order; any failure exits non-zero before the last line:
    Then host-clock times (backends in turns) and the card's busy share;
 8. times of the collective kernels at the largest bucket's shape, with
    their bounds and library yardsticks (``collective_reduce`` in turns with
-   ``torch.add``, 8 rounds, the spread printed), and each ring kernel's own traffic
+   ``torch.add``, 8 rounds, L2 cold before each reading, back to back and
+   from a CUDA graph, the spread printed), and each ring kernel's own traffic
    beside its bound: the all-gather's (4n - 3) c elements per rank, the
    reduce-scatter's 3 (n - 1) c (it pulls its upstream's payload; storing
    into a receive slot moved 5 (n - 1) c);
 9. codec kernels vs plain: ``quant_int8`` and ``dq_accum_int8``
    (``csrc/quant.cu``) against their plain versions, case by case, bit for
-   bit (NaN where NaN), up to the largest bucket's hop shape;
+   bit (NaN where NaN), up to the largest leaf (55296 rows of 512);
 10. flash backward vs plain: ``flash_attention_bwd``
    (``csrc/flash_attention_bwd.cu``) against its plain version at the
    training shape and the edge cases, each with its limits, and the
@@ -61,15 +62,20 @@ Phases, in order; any failure exits non-zero before the last line:
    wire_quant="int8"`` with error feedback (the main path), ``"pallas"``
    without a codec (the fused ring kernels) and ``"xla"``.  The counts are set
    to 0 just before each run and read just after; each kernel must have run
-   the times the step implies.  Step-0 loss is the same in all three, losses
+   the times the step implies, and the int8 run's warm-up step launches the
+   codec at the rows ``bench_codec.codec_launch_rows`` counts from the
+   model's leaves and buckets.  Step-0 loss is the same in all three, losses
    are finite and fall, and the int8 run ends within a stated limit of the
    run without a codec.  Then ms per step (runs in turns), tokens/s, the
    split of a step, the card's busy share and the peak memory;
-12. times of the codec kernels at the largest bucket's hop shape and of the
-   flash backward at the training shape, with their bounds and plain
-   versions; the yardsticks timed in turns with the kernels: ``torch.addcmul``
-   for ``dq_accum_int8``, SDPA's autograd for the flash backward (also both
-   replayed from CUDA graphs, so the host's time per call is not in them);
+12. times of the codec kernels at (6912, 512) and at the largest leaf
+   (55296, 512), L2 cold before each reading, back to back and replayed
+   from CUDA graphs (so the host's time per call is not in them),
+   ``torch.addcmul`` in turns with ``dq_accum_int8``, with the bounds, the
+   plain versions and the wrappers' host time per call; the codec's card
+   time per int8+EF step, launches x graph time over every shape the step
+   launches; and the flash backward at the training shape against SDPA's
+   autograd in turns (also from CUDA graphs);
 13. grouped matmul vs plain: ``grouped_matmul`` (``csrc/grouped_matmul.cu``)
    against its plain version, case by case (``GMM_CASES``: the sweep shapes
    of tests/test_kernels.py in f32 and bf16, Mixtral's prefill and decode
@@ -140,6 +146,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 # H100 SXM data-sheet peaks (dense): device memory rate, bf16 tensor-core
@@ -1037,7 +1044,7 @@ def phase_collectives(torch, hetccl, tacc, mesh_mod, ring_dma, cr, get_config, b
     return results
 
 
-def phase_collective_times(torch, ring_dma, cr, big):
+def phase_collective_times(torch, ring_dma, cr, bench_codec, big):
     """Each collective kernel at the largest bucket's shape in the (pod=2,
     data=2) hier run: ranks 4, rings of 2 over "pod", c = bucket / 2."""
     R, n = 4, 2
@@ -1104,19 +1111,29 @@ def phase_collective_times(torch, ring_dma, cr, big):
     m = c // 2                                 # one stream of a chunk, the emulated step
     acc = torch.randn(m, generator=gen, device="cuda")
     inc = torch.randn(m, generator=gen, device="cuda")
-    # the kernel against torch.add in turns, 8 rounds: medians and spreads
-    reads = in_turns({"ms": lambda: cr.collective_reduce(acc, inc),
-                      "library_ms": lambda: torch.add(acc, inc)}, rounds=8)
+    # the kernel against torch.add in turns, 8 rounds, L2 cold before each
+    # reading, back to back and from a CUDA graph (bench_codec's protocol)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        r = bench_codec.bench_reduce(bench_codec.ColdReader(), cr, gen, 8, elems=m)
+    torch.cuda.current_stream().wait_stream(side)
+    med, reads = r["median_ms"], r["readings"]
     out["collective_reduce"] = {
+        "ms": med["kernel"]["stream"], "library_ms": med["torch.add"]["stream"],
+        "graph_ms": med["kernel"]["graph"], "library_graph_ms": med["torch.add"]["graph"],
+        "ms_readings": reads["kernel"]["stream"],
+        "library_ms_readings": reads["torch.add"]["stream"],
+        "graph_ms_readings": reads["kernel"]["graph"],
+        "library_graph_ms_readings": reads["torch.add"]["graph"],
+        "host_us_per_call": r["host_us"]["kernel"],
         "plain_ms": median_ms(lambda: cr.collective_reduce_plain(acc, inc)),
-        "bound_ms": 3 * m * 4 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "shape": f"n={m} f32 + f32"}
-    for key, ms in reads.items():
-        out["collective_reduce"][key] = statistics.median(ms)
-        out["collective_reduce"][key + "_readings"] = ms
-    print(f"  collective_reduce in turns with torch.add, 8 rounds: kernel readings "
-          f"{min(reads['ms']):.4f}-{max(reads['ms']):.4f} ms, torch.add "
-          f"{min(reads['library_ms']):.4f}-{max(reads['library_ms']):.4f} ms")
+        "bound_ms": r["bound_ms"], "bound_by": "bytes", "shape": f"n={m} f32 + f32"}
+    for mode in ("stream", "graph"):
+        print(f"  collective_reduce in turns with torch.add, 8 rounds, L2 cold, {mode}: kernel "
+              f"readings {min(reads['kernel'][mode]):.5f}-{max(reads['kernel'][mode]):.5f} ms, "
+              f"torch.add {min(reads['torch.add'][mode]):.5f}-"
+              f"{max(reads['torch.add'][mode]):.5f} ms")
     for name, t in out.items():
         print(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
               f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes)"
@@ -1155,11 +1172,12 @@ def quant_inputs(torch, gen, rows, fill):
     return x
 
 
-def phase_quant_kernels(torch, quant, ref, hop_rows):
+def phase_quant_kernels(torch, quant, ref, hop_rows, leaf_rows):
     """Both codec kernels against their plain versions, bit for bit."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     failed, n = [], 0
-    for name, rows, fill in QUANT_ROWS + [("bucket_hop", hop_rows, "randn")]:
+    for name, rows, fill in QUANT_ROWS + [("bucket_hop", hop_rows, "randn"),
+                                          ("largest_leaf", leaf_rows, "randn")]:
         x = quant_inputs(torch, gen, rows, fill)
         acc = torch.randn(rows, 512, generator=gen, device="cuda")
         odd = x.reshape(-1)[1:1 + 509 * max(rows - 1, 1)].reshape(-1, 509)   # unaligned
@@ -1238,11 +1256,12 @@ def train_counts(n_layers, n_micro, R, n_leaves, n_buckets, n_pods):
             "quant_int8": q * R, "dq_accum_int8": dq * R}
 
 
-def phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters):
+def phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters, bench_codec):
     from repro_torch.configs.base import RunConfig
     from repro_torch.core import balance
     from repro_torch.core.tree import leaves as tree_leaves
     from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels import quant
     from repro_torch.train import optim
     from repro_torch.train.trainer import make_train_program
     cfg = get_config(ARCH)
@@ -1260,14 +1279,41 @@ def phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters):
                                                           learning_rate=TRAIN_LR, **kw), plan)
              for name, kw in TRAIN_RUNS.items()}
     leaves = tree_leaves(params)
-    n_buckets = len(hetccl._make_buckets([p.float() for p in leaves],
-                                         progs["int8_ef"].comm.bucket_bytes))
+    buckets = hetccl._make_buckets([p.float() for p in leaves],
+                                   progs["int8_ef"].comm.bucket_bytes)
+    n_buckets = len(buckets)
     want = train_counts(cfg.n_layers, plan.n_micro_max, m.size, len(leaves), n_buckets, 2)
+    # the codec's launches by rows of 512, one rank, from the leaves and buckets
+    want_rows = bench_codec.codec_launch_rows(
+        [p.numel() for p in leaves], [sum(leaves[i].numel() for i in b) for b in buckets],
+        m.shape["pod"], m.shape["data"])
 
-    # warm-up step of each run (cuBLAS, allocator), then the checked runs
-    for prog in progs.values():
-        prog.step_fn(prog.init_fn(params), batch)
+    # warm-up step of each run (cuBLAS, allocator), then the checked runs; the
+    # int8 run's records the rows of every codec launch (all ranks)
+    seen = {k: [] for k in want_rows}
+
+    def recording(kernel, fn):
+        def run(a, *rest):
+            seen[kernel].append(a.shape[0])          # list.append: one op, thread-safe
+            return fn(a, *rest)
+        return run
+
+    for name, prog in progs.items():
+        with contextlib.ExitStack() as stack:
+            if name == "int8_ef":
+                stack.enter_context(patched(quant, "wire_quantize_int8", recording(
+                    "quant_int8", quant.wire_quantize_int8)))
+                stack.enter_context(patched(quant, "wire_dequant_accum_int8", recording(
+                    "dq_accum_int8", quant.wire_dequant_accum_int8)))
+            prog.step_fn(prog.init_fn(params), batch)
     torch.cuda.synchronize()
+    got_rows = {k: dict(Counter(v)) for k, v in seen.items()}
+    for kernel, rows in want_rows.items():
+        print(f"  {kernel} launches per int8 step by rows of 512 (all {m.size} ranks): "
+              f"{json.dumps({r: n * m.size for r, n in sorted(rows.items())})}")
+    check(got_rows == {k: {r: n * m.size for r, n in v.items()} for k, v in want_rows.items()},
+          f"the int8 step's codec launches by rows {got_rows} differ from the count from its "
+          f"leaves and buckets {want_rows} (per rank)")
     runs, launches = {}, {}
     for name, prog in progs.items():
         state = prog.init_fn(params)
@@ -1330,7 +1376,7 @@ def phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters):
     print(f"  int8 step split (rank 0, ms): {json.dumps(split)}; card busy share of an int8 "
           f"step {busy}; peak memory {peak_gib:.2f} GiB")
     return {"runs": runs, "launches": launches, "expected_per_step": want,
-            "n_buckets": n_buckets, "step_ms": step_ms,
+            "n_buckets": n_buckets, "codec_launch_rows": want_rows, "step_ms": step_ms,
             "tokens_per_s": {k: n_tokens / v * 1e3 for k, v in step_ms.items()},
             "split_ms": split, "device_busy": busy, "peak_gib": peak_gib,
             "tokens_per_step": n_tokens}
@@ -1378,31 +1424,74 @@ def step_split(torch, mesh_mod, optim, hetccl, prog, states, batch):
     return {k: round(v, 2) for k, v in split.items()}
 
 
-def phase_train_kernel_times(torch, quant, ref, fa, hop_rows, bwd_case):
-    import torch.nn.functional as F
+def phase_codec_times(torch, quant, ref, bench_codec, step_rows, ranks):
+    """Both codec kernels at the hop (6912, 512) and the largest leaf
+    (55296, 512), L2 cold before each reading, back to back and from a CUDA
+    graph, ``torch.addcmul`` in turns with the decode (bench_codec's
+    protocol), the wrapper's host time per call; then the codec's card time
+    per int8+EF step: launches x graph time over every shape the step
+    launches (``step_rows``, one rank) and its ranks."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    x = quant_inputs(torch, gen, hop_rows, "randn")
-    acc = torch.randn(hop_rows, 512, generator=gen, device="cuda")
+    rows = bench_codec.SHAPES["hop"]
+    x = quant_inputs(torch, gen, rows, "randn")
+    acc = torch.randn(rows, 512, generator=gen, device="cuda")
     codes, scales = quant.wire_quantize_int8(x)
-    n = x.numel()
     out = {
-        "quant_int8": {
-            "ms": median_ms(lambda: quant.wire_quantize_int8(x)),
-            "plain_ms": median_ms(lambda: ref.wire_quantize(x)),
-            "library_ms": None,
-            "bound_ms": (n * 4 + n + hop_rows * 4) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "shape": f"({hop_rows}, 512) f32 -> int8 codes + f32 scales"},
-        "dq_accum_int8": {
-            "plain_ms": median_ms(lambda: ref.wire_dequant_accum(acc, codes, scales)),
-            "bound_ms": (n * 4 + n + hop_rows * 4 + n * 4) / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "shape": f"({hop_rows}, 512) f32 + int8 codes"}}
-    # the yardstick: one call, acc + codes * scales in f32 (on the card's
-    # elementwise kernel an FMA may fuse it; the kernel rounds twice, C4)
-    reads = in_turns({"ms": lambda: quant.wire_dequant_accum_int8(acc, codes, scales),
-                      "library_ms": lambda: torch.addcmul(acc, codes, scales)})
-    for key, ms in reads.items():
-        out["dq_accum_int8"][key] = statistics.median(ms)
-        out["dq_accum_int8"][key + "_readings"] = ms
+        "quant_int8": {"plain_ms": median_ms(lambda: ref.wire_quantize(x)), "library_ms": None,
+                       "shape": f"({rows}, 512) f32 -> int8 codes + f32 scales"},
+        # the yardstick: one call, acc + codes * scales in f32 (on the card's
+        # elementwise kernel an FMA may fuse it; the kernel rounds twice, C4)
+        "dq_accum_int8": {"plain_ms": median_ms(lambda: ref.wire_dequant_accum(acc, codes,
+                                                                               scales)),
+                          "shape": f"({rows}, 512) f32 + int8 codes"}}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        reader = bench_codec.ColdReader()
+        for label, n in bench_codec.SHAPES.items():
+            pre = "" if label == "hop" else label + "_"
+            for kernel, t in out.items():
+                r = bench_codec.bench_codec_shape(reader, quant, kernel, n, gen,
+                                                  {"kernel": None}, rounds=6)
+                check(all(r["same_bits"].values()), f"{kernel} at ({n}, 512): outputs differ")
+                med, reads = r["median_ms"], r["readings"]
+                t[pre + "ms"] = med["kernel"]["stream"]
+                t[pre + "graph_ms"] = med["kernel"]["graph"]
+                t[pre + "ms_readings"] = reads["kernel"]["stream"]
+                t[pre + "graph_ms_readings"] = reads["kernel"]["graph"]
+                t[pre + "bound_ms"] = r["bound_ms"]
+                t[pre + "host_us_per_call"] = r["host_us"]["kernel"]
+                if kernel == "dq_accum_int8":
+                    t[pre + "library_ms"] = med["torch.addcmul"]["stream"]
+                    t[pre + "library_graph_ms"] = med["torch.addcmul"]["graph"]
+                    t[pre + "library_ms_readings"] = reads["torch.addcmul"]["stream"]
+                    t[pre + "library_graph_ms_readings"] = reads["torch.addcmul"]["graph"]
+                lib = (f", torch.addcmul {med['torch.addcmul']['stream']:.5f} / graph "
+                       f"{med['torch.addcmul']['graph']:.5f} ms"
+                       if kernel == "dq_accum_int8" else "")
+                print(f"  {kernel} at ({n}, 512), L2 cold, in turns: kernel back to back "
+                      f"{med['kernel']['stream']:.5f} ms, graph {med['kernel']['graph']:.5f} ms"
+                      f"{lib}; bound {r['bound_ms']:.5f} ms (bytes); wrapper host time "
+                      f"{r['host_us']['kernel']:.1f} us a call")
+        step = bench_codec.step_card_ms(reader, quant, step_rows, gen, {"kernel": None},
+                                        ranks=ranks)["kernel"]
+    torch.cuda.current_stream().wait_stream(side)
+    bound = bench_codec.step_bound_ms(step_rows, ranks)
+    for t in out.values():
+        t["bound_by"] = "bytes"
+        t["step_card_ms"] = step["ms"]
+        t["step_bound_ms"] = bound
+    out["step"] = {"card_ms": step["ms"], "bound_ms": bound, "ranks": ranks,
+                   "launch_rows": step_rows, "graph_ms_by_rows": step["by_shape"]}
+    print(f"  codec card time per int8+EF step ({ranks} ranks, launches x graph time over "
+          f"{sum(len(v) for v in step_rows.values())} shapes, L2 cold): {step['ms']:.4f} ms "
+          f"(bound {bound:.4f} ms)")
+    return out
+
+
+def phase_train_kernel_times(torch, ref, fa, bwd_case):
+    import torch.nn.functional as F
+    out = {}
     q, k, v, o, do, lse = bwd_case["inputs"]
     kw = bwd_case["kw"]
     B, Hq, S, d = q.shape
@@ -2296,6 +2385,7 @@ def main() -> int:
     from repro_torch.kernels import grouped_matmul as gmm
     from repro_torch.kernels import ops, quant, ref, ring_dma
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch import bench_codec
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import build
     from repro_torch.models import moe as moe_mod
@@ -2350,25 +2440,33 @@ def main() -> int:
                                  build)
 
     with phase("[8] collective kernel times", walls):
-        ctimes = phase_collective_times(torch, ring_dma, cr, coll["largest_bucket_elems"])
+        ctimes = phase_collective_times(torch, ring_dma, cr, bench_codec,
+                                        coll["largest_bucket_elems"])
         print(json.dumps({"collectives": coll, "kernel_times": ctimes, **card}))
 
-    # the quantized ring's hop in the (pod=2, data=2) hier reduce-scatter of
-    # the largest bucket: local shard big/2, pod chunk big/4, a stream big/8
+    # an eighth of the largest bucket: a stream of the quantized cross-pod
+    # ring in a hier all_reduce (local shard big/2, pod chunk big/4, a stream
+    # big/8), 6912 rows; tree_all_reduce's reduce-scatter runs the ring first,
+    # so a training step's streams are a quarter of a bucket
+    # (bench_codec.codec_launch_rows lists every shape a step launches)
     hop_rows = -(-coll["largest_bucket_elems"] // 8 // 512)
 
     with phase("[9] codec kernels vs plain", walls):
-        n_quant_cases = phase_quant_kernels(torch, quant, ref, hop_rows)
+        n_quant_cases = phase_quant_kernels(torch, quant, ref, hop_rows,
+                                            bench_codec.SHAPES["leaf"])
 
     with phase("[10] flash backward vs plain", walls):
         bwd = phase_flash_bwd(torch, fa, ref)
 
     counters = Counters(fa, quant, ring_dma, cr, gmm, ssd)
     with phase("[11] training at full width", walls):
-        train = phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters)
+        train = phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters,
+                            bench_codec)
 
     with phase("[12] training kernel times", walls):
-        ttimes = phase_train_kernel_times(torch, quant, ref, fa, hop_rows, bwd["train"])
+        ttimes = phase_codec_times(torch, quant, ref, bench_codec, train["codec_launch_rows"],
+                                   4)
+        ttimes.update(phase_train_kernel_times(torch, ref, fa, bwd["train"]))
         print(json.dumps({"train": train, "flash_bwd_errors": {
             k: {kk: vv for kk, vv in v.items() if kk not in ("inputs", "kw")}
             for k, v in bwd.items()}, "kernel_times": ttimes, **card}))
@@ -2499,9 +2597,8 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": "src/repro_torch/kernels/csrc/quant.cu",
             "replaces": replaces, "launches": train_launches[kname], "max_abs_err": 0.0,
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "check": "pass (bitwise)",
-            "cases_checked": n_quant_cases, "shape": t["shape"]})
+            "check": "pass (bitwise)", "cases_checked": n_quant_cases,
+            **{key: val for key, val in t.items() if not key.endswith("_readings")}})
     tp, td = gtimes["prefill_w13"], gtimes["decode_w13"]
     err = gmm_cases["mixtral_prefill_w13"]
     kernels.append({

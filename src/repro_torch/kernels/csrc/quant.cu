@@ -24,12 +24,23 @@
 //
 // What bounds it on an H100: both are streams with a few operations per
 // element (quantize reads 4 bytes and writes 1 per element, dequantize reads 5
-// and writes 4), so device memory, 3.35 TB/s.  Quantize gives each chunk row
-// one warp, eight rows to a block (the TPU kernel's 8-row block): the warp
-// reads its row in 16-byte vectors, reduces the absmax with shuffles, and reads
-// the row again from L1 to write the codes four to a word.  Dequantize is a
-// grid-stride loop over 4-element vectors.  Pointers or chunk widths that do
-// not allow vectors take a scalar loop over the same arithmetic.
+// and writes 4), so device memory, 3.35 TB/s.  The training step launches
+// them at rows from 1 to 55296 (DESIGN_TORCH.md §15): the largest moves 142
+// and 255 MB, the smallest only a launch.
+//
+// The fast path is the port's only chunk width, 512 (quant.DEFAULT_CHUNK),
+// with 16-byte aligned rows: one warp per row, eight rows a block, a grid of
+// one block per eight rows (the last rows past the end return at once).  Lane
+// l holds the float4 vectors l, l + 32, l + 64 and l + 96 of its row, so each
+// warp-wide load reads 512 contiguous bytes; it issues all four loads (and the
+// decode its four char4 code loads) before it uses any, so a row costs one
+// memory latency, and the quantize keeps its row in registers between the
+// absmax and the encode (no second read).  The scale is loaded once per row
+// and no index is divided.  Every other width or alignment takes the generic
+// kernels below: a warp per row with vectors where the width and pointers
+// allow them, else scalars, and a grid-stride decode.  DESIGN_TORCH.md §15
+// lists the variants timed against this one (a lane owning 16 contiguous
+// elements, two rows a warp, evict-first loads).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,14 +48,25 @@
 namespace {
 
 constexpr int kRowsPerBlock = 8;      // one warp per chunk row
-constexpr int kQuantThreads = kRowsPerBlock * 32;
-constexpr int kDqThreads = 256;
+constexpr int kThreads = kRowsPerBlock * 32;
+constexpr int kChunk = 512;           // the fast path's width
+constexpr int kVecs = kChunk / 128;   // float4 per lane per row
 constexpr float kTop = 127.f;
 constexpr float kInvTop = 1.f / 127.f;  // rounded to f32 at compile time
 
 // The jnp.max rule: a NaN on either side wins.
 __device__ __forceinline__ float nan_max(float m, float a) {
   return (a > m || a != a) ? a : m;
+}
+
+__device__ __forceinline__ float warp_absmax(float m) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  return m;
+}
+
+__device__ __forceinline__ float row_scale(float absmax) {
+  return absmax > 0.f ? __fmul_rn(absmax, kInvTop) : 1.f;
 }
 
 __device__ __forceinline__ signed char encode(float x, float scale) {
@@ -58,9 +80,65 @@ __device__ __forceinline__ float decode_add(float acc, signed char c, float s) {
   return __fadd_rn(acc, __fmul_rn(static_cast<float>(c), s));
 }
 
-__global__ void __launch_bounds__(kQuantThreads)
-    quant_int8_kernel(const float* __restrict__ x, signed char* __restrict__ codes,
-                      float* __restrict__ scales, long long rows, int chunk, int vec) {
+__global__ void __launch_bounds__(kThreads)
+    quant512_kernel(const float* __restrict__ x, signed char* __restrict__ codes,
+                    float* __restrict__ scales, long long rows) {
+  const int lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
+  if (row >= rows) return;          // the whole warp: its row is past the end
+  const float4* xr = reinterpret_cast<const float4*>(x + row * kChunk) + lane;
+  float4 v[kVecs];
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) v[i] = xr[32 * i];
+  float m = 0.f;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    m = nan_max(m, fabsf(v[i].x));
+    m = nan_max(m, fabsf(v[i].y));
+    m = nan_max(m, fabsf(v[i].z));
+    m = nan_max(m, fabsf(v[i].w));
+  }
+  const float scale = row_scale(warp_absmax(m));
+  if (lane == 0) scales[row] = scale;
+  char4* cr = reinterpret_cast<char4*>(codes + row * kChunk) + lane;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    char4 c;
+    c.x = encode(v[i].x, scale);
+    c.y = encode(v[i].y, scale);
+    c.z = encode(v[i].z, scale);
+    c.w = encode(v[i].w, scale);
+    cr[32 * i] = c;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    dq512_kernel(const float* __restrict__ acc, const signed char* __restrict__ codes,
+                 const float* __restrict__ scales, float* __restrict__ out, long long rows) {
+  const int lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
+  if (row >= rows) return;
+  const float4* ar = reinterpret_cast<const float4*>(acc + row * kChunk) + lane;
+  const char4* cr = reinterpret_cast<const char4*>(codes + row * kChunk) + lane;
+  const float s = scales[row];
+  float4 a[kVecs];
+  char4 c[kVecs];
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) a[i] = ar[32 * i];
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) c[i] = cr[32 * i];
+  float4* orow = reinterpret_cast<float4*>(out + row * kChunk) + lane;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i)
+    orow[32 * i] = make_float4(decode_add(a[i].x, c[i].x, s), decode_add(a[i].y, c[i].y, s),
+                               decode_add(a[i].z, c[i].z, s), decode_add(a[i].w, c[i].w, s));
+}
+
+// Generic widths and alignments: a warp per row, 16-byte vectors where the
+// width is a multiple of 4 and x is aligned (vec), else scalars.
+__global__ void __launch_bounds__(kThreads)
+    quant_any_kernel(const float* __restrict__ x, signed char* __restrict__ codes,
+                     float* __restrict__ scales, long long rows, int chunk, int vec) {
   const int lane = threadIdx.x % 32;
   const long long row = (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
   if (row >= rows) return;
@@ -78,10 +156,7 @@ __global__ void __launch_bounds__(kQuantThreads)
   } else {
     for (int i = lane; i < chunk; i += 32) m = nan_max(m, fabsf(xr[i]));
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
-  const float scale = m > 0.f ? __fmul_rn(m, kInvTop) : 1.f;
+  const float scale = row_scale(warp_absmax(m));
   if (lane == 0) scales[row] = scale;
   if (vec) {
     for (int i = 4 * lane; i < chunk; i += 128) {
@@ -98,13 +173,15 @@ __global__ void __launch_bounds__(kQuantThreads)
   }
 }
 
-__global__ void __launch_bounds__(kDqThreads)
-    dq_accum_kernel(const float* __restrict__ acc, const signed char* __restrict__ codes,
-                    const float* __restrict__ scales, float* __restrict__ out,
-                    long long n, int chunk, int vec) {
+// Generic decode: a grid-stride loop over 4-element vectors (the four share a
+// row when the width is a multiple of 4) or over elements.
+__global__ void __launch_bounds__(kThreads)
+    dq_any_kernel(const float* __restrict__ acc, const signed char* __restrict__ codes,
+                  const float* __restrict__ scales, float* __restrict__ out,
+                  long long n, int chunk, int vec) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (vec) {  // chunk % 4 == 0: the four elements of a vector share a row
+  if (vec) {
     for (long long i = tid; i < n / 4; i += stride) {
       const float s = scales[4 * i / chunk];
       const float4 a = reinterpret_cast<const float4*>(acc)[i];
@@ -121,12 +198,12 @@ __global__ void __launch_bounds__(kDqThreads)
 
 int g_blocks = 0;
 
-int max_blocks(int threads) {
+int max_blocks() {
   if (g_blocks == 0) {
     int dev = 0, sms = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    g_blocks = sms * 2048 / threads;
+    g_blocks = sms * 2048 / kThreads;
   }
   return g_blocks;
 }
@@ -142,11 +219,15 @@ extern "C" {
 int quant_int8(const float* x, signed char* codes, float* scales, long long rows,
                int chunk, void* stream) {
   if (rows <= 0 || chunk <= 0) return 0;
-  const int vec = chunk % 4 == 0 && aligned(x, 16) && aligned(codes, 4);
   const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  quant_int8_kernel<<<(unsigned)blocks, kQuantThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, codes, scales, rows, chunk, vec);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunk == kChunk && aligned(x, 16) && aligned(codes, 4)) {
+    quant512_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(x, codes, scales, rows);
+  } else {
+    const int vec = chunk % 4 == 0 && aligned(x, 16) && aligned(codes, 4);
+    quant_any_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(x, codes, scales, rows, chunk, vec);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -155,12 +236,18 @@ int dq_accum_int8(const float* acc, const signed char* codes, const float* scale
                   float* out, long long rows, int chunk, void* stream) {
   const long long n = rows * chunk;
   if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunk == kChunk && aligned(acc, 16) && aligned(out, 16) && aligned(codes, 4)) {
+    const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    dq512_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(acc, codes, scales, out, rows);
+    return (int)cudaGetLastError();
+  }
   const int vec = chunk % 4 == 0 && aligned(acc, 16) && aligned(out, 16) && aligned(codes, 4);
-  const long long want = (n / (vec ? 4 : 1) + kDqThreads - 1) / kDqThreads;
-  const int cap = max_blocks(kDqThreads);
+  const long long want = (n / (vec ? 4 : 1) + kThreads - 1) / kThreads;
+  const int cap = max_blocks();
   const int blocks = (int)(want < cap ? (want > 0 ? want : 1) : cap);
-  dq_accum_kernel<<<blocks, kDqThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      acc, codes, scales, out, n, chunk, vec);
+  dq_any_kernel<<<blocks, kThreads, 0, s>>>(acc, codes, scales, out, n, chunk, vec);
   return (int)cudaGetLastError();
 }
 

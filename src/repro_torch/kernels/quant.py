@@ -79,20 +79,21 @@ def bind(lib: ctypes.CDLL):
 
 def _kernel():
     global _lib
-    with _lock:
-        if _lib is None:
-            _lib = bind(_build.load("quant"))
-        return _lib
+    if _lib is None:
+        with _lock:
+            if _lib is None:
+                _lib = bind(_build.load("quant"))
+    return _lib
 
 
 def _route(t) -> bool:
     """True for a CUDA tensor (the kernel), False for a CPU one (the plain
     version); any other device raises."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
         raise ValueError(f"no wire codec route for device {t.device}")
-    return True
+    return False
 
 
 def _raise_on(err: int, what: str, lib):
@@ -101,37 +102,45 @@ def _raise_on(err: int, what: str, lib):
                            f"{lib.quant_error_string(err).decode()} (cuda error {err})")
 
 
+def _f32(t):
+    """t as a contiguous f32 tensor: t itself where it already is one (no
+    dispatch through ``.float()`` and ``.contiguous()``), else a copy."""
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return t.float().contiguous()
+
+
+def _stream(t) -> int:
+    # the raw handle of the current stream: torch.cuda.current_stream() builds
+    # a Stream object, a few microseconds on a path that is host-bound
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
 def wire_quantize_int8(x2):
     """x2 (nchunks, chunk) -> (codes int8 (nchunks, chunk), scales f32
     (nchunks, 1)): the ``quant_int8`` kernel on a CUDA tensor, the plain
     version on a CPU tensor."""
     global quant_launches
-    if not _route(x2):
-        return wire_quantize_plain(x2, codec="int8")
     if x2.dim() != 2:
         raise ValueError(f"x2 of shape {tuple(x2.shape)}: (nchunks, chunk) expected")
-    x = x2.float().contiguous()
+    if not _route(x2):
+        return wire_quantize_plain(x2, codec="int8")
+    x = _f32(x2)
     rows, chunk = x.shape
     codes = torch.empty((rows, chunk), dtype=torch.int8, device=x.device)
     scales = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
-    if x.numel() == 0:
+    if rows == 0 or chunk == 0:
         return codes, scales
-    lib = _kernel()
+    lib = _lib or _kernel()
     err = lib.quant_int8(x.data_ptr(), codes.data_ptr(), scales.data_ptr(), rows, chunk,
-                         torch.cuda.current_stream(x.device).cuda_stream)
+                         _stream(x))
     _raise_on(err, "quant_int8", lib)
     with _lock:
         quant_launches += 1
     return codes, scales
 
 
-def wire_dequant_accum_int8(acc2, codes2, scales):
-    """acc2 (nchunks, chunk) f32 + float(codes2) * scales (nchunks, 1) ->
-    f32: the ``dq_accum_int8`` kernel on CUDA tensors, the plain version on
-    CPU tensors."""
-    global dq_launches
-    if not _route(acc2):
-        return wire_dequant_accum_plain(acc2, codes2, scales, codec="int8")
+def _check_dq(acc2, codes2, scales):
     if acc2.dim() != 2 or codes2.shape != acc2.shape or codes2.dtype != torch.int8 \
             or scales.numel() != acc2.shape[0]:
         raise ValueError(f"acc {tuple(acc2.shape)}, codes {tuple(codes2.shape)} "
@@ -140,16 +149,26 @@ def wire_dequant_accum_int8(acc2, codes2, scales):
     for t in (codes2, scales):
         if t.device != acc2.device:
             raise ValueError(f"a codec input is on {t.device}, acc on {acc2.device}")
-    acc = acc2.float().contiguous()
-    codes = codes2.contiguous()
-    sc = scales.float().contiguous()
+
+
+def wire_dequant_accum_int8(acc2, codes2, scales):
+    """acc2 (nchunks, chunk) f32 + float(codes2) * scales (nchunks, 1) ->
+    f32: the ``dq_accum_int8`` kernel on CUDA tensors, the plain version on
+    CPU tensors.  The arguments are checked on every device."""
+    global dq_launches
+    _check_dq(acc2, codes2, scales)
+    if not _route(acc2):
+        return wire_dequant_accum_plain(acc2, codes2, scales, codec="int8")
+    acc = _f32(acc2)
+    codes = codes2 if codes2.is_contiguous() else codes2.contiguous()
+    sc = _f32(scales)
     out = torch.empty_like(acc)
-    if out.numel() == 0:
-        return out
     rows, chunk = acc.shape
-    lib = _kernel()
+    if rows == 0 or chunk == 0:
+        return out
+    lib = _lib or _kernel()
     err = lib.dq_accum_int8(acc.data_ptr(), codes.data_ptr(), sc.data_ptr(), out.data_ptr(),
-                            rows, chunk, torch.cuda.current_stream(acc.device).cuda_stream)
+                            rows, chunk, _stream(acc))
     _raise_on(err, "dq_accum_int8", lib)
     with _lock:
         dq_launches += 1

@@ -4,7 +4,8 @@ Every test here needs an NVIDIA card: each is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false.  The flash-attention kernel is held to
 the limits of ``chip_smoke.py`` (``ATTN_LIMITS``), the grouped matmul to
 ``GMM_LIMITS``, the SSD scan to ``SSD_LIMITS``; the collective kernels (``collective_reduce``, the fused ring
-reduce-scatter and all-gather) bit for bit.  Planted faults in copies of the kernel sources must fail those checks,
+reduce-scatter and all-gather) and the int8 codec's kernels (the chunk-512
+fast path and the generic one) bit for bit.  Planted faults in copies of the kernel sources must fail those checks,
 and a ring fault that stalls the protocol must raise within seconds.  The
 file imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -333,8 +334,11 @@ def test_planted_ring_fault_fails(gen, faulty_ring_libs, monkeypatch, fault):
 from repro_torch.kernels import quant, ref  # noqa: E402
 
 
-@pytest.mark.parametrize("name,rows,fill", smoke.QUANT_ROWS + [("bucket_hop", 6912, "randn")],
-                         ids=[c[0] for c in smoke.QUANT_ROWS] + ["bucket_hop"])
+# chip_smoke's codec cases, the hop, and (55296, 512): smollm-135m's
+# embedding, which error feedback encodes and decodes whole
+@pytest.mark.parametrize("name,rows,fill", smoke.QUANT_ROWS + [("bucket_hop", 6912, "randn"),
+                                                               ("largest_leaf", 55296, "randn")],
+                         ids=[c[0] for c in smoke.QUANT_ROWS] + ["bucket_hop", "largest_leaf"])
 def test_codec_kernels_match_plain_bitwise(gen, name, rows, fill):
     x = smoke.quant_inputs(torch, gen, rows, fill)
     acc = torch.randn(rows, 512, generator=gen, device="cuda")
@@ -348,6 +352,38 @@ def test_codec_kernels_match_plain_bitwise(gen, name, rows, fill):
         c2, s2 = ref.wire_quantize(xx)
         assert smoke.same_bits(c, c2) and smoke.same_bits(s, s2)
         assert smoke.same_bits(d, ref.wire_dequant_accum(aa, c, s))
+
+
+def _codec_inputs(gen, rows, chunk, fill, offset):
+    """(rows, chunk) f32 codec input and accumulator, ``offset`` elements
+    into their buffers (1 breaks the 16-byte alignment of every row), filled
+    as ``chip_smoke.quant_inputs`` fills its (., 512) rows."""
+    n = rows * chunk + offset
+    x = smoke.quant_inputs(torch, gen, -(-n // 512), fill).reshape(-1)
+    acc = torch.randn(x.numel(), generator=gen, device="cuda")
+    return (x[offset:n].reshape(rows, chunk), acc[offset:n].reshape(rows, chunk))
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset1"])
+@pytest.mark.parametrize("fill", ["randn", "zeros", "half", "nan"])
+@pytest.mark.parametrize("rows", [1, 2, 34, 6913])
+@pytest.mark.parametrize("chunk", [512, 100, 260])
+def test_codec_paths_match_plain_bitwise(gen, chunk, rows, fill, offset):
+    """Both codec kernels, on the chunk-512 fast path (aligned) and the
+    generic one (other widths, or rows offset by one element), bit for bit
+    against their plain versions: short rows (a 2-row and a 34-row norm
+    leaf), a row count that is not a multiple of the block's 8, and the
+    fills of chip_smoke's codec cases ("randn": chunks scaled from 1e-3 to
+    1e3)."""
+    x, acc = _codec_inputs(gen, rows, chunk, fill, offset)
+    before = (quant.quant_launches, quant.dq_launches)
+    c, s = quant.wire_quantize_int8(x)
+    d = quant.wire_dequant_accum_int8(acc, c, s)
+    torch.cuda.synchronize()
+    assert (quant.quant_launches, quant.dq_launches) == (before[0] + 1, before[1] + 1)
+    c2, s2 = ref.wire_quantize(x)
+    assert smoke.same_bits(c, c2) and smoke.same_bits(s, s2)
+    assert smoke.same_bits(d, ref.wire_dequant_accum(acc, c, s))
 
 
 def _bwd_case(gen, case):
@@ -405,6 +441,15 @@ TRAIN_FAULTS = {
     "roundf_for_rintf": ("quant", "rintf(", "roundf(", ("half_way", 600, "half")),
     "fma_in_dq_accum": ("quant", "return __fadd_rn(acc, __fmul_rn(static_cast<float>(c), s));",
                         "return acc + static_cast<float>(c) * s;", ("wide_range", 5000, "randn")),
+    # the absmax's shuffle reduction drops a lane's NaN (fmaxf takes the
+    # number): a chunk with a NaN gets a finite scale instead of 1
+    "nan_lost_in_shuffle": ("quant", "m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));",
+                            "m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));",
+                            ("nan_chunk", 300, "nan")),
+    # the fast decode reads its neighbour row's scale
+    "dq_scale_of_another_row": ("quant", "const float s = scales[row];",
+                                "const float s = scales[row ^ 1];",
+                                ("wide_range", 5000, "randn")),
     # each cluster rank of the dK/dV pass takes one head fewer: at group 16
     # (clusters of 8, two heads a rank) every second head is left out
     "gqa_head_skipped_in_dkdv": (

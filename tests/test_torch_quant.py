@@ -380,3 +380,36 @@ def test_addcmul_yardstick_is_the_dequantize_accumulate():
         return torch.nextafter(t.abs(), torch.full_like(t, np.inf)) - t.abs()
 
     assert bool(((got - want).abs() <= ulp(want) + ulp(codes.float() * scales)).all())
+
+
+def test_codec_wrappers_check_their_arguments_on_every_device():
+    """The int8 wrappers refuse malformed arguments before they pick a route,
+    so a CPU call is held to what the kernel takes; nothing is counted."""
+    x = torch.zeros(4, 512)
+    codes, scales = quant.wire_quantize_int8(x)
+    before = (quant.quant_launches, quant.dq_launches)
+    for bad in (torch.zeros(2, 2, 512), torch.zeros(512)):
+        with pytest.raises(ValueError, match="nchunks, chunk"):
+            quant.wire_quantize_int8(bad)
+    for args in ((x, codes.float(), scales),              # codes not int8
+                 (x, codes[:3], scales),                   # codes of another shape
+                 (x, codes, scales[:3]),                   # a scale missing
+                 (x[0], codes[0], scales[:1])):            # not (nchunks, chunk)
+        with pytest.raises(ValueError, match="expected"):
+            quant.wire_dequant_accum_int8(*args)
+    with pytest.raises(ValueError, match="is on meta"):
+        quant.wire_dequant_accum_int8(x, codes.to("meta"), scales)
+    assert (quant.quant_launches, quant.dq_launches) == before
+    assert torch.equal(quant.wire_dequant_accum_int8(x, codes, scales), x)
+
+
+def test_f32_shortcut_passes_a_contiguous_f32_tensor_through():
+    """The wrappers hand a contiguous f32 tensor to the kernel as it is (no
+    copy, no dispatch) and convert anything else."""
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randn(6, 512).astype(np.float32))
+    assert quant._f32(x) is x
+    for other in (x.bfloat16(), x.double(), x.t(), x[:, ::2]):
+        got = quant._f32(other)
+        assert got is not other and got.dtype == torch.float32 and got.is_contiguous()
+        assert torch.equal(got, other.float())
