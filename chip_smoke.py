@@ -9,8 +9,8 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build: every kernel source of the port compiled with nvcc for sm_90a;
 3. kernel vs plain: ``flash_attention_fwd`` on the card against its plain
    version at the main path's prefill shapes (smollm, Mixtral's prefill and
-   its window run) and the edge cases (``KERNEL_CASES``), each case with its
-   tolerance;
+   its window run, llama-3b's at head dim 100) and the edge cases
+   (``KERNEL_CASES``), each case with its tolerance;
 4. serve: full-width smollm-135m (30 layers, d_model 576, bf16, weights made
    from a seed) answers 8 requests of 512 prompt tokens, 32 new tokens each,
    through ``repro_torch.serve.engine.Batcher``.  The launch counts are set to
@@ -22,8 +22,10 @@ Phases, in order; any failure exits non-zero before the last line:
 5. times: CUDA events around back-to-back calls after warm-up, medians, for
    the kernel, its plain version, ``F.scaled_dot_product_attention`` (a
    yardstick the port never calls; with a boolean mask where a window
-   binds) and the bound, at smollm's, Mixtral's prefill and Mixtral's window
-   shapes, and the kernel's and SDPA's device time from a CUDA graph replay
+   binds) and the bound, at smollm's, Mixtral's prefill, Mixtral's window
+   and llama-3b's (d 100; with the cost of the wrapper's copy of q, k, v
+   into padded rows) shapes, and the kernel's and SDPA's device time from a
+   CUDA graph replay
    (host clock for prefill, decode and tokens/s in phase 4); the wrapper's
    host time per call; then the card's busy share in prefill and decode
    from a torch.profiler trace;
@@ -53,8 +55,8 @@ Phases, in order; any failure exits non-zero before the last line:
    bit (NaN where NaN), up to the largest leaf (55296 rows of 512);
 10. flash backward vs plain: ``flash_attention_bwd``
    (``csrc/flash_attention_bwd.cu``) against its plain version at the
-   training shape and the edge cases, each with its limits, and the
-   forward's row logsumexp against its plain version;
+   training shape, at head dim 100 and the edge cases, each with its
+   limits, and the forward's row logsumexp against its plain version;
 11. training at full width: ZeRO-1 steps of full-width smollm-135m (bf16
    parameters, f32 master state, weights from a seed) on a ThreadMesh
    (pod=2, data=2), ``uniform_plan(2, 4, micro_batch=2)``, seq 512, one
@@ -74,8 +76,8 @@ Phases, in order; any failure exits non-zero before the last line:
    ``torch.addcmul`` in turns with ``dq_accum_int8``, with the bounds, the
    plain versions and the wrappers' host time per call; the codec's card
    time per int8+EF step, launches x graph time over every shape the step
-   launches; and the flash backward at the training shape against SDPA's
-   autograd in turns (also from CUDA graphs);
+   launches; and the flash backward at the training shape and at d 100
+   against SDPA's autograd in turns (also from CUDA graphs);
 13. grouped matmul vs plain: ``grouped_matmul`` (``csrc/grouped_matmul.cu``)
    against its plain version, case by case (``GMM_CASES``: the sweep shapes
    of tests/test_kernels.py in f32 and bf16, Mixtral's prefill and decode
@@ -128,10 +130,28 @@ Phases, in order; any failure exits non-zero before the last line:
    bounds (bytes and bf16 operations; the f32-FMA bound printed beside),
    the route, its shared memory per block and the blocks an SM holds; and
    the flash forward at d 112 with its plain version, SDPA and bound;
-21. a JSON line listing every kernel (the flash forward with its four
-   main-path shapes under ``shapes``, the grouped matmul's and the SSD
-   scan's launches per route under ``routes``);
-22. the last line, ``{"ok": true, "device": {...}}``.
+21. the dense configs at full width and depth (``DENSE_ARCHS``: gpt-125m,
+   gpt-355m, smollm-360m, llama-1b, llama-3b, starcoder2-7b and
+   deepseek-coder-33b, 33.3 B parameters in 66.7 GB of bf16, all whole),
+   weights from a seed: 8 x 512 prompt tokens + 32 new through ``Batcher``,
+   the counts set to 0 just before and read just after (one flash launch
+   per layer at the config's head dim: llama-3b's at d 100), tokens in the
+   vocab, finite logits; llama-3b's kernel against its plain version on
+   each layer's inputs; tokens/s, prefill and decode ms, busy shares, peak
+   memory;
+22. llama-1b trained at full width at the paper's shape (micro-batch 1 x
+   seq 8192 per rank, remat, hier, pallas) on a (pod=2, data=2) ThreadMesh:
+   3 ZeRO-3 steps and 3 ZeRO-1 steps from one init and the same batches,
+   the counts set to 0 just before each run and read just after; step
+   losses within 5e-3 of each other; the fused reduce-scatter launched once
+   per gathered (leaf, layer) by the fsdp adjoint; ms a step, tokens/s,
+   busy share and peak memory of each;
+23. gpt-125m trained at full width: 2 ZeRO-1 steps at seq 1024;
+24. a JSON line listing every kernel (the flash forward with its five
+   main-path shapes under ``shapes``, the backward's d-100 shape, the
+   grouped matmul's and the SSD scan's launches per route under
+   ``routes``);
+25. the last line, ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.
 
@@ -174,11 +194,21 @@ KERNEL_CASES = [
     ("mixtral_prefill", 8, 32, 8, 512, 512, 128, "causal", 4096, None, "bfloat16", True),
     # mixtral's window prefill (phase 15): d 128, GQA 32/8, window 4096 < Sq
     ("mixtral_window4096", 1, 32, 8, 4608, 4608, 128, "causal", 4096, None, "bfloat16", True),
+    # llama-3b's prefill (phase 21): d 100, heads 200 bytes apart in model
+    # layout, so the wrapper copies q, k, v into rows of 104 (tma_ready)
+    ("llama3b_prefill", 8, 32, 32, 512, 512, 100, "causal", 0, None, "bfloat16", True),
+    # d 100 contiguous (rows 200 bytes apart), GQA, a k_len cut, Sq ragged
+    ("d100_bidir_klen250_sq333", 2, 8, 2, 333, 400, 100, "bidir", 0, 250, "bfloat16", False),
+    ("f32_d100_window40", 2, 4, 2, 200, 200, 100, "causal", 40, None, "float32", True),
+    # llama-1b's training forward (phase 22): the paper's 1 x 8192 a rank,
+    # GQA 32/4, model layout
+    ("llama1b_train", 1, 32, 4, 8192, 8192, 64, "causal", 0, None, "bfloat16", True),
 ]
 # The flash forward's main-path shapes (the kernel case timed for each, in
 # phase 5, and zamba2's in phase 20) and the launch count each one's run reads
 FLASH_TIMED = {"smollm": "serve_prefill", "mixtral_prefill": "mixtral_prefill",
-               "mixtral_window": "mixtral_window4096", "zamba2": "zamba2_d112"}
+               "mixtral_window": "mixtral_window4096", "zamba2": "zamba2_d112",
+               "llama3b": "llama3b_prefill"}
 
 # Kernel against its plain version, both errors relative to the plain output:
 # (relative L2 of the whole output, worst relative L2 of one output row).  The
@@ -252,6 +282,15 @@ BWD_CASES = [
     # a GQA group of 16: the bf16 dK/dV pass's clusters hold 8 blocks, so
     # each rank takes two heads
     ("gqa16_cluster8", 1, 16, 1, 256, 64, "causal", 0, None, "bfloat16", False),
+    # d 100 (llama-3b's heads, 112 wide in shared memory): its training shape
+    # at one sequence of 2048, model layout; GQA with a window and a ragged
+    # S; the f32 route with a k_len cut
+    ("d100_llama3b", 1, 32, 32, 2048, 100, "causal", 0, None, "bfloat16", True),
+    ("d100_gqa4_window64_s300", 2, 8, 2, 300, 100, "causal", 64, None, "bfloat16", False),
+    ("f32_d100_bidir_klen101", 1, 4, 2, 130, 100, "bidir", 0, 101, "float32", True),
+    # llama-1b's training backward (phase 22): 1 x 8192, GQA group 8 (the
+    # dK/dV pass's clusters of 8), model layout
+    ("llama1b_train", 1, 32, 4, 8192, 64, "causal", 0, None, "bfloat16", True),
 ]
 # Codec cases: (name, rows of 512, fill); each also as an odd-width view
 QUANT_ROWS = [("one_row", 1, "randn"), ("seven_rows", 7, "randn"), ("zero_chunks", 1000, "zeros"),
@@ -382,6 +421,32 @@ SSD_CASES = [
     ("kernel_layout_f32", 2, 256, 3, 32, 3, 16, 64, "float32", 1.0, False, "kernel"),
     ("kernel_layout_bf16", 1, 256, 2, 16, 2, 8, 32, "bfloat16", 1.0, False, "kernel"),
 ]
+# The dense configs of the paper and the rest (ROADMAP A8a), each served at
+# full width with weights from a seed, bf16: DENSE_REQUESTS x DENSE_PROMPT
+# prompt tokens and DENSE_NEW new ones through ``Batcher``.  Each is served
+# whole; deepseek-coder-33b's 66.7 GB of bf16 weights fit the 80 GB card
+# (init_params draws its largest leaves one layer at a time).
+DENSE_ARCHS = ("gpt-125m", "gpt-355m", "smollm-360m", "llama-1b", "llama-3b",
+               "starcoder2-7b", "deepseek-coder-33b")
+DENSE_REQUESTS, DENSE_PROMPT, DENSE_NEW = 8, 512, 32
+# The paper's training shape for llama-1b (paper_figs.py: micro-batch 1 x
+# seq 8192), full width on the (pod=2, data=2) ThreadMesh, remat, hier,
+# backend pallas: ZeRO-3 and ZeRO-1 from one init and the same batches.
+# Their step losses agree within the reference's bound for this comparison
+# (tests/test_train.py::test_zero_stages_and_modes_agree, atol 5e-3).
+LLAMA_ARCH, LLAMA_SEQ, LLAMA_STEPS, LLAMA_LR = "llama-1b", 8192, 3, 1e-3
+ZERO_LOSS_ATOL = 5e-3
+# The loss alone moves too little in 3 steps to show a gradient that is
+# scaled wrongly or misses a rank (Adam ignores the scale), so the two runs
+# are also held to each other on step 0's gradient norm (relative) and on
+# the parameters after step 0 (ZeRO-3's rebuilt from its "data" shards by
+# convert.unshard_params; relative L2 over the whole tree).  Limits: about
+# 4 times the readings on an H100 (1.04e-6 and 8.42e-5, PERF.md); a rank's
+# gradient dropped or scaled twice would move the norm by tens of percent.
+ZERO_GRAD_NORM_RTOL = 5e-6
+ZERO_PARAM_REL_L2 = 3e-4
+# gpt-125m trains 2 ZeRO-1 steps at full width at its paper sequence (1024)
+GPT_ARCH, GPT_SEQ, GPT_STEPS, GPT_MICRO_BATCH = "gpt-125m", 1024, 2, 4
 # flash forward at zamba2's shared attention (d 112) and the f32 route at 112
 FLASH_D112_CASES = [
     ("zamba2_d112", 8, 32, 32, 2048, 2048, 112, "causal", 0, None, "bfloat16", True),
@@ -784,14 +849,21 @@ def phase_times(fa, torch, case):
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=kind == "causal",
                                                enable_gqa=True))
     bound_ms, bound_by = bound(q, k, v, kind, window, k_len)
+    # the wrapper's copy of q, k, v into rows padded to a multiple of 8 (d
+    # 100), which the kernel time above includes
+    copy_ms = None if all(fa._aligned(t) for t in (q, k, v)) else median_ms(
+        lambda: [fa.tma_ready(t) for t in (q, k, v)])
     print(f"  flash_attention_fwd at {tuple(q.shape)} / {tuple(k.shape)} "
           f"{str(q.dtype).removeprefix('torch.')} {kind} window {window}: kernel "
           f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library ({library}) "
           f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); kernel / bound "
           f"{kernel_ms / bound_ms:.2f}, kernel / library {kernel_ms / library_ms:.2f}; "
           f"replayed in a CUDA graph: kernel {kernel_graph_ms:.4f} ms, library "
-          + ("none" if library_graph_ms is None else f"{library_graph_ms:.4f} ms"))
+          + ("none" if library_graph_ms is None else f"{library_graph_ms:.4f} ms")
+          + ("" if copy_ms is None else f"; of the kernel time, the wrapper's copy of q, k, v "
+                                        f"into padded rows {copy_ms:.4f} ms"))
     return {"shape": [list(q.shape), list(k.shape)], "kind": kind, "window": window,
+            "copy_ms": copy_ms,
             "ms": kernel_ms, "plain_ms": plain_ms, "library": library,
             "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "graph_ms": kernel_graph_ms, "library_graph_ms": library_graph_ms,
@@ -2169,17 +2241,25 @@ def ssm_vs_plain(torch, tacc, build, model, params, batch):
     return out
 
 
-def phase_ssm_serve(torch, np, ssd, tacc, engine, build, counters, cfg, model, params):
-    """SSM_REQUESTS x SSM_PROMPT prompt tokens x SSM_NEW new ones, greedy,
-    through ``Batcher``, the counts set to 0 just before and read just after;
-    then the cache, the per-layer gate, the logits against the plain SSD
-    (bf16, and f32 over the first layers), and the times."""
+def timed_ms(torch, fn, reps):
+    """Median host-clock ms of ``reps`` calls, each ended by a synchronise."""
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ms)
+
+
+def batched_serve(torch, engine, counters, progs, params, prompts, prompt_len, max_len,
+                  new_tokens):
+    """``prompts`` through ``Batcher`` with ``new_tokens`` new each, after a
+    warm-up of 2: the counts set to 0 just before the measured run and read
+    just after.  Returns (finished requests, host seconds, launch counts,
+    peak GiB, whether every logit was finite)."""
     dev = torch.device("cuda")
-    max_len = SSM_PROMPT + SSM_NEW
-    progs = engine.make_serve_programs(model, seq_len=SSM_PROMPT, max_len=max_len, device=dev)
-    rng = np.random.RandomState(SEED + cfg.n_layers)
-    prompts = [rng.randint(0, cfg.vocab, SSM_PROMPT).astype(np.int32)
-               for _ in range(SSM_REQUESTS)]
     finite = [torch.ones((), dtype=torch.bool, device=dev)]
 
     def watched(fn):
@@ -2194,19 +2274,55 @@ def phase_ssm_serve(torch, np, ssd, tacc, engine, build, counters, cfg, model, p
 
     def serve(new):
         reqs = [engine.Request(i, p, new) for i, p in enumerate(prompts)]
-        return engine.Batcher(watched_progs, params, batch_slots=SSM_REQUESTS,
-                              prompt_len=SSM_PROMPT, max_len=max_len).run(reqs)
+        return engine.Batcher(watched_progs, params, batch_slots=len(prompts),
+                              prompt_len=prompt_len, max_len=max_len).run(reqs)
 
     serve(2)                                          # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters.reset()
     t0 = time.perf_counter()
-    done = serve(SSM_NEW)
+    done = serve(new_tokens)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = counters.read()
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    return (done, serve_s, counters.read(), torch.cuda.max_memory_allocated() / 2**30,
+            bool(finite[0]))
+
+
+def serve_times(torch, progs, params, toks, new_tokens):
+    """Prefill ms (median of 3) and decode ms a step (median of new_tokens -
+    2) on the host clock, then the card's busy share of a prefill and of
+    new_tokens / 2 decode steps (torch.profiler; run last)."""
+    batch = {"tokens": toks}
+    out = {"prefill_ms": timed_ms(torch, lambda: progs.prefill_fn(params, batch), 3)}
+    _, cache = progs.prefill_fn(params, batch)
+    cur = toks[:, -1:]
+
+    def step():
+        nonlocal cache
+        _, cache = progs.decode_fn(params, cache, cur)
+
+    out["decode_ms_per_step"] = timed_ms(torch, step, new_tokens - 2)
+    out["device_busy_prefill"] = device_busy_share(
+        torch, lambda: progs.prefill_fn(params, batch), 1)
+    _, cache = progs.prefill_fn(params, batch)
+    out["device_busy_decode"] = device_busy_share(torch, step, new_tokens // 2)
+    return out
+
+
+def phase_ssm_serve(torch, np, ssd, tacc, engine, build, counters, cfg, model, params):
+    """SSM_REQUESTS x SSM_PROMPT prompt tokens x SSM_NEW new ones, greedy,
+    through ``Batcher``, the counts set to 0 just before and read just after;
+    then the cache, the per-layer gate, the logits against the plain SSD
+    (bf16, and f32 over the first layers), and the times."""
+    dev = torch.device("cuda")
+    max_len = SSM_PROMPT + SSM_NEW
+    progs = engine.make_serve_programs(model, seq_len=SSM_PROMPT, max_len=max_len, device=dev)
+    rng = np.random.RandomState(SEED + cfg.n_layers)
+    prompts = [rng.randint(0, cfg.vocab, SSM_PROMPT).astype(np.int32)
+               for _ in range(SSM_REQUESTS)]
+    done, serve_s, launches, peak_gib, finite = batched_serve(
+        torch, engine, counters, progs, params, prompts, SSM_PROMPT, max_len, SSM_NEW)
     L = cfg.n_layers
     n_attn = L // cfg.attn_every if cfg.family == "hybrid" else 0
     n_tok = sum(len(r.out) for r in done)
@@ -2222,7 +2338,7 @@ def phase_ssm_serve(torch, np, ssd, tacc, engine, build, counters, cfg, model, p
     check(len(done) == SSM_REQUESTS and all(len(r.out) == SSM_NEW for r in done),
           "not every request got its tokens")
     check(all(0 <= t < cfg.vocab for r in done for t in r.out), "a token is outside the vocab")
-    check(bool(finite[0]), "non-finite logits in the serve run")
+    check(finite, "non-finite logits in the serve run")
 
     toks = torch.as_tensor(np.stack(prompts).astype(np.int64), device=dev)
     batch = {"tokens": toks}
@@ -2242,31 +2358,7 @@ def phase_ssm_serve(torch, np, ssd, tacc, engine, build, counters, cfg, model, p
     cfg32, p32 = ssm_first_layers(cfg, params)
     out["vs_plain_f32"] = ssm_vs_plain(torch, tacc, build, build(cfg32), p32, batch)
     del p32
-
-    def timed(fn, reps):
-        ms = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(ms)
-
-    out["prefill_ms"] = timed(lambda: progs.prefill_fn(params, batch), 3)
-    _, cache = progs.prefill_fn(params, batch)
-    cur = toks[:, -1:]
-
-    def step():
-        nonlocal cache
-        _, cache = progs.decode_fn(params, cache, cur)
-
-    out["decode_ms_per_step"] = timed(step, SSM_NEW - 2)
-    out["device_busy_prefill"] = device_busy_share(
-        torch, lambda: progs.prefill_fn(params, batch), 1)
-    _, cache = progs.prefill_fn(params, batch)
-    out["device_busy_decode"] = device_busy_share(torch, step, SSM_NEW // 2)
-    del cache
+    out.update(serve_times(torch, progs, params, toks, SSM_NEW))
     print(f"  prefill {out['prefill_ms']:.2f} ms (batch {SSM_REQUESTS} x {SSM_PROMPT}), decode "
           f"{out['decode_ms_per_step']:.2f} ms per step, {out['tokens_per_s']:.1f} tokens/s end "
           f"to end; card busy share prefill {out['device_busy_prefill']}, decode "
@@ -2330,6 +2422,279 @@ def phase_ssm_kernel_times(torch, ssd, ref, fa, flash_case):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The dense configs (ROADMAP A8a) served, llama-1b trained under ZeRO-3 and
+# ZeRO-1, gpt-125m trained
+# ---------------------------------------------------------------------------
+
+def phase_dense_serve(torch, np, fa, ops, tacc, engine, build, counters, cfg):
+    """One dense config at full width, weights from the seed:
+    DENSE_REQUESTS x DENSE_PROMPT + DENSE_NEW through ``Batcher``, the counts
+    set to 0 just before and read just after (one flash launch per layer per
+    prefill batch, at the config's head dim); tokens in the vocab, logits
+    finite; prefill and decode ms, tokens/s, busy shares, peak memory.  At
+    d 100 (llama-3b) also the kernel against its plain version on each
+    layer's own inputs (``phase_layers``)."""
+    dev = torch.device("cuda")
+    model = build(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads x {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab} (padded "
+          f"{cfg.padded_vocab}), {cfg.dtype}, {model.n_params() / 1e9:.3f}B params, whole; "
+          f"init {init_s:.2f} s, peak {init_peak:.2f} GiB")
+    max_len = DENSE_PROMPT + DENSE_NEW
+    progs = engine.make_serve_programs(model, seq_len=DENSE_PROMPT, max_len=max_len,
+                                       device=dev)
+    rng = np.random.RandomState(SEED + cfg.n_layers)
+    prompts = [rng.randint(0, cfg.vocab, DENSE_PROMPT).astype(np.int32)
+               for _ in range(DENSE_REQUESTS)]
+    done, serve_s, launches, peak_gib, finite = batched_serve(
+        torch, engine, counters, progs, params, prompts, DENSE_PROMPT, max_len, DENSE_NEW)
+    L, d = cfg.n_layers, cfg.head_dim_
+    n_tok = sum(len(r.out) for r in done)
+    print(f"  served {len(done)} requests x {DENSE_PROMPT} prompt tokens, {n_tok} new tokens in "
+          f"{serve_s:.3f} s; flash launches {launches['flash_attention_fwd']} ({L} per prefill), "
+          f"at d {d}: {launches[f'flash_attention_fwd_d{d}']}")
+    check(launches["flash_attention_fwd"] == L and launches[f"flash_attention_fwd_d{d}"] == L,
+          f"{cfg.name}: flash launched {launches['flash_attention_fwd']} times "
+          f"({launches[f'flash_attention_fwd_d{d}']} at d {d}), {L} expected")
+    check(len(done) == DENSE_REQUESTS and all(len(r.out) == DENSE_NEW for r in done),
+          f"{cfg.name}: not every request got its tokens")
+    check(all(0 <= tok < cfg.vocab for r in done for tok in r.out),
+          f"{cfg.name}: a token is outside the vocab")
+    check(finite, f"{cfg.name}: non-finite logits in the serve run")
+    toks = torch.as_tensor(np.stack(prompts).astype(np.int64), device=dev)
+    batch = {"tokens": toks}
+    out = {"arch": cfg.name, "n_layers": L, "head_dim": d, "params_b": model.n_params() / 1e9,
+           "requests": len(done), "prompt_len": DENSE_PROMPT,
+           "new_tokens_per_request": DENSE_NEW, "serve_s": serve_s,
+           "tokens_per_s": n_tok / serve_s, "launches": launches, "peak_gib": peak_gib,
+           "init_s": init_s}
+    if d % 8:
+        out["layer_worst_error"] = phase_layers(torch, tacc, ops, fa, model, params, batch)
+    out.update(serve_times(torch, progs, params, toks, DENSE_NEW))
+    del params
+    print(f"  prefill {out['prefill_ms']:.2f} ms (batch {DENSE_REQUESTS} x {DENSE_PROMPT}), "
+          f"decode {out['decode_ms_per_step']:.2f} ms per step, {out['tokens_per_s']:.1f} "
+          f"tokens/s end to end; card busy share prefill {out['device_busy_prefill']}, decode "
+          f"{out['device_busy_decode']}; peak memory {peak_gib:.2f} GiB")
+    return out
+
+
+@contextlib.contextmanager
+def adjoint_rs_counter(collectives, ring_dma):
+    """Counts the fused reduce-scatter launches made inside ZeRO-3's fsdp
+    adjoint (``collectives.fsdp_reduce_scatter``): every rank of the ring is
+    in it when one of them launches, so a launch made by a thread that is
+    inside it counts.  Yields a one-element list holding the count."""
+    import threading
+    inside = threading.local()
+    count = [0]
+    orig_rs, orig_launch = collectives.fsdp_reduce_scatter, ring_dma.reduce_scatter_fused
+
+    def adjoint(*a, **kw):
+        inside.on = True
+        try:
+            return orig_rs(*a, **kw)
+        finally:
+            inside.on = False
+
+    def launch(*a, **kw):
+        out = orig_launch(*a, **kw)
+        if getattr(inside, "on", False) and a[0][0].is_cuda:
+            count[0] += 1                 # one launcher thread at a time (rendezvous)
+        return out
+
+    collectives.fsdp_reduce_scatter, ring_dma.reduce_scatter_fused = adjoint, launch
+    try:
+        yield count
+    finally:
+        collectives.fsdp_reduce_scatter, ring_dma.reduce_scatter_fused = orig_rs, orig_launch
+
+
+def phase_zero_train(torch, np, get_config, build, mesh_mod, counters):
+    """llama-1b at full width, the paper's shape (micro-batch 1 x LLAMA_SEQ
+    per rank), remat, hier, backend pallas, on a (pod=2, data=2) ThreadMesh:
+    LLAMA_STEPS ZeRO-3 steps, then LLAMA_STEPS ZeRO-1 steps from the same
+    init and batches, the counts set to 0 just before each run and read
+    just after.  Both runs' losses are finite and agree within
+    ZERO_LOSS_ATOL, their step-0 gradient norms within ZERO_GRAD_NORM_RTOL,
+    and their parameters after step 0 within ZERO_PARAM_REL_L2; ZeRO-3
+    launched the fused reduce-scatter for its fsdp adjoint once per
+    gathered (leaf, layer) per micro-step; ms a step (host clock, the steps
+    after the first), tokens/s, peak memory of each run, and the card's
+    busy share over one more step under torch.profiler."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.convert import unshard_params
+    from repro_torch.core import balance, collectives
+    from repro_torch.core.tree import leaves as tree_leaves
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels import ring_dma
+    from repro_torch.models.common import fsdp_dims, make_rules, meta_leaves
+    from repro_torch.train.trainer import make_train_program
+    cfg = get_config(LLAMA_ARCH)
+    model = build(cfg)
+    m = mesh_mod.ThreadMesh({"pod": 2, "data": 2}, device="cuda")
+    plan = balance.uniform_plan(2, 2, micro_batch=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED), dtype=torch.bfloat16)
+    batches = [synthetic_batch(SEED, s, plan.n_micro_max, plan.micro_batch * m.size,
+                               LLAMA_SEQ, cfg.vocab) for s in range(LLAMA_STEPS)]
+    n_tokens = int(np.prod(batches[0]["tokens"].shape))
+    metas = model.abstract_params()
+    dims = fsdp_dims(metas, make_rules(3, m.shape["data"]))
+    stacked = [len(mt.shape) > 1 and mt.axes[0] == "layers" for mt in meta_leaves(metas)]
+    gathers = sum((cfg.n_layers if st else 1) for d, st in zip(dims, stacked) if d is not None)
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads x {cfg.head_dim_}, d_ff {cfg.d_ff}, "
+          f"{model.n_params() / 1e9:.3f}B params, bf16 params, f32 master state; mesh {m.shape}, "
+          f"{plan.n_micro_max} micro-step of {plan.micro_batch} x {LLAMA_SEQ} per rank, "
+          f"{n_tokens} tokens per step; remat on; ZeRO-3 shards {sum(d is not None for d in dims)}"
+          f" of {len(dims)} leaves over data, {gathers} gathers a micro-step")
+    out, after_step0 = {}, {}
+    for zero in (3, 1):
+        prog = make_train_program(model, m, RunConfig(
+            zero_stage=zero, collective_mode="hier", backend="pallas",
+            learning_rate=LLAMA_LR), plan)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = prog.init_fn(params)
+        counters.reset()
+        losses, grad_norms, step_ms = [], [], []
+        with adjoint_rs_counter(collectives, ring_dma) as adjoint:
+            for i, batch in enumerate(batches):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, met = prog.step_fn(state, batch)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                losses.append(met["loss"].item())
+                grad_norms.append(met["grad_norm"].item())
+                if i == 0:                 # full leaves after step 0, on the host
+                    full = (unshard_params([state[0]["params"], state[1]["params"]], metas)
+                            if zero == 3 else state[0]["params"])
+                    after_step0[zero] = [p.to("cpu") for p in tree_leaves(full)]
+                    del full
+        launches = counters.read()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        shard = sum(p.numel() for p in tree_leaves(state[0]["params"]))
+        ms = statistics.median(step_ms[1:])
+
+        def one_more():
+            nonlocal state
+            state, _ = prog.step_fn(state, batches[-1])
+
+        busy = device_busy_share(torch, one_more, 1)   # a step beyond the compared ones
+        out[f"zero{zero}"] = {
+            "losses": losses, "step_ms": step_ms, "ms_per_step": ms,
+            "tokens_per_s": n_tokens / ms * 1e3, "device_busy_one_more_step": busy,
+            "peak_gib": peak_gib, "launches": launches, "adjoint_rs_launches": adjoint[0],
+            "params_per_rank": shard, "grad_norms": grad_norms}
+        print(f"  ZeRO-{zero}: losses {['%.6f' % x for x in losses]}; grad norms "
+              f"{['%.6f' % x for x in grad_norms]}; ms per step "
+              f"{['%.1f' % x for x in step_ms]}, {n_tokens / ms * 1e3:.1f} tokens/s (steps after "
+              f"the first); card busy share of one more step (torch.profiler) {busy}; "
+              f"peak memory {peak_gib:.2f} GiB; {shard / 1e9:.3f}B parameters per rank; "
+              f"launches {launches}; fused reduce-scatter launches in the fsdp adjoint "
+              f"{adjoint[0]}")
+        check(all(np.isfinite(losses)), f"ZeRO-{zero}: non-finite loss")
+        want_fwd = 2 * cfg.n_layers * plan.n_micro_max * m.size * LLAMA_STEPS
+        check(launches["flash_attention_fwd"] == want_fwd and
+              launches["flash_attention_bwd"] == want_fwd // 2,
+              f"ZeRO-{zero}: flash launches {launches['flash_attention_fwd']} / "
+              f"{launches['flash_attention_bwd']}, {want_fwd} / {want_fwd // 2} expected")
+        if zero == 3:
+            want = gathers * plan.n_micro_max * LLAMA_STEPS
+            check(adjoint[0] == want, f"ZeRO-3: {adjoint[0]} fused reduce-scatter launches "
+                                      f"in the fsdp adjoint, {want} expected")
+        else:
+            check(adjoint[0] == 0, "ZeRO-1 ran the fsdp adjoint")
+        del state, prog
+    gap = max(abs(a - b) for a, b in zip(out["zero3"]["losses"], out["zero1"]["losses"]))
+    print(f"  step losses ZeRO-3 vs ZeRO-1: largest difference {gap:.3e} (limit "
+          f"{ZERO_LOSS_ATOL})  {'ok' if gap <= ZERO_LOSS_ATOL else 'FAIL'}")
+    check(gap <= ZERO_LOSS_ATOL, "ZeRO-3 and ZeRO-1 step losses disagree")
+    g3, g1 = out["zero3"]["grad_norms"][0], out["zero1"]["grad_norms"][0]
+    norm_gap = abs(g3 - g1) / g1
+    print(f"  step-0 gradient norm ZeRO-3 {g3:.6f} vs ZeRO-1 {g1:.6f}: relative difference "
+          f"{norm_gap:.3e} (limit {ZERO_GRAD_NORM_RTOL})  "
+          f"{'ok' if norm_gap <= ZERO_GRAD_NORM_RTOL else 'FAIL'}")
+    diff2 = sum((a.cuda().float() - b.cuda().float()).square().sum().item()
+                for a, b in zip(after_step0[3], after_step0[1]))
+    ref2 = sum(b.cuda().float().square().sum().item() for b in after_step0[1])
+    param_gap = (diff2 / ref2) ** 0.5
+    print(f"  parameters after step 0, ZeRO-3 (rebuilt from its shards) vs ZeRO-1: relative "
+          f"L2 {param_gap:.3e} (limit {ZERO_PARAM_REL_L2})  "
+          f"{'ok' if param_gap <= ZERO_PARAM_REL_L2 else 'FAIL'}")
+    after_step0.clear()
+    check(norm_gap <= ZERO_GRAD_NORM_RTOL, "ZeRO-3 and ZeRO-1 step-0 gradient norms disagree")
+    check(param_gap <= ZERO_PARAM_REL_L2, "ZeRO-3 and ZeRO-1 parameters after step 0 disagree")
+    out.update(arch=cfg.name, seq=LLAMA_SEQ, tokens_per_step=n_tokens, loss_gap=gap,
+               grad_norm_gap=norm_gap, param_rel_l2_after_step0=param_gap,
+               gathers_per_micro_step=gathers)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gpt_train(torch, np, get_config, build, mesh_mod, counters):
+    """gpt-125m at full width: GPT_STEPS ZeRO-1 steps on a (pod=2, data=2)
+    ThreadMesh, ``uniform_plan(2, 4, GPT_MICRO_BATCH)`` at seq GPT_SEQ,
+    remat, hier, backend pallas, one memorize batch: finite losses that
+    fall; ms a step and peak memory."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import balance
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.train.trainer import make_train_program
+    cfg = get_config(GPT_ARCH)
+    model = build(cfg)
+    m = mesh_mod.ThreadMesh({"pod": 2, "data": 2}, device="cuda")
+    plan = balance.uniform_plan(2, 4, micro_batch=GPT_MICRO_BATCH)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED), dtype=torch.bfloat16)
+    batch = synthetic_batch(SEED, 0, plan.n_micro_max, plan.micro_batch * m.size, GPT_SEQ,
+                            cfg.vocab)
+    n_tokens = int(np.prod(batch["tokens"].shape))
+    prog = make_train_program(model, m, RunConfig(collective_mode="hier", backend="pallas",
+                                                  learning_rate=TRAIN_LR), plan)
+    torch.cuda.reset_peak_memory_stats()
+    state = prog.init_fn(params)
+    counters.reset()
+    losses, step_ms = [], []
+    for _ in range(GPT_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = prog.step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(met["loss"].item())
+    launches = counters.read()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{model.n_params() / 1e9:.3f}B params; mesh {m.shape}, plan {plan.micro_per_pod} "
+          f"micro-steps of {plan.micro_batch} x {GPT_SEQ} per rank, {n_tokens} tokens per step; "
+          f"ZeRO-1 losses {['%.6f' % x for x in losses]}; ms per step "
+          f"{['%.1f' % x for x in step_ms]}; peak memory {peak_gib:.2f} GiB; launches {launches}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{cfg.name}: losses not finite or not falling: {losses}")
+    check(launches["flash_attention_bwd"] == cfg.n_layers * plan.n_micro_max * m.size * GPT_STEPS,
+          f"{cfg.name}: {launches['flash_attention_bwd']} flash backward launches")
+    del state, prog, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "seq": GPT_SEQ, "losses": losses, "step_ms": step_ms,
+            "tokens_per_step": n_tokens, "peak_gib": peak_gib, "launches": launches}
+
+
 class Counters:
     """The launch counts of every kernel wrapper of the port."""
 
@@ -2338,7 +2703,8 @@ class Counters:
 
     def reset(self):
         fa, quant, ring_dma, cr, gmm, ssd = self.mods
-        fa.launches = fa.bwd_launches = quant.quant_launches = quant.dq_launches = 0
+        fa.reset_counts()
+        quant.quant_launches = quant.dq_launches = 0
         ring_dma.rs_launches = ring_dma.ag_launches = cr.launches = 0
         gmm.reset_counts()
         ssd.reset_counts()
@@ -2346,6 +2712,7 @@ class Counters:
     def read(self):
         fa, quant, ring_dma, cr, gmm, ssd = self.mods
         return {"flash_attention_fwd": fa.launches, "flash_attention_bwd": fa.bwd_launches,
+                **{f"flash_attention_fwd_d{d}": fa.d_launches.get(d, 0) for d in fa.HEAD_DIMS},
                 "quant_int8": quant.quant_launches, "dq_accum_int8": quant.dq_launches,
                 "ring_reduce_scatter": ring_dma.rs_launches,
                 "ring_all_gather": ring_dma.ag_launches, "collective_reduce": cr.launches,
@@ -2424,7 +2791,7 @@ def main() -> int:
     with phase("[5] times", walls):
         main_case = cases["serve_prefill"]
         flash_times = {name: phase_times(fa, torch, cases[FLASH_TIMED[name]])
-                       for name in ("smollm", "mixtral_prefill", "mixtral_window")}
+                       for name in ("smollm", "mixtral_prefill", "mixtral_window", "llama3b")}
         host_us = host_us_per_call(fa, torch, main_case)
         print(f"  flash_attention_fwd host time per call at {FLASH_TIMED['smollm']}: "
               f"{host_us:.1f} us")
@@ -2467,6 +2834,8 @@ def main() -> int:
         ttimes = phase_codec_times(torch, quant, ref, bench_codec, train["codec_launch_rows"],
                                    4)
         ttimes.update(phase_train_kernel_times(torch, ref, fa, bwd["train"]))
+        ttimes["flash_attention_bwd_d100"] = phase_train_kernel_times(
+            torch, ref, fa, bwd["d100_llama3b"])["flash_attention_bwd"]
         print(json.dumps({"train": train, "flash_bwd_errors": {
             k: {kk: vv for kk, vv in v.items() if kk not in ("inputs", "kw")}
             for k, v in bwd.items()}, "kernel_times": ttimes, **card}))
@@ -2530,8 +2899,26 @@ def main() -> int:
             "kernel_times": stimes, "phase_wall_s": walls, **card}))
     flash_times["zamba2"] = stimes["flash_d112"]
     flash112.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    print("[21] kernels")
+    dense = {}
+    with phase(f"[21] dense serve: {', '.join(DENSE_ARCHS)} at full width and depth", walls):
+        for arch in DENSE_ARCHS:
+            dense[arch] = phase_dense_serve(torch, np, fa, ops, tacc, engine, build, counters,
+                                            get_config(arch))
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    with phase(f"[22] training {LLAMA_ARCH} at full width: ZeRO-3 and ZeRO-1", walls):
+        zero = phase_zero_train(torch, np, get_config, build, mesh_mod, counters)
+
+    with phase(f"[23] training {GPT_ARCH} at full width: ZeRO-1", walls):
+        gpt = phase_gpt_train(torch, np, get_config, build, mesh_mod, counters)
+        print(json.dumps({"dense_serve": dense, "zero_train": zero, "gpt_train": gpt,
+                          "phase_wall_s": walls, **card}))
+
+    print("[24] kernels")
     sources = {"collective_reduce": ("collective_reduce.cu",
                                      "src/repro/kernels/collective_reduce.py:84"),
                "ring_reduce_scatter": ("ring_dma.cu", "src/repro/kernels/ring_dma.py:252"),
@@ -2561,6 +2948,7 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
             "launches": coll["launches"][kname], "max_abs_err": ring_err[kname],
+            "llama1b_zero3_launches": zero["zero3"]["launches"][kname],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "check": "pass (bitwise)", "cases_checked": n_ring_cases, "shape": t["shape"]})
@@ -2572,13 +2960,18 @@ def main() -> int:
     kernels[0]["d112_plain_ms"] = stimes["flash_d112"]["plain_ms"]
     kernels[0]["d112_bound_ms"] = stimes["flash_d112"]["bound_ms"]
     kernels[0]["d112_library_ms"] = stimes["flash_d112"]["library_ms"]
+    kernels[0]["dense_launches"] = {a: v["launches"]["flash_attention_fwd"]
+                                    for a, v in dense.items()}
+    kernels[0]["llama1b_zero3_launches"] = zero["zero3"]["launches"]["flash_attention_fwd"]
     shape_launches = {"smollm": launches,
                       "mixtral_prefill": moe["serve"]["launches"]["flash_attention_fwd"],
                       "mixtral_window": moe["window"]["launches"]["flash_attention_fwd"],
-                      "zamba2": ssm[HYBRID_ARCH]["launches"]["flash_attention_fwd"]}
+                      "zamba2": ssm[HYBRID_ARCH]["launches"]["flash_attention_fwd"],
+                      "llama3b": dense["llama-3b"]["launches"]["flash_attention_fwd_d100"]}
     kernels[0]["shapes"] = {name: {"launches": shape_launches[name], **flash_times[name]}
                             for name in FLASH_TIMED}
     tb = ttimes["flash_attention_bwd"]
+    tb100 = ttimes["flash_attention_bwd_d100"]
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -2590,7 +2983,11 @@ def main() -> int:
         "worst_row": bwd["train"]["worst_row"], "ms": tb["ms"], "plain_ms": tb["plain_ms"],
         "bound_ms": tb["bound_ms"], "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
         "graph_ms": tb["graph_ms"], "library_graph_ms": tb["library_graph_ms"],
-        "check": "pass", "cases_checked": len(bwd), "shape": tb["shape"]})
+        "check": "pass", "cases_checked": len(bwd), "shape": tb["shape"],
+        "llama1b_zero3_launches": zero["zero3"]["launches"]["flash_attention_bwd"],
+        "shapes": {"d100": {key: tb100[key] for key in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "graph_ms",
+            "library_graph_ms")}}})
     for kname, replaces in (("quant_int8", "src/repro/kernels/quant.py:152"),
                             ("dq_accum_int8", "src/repro/kernels/quant.py:161")):
         t = ttimes[kname]

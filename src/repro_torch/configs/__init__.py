@@ -1,41 +1,45 @@
 """Architecture registry of the port.
 
-Counterpart of ``repro/configs/__init__.py``.  The port runs the
-architectures whose slice has landed: smollm-135m (dense; serving and
-training), the two MoE models, mixtral-8x7b (sliding window) and
+Counterpart of ``repro/configs/__init__.py``.  The port runs every
+architecture of the reference's ``ARCH_IDS`` and all the paper's own models
+(``PAPER_IDS``, Table 2) but two: the dense configs (smollm-135m and -360m,
+starcoder2-7b, deepseek-coder-33b, and gpt-125m / gpt-355m / llama-1b /
+llama-3b), the two MoE models, mixtral-8x7b (sliding window) and
 moonshot-v1-16b-a3b, and the SSM and hybrid models, mamba2-2.7b and
-zamba2-7b (serving).  Asking for an architecture of the reference that is
-not ported yet (``PENDING``: the rest of its ``ARCH_IDS`` and the paper's
-own models, ``PAPER_IDS``) raises ``NotImplementedError`` naming the ROADMAP
-item that brings it; an unknown name raises ``KeyError`` listing both.
+zamba2-7b.  Asking for an architecture that is not ported yet (``PENDING``:
+the VLM and the encoder-decoder) raises ``NotImplementedError`` naming the
+ROADMAP item that brings it; an unknown name raises ``KeyError`` listing
+both.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (DECODE_32K, LONG_500K, PREFILL_32K, SHAPES,  # noqa: F401
+                                      TRAIN_4K, ModelConfig, ShapeConfig)
 
-_MODULES = {"smollm-135m": "smollm_135m",
+# the paper's own evaluation models (Table 2)
+PAPER_IDS = ("gpt-125m", "gpt-355m", "llama-1b", "llama-3b")
+
+_MODULES = {"smollm-360m": "smollm_360m",
+            "smollm-135m": "smollm_135m",
+            "starcoder2-7b": "starcoder2_7b",
+            "deepseek-coder-33b": "deepseek_coder_33b",
+            "zamba2-7b": "zamba2_7b",
             "mixtral-8x7b": "mixtral_8x7b",
             "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
             "mamba2-2.7b": "mamba2_27b",
-            "zamba2-7b": "zamba2_7b"}
+            **{arch: "paper_models" for arch in PAPER_IDS}}
 
 # arch -> the ROADMAP item of the slice that ports it
-_A8A = "A8a (the paper's models and the remaining dense configs)"
 PENDING = {
-    "gpt-125m": _A8A,
-    "gpt-355m": _A8A,
-    "llama-1b": _A8A,
-    "llama-3b": _A8A,
-    "smollm-360m": _A8A,
-    "starcoder2-7b": _A8A,
-    "deepseek-coder-33b": _A8A,
     "qwen2-vl-72b": "A8b (VLM)",
     "whisper-medium": "A8c (enc-dec)",
 }
 
-ARCH_IDS = tuple(_MODULES)
+# the reference's assigned architectures that the port runs (the paper's
+# models are PAPER_IDS, as in the reference)
+ARCH_IDS = tuple(a for a in _MODULES if a not in PAPER_IDS)
 
 
 def get_config(arch_id: str) -> ModelConfig:
@@ -46,4 +50,10 @@ def get_config(arch_id: str) -> ModelConfig:
         raise KeyError(f"unknown architecture {arch_id!r}: the port has "
                        f"{', '.join(ARCH_IDS)}; pending {', '.join(PENDING)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
-    return mod.CONFIG
+    return mod.CONFIGS[arch_id] if hasattr(mod, "CONFIGS") else mod.CONFIG
+
+
+def all_configs() -> dict[str, ModelConfig]:
+    """The config of every architecture in ``ARCH_IDS``, by name (the
+    reference's ``all_configs``, less the pending ones)."""
+    return {a: get_config(a) for a in ARCH_IDS}

@@ -1,12 +1,13 @@
 """Model architecture config: the port's own copy of ``ModelConfig``.
 
-Counterpart of ``repro/configs/base.py:10-138``, reduced to the fields of the
+Counterpart of ``repro/configs/base.py:10-204``, reduced to the fields of the
 families that the port runs: dense, MoE with its sliding window (mixtral),
 SSM (Mamba2 / SSD) and the SSM + shared-attention hybrid (zamba2).  Each
-field, ``n_params`` / ``n_active_params`` and the ``reduced()`` cut are the
-reference's, so a config means the same model in both packages; the
-encoder-decoder and VLM fields arrive with their slices.  ``RunConfig`` is the reference's (``base.py:158-204``), every
-field included.
+field, ``n_params`` / ``n_active_params``, ``full_attention`` and the
+``reduced()`` cut are the reference's, so a config means the same model in
+both packages; the encoder-decoder and VLM fields arrive with their slices.
+``ShapeConfig`` and the four shapes (``SHAPES``) and ``RunConfig`` are the
+reference's (``base.py:138-204``), every field included.
 """
 from __future__ import annotations
 
@@ -65,6 +66,11 @@ class ModelConfig:
     def n_ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim if self.ssm_state else 0
 
+    @property
+    def full_attention(self) -> bool:
+        """True if attention cost is quadratic and unbounded (no window/ssm)."""
+        return self.family in ("dense", "moe", "encdec", "vlm") and self.window == 0
+
     def n_params(self) -> float:
         """Analytic parameter count of the reference (norms not counted; the
         hybrid's shared block counted once)."""
@@ -120,17 +126,35 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    def applicable(self, cfg: ModelConfig) -> bool:
+        if self.seq_len >= 500_000 and cfg.full_attention:
+            return False             # long_500k skipped for pure full attention
+        return True
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+@dataclasses.dataclass(frozen=True)
 class RunConfig:
     """Parallelism + training knobs for one run (the reference's fields).
 
     With ``policies`` (a per-op :class:`~repro_torch.comm.policy.PolicyTable`)
     the trainer builds its communicator from that table, and the
-    single-policy fields serve only as the facade fallback.  ``zero_stage``
-    3 raises in the port's trainer until ``fsdp_all_gather`` is ported
-    (ROADMAP A5).
+    single-policy fields serve only as the facade fallback.
     """
 
-    zero_stage: int = 1              # 1 (3: ROADMAP A5)
+    zero_stage: int = 1              # 1 or 3 (the paper evaluates both)
     collective_mode: str = "auto"    # flat | hier | pipelined | auto
     backend: str = "xla"             # collective ring backend: xla | pallas
     policies: PolicyTable | None = None   # per-op, size-classed policy table

@@ -1,0 +1,14 @@
+"""smollm-360m [dense]: llama-arch small. 32L d_model=960 15H (GQA kv=5)
+d_ff=2560 vocab=49152. [hf:HuggingFaceTB/SmolLM-360M]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="smollm-360m",
+    family="dense",
+    n_layers=32,
+    d_model=960,
+    n_heads=15,
+    n_kv_heads=5,
+    d_ff=2560,
+    vocab=49152,
+)

@@ -15,13 +15,20 @@ the unstacked shared block ``shared.{ln1, ln2} (D,)``, ``shared.attn``,
 against the port's, whatever the family.  The input
 is a nested dict of numpy arrays (``jax.tree.map(np.asarray, params)`` on the
 JAX side); this module imports nothing of JAX.
+
+ZeRO-3 keeps each rank's shard of the leaves whose "embed" dim splits over
+"data": :func:`shard_params` cuts a full tree into a rank's shards (what the
+trainer's init does), :func:`unshard_params` rebuilds full leaves from the
+shards of the "data" ranks, to hold a ZeRO-3 state against a gathered one
+(the JAX trainer's state, read through its global shardings, is gathered).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.models.common import ParamMeta
+from repro_torch.core.tree import flatten
+from repro_torch.models.common import ParamMeta, fsdp_dims, make_rules, shard_leaf
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -54,3 +61,21 @@ def params_from_jax(tree, *, metas=None):
         return t
 
     return conv(tree, metas, "")
+
+
+def shard_params(params, metas, index: int, n_data: int):
+    """"data" rank ``index`` of ``n_data``'s ZeRO-3 shards of a full tree."""
+    ps, rebuild = flatten(params)
+    return rebuild([shard_leaf(p, d, index, n_data)
+                    for p, d in zip(ps, fsdp_dims(metas, make_rules(3, n_data)))])
+
+
+def unshard_params(shards, metas):
+    """Full leaves from the ZeRO-3 shards of every "data" rank (``shards``:
+    one tree per rank, in "data" order): sharded leaves concatenated along
+    their dim, replicated ones taken from the first rank."""
+    flat = [flatten(t)[0] for t in shards]
+    _, rebuild = flatten(shards[0])
+    dims = fsdp_dims(metas, make_rules(3, len(shards)))
+    return rebuild([parts[0] if d is None else torch.cat(parts, d)
+                    for d, parts in zip(dims, zip(*flat))])

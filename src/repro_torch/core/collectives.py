@@ -20,9 +20,11 @@ declaring the policy fields it consumes.  The ring implementation is the
 rings of :mod:`repro_torch.kernels.ring_dma` (the fused CUDA kernels on a
 ``ThreadMesh`` on the card, their emulated schedule elsewhere).
 
-Not ported here: ``fsdp_all_gather`` (a custom VJP, with the training
-slice).  ``software_pipeline`` keeps the reference's wavefront order, but
-eager PyTorch runs the stages one after another: nothing overlaps yet.
+``fsdp_all_gather`` (ZeRO-3's parameter gather, an autograd Function whose
+adjoint is a reduce-scatter) closes the module; :class:`FsdpScope` says where
+its adjoint runs.  ``software_pipeline`` keeps the reference's wavefront
+order, but eager PyTorch runs the stages one after another: nothing overlaps
+yet.
 """
 from __future__ import annotations
 
@@ -647,3 +649,125 @@ def pipelined_reduce_scatter(x, axes: Axis, pod_axis: str | None = "pod", *,
                  lambda c: flat_reduce_scatter(c, axes, None, dim=0)))
     out = torch.cat(outs) if C > 1 else outs[0]
     return _unmoved(out, dim)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable wrapper (used inside the model's forward: ZeRO-3).
+# ---------------------------------------------------------------------------
+
+class FsdpScope:
+    """One rank's ZeRO-3 parameter gathers for one training step, and the
+    gradients their adjoint owes.
+
+    The reference's ``fsdp_all_gather`` is a custom VJP whose adjoint
+    reduce-scatters inside the backward.  Here autograd runs the CUDA part of
+    every rank's backward on its one device thread, outside any mesh rank:
+    on a ``ThreadMesh`` a collective started there would wait for peers
+    whose backward is queued behind it on that thread.  So the adjoint is
+    split in two (DESIGN_TORCH.md §16): the Function's backward hands the
+    full gradient to this scope (:meth:`pending`), and the rank's own thread
+    calls :meth:`reduce_pending` after the micro-step's backward, which
+    reduce-scatters each handed gradient through :func:`fsdp_reduce_scatter`
+    in one order on every rank.  The sum over micro-steps of those
+    reduce-scatters is the reference's gradient.
+
+    The forward gathers may run on autograd's thread too: under ``remat`` a
+    block's gathers sit inside its checkpoint and run again in the backward.
+    On a ``ThreadMesh`` the scope therefore takes references to the group's
+    shard leaves once, on the rank's thread (``ThreadMesh.share``), and a
+    gather concatenates them without waiting for anyone; the ranks update
+    their parameters into new tensors, so the shards stay as they were for
+    the whole step.  On a ``DistMesh`` (one process, one autograd thread per
+    rank) a gather is the mesh's all-gather.
+
+    ``shards``: the rank's parameter leaves as the model reads them (their
+    identity keys the gathers); ``comm``: the communicator whose
+    ``reduce_scatter`` policy the adjoint takes.
+    """
+
+    def __init__(self, shards, axis: str = "data", comm=None):
+        self.mesh, self.rank = mesh.current()
+        self.axis, self.comm = axis, comm
+        self._index = {id(t): j for j, t in enumerate(shards)}
+        self._peers = None
+        if isinstance(self.mesh, mesh.ThreadMesh):
+            self._peers = self.mesh.share(self.rank, [t.detach() for t in shards], axis)
+        self._pending: list = []
+
+    def gather(self, leaf, dim: int, layer: int | None = None):
+        """``fsdp_all_gather`` of ``leaf`` (or of its slice ``leaf[layer]``,
+        a layer of a stacked leaf) along ``dim`` of what is gathered."""
+        x = leaf if layer is None else leaf[layer]
+        return fsdp_all_gather(x, self.axis, dim, self, (self._index[id(leaf)], layer))
+
+    def _all_gather(self, x, key, dim: int):
+        if self._peers is None:
+            return self.mesh.all_gather(self.rank, x, self.axis, dim, True)
+        j, layer = key
+        parts = [p[j] if layer is None else p[j][layer] for p in self._peers]
+        return torch.cat(parts, dim)
+
+    def pending(self, key, dim: int, g) -> None:
+        """The adjoint's first half (autograd's thread): keep the full
+        gradient ``g`` of the gather ``key`` for :meth:`reduce_pending`."""
+        self._pending.append((key, dim, g))          # list.append: thread-safe
+
+    def reduce_pending(self) -> list:
+        """The adjoint's second half, on the rank's thread: every kept
+        gradient reduce-scattered over the axis (sorted by key, so every
+        rank issues the same collectives in the same order), as
+        ``[((leaf index, layer), shard gradient in g's dtype)]``; the kept
+        gradients are dropped."""
+        todo = sorted(self._pending, key=lambda e: (e[0][0], -1 if e[0][1] is None else e[0][1]))
+        self._pending = []
+        return [(key, fsdp_reduce_scatter(g, self.axis, dim, self.comm))
+                for key, dim, g in todo]
+
+
+class _FsdpAllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, scope, key):
+        ctx.dim, ctx.scope, ctx.key = dim, scope, key
+        return scope._all_gather(x, key, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.scope.pending(ctx.key, ctx.dim, g)
+        return None, None, None, None, None
+
+
+def fsdp_all_gather(x, axis: str, dim: int, scope: FsdpScope, key):
+    """AllGather whose adjoint is ReduceScatter: ZeRO-3's parameter gather.
+
+    Forward: the tiled all-gather of ``x`` over ``axis`` along ``dim`` (the
+    reference's ``lax.all_gather(..., tiled=True)``).  Adjoint: the
+    reduce-scatter of the incoming gradient over ``axis``, which ``scope``
+    runs on the rank's thread (:class:`FsdpScope`); autograd gets no
+    gradient for ``x`` from here, so the caller differentiates with
+    ``allow_unused=True`` and takes the shard gradients from
+    ``scope.reduce_pending()``.  ``key`` names the gather in the scope."""
+    return _FsdpAllGather.apply(x, axis, dim, scope, key)
+
+
+def fsdp_reduce_scatter(g, axis: str, dim: int = 0, comm=None):
+    """The adjoint of :func:`fsdp_all_gather`: ``g`` reduce-scattered over
+    ``axis`` along ``dim``, in ``g``'s dtype.  Routed through ``comm``'s
+    (default: the installed communicator's) ``reduce_scatter`` policy for
+    this payload, as in the reference: under ``backend="pallas"`` the ring
+    of ``kernels.ring_dma`` with the narrow wire (g's dtype), the policy's
+    stripes and wire codec, its accumulator f32; otherwise
+    :func:`ring_reduce_scatter_mixed` (f32 accumulation).  Per-rank code."""
+    if comm is None:
+        from repro_torch.core import hetccl    # hetccl imports this module
+        comm = hetccl.current()
+    gm = g.movedim(dim, 0) if dim else g
+    pol = comm.policy("reduce_scatter", g.numel() * g.element_size())
+    if pol.backend == "pallas":
+        from repro_torch.kernels import ring_dma
+        out = ring_dma.ring_reduce_scatter(gm, axis, wire_dtype=g.dtype,
+                                           n_stripes=pol.n_stripes,
+                                           wire_quant=pol.wire_quant)
+    else:
+        out = ring_reduce_scatter_mixed(gm, axis)
+    out = out.movedim(0, dim) if dim else out
+    return out.to(g.dtype)

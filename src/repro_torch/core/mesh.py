@@ -202,6 +202,13 @@ class ThreadMesh(_Mesh):
         grp = self.group(rank, axes)
         return [vals[g] for g in grp], grp.index(rank)
 
+    def share(self, rank, value, axes):
+        """Every rank deposits ``value``; returns the values of ``rank``'s
+        group over ``axes`` themselves (references, no copy), in group
+        order.  What ranks of one process can do that ranks of a
+        ``DistMesh`` cannot: ZeRO-3's gathers read the peers' shards."""
+        return self._gather(rank, value, axes)[0]
+
     def psum(self, rank, x, axes):
         parts, _ = self._gather(rank, x, axes)
         return functools.reduce(torch.add, parts)

@@ -45,7 +45,13 @@
 //    diagonal, the window's edge or k_len.
 //  * d 112 is padded to 128 in shared memory only: two 64-column boxes over
 //    a tensor map whose d extent is 112, so columns 112-127 arrive as zeros
-//    and Q K^T runs over 128 (P V over 112); d 32 pads to 64 the same way.
+//    and Q K^T runs over 128 (P V over 112); d 32 pads to 64 the same way,
+//    and d 100 (llama-3b) to 128 (P V over 104, the next multiple of 8).
+//    TMA takes global strides of 16 bytes only, and d 100 in the model's
+//    layout has a head stride of 200 bytes: the wrapper gives this route
+//    q, k, v and o in rows padded to 104 elements (kernels/flash_attention.py,
+//    tma_ready; the copy's cost is in PERF.md), and the maps' d extent of
+//    100 still fills columns 100-127 with zeros.
 //  * O is normalised in registers, staged in the item's q buffer and written
 //    by a TMA store, which drops rows past Sq and columns past d.
 //  * Persistent blocks, one per SM, take the work items in order, heaviest
@@ -167,7 +173,8 @@ constexpr float kLn2 = 0.6931471805599453f;
 template <int D>
 struct Hopper {
   static constexpr int DP = D <= 64 ? 64 : 128;
-  static constexpr int ON = D == 112 ? 112 : DP;  // the P V product's width
+  // the P V product's width: d rounded up to wgmma's n step of 8 (112, 104)
+  static constexpr int ON = D > 64 ? (D + 7) / 8 * 8 : DP;
   static constexpr int kBoxes = DP / kBox;
   static constexpr int kQBytes = kBQ * DP * 2;
   static constexpr int kKBytes = kBK * DP * 2;          // one k (or v) tile
@@ -376,6 +383,29 @@ __device__ __forceinline__ void wgmma_rs_n112(float (&d)[56], const uint32_t (&a
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+// d (m64 x n104, f32) += a (registers, bf16 fragments) * b (smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n104(float (&d)[52], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %57, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51"
+      "}, {%52, %53, %54, %55}, %56, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 // d (m64 x n64, f32) += a (registers, bf16 fragments) * b (smem, MN-major).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
                                             uint64_t db) {
@@ -400,6 +430,11 @@ template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4],
                                              uint64_t db) {
   wgmma_rs_n64(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<104>(float (&o)[52], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n104(o, a, db);
 }
 template <>
 __device__ __forceinline__ void wgmma_pv<112>(float (&o)[56], const uint32_t (&a)[4],
@@ -938,7 +973,7 @@ int launch_bf16(Params p, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  d: 32, 64, 112 or 128.  lse: (B, Hq, Sq) f32
+// dtype: 0 = float32, 1 = bfloat16.  d: 32, 64, 100, 112 or 128.  lse: (B, Hq, Sq) f32
 // or null.  Returns 0 on success, else the CUDA error code of the launch, or
 // 100000 + the CUresult of a tensor map the bf16 route could not encode; the
 // kernel runs on `stream` and nothing is synchronised here.
@@ -958,6 +993,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     switch (d) {
       case 32: return launch_bf16<32>(p, st);
       case 64: return launch_bf16<64>(p, st);
+      case 100: return launch_bf16<100>(p, st);
       case 112: return launch_bf16<112>(p, st);
       case 128: return launch_bf16<128>(p, st);
     }
@@ -966,6 +1002,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     switch (d) {
       case 32: return launch(flash_fwd_f32<32>, grid, kSimtThreads, SimtTile<32>::SMEM, st, p);
       case 64: return launch(flash_fwd_f32<64>, grid, kSimtThreads, SimtTile<64>::SMEM, st, p);
+      case 100: return launch(flash_fwd_f32<100>, grid, kSimtThreads, SimtTile<100>::SMEM, st, p);
       case 112: return launch(flash_fwd_f32<112>, grid, kSimtThreads, SimtTile<112>::SMEM, st, p);
       case 128: return launch(flash_fwd_f32<128>, grid, kSimtThreads, SimtTile<128>::SMEM, st, p);
     }

@@ -60,6 +60,15 @@
 //  * f32: plain FMA on the CUDA cores, all in f32, q scaled before the
 //    product as in the reference, in three passes (the delta pass, a dK/dV
 //    pass over the group's heads, a dQ pass), through shared memory.
+//
+// Head dims 32, 64, 100 and 128.  The bf16 route's k-steps take 16 columns,
+// so d 100 (llama-3b) runs as 112 in shared memory: its tiles' copies read
+// the 100 columns of each row (the last 16-byte chunk only its 8 valid
+// bytes) and zero-fill columns 100-111, which then add nothing to S = Q K^T
+// or dP = dO V^T; the padding columns of dQ, dK and dV (zeros) are not
+// stored, and the outputs keep the row pitch d.  The cp.async copies take
+// rows that start on 16 bytes: the wrapper gives q, k, v, o and dO at d 100
+// in rows padded to 104 elements (kernels/flash_attention.py, tma_ready).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -152,8 +161,14 @@ constexpr int kMaxCluster = 8;  // the portable cluster size
 constexpr int kGroups = 2;                  // warp groups of a bf16 block (the code takes 2)
 constexpr int kMmaThreads = kGroups * 128;  // each group 4 warps, 16 rows a warp
 
-template <int D>
+// DL: the head dim of the tensors; D: the width the tiles hold in shared
+// memory, DL rounded up to the k-step of 16 (d 100 -> 112).  The columns
+// from DL to D arrive as zeros (tile_async), so they add nothing to S or
+// dP, and their dQ, dK and dV columns (zeros too) are never stored.
+template <int DL>
 struct MmaTile {
+  static constexpr int D = (DL + 15) / 16 * 16;
+  static_assert(DL % 4 == 0, "rows end on a whole 8-byte chunk");
   static constexpr int LD = D + 8;  // bf16 row pitch: the 8 rows of an ldmatrix on distinct banks
   static constexpr int TILE = kMmaB * LD * 2;  // bytes of one tile
   static constexpr int ROWS = 2 * kMmaB * 4;   // a buffer's lse and delta rows (dK/dV pass)
@@ -248,19 +263,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// rows [row0, row0 + 64) of a (S, D) bf16 slab with row stride ss into the
-// tile at dst (pitch LD), by cp.async from threads tid of n; rows at or past
-// `limit` are zero.
-template <int D>
+// rows [row0, row0 + 64) of a (S, DL) bf16 slab with row stride ss into the
+// tile at dst (D columns, pitch LD), by cp.async from threads tid of n; rows
+// at or past `limit`, and columns DL to D, are zero.  Each copy moves a
+// 16-byte chunk of 8 columns and reads only the chunk's bytes below DL (8
+// of them in the last chunk at d 100), so no row is read past its end; the
+// wrapper gives rows that start on 16 bytes.
+template <int DL>
 __device__ __forceinline__ void tile_async(uint32_t dst, const __nv_bfloat16* src, long long ss,
                                            int row0, int limit, int tid, int n) {
+  constexpr int D = MmaTile<DL>::D;
   constexpr int VPR = D / 8;
   for (int i = tid; i < kMmaB * VPR; i += n) {
     const int r = i / VPR;
     const int c = (i % VPR) * 8;
-    const bool in = row0 + r < limit;
-    cp_async16(dst + (r * MmaTile<D>::LD + c) * 2, in ? src + (row0 + r) * ss + c : src,
-               in ? 16 : 0);
+    const int bytes = row0 + r < limit ? min(16, max(0, (DL - c) * 2)) : 0;
+    cp_async16(dst + (r * MmaTile<DL>::LD + c) * 2, bytes ? src + (row0 + r) * ss + c : src,
+               bytes);
   }
 }
 
@@ -370,8 +389,9 @@ __device__ __forceinline__ void acc_times_tile(float (&out)[D / 8][4],
 // 2, ... that its rows see, streamed through two cp.async buffers of its own:
 // the next tile's copy in flight behind this tile's products.  dQ = scale *
 // (group 0's sum + group 1's sum) of dS K.
-template <int D>
+template <int DL>
 __global__ void __launch_bounds__(kMmaThreads, 1) flash_bwd_dq_mma(Params p) {
+  constexpr int D = MmaTile<DL>::D;
   constexpr int TILE = MmaTile<D>::TILE;
   constexpr int NS = kMmaB / 8;
   constexpr int NO = D / 8;
@@ -399,12 +419,12 @@ __global__ void __launch_bounds__(kMmaThreads, 1) flash_bwd_dq_mma(Params p) {
 
   int t0, t1;
   key_tile_range(p, q0, kMmaB, kMmaB, t0, t1);
-  tile_async<D>(q_s, qg, p.q_ss, q0, p.Sq, threadIdx.x, kMmaThreads);
-  tile_async<D>(do_s, dog, p.do_ss, q0, p.Sq, threadIdx.x, kMmaThreads);
+  tile_async<DL>(q_s, qg, p.q_ss, q0, p.Sq, threadIdx.x, kMmaThreads);
+  tile_async<DL>(do_s, dog, p.do_ss, q0, p.Sq, threadIdx.x, kMmaThreads);
   cp_async_commit();
   if (t0 + grp < t1) {
-    tile_async<D>(kv_s, kg, p.k_ss, (t0 + grp) * kMmaB, p.Sk, gtid, 128);
-    tile_async<D>(kv_s + TILE, vg, p.v_ss, (t0 + grp) * kMmaB, p.Sk, gtid, 128);
+    tile_async<DL>(kv_s, kg, p.k_ss, (t0 + grp) * kMmaB, p.Sk, gtid, 128);
+    tile_async<DL>(kv_s + TILE, vg, p.v_ss, (t0 + grp) * kMmaB, p.Sk, gtid, 128);
   }
   cp_async_commit();
 
@@ -416,13 +436,25 @@ __global__ void __launch_bounds__(kMmaThreads, 1) flash_bwd_dq_mma(Params p) {
           static_cast<const __nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh + (q0 + r) * p.o_ss;
       const __nv_bfloat16* drow = dog + (q0 + r) * p.do_ss;
 #pragma unroll
-      for (int c = half * 8; c < D; c += 16) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-        const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+      for (int c = half * 8; c < DL; c += 16) {
+        // 8 columns in one 16-byte load; a row whose last chunk holds 4 (d
+        // 100) reads those with one 8-byte load
+        const int n2 = c + 8 <= DL ? 4 : 2;
+        uint4 ov, dv;
+        if (n2 == 4) {
+          ov = *reinterpret_cast<const uint4*>(orow + c);
+          dv = *reinterpret_cast<const uint4*>(drow + c);
+        } else {
+          const uint2 o8 = *reinterpret_cast<const uint2*>(orow + c);
+          const uint2 d8 = *reinterpret_cast<const uint2*>(drow + c);
+          ov = make_uint4(o8.x, o8.y, 0u, 0u);
+          dv = make_uint4(d8.x, d8.y, 0u, 0u);
+        }
         const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
         const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
+          if (e >= n2) break;
           const float2 of = __bfloat1622float2(o2[e]), df = __bfloat1622float2(d2[e]);
           acc += of.x * df.x;
           acc += of.y * df.y;
@@ -461,8 +493,8 @@ __global__ void __launch_bounds__(kMmaThreads, 1) flash_bwd_dq_mma(Params p) {
     const int buf = it & 1;
     if (kt + kGroups < t1) {  // the group's next key tile into its other buffer
       const uint32_t nb = kv_s + 2 * (buf ^ 1) * TILE;
-      tile_async<D>(nb, kg, p.k_ss, (kt + kGroups) * kMmaB, p.Sk, gtid, 128);
-      tile_async<D>(nb + TILE, vg, p.v_ss, (kt + kGroups) * kMmaB, p.Sk, gtid, 128);
+      tile_async<DL>(nb, kg, p.k_ss, (kt + kGroups) * kMmaB, p.Sk, gtid, 128);
+      tile_async<DL>(nb + TILE, vg, p.v_ss, (kt + kGroups) * kMmaB, p.Sk, gtid, 128);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this key tile landed (this thread's copies) ...
@@ -519,8 +551,9 @@ __global__ void __launch_bounds__(kMmaThreads, 1) flash_bwd_dq_mma(Params p) {
     const int row = lw * 16 + g + 8 * i;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
+      if (n * 8 + 2 * t >= DL) continue;  // a padding column: never stored
       const float2 other = *reinterpret_cast<const float2*>(part + row * D + n * 8 + 2 * t);
-      const long long off = (row_base + r) * D + n * 8 + 2 * t;
+      const long long off = (row_base + r) * DL + n * 8 + 2 * t;
       *reinterpret_cast<float2*>(p.dq + off) = make_float2((dq[n][2 * i] + other.x) * p.scale,
                                                            (dq[n][2 * i + 1] + other.y) * p.scale);
     }
@@ -563,8 +596,9 @@ __device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr, unsigned rank) {
 // groups over distributed shared memory, rank by rank in ascending order and
 // group 0 before group 1 within a rank, each rank a share of the elements:
 // every dK, dV element is the same sum in the same order on every launch.
-template <int D>
+template <int DL>
 __global__ void __launch_bounds__(kMmaThreads, 1) flash_bwd_dkdv_mma(Params p, int cs) {
+  constexpr int D = MmaTile<DL>::D;
   constexpr int TILE = MmaTile<D>::TILE;
   constexpr int ROWS = MmaTile<D>::ROWS;
   constexpr int NS = kMmaB / 8;
@@ -607,19 +641,19 @@ __global__ void __launch_bounds__(kMmaThreads, 1) flash_bwd_dkdv_mma(Params p, i
     const int q0 = (t0 + item % n_tiles) * kMmaB;
     const long long row_base = ((long long)b * p.Hq + h) * p.Sq;
     const uint32_t qb = qd_s + 2 * buf * TILE;
-    tile_async<D>(qb, static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss,
-                  q0, p.Sq, gtid, 128);
-    tile_async<D>(qb + TILE,
+    tile_async<DL>(qb, static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss,
+                   q0, p.Sq, gtid, 128);
+    tile_async<DL>(qb + TILE,
                   static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh,
                   p.do_ss, q0, p.Sq, gtid, 128);
     row_async(rows_s + buf * ROWS, p.lse + row_base, q0, p.Sq, gtid);
     row_async(rows_s + buf * ROWS + 256, p.delta + row_base, q0, p.Sq, gtid);
   };
 
-  tile_async<D>(k_s, static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss,
-                k0, p.Sk, threadIdx.x, kMmaThreads);
-  tile_async<D>(v_s, static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss,
-                k0, p.Sk, threadIdx.x, kMmaThreads);
+  tile_async<DL>(k_s, static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss,
+                 k0, p.Sk, threadIdx.x, kMmaThreads);
+  tile_async<DL>(v_s, static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss,
+                 k0, p.Sk, threadIdx.x, kMmaThreads);
   cp_async_commit();
   if (grp < n_items) issue(grp, 0);
   cp_async_commit();
@@ -713,8 +747,8 @@ __global__ void __launch_bounds__(kMmaThreads, 1) flash_bwd_dkdv_mma(Params p, i
     const int e = c * 4;
     const bool is_dv = e >= kMmaB * D;
     const int row = (e / D) % kMmaB, col = e % D;
-    if (k0 + row >= p.Sk) continue;
-    const long long off = (kv_base + k0 + row) * D + col;
+    if (k0 + row >= p.Sk || col >= DL) continue;  // past Sk, or a padding column
+    const long long off = (kv_base + k0 + row) * DL + col;
     if (is_dv) {
       *reinterpret_cast<float4*>(p.dv + off) = sum;
     } else {
@@ -938,18 +972,19 @@ cudaError_t launch(dim3 grid, int threads, int smem, cudaStream_t stream, Args..
 }
 
 // bf16: the dQ pass (which also writes delta), then the dK/dV pass in
-// clusters of the largest divisor of the group up to kMaxCluster.
-template <int D>
+// clusters of the largest divisor of the group up to kMaxCluster.  DL: the
+// tensors' head dim.
+template <int DL>
 cudaError_t run_mma(const Params& p, cudaStream_t st) {
-  constexpr int smem = MmaTile<D>::SMEM;
+  constexpr int smem = MmaTile<DL>::SMEM;
   cudaError_t err =
-      launch<flash_bwd_dq_mma<D>>(dim3(p.Hq, p.B, (p.Sq + kMmaB - 1) / kMmaB), kMmaThreads,
+      launch<flash_bwd_dq_mma<DL>>(dim3(p.Hq, p.B, (p.Sq + kMmaB - 1) / kMmaB), kMmaThreads,
                                   smem, st, p);
   if (err != cudaSuccess) return err;
   const int group = p.Hq / p.Hkv;
   int cs = kMaxCluster;
   while (group % cs) --cs;
-  err = allow_smem<flash_bwd_dkdv_mma<D>>(smem);
+  err = allow_smem<flash_bwd_dkdv_mma<DL>>(smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -963,7 +998,7 @@ cudaError_t run_mma(const Params& p, cudaStream_t st) {
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_mma<D>, p, cs);
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_mma<DL>, p, cs);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -990,7 +1025,7 @@ extern "C" {
 // time per call matters at the training shape), in this order:
 //  0-9    pointers q, k, v, o, dout, lse, delta, dq, dk, dv;
 //  10-16  dtype (0 = float32, 1 = bfloat16: q, k, v, o, dout alike), B, Hq,
-//         Hkv, Sq, Sk, d (32, 64 or 128);
+//         Hkv, Sq, Sk, d (32, 64, 100 or 128);
 //  17-31  element strides (batch, head, row) of q, k, v, o, dout;
 //  32-34  causal, window, k_len.
 // lse: the forward's (B, Hq, Sq) f32; delta: (B, Hq, Sq) f32 scratch; dq
@@ -1015,12 +1050,14 @@ int flash_attention_bwd(const long long* a, float scale, void* stream) {
     switch (d) {
       case 32: return run_mma<32>(p, st);
       case 64: return run_mma<64>(p, st);
+      case 100: return run_mma<100>(p, st);
       case 128: return run_mma<128>(p, st);
     }
   } else if (dtype == 0) {
     switch (d) {
       case 32: return run_f32<32>(p, st);
       case 64: return run_f32<64>(p, st);
+      case 100: return run_f32<100>(p, st);
       case 128: return run_f32<128>(p, st);
     }
   }

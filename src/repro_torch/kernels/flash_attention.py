@@ -12,7 +12,11 @@ what bounds the kernel on an H100 and what its design does about that.
 q ``(B, Hq, Sq, d)`` and k, v ``(B, Hkv, Sk, d)``, as strided views: the last
 dimension must be dense, the others may have any stride, so callers in model
 layout ``(B, S, H, d)`` pass ``transpose(1, 2)`` views without a copy.  The
-output has the memory layout of ``q`` (``torch.empty_like``).
+output has the memory layout of ``q`` (``torch.empty_like``).  The bf16
+route's tensor maps take strides of 16 bytes; a bf16 view whose strides are
+not multiples of 8 elements (head dim 100 in model layout: heads 200 bytes
+apart) is first copied by :func:`tma_ready` into rows padded to a multiple
+of 8, and its output is such a padded view too.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs the plain version (``ref.attention`` and ``ref.attention_lse``,
@@ -35,14 +39,15 @@ from repro_torch.kernels.ref import attention_bwd as flash_attention_bwd_plain
 
 launches = 0          # kernel launches made by flash_attention_fwd
 bwd_launches = 0      # kernel launches (two passes each in bf16, three in f32) by flash_attention_bwd
+d_launches: dict[int, int] = {}   # flash_attention_fwd's launches by head dim
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# 64: smollm and the other served configs; 128: the larger dense configs;
-# 112: zamba2's shared attention (3584 / 32); 32: every reduced config (the
-# serve launcher's default, ``--reduced``)
-HEAD_DIMS = (32, 64, 112, 128)
+# 64: smollm, the gpt models, llama-1b and smollm-360m; 128: the larger dense
+# configs; 112: zamba2's shared attention (3584 / 32); 100: llama-3b (3200 /
+# 32); 32: every reduced config (the serve launcher's default, ``--reduced``)
+HEAD_DIMS = (32, 64, 100, 112, 128)
 # the backward kernel's: training zamba2 waits for SSM training (ROADMAP A7)
-BWD_HEAD_DIMS = (32, 64, 128)
+BWD_HEAD_DIMS = (32, 64, 100, 128)
 
 # csrc/flash_attention_bwd.cu's kMaxCluster: the portable thread-block cluster
 MAX_CLUSTER = 8
@@ -104,6 +109,43 @@ def bwd_cluster(group: int) -> tuple[int, int]:
     return cs, group // cs
 
 
+def reset_counts():
+    """Set every launch count of this module to 0."""
+    global launches, bwd_launches
+    with _lock:
+        launches = bwd_launches = 0
+        d_launches.clear()
+
+
+def _aligned(t) -> bool:
+    """A (B, H, S, d) view the kernels take as it is; written out, as it runs
+    several times a launch."""
+    st = t.stride()
+    return (st[3] == 1 and t.data_ptr() % 16 == 0
+            and (t.dtype is not torch.bfloat16 or (st[0] | st[1] | st[2]) % 8 == 0))
+
+
+def padded_empty(shape, dtype, device):
+    """An uninitialised tensor of ``shape`` whose rows start 8-element
+    multiples apart: a ``[..., :d]`` view of rows of d rounded up to 8."""
+    d = shape[-1]
+    return torch.empty(tuple(shape[:-1]) + (-(-d // 8) * 8,), dtype=dtype,
+                       device=device)[..., :d]
+
+
+def tma_ready(t):
+    """``t`` itself where the kernels take its layout (a dense last dim,
+    strides of 8 elements in bf16, a 16-byte aligned base), else a copy in
+    rows padded to a multiple of 8 elements (head dim 100 in model layout:
+    rows of 104).  A view whose last dim is not dense is returned as it is,
+    for the wrapper to refuse."""
+    if t.stride(-1) != 1 or _aligned(t):
+        return t
+    out = padded_empty(t.shape, t.dtype, t.device)
+    out.copy_(t)
+    return out
+
+
 def _check(q, k, v, kind, window, k_len, extra=()):
     B, Hq, Sq, d = q.shape
     Bk, Hkv, Sk, dk = k.shape
@@ -157,9 +199,11 @@ def flash_attention_fwd(q, k, v, *, kind: str = "causal", window: int = 0,
                                     scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention route for device {q.device}")
+    q, k, v = tma_ready(q), tma_ready(k), tma_ready(v)
     _check(q, k, v, kind, window, k_len)
     B, Hq, Sq, d = q.shape
-    o = torch.empty_like(q)
+    # d 100: no dense layout has strides of 8 elements, so o gets padded rows
+    o = torch.empty_like(q) if d % 8 == 0 else padded_empty(q.shape, q.dtype, q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
     if o.numel() == 0:
@@ -180,6 +224,7 @@ def flash_attention_fwd(q, k, v, *, kind: str = "causal", window: int = 0,
                            f"{err_str(err).decode()} (cuda error {err})")
     with _lock:
         launches += 1
+        d_launches[d] = d_launches.get(d, 0) + 1
     return (o, lse) if return_lse else o
 
 
@@ -200,9 +245,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, kind: str = "causal",
                                          k_len=k_len, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention route for device {q.device}")
-    if do.dtype != q.dtype or do.stride(-1) != 1 or do.data_ptr() % 16 or \
-            (q.dtype == torch.bfloat16 and any(st % 8 for st in do.stride()[:-1])):
+    if do.dtype != q.dtype or do.stride(-1) != 1:
         do = do.to(q.dtype).contiguous()
+    q, k, v, o, do = (tma_ready(t) for t in (q, k, v, o, do))
     _check(q, k, v, kind, window, k_len, extra=(("o", o), ("do", do)))
     B, Hq, Sq, d = q.shape
     if d not in BWD_HEAD_DIMS:
@@ -250,6 +295,8 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kind="causal", window=0, k_len=None, scale=None):
+        if q.is_cuda:          # the layout both kernels take, copied once
+            q, k, v = tma_ready(q), tma_ready(k), tma_ready(v)
         o, lse = flash_attention_fwd(q, k, v, kind=kind, window=window, k_len=k_len,
                                      scale=scale, return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)

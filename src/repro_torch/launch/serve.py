@@ -1,7 +1,8 @@
 """Serving launcher of the port: prefill/decode a dense, MoE, SSM or hybrid
-architecture (smollm-135m, mixtral-8x7b, moonshot-v1-16b-a3b, mamba2-2.7b,
-zamba2-7b).  For the SSM families the prompt length must be at most the
-chunk (``ssm_chunk``, 32 reduced) or a multiple of it, as in the reference.
+architecture (``configs.ARCH_IDS`` and the paper's models,
+``configs.PAPER_IDS``; the VLM and enc-dec archs raise naming their ROADMAP
+item).  For the SSM families the prompt length must be at most the chunk
+(``ssm_chunk``, 32 reduced) or a multiple of it, as in the reference.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         [--batch 4] [--prompt-len 32] [--max-new 16] [--reduced|--full-size] \\

@@ -1,10 +1,16 @@
-"""Training launcher of the port: ZeRO-1 data parallelism over a mesh of ranks.
+"""Training launcher of the port: ZeRO-1 or ZeRO-3 data parallelism over a
+mesh of ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
-        [--steps 5] [--mode hier] [--backend xla|pallas] [--wire-quant int8] \\
-        [--error-feedback auto|on|off] [--seq 128] [--micro-batch 1] \\
-        [--n-micro 2] [--mesh-shape 2,2] [--lr 1e-3] [--seed 0] \\
-        [--reduced|--full-size] [--device cuda|cpu]
+        [--zero 1|3] [--steps 5] [--mode hier] [--backend xla|pallas] \\
+        [--wire-quant int8] [--error-feedback auto|on|off] [--seq 128] \\
+        [--micro-batch 1] [--n-micro 2] [--mesh-shape 2,2] [--lr 1e-3] \\
+        [--seed 0] [--reduced|--full-size] [--device cuda|cpu]
+
+``--arch`` takes every dense architecture of the port (``configs.ARCH_IDS``
+and the paper's models, ``configs.PAPER_IDS``); the MoE, SSM and hybrid
+families raise (ROADMAP A6, A7).  ``--zero 3`` shards the parameters over
+the mesh's "data" axis and gathers them per block inside the forward.
 
 The ranks of ``--mesh-shape pod,data`` are threads of this process sharing
 one device (a ``ThreadMesh``).  Runs on the card unless ``--device cpu`` is
@@ -14,8 +20,8 @@ size trains in bf16 parameters with f32 master state, reduced in f32 (as the
 reference's launcher).  Prints loss, tokens and grad norm per step, then
 tokens/s (and the card's peak memory).
 
-Not ported: the reference launcher's ZeRO-3, checkpoint, elastic, watchdog,
-trace and ``--plan auto`` options (ROADMAP A5, A10).
+Not ported: the reference launcher's checkpoint, elastic, watchdog, trace
+and ``--plan auto`` options (ROADMAP A10).
 """
 import argparse
 import time
@@ -24,6 +30,7 @@ import time
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--zero", type=int, default=1, choices=[1, 3])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--mode", default="hier")
     ap.add_argument("--backend", default="xla", choices=["xla", "pallas"])
@@ -57,13 +64,13 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     model = build(cfg)
-    rc = RunConfig(collective_mode=args.mode, backend=args.backend,
+    rc = RunConfig(zero_stage=args.zero, collective_mode=args.mode, backend=args.backend,
                    wire_quant=args.wire_quant, error_feedback=args.error_feedback,
                    learning_rate=args.lr, seed=args.seed,
                    param_dtype="float32" if args.reduced else "bfloat16")
     plan = uniform_plan(n_pods, args.n_micro * n_pods, args.micro_batch)
     prog = make_train_program(model, mesh, rc, plan)
-    print(f"arch={cfg.name} params={model.n_params():,} mesh={mesh.shape} "
+    print(f"arch={cfg.name} params={model.n_params():,} zero={rc.zero_stage} mesh={mesh.shape} "
           f"device={mesh.device} mode={prog.hcfg.resolved_mode()} backend={rc.backend} "
           f"wire_quant={rc.wire_quant} error_feedback={optim.ef_codec(rc) is not None}",
           flush=True)

@@ -1,17 +1,20 @@
-"""Shared model machinery: parameter metadata, init, norms, RoPE.
+"""Shared model machinery: parameter metadata, init, sharding rule, norms,
+RoPE.
 
-Counterpart of ``repro/models/common.py:24-57, 162-210``.  Parameters are
+Counterpart of ``repro/models/common.py:24-57, 121-210``.  Parameters are
 plain nested dicts of tensors with the reference's tree layout, so weights
 carry across one for one (``repro_torch.convert``).  A parallel tree of
-:class:`ParamMeta` gives shapes and initializers.
+:class:`ParamMeta` gives shapes, logical axes and initializers.
 
-No sharding layer: the reference's logical-axis rules (``make_rules``,
-``spec_tree``, ``Ctx.wsc``) place tensors on a TPU mesh and mean nothing on
-one card, so they are not ported; ``ParamMeta.axes`` is kept as a label.
+Of the reference's logical-axis rules (``make_rules``, ``spec_tree``) the
+port keeps the one that shards parameters over a mesh of ranks: ZeRO-3's
+``"embed" -> "data"`` (:func:`make_rules`, :func:`fsdp_dim`).  The rest place
+tensors over a TPU's "model" axis, which the port does not have.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import numpy as np
@@ -43,10 +46,22 @@ def meta_leaves(tree) -> list[ParamMeta]:
     return out
 
 
+# A leaf whose f32 draw would take more than this is drawn one slice of its
+# leading dim (a layer) at a time, into its output.  deepseek-coder-33b's
+# stacked w1 (62, 7168, 19200) would take 34 GB; no leaf of the earlier
+# served and trained configs comes near it (mixtral's largest, 15 GB).
+WHOLE_DRAW_BYTES = 16 * 2**30
+
+
 def init_params(generator: torch.Generator, metas, dtype=torch.float32):
     """Materialize a parameter tree from its metadata tree, on the
     generator's device.  The numbers differ from the reference's
-    ``jax.random`` ones; tests carry the reference's weights across instead."""
+    ``jax.random`` ones; tests carry the reference's weights across instead.
+
+    A leaf is drawn whole in f32 and scaled in place (one f32 transient the
+    leaf's size), or, past ``WHOLE_DRAW_BYTES``, one leading slice at a
+    time (a transient of one slice): the cast result is the only
+    leaf-sized tensor."""
     device = generator.device
 
     def init_one(m: ParamMeta):
@@ -56,11 +71,54 @@ def init_params(generator: torch.Generator, metas, dtype=torch.float32):
             return torch.ones(m.shape, dtype=dtype, device=device)
         fan_in = m.shape[0] if len(m.shape) > 1 else m.shape[-1]
         scale = m.scale if m.scale is not None else 1.0 / np.sqrt(max(fan_in, 1))
+        if len(m.shape) > 1 and 4 * math.prod(m.shape) > WHOLE_DRAW_BYTES:
+            out = torch.empty(m.shape, dtype=dtype, device=device)
+            for i in range(m.shape[0]):
+                out[i] = torch.randn(m.shape[1:], generator=generator,
+                                     dtype=torch.float32, device=device).mul_(scale)
+            return out
         w = torch.randn(m.shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return (w * scale).to(dtype)
+        return w.mul_(scale).to(dtype)
 
     return tree_map_meta(init_one, metas)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3 sharding rule
+# ---------------------------------------------------------------------------
+
+def make_rules(zero_stage: int, data_size: int) -> dict:
+    """The reference's logical->mesh rules (``make_rules``) reduced to the
+    parameter sharding of a mesh of ranks: under ZeRO-3 the ``"embed"`` dims
+    go to the ``"data"`` axis (``data_size`` ranks), else nothing is
+    sharded."""
+    return {"_axis_sizes": {"data": data_size},
+            "embed": "data" if zero_stage >= 3 else None}
+
+
+def fsdp_dim(m: ParamMeta, rules: dict) -> int | None:
+    """The dim of a leaf sharded over ``"data"`` under ``rules``: its first
+    dim whose logical axis maps there and whose size the axis divides (the
+    reference's ``spec_tree`` replicates a dim it cannot split evenly), or
+    None for a replicated leaf."""
+    n = rules["_axis_sizes"].get("data", 1)
+    for i, (size, ax) in enumerate(zip(m.shape, m.axes)):
+        if ax is not None and rules.get(ax) == "data" and size % n == 0:
+            return i
+    return None
+
+
+def fsdp_dims(metas, rules: dict) -> list:
+    """``fsdp_dim`` of every leaf of ``metas``, in flatten order."""
+    return [fsdp_dim(m, rules) for m in meta_leaves(metas)]
+
+
+def shard_leaf(p, dim: int | None, index: int, n: int):
+    """Rank ``index`` of ``n``'s shard of a full leaf: its ``index``-th of
+    ``n`` equal slices along ``dim`` (a copy), or the leaf itself where
+    ``dim`` is None (replicated)."""
+    return p if dim is None else p.chunk(n, dim)[index].clone()
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ Counterpart of ``repro/models/registry.py:24-113``.  ``build(cfg)`` gives a
 :class:`Model` with ``abstract_params`` / ``init`` / ``n_params`` /
 ``loss`` / ``prefill`` / ``decode`` / ``cache_metas``.  There is no sharding
 context: the reference's ``ctx`` arguments place tensors on a mesh, and one
-card has none.
+card has none; ZeRO-3's parameter sharding comes to ``loss`` as an
+``FsdpScope`` and its rules.
 """
 from __future__ import annotations
 
@@ -16,6 +17,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import init_params, meta_leaves
+
+# the stacked (and shared) block trees: gathered per block inside the forward
+_SCANNED_KEYS = frozenset({"blocks", "groups", "tail", "shared"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,12 +38,24 @@ class Model:
     def n_params(self) -> int:
         return sum(math.prod(m.shape) for m in meta_leaves(self.abstract_params()))
 
-    def loss(self, params, batch, *, remat: bool = False):
+    def _gather_top(self, params, fsdp, rules):
+        """ZeRO-3: gather the leaves outside the stacked blocks (embedding,
+        final norm, head) over "data" before use."""
+        if fsdp is None:
+            return params
+        top = {k: v for k, v in self.abstract_params().items() if k not in _SCANNED_KEYS}
+        gplan = tf.gather_plan_of(top, rules, scanned=False)
+        return {**params, **tf.maybe_gather({k: params[k] for k in top}, gplan, fsdp)}
+
+    def loss(self, params, batch, *, remat: bool = False, fsdp=None, rules=None):
         """(sum of token CE losses, token count, aux) for ``batch`` with
         "tokens" and "labels" (B, S) and an optional f32 "mask"; aux is the
         forward's MoE aux losses (0 for the other families).  ``remat``:
-        activation checkpointing per block."""
-        hidden, aux = tf.forward_lm(params, batch["tokens"], self.cfg, remat=remat)
+        activation checkpointing per block.  ``fsdp`` and ``rules``: ZeRO-3
+        (``params`` are this rank's shards; ``forward_lm``)."""
+        params = self._gather_top(params, fsdp, rules)
+        hidden, aux = tf.forward_lm(params, batch["tokens"], self.cfg, remat=remat,
+                                    fsdp=fsdp, rules=rules)
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones(batch["labels"].shape, dtype=torch.float32,

@@ -13,6 +13,14 @@ one shared attention + MLP block (its weights shared, its KV cache one per
 group), then a tail of the ``n_layers % attn_every`` blocks left.  The VLM
 and enc-dec families wait for their slice (ROADMAP A8).
 
+ZeRO-3 (dense family): the forward takes an
+:class:`~repro_torch.core.collectives.FsdpScope` and gathers each block's
+sharded leaves over "data" at the top of the block (:func:`maybe_gather`,
+the reference's ``PlanLeaf`` / ``gather_plan_of`` / ``maybe_gather``), so
+under ``remat`` the gather sits inside the checkpointed block, as in the
+reference's scan body: the gathered weights are not kept for the backward
+but gathered again there.
+
 bf16 rounding points follow the reference: the projections are matmuls in
 the activation dtype (f32 accumulation inside, result rounded to it),
 ``rms_norm`` keeps f32 statistics, RoPE multiplies in f32, and SiLU runs in
@@ -23,6 +31,7 @@ so; the cache keeps it so).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -30,11 +39,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import tree_map
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamMeta, apply_rope, embed_lookup,
-                                       rms_norm)
+                                       fsdp_dim, rms_norm, tree_map_meta)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -142,6 +152,41 @@ def layer_params(blocks: dict, i: int) -> dict:
     """Layer ``i`` of a stacked block tree (views, no copies)."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in blocks.items()}
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3 gather plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PlanLeaf:
+    """Per parameter: the dim gathered over "data" in what the forward reads
+    (a layer's slice of a stacked leaf), or None (replicated).  The
+    reference's ``PlanLeaf`` also carries the gathered slice's "model" axis
+    sharding, which the port does not have."""
+
+    dim: int | None
+
+
+def gather_plan_of(metas, rules, scanned: bool):
+    """A PlanLeaf per leaf of ``metas`` under ``rules`` (``make_rules``);
+    ``scanned``: the leaves are stacked over layers and gathered one layer
+    at a time, so the dims count from the layer's slice."""
+    def one(m: ParamMeta):
+        dim = fsdp_dim(m, rules)
+        return PlanLeaf(None if dim is None else dim - (1 if scanned else 0))
+    return tree_map_meta(one, metas)
+
+
+def maybe_gather(params, gather_plan, fsdp, layer: int | None = None):
+    """ZeRO-3: every leaf of ``params`` with a gather dim all-gathered over
+    "data" through ``fsdp`` (an ``FsdpScope``); with ``layer``, the leaves
+    are stacked and layer ``layer``'s slice is what is read and gathered."""
+    def one(p, plan: PlanLeaf):
+        if plan.dim is None:
+            return p if layer is None else p[layer]
+        return fsdp.gather(p, plan.dim, layer)
+    return tree_map(one, params, gather_plan)
 
 
 # ---------------------------------------------------------------------------
@@ -333,18 +378,33 @@ def _layers(params, cfg):
     return out
 
 
-def forward_lm(params, tokens, cfg: ModelConfig, *, remat: bool = False):
+def _gathered_block_out(blocks, i, gplan, fsdp, positions, cfg, x):
+    """``_block_out`` of layer ``i``, its sharded leaves gathered first."""
+    return _block_out(maybe_gather(blocks, gplan, fsdp, layer=i), positions, cfg, x)
+
+
+def forward_lm(params, tokens, cfg: ModelConfig, *, remat: bool = False,
+               fsdp=None, rules=None):
     """Token ids (B, S) -> (final normed hidden states (B, S, D), aux), aux
     the f32 sum over layers of ``moe_aux`` * 0.01 + ``moe_z`` * 1e-3 (0 for
     the other families), as in the reference.  ``remat``: activation
     checkpointing per block (the reference's ``jax.checkpoint`` over the scan
-    body)."""
+    body).  ``fsdp`` (an ``FsdpScope``) with ``rules`` (``make_rules``):
+    ZeRO-3, the stacked blocks' leaves sharded and gathered per block (the
+    dense family; the embedding and final norm come gathered)."""
     positions = _positions_for(tokens)
     x = embed_lookup(params["embed"], tokens).to(_dtype(cfg))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p in _layers(params, cfg):
-        fn = functools.partial(_ssm_out_only if kind == "ssm" else _block_out, p,
-                               positions, cfg)
+    if fsdp is not None:
+        if cfg.family != "dense":
+            raise NotImplementedError(f"ZeRO-3 runs the dense family, not {cfg.family!r}")
+        gplan = gather_plan_of(abstract_params(cfg)["blocks"], rules, scanned=True)
+        fns = [functools.partial(_gathered_block_out, params["blocks"], i, gplan, fsdp,
+                                 positions, cfg) for i in range(cfg.n_layers)]
+    else:
+        fns = [functools.partial(_ssm_out_only if kind == "ssm" else _block_out, p,
+                                 positions, cfg) for kind, p in _layers(params, cfg)]
+    for fn in fns:
         x, a = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
         aux = aux + a
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux

@@ -1,20 +1,31 @@
-"""AdamW with ZeRO-1 state partitioning, every DP collective through HetCCL.
+"""AdamW with ZeRO-1 / ZeRO-3 state partitioning, every DP collective
+through HetCCL.
 
-Counterpart of ``repro/train/optim.py`` (paper §5.3, Appendix D.4), ZeRO-1
-part.  Parameters are replicated across the data-parallel ranks; the f32
-master copy and the Adam moments are *flat shards*, each DP rank owning
-1/W of every tensor.  Per step: error-feedback compression of the local
-gradients when a wire codec resolves (DESIGN.md §17), then HetCCL
-``tree_all_reduce`` of the gradients, the local shard update, and a HetCCL
-``all_gather`` of the updated parameters (Table 3: "All-Gather (OS),
-All-Reduce (G)").
+Counterpart of ``repro/train/optim.py`` (paper §5.3, Appendix D.4).
+
+* ZeRO-1: parameters are replicated across the data-parallel ranks; the f32
+  master copy and the Adam moments are *flat shards*, each DP rank owning
+  1/W of every tensor.  Per step: error-feedback compression of the local
+  gradients when a wire codec resolves (DESIGN.md §17), then HetCCL
+  ``tree_all_reduce`` of the gradients, the local shard update, and a HetCCL
+  ``all_gather`` of the updated parameters (Table 3: "All-Gather (OS),
+  All-Reduce (G)").
+* ZeRO-3: parameters, master copy and moments are all shard-shaped (the
+  "embed" dim split over "data", ``models.common.fsdp_dim``); the forward
+  gathers parameters per block and the gradients arrive reduce-scattered
+  over "data" (``core.collectives.fsdp_all_gather``), so the step finishes
+  the reduction over "pod" and updates the shards in place of gathering.
 
 Every function here is per-rank code: it runs inside a mesh of ranks
 (``core.mesh``), as the reference's runs inside the train ``shard_map``.
-ZeRO-3 needs ``fsdp_all_gather`` inside the forward, which the port does not
-have yet: ``zero3_init_opt`` and ``zero3_step`` raise (ROADMAP A5).
+The Adam update writes its moments and master copy in place: a step's state
+is donated to it, as the reference's jitted step donates its state
+(``donate_argnums``), and the port keeps one copy of the optimizer state on
+the card instead of two.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -22,9 +33,6 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.core import hetccl, mesh
 from repro_torch.core.tree import flatten, leaves, tree_map
 from repro_torch.kernels import quant
-
-_ZERO3 = ("ZeRO-3 needs fsdp_all_gather (parameters gathered per layer inside the "
-          "forward), which the port does not have yet: ROADMAP A5")
 
 
 def ef_codec(rc: RunConfig) -> str | None:
@@ -100,15 +108,18 @@ def _f32(x: float, like) -> torch.Tensor:
 def adam_update(g, m, v, master, step: int, rc: RunConfig, decay_mask: float = 1.0):
     """One AdamW update in f32, all arguments shard-shaped; ``step`` is the
     number of updates before this one.  The bias corrections are taken in
-    f32, as the reference takes them from its f32 step counter."""
+    f32, as the reference takes them from its f32 step counter.  ``m``,
+    ``v`` and ``master`` (f32) are updated in place and returned as
+    ``(master, m, v)``: each in-place op is the functional op it replaces,
+    so the numbers are the same bits."""
     g = g.float()
-    m = rc.beta1 * m + (1 - rc.beta1) * g
-    v = rc.beta2 * v + (1 - rc.beta2) * g * g
+    m.mul_(rc.beta1).add_((1 - rc.beta1) * g)
+    v.mul_(rc.beta2).add_((1 - rc.beta2) * g * g)
     t = _f32(step + 1.0, g)
     mhat = m / (1 - torch.pow(_f32(rc.beta1, g), t))
     vhat = v / (1 - torch.pow(_f32(rc.beta2, g), t))
     upd = mhat / (torch.sqrt(vhat) + rc.eps) + rc.weight_decay * decay_mask * master
-    return master - rc.learning_rate * upd, m, v
+    return master.sub_(rc.learning_rate * upd), m, v
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +153,8 @@ def zero1_master_from_params(params, dp_axes):
 
 def zero1_step(params, grads, opt, step: int, rc: RunConfig, comm):
     """Full ZeRO-1 step.  ``grads``: this rank's un-reduced gradient sums
-    (scaled by 1/tokens).  Returns ``(new_params, new_opt, grad_norm)``.
+    (scaled by 1/tokens); the caller may hand them over (the trainer does),
+    so that they are freed once reduced.  Returns ``(new_params, new_opt, grad_norm)``.
     ``comm``: the program's communicator (or a ``HetCCLConfig``); every
     collective resolves its policy from it."""
     rank, world = dp_rank_and_world(comm.dp_axes())
@@ -155,7 +167,7 @@ def zero1_step(params, grads, opt, step: int, rc: RunConfig, comm):
     scale = clip_scale(gnorm, rc.grad_clip)
 
     def one(p, g, m, v, master):
-        g_sh = _shard_of(g.reshape(-1).float() * scale, rank, world)
+        g_sh = _shard_of(g.reshape(-1), rank, world).float() * scale  # the shard alone
         decay = 0.0 if p.dim() <= 1 else 1.0          # no decay on norms/biases
         new_master, m, v = adam_update(g_sh, m, v, master, step, rc, decay)
         # the parameter AllGather (the ZeRO-1 optimizer-state gather, Table 3)
@@ -172,12 +184,61 @@ def zero1_step(params, grads, opt, step: int, rc: RunConfig, comm):
     return rebuild([o[0] for o in out]), new_opt, gnorm
 
 
+# ---------------------------------------------------------------------------
+# ZeRO-3: shard-shaped optimizer state, cross-pod ring on gradients
+# ---------------------------------------------------------------------------
+
 def zero3_init_opt(params):
-    raise NotImplementedError(_ZERO3)
+    """m / v zeros and an f32 master copy, in the (already sharded)
+    parameter shapes."""
+    return {"m": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                device=p.device), params),
+            "v": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                device=p.device), params),
+            "master": tree_map(lambda p: p.to(torch.float32, copy=True), params)}
 
 
-def zero3_step(params, grads, opt, step, rc, comm, fsdp_leaf_mask):
-    raise NotImplementedError(_ZERO3)
+def zero3_step(params, grads, opt, step: int, rc: RunConfig, comm, fsdp_leaf_mask):
+    """Full ZeRO-3 step.  ``grads``: this rank's shard-shaped gradient sums
+    (scaled by 1/tokens), the fsdp leaves already reduce-scattered over
+    "data" (the ``fsdp_all_gather`` adjoint); ``fsdp_leaf_mask``: a bool per
+    leaf, True where it is sharded.  The reduction left:
+
+    * fsdp leaves: all-reduce over "pod" only (HetCCL's cross stage);
+    * replicated leaves: all-reduce over ("pod", "data").
+
+    Error feedback, when a codec resolves, compensates the pod-stage ring on
+    the shards (the fsdp reduce-scatter quantizes inside the backward, out
+    of its reach, as in the reference).  Returns ``(new_params, new_opt,
+    grad_norm)``."""
+    pod_comm = dataclasses.replace(comm, local_axes=())
+    ef = opt.get("ef")
+    if ef is not None:
+        grads, ef = ef_apply(grads, ef, ef_codec(rc))
+
+    def sync(g, is_fsdp):
+        if comm.pod_axis:
+            return hetccl.all_reduce(g, pod_comm if is_fsdp else comm)
+        return g if is_fsdp else hetccl.all_reduce(g, comm)
+
+    gs, rebuild = flatten(grads)
+    mask = leaves(fsdp_leaf_mask)
+    gs = [sync(g, f) for g, f in zip(gs, mask)]
+    gnorm = global_norm_sharded(gs, mask, comm)
+    scale = clip_scale(gnorm, rc.grad_clip)
+
+    def one(p, g, m, v, master):
+        decay = 0.0 if p.dim() <= 1 else 1.0
+        new_master, m, v = adam_update(g.float() * scale, m, v, master, step, rc, decay)
+        return new_master.to(p.dtype), m, v, new_master
+
+    out = [one(*args) for args in zip(leaves(params), gs, leaves(opt["m"]), leaves(opt["v"]),
+                                      leaves(opt["master"]))]
+    new_opt = {"m": rebuild([o[1] for o in out]), "v": rebuild([o[2] for o in out]),
+               "master": rebuild([o[3] for o in out])}
+    if ef is not None:
+        new_opt["ef"] = ef
+    return rebuild([o[0] for o in out]), new_opt, gnorm
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +248,24 @@ def zero3_step(params, grads, opt, step, rc, comm, fsdp_leaf_mask):
 def global_norm(tree):
     """sqrt of the sum of squares of every leaf, f32 (a 0-dim tensor)."""
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves(tree)))
+
+
+def global_norm_sharded(tree, fsdp_leaf_mask, comm):
+    """The norm when the fsdp leaves are distinct shards per "data" rank:
+    their squares summed over the local axes, the replicated leaves' not."""
+    gs = leaves(tree)
+    dev = gs[0].device
+    sq_sharded = torch.zeros((), dtype=torch.float32, device=dev)
+    sq_repl = torch.zeros((), dtype=torch.float32, device=dev)
+    for g, is_fsdp in zip(gs, leaves(fsdp_leaf_mask)):
+        s = torch.sum(torch.square(g.float()))
+        if is_fsdp:
+            sq_sharded = sq_sharded + s
+        else:
+            sq_repl = sq_repl + s
+    if comm.local_axes:
+        sq_sharded = mesh.psum(sq_sharded, comm.local_axes)
+    return torch.sqrt(sq_sharded + sq_repl)
 
 
 def clip_scale(gnorm, max_norm: float):

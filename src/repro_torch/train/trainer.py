@@ -1,4 +1,4 @@
-"""The data-parallel training step (ZeRO-1) over a mesh of ranks.
+"""The data-parallel training step (ZeRO-1 or ZeRO-3) over a mesh of ranks.
 
 Counterpart of ``repro/train/trainer.py``.  The reference runs one
 ``shard_map`` whose manual axes are the data-parallel ("pod", "data") axes;
@@ -10,11 +10,23 @@ One step per rank: ``n_micro_max`` micro-steps, each weighted by the plan's
 live mask for the rank's island (a masked micro-step is computed and
 multiplied by 0, as the reference's ``lax.scan`` does), gradients summed in
 f32; then ``psum`` of the token count and the loss over every DP rank, the
-gradients scaled by 1/tokens, and :func:`optim.zero1_step` (EF compression,
-HetCCL ``tree_all_reduce``, the shard update, HetCCL ``all_gather``).
+gradients scaled by 1/tokens, and the optimizer step:
 
-The collectives run after ``backward`` and never inside autograd: autograd
-runs CUDA backward work on its own thread, which belongs to no mesh rank.
+* ZeRO-1: :func:`optim.zero1_step` (EF compression, HetCCL
+  ``tree_all_reduce``, the shard update, HetCCL ``all_gather``);
+* ZeRO-3: each rank holds its shard of every leaf whose "embed" dim splits
+  over "data" (sliced out of the full init, as the reference's
+  ``init_body`` does); the forward gathers them per block through an
+  ``FsdpScope``, each micro-step's gathered gradients are reduce-scattered
+  into shard-shaped f32 sums, and :func:`optim.zero3_step` finishes the
+  reduction and updates the shards.
+
+The collectives run on the rank's own thread and never inside autograd:
+autograd runs CUDA backward work on its own thread, which belongs to no mesh
+rank (``FsdpScope`` says how ZeRO-3's adjoint gets out of it).  Gradients
+are summed and scaled in place, and the optimizer state is donated to the
+step (``optim``): at llama-1b on one card the four ranks' copies would not
+fit twice.
 """
 from __future__ import annotations
 
@@ -28,7 +40,9 @@ from repro_torch import comm as comm_mod
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import hetccl, mesh as mesh_mod
 from repro_torch.core.balance import HetPlan
-from repro_torch.core.tree import flatten, tree_map
+from repro_torch.core.collectives import FsdpScope
+from repro_torch.core.tree import flatten
+from repro_torch.models.common import fsdp_dims, make_rules, shard_leaf
 from repro_torch.models.registry import Model
 from repro_torch.train import optim
 
@@ -67,12 +81,22 @@ def _dp_axes_of(m) -> tuple[tuple[str, ...], str | None]:
     return (("data",) if "data" in m.axes else ()), pod
 
 
+def _donated(acc: list, rebuild):
+    """The tree of ``acc``'s gradient sums, the list emptied: passed straight
+    into the optimizer step, it is the step's alone, so each sum's memory
+    goes once the step has reduced it (the step rebinds its argument)."""
+    tree = rebuild(acc)
+    acc.clear()
+    return tree
+
+
 def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> TrainProgram:
-    """The ZeRO-1 program of ``model`` on ``mesh`` (axes "pod" and/or
-    "data"), with the communicator built from ``rc``: its policy table when
-    ``rc.policies`` is set, else the single-policy facade."""
-    if rc.zero_stage != 1:
-        raise NotImplementedError(f"zero_stage={rc.zero_stage}: " + optim._ZERO3)
+    """The ZeRO-1 or ZeRO-3 program (``rc.zero_stage``) of ``model`` on
+    ``mesh`` (axes "pod" and/or "data"), with the communicator built from
+    ``rc``: its policy table when ``rc.policies`` is set, else the
+    single-policy facade."""
+    if rc.zero_stage not in (1, 3):
+        raise ValueError(f"zero_stage={rc.zero_stage}: the stages are 1 and 3")
     if model.cfg.family == "moe":
         raise NotImplementedError(
             "MoE training needs the grouped-matmul backward and the aux-loss "
@@ -108,11 +132,26 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
     codec = optim.ef_codec(rc)
     param_dtype = getattr(torch, rc.param_dtype)
     device = mesh.device
+    zero3 = rc.zero_stage == 3
+    n_data = mesh.axis_size("data") if "data" in mesh.axes else 1
+    # ZeRO-3 shards over "data" where the mesh has that axis (the reference's
+    # make_rules); per leaf (flatten order) the dim sharded, or None
+    rules = make_rules(rc.zero_stage if local_axes else 1, n_data)
+    dims = fsdp_dims(model.abstract_params(), rules)
+    fsdp_mask = [d is not None for d in dims]
 
     def rank_init(params):
-        params = tree_map(lambda p: p.to(device=device, dtype=param_dtype), params)
-        opt = optim.zero1_init_opt(params, dp_world)
-        opt["master"] = optim.zero1_master_from_params(params, dp_axes)
+        ps, rebuild = flatten(params)
+        ps = [p.to(device=device, dtype=param_dtype) for p in ps]
+        if zero3:
+            # this rank's shards out of the full init
+            idx = mesh_mod.axis_index("data") if local_axes else 0
+            params = rebuild([shard_leaf(p, d, idx, n_data) for p, d in zip(ps, dims)])
+            opt = optim.zero3_init_opt(params)
+        else:
+            params = rebuild(ps)
+            opt = optim.zero1_init_opt(params, dp_world)
+            opt["master"] = optim.zero1_master_from_params(params, dp_axes)
         if codec:
             opt["ef"] = optim.ef_init(params)
         return {"params": params, "opt": opt, "step": 0}
@@ -124,22 +163,36 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
         with torch.inference_mode(False), torch.enable_grad():
             req = [p.detach().requires_grad_() for p in ps]
             p_req = rebuild(req)
+            fsdp = FsdpScope(req, "data", comm) if any(fsdp_mask) else None
             g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=device) for p in ps]
             loss_sum = torch.zeros((), dtype=torch.float32, device=device)
             count = torch.zeros((), dtype=torch.float32, device=device)
             for i in range(plan.n_micro_max):
                 w = float(live[i])
                 mb = {"tokens": batch["tokens"][i], "labels": batch["labels"][i]}
-                ls, cnt, aux = model.loss(p_req, mb, remat=rc.remat)
-                grads = torch.autograd.grad((ls + aux * cnt) * w, req)
-                g_acc = [a + g.float() for a, g in zip(g_acc, grads)]
+                ls, cnt, aux = model.loss(p_req, mb, remat=rc.remat, fsdp=fsdp, rules=rules)
+                grads = torch.autograd.grad((ls + aux * cnt) * w, req,
+                                            allow_unused=fsdp is not None)
+                for a, g in zip(g_acc, grads):
+                    if g is not None:                 # fsdp leaves: from the scope
+                        a.add_(g)
+                del grads
+                if fsdp is not None:
+                    for (j, layer), g in fsdp.reduce_pending():
+                        (g_acc[j] if layer is None else g_acc[j][layer]).add_(g)
                 loss_sum = loss_sum + ls.detach() * w
                 count = count + cnt * w
         total = mesh_mod.psum(count, dp_axes)
         loss_total = mesh_mod.psum(loss_sum, dp_axes)
         inv = 1.0 / torch.clamp(total, min=1.0)
-        grads = rebuild([g * inv for g in g_acc])
-        new_params, new_opt, gnorm = optim.zero1_step(params, grads, opt, step, rc, comm)
+        for g in g_acc:
+            g.mul_(inv)
+        if zero3:
+            new_params, new_opt, gnorm = optim.zero3_step(
+                params, _donated(g_acc, rebuild), opt, step, rc, comm, fsdp_mask)
+        else:
+            new_params, new_opt, gnorm = optim.zero1_step(
+                params, _donated(g_acc, rebuild), opt, step, rc, comm)
         metrics = {"loss": loss_total * inv, "grad_norm": gnorm, "tokens": total}
         return {"params": new_params, "opt": new_opt, "step": step + 1}, metrics
 

@@ -247,3 +247,98 @@ def test_ops_attention_records_through_the_function_only_under_grad():
     dq, = torch.autograd.grad(out.sum(), (q,))
     dq2, = torch.autograd.grad(want.sum(), (q,))
     torch.testing.assert_close(dq, dq2, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Head dim 100 (llama-3b): the plain versions against JAX, and the kernels'
+# padding in plain torch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind,window,k_len", [("causal", 0, None), ("bidir", 0, None),
+                                               ("causal", 64, None), ("bidir", 0, 77)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_fwd_matches_jax_at_d100(kind, window, k_len, dtype):
+    """``flash_attention_fwd`` at d 100 (its plain version on the CPU)
+    against the Pallas kernel in interpret mode, which takes the head dim
+    whole; the tolerances of the d 64 cases."""
+    rng = np.random.RandomState(5)
+    B, Hq, Hkv, S, d = 1, 4, 2, 256, 100
+    q = (rng.randn(B, Hq, S, d) * 0.5).astype(np.float32)
+    k = (rng.randn(B, Hkv, S, d) * 0.5).astype(np.float32)
+    v = (rng.randn(B, Hkv, S, d) * 0.5).astype(np.float32)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, k, v))
+    want = jax_fwd(qj, kj, vj, kind=kind, window=window, k_len=k_len,
+                   bq=128, bk=128, interpret=True)
+    got = fa.flash_attention_fwd(qt, kt, vt, kind=kind, window=window, k_len=k_len)
+    assert got.dtype == qt.dtype and tuple(got.shape) == q.shape
+    _close(got, want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("kind,window,k_len,Hq,Hkv", BWD_CASES[:3])
+def test_attention_bwd_plain_matches_jax_vjp_at_d100(kind, window, k_len, Hq, Hkv):
+    """``ref.attention_bwd`` at d 100 against ``jax.vjp`` of the reference's
+    dense attention, f32, with the tolerances of the d 32 cases."""
+    from repro.kernels import ref as jax_ref
+    from repro_torch.kernels import ref
+    rng = np.random.RandomState(8)
+    B, S, d = 1, 72, 100
+    q, do = ((rng.randn(B, Hq, S, d) * 0.7).astype(np.float32) for _ in range(2))
+    k, v = ((rng.randn(B, Hkv, S, d) * 0.7).astype(np.float32) for _ in range(2))
+    kw = dict(kind=kind, window=window, k_len=k_len)
+    o, vjp = jax.vjp(lambda a, b, c: jax_ref.attention(a, b, c, **kw), q, k, v)
+    want = vjp(jnp.asarray(do))
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    lse = ref.attention_lse(qt, kt, **kw)
+    got = ref.attention_bwd(qt, kt, vt, torch.from_numpy(np.array(o)), dot, lse, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6)
+
+
+def test_zero_padding_d100_changes_nothing():
+    """The d-100 routes' design in plain torch, f32: q, k, v (and dO) padded
+    with zero columns to the width the kernels compute over (128 in the
+    forward, 112 in the backward), at d 100's own scale, give the d-100
+    output, row logsumexp and gradients in their first 100 columns, and
+    zeros in the padding columns of dQ, dK and dV, which the kernels
+    therefore need not store: within 1e-6."""
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(6)
+    B, Hq, Hkv, S, d = 2, 4, 2, 90, 100
+    q, do = (torch.randn(B, Hq, S, d, generator=g) for _ in range(2))
+    k, v = (torch.randn(B, Hkv, S, d, generator=g) for _ in range(2))
+    kw = dict(kind="causal", window=0, k_len=None, scale=d ** -0.5)
+
+    def pad(t, width):
+        return torch.nn.functional.pad(t, (0, width - d))
+
+    o = ref.attention(q, k, v, **kw)
+    lse = ref.attention_lse(q, k, **kw)
+    o128 = ref.attention(pad(q, 128), pad(k, 128), pad(v, 128), **kw)
+    torch.testing.assert_close(o128[..., :d], o, rtol=0, atol=1e-6)
+    assert torch.equal(o128[..., d:], torch.zeros_like(o128[..., d:]))
+    torch.testing.assert_close(ref.attention_lse(pad(q, 128), pad(k, 128), **kw), lse,
+                               rtol=0, atol=1e-6)
+    want = ref.attention_bwd(q, k, v, o, do, lse, **kw)
+    got = ref.attention_bwd(*(pad(t, 112) for t in (q, k, v, o, do)), lse, **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a[..., :d], b, rtol=0, atol=1e-6)
+        assert torch.equal(a[..., d:], torch.zeros_like(a[..., d:]))
+
+
+def test_tma_ready_pads_only_unaligned_views():
+    """The wrappers' layout step: a bf16 view in model layout at d 100
+    (heads 200 bytes apart) is copied into rows padded to 104 elements, the
+    same values; views the kernels take (d 64, d 112, f32, a padded view)
+    come back as they are, and so does one whose last dim is not dense (for
+    ``_check`` to refuse)."""
+    x = torch.randn(2, 40, 3, 100).bfloat16().transpose(1, 2)
+    y = fa.tma_ready(x)
+    assert y.shape == x.shape and torch.equal(y, x)
+    assert y.stride() == (3 * 40 * 104, 40 * 104, 104, 1) and y.data_ptr() % 16 == 0
+    assert fa.tma_ready(y) is y
+    for t in (torch.randn(2, 40, 3, 64).bfloat16().transpose(1, 2),
+              torch.randn(2, 40, 3, 112).bfloat16().transpose(1, 2),
+              torch.randn(2, 40, 3, 100).transpose(1, 2),
+              torch.randn(2, 3, 40, 200).bfloat16()[..., ::2]):
+        assert fa.tma_ready(t) is t
+    assert 100 in fa.HEAD_DIMS and 100 in fa.BWD_HEAD_DIMS

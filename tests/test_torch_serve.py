@@ -1,6 +1,8 @@
 """The port's serving path against the JAX package's, on carried weights.
 
-Reduced smollm-135m in f32.  The weights are the JAX package's ``init``
+Reduced smollm-135m in f32; and reduced gpt-125m and llama-3b (at its own
+head dim of 100, which ``reduced()`` would cut to 32) for the paper's
+models.  The weights are the JAX package's ``init``
 tree carried across with ``repro_torch.convert.params_from_jax``; tokens come
 from a seeded numpy RandomState.  The JAX side pins its TACC platform to
 ``interpret`` so that its prefill reaches the Pallas flash-attention body (the
@@ -183,3 +185,99 @@ def test_batcher_matches_jax(models, jax_interpret):
         n_sure = next((n for n, m in enumerate(margins) if m <= ATOL), r.max_new)
         assert n_sure > 0
         assert r.out[:n_sure] == jr.out[:n_sure]
+
+
+# the paper's models, reduced: (arch, head dim that replaces reduced()'s 32,
+# logits tolerance).  At d 100 the reduced model's attention output sums 400
+# products through wo, whose init std is 1/2 (fan-in: its leading dim, the
+# 4 layers), so f32 rounding grows: the JAX package's own f32 forward lies
+# 2.7e-4 from a float64 run of the same weights there (the port's 1.6e-4;
+# 3.6e-5 and 3.4e-5 at d 32), and port and JAX 2.8e-4 apart: 1e-3.
+PAPER_CASES = [("gpt-125m", None, ATOL), ("llama-3b", 100, 1e-3)]
+
+
+@pytest.mark.parametrize("arch,head_dim,atol", PAPER_CASES, ids=[a for a, _, _ in PAPER_CASES])
+def test_paper_models_match_jax(jax_interpret, arch, head_dim, atol):
+    """Prefill (the kernel route's plain version on the CPU, against the
+    Pallas body in interpret mode), 3 teacher-forced decode steps and a full
+    forward of reduced gpt-125m and llama-3b (d 100) against the JAX model
+    on its carried weights: logits within ``atol`` (see PAPER_CASES); the
+    full forward also within ``atol`` of the port's own float64 run."""
+    cfg, jcfg = get_config(arch).reduced(), jax_get_config(arch).reduced()
+    if head_dim:
+        cfg, jcfg = (dataclasses.replace(c, head_dim=head_dim) for c in (cfg, jcfg))
+    assert dataclasses.asdict(cfg).items() <= dataclasses.asdict(jcfg).items()
+    jmodel, model = jax_build(jcfg), build(cfg)
+    jparams = jmodel.init(jax.random.PRNGKey(1))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), metas=model.abstract_params())
+    assert model.n_params() == jmodel.n_params()
+    B, S, steps = 2, 20, 3
+    toks = _tokens(cfg, B, S + steps, 4)
+    jl, jcache = jax.jit(lambda p, b: jmodel.prefill(p, b, CTX, max_len=S + steps))(
+        jparams, {"tokens": toks[:, :S]})
+    before = fa.launches
+    tacc.set_platform("cuda")          # the flash route; on CPU tensors its plain version
+    try:
+        tl, tcache = model.prefill(params, {"tokens": torch.from_numpy(toks[:, :S]).long()},
+                                   max_len=S + steps)
+    finally:
+        tacc.set_platform(None)
+    assert fa.launches == before and tcache["k"].shape[-1] == cfg.head_dim_
+
+    def close(got, want):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   atol=atol, rtol=0)
+
+    close(tl, jl)
+    jdec = jax.jit(lambda p, c, t: jmodel.decode(p, c, t, CTX))
+    for t in range(S, S + steps):
+        jl, jcache = jdec(jparams, jcache, toks[:, t:t + 1])
+        tl, tcache = model.decode(params, tcache, torch.from_numpy(toks[:, t:t + 1]).long())
+        close(tl, jl)
+    jx, _ = jax_tf.forward_lm(jparams, toks, jcfg, CTX)
+    x, _ = tf.forward_lm(params, torch.from_numpy(toks).long(), cfg)
+    logits = tf.lm_logits(params, x, cfg)
+    close(logits, jax_tf.lm_logits(jparams, jx, jcfg, CTX))
+    c64 = dataclasses.replace(cfg, dtype="float64")
+    p64 = params_from_jax(jax.tree.map(lambda a: np.asarray(a, np.float64), jparams))
+    x64, _ = tf.forward_lm(p64, torch.from_numpy(toks).long(), c64)
+    close(logits, tf.lm_logits(p64, x64, c64).numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_init_params_draws_a_large_leaf_slice_by_slice(monkeypatch, dtype):
+    """``init_params`` draws a leaf past ``WHOLE_DRAW_BYTES`` one leading
+    slice at a time (deepseek-coder-33b's stacked w1 on the card), so its
+    f32 transient is one slice: the draws it asks of the generator, and a
+    leaf of the same shape, dtype, scale and stream as the slices drawn in
+    order.  The threshold is lowered so that a small stacked leaf takes that
+    way and a 2-d leaf of the same tree does not; at the default both are
+    drawn whole."""
+    from repro_torch.models import common
+    metas = {"stacked": common.ParamMeta((3, 64, 48), ("layers", "embed", "mlp"), scale=0.02),
+             "two_d": common.ParamMeta((64, 48), ("embed", "mlp")),
+             "zeros": common.ParamMeta((3, 48), ("layers", "mlp"), init="zeros")}
+    randn, drawn = torch.randn, []
+
+    def spy(*shape, **kw):
+        drawn.append(tuple(shape[0]) if len(shape) == 1 else shape)
+        return randn(*shape, **kw)
+
+    monkeypatch.setattr(torch, "randn", spy)
+    monkeypatch.setattr(common, "WHOLE_DRAW_BYTES", 20_000)      # 4 * 64 * 48 < it < 4 * 3 * 64 * 48
+    got = common.init_params(torch.Generator().manual_seed(7), metas, dtype=dtype)
+    assert drawn == [(64, 48)] * 3 + [(64, 48)]                  # sorted keys: stacked, two_d
+    assert {k: (v.shape, v.dtype) for k, v in got.items()} == {
+        "stacked": ((3, 64, 48), dtype), "two_d": ((64, 48), dtype), "zeros": ((3, 48), dtype)}
+    gen = torch.Generator().manual_seed(7)
+    want = torch.stack([randn(64, 48, generator=gen) * 0.02 for _ in range(3)])
+    torch.testing.assert_close(got["stacked"], want.to(dtype), rtol=0, atol=0)
+    torch.testing.assert_close(got["two_d"], (randn(64, 48, generator=gen) / 8).to(dtype),
+                               rtol=0, atol=0)
+    assert not torch.equal(got["stacked"][0], got["stacked"][1])
+    assert abs(got["stacked"].float().std().item() / 0.02 - 1) < 0.05
+    assert not got["zeros"].any()
+    drawn.clear()
+    monkeypatch.setattr(common, "WHOLE_DRAW_BYTES", 16 * 2**30)  # the default
+    common.init_params(torch.Generator().manual_seed(7), metas, dtype=dtype)
+    assert drawn == [(3, 64, 48), (64, 48)]
