@@ -147,11 +147,37 @@ Phases, in order; any failure exits non-zero before the last line:
    per gathered (leaf, layer) by the fsdp adjoint; ms a step, tokens/s,
    busy share and peak memory of each;
 23. gpt-125m trained at full width: 2 ZeRO-1 steps at seq 1024;
-24. a JSON line listing every kernel (the flash forward with its five
+24. grouped-matmul backward vs plain: ``grouped_matmul_bwd`` (dx = dy wᵀ,
+   dw = xᵀ dy; ``csrc/grouped_matmul.cu``) against its plain version case by
+   case (``GMM_BWD_CASES``: Mixtral's prefill shapes at capacity 1280 and
+   the window run's 1440, moonshot's at 480 with layer-slice weights, a
+   ragged capacity 333, zero rows, the wgmma routes' edges, rows TMA cannot
+   describe, M <= 16, K or N not a multiple of 8, f32), dx and dw each
+   within GMM_LIMITS, a dropped token's row of dx zero, the same bits on a
+   second launch, every backward route reached; and ``ops.expert_ffn_gmm``'s
+   gradients (the autograd Function) at moonshot's expert shape against
+   autograd of the plain composition within FFN_LIMITS;
+25. MoE training at full width: moonshot-v1-16b-a3b (d_model 2048, 16 x 128
+   heads, 64 experts top-6 of d_ff 1408, vocab 163840) cut to 1 of its 48
+   layers, bf16 parameters with f32 master state, weights from a seed, on a
+   (pod=2, data=1) ThreadMesh (MOE_TRAIN_LAYERS' note says why not four
+   ranks), 1 x 4096 tokens a rank, remat, hier, pallas, no codec: the
+   step-0 gate (every backward launch's dx and dw against the plain
+   backward, the expert leaves' gradients against a run with the plain
+   gmm), then 3 ZeRO-1 steps, the counts set to 0 just before and read
+   just after: 6 forward and 6 backward gmm launches per layer, micro-step
+   and rank (all wgmma), flash at d 128, the fused rings per bucket and
+   leaf; finite losses; ms a step, tokens/s, busy share, peak memory;
+26. grouped-matmul backward times: dx and dw at Mixtral's (capacity 1280)
+   and moonshot's (480) shapes, L2 cold, in turns with ``torch.bmm`` on the
+   same transposed views (a yardstick the port never calls), back to back
+   and from CUDA graphs, beside the plain version and the operations bound;
+27. a JSON line listing every kernel (the flash forward with its five
    main-path shapes under ``shapes``, the backward's d-100 shape, the
    grouped matmul's and the SSD scan's launches per route under
-   ``routes``);
-25. the last line, ``{"ok": true, "device": {...}}``.
+   ``routes``, the grouped matmul's backward products with their routes'
+   launches in the MoE training run);
+28. the last line, ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.
 
@@ -470,6 +496,65 @@ FLASH_D112_CASES = [
 SSM_F32_LOGITS_REL_TOL = 1e-4
 SSM_BF16_RATIO = 1.5
 SSM_F32_LAYERS = 2
+
+# The MoE training slice: the grouped matmul's backward, dx = dy wᵀ and dw =
+# xᵀ dy, against its plain version (ref.grouped_matmul_bwd) case by case.
+# (name, G, M, K, N, dtype, layout) as GMM_CASES; dy unit normals, zero in a
+# dropped token's row (the combine gathers no gradient into it).  Limits:
+# GMM_LIMITS, on dx and dw each: both sum exact products in f32 and round
+# once, so they differ by an ulp where the sums' order flips a rounding; f32
+# the same sums in another order.  Every backward route must be reached.
+GMM_BWD_CASES = [
+    ("mixtral_w13_c1280", 8, 1280, 4096, 14336, "bfloat16", "dense"),
+    ("mixtral_w2_c1280", 8, 1280, 14336, 4096, "bfloat16", "dense"),
+    ("mixtral_w13_c1440", 8, 1440, 4096, 14336, "bfloat16", "zero_rows"),
+    ("mixtral_w2_c1440", 8, 1440, 14336, 4096, "bfloat16", "zero_rows"),
+    ("moonshot_w13_c480", 64, 480, 2048, 1408, "bfloat16", "layer"),
+    ("moonshot_w2_c480", 64, 480, 1408, 2048, "bfloat16", "layer"),
+    ("ragged_m333", 4, 333, 512, 640, "bfloat16", "dense"),
+    ("zero_rows", 8, 300, 512, 640, "bfloat16", "zero_rows"),
+    ("layer_view", 8, 100, 512, 1000, "bfloat16", "layer_view"),
+    # the wgmma routes' edges: capacity below one consumer warpgroup's 64
+    # rows; K not a multiple of 64, N not of 256
+    ("wgmma_m40_n136", 2, 40, 128, 136, "bfloat16", "dense"),
+    ("wgmma_edges", 3, 200, 264, 392, "bfloat16", "zero_rows"),
+    # the strided route: rows TMA cannot describe, M <= 16, K or N not a
+    # multiple of 8, f32
+    ("odd_view", 4, 33, 256, 500, "bfloat16", "odd_view"),
+    ("m9_k100_n70", 5, 9, 100, 70, "bfloat16", "dense"),
+    ("k100_n70", 3, 200, 100, 70, "bfloat16", "dense"),
+    ("f32_reduced_expert", 4, 80, 128, 128, "float32", "dense"),
+    ("f32_ragged_views", 3, 77, 129, 65, "float32", "odd_view"),
+]
+# Each backward product timed at Mixtral's prefill shapes (capacity 1280)
+# and moonshot's (capacity 480): (G, M, K, N) of the forward x @ w.
+GMM_BWD_TIMED = {"mixtral_w13": (8, 1280, 4096, 14336), "mixtral_w2": (8, 1280, 14336, 4096),
+                 "moonshot_w13": (64, 480, 2048, 1408), "moonshot_w2": (64, 480, 1408, 2048)}
+GMM_BWD_ROUNDS = 4
+# moonshot-v1-16b-a3b trained at full width (d_model 2048, 16 x 128 heads, 64
+# experts top-6 of d_ff 1408, vocab 163840), cut to 1 of its 48 layers (1.24 B
+# parameters, 0.67 B of them the embedding and the untied head), on a
+# (pod=2, data=1) ThreadMesh: two ranks, the hier reduction's cross-pod ring
+# on the fused kernels.  Four ranks (pod=2, data=2) do not fit the card:
+# ZeRO-1 holds on every rank, at the gradient all-reduce, the f32 gradient
+# sum and its reduced copy, besides the bf16 parameters and the sharded f32
+# master and moments, and the ring kernels keep scratch sized by the largest
+# bucket (the 1.34 GB f32 embedding); four ranks peaked at 75.9 GiB in step 0
+# and ran out of memory in step 1, when each rank holds its own gathered
+# parameters (an H100 80GB HBM3, 700 W; PERF.md).  1 x 4096 tokens a
+# rank, remat; the loss chunk cut from 8192 to 1024 tokens (the f32 logits of
+# 4096 tokens over the vocab are 2.7 GB a rank).  lr 1e-3, 3 steps.
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = \
+    "moonshot-v1-16b-a3b", 1, 4096, 3
+MOE_TRAIN_MESH = {"pod": 2, "data": 1}
+MOE_TRAIN_LR, MOE_TRAIN_LOSS_CHUNK = 1e-3, 1024
+# The step-0 gate: on rank 0's first micro-batch, every backward launch's
+# dx and dw against the plain backward of the same (x, w, dy) within
+# GMM_LIMITS, and the expert-weight leaves' gradients (w1, w3, w2) against
+# a run with the grouped matmul pinned to its plain version (forward and
+# backward) within FFN_LIMITS: with one layer the routes are the same in
+# both (the router sees the same attention output), so the leaves differ
+# only by the expert FFN's roundings carried through the loss.
 
 
 class SmokeFailure(RuntimeError):
@@ -2695,6 +2780,304 @@ def phase_gpt_train(torch, np, get_config, build, mesh_mod, counters):
             "tokens_per_step": n_tokens, "peak_gib": peak_gib, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# MoE training: the grouped matmul's backward, full-width moonshot under ZeRO-1
+# ---------------------------------------------------------------------------
+
+def gmm_bwd_inputs(torch, gen, G, M, K, N, dtype, layout):
+    """x, w as ``gmm_inputs``; dy (G, M, N) unit normals, zero in the rows
+    where x's row is zero (a dropped token's slot gets no gradient)."""
+    x, w = gmm_inputs(torch, gen, G, M, K, N, dtype, layout)
+    dy = torch.randn(G, M, N, generator=gen, device="cuda").to(x.dtype)
+    dy[x.abs().amax(-1) == 0] = 0
+    return x, w, dy
+
+
+def phase_gmm_bwd_kernels(torch, gmm, ref, ops):
+    """The backward kernels against their plain version, case by case
+    (``GMM_BWD_CASES``): dx and dw each within GMM_LIMITS, a dropped token's
+    row of dx zero, a second launch the same bits, the route of each printed;
+    every backward route reached.  Then ``ops.expert_ffn_gmm``'s gradients
+    (the autograd Function: 3 forward and 6 backward launches) at moonshot's
+    expert shape against autograd of the same composition through the plain
+    version, within FFN_LIMITS."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    results, failed = {}, []
+    for name, G, M, K, N, dt, layout in GMM_BWD_CASES:
+        x, w, dy = gmm_bwd_inputs(torch, gen, G, M, K, N, dt, layout)
+        before = gmm.bwd_launches
+        dx, dw = gmm.grouped_matmul_bwd(x, w, dy)
+        want = ref.grouped_matmul_bwd(x, w, dy)
+        torch.cuda.synchronize()
+        check(gmm.bwd_launches == before + 2, f"{name}: {gmm.bwd_launches - before} launches")
+        routes = {which: gmm.bwd_route(x, w, dy, which) for which in ("dx", "dw")}
+        res, ok = {}, True
+        for which, got, wnt in (("dx", dx, want[0]), ("dw", dw, want[1])):
+            check(got.shape == wnt.shape and got.dtype == wnt.dtype and got.is_contiguous(),
+                  f"{name} {which}: {tuple(got.shape)} {got.dtype}")
+            check(bool(torch.isfinite(got).all()), f"{name} {which}: non-finite")
+            err = gmm_error(got, wnt)
+            good = gmm_ok(err, dt)
+            ok &= good
+            res[which] = {**err, "route": routes[which]}
+            print(f"  {name:20s} {which} ({G},{M},{K})x({G},{K},{N}) {dt:8s} {layout:10s} "
+                  f"{routes[which]:8s} {format_gmm(err, dt)}  {'ok' if good else 'FAIL'}")
+        zero_rows_ok = bool((dx[x.abs().amax(-1) == 0] == 0).all())
+        again = gmm.grouped_matmul_bwd(x, w, dy)
+        repeat_ok = torch.equal(again[0], dx) and torch.equal(again[1], dw)
+        if not (ok and zero_rows_ok and repeat_ok):
+            failed.append(name)
+            print(f"  {name}: zero rows of dx zero {zero_rows_ok}, bit-equal on repeat "
+                  f"{repeat_ok}")
+        results[name] = res
+        del x, w, dy, dx, dw, want, again
+    check(not failed, f"the grouped-matmul backward disagrees with its plain version in {failed}")
+    reached = sorted({r["route"] for v in results.values() for r in v.values()})
+    check(reached == sorted(gmm.BWD_ROUTES), f"the cases reached the routes {reached} only")
+
+    # the autograd Function at moonshot's expert shape, w a layer slice
+    E, C, D, F = 64, 480, 2048, 1408
+    buf = torch.randn(E, C, D, generator=gen, device="cuda").bfloat16()
+    stacked = [(torch.randn(2, E, a, b, generator=gen, device="cuda") * a ** -0.5).bfloat16()
+               for a, b in ((D, F), (D, F), (F, D))]
+    ct = torch.randn(E, C, D, generator=gen, device="cuda").bfloat16()
+
+    def grads():
+        leaves = [buf.detach().requires_grad_()] + [s.detach().requires_grad_()
+                                                     for s in stacked]
+        out = ops.expert_ffn_gmm(leaves[0], *(s[1] for s in leaves[1:]))
+        return torch.autograd.grad(out, leaves, ct)
+
+    gmm.reset_counts()
+    got = grads()
+    torch.cuda.synchronize()
+    launches = (gmm.launches, gmm.bwd_launches)
+    with patched(gmm, "grouped_matmul", ref.grouped_matmul):
+        want = grads()
+    fn_err = {}
+    for name, g, wnt in zip(("buf", "w1", "w3", "w2"), got, want):
+        err = gmm_error(g[1] if name != "buf" else g, wnt[1] if name != "buf" else wnt)
+        fn_err[name] = err
+        print(f"  expert_ffn_gmm gradient of {name}: {format_gmm(err, 'bfloat16', FFN_LIMITS)}"
+              f"  {'ok' if gmm_ok(err, 'bfloat16', FFN_LIMITS) else 'FAIL'}")
+    print(f"  expert_ffn_gmm forward + backward: {launches[0]} forward, {launches[1]} backward "
+          f"launches (3 and 6 expected)")
+    check(launches == (3, 6), f"expert_ffn_gmm launched {launches}, (3, 6) expected")
+    check(all(gmm_ok(e, "bfloat16", FFN_LIMITS) for e in fn_err.values()),
+          "expert_ffn_gmm's gradients disagree with the plain composition's")
+    check(all(not g[0].any() for g in got[1:]), "gradient in the stacked leaves' other layer")
+    return {"cases": results, "function": fn_err}
+
+
+def moe_grad_gate(torch, gmm, ref, model, params, batch):
+    """The step-0 gate (see MOE_TRAIN_LAYERS' note) on ``batch`` (rank 0's
+    first micro-batch), with remat as in the step."""
+    from repro_torch.core.tree import flatten
+    ps, rebuild = flatten(params)
+    log = []
+    real_bwd = gmm.grouped_matmul_bwd
+
+    def recording(x, w, dy, need_dx=True, need_dw=True):
+        dx, dw = real_bwd(x, w, dy, need_dx, need_dw)
+        log.append((x, w, dy, dx, dw))
+        return dx, dw
+
+    def leaf_grads():
+        req = [p.detach().requires_grad_() for p in ps]
+        ls, cnt, aux = model.loss(rebuild(req), batch, remat=True)
+        return torch.autograd.grad(ls + aux * cnt, req)
+
+    with patched(gmm, "grouped_matmul_bwd", recording):
+        got = leaf_grads()
+    torch.cuda.synchronize()
+    per_call, ok = [], True
+    for i, (x, w, dy, dx, dw) in enumerate(log):
+        want = ref.grouped_matmul_bwd(x, w, dy)
+        errs = {}
+        for which, g, wnt in (("dx", dx, want[0]), ("dw", dw, want[1])):
+            if g is None:
+                continue
+            errs[which] = gmm_error(g, wnt)
+            ok &= gmm_ok(errs[which], "bfloat16")
+            print(f"  step 0, backward launch pair {i} ({tuple(x.shape)} x {tuple(w.shape)}) "
+                  f"{which}: {format_gmm(errs[which], 'bfloat16')}")
+        per_call.append(errs)
+        del want
+    log.clear()
+    with patched(gmm, "grouped_matmul", ref.grouped_matmul):
+        want = leaf_grads()
+    names = {id(p): n for n, p in (("router", params["blocks"]["moe"]["router"]),
+                                   ("w1", params["blocks"]["moe"]["w1"]),
+                                   ("w3", params["blocks"]["moe"]["w3"]),
+                                   ("w2", params["blocks"]["moe"]["w2"]))}
+    leaf_err = {}
+    for p, g, wnt in zip(ps, got, want):
+        name = names.get(id(p))
+        if name is None:
+            continue
+        leaf_err[name] = gmm_error(g.float().flatten(0, -2), wnt.float().flatten(0, -2))
+        gated = name != "router"
+        print(f"  step 0, gradient of the {name} leaf against the plain gmm's: "
+              f"{format_gmm(leaf_err[name], 'bfloat16', FFN_LIMITS)}"
+              + (f"  {'ok' if gmm_ok(leaf_err[name], 'bfloat16', FFN_LIMITS) else 'FAIL'}"
+                 if gated else "  (printed, not gated)"))
+        if gated:
+            ok &= gmm_ok(leaf_err[name], "bfloat16", FFN_LIMITS)
+    check(len(per_call) == 3 * MOE_TRAIN_LAYERS, f"{len(per_call)} backward launch pairs")
+    check(ok, "the step-0 gradient gate failed")
+    return {"launch_pairs": per_call, "leaves": leaf_err}
+
+
+def phase_moe_train(torch, np, get_config, build, mesh_mod, hetccl, gmm, ref, counters):
+    """moonshot-v1-16b-a3b at full width, 1 layer (MOE_TRAIN_LAYERS' note),
+    on a MOE_TRAIN_MESH ThreadMesh, ``uniform_plan(2, 2, micro_batch=1)``,
+    1 x MOE_TRAIN_SEQ tokens a rank, remat, hier, backend pallas, no codec:
+    the step-0 gate first, then MOE_TRAIN_STEPS ZeRO-1 steps, the counts set
+    to 0 just before and read just after: per layer, micro-step and rank 6
+    forward gmm launches (3, and 3 again in remat's recompute) and 6
+    backward (dx and dw of each), all on the wgmma routes, 2 flash forward
+    and 1 backward at d 128, the fused rings once per bucket (reduce-scatter)
+    and per bucket and leaf (all-gather); finite losses; ms a step (host
+    clock, the steps after the first), tokens/s, the card's busy share over
+    one more step and the peak memory."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import balance
+    from repro_torch.core.tree import leaves as tree_leaves
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.train.trainer import make_train_program
+    cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH), n_layers=MOE_TRAIN_LAYERS,
+                              loss_chunk=MOE_TRAIN_LOSS_CHUNK)
+    model = build(cfg)
+    m = mesh_mod.ThreadMesh(MOE_TRAIN_MESH, device="cuda")
+    plan = balance.uniform_plan(2, 2, micro_batch=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED), dtype=torch.bfloat16)
+    batches = [synthetic_batch(SEED, s, plan.n_micro_max, plan.micro_batch * m.size,
+                               MOE_TRAIN_SEQ, cfg.vocab) for s in range(MOE_TRAIN_STEPS)]
+    n_tokens = int(np.prod(batches[0]["tokens"].shape))
+    T = plan.micro_batch * MOE_TRAIN_SEQ
+    C = max(int(T * cfg.top_k * cfg.capacity_factor / cfg.n_experts), 1)
+    print(f"  {cfg.name}: {cfg.n_layers} of 48 layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads x {cfg.head_dim_}, {cfg.n_experts} experts top-{cfg.top_k} "
+          f"of d_ff {cfg.d_ff_expert} (capacity {C}), vocab {cfg.vocab}, "
+          f"{model.n_params() / 1e9:.3f}B params, bf16 params, f32 master state; mesh "
+          f"{m.shape}, {plan.n_micro_max} micro-step of {plan.micro_batch} x {MOE_TRAIN_SEQ} "
+          f"per rank, {n_tokens} tokens per step; remat on; loss chunk {cfg.loss_chunk}")
+    b0 = {k: torch.as_tensor(batches[0][k][0, :plan.micro_batch]).to("cuda", torch.long)
+          for k in ("tokens", "labels")}
+    gate = moe_grad_gate(torch, gmm, ref, model, params, b0)
+    del b0
+    gc.collect()
+    torch.cuda.empty_cache()
+    prog = make_train_program(model, m, RunConfig(
+        zero_stage=1, collective_mode="hier", backend="pallas", learning_rate=MOE_TRAIN_LR),
+        plan)
+    shapes = [p.shape for p in tree_leaves(params)]
+    n_buckets = len(hetccl._make_buckets(
+        [torch.empty(sh, dtype=torch.float32, device="meta") for sh in shapes],
+        prog.comm.bucket_bytes))
+    torch.cuda.reset_peak_memory_stats()
+    state = prog.init_fn(params)
+    del params
+    counters.reset()
+    losses, step_ms = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = prog.step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(met["loss"].item())
+    launches = counters.read()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ms = statistics.median(step_ms[1:])
+
+    def one_more():
+        nonlocal state
+        state, _ = prog.step_fn(state, batches[-1])
+
+    busy = device_busy_share(torch, one_more, 1)
+    print(f"  ZeRO-1: losses {['%.6f' % x for x in losses]}; ms per step "
+          f"{['%.1f' % x for x in step_ms]}, {n_tokens / ms * 1e3:.1f} tokens/s (steps after the "
+          f"first); card busy share of one more step (torch.profiler) {busy}; peak memory "
+          f"{peak_gib:.2f} GiB; launches {launches}")
+    check(all(np.isfinite(losses)), "non-finite loss")
+    per = cfg.n_layers * plan.n_micro_max * m.size * MOE_TRAIN_STEPS
+    want = {"grouped_matmul": 6 * per, "grouped_matmul_wgmma": 6 * per,
+            "grouped_matmul_bwd": 6 * per, "grouped_matmul_bwd_dx_wgmma": 3 * per,
+            "grouped_matmul_bwd_dw_wgmma": 3 * per, "flash_attention_fwd": 2 * per,
+            "flash_attention_bwd": per,
+            "ring_reduce_scatter": n_buckets * MOE_TRAIN_STEPS,
+            "ring_all_gather": (n_buckets + len(shapes)) * MOE_TRAIN_STEPS}
+    for key, n in want.items():
+        print(f"  {key}: {launches[key]} launches, {n} expected  "
+              f"{'ok' if launches[key] == n else 'FAIL'}")
+    check(all(launches[k] == n for k, n in want.items()),
+          "the step did not launch the kernels it implies")
+    del state, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "capacity": C, "seq": MOE_TRAIN_SEQ,
+            "tokens_per_step": n_tokens, "losses": losses, "step_ms": step_ms,
+            "ms_per_step": ms, "tokens_per_s": n_tokens / ms * 1e3,
+            "device_busy_one_more_step": busy, "peak_gib": peak_gib, "launches": launches,
+            "expected_launches": want, "n_buckets": n_buckets, "step0_gate": gate,
+            "params": model.n_params()}
+
+
+def phase_gmm_bwd_times(torch, gmm, ref, bench_codec):
+    """Each backward product at GMM_BWD_TIMED's shapes: the kernel and
+    ``torch.bmm`` on the same transposed views (a yardstick the port never
+    calls), L2 cold before each reading (``bench_codec.ColdReader``), in
+    turns, back to back and replayed from CUDA graphs; the plain version's
+    product (its f32 einsum) and the bound: the larger of 2 G M K N over the
+    bf16 peak and the bytes (both operands read once, the output written
+    once) over the memory rate."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    reader = bench_codec.ColdReader()
+    side = torch.cuda.Stream()
+    out = {}
+    for label, (G, M, K, N) in GMM_BWD_TIMED.items():
+        x, w, dy = gmm_bwd_inputs(torch, gen, G, M, K, N, "bfloat16", "dense")
+        for which in ("dx", "dw"):
+            a, b = (dy, w.transpose(1, 2)) if which == "dx" else (x.transpose(1, 2), dy)
+            calls = {"kernel": [lambda which=which: gmm.grouped_matmul_bwd(
+                         x, w, dy, which == "dx", which == "dw")],
+                     "torch.bmm": [lambda a=a, b=b: torch.bmm(a, b)]}
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                r = bench_codec.cold_in_turns(reader, calls, GMM_BWD_ROUNDS)
+            torch.cuda.current_stream().wait_stream(side)
+            t_ops = 2 * G * M * K * N / PEAK_FLOPS["bfloat16"] * 1e3
+            t_bytes = (a.numel() + b.numel() + a.shape[0] * a.shape[1] * b.shape[2]) * 2 \
+                / HBM_BYTES_PER_S * 1e3
+            t = out[f"{label}_{which}"] = {
+                "shape": f"({G},{a.shape[1]},{a.shape[2]})@({G},{b.shape[1]},{b.shape[2]}) bf16",
+                "route": gmm.bwd_route(x, w, dy, which),
+                "ms": statistics.median(r["kernel"]["stream"]),
+                "graph_ms": statistics.median(r["kernel"]["graph"]),
+                "library_ms": statistics.median(r["torch.bmm"]["stream"]),
+                "library_graph_ms": statistics.median(r["torch.bmm"]["graph"]),
+                "plain_ms": median_ms(lambda a=a, b=b: ref.grouped_matmul(a, b), reps=2,
+                                      trials=3, warmup=1),
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "readings": r}
+            print(f"  {label} {which} at {t['shape']} ({t['route']}): kernel {t['ms']:.4f} ms "
+                  f"(graph {t['graph_ms']:.4f}), torch.bmm {t['library_ms']:.4f} (graph "
+                  f"{t['library_graph_ms']:.4f}), plain {t['plain_ms']:.4f}, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}); kernel / bound "
+                  f"{t['graph_ms'] / t['bound_ms']:.2f}, kernel / torch.bmm "
+                  f"{t['graph_ms'] / t['library_graph_ms']:.3f} (graphs); L2 cold, in turns, "
+                  f"{GMM_BWD_ROUNDS} rounds")
+            del r
+            gc.collect()
+        del x, w, dy
+    torch.cuda.empty_cache()
+    return out
+
+
 class Counters:
     """The launch counts of every kernel wrapper of the port."""
 
@@ -2718,6 +3101,8 @@ class Counters:
                 "ring_all_gather": ring_dma.ag_launches, "collective_reduce": cr.launches,
                 "grouped_matmul": gmm.launches, "ssd_scan": ssd.launches,
                 **{f"grouped_matmul_{r}": n for r, n in gmm.route_launches.items()},
+                "grouped_matmul_bwd": gmm.bwd_launches,
+                **{f"grouped_matmul_bwd_{r}": n for r, n in gmm.bwd_route_launches.items()},
                 **{f"ssd_scan_{r}": n for r, n in ssd.route_launches.items()}}
 
 
@@ -2918,7 +3303,22 @@ def main() -> int:
         print(json.dumps({"dense_serve": dense, "zero_train": zero, "gpt_train": gpt,
                           "phase_wall_s": walls, **card}))
 
-    print("[24] kernels")
+    with phase("[24] grouped-matmul backward vs plain", walls):
+        gmm_bwd = phase_gmm_bwd_kernels(torch, gmm, ref, ops)
+
+    with phase(f"[25] MoE training: {MOE_TRAIN_ARCH} at full width, {MOE_TRAIN_LAYERS} layer, "
+               "ZeRO-1", walls):
+        moe_train = phase_moe_train(torch, np, get_config, build, mesh_mod, hetccl, gmm, ref,
+                                    counters)
+
+    with phase("[26] grouped-matmul backward times", walls):
+        btimes = phase_gmm_bwd_times(torch, gmm, ref, bench_codec)
+        print(json.dumps({"gmm_bwd_errors": gmm_bwd, "moe_train": moe_train,
+                          "kernel_times": {k: {kk: vv for kk, vv in v.items() if kk != "readings"}
+                                           for k, v in btimes.items()},
+                          "phase_wall_s": walls, **card}))
+
+    print("[27] kernels")
     sources = {"collective_reduce": ("collective_reduce.cu",
                                      "src/repro/kernels/collective_reduce.py:84"),
                "ring_reduce_scatter": ("ring_dma.cu", "src/repro/kernels/ring_dma.py:252"),
@@ -3019,7 +3419,30 @@ def main() -> int:
         "routes": {r: moe["serve"]["launches"][f"grouped_matmul_{r}"] for r in gmm.ROUTES},
         "prefill_w2_ms": gtimes["prefill_w2"]["ms"],
         "prefill_w2_library_ms": gtimes["prefill_w2"]["library_ms"],
+        "moonshot_train_launches": moe_train["launches"]["grouped_matmul"],
         "check": "pass", "cases_checked": len(gmm_cases)})
+    for which in ("dx", "dw"):
+        t = btimes[f"mixtral_w13_{which}"]
+        err = gmm_bwd["cases"]["mixtral_w13_c1280"][which]
+        kernels.append({
+            "name": f"grouped_matmul_bwd_{which}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+            "replaces": "src/repro/kernels/grouped_matmul.py:25",
+            "note": "backward of the forward kernel (dx = dy w^T, dw = x^T dy); the TPU kernel "
+                    "is forward-only and the reference differentiates its einsums",
+            "launches": moe_train["launches"][f"grouped_matmul_bwd_{which}_wgmma"]
+            + moe_train["launches"][f"grouped_matmul_bwd_{which}_simt"],
+            "routes": {r: moe_train["launches"][f"grouped_matmul_bwd_{r}"]
+                       for r in gmm.BWD_ROUTES if r.startswith(which)},
+            "max_abs_err": err["max_abs_err"], "rel_l2": err["rel_l2"],
+            "worst_row": err["worst_row"], "ms": t["ms"], "graph_ms": t["graph_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "library_graph_ms": t["library_graph_ms"],
+            "shape": t["shape"],
+            "shapes": {label: {key: btimes[f"{label}_{which}"][key] for key in (
+                "shape", "route", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_graph_ms")} for label in GMM_BWD_TIMED},
+            "check": "pass", "cases_checked": len(gmm_bwd["cases"])})
     tm, tz = stimes["mamba2_prefill"], stimes["zamba2_prefill"]
     err = ssd_cases["mamba2_prefill"]
     kernels.append({

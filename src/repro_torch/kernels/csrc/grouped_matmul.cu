@@ -83,6 +83,23 @@
 // bf16 products are exact in f32, so every bf16 route differs from the plain
 // version (an f32 einsum of the upcast inputs) only in the order of the f32
 // sums before the one rounding.
+//
+// The backward (grouped_matmul_strided): dx[g] = dy[g] @ w[g]ᵀ and dw[g] =
+// x[g]ᵀ @ dy[g], each with an f32 accumulator rounded once to x's type.  The
+// reference has no Pallas backward: its MoE trains through the VJP of its
+// einsums, which these two products are.  Both are the forward's products
+// on other operand layouts, so they run the same kernels on views:
+//  * wgmma (bf16, capacity M > 16, every operand describable by TMA): the
+//    prefill kernel above with wgmma's transpose bits and the TMA boxes set
+//    per operand.  dx's A (dy) is K-major as the forward's x is, its B (wᵀ)
+//    K-major: w's rows are read as the tile's n rows.  dw's A (xᵀ) is
+//    MN-major: x's rows are the tile's k rows, 64 capacity rows a stage, so
+//    the ragged capacity (480 at moonshot) is TMA's zero fill, as ragged K
+//    is in the forward; its B (dy) is MN-major as the forward's w is.  At
+//    Mixtral's shapes each product is 1.20 TFLOP, bound by the tensor cores
+//    (1.216 ms), as the forward.
+//  * strided (f32, M <= 16, views TMA cannot describe): the f32 route's
+//    fmaf kernel on all three strides of each operand, in f32 or bf16.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -99,10 +116,11 @@ struct Params {
   const void* w;
   void* out;
   int G, M, K, N;
-  // element strides; the last dimension of each tensor has stride 1
-  long long x_sg, x_sm;  // x (G, M, K)
-  long long w_sg, w_sk;  // w (G, K, N)
-  long long o_sg, o_sm;  // out (G, M, N)
+  // element strides; the forward's x and w have x_sk = w_sn = 1 (the
+  // backward passes views: dy wᵀ and xᵀ dy), out (G, M, N) is dense in N
+  long long x_sg, x_sm, x_sk;  // x (G, M, K)
+  long long w_sg, w_sk, w_sn;  // w (G, K, N)
+  long long o_sg, o_sm;        // out (G, M, N)
 };
 
 // ---------------------------------------------------------------------------
@@ -318,26 +336,36 @@ __global__ void __launch_bounds__(kThreads) gmm_bf16(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// f32 route: fmaf on the CUDA cores
+// f32 route, and the backward's strided route: fmaf on the CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int kSimtBM = 64;
 constexpr int kSimtBN = 64;
 constexpr int kSimtBK = 16;
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
 // 256 threads, each a 4 x 4 set of outputs at rows ty + 16 i, columns
 // tx + 16 j, so a warp reads two x values (broadcast) and 16 consecutive w
-// values per step.
-__global__ void __launch_bounds__(kThreads) gmm_f32(Params p) {
+// values per step.  x and w are read through all three of their strides
+// (any may be 0 or more than 1), neighbouring threads along whichever of a
+// tile's two dimensions has stride 1; the product of each pair is exact in
+// f32 for bf16 inputs, summed over k in order, rounded once.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) gmm_simt(Params p) {
   __shared__ float xs[kSimtBK][kSimtBM + 4];  // transposed: [k][m]
   __shared__ float ws[kSimtBK][kSimtBN + 4];
   const int m0 = blockIdx.x * kSimtBM;
   const int n0 = blockIdx.y * kSimtBN;
   const int g = blockIdx.z;
-  const float* xg = static_cast<const float*>(p.x) + g * p.x_sg;
-  const float* wgf = static_cast<const float*>(p.w) + g * p.w_sg;
+  const T* xg = static_cast<const T*>(p.x) + g * p.x_sg;
+  const T* wgf = static_cast<const T*>(p.w) + g * p.w_sg;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
+  const bool x_k_dense = p.x_sk == 1, w_n_dense = p.w_sn == 1;
 
   float acc[4][4];
 #pragma unroll
@@ -347,14 +375,16 @@ __global__ void __launch_bounds__(kThreads) gmm_f32(Params p) {
 
   for (int k0 = 0; k0 < p.K; k0 += kSimtBK) {
     for (int e = threadIdx.x; e < kSimtBM * kSimtBK; e += kThreads) {
-      const int r = e / kSimtBK, c = e % kSimtBK;
+      const int r = x_k_dense ? e / kSimtBK : e % kSimtBM;
+      const int c = x_k_dense ? e % kSimtBK : e / kSimtBM;
       const bool ok = m0 + r < p.M && k0 + c < p.K;
-      xs[c][r] = ok ? xg[(m0 + r) * p.x_sm + k0 + c] : 0.f;
+      xs[c][r] = ok ? to_f32(xg[(m0 + r) * p.x_sm + (k0 + c) * p.x_sk]) : 0.f;
     }
     for (int e = threadIdx.x; e < kSimtBK * kSimtBN; e += kThreads) {
-      const int r = e / kSimtBN, c = e % kSimtBN;
+      const int r = w_n_dense ? e / kSimtBN : e % kSimtBK;
+      const int c = w_n_dense ? e % kSimtBN : e / kSimtBK;
       const bool ok = k0 + r < p.K && n0 + c < p.N;
-      ws[r][c] = ok ? wgf[(k0 + r) * p.w_sk + n0 + c] : 0.f;
+      ws[r][c] = ok ? to_f32(wgf[(k0 + r) * p.w_sk + (n0 + c) * p.w_sn]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -371,7 +401,7 @@ __global__ void __launch_bounds__(kThreads) gmm_f32(Params p) {
     }
     __syncthreads();
   }
-  float* og = static_cast<float*>(p.out) + g * p.o_sg;
+  T* og = static_cast<T*>(p.out) + g * p.o_sg;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = m0 + ty + 16 * i;
@@ -379,7 +409,7 @@ __global__ void __launch_bounds__(kThreads) gmm_f32(Params p) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = n0 + tx + 16 * j;
-      if (c < p.N) og[r * p.o_sm + c] = acc[i][j];
+      if (c < p.N) store_f32(og + r * p.o_sm + c, acc[i][j]);
     }
   }
 }
@@ -531,7 +561,10 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d (m64 x n256, f32) = (scale_d ? d : 0) + a (smem, K-major) * b (smem, MN-major).
+// d (m64 x n256, f32) = (scale_d ? d : 0) + a (smem) * b (smem); a is K-major
+// (kAT 0) or MN-major (1), b K-major (kBT 0) or MN-major (1): wgmma's
+// transpose bits.
+template <int kAT, int kBT>
 __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -552,7 +585,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -569,7 +602,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kAT), "n"(kBT));
 }
 
 // Output tiles in the order (g, N tile, M tile), M fastest.
@@ -589,10 +622,19 @@ struct TileGrid {
 };
 
 // Persistent: block b takes tiles b, b + gridDim.x, ...  Shared memory
-// (1024-byte aligned): the ring of kWStages stages, each the x box (128 rows
-// x 128 bytes) then the w boxes (kWBN / 64 boxes of 64 rows x 128 bytes);
-// the staging boxes, kOutBufs per consumer warpgroup; the mbarriers full[],
-// empty[].
+// (1024-byte aligned): the ring of kWStages stages, each the x tile (128
+// rows x 64 k: 128 bytes a row) then the w tile (kWBN / 64 boxes of 64
+// rows x 128 bytes); the staging boxes, kOutBufs per consumer warpgroup; the
+// mbarriers full[], empty[].
+// Operand layouts (the backward's products pass views): x (the A operand)
+// is K-major (kAT 0: one box of 128 m rows x 64 k) or MN-major (kAT 1: x
+// stored k by m, two boxes of 64 k rows x 64 m, one per consumer warpgroup);
+// w (B) is MN-major (kBT 1: stored k by n, kWBN / 64 boxes of 64 k rows x 64
+// n) or K-major (kBT 0: stored n by k, kWBN / 64 boxes of 64 n rows x 64 k).
+// Every box is 64 rows of 128 swizzled bytes, so a tile sits at the same
+// offsets in either layout: 64 K-major rows or 64 MN-major k rows per 8 KB.
+// The forward is <0, 1>, dx = dy wᵀ <0, 0>, dw = xᵀ dy <1, 1>.
+template <int kAT, int kBT>
 __global__ void __launch_bounds__(kWThreads, 1)
     gmm_wgmma(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
               const __grid_constant__ CUtensorMap tm_o, const Params p) {
@@ -628,11 +670,21 @@ __global__ void __launch_bounds__(kWThreads, 1)
           mbar_expect_tx(full_bar + 8 * s, kWStageBytes);
           const uint32_t a = ring + s * kWStageBytes;
           const int k0 = kt * kWBK;
-          tma_load(a, &tm_x, full_bar + 8 * s, k0, m0, g);
+          if (kAT) {
 #pragma unroll
-          for (int j = 0; j < kWBN / kBox; ++j)
-            tma_load(a + kABytes + j * kWBK * kRowBytes, &tm_w, full_bar + 8 * s, n0 + j * kBox,
-                     k0, g);
+            for (int j = 0; j < kWBM / kBox; ++j)
+              tma_load(a + j * kBox * kRowBytes, &tm_x, full_bar + 8 * s, m0 + j * kBox, k0, g);
+          } else {
+            tma_load(a, &tm_x, full_bar + 8 * s, k0, m0, g);
+          }
+#pragma unroll
+          for (int j = 0; j < kWBN / kBox; ++j) {
+            const uint32_t box = a + kABytes + j * kBox * kRowBytes;
+            if (kBT)
+              tma_load(box, &tm_w, full_bar + 8 * s, n0 + j * kBox, k0, g);
+            else
+              tma_load(box, &tm_w, full_bar + 8 * s, k0, n0 + j * kBox, g);
+          }
         }
       }
     }
@@ -657,13 +709,19 @@ __global__ void __launch_bounds__(kWThreads, 1)
         const uint32_t b = ring + s * kWStageBytes + kABytes;
         fence_regs(acc);
         wgmma_fence();
-        // four k steps of 16 columns (32 bytes) inside the 128-byte swizzle
-        // row; x K-major (8-row groups 1024 bytes apart), w MN-major (16
-        // rows of 128 bytes per k step, its 64-column boxes kWBK rows apart)
+        // four k steps of 16: K-major, 16 columns (32 bytes) inside the
+        // 128-byte swizzle row, 8-row groups 1024 bytes apart; MN-major, 16
+        // rows of 128 bytes, 8-row groups 1024 bytes apart, its 64-column
+        // boxes 64 rows apart
 #pragma unroll
         for (int kk = 0; kk < kWBK / 16; ++kk)
-          wgmma_n256(acc, smem_desc(a + kk * 32, 16, 1024),
-                     smem_desc(b + kk * 16 * kRowBytes, kWBK * kRowBytes, 1024), kt > 0 || kk > 0);
+          wgmma_n256<kAT, kBT>(
+              acc,
+              kAT ? smem_desc(a + kk * 16 * kRowBytes, kBox * kRowBytes, 1024)
+                  : smem_desc(a + kk * 32, 16, 1024),
+              kBT ? smem_desc(b + kk * 16 * kRowBytes, kBox * kRowBytes, 1024)
+                  : smem_desc(b + kk * 32, 16, 1024),
+              kt > 0 || kk > 0);
         wgmma_commit();
         fence_regs(acc);
         // the previous k step's products are done: release its stage
@@ -791,21 +849,31 @@ int sm_count(int& sms) {
   return cudaSuccess;
 }
 
+// The maps of x and w follow their layouts (gmm_wgmma): the dense dimension
+// is the map's columns, the other its rows.
+// The runtime calls come first: they make the device's primary context
+// current on the calling thread (autograd's device thread may have none yet),
+// which cuTensorMapEncodeTiled needs.
+template <int kAT, int kBT>
 int launch_wgmma(const Params& p, cudaStream_t stream) {
-  CUtensorMap tm_x, tm_w, tm_o;
-  int err = encode_map(&tm_x, p.x, p.K, p.M, p.G, p.x_sm, p.x_sg, kWBM);
-  if (!err) err = encode_map(&tm_w, p.w, p.N, p.K, p.G, p.w_sk, p.w_sg, kWBK);
-  if (!err) err = encode_map(&tm_o, p.out, p.N, p.M, p.G, p.o_sm, p.o_sg, 64);
-  if (err) return err;
+  auto kernel = gmm_wgmma<kAT, kBT>;
   cudaError_t e =
-      cudaFuncSetAttribute(gmm_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
   if (e != cudaSuccess) return e;
   int sms = 0;
-  err = sm_count(sms);
+  int err = sm_count(sms);
+  if (err) return err;
+  CUtensorMap tm_x, tm_w, tm_o;
+  err = kAT ? encode_map(&tm_x, p.x, p.M, p.K, p.G, p.x_sk, p.x_sg, kBox)
+            : encode_map(&tm_x, p.x, p.K, p.M, p.G, p.x_sm, p.x_sg, kWBM);
+  if (!err)
+    err = kBT ? encode_map(&tm_w, p.w, p.N, p.K, p.G, p.w_sk, p.w_sg, kWBK)
+              : encode_map(&tm_w, p.w, p.K, p.N, p.G, p.w_sn, p.w_sg, kBox);
+  if (!err) err = encode_map(&tm_o, p.out, p.N, p.M, p.G, p.o_sm, p.o_sg, 64);
   if (err) return err;
   const long long tiles = (long long)p.G * ((p.M + kWBM - 1) / kWBM) * ((p.N + kWBN - 1) / kWBN);
   const dim3 grid(static_cast<unsigned>(tiles < sms ? tiles : sms));
-  gmm_wgmma<<<grid, kWThreads, kWSmem, stream>>>(tm_x, tm_w, tm_o, p);
+  kernel<<<grid, kWThreads, kWSmem, stream>>>(tm_x, tm_w, tm_o, p);
   return cudaGetLastError();
 }
 
@@ -1038,6 +1106,11 @@ __global__ void __launch_bounds__(kSThreads, 1)
   }
 }
 
+// The fmaf route's grid: a block per 64 x 64 output tile of each group.
+dim3 simt_grid(const Params& p) {
+  return dim3((p.M + kSimtBM - 1) / kSimtBM, (p.N + kSimtBN - 1) / kSimtBN, p.G);
+}
+
 // The decode route: the weight stream where TMA can describe x and w (bases
 // 16-byte aligned, every stride but the last a positive multiple of 8
 // elements: `blocks` > 0), else the 16 x 128 mma.sync tile with plain loads.
@@ -1048,13 +1121,14 @@ int launch_decode(const Params& p, int blocks, float* part, int* arrivals, cudaS
   }
   if (p.M > 16) return cudaErrorInvalidValue;
   const int mt = p.M <= 8 ? 1 : 2;
+  auto kernel = mt == 1 ? gmm_stream<1> : gmm_stream<2>;
+  // the runtime first, as in launch_wgmma
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSSmem);
+  if (e != cudaSuccess) return e;
   CUtensorMap tm_x, tm_w;
   int err = encode_map(&tm_x, p.x, p.K, p.M, p.G, p.x_sm, p.x_sg, 8 * mt);
   if (!err) err = encode_map(&tm_w, p.w, p.N, p.K, p.G, p.w_sk, p.w_sg, kSBK);
   if (err) return err;
-  auto kernel = mt == 1 ? gmm_stream<1> : gmm_stream<2>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSSmem);
-  if (e != cudaSuccess) return e;
   kernel<<<blocks, kSThreads, kSSmem, stream>>>(tm_x, tm_w, p, part, arrivals);
   return cudaGetLastError();
 }
@@ -1079,17 +1153,43 @@ int grouped_matmul(const void* x, const void* w, void* out, int route, int G, in
                    int N, long long x_sg, long long x_sm, long long w_sg, long long w_sk,
                    long long o_sg, long long o_sm, int vec, int blocks, float* part,
                    int* arrivals, void* stream) {
-  const Params p{x, w, out, G, M, K, N, x_sg, x_sm, w_sg, w_sk, o_sg, o_sm};
+  const Params p{x, w, out, G, M, K, N, x_sg, x_sm, 1, w_sg, w_sk, 1, o_sg, o_sm};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (G < 1 || G > 65535 || M < 1 || K < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (route) {
-    case 0: {
-      const dim3 grid((M + kSimtBM - 1) / kSimtBM, (N + kSimtBN - 1) / kSimtBN, G);
-      return launch(gmm_f32, grid, 0, st, p);
-    }
+    case 0: return launch(gmm_simt<float>, simt_grid(p), 0, st, p);
     case 1: return launch_decode(p, blocks, part, arrivals, st);
     case 2: return launch_bf16<128, 128, 2, 4>(p, vec, st);
-    case 3: return launch_wgmma(p, st);
+    case 3: return launch_wgmma<0, 1>(p, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward's two products, out[g] = a[g] @ b[g] for a (G, M, K) and
+// b (G, K, N) given by their element strides (the wrapper passes views:
+// dx = dy wᵀ with a = dy, b = wᵀ; dw = xᵀ dy with a = xᵀ, b = dy); out
+// (G, M, N) is dense in N.  route: 0 the strided fmaf route in f32 (a, b
+// and out float32), 1 the same for bfloat16, 2 wgmma + TMA with a and b
+// K-major (a_sk = b_sk = 1: dx), 3 wgmma + TMA with a and b MN-major
+// (a_sm = b_sn = 1: dw); routes 2 and 3 need bfloat16 and every stride of a,
+// b and out but the unit one a positive multiple of 8 elements, bases
+// 16-byte aligned.  Returns as grouped_matmul does.
+int grouped_matmul_strided(const void* a, const void* b, void* out, int route, int G, int M,
+                           int K, int N, long long a_sg, long long a_sm, long long a_sk,
+                           long long b_sg, long long b_sk, long long b_sn, long long o_sg,
+                           long long o_sm, void* stream) {
+  const Params p{a, b, out, G, M, K, N, a_sg, a_sm, a_sk, b_sg, b_sk, b_sn, o_sg, o_sm};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (G < 1 || G > 65535 || M < 1 || K < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (route) {
+    case 0: return launch(gmm_simt<float>, simt_grid(p), 0, st, p);
+    case 1: return launch(gmm_simt<__nv_bfloat16>, simt_grid(p), 0, st, p);
+    case 2:
+      if (a_sk != 1 || b_sk != 1) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_wgmma<0, 0>(p, st);
+    case 3:
+      if (a_sm != 1 || b_sn != 1) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_wgmma<1, 1>(p, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -24,10 +24,22 @@ function of shapes.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor it
 runs the plain version (``ref.grouped_matmul``).  Nothing falls back from the
-one to the other.  The kernel has no backward: on a CUDA tensor that autograd
-would need a gradient of, the wrapper raises (MoE training is ROADMAP A6).
-``launches`` counts kernel launches and nothing else, under a lock;
-``route_launches`` counts them per route, and its values sum to ``launches``.
+one to the other.  ``launches`` counts kernel launches and nothing else, under
+a lock; ``route_launches`` counts them per route, and its values sum to
+``launches``.
+
+Where autograd records (grad enabled and x or w requires grad) the call goes
+through :class:`GroupedMatmul`, whose backward is :func:`grouped_matmul_bwd`:
+dx = dy wᵀ and dw = xᵀ dy, the two products the reference gets from the VJP
+of its einsums (it has no Pallas backward), each launched only where
+autograd asks for it.  They run the same kernel source on views of the saved
+x and w (``grouped_matmul_strided`` in the source note): ``"dx_wgmma"`` and
+``"dw_wgmma"`` (bf16, capacity M > 16, every operand describable by TMA) or
+``"dx_simt"`` / ``"dw_simt"`` (the strided fmaf kernel: f32, M <= 16, and
+views TMA cannot describe), chosen by :func:`bwd_route` before the launch.
+On a CPU tensor the Function runs the plain forward and the plain backward
+(``ref.grouped_matmul_bwd``).  ``bwd_launches`` and ``bwd_route_launches``
+count the backward's launches as the forward's are counted.
 """
 from __future__ import annotations
 
@@ -39,10 +51,14 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import grouped_matmul as grouped_matmul_plain
+from repro_torch.kernels.ref import grouped_matmul_bwd as grouped_matmul_bwd_plain
 
 launches = 0          # kernel launches made by grouped_matmul
 ROUTES = ("f32", "mma16", "mma128", "wgmma")     # in the order of the C route codes
 route_launches = dict.fromkeys(ROUTES, 0)
+bwd_launches = 0      # kernel launches made by grouped_matmul_bwd
+BWD_ROUTES = ("dx_simt", "dw_simt", "dx_wgmma", "dw_wgmma")
+bwd_route_launches = dict.fromkeys(BWD_ROUTES, 0)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -54,6 +70,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 STREAM_BN, STREAM_BK, STREAM_THREADS = 512, 64, 256
 
 _fn = None
+_strided_fn = None
 _lock = threading.Lock()
 _sms = {}              # device index -> streaming multiprocessors
 _arrivals = {}         # (device index, stream) -> the stream's zeroed tile counters
@@ -67,6 +84,10 @@ def bind(lib: ctypes.CDLL):
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
+    strided = lib.grouped_matmul_strided
+    strided.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                        + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
+    strided.restype = ctypes.c_int
     lib.grouped_matmul_error_string.argtypes = [ctypes.c_int]
     lib.grouped_matmul_error_string.restype = ctypes.c_char_p
     lib.grouped_matmul_stream_geometry.argtypes = [ctypes.c_int]
@@ -76,19 +97,21 @@ def bind(lib: ctypes.CDLL):
 
 
 def reset_counts():
-    """Set ``launches`` and every ``route_launches`` count to 0."""
-    global launches
+    """Set ``launches``, ``bwd_launches`` and every route's count to 0."""
+    global launches, bwd_launches
     with _lock:
-        launches = 0
-        for r in ROUTES:
-            route_launches[r] = 0
+        launches = bwd_launches = 0
+        for counts in (route_launches, bwd_route_launches):
+            for r in counts:
+                counts[r] = 0
 
 
 def _kernel():
-    global _fn
+    global _fn, _strided_fn
     with _lock:
         if _fn is None:
-            _fn = bind(_build.load("grouped_matmul"))
+            lib = _build.load("grouped_matmul")
+            _fn, _strided_fn = bind(lib), lib.grouped_matmul_strided
         return _fn
 
 
@@ -110,9 +133,6 @@ def _check(x, w):
                              "must be dense")
     if x.shape[0] > 65535:
         raise ValueError(f"G = {x.shape[0]} groups: at most 65535")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "grouped_matmul has no backward kernel yet (MoE training, ROADMAP A6)")
 
 
 def _aligned_rows(*ts) -> bool:
@@ -232,7 +252,31 @@ def route(x, w) -> str:
 
 def grouped_matmul(x, w):
     """x (G, M, K) @ w (G, K, N) -> (G, M, N) in x.dtype, f32 accumulation:
-    the kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    the kernel on a CUDA tensor, the plain version on a CPU tensor; through
+    :class:`GroupedMatmul` where autograd records."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return GroupedMatmul.apply(x, w)
+    return _forward(x, w)
+
+
+class GroupedMatmul(torch.autograd.Function):
+    """The grouped matmul with its backward kernels.  x and w are saved as
+    given: w is a layer slice of the stacked (L, E, D, F) leaf, so saving the
+    view copies nothing (its gradient reaches the leaf through autograd's
+    slice backward, one more full-size tensor per layer)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _forward(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return grouped_matmul_bwd(x, w, dy, *ctx.needs_input_grad)
+
+
+def _forward(x, w):
     global launches
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w)
@@ -265,3 +309,77 @@ def grouped_matmul(x, w):
         launches += 1
         route_launches[r] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The backward: dx = dy wᵀ, dw = xᵀ dy
+# ---------------------------------------------------------------------------
+
+def bwd_route(x, w, dy, which: str) -> str:
+    """The backward kernel's route for ``which`` ("dx" or "dw") of x (G, M, K)
+    @ w (G, K, N) with output gradient dy (G, M, N), from dtype, shapes,
+    strides and alignment alone (meta tensors will do): ``"<which>_wgmma"``
+    where x is bf16, the capacity M > 16 and TMA can describe the product's
+    operands and its contiguous output (dy dense in N; w for dx, x for dw,
+    and dy with 16-byte aligned rows and no stride 0; the output's last
+    dimension, K for dx and N for dw, a multiple of 8), else
+    ``"<which>_simt"``."""
+    if which not in ("dx", "dw"):
+        raise ValueError(f"which={which!r}: 'dx' or 'dw'")
+    other = w if which == "dx" else x
+    cols = x.shape[2] if which == "dx" else w.shape[2]
+    tma = (x.dtype == torch.bfloat16 and x.shape[1] > 16 and dy.stride(2) == 1
+           and cols % 8 == 0 and _aligned_rows(other, dy)
+           and min(other.stride()[:2] + dy.stride()[:2]) > 0)
+    return f"{which}_{'wgmma' if tma else 'simt'}"
+
+
+def _check_bwd(x, w, dy):
+    _check(x, w)
+    G, M, _ = x.shape
+    if tuple(dy.shape) != (G, M, w.shape[2]) or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device}: ({G}, {M}, "
+                         f"{w.shape[2]}) {x.dtype} on {x.device} expected")
+
+
+def _launch_bwd(which, x, w, dy):
+    """One backward product through the kernel: dx = dy @ wᵀ (a = dy, b = the
+    view wᵀ) or dw = xᵀ @ dy (a = the view xᵀ, b = dy)."""
+    global bwd_launches
+    a, b = (dy, w.transpose(1, 2)) if which == "dx" else (x.transpose(1, 2), dy)
+    G, M, K = a.shape
+    N = b.shape[2]
+    if M == 0 or N == 0:
+        return torch.empty((G, M, N), dtype=x.dtype, device=x.device)
+    if K == 0:                       # an empty capacity: dw is zero
+        return torch.zeros((G, M, N), dtype=x.dtype, device=x.device)
+    out = torch.empty((G, M, N), dtype=x.dtype, device=x.device)
+    _kernel()
+    r = bwd_route(x, w, dy, which)
+    code = ({"dx": 2, "dw": 3}[which] if r.endswith("wgmma")
+            else int(x.dtype == torch.bfloat16))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _strided_fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), code, G, M, K, N,
+                      *a.stride(), *b.stride(), out.stride(0), out.stride(1), stream)
+    if err:
+        raise RuntimeError(f"grouped_matmul backward launch failed ({r} route): "
+                           f"{_fn[1](err).decode()} (cuda error {err})")
+    with _lock:
+        bwd_launches += 1
+        bwd_route_launches[r] += 1
+    return out
+
+
+def grouped_matmul_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True):
+    """(dx, dw) of x (G, M, K) @ w (G, K, N) for the output gradient dy:
+    dx = dy wᵀ (G, M, K) and dw = xᵀ dy (G, K, N) in x's type, f32
+    accumulation; None for a gradient not asked for.  The kernel on a CUDA
+    tensor (it launches or raises), the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        dx, dw = grouped_matmul_bwd_plain(x, w, dy)
+        return dx if need_dx else None, dw if need_dw else None
+    if x.device.type != "cuda":
+        raise ValueError(f"no grouped-matmul route for device {x.device}")
+    _check_bwd(x, w, dy)
+    return (_launch_bwd("dx", x, w, dy) if need_dx else None,
+            _launch_bwd("dw", x, w, dy) if need_dw else None)

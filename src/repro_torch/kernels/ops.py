@@ -69,6 +69,9 @@ def expert_ffn_gmm(buf, w1, w3, w2):
     the product with h3, as there (the ``cpu`` variant,
     ``models.moe.expert_ffn_ref``, keeps the reference's compute-dtype SiLU).
     ``gmm.grouped_matmul`` is looked up at each call, so a caller may wrap it.
+    The gradient goes through autograd: each grouped matmul's backward is
+    the backward kernel (``grouped_matmul.GroupedMatmul``), SiLU's and the
+    product's are autograd's own.
     """
     h1 = gmm.grouped_matmul(buf, w1)
     h3 = gmm.grouped_matmul(buf, w3)

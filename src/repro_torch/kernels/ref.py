@@ -1,7 +1,7 @@
 """Plain-torch oracles for the port's kernels (kernel-layout signatures).
 
 Counterpart of ``repro/kernels/ref.py``: ``attention``, ``grouped_matmul``
-(``ref.py:33-37``), ``collective_reduce`` (``ref.py:73-74``) and plain ring
+(``ref.py:33-37``) and its backward, ``collective_reduce`` (``ref.py:73-74``) and plain ring
 oracles; the wire codec's plain versions (``repro/kernels/quant.py:59-128``,
 the software fp8 codec included); and the attention forward's row logsumexp
 and its backward, which the reference gets from autodiff and the port's
@@ -83,10 +83,26 @@ def attention_bwd(q, k, v, o, do, lse, *, kind="causal", window=0, k_len=None,
     return dq.reshape(B, Hq, Sq, d), dk, dv
 
 
+def _acc_dtype(x):
+    """f32, or f64 for f64 inputs (so that ``gradcheck`` can run)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def grouped_matmul(x, w):
     """x (G,M,K) @ w (G,K,N) -> (G,M,N), f32 accumulation, in x.dtype."""
-    out = torch.einsum("gmk,gkn->gmn", x.float(), w.float())
-    return out.to(x.dtype)
+    ct = _acc_dtype(x)
+    return torch.einsum("gmk,gkn->gmn", x.to(ct), w.to(ct)).to(x.dtype)
+
+
+def grouped_matmul_bwd(x, w, dy):
+    """(dx, dw) of ``grouped_matmul(x, w)`` for the output gradient dy
+    (G,M,N): dx = dy wᵀ (G,M,K) and dw = xᵀ dy (G,K,N), f32 einsums rounded
+    to x.dtype: the VJP of the reference's einsum (``ref.py:33-37``)."""
+    ct = _acc_dtype(x)
+    dyc = dy.to(ct)
+    dx = torch.einsum("gmn,gkn->gmk", dyc, w.to(ct))
+    dw = torch.einsum("gmk,gmn->gkn", x.to(ct), dyc)
+    return dx.to(x.dtype), dw.to(x.dtype)
 
 
 def ssd_scan_states(x, dt, a_cum, B_in, C_in, init_state=None):

@@ -7,10 +7,11 @@ mesh of ranks.
         [--micro-batch 1] [--n-micro 2] [--mesh-shape 2,2] [--lr 1e-3] \\
         [--seed 0] [--reduced|--full-size] [--device cuda|cpu]
 
-``--arch`` takes every dense architecture of the port (``configs.ARCH_IDS``
-and the paper's models, ``configs.PAPER_IDS``); the MoE, SSM and hybrid
-families raise (ROADMAP A6, A7).  ``--zero 3`` shards the parameters over
-the mesh's "data" axis and gathers them per block inside the forward.
+``--arch`` takes every dense and MoE architecture of the port
+(``configs.ARCH_IDS`` and the paper's models, ``configs.PAPER_IDS``); the
+SSM and hybrid families raise (ROADMAP A7).  ``--zero 3`` shards the
+parameters over the mesh's "data" axis and gathers them per block inside the
+forward (the dense family; the MoE family raises, ROADMAP A6b).
 
 The ranks of ``--mesh-shape pod,data`` are threads of this process sharing
 one device (a ``ThreadMesh``).  Runs on the card unless ``--device cpu`` is

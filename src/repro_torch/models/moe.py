@@ -20,7 +20,11 @@ Where the port differs in form, not in function:
 * The combine sums each token's k weighted terms in a fixed order (un-permuted
   to (T, k, D), then an f32 sum over k) where the reference scatter-adds them;
   on CUDA an atomic ``index_add_`` would change bits from run to run for
-  k > 2.  Same function; for k <= 2 the same bits.
+  k > 2.  Same function; for k <= 2 the same bits.  The dispatch's gradient
+  is the same sum (:class:`GatherAssignments`): autograd's own, the backward
+  of ``x[tok_of]``, scatter-adds each token's k gradients with atomics in
+  x's type (moonshot's k = 6 rounds five times in bf16, in an order that
+  changes from run to run).
 * Expert counts are taken with ``index_add_`` on integers, not ``bincount``,
   which would synchronise with the host on CUDA to size its output.
 """
@@ -58,6 +62,27 @@ def route(x, router, top_k: int):
     return logits, probs, gates, expert_idx
 
 
+class GatherAssignments(torch.autograd.Function):
+    """``x[order // k]``: the (T*k, D) rows of the assignments in expert
+    order.  The backward un-permutes their gradients to (T, k, D) and sums
+    each token's k in f32, in a fixed order, rounded once to x's type (the
+    combine's sum; the reference's backward scatter-adds them)."""
+
+    @staticmethod
+    def forward(ctx, x, order, k: int):
+        ctx.save_for_backward(order)
+        ctx.k = k
+        return x[order // k]
+
+    @staticmethod
+    def backward(ctx, g):
+        (order,) = ctx.saved_tensors
+        per_assignment = torch.empty_like(g)
+        per_assignment[order] = g                      # a permutation: no sums
+        T = order.numel() // ctx.k
+        return per_assignment.reshape(T, ctx.k, -1).float().sum(1).to(g.dtype), None, None
+
+
 def dispatch_slots(expert_idx, n_experts: int, capacity: int):
     """Sort-based dispatch of the (T, k) assignments.  Returns, in expert
     order: ``order`` (the stable sort of the flat assignments), ``tok_of``
@@ -91,10 +116,10 @@ def moe_ffn(x, params, *, n_experts: int, top_k: int, capacity_factor: float,
     C = max(int(T * k * capacity_factor / E), 1)
 
     logits, probs, gate_vals, expert_idx = route(x, params[router_weight_key], k)
-    order, tok_of, slot, keep = dispatch_slots(expert_idx, E, C)
+    order, _, slot, keep = dispatch_slots(expert_idx, E, C)
 
     buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
-    buf[slot] = x[tok_of]                                  # drops land on the scratch row
+    buf[slot] = GatherAssignments.apply(x, order, k)       # drops land on the scratch row
     buf = buf[:-1].reshape(E, C, D)
 
     out_buf = tacc.dispatch("expert_ffn", buf, params["w1"], params["w3"],

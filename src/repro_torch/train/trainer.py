@@ -97,10 +97,11 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
     single-policy facade."""
     if rc.zero_stage not in (1, 3):
         raise ValueError(f"zero_stage={rc.zero_stage}: the stages are 1 and 3")
-    if model.cfg.family == "moe":
+    if model.cfg.family == "moe" and rc.zero_stage == 3:
         raise NotImplementedError(
-            "MoE training needs the grouped-matmul backward and the aux-loss "
-            "gradients, which are not ported yet (ROADMAP A6)")
+            "ZeRO-3 of the MoE family: the gather plan would shard the expert leaves "
+            "on their 'embed' dim, which the MoE sublayer does not gather; not ported "
+            "yet (ROADMAP A6b)")
     if model.cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"{model.cfg.family} training needs a backward of the SSD scan kernel, "

@@ -663,13 +663,50 @@ def test_gmm_raises_on_what_it_does_not_take(gen, bad):
     assert gmm.launches == before
 
 
-def test_gmm_raises_where_autograd_needs_its_backward(gen):
-    x = torch.randn(2, 8, 64, generator=gen, device="cuda", requires_grad=True)
-    w = torch.randn(2, 64, 32, generator=gen, device="cuda")
-    with pytest.raises(NotImplementedError, match="backward"):
-        gmm.grouped_matmul(x, w)
+def test_gmm_raises_where_autograd_needs_its_backward(gen, monkeypatch):
+    """Where autograd needs the backward, grouped_matmul goes through the
+    Function: the forward kernel, then the backward kernel for what autograd
+    asks (here dx alone), within GMM_LIMITS of the plain backward; a backward
+    launch that fails raises, and nothing falls back to the plain version."""
+    x = torch.randn(2, 40, 64, generator=gen, device="cuda").bfloat16().requires_grad_()
+    w = torch.randn(2, 64, 32, generator=gen, device="cuda").bfloat16()
+    dy = torch.randn(2, 40, 32, generator=gen, device="cuda").bfloat16()
+    before = (gmm.launches, dict(gmm.bwd_route_launches))
+    (dx,) = torch.autograd.grad(gmm.grouped_matmul(x, w), x, dy)
+    torch.cuda.synchronize()
+    assert gmm.launches == before[0] + 1
+    assert gmm.bwd_route_launches == {**before[1], "dx_wgmma": before[1]["dx_wgmma"] + 1}
+    err = smoke.gmm_error(dx, ref.grouped_matmul_bwd(x.detach(), w, dy)[0])
+    assert smoke.gmm_ok(err, "bfloat16"), smoke.format_gmm(err, "bfloat16")
+    gmm._kernel()
+    monkeypatch.setattr(gmm, "_strided_fn", lambda *a: 1)      # a refused launch
+    bwd_before = gmm.bwd_launches
+    with pytest.raises(RuntimeError, match="backward launch failed"):
+        torch.autograd.grad(gmm.grouped_matmul(x, w), x, dy)
+    assert gmm.bwd_launches == bwd_before
     with torch.no_grad():
-        assert gmm.grouped_matmul(x, w).shape == (2, 8, 32)
+        assert gmm.grouped_matmul(x, w).shape == (2, 40, 32)
+
+
+@pytest.mark.parametrize("case", smoke.GMM_BWD_CASES, ids=[c[0] for c in smoke.GMM_BWD_CASES])
+def test_gmm_bwd_matches_plain(gen, case):
+    """chip_smoke's backward cases: dx and dw each within GMM_LIMITS of the
+    plain backward, on the route ``bwd_route`` names, the same bits on a
+    second launch (no atomics)."""
+    name, G, M, K, N, dt, layout = case
+    x, w, dy = smoke.gmm_bwd_inputs(torch, gen, G, M, K, N, dt, layout)
+    before = dict(gmm.bwd_route_launches)
+    got = gmm.grouped_matmul_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    routes = [gmm.bwd_route(x, w, dy, which) for which in ("dx", "dw")]
+    assert {r: n - before[r] for r, n in gmm.bwd_route_launches.items() if n != before[r]} \
+        == dict.fromkeys(routes, 1)
+    for g, want in zip(got, ref.grouped_matmul_bwd(x, w, dy)):
+        assert g.dtype == x.dtype and g.shape == want.shape and g.is_contiguous()
+        err = smoke.gmm_error(g, want)
+        assert smoke.gmm_ok(err, dt), smoke.format_gmm(err, dt)
+    again = gmm.grouped_matmul_bwd(x, w, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_expert_ffn_on_the_card_takes_the_kernel(gen):
@@ -704,8 +741,8 @@ GMM_FAULTS = {
     "wgmma_last_k_stage_skipped": ("n_k((p.K + kWBK - 1) / kWBK),",
                                    "n_k((p.K + kWBK - 1) / kWBK - 1),", "mixtral_prefill_w13"),
     "wgmma_weight_map_group_pinned_0": (
-        "n0 + j * kBox,\n                     k0, g);", "n0 + j * kBox,\n                     k0, 0);",
-        "mixtral_prefill_w2"),
+        "tma_load(box, &tm_w, full_bar + 8 * s, n0 + j * kBox, k0, g);",
+        "tma_load(box, &tm_w, full_bar + 8 * s, n0 + j * kBox, k0, 0);", "mixtral_prefill_w2"),
     # the consumers read the w boxes of the next ring stage: a k step not yet
     # loaded or a stale one
     "wgmma_consumer_reads_next_stage": (
@@ -753,6 +790,45 @@ def test_planted_gmm_fault_fails_the_limits(gen, faulty_gmm_libs, monkeypatch, f
           f"\n  {' ' * len(fault)}  fault  {smoke.format_gmm(eb, case[5])}")
     assert smoke.gmm_ok(eg, case[5])
     assert not smoke.gmm_ok(eb, case[5])
+
+
+# name -> (text in csrc/grouped_matmul.cu, its faulty replacement, the case
+# of GMM_BWD_CASES that reaches it): the backward's operand layouts
+GMM_BWD_FAULTS = {
+    # dw's xᵀ (MN-major A): both consumer warpgroups read the first 64 rows
+    "dw_a_second_box_at_m0": (
+        "tma_load(a + j * kBox * kRowBytes, &tm_x, full_bar + 8 * s, m0 + j * kBox, k0, g);",
+        "tma_load(a + j * kBox * kRowBytes, &tm_x, full_bar + 8 * s, m0, k0, g);",
+        "moonshot_w13_c480"),
+    # dx's wᵀ (K-major B): every 64-row box of the tile's n rows the first
+    "dx_b_boxes_at_n0": (
+        "tma_load(box, &tm_w, full_bar + 8 * s, k0, n0 + j * kBox, g);",
+        "tma_load(box, &tm_w, full_bar + 8 * s, k0, n0, g);", "ragged_m333"),
+    # the strided route reads x as if it were dense in k
+    "simt_x_stride_taken_as_1": ("(k0 + c) * p.x_sk]", "(k0 + c)]", "odd_view"),
+}
+
+
+@pytest.fixture(scope="module")
+def faulty_gmm_bwd_libs(tmp_path_factory):
+    return _compile_faults(tmp_path_factory, "grouped_matmul", GMM_BWD_FAULTS)
+
+
+@pytest.mark.parametrize("fault", sorted(GMM_BWD_FAULTS))
+def test_planted_gmm_bwd_fault_fails_the_limits(gen, faulty_gmm_bwd_libs, monkeypatch, fault):
+    case = next(c for c in smoke.GMM_BWD_CASES if c[0] == GMM_BWD_FAULTS[fault][2])
+    x, w, dy = smoke.gmm_bwd_inputs(torch, gen, *case[1:])
+    want = ref.grouped_matmul_bwd(x, w, dy)
+    good = gmm.grouped_matmul_bwd(x, w, dy)
+    lib = faulty_gmm_bwd_libs[fault]
+    gmm.bind(lib)                                  # sets the argument types
+    monkeypatch.setattr(gmm, "_strided_fn", lib.grouped_matmul_strided)
+    bad = gmm.grouped_matmul_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    ok_good = [smoke.gmm_ok(smoke.gmm_error(g, wt), case[5]) for g, wt in zip(good, want)]
+    ok_bad = [smoke.gmm_ok(smoke.gmm_error(b, wt), case[5]) for b, wt in zip(bad, want)]
+    print(f"\n  {fault}: kernel within limits (dx, dw) {ok_good}, fault {ok_bad}")
+    assert all(ok_good) and not all(ok_bad)
 
 
 # the decode route's cases: Mixtral's decode shapes (the weight stream), one

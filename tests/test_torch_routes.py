@@ -5,6 +5,8 @@ functions of shapes, strides, dtypes and alignment: no card, no launch.
   ``csrc/grouped_matmul.cu`` a grouped matmul takes.  Tensors on the
   ``meta`` device carry shapes, strides and byte offsets without memory, so
   Mixtral's full-width shapes cost nothing here.
+* ``grouped_matmul.bwd_route``: which of the backward's routes dx = dy wᵀ
+  and dw = xᵀ dy each take.
 * ``grouped_matmul.stream_plan``: how the decode route's weight stream
   splits a call over the card's SMs (blocks, units, split-K parts), at
   Mixtral's full-width decode shapes.
@@ -93,6 +95,61 @@ def test_gmm_routes_of_the_smoke_cases():
             "mma16" if name.startswith("decode") else "wgmma"), name
 
 
+# (name, x, w, dy, (dx route, dw route)): the capacity buffer's products at
+# Mixtral's and moonshot's shapes (w a layer slice, as the model passes it),
+# the capacity at or below 16 rows, widths not a multiple of 8, rows TMA
+# cannot describe (of w alone: dw takes TMA), an output gradient that is not dense in N (autograd's
+# gradient of a sum is an expanded one) and f32
+BWD_ROUTE_CASES = [
+    ("mixtral_w13", _meta(8, 1280, 4096), _layer(32, 8, 4096, 14336), _meta(8, 1280, 14336),
+     ("dx_wgmma", "dw_wgmma")),
+    ("mixtral_w2", _meta(8, 1440, 14336), _layer(32, 8, 14336, 4096), _meta(8, 1440, 4096),
+     ("dx_wgmma", "dw_wgmma")),
+    ("moonshot_w13", _meta(64, 480, 2048), _layer(48, 64, 2048, 1408), _meta(64, 480, 1408),
+     ("dx_wgmma", "dw_wgmma")),
+    ("m17", _meta(2, 17, 64), _meta(2, 64, 64), _meta(2, 17, 64), ("dx_wgmma", "dw_wgmma")),
+    ("m16", _meta(2, 16, 64), _meta(2, 64, 64), _meta(2, 16, 64), ("dx_simt", "dw_simt")),
+    ("k100", _meta(3, 200, 100), _meta(3, 100, 64), _meta(3, 200, 64), ("dx_simt", "dw_simt")),
+    ("n70", _meta(3, 200, 64), _meta(3, 64, 70), _meta(3, 200, 70), ("dx_simt", "dw_simt")),
+    ("odd_view", _meta(4, 33, 256), _layer(2, 4, 256, 500, lead=3, pad=8), _meta(4, 33, 500),
+     ("dx_simt", "dw_simt")),
+    ("w_unaligned", _meta(4, 33, 256), _layer(2, 4, 256, 512, lead=3, pad=8),
+     _meta(4, 33, 512), ("dx_simt", "dw_wgmma")),
+    ("expanded_dy", _meta(2, 40, 64), _meta(2, 64, 32), _meta(1, 1, 1).expand(2, 40, 32),
+     ("dx_simt", "dw_simt")),
+    ("f32", _meta(4, 80, 128, dtype=torch.float32), _meta(4, 128, 128, dtype=torch.float32),
+     _meta(4, 80, 128, dtype=torch.float32), ("dx_simt", "dw_simt")),
+]
+
+
+@pytest.mark.parametrize("name,x,w,dy,want", BWD_ROUTE_CASES,
+                         ids=[c[0] for c in BWD_ROUTE_CASES])
+def test_gmm_bwd_route(name, x, w, dy, want):
+    assert (gmm.bwd_route(x, w, dy, "dx"), gmm.bwd_route(x, w, dy, "dw")) == want
+
+
+def test_gmm_bwd_routes_of_the_smoke_cases():
+    """chip_smoke's GMM_BWD_CASES reach every backward route, each Mixtral
+    and moonshot shape the wgmma routes, and so do GMM_BWD_TIMED's."""
+    got = {}
+    for name, G, M, K, N, dt, layout in smoke.GMM_BWD_CASES:
+        dtype = getattr(torch, dt)
+        lead = {"layer_view": 24, "odd_view": 3}.get(layout, 0)
+        w = (_layer(2, G, K, N, lead=lead, pad=8 if lead else 0, dtype=dtype)
+             if lead or layout == "layer" else _meta(G, K, N, dtype=dtype))
+        x, dy = _meta(G, M, K, dtype=dtype), _meta(G, M, N, dtype=dtype)
+        for which in ("dx", "dw"):
+            got[(name, which)] = gmm.bwd_route(x, w, dy, which)
+    assert set(got.values()) == set(gmm.BWD_ROUTES)
+    for (name, which), r in got.items():
+        if name.startswith(("mixtral", "moonshot", "wgmma_")):
+            assert r == f"{which}_wgmma", (name, which)
+    for G, M, K, N in smoke.GMM_BWD_TIMED.values():
+        x, w, dy = _meta(G, M, K), _meta(G, K, N), _meta(G, M, N)
+        assert [gmm.bwd_route(x, w, dy, which) for which in ("dx", "dw")] == \
+            ["dx_wgmma", "dw_wgmma"]
+
+
 def test_gmm_route_counts_on_the_cpu_stay_zero():
     """On a CPU tensor the wrapper runs the plain version: no launch is
     counted on any route."""
@@ -103,6 +160,9 @@ def test_gmm_route_counts_on_the_cpu_stay_zero():
                                torch.einsum("gmk,gkn->gmn", x.float(), w.float()),
                                rtol=1e-2, atol=1e-2)
     assert gmm.launches == 0 and set(gmm.route_launches.values()) == {0}
+    x.requires_grad_()
+    torch.autograd.grad(gmm.grouped_matmul(x, w).float().sum(), x)
+    assert gmm.bwd_launches == 0 and set(gmm.bwd_route_launches.values()) == {0}
 
 
 # (name, x, w, SMs): Mixtral-8x7B's decode gmm (w13 and w2, as the model
