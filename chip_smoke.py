@@ -525,6 +525,13 @@ GMM_BWD_CASES = [
     ("k100_n70", 3, 200, 100, 70, "bfloat16", "dense"),
     ("f32_reduced_expert", 4, 80, 128, 128, "float32", "dense"),
     ("f32_ragged_views", 3, 77, 129, 65, "float32", "odd_view"),
+    # the stage depth bwd_schedule picks for dw (grouped_matmul._dw_depth):
+    # a capacity of 80 (one stage of 80), 470 (6 stages of 80, the last one
+    # ragged); 333 above takes stages of 64.  N and K of 1408 (5.5 tiles of
+    # 256); fewer tiles than SMs
+    ("capacity_80", 8, 80, 256, 384, "bfloat16", "dense"),
+    ("capacity_470", 4, 470, 512, 640, "bfloat16", "zero_rows"),
+    ("n1408_k1408", 4, 200, 1408, 1408, "bfloat16", "dense"),
 ]
 # Each backward product timed at Mixtral's prefill shapes (capacity 1280)
 # and moonshot's (capacity 480): (G, M, K, N) of the forward x @ w.
@@ -1269,12 +1276,17 @@ def phase_collective_times(torch, ring_dma, cr, bench_codec, big):
     acc = torch.randn(m, generator=gen, device="cuda")
     inc = torch.randn(m, generator=gen, device="cuda")
     # the kernel against torch.add in turns, 8 rounds, L2 cold before each
-    # reading, back to back and from a CUDA graph (bench_codec's protocol)
+    # reading, back to back and from a CUDA graph (bench_codec's protocol),
+    # with f32 and with bf16 incoming
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        r = bench_codec.bench_reduce(bench_codec.ColdReader(), cr, gen, 8, elems=m)
+        reader = bench_codec.ColdReader()
+        rs = {dt: bench_codec.bench_reduce(reader, cr, gen, 8, elems=m,
+                                           inc_dtype=getattr(torch, dt))
+              for dt in ("float32", "bfloat16")}
     torch.cuda.current_stream().wait_stream(side)
+    r = rs["float32"]
     med, reads = r["median_ms"], r["readings"]
     out["collective_reduce"] = {
         "ms": med["kernel"]["stream"], "library_ms": med["torch.add"]["stream"],
@@ -1285,12 +1297,16 @@ def phase_collective_times(torch, ring_dma, cr, bench_codec, big):
         "library_graph_ms_readings": reads["torch.add"]["graph"],
         "host_us_per_call": r["host_us"]["kernel"],
         "plain_ms": median_ms(lambda: cr.collective_reduce_plain(acc, inc)),
-        "bound_ms": r["bound_ms"], "bound_by": "bytes", "shape": f"n={m} f32 + f32"}
-    for mode in ("stream", "graph"):
-        print(f"  collective_reduce in turns with torch.add, 8 rounds, L2 cold, {mode}: kernel "
-              f"readings {min(reads['kernel'][mode]):.5f}-{max(reads['kernel'][mode]):.5f} ms, "
-              f"torch.add {min(reads['torch.add'][mode]):.5f}-"
-              f"{max(reads['torch.add'][mode]):.5f} ms")
+        "bound_ms": r["bound_ms"], "bound_by": "bytes", "shape": f"n={m} f32 + f32",
+        "by_incoming": {dt: {"bound_ms": v["bound_ms"], "median_ms": v["median_ms"],
+                             "readings": v["readings"]} for dt, v in rs.items()}}
+    for dt, v in rs.items():
+        check(v["same_bits"], f"collective_reduce at {dt} incoming differs from the plain version")
+        for name, modes in v["readings"].items():
+            for mode, ms in modes.items():
+                print(f"  collective_reduce {dt} incoming, {name}, {mode}: median "
+                      f"{statistics.median(ms):.5f} ms, readings {min(ms):.5f}-{max(ms):.5f} "
+                      f"(8 rounds in turns, L2 cold; bound {v['bound_ms']:.5f} ms)")
     for name, t in out.items():
         print(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
               f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes)"
@@ -2802,6 +2818,7 @@ def phase_gmm_bwd_kernels(torch, gmm, ref, ops):
     expert shape against autograd of the same composition through the plain
     version, within FFN_LIMITS."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     results, failed = {}, []
     for name, G, M, K, N, dt, layout in GMM_BWD_CASES:
         x, w, dy = gmm_bwd_inputs(torch, gen, G, M, K, N, dt, layout)
@@ -2811,6 +2828,8 @@ def phase_gmm_bwd_kernels(torch, gmm, ref, ops):
         torch.cuda.synchronize()
         check(gmm.bwd_launches == before + 2, f"{name}: {gmm.bwd_launches - before} launches")
         routes = {which: gmm.bwd_route(x, w, dy, which) for which in ("dx", "dw")}
+        scheds = {which: gmm.bwd_schedule(G, M, K, N, which, sms)
+                  if routes[which].endswith("wgmma") else None for which in ("dx", "dw")}
         res, ok = {}, True
         for which, got, wnt in (("dx", dx, want[0]), ("dw", dw, want[1])):
             check(got.shape == wnt.shape and got.dtype == wnt.dtype and got.is_contiguous(),
@@ -2819,9 +2838,13 @@ def phase_gmm_bwd_kernels(torch, gmm, ref, ops):
             err = gmm_error(got, wnt)
             good = gmm_ok(err, dt)
             ok &= good
-            res[which] = {**err, "route": routes[which]}
+            sched = scheds[which]
+            res[which] = {**err, "route": routes[which],
+                          "schedule": sched.name if sched else None,
+                          "tile_k": sched.tile_k if sched else None}
             print(f"  {name:20s} {which} ({G},{M},{K})x({G},{K},{N}) {dt:8s} {layout:10s} "
-                  f"{routes[which]:8s} {format_gmm(err, dt)}  {'ok' if good else 'FAIL'}")
+                  f"{routes[which]:8s} {sched.name if sched else '':10s} {format_gmm(err, dt)}  "
+                  f"{'ok' if good else 'FAIL'}")
         zero_rows_ok = bool((dx[x.abs().amax(-1) == 0] == 0).all())
         again = gmm.grouped_matmul_bwd(x, w, dy)
         repeat_ok = torch.equal(again[0], dx) and torch.equal(again[1], dw)
@@ -2834,6 +2857,9 @@ def phase_gmm_bwd_kernels(torch, gmm, ref, ops):
     check(not failed, f"the grouped-matmul backward disagrees with its plain version in {failed}")
     reached = sorted({r["route"] for v in results.values() for r in v.values()})
     check(reached == sorted(gmm.BWD_ROUTES), f"the cases reached the routes {reached} only")
+    depths = sorted({r["tile_k"] for v in results.values() for r in v.values() if r["tile_k"]})
+    print(f"  stage depths bwd_schedule picked: {depths} (it can pick {list(gmm.BWD_TILE_K)})")
+    check(depths == sorted(gmm.BWD_TILE_K), f"the cases reached the stage depths {depths} only")
 
     # the autograd Function at moonshot's expert shape, w a layer slice
     E, C, D, F = 64, 480, 2048, 1408
@@ -3037,11 +3063,13 @@ def phase_gmm_bwd_times(torch, gmm, ref, bench_codec):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     reader = bench_codec.ColdReader()
     side = torch.cuda.Stream()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for label, (G, M, K, N) in GMM_BWD_TIMED.items():
         x, w, dy = gmm_bwd_inputs(torch, gen, G, M, K, N, "bfloat16", "dense")
         for which in ("dx", "dw"):
             a, b = (dy, w.transpose(1, 2)) if which == "dx" else (x.transpose(1, 2), dy)
+            chosen = gmm.bwd_schedule(G, M, K, N, which, sms)
             calls = {"kernel": [lambda which=which: gmm.grouped_matmul_bwd(
                          x, w, dy, which == "dx", which == "dw")],
                      "torch.bmm": [lambda a=a, b=b: torch.bmm(a, b)]}
@@ -3054,7 +3082,7 @@ def phase_gmm_bwd_times(torch, gmm, ref, bench_codec):
                 / HBM_BYTES_PER_S * 1e3
             t = out[f"{label}_{which}"] = {
                 "shape": f"({G},{a.shape[1]},{a.shape[2]})@({G},{b.shape[1]},{b.shape[2]}) bf16",
-                "route": gmm.bwd_route(x, w, dy, which),
+                "route": gmm.bwd_route(x, w, dy, which), "schedule": chosen.name,
                 "ms": statistics.median(r["kernel"]["stream"]),
                 "graph_ms": statistics.median(r["kernel"]["graph"]),
                 "library_ms": statistics.median(r["torch.bmm"]["stream"]),
@@ -3070,7 +3098,11 @@ def phase_gmm_bwd_times(torch, gmm, ref, bench_codec):
                   f"{t['bound_ms']:.4f} ms ({t['bound_by']}); kernel / bound "
                   f"{t['graph_ms'] / t['bound_ms']:.2f}, kernel / torch.bmm "
                   f"{t['graph_ms'] / t['library_graph_ms']:.3f} (graphs); L2 cold, in turns, "
-                  f"{GMM_BWD_ROUNDS} rounds")
+                  f"{GMM_BWD_ROUNDS} rounds; schedule {chosen.name}")
+            for n in calls:
+                g = r[n]["graph"]
+                print(f"    {n:9s} graph {statistics.median(g):.4f} ms (readings "
+                      f"{min(g):.4f}-{max(g):.4f})")
             del r
             gc.collect()
         del x, w, dy
@@ -3439,8 +3471,9 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library_graph_ms": t["library_graph_ms"],
             "shape": t["shape"],
+            "schedule": t["schedule"],
             "shapes": {label: {key: btimes[f"{label}_{which}"][key] for key in (
-                "shape", "route", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                "shape", "route", "schedule", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_graph_ms")} for label in GMM_BWD_TIMED},
             "check": "pass", "cases_checked": len(gmm_bwd["cases"])})
     tm, tz = stimes["mamba2_prefill"], stimes["zamba2_prefill"]

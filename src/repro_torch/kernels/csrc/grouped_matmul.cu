@@ -28,7 +28,7 @@
 //      ragged M, N and K (rows past M never reach the next group: G is its
 //      own dimension), and the store clips them.
 //    - Warp specialisation: one producer warpgroup (one thread of it issues
-//      every copy) keeps a ring of kWStages stages of (128 x 64 of x, 64 x
+//      every copy) keeps a ring of 4 stages of (128 x 64 of x, 64 x
 //      256 of w) in flight on full / empty mbarriers; two consumer
 //      warpgroups, 64 rows each, issue wgmma.m64n256k16 on what has arrived
 //      (x K-major; w stored (K, N) row-major, so MN-major: the transpose
@@ -93,11 +93,16 @@
 //    prefill kernel above with wgmma's transpose bits and the TMA boxes set
 //    per operand.  dx's A (dy) is K-major as the forward's x is, its B (wᵀ)
 //    K-major: w's rows are read as the tile's n rows.  dw's A (xᵀ) is
-//    MN-major: x's rows are the tile's k rows, 64 capacity rows a stage, so
-//    the ragged capacity (480 at moonshot) is TMA's zero fill, as ragged K
-//    is in the forward; its B (dy) is MN-major as the forward's w is.  At
-//    Mixtral's shapes each product is 1.20 TFLOP, bound by the tensor cores
-//    (1.216 ms), as the forward.
+//    MN-major: x's rows are the tile's k rows, so the ragged capacity is
+//    TMA's zero fill, as ragged K is in the forward; its B (dy) is MN-major
+//    as the forward's w is.  dw's contraction is the capacity, short (7.5
+//    stages of 64 at moonshot's 480): its stages are 80 capacity rows deep
+//    where that leaves fewer zero rows (480 = 6 x 80), 64 elsewhere, chosen
+//    from shapes before the launch (grouped_matmul.py::bwd_schedule).  The
+//    other schedules tried for the backward (bands of M tiles, ping-pong
+//    consumers, 128-wide tiles) were removed after their card readings
+//    (DESIGN_TORCH.md section 18).  At Mixtral's shapes each product is 1.20 TFLOP,
+//    bound by the tensor cores (1.216 ms), as the forward.
 //  * strided (f32, M <= 16, views TMA cannot describe): the f32 route's
 //    fmaf kernel on all three strides of each operand, in f32 or bf16.
 
@@ -422,7 +427,6 @@ __global__ void __launch_bounds__(kThreads) gmm_simt(Params p) {
 constexpr int kWBM = 128;          // tile rows: two consumer warpgroups x 64
 constexpr int kWBN = 256;          // tile columns: one m64n256k16 per warpgroup and k step
 constexpr int kWBK = 64;           // K per stage: one 128-byte swizzle row of x
-constexpr int kWStages = 4;        // ring stages in flight (4 x 48 KB)
 constexpr int kWConsumers = 256;   // threads of the two consumer warpgroups
 // and a producer warpgroup, of which one thread issues every copy: the
 // block's register pool is sized for 384 threads at launch (168 each), and
@@ -432,15 +436,26 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr int kBox = 64;           // columns per TMA box: one 128-byte swizzle row
 constexpr int kRowBytes = 128;     // bytes of a box row in shared memory
-constexpr int kABytes = kWBM * kWBK * 2;          // x stage: one box of 128 rows
-constexpr int kBBytes = kWBK * kWBN * 2;          // w stage: kWBN / 64 boxes of 64 rows
-constexpr int kWStageBytes = kABytes + kBBytes;
 constexpr int kOutBox = 64 * kBox * 2;            // a 64 x 64 staging box of out
 constexpr int kOutBufs = 2;                       // staging boxes per consumer warpgroup
 constexpr int kStoreBar = 1;       // named barriers kStoreBar + warpgroup
-// 1024-byte alignment slack (the 128-byte swizzle), the ring, the staging
-// boxes, then the full and empty mbarriers
-constexpr int kWSmem = 1024 + kWStages * kWStageBytes + 2 * kOutBufs * kOutBox + 16 * kWStages;
+
+// The ring of stages of kBK contraction rows (kWBK; 80 for the backward's dw,
+// gmm_wgmma), each x's tile (128 rows) then w's (kWBN / 64 boxes), as many
+// stages as shared memory holds beside the staging boxes: 4 of 48 KB at kWBK,
+// 3 of 60 KB at 80.
+template <int kBK>
+struct WRing {
+  static constexpr int kABytes = kWBM * kBK * 2;
+  static constexpr int kStageBytes = kABytes + kBK * kWBN * 2;
+  // each stage its tiles and its two mbarriers
+  static constexpr int kStages = (232448 - 1024 - 2 * kOutBufs * kOutBox) / (kStageBytes + 16);
+  // 1024-byte alignment slack (the 128-byte swizzle), the ring, the staging
+  // boxes, then the full and empty mbarriers
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kOutBufs * kOutBox + 16 * kStages;
+  static_assert(kBK % 16 == 0 && (kBK * kRowBytes) % 1024 == 0, "k steps of 16, aligned boxes");
+};
+static_assert(WRing<kWBK>::kStages == 4 && WRing<80>::kStages == 3, "the rings described above");
 // An mbarrier wait that lasts this long (about 2 s) is a protocol fault: the
 // kernel traps, so the launch fails instead of hanging the card.
 constexpr long long kWaitCycles = 1ll << 32;
@@ -605,13 +620,14 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(scale_d), "n"(kAT), "n"(kBT));
 }
 
-// Output tiles in the order (g, N tile, M tile), M fastest.
+// Output tiles in the order (g, N tile, M tile), M fastest; K in stages of
+// bk rows (grouped_matmul.py::BwdSchedule.decode mirrors the order).
 struct TileGrid {
   int n_m, n_n, n_k, n_tiles;
-  __device__ TileGrid(const Params& p)
+  __device__ TileGrid(const Params& p, int bk)
       : n_m((p.M + kWBM - 1) / kWBM),
         n_n((p.N + kWBN - 1) / kWBN),
-        n_k((p.K + kWBK - 1) / kWBK),
+        n_k((p.K + bk - 1) / bk),
         n_tiles(p.G * n_m * n_n) {}
   __device__ void decode(int t, int& g, int& m0, int& n0) const {
     m0 = (t % n_m) * kWBM;
@@ -622,28 +638,35 @@ struct TileGrid {
 };
 
 // Persistent: block b takes tiles b, b + gridDim.x, ...  Shared memory
-// (1024-byte aligned): the ring of kWStages stages, each the x tile (128
-// rows x 64 k: 128 bytes a row) then the w tile (kWBN / 64 boxes of 64
-// rows x 128 bytes); the staging boxes, kOutBufs per consumer warpgroup; the
-// mbarriers full[], empty[].
+// (1024-byte aligned): the ring of WRing<kBK> stages, each the x tile (128
+// rows x kBK k: 128 bytes a row) then the w tile (kWBN / 64 boxes of kBK or
+// 64 rows x 128 bytes); the staging boxes, kOutBufs per consumer warpgroup;
+// the mbarriers full[], empty[].
 // Operand layouts (the backward's products pass views): x (the A operand)
 // is K-major (kAT 0: one box of 128 m rows x 64 k) or MN-major (kAT 1: x
-// stored k by m, two boxes of 64 k rows x 64 m, one per consumer warpgroup);
-// w (B) is MN-major (kBT 1: stored k by n, kWBN / 64 boxes of 64 k rows x 64
-// n) or K-major (kBT 0: stored n by k, kWBN / 64 boxes of 64 n rows x 64 k).
-// Every box is 64 rows of 128 swizzled bytes, so a tile sits at the same
-// offsets in either layout: 64 K-major rows or 64 MN-major k rows per 8 KB.
-// The forward is <0, 1>, dx = dy wᵀ <0, 0>, dw = xᵀ dy <1, 1>.
-template <int kAT, int kBT>
+// stored k by m, two boxes of kBK k rows x 64 m, one per consumer
+// warpgroup); w (B) is MN-major (kBT 1: stored k by n, kWBN / 64 boxes of
+// kBK k rows x 64 n) or K-major (kBT 0: stored n by k, kWBN / 64 boxes of 64
+// n rows x 64 k).  Every box row is 128 swizzled bytes, so a tile sits at the
+// same offsets in either layout at kBK 64: 64 K-major rows or 64 MN-major k
+// rows per 8 KB.  A stage deeper than one swizzle row of k (kBK 80) needs
+// both operands MN-major, where k runs down the boxes' rows.
+// The forward is <0, 1, kWBK>, dx = dy wᵀ <0, 0, kWBK>, dw = xᵀ dy <1, 1,
+// kWBK or 80> (grouped_matmul.py::bwd_schedule picks the depth).
+template <int kAT, int kBT, int kBK = kWBK>
 __global__ void __launch_bounds__(kWThreads, 1)
     gmm_wgmma(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
               const __grid_constant__ CUtensorMap tm_o, const Params p) {
+  static_assert(kBK == kWBK || (kAT && kBT), "a stage of other than 64 k needs MN-major operands");
+  constexpr int kWStages = WRing<kBK>::kStages;
+  constexpr int kWStageBytes = WRing<kBK>::kStageBytes;
+  constexpr int kABytes = WRing<kBK>::kABytes;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t stage_out = ring + kWStages * kWStageBytes;
   const uint32_t full_bar = stage_out + 2 * kOutBufs * kOutBox;
   const uint32_t empty_bar = full_bar + 8 * kWStages;
-  const TileGrid tg(p);
+  const TileGrid tg(p, kBK);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWStages; ++s) {
@@ -669,17 +692,17 @@ __global__ void __launch_bounds__(kWThreads, 1)
           mbar_wait(empty_bar + 8 * s, ((it / kWStages) & 1) ^ 1);
           mbar_expect_tx(full_bar + 8 * s, kWStageBytes);
           const uint32_t a = ring + s * kWStageBytes;
-          const int k0 = kt * kWBK;
+          const int k0 = kt * kBK;
           if (kAT) {
 #pragma unroll
             for (int j = 0; j < kWBM / kBox; ++j)
-              tma_load(a + j * kBox * kRowBytes, &tm_x, full_bar + 8 * s, m0 + j * kBox, k0, g);
+              tma_load(a + j * kBK * kRowBytes, &tm_x, full_bar + 8 * s, m0 + j * kBox, k0, g);
           } else {
             tma_load(a, &tm_x, full_bar + 8 * s, k0, m0, g);
           }
 #pragma unroll
           for (int j = 0; j < kWBN / kBox; ++j) {
-            const uint32_t box = a + kABytes + j * kBox * kRowBytes;
+            const uint32_t box = a + kABytes + j * (kBT ? kBK : kBox) * kRowBytes;
             if (kBT)
               tma_load(box, &tm_w, full_bar + 8 * s, n0 + j * kBox, k0, g);
             else
@@ -705,21 +728,21 @@ __global__ void __launch_bounds__(kWThreads, 1)
       for (int kt = 0; kt < tg.n_k; ++kt, ++it) {
         const int s = it % kWStages;
         mbar_wait(full_bar + 8 * s, (it / kWStages) & 1);
-        const uint32_t a = ring + s * kWStageBytes + wg * 64 * kRowBytes;
+        const uint32_t a = ring + s * kWStageBytes + wg * (kAT ? kBK : 64) * kRowBytes;
         const uint32_t b = ring + s * kWStageBytes + kABytes;
         fence_regs(acc);
         wgmma_fence();
-        // four k steps of 16: K-major, 16 columns (32 bytes) inside the
+        // kBK / 16 k steps of 16: K-major, 16 columns (32 bytes) inside the
         // 128-byte swizzle row, 8-row groups 1024 bytes apart; MN-major, 16
         // rows of 128 bytes, 8-row groups 1024 bytes apart, its 64-column
-        // boxes 64 rows apart
+        // boxes kBK rows apart
 #pragma unroll
-        for (int kk = 0; kk < kWBK / 16; ++kk)
+        for (int kk = 0; kk < kBK / 16; ++kk)
           wgmma_n256<kAT, kBT>(
               acc,
-              kAT ? smem_desc(a + kk * 16 * kRowBytes, kBox * kRowBytes, 1024)
+              kAT ? smem_desc(a + kk * 16 * kRowBytes, kBK * kRowBytes, 1024)
                   : smem_desc(a + kk * 32, 16, 1024),
-              kBT ? smem_desc(b + kk * 16 * kRowBytes, kBox * kRowBytes, 1024)
+              kBT ? smem_desc(b + kk * 16 * kRowBytes, kBK * kRowBytes, 1024)
                   : smem_desc(b + kk * 32, 16, 1024),
               kt > 0 || kk > 0);
         wgmma_commit();
@@ -854,9 +877,10 @@ int sm_count(int& sms) {
 // The runtime calls come first: they make the device's primary context
 // current on the calling thread (autograd's device thread may have none yet),
 // which cuTensorMapEncodeTiled needs.
-template <int kAT, int kBT>
+template <int kAT, int kBT, int kBK = kWBK>
 int launch_wgmma(const Params& p, cudaStream_t stream) {
-  auto kernel = gmm_wgmma<kAT, kBT>;
+  constexpr int kWSmem = WRing<kBK>::kSmem;
+  auto kernel = gmm_wgmma<kAT, kBT, kBK>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
   if (e != cudaSuccess) return e;
@@ -864,10 +888,10 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
   int err = sm_count(sms);
   if (err) return err;
   CUtensorMap tm_x, tm_w, tm_o;
-  err = kAT ? encode_map(&tm_x, p.x, p.M, p.K, p.G, p.x_sk, p.x_sg, kBox)
+  err = kAT ? encode_map(&tm_x, p.x, p.M, p.K, p.G, p.x_sk, p.x_sg, kBK)
             : encode_map(&tm_x, p.x, p.K, p.M, p.G, p.x_sm, p.x_sg, kWBM);
   if (!err)
-    err = kBT ? encode_map(&tm_w, p.w, p.N, p.K, p.G, p.w_sk, p.w_sg, kWBK)
+    err = kBT ? encode_map(&tm_w, p.w, p.N, p.K, p.G, p.w_sk, p.w_sg, kBK)
               : encode_map(&tm_w, p.w, p.K, p.N, p.G, p.w_sn, p.w_sg, kBox);
   if (!err) err = encode_map(&tm_o, p.out, p.N, p.M, p.G, p.o_sm, p.o_sg, 64);
   if (err) return err;
@@ -1173,11 +1197,13 @@ int grouped_matmul(const void* x, const void* w, void* out, int route, int G, in
 // K-major (a_sk = b_sk = 1: dx), 3 wgmma + TMA with a and b MN-major
 // (a_sm = b_sn = 1: dw); routes 2 and 3 need bfloat16 and every stride of a,
 // b and out but the unit one a positive multiple of 8 elements, bases
-// 16-byte aligned.  Returns as grouped_matmul does.
+// 16-byte aligned, and take the k depth of a stage, tile_k
+// (grouped_matmul.py::bwd_schedule): 64, or on route 3 also 80; any other is
+// refused.  Routes 0 and 1 ignore it.  Returns as grouped_matmul does.
 int grouped_matmul_strided(const void* a, const void* b, void* out, int route, int G, int M,
                            int K, int N, long long a_sg, long long a_sm, long long a_sk,
                            long long b_sg, long long b_sk, long long b_sn, long long o_sg,
-                           long long o_sm, void* stream) {
+                           long long o_sm, int tile_k, void* stream) {
   const Params p{a, b, out, G, M, K, N, a_sg, a_sm, a_sk, b_sg, b_sk, b_sn, o_sg, o_sm};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (G < 1 || G > 65535 || M < 1 || K < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -1185,11 +1211,13 @@ int grouped_matmul_strided(const void* a, const void* b, void* out, int route, i
     case 0: return launch(gmm_simt<float>, simt_grid(p), 0, st, p);
     case 1: return launch(gmm_simt<__nv_bfloat16>, simt_grid(p), 0, st, p);
     case 2:
-      if (a_sk != 1 || b_sk != 1) return static_cast<int>(cudaErrorInvalidValue);
+      if (a_sk != 1 || b_sk != 1 || tile_k != kWBK) return static_cast<int>(cudaErrorInvalidValue);
       return launch_wgmma<0, 0>(p, st);
     case 3:
       if (a_sm != 1 || b_sn != 1) return static_cast<int>(cudaErrorInvalidValue);
-      return launch_wgmma<1, 1>(p, st);
+      if (tile_k == kWBK) return launch_wgmma<1, 1>(p, st);
+      if (tile_k == 80) return launch_wgmma<1, 1, 80>(p, st);
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

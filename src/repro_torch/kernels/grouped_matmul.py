@@ -36,7 +36,10 @@ autograd asks for it.  They run the same kernel source on views of the saved
 x and w (``grouped_matmul_strided`` in the source note): ``"dx_wgmma"`` and
 ``"dw_wgmma"`` (bf16, capacity M > 16, every operand describable by TMA) or
 ``"dx_simt"`` / ``"dw_simt"`` (the strided fmaf kernel: f32, M <= 16, and
-views TMA cannot describe), chosen by :func:`bwd_route` before the launch.
+views TMA cannot describe), chosen by :func:`bwd_route` before the launch;
+on the wgmma routes :func:`bwd_schedule` picks the k depth of a stage from
+shapes, before the launch too, and :class:`BwdSchedule` mirrors the
+kernel's tile decode.
 On a CPU tensor the Function runs the plain forward and the plain backward
 (``ref.grouped_matmul_bwd``).  ``bwd_launches`` and ``bwd_route_launches``
 count the backward's launches as the forward's are counted.
@@ -86,7 +89,7 @@ def bind(lib: ctypes.CDLL):
     fn.restype = ctypes.c_int
     strided = lib.grouped_matmul_strided
     strided.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                        + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
+                        + [ctypes.c_longlong] * 8 + [ctypes.c_int, ctypes.c_void_p])
     strided.restype = ctypes.c_int
     lib.grouped_matmul_error_string.argtypes = [ctypes.c_int]
     lib.grouped_matmul_error_string.restype = ctypes.c_char_p
@@ -334,6 +337,100 @@ def bwd_route(x, w, dy, which: str) -> str:
     return f"{which}_{'wgmma' if tma else 'simt'}"
 
 
+BWD_TILE_M, BWD_TILE_N = 128, 256    # the wgmma tile (csrc/grouped_matmul.cu: kWBM, kWBN)
+BWD_TILE_K = (64, 80)                # contraction rows of a stage (80: dw only)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdSchedule:
+    """How the backward's wgmma routes walk the product ``which`` a (G, M, K)
+    @ b (G, K, N) (``csrc/grouped_matmul.cu``: ``gmm_wgmma``, ``TileGrid``):
+    output tiles of 128 x 256, the contraction in stages of ``tile_k`` rows
+    (64, or 80 for dw, whose operands are both MN-major), and ``blocks``
+    persistent blocks (one per SM, fewer where there are fewer tiles) taking
+    tiles b, b + blocks, ... of the forward's order (g, N tile, M tile), M
+    tile fastest.  Raises on a schedule the kernel does not take."""
+
+    which: str
+    G: int
+    M: int
+    K: int
+    N: int
+    tile_k: int
+    blocks: int
+
+    def __post_init__(self):
+        if self.which not in ("dx", "dw"):
+            raise ValueError(f"which={self.which!r}: 'dx' or 'dw'")
+        if self.tile_k not in BWD_TILE_K or (self.tile_k != 64 and self.which != "dw"):
+            raise ValueError(f"stages of {self.tile_k} for {self.which}: the kernel takes "
+                             f"{BWD_TILE_K}, 80 for dw only")
+        if min(self.G, self.M, self.K, self.N) < 1 or not 1 <= self.blocks <= self.tiles:
+            raise ValueError(f"{self}: positive extents and 1 to {self.tiles} blocks")
+
+    @property
+    def n_m(self) -> int:
+        return -(-self.M // BWD_TILE_M)
+
+    @property
+    def n_n(self) -> int:
+        return -(-self.N // BWD_TILE_N)
+
+    @property
+    def n_k(self) -> int:
+        return -(-self.K // self.tile_k)
+
+    @property
+    def tiles(self) -> int:
+        return self.G * self.n_m * self.n_n
+
+    @property
+    def name(self) -> str:
+        return f"128x{BWD_TILE_N}x{self.tile_k}"
+
+    def decode(self, t: int) -> tuple:
+        """Tile t of the order -> (g, M tile, N tile), as ``TileGrid``."""
+        rest, mt = divmod(t, self.n_m)
+        g, nt = divmod(rest, self.n_n)
+        return g, mt, nt
+
+    def block_tiles(self, b: int) -> list:
+        """The tiles block b takes, in its order."""
+        return [self.decode(t) for t in range(b, self.tiles, self.blocks)]
+
+
+def bwd_product_shape(G: int, M: int, K: int, N: int, which: str) -> tuple:
+    """(G, M', K', N') of the backward product ``which`` of x (G, M, K) @ w
+    (G, K, N): dx = dy wᵀ is (G, M, N) @ (G, N, K), dw = xᵀ dy is (G, K, M)
+    @ (G, M, N)."""
+    if which == "dx":
+        return G, M, N, K
+    if which == "dw":
+        return G, K, M, N
+    raise ValueError(f"which={which!r}: 'dx' or 'dw'")
+
+
+def _dw_depth(capacity: int) -> int:
+    """The stage depth of dw, whose contraction is the capacity: 80 where
+    its stages hold fewer zero rows than stages of 64 (480: 6 stages of 80
+    against 7.5 of 64), else 64."""
+    return min(BWD_TILE_K, key=lambda d: (-(-capacity // d) * d, d))
+
+
+def bwd_schedule(G: int, M: int, K: int, N: int, which: str, sms: int) -> BwdSchedule:
+    """The schedule of the backward product ``which`` ("dx" or "dw") of x
+    (G, M, K) @ w (G, K, N) on a card of ``sms`` SMs, a pure function of
+    shapes, chosen before the launch: the forward's tile and order, with
+    dw's stages 80 deep where that leaves fewer zero rows in its
+    contraction over the capacity (:func:`_dw_depth`).  Bands of M tiles,
+    ping-pong consumers and 128-wide tiles lost to this on the card
+    (DESIGN_TORCH.md section 18)."""
+    Gp, Mp, Kp, Np = bwd_product_shape(G, M, K, N, which)
+    tile_k = _dw_depth(Kp) if which == "dw" else 64
+    tiles = Gp * -(-Mp // BWD_TILE_M) * -(-Np // BWD_TILE_N)
+    return BwdSchedule(which, Gp, Mp, Kp, Np, tile_k, min(tiles, sms))
+
+
 def _check_bwd(x, w, dy):
     _check(x, w)
     G, M, _ = x.shape
@@ -344,7 +441,8 @@ def _check_bwd(x, w, dy):
 
 def _launch_bwd(which, x, w, dy):
     """One backward product through the kernel: dx = dy @ wᵀ (a = dy, b = the
-    view wᵀ) or dw = xᵀ @ dy (a = the view xᵀ, b = dy)."""
+    view wᵀ) or dw = xᵀ @ dy (a = the view xᵀ, b = dy); on the wgmma routes
+    in :func:`bwd_schedule`'s stages."""
     global bwd_launches
     a, b = (dy, w.transpose(1, 2)) if which == "dx" else (x.transpose(1, 2), dy)
     G, M, K = a.shape
@@ -356,11 +454,16 @@ def _launch_bwd(which, x, w, dy):
     out = torch.empty((G, M, N), dtype=x.dtype, device=x.device)
     _kernel()
     r = bwd_route(x, w, dy, which)
-    code = ({"dx": 2, "dw": 3}[which] if r.endswith("wgmma")
-            else int(x.dtype == torch.bfloat16))
+    tile_k = 64
+    if r.endswith("wgmma"):
+        code = {"dx": 2, "dw": 3}[which]
+        tile_k = bwd_schedule(*x.shape, w.shape[2], which, _sm_count(x.device)).tile_k
+    else:
+        code = int(x.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _strided_fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), code, G, M, K, N,
-                      *a.stride(), *b.stride(), out.stride(0), out.stride(1), stream)
+                      *a.stride(), *b.stride(), out.stride(0), out.stride(1), tile_k,
+                      stream)
     if err:
         raise RuntimeError(f"grouped_matmul backward launch failed ({r} route): "
                            f"{_fn[1](err).decode()} (cuda error {err})")

@@ -7,7 +7,8 @@ Shapes: ``quant_int8`` and ``dq_accum_int8`` at (6912, 512), the ring hop
 the codec was timed at so far, and at (55296, 512), full-width
 smollm-135m's largest leaf (its embedding and its lm head, which error
 feedback encodes and decodes whole); ``collective_reduce`` at the emulated
-ring's step on the largest bucket (7,077,888 f32 elements).
+ring's step on the largest bucket (7,077,888 f32 elements), with f32 and with
+bf16 incoming, each read in turns with ``torch.add``.
 
 Every reading starts with L2 cold: a 256 MB read evicts it before the
 reading's window opens, and the reading's K calls each take their own input
@@ -256,18 +257,24 @@ def bench_codec_shape(reader, quant, kernel: str, rows: int, gen, libs: dict, ro
     return result
 
 
-def bench_reduce(reader, cr, gen, rounds: int, elems: int = REDUCE_ELEMS) -> dict:
-    """``collective_reduce`` against ``torch.add`` at ``elems`` f32 + f32,
-    read in turns both ways, L2 cold."""
-    nbytes = 3 * elems * 4
+def bench_reduce(reader, cr, gen, rounds: int, elems: int = REDUCE_ELEMS,
+                 inc_dtype=torch.float32) -> dict:
+    """``collective_reduce`` against ``torch.add`` at ``elems`` f32 + f32 (or
+    bf16 incoming), read in turns both ways, L2 cold; ``same_bits`` holds the
+    kernel's output against the plain version's."""
+    nbytes = elems * (8 + torch.tensor([], dtype=inc_dtype).element_size())
     sets = [(torch.randn(elems, generator=gen, device="cuda"),
-             torch.randn(elems, generator=gen, device="cuda")) for _ in range(n_sets(nbytes))]
+             torch.randn(elems, generator=gen, device="cuda").to(inc_dtype))
+            for _ in range(n_sets(nbytes))]
     contenders = {"kernel": [lambda s=s: cr.collective_reduce(*s) for s in sets],
                   "torch.add": [lambda s=s: torch.add(*s) for s in sets]}
+    same = torch.equal(cr.collective_reduce(*sets[0]).view(torch.int32),
+                       cr.collective_reduce_plain(*sets[0]).view(torch.int32))
     readings = cold_in_turns(reader, contenders, rounds)
-    return {"elems": elems, "calls_per_reading": len(sets),
+    return {"elems": elems, "inc_dtype": str(inc_dtype).removeprefix("torch."),
+            "calls_per_reading": len(sets),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "median_ms": medians(readings),
-            "readings": readings,
+            "readings": readings, "same_bits": same,
             "host_us": {name: host_us(calls[0]) for name, calls in contenders.items()}}
 
 
@@ -333,9 +340,11 @@ def main(argv=None) -> int:
             report(f"{kernel} {label} ({rows}, 512)", r)
             result["codec"][f"{kernel}_{label}"] = {k: v for k, v in r.items()
                                                     if k != "readings"}
-    r = bench_reduce(reader, cr, gen, args.rounds)
-    report(f"collective_reduce ({r['elems']},)", r)
-    result["collective_reduce"] = {k: v for k, v in r.items() if k != "readings"}
+    for inc_dtype in (torch.float32, torch.bfloat16):
+        r = bench_reduce(reader, cr, gen, args.rounds, inc_dtype=inc_dtype)
+        report(f"collective_reduce ({r['elems']},) + {r['inc_dtype']}", r)
+        result[f"collective_reduce_{r['inc_dtype']}"] = {k: v for k, v in r.items()
+                                                          if k != "readings"}
     rows = smollm_step_rows()
     print(f"  one int8+EF step, one rank: launches by rows {json.dumps(rows)}")
     steps = step_card_ms(reader, quant, rows, gen, libs)

@@ -15,6 +15,7 @@ import ctypes
 import importlib.util
 import subprocess
 import time
+import types
 from pathlib import Path
 
 import pytest
@@ -206,6 +207,27 @@ def test_ring_kernel_matches_plain_bitwise(gen, case):
     assert ring_dma.rs_launches + ring_dma.ag_launches == before + 1
     same, diff = smoke.bitwise_error(outs, wants)
     assert same, diff
+
+
+# (incoming dtype, length, incoming's offset in elements): lengths that split
+# the vectors' tiles (256 threads x 4 vectors of 4) and their unrolled loads
+# unevenly, 4k + 1 and 16k + 3, fewer elements than a block's threads, and
+# incoming misaligned by one element (the unaligned route)
+REDUCE_EDGE_CASES = [(dt, n, off) for dt in ("float32", "bfloat16")
+                     for n, off in ((4 * 1000 + 1, 0), (16 * 1000 + 3, 0), (100, 0),
+                                    (4096 * 133 + 5, 0), (smoke.RING_C, 0), (16 * 1000 + 3, 1),
+                                    (smoke.RING_C, 1))]
+
+
+@pytest.mark.parametrize("inc_dtype,length,offset", REDUCE_EDGE_CASES)
+def test_collective_reduce_edges_match_plain_bitwise(gen, inc_dtype, length, offset):
+    acc = torch.randn(length, generator=gen, device="cuda")
+    buf = torch.randn(length + offset, generator=gen, device="cuda").to(getattr(torch, inc_dtype))
+    inc = buf[offset:]
+    before = cr.launches
+    got = cr.collective_reduce(acc, inc)
+    assert cr.launches == before + 1
+    assert smoke.bitwise_error([got], [cr.collective_reduce_plain(acc, inc)])[0]
 
 
 @pytest.mark.parametrize("inc_dtype,length", smoke.REDUCE_CASES)
@@ -738,8 +760,8 @@ def test_expert_ffn_on_the_card_takes_the_kernel(gen):
 # of GMM_CASES that reaches the fault): the wgmma route at Mixtral's prefill
 # shapes and edges, the mma.sync routes at decode and an unaligned view
 GMM_FAULTS = {
-    "wgmma_last_k_stage_skipped": ("n_k((p.K + kWBK - 1) / kWBK),",
-                                   "n_k((p.K + kWBK - 1) / kWBK - 1),", "mixtral_prefill_w13"),
+    "wgmma_last_k_stage_skipped": ("n_k((p.K + bk - 1) / bk),",
+                                   "n_k((p.K + bk - 1) / bk - 1),", "mixtral_prefill_w13"),
     "wgmma_weight_map_group_pinned_0": (
         "tma_load(box, &tm_w, full_bar + 8 * s, n0 + j * kBox, k0, g);",
         "tma_load(box, &tm_w, full_bar + 8 * s, n0 + j * kBox, k0, 0);", "mixtral_prefill_w2"),
@@ -793,17 +815,23 @@ def test_planted_gmm_fault_fails_the_limits(gen, faulty_gmm_libs, monkeypatch, f
 
 
 # name -> (text in csrc/grouped_matmul.cu, its faulty replacement, the case
-# of GMM_BWD_CASES that reaches it): the backward's operand layouts
+# of GMM_BWD_CASES that reaches it): the backward's operand layouts and its
+# stages of 80
 GMM_BWD_FAULTS = {
     # dw's xᵀ (MN-major A): both consumer warpgroups read the first 64 rows
+    # (moonshot's dw takes stages of 80)
     "dw_a_second_box_at_m0": (
-        "tma_load(a + j * kBox * kRowBytes, &tm_x, full_bar + 8 * s, m0 + j * kBox, k0, g);",
-        "tma_load(a + j * kBox * kRowBytes, &tm_x, full_bar + 8 * s, m0, k0, g);",
+        "tma_load(a + j * kBK * kRowBytes, &tm_x, full_bar + 8 * s, m0 + j * kBox, k0, g);",
+        "tma_load(a + j * kBK * kRowBytes, &tm_x, full_bar + 8 * s, m0, k0, g);",
         "moonshot_w13_c480"),
     # dx's wᵀ (K-major B): every 64-row box of the tile's n rows the first
     "dx_b_boxes_at_n0": (
         "tma_load(box, &tm_w, full_bar + 8 * s, k0, n0 + j * kBox, g);",
         "tma_load(box, &tm_w, full_bar + 8 * s, k0, n0, g);", "ragged_m333"),
+    # a stage of 80 takes the 4 k steps of a stage of 64: 16 of every 80
+    # capacity rows left out of dw
+    "dw_stage80_k_steps_cut": ("for (int kk = 0; kk < kBK / 16; ++kk)",
+                               "for (int kk = 0; kk < kWBK / 16; ++kk)", "capacity_470"),
     # the strided route reads x as if it were dense in k
     "simt_x_stride_taken_as_1": ("(k0 + c) * p.x_sk]", "(k0 + c)]", "odd_view"),
 }
@@ -829,6 +857,16 @@ def test_planted_gmm_bwd_fault_fails_the_limits(gen, faulty_gmm_bwd_libs, monkey
     ok_bad = [smoke.gmm_ok(smoke.gmm_error(b, wt), case[5]) for b, wt in zip(bad, want)]
     print(f"\n  {fault}: kernel within limits (dx, dw) {ok_good}, fault {ok_bad}")
     assert all(ok_good) and not all(ok_bad)
+
+
+@pytest.mark.parametrize("which,tile_k", [("dx", 80), ("dw", 96)])
+def test_gmm_bwd_refused_schedule_raises(gen, monkeypatch, which, tile_k):
+    """A stage depth the kernel refuses (80 for dx, 96 anywhere) raises: the
+    launch is refused and nothing runs in its place."""
+    x, w, dy = smoke.gmm_bwd_inputs(torch, gen, 2, 300, 256, 384, "bfloat16", "dense")
+    monkeypatch.setattr(gmm, "bwd_schedule", lambda *a: types.SimpleNamespace(tile_k=tile_k))
+    with pytest.raises(RuntimeError, match="backward launch failed"):
+        gmm.grouped_matmul_bwd(x, w, dy, which == "dx", which == "dw")
 
 
 # the decode route's cases: Mixtral's decode shapes (the weight stream), one

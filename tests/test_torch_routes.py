@@ -7,6 +7,9 @@ functions of shapes, strides, dtypes and alignment: no card, no launch.
   Mixtral's full-width shapes cost nothing here.
 * ``grouped_matmul.bwd_route``: which of the backward's routes dx = dy wᵀ
   and dw = xᵀ dy each take.
+* ``grouped_matmul.bwd_schedule``: the stage depth of each backward product
+  on the wgmma routes, and ``BwdSchedule.decode``, the pure-Python mirror of
+  the kernel's tile decode.
 * ``grouped_matmul.stream_plan``: how the decode route's weight stream
   splits a call over the card's SMs (blocks, units, split-K parts), at
   Mixtral's full-width decode shapes.
@@ -14,6 +17,7 @@ functions of shapes, strides, dtypes and alignment: no card, no launch.
   rings' receive slots lie, and how much scratch a launch reserves.
 """
 import importlib.util
+from collections import Counter
 from pathlib import Path
 
 import pytest
@@ -148,6 +152,128 @@ def test_gmm_bwd_routes_of_the_smoke_cases():
         x, w, dy = _meta(G, M, K), _meta(G, K, N), _meta(G, M, N)
         assert [gmm.bwd_route(x, w, dy, which) for which in ("dx", "dw")] == \
             ["dx_wgmma", "dw_wgmma"]
+
+
+def _bwd_products():
+    """(label, G, M, K, N) of the forward x @ w whose backward products take
+    the wgmma routes: GMM_BWD_TIMED's eight products and every bf16 case of
+    GMM_BWD_CASES, taken as meta tensors."""
+    out = [(label, *shape) for label, shape in smoke.GMM_BWD_TIMED.items()]
+    out += [(c[0], *c[1:5]) for c in smoke.GMM_BWD_CASES if c[5] == "bfloat16"]
+    return out
+
+
+def _check_cover(sched):
+    """Every (g, M tile, N tile) taken exactly once over the blocks, each
+    block's tiles in the order of the kernel's TileGrid (g, N tile, M tile),
+    M tile fastest, so a group's tiles are one run of consecutive ones."""
+    seen = Counter()
+    for b in range(sched.blocks):
+        seen.update(sched.block_tiles(b))
+    want = {(g, m, n) for g in range(sched.G) for m in range(sched.n_m)
+            for n in range(sched.n_n)}
+    assert set(seen) == want and set(seen.values()) == {1}
+    per_g = sched.n_m * sched.n_n
+    for t in range(sched.tiles):
+        assert sched.decode(t) == (t // per_g, t % sched.n_m, t % per_g // sched.n_m)
+
+
+@pytest.mark.parametrize("sms", [132, 7, 1])
+@pytest.mark.parametrize("label,G,M,K,N", _bwd_products(), ids=[c[0] for c in _bwd_products()])
+def test_bwd_schedule_covers_every_tile_once(label, G, M, K, N, sms):
+    """bwd_schedule of each wgmma product, from the shapes of meta tensors:
+    a stage depth the kernel takes, one block per SM or per tile, and the
+    mirror of the tile decode covering every tile exactly once."""
+    x, w, dy = _meta(G, M, K), _meta(G, K, N), _meta(G, M, N)
+    for which in ("dx", "dw"):
+        if gmm.bwd_route(x, w, dy, which) != f"{which}_wgmma":
+            continue
+        s = gmm.bwd_schedule(*x.shape, w.shape[2], which, sms)
+        assert (s.G, s.M, s.K, s.N) == gmm.bwd_product_shape(G, M, K, N, which)
+        assert s.tile_k in gmm.BWD_TILE_K and (s.tile_k == 64 or which == "dw")
+        assert s.blocks == min(sms, s.tiles)
+        _check_cover(s)
+
+
+def test_bwd_schedule_of_the_smoke_cases_reaches_every_kind():
+    """The stage depths bwd_schedule picks for chip_smoke's GMM_BWD_CASES are
+    all of BWD_TILE_K: dw at a capacity of 80, 470 and 480 takes stages of
+    80, at 333 and 1280 stages of 64; dx always 64."""
+    depths = {}
+    for name, G, M, K, N, dt, layout in smoke.GMM_BWD_CASES:
+        if dt != "bfloat16" or layout == "odd_view" or M <= 16:
+            continue
+        x, w, dy = _meta(G, M, K), _meta(G, K, N), _meta(G, M, N)
+        for which in ("dx", "dw"):
+            if gmm.bwd_route(x, w, dy, which) == f"{which}_wgmma":
+                s = gmm.bwd_schedule(G, M, K, N, which, 132)
+                depths.setdefault(which, {})[M] = s.tile_k
+    assert set(depths["dx"].values()) == {64}
+    assert set(depths["dw"].values()) == set(gmm.BWD_TILE_K)
+    dw = depths["dw"]
+    assert dw[80] == dw[470] == dw[480] == 80 and dw[333] == dw[1280] == 64
+
+
+@pytest.mark.parametrize("capacity,depth", [
+    (1, 64), (64, 64), (65, 80), (80, 80), (128, 64), (160, 80), (240, 80), (333, 64),
+    (400, 80), (470, 80), (480, 80), (1280, 64), (1440, 80)])
+def test_dw_depth_leaves_the_fewest_zero_rows(capacity, depth):
+    """dw's stage depth is the one whose whole stages over the capacity hold
+    the fewest zero rows, 64 where both hold as many."""
+    assert gmm._dw_depth(capacity) == depth
+    pad = {d: -(-capacity // d) * d - capacity for d in gmm.BWD_TILE_K}
+    assert pad[depth] == min(pad.values())
+
+
+def test_bwd_decode_is_the_forward_order():
+    """The order (g, N tile, M tile), M fastest, of the forward's TileGrid,
+    with ragged M and N tiles at the ends of their runs."""
+    s = gmm.bwd_schedule(3, 700, 640, 1000, "dx", 132)
+    assert (s.n_m, s.n_n, s.tiles) == (6, 3, 54)
+    assert [s.decode(t) for t in range(s.tiles)] == \
+        [(g, m, n) for g in range(3) for n in range(3) for m in range(6)]
+
+
+def test_the_schedules_at_the_timed_products():
+    """bwd_schedule at the eight timed products: the forward's 128 x 256 tile
+    and order, moonshot's dw (capacity 480) in stages of 80, the others in
+    stages of 64; one block per SM."""
+    for label, shape in smoke.GMM_BWD_TIMED.items():
+        for which in ("dx", "dw"):
+            s = gmm.bwd_schedule(*shape, which, 132)
+            assert s.blocks == 132
+            assert s.tile_k == (80 if (label, which) in (("moonshot_w13", "dw"),
+                                                         ("moonshot_w2", "dw")) else 64)
+            assert s.name == f"128x256x{s.tile_k}"
+
+
+@pytest.mark.parametrize("which,G,M,K,N,tile_k,blocks", [
+    ("dx", 2, 300, 256, 384, 80, 6), ("dw", 2, 300, 256, 384, 96, 6),
+    ("dw", 2, 300, 256, 384, 32, 6), ("dz", 2, 300, 256, 384, 64, 6),
+    ("dw", 2, 300, 256, 384, 64, 0), ("dw", 2, 300, 256, 384, 64, 13),
+    ("dx", 0, 300, 256, 384, 64, 1), ("dx", 2, 300, 0, 384, 64, 6)])
+def test_make_bwd_schedule_refuses_what_the_kernel_does_not_take(which, G, M, K, N, tile_k,
+                                                                 blocks):
+    """Nothing is chosen in place of a schedule the kernel does not take:
+    stages of 80 for dx, a depth other than 64 or 80, a product other than dx
+    or dw, no block or more blocks than tiles (12 here), an empty extent
+    raise."""
+    with pytest.raises(ValueError):
+        gmm.BwdSchedule(which, G, M, K, N, tile_k, blocks)
+
+
+def test_bwd_product_shapes_and_the_c_arguments():
+    """dx = dy wᵀ is (G, M, N) @ (G, N, K), dw = xᵀ dy (G, K, M) @ (G, M, N);
+    another product name raises in bwd_product_shape and in bwd_schedule;
+    the stage depth is what the C entry takes (tile_k)."""
+    assert gmm.bwd_product_shape(2, 300, 256, 384, "dx") == (2, 300, 384, 256)
+    assert gmm.bwd_product_shape(2, 256, 300, 384, "dw") == (2, 300, 256, 384)
+    for fn in (gmm.bwd_product_shape, gmm.bwd_schedule):
+        with pytest.raises(ValueError):
+            fn(2, 300, 256, 384, "dz", *([132] if fn is gmm.bwd_schedule else []))
+    s = gmm.bwd_schedule(2, 480, 300, 384, "dw", 132)
+    assert (s.M, s.K, s.N, s.tile_k, s.n_k, s.n_m, s.n_n) == (300, 480, 384, 80, 6, 3, 2)
+    assert gmm.bwd_schedule(2, 480, 300, 384, "dx", 132).tile_k == 64
 
 
 def test_gmm_route_counts_on_the_cpu_stay_zero():
