@@ -160,14 +160,20 @@ Phases, in order; any failure exits non-zero before the last line:
 25. MoE training at full width: moonshot-v1-16b-a3b (d_model 2048, 16 x 128
    heads, 64 experts top-6 of d_ff 1408, vocab 163840) cut to 1 of its 48
    layers, bf16 parameters with f32 master state, weights from a seed, on a
-   (pod=2, data=1) ThreadMesh (MOE_TRAIN_LAYERS' note says why not four
-   ranks), 1 x 4096 tokens a rank, remat, hier, pallas, no codec: the
-   step-0 gate (every backward launch's dx and dw against the plain
-   backward, the expert leaves' gradients against a run with the plain
-   gmm), then 3 ZeRO-1 steps, the counts set to 0 just before and read
-   just after: 6 forward and 6 backward gmm launches per layer, micro-step
-   and rank (all wgmma), flash at d 128, the fused rings per bucket and
-   leaf; finite losses; ms a step, tokens/s, busy share, peak memory;
+   (pod=2, data=2) ThreadMesh (MOE_TRAIN_LAYERS' note says what lets four
+   ranks fit), two micro-steps of 1 x 4096 tokens a rank, remat, hier,
+   pallas, no codec: the step-0 gate (every backward launch's dx and dw
+   against the plain backward, the expert leaves' gradients against a run
+   with the plain gmm), then 3 ZeRO-3 and 3 ZeRO-1 steps from one init, the
+   counts set to 0 just before each run and read just after: 6 forward and
+   6 backward gmm launches per layer, micro-step and rank (all wgmma), flash
+   at d 128, the fused rings per bucket and leaf (ZeRO-1) or per gathered
+   leaf and micro-step in the fsdp adjoint, the expert stacks among them,
+   and per leaf (ZeRO-3); finite losses; ZeRO-3 against ZeRO-1 on step 0's
+   gradient norm and the parameters after step 0 (the tree and each leaf);
+   per stage ms a step, tokens/s, busy share, peak memory and the memory
+   at the boundaries of one more step; the adjoint's layout copy at an
+   expert stack;
 26. grouped-matmul backward times: dx and dw at Mixtral's (capacity 1280)
    and moonshot's (480) shapes, L2 cold, in turns with ``torch.bmm`` on the
    same transposed views (a yardstick the port never calls), back to back
@@ -541,19 +547,26 @@ GMM_BWD_ROUNDS = 4
 # moonshot-v1-16b-a3b trained at full width (d_model 2048, 16 x 128 heads, 64
 # experts top-6 of d_ff 1408, vocab 163840), cut to 1 of its 48 layers (1.24 B
 # parameters, 0.67 B of them the embedding and the untied head), on a
-# (pod=2, data=1) ThreadMesh: two ranks, the hier reduction's cross-pod ring
-# on the fused kernels.  Four ranks (pod=2, data=2) do not fit the card:
-# ZeRO-1 holds on every rank, at the gradient all-reduce, the f32 gradient
-# sum and its reduced copy, besides the bf16 parameters and the sharded f32
-# master and moments, and the ring kernels keep scratch sized by the largest
-# bucket (the 1.34 GB f32 embedding); four ranks peaked at 75.9 GiB in step 0
-# and ran out of memory in step 1, when each rank holds its own gathered
-# parameters (an H100 80GB HBM3, 700 W; PERF.md).  1 x 4096 tokens a
-# rank, remat; the loss chunk cut from 8192 to 1024 tokens (the f32 logits of
-# 4096 tokens over the vocab are 2.7 GB a rank).  lr 1e-3, 3 steps.
+# (pod=2, data=2) ThreadMesh: four ranks, the smallest mesh where the hier
+# reduction has both stages (the local stage over "data", the cross-pod ring
+# on the fused kernels) and where ZeRO-3 gathers over "data".  ZeRO-3 and
+# ZeRO-1 from one init.  Four ZeRO-1 ranks once did not fit the card: at the
+# gradient all-reduce each rank held its f32 gradient sum and a reduced
+# copy, and the ring kernels kept scratch sized by the largest bucket (10.00
+# GiB for the 1.34 GB f32 embedding); the step ran out of memory in its
+# optimizer at 75.10 GiB allocated (an H100 80GB HBM3, 700 W; PERF.md).
+# Now the sums are views into tree_all_reduce's buckets, reduced in their
+# own storage (hetccl.bucket_zeros), each gradient is freed once its update
+# has read it, the Adam update runs in pieces (optim.ADAM_PIECE), and the
+# rings' scratch is sized by each launch and not kept.
+# uniform_plan(2, 4, micro_batch=1): two micro-steps of 1 x 4096 tokens a
+# rank, 32768 tokens a step; remat; the loss chunk cut from 8192 to 1024
+# tokens (the f32 logits of 4096 tokens over the vocab are 2.7 GB a rank).
+# lr 1e-3, 3 steps a stage.
 MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = \
     "moonshot-v1-16b-a3b", 1, 4096, 3
-MOE_TRAIN_MESH = {"pod": 2, "data": 1}
+MOE_TRAIN_MESH = {"pod": 2, "data": 2}
+MOE_TRAIN_MICRO = 4
 MOE_TRAIN_LR, MOE_TRAIN_LOSS_CHUNK = 1e-3, 1024
 # The step-0 gate: on rank 0's first micro-batch, every backward launch's
 # dx and dw against the plain backward of the same (x, w, dy) within
@@ -562,6 +575,16 @@ MOE_TRAIN_LR, MOE_TRAIN_LOSS_CHUNK = 1e-3, 1024
 # backward) within FFN_LIMITS: with one layer the routes are the same in
 # both (the router sees the same attention output), so the leaves differ
 # only by the expert FFN's roundings carried through the loss.
+# ZeRO-3 against ZeRO-1 at step 0: [22]'s limits on the gradient norm and on
+# the parameters over the whole tree, and MOE_ZERO_LEAF_REL_L2 on each leaf:
+# the embedding's gradient sets the norm and the tree's L2, so an expert
+# stack reduce-scattered wrongly moves neither (a shard's offset shifted in
+# the adjoint moves reduced moonshot's w1 and w3 by 2.2e-3 and the norm by
+# 1.1e-7; tests/test_torch_moe_train.py).  About 4 times a probe's readings
+# on an H100 (PERF.md: the norms 2.0e-7 apart, the tree 4.8e-6, the worst leaf
+# 1.58e-4, the head: ZeRO-3 rounds its reduce-scattered gradient to bf16, as
+# the reference does, where ZeRO-1 sums in f32; the expert stacks 2.2e-6).
+MOE_ZERO_LEAF_REL_L2 = 6e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -2954,28 +2977,64 @@ def moe_grad_gate(torch, gmm, ref, model, params, batch):
     return {"launch_pairs": per_call, "leaves": leaf_err}
 
 
+def adjoint_copy_times(torch, E, D, F, n=2):
+    """The fsdp adjoint's layout copy at an expert stack (E, D, F) in bf16
+    gathered on dim 1 over ``n`` ranks, and the add of its result into the
+    rank's f32 shard sum: the port's layout (``collectives.
+    fsdp_reduce_scatter``, the reference's: ``dim`` moved first, the result
+    a strided view of the shard) and, as a yardstick the port does not run,
+    the rank's part taken in the shard's own layout (E contiguous pieces;
+    the same elementwise sums without a codec).  ms each, CUDA events,
+    medians."""
+    g = torch.randn(E, D, F, device="cuda", dtype=torch.bfloat16)
+    acc = torch.zeros(E, D // n, F, device="cuda", dtype=torch.float32)
+    moved = g.movedim(1, 0).reshape(n, -1).contiguous()[0].reshape(D // n, E, F).movedim(0, 1)
+    own = g.reshape(E, n, -1).transpose(0, 1).reshape(n, -1)[0].reshape(E, D // n, F)
+    out = {"bytes": g.numel() * g.element_size(),
+           "moved_copy_ms": median_ms(lambda: g.movedim(1, 0).reshape(n, -1).contiguous()),
+           "own_copy_ms": median_ms(lambda: g.reshape(E, n, -1).transpose(0, 1).reshape(n, -1)),
+           "moved_add_ms": median_ms(lambda: acc.add_(moved)),
+           "own_add_ms": median_ms(lambda: acc.add_(own))}
+    del g, acc, moved, own
+    return out
+
+
 def phase_moe_train(torch, np, get_config, build, mesh_mod, hetccl, gmm, ref, counters):
     """moonshot-v1-16b-a3b at full width, 1 layer (MOE_TRAIN_LAYERS' note),
-    on a MOE_TRAIN_MESH ThreadMesh, ``uniform_plan(2, 2, micro_batch=1)``,
-    1 x MOE_TRAIN_SEQ tokens a rank, remat, hier, backend pallas, no codec:
-    the step-0 gate first, then MOE_TRAIN_STEPS ZeRO-1 steps, the counts set
-    to 0 just before and read just after: per layer, micro-step and rank 6
-    forward gmm launches (3, and 3 again in remat's recompute) and 6
-    backward (dx and dw of each), all on the wgmma routes, 2 flash forward
-    and 1 backward at d 128, the fused rings once per bucket (reduce-scatter)
-    and per bucket and leaf (all-gather); finite losses; ms a step (host
-    clock, the steps after the first), tokens/s, the card's busy share over
-    one more step and the peak memory."""
+    on a MOE_TRAIN_MESH ThreadMesh, ``uniform_plan(2, MOE_TRAIN_MICRO,
+    micro_batch=1)``, 1 x MOE_TRAIN_SEQ tokens a micro-step and rank, remat,
+    hier, backend pallas, no codec: the step-0 gate first, then
+    MOE_TRAIN_STEPS ZeRO-3 steps and MOE_TRAIN_STEPS ZeRO-1 steps from one
+    init and the same batches, the counts set to 0 just before each run and
+    read just after: per layer, micro-step and rank 6 forward gmm launches
+    (3, and 3 again in remat's recompute) and 6 backward (dx and dw of
+    each), all on the wgmma routes, 2 flash forward and 1 backward at d 128;
+    the fused rings under ZeRO-1 once per bucket (reduce-scatter) and per
+    bucket and leaf (all-gather), under ZeRO-3 once per gathered (leaf,
+    layer) and micro-step in the fsdp adjoint (the expert stacks among
+    them) and once per leaf in the pod all-reduce; finite losses; the two
+    stages' step-0 gradient norms within ZERO_GRAD_NORM_RTOL, and their
+    parameters after step 0 (ZeRO-3's rebuilt by ``unshard_params``) within
+    ZERO_PARAM_REL_L2 over the tree and MOE_ZERO_LEAF_REL_L2 per leaf; ms a
+    step (host clock, the steps after the first), tokens/s, the card's busy
+    share over one more step, the peak memory, and the memory at the
+    boundaries of one more step (``launch.memory_breakdown.step_memory``);
+    and the fsdp adjoint's layout copy at moonshot's expert stack
+    (``adjoint_copy_times``)."""
     from repro_torch.configs.base import RunConfig
-    from repro_torch.core import balance
+    from repro_torch.convert import unshard_params
+    from repro_torch.core import balance, collectives
     from repro_torch.core.tree import leaves as tree_leaves
     from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels import ring_dma
+    from repro_torch.launch.memory_breakdown import step_memory
+    from repro_torch.models.common import fsdp_dims, make_rules, meta_leaves
     from repro_torch.train.trainer import make_train_program
     cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH), n_layers=MOE_TRAIN_LAYERS,
                               loss_chunk=MOE_TRAIN_LOSS_CHUNK)
     model = build(cfg)
     m = mesh_mod.ThreadMesh(MOE_TRAIN_MESH, device="cuda")
-    plan = balance.uniform_plan(2, 2, micro_batch=1)
+    plan = balance.uniform_plan(2, MOE_TRAIN_MICRO, micro_batch=1)
     gc.collect()
     torch.cuda.empty_cache()
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED), dtype=torch.bfloat16)
@@ -2984,72 +3043,137 @@ def phase_moe_train(torch, np, get_config, build, mesh_mod, hetccl, gmm, ref, co
     n_tokens = int(np.prod(batches[0]["tokens"].shape))
     T = plan.micro_batch * MOE_TRAIN_SEQ
     C = max(int(T * cfg.top_k * cfg.capacity_factor / cfg.n_experts), 1)
+    metas = model.abstract_params()
+    dims = fsdp_dims(metas, make_rules(3, m.shape["data"]))
+    gathers = sum(cfg.n_layers if mt.axes[0] == "layers" else 1
+                  for d, mt in zip(dims, meta_leaves(metas)) if d is not None)
     print(f"  {cfg.name}: {cfg.n_layers} of 48 layers, d_model {cfg.d_model}, {cfg.n_heads}/"
           f"{cfg.n_kv_heads} heads x {cfg.head_dim_}, {cfg.n_experts} experts top-{cfg.top_k} "
           f"of d_ff {cfg.d_ff_expert} (capacity {C}), vocab {cfg.vocab}, "
           f"{model.n_params() / 1e9:.3f}B params, bf16 params, f32 master state; mesh "
-          f"{m.shape}, {plan.n_micro_max} micro-step of {plan.micro_batch} x {MOE_TRAIN_SEQ} "
-          f"per rank, {n_tokens} tokens per step; remat on; loss chunk {cfg.loss_chunk}")
+          f"{m.shape}, {plan.n_micro_max} micro-steps of {plan.micro_batch} x {MOE_TRAIN_SEQ} "
+          f"per rank, {n_tokens} tokens per step; remat on; loss chunk {cfg.loss_chunk}; "
+          f"ZeRO-3 shards {sum(d is not None for d in dims)} of {len(dims)} leaves over data, "
+          f"{gathers} gathers a micro-step")
     b0 = {k: torch.as_tensor(batches[0][k][0, :plan.micro_batch]).to("cuda", torch.long)
           for k in ("tokens", "labels")}
     gate = moe_grad_gate(torch, gmm, ref, model, params, b0)
     del b0
-    gc.collect()
-    torch.cuda.empty_cache()
-    prog = make_train_program(model, m, RunConfig(
-        zero_stage=1, collective_mode="hier", backend="pallas", learning_rate=MOE_TRAIN_LR),
-        plan)
     shapes = [p.shape for p in tree_leaves(params)]
-    n_buckets = len(hetccl._make_buckets(
-        [torch.empty(sh, dtype=torch.float32, device="meta") for sh in shapes],
-        prog.comm.bucket_bytes))
-    torch.cuda.reset_peak_memory_stats()
-    state = prog.init_fn(params)
-    del params
-    counters.reset()
-    losses, step_ms = [], []
-    for batch in batches:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        state, met = prog.step_fn(state, batch)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        losses.append(met["loss"].item())
-    launches = counters.read()
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    ms = statistics.median(step_ms[1:])
+    out, after_step0 = {"step0_gate": gate}, {}
+    for zero in (3, 1):
+        prog = make_train_program(model, m, RunConfig(
+            zero_stage=zero, collective_mode="hier", backend="pallas",
+            learning_rate=MOE_TRAIN_LR), plan)
+        n_buckets = len(hetccl._make_buckets(
+            [torch.empty(sh, dtype=torch.float32, device="meta") for sh in shapes],
+            prog.comm.bucket_bytes))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = prog.init_fn(params)
+        if zero == 1:
+            del params                  # the ZeRO-1 ranks share the init's tensors
+        counters.reset()
+        losses, grad_norms, step_ms = [], [], []
+        with adjoint_rs_counter(collectives, ring_dma) as adjoint:
+            for i, batch in enumerate(batches):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, met = prog.step_fn(state, batch)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                losses.append(met["loss"].item())
+                grad_norms.append(met["grad_norm"].item())
+                if i == 0:                 # full leaves after step 0, on the host
+                    full = (unshard_params([state[0]["params"], state[1]["params"]], metas)
+                            if zero == 3 else state[0]["params"])
+                    after_step0[zero] = [p.to("cpu") for p in tree_leaves(full)]
+                    del full
+        launches = counters.read()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        ms = statistics.median(step_ms[1:])
 
-    def one_more():
-        nonlocal state
-        state, _ = prog.step_fn(state, batches[-1])
+        def one_more():
+            nonlocal state
+            state, _ = prog.step_fn(state, batches[-1])
 
-    busy = device_busy_share(torch, one_more, 1)
-    print(f"  ZeRO-1: losses {['%.6f' % x for x in losses]}; ms per step "
-          f"{['%.1f' % x for x in step_ms]}, {n_tokens / ms * 1e3:.1f} tokens/s (steps after the "
-          f"first); card busy share of one more step (torch.profiler) {busy}; peak memory "
-          f"{peak_gib:.2f} GiB; launches {launches}")
-    check(all(np.isfinite(losses)), "non-finite loss")
-    per = cfg.n_layers * plan.n_micro_max * m.size * MOE_TRAIN_STEPS
-    want = {"grouped_matmul": 6 * per, "grouped_matmul_wgmma": 6 * per,
-            "grouped_matmul_bwd": 6 * per, "grouped_matmul_bwd_dx_wgmma": 3 * per,
-            "grouped_matmul_bwd_dw_wgmma": 3 * per, "flash_attention_fwd": 2 * per,
-            "flash_attention_bwd": per,
-            "ring_reduce_scatter": n_buckets * MOE_TRAIN_STEPS,
-            "ring_all_gather": (n_buckets + len(shapes)) * MOE_TRAIN_STEPS}
-    for key, n in want.items():
-        print(f"  {key}: {launches[key]} launches, {n} expected  "
-              f"{'ok' if launches[key] == n else 'FAIL'}")
-    check(all(launches[k] == n for k, n in want.items()),
-          "the step did not launch the kernels it implies")
-    del state, prog
+        busy = device_busy_share(torch, one_more, 1)   # a step beyond the compared ones
+        print(f"  ZeRO-{zero}: losses {['%.6f' % x for x in losses]}; grad norms "
+              f"{['%.6f' % x for x in grad_norms]}; ms per step "
+              f"{['%.1f' % x for x in step_ms]}, {n_tokens / ms * 1e3:.1f} tokens/s (steps after "
+              f"the first); card busy share of one more step (torch.profiler) {busy}; peak "
+              f"memory {peak_gib:.2f} GiB; launches {launches}; fused reduce-scatter launches "
+              f"in the fsdp adjoint {adjoint[0]}")
+        print(f"  ZeRO-{zero}: memory at the boundaries of one more step:")
+        state, segs, scratch, err = step_memory(torch, mesh_mod, prog, state, batches[-1])
+        check(err is None, f"ZeRO-{zero}: the memory step ran out of memory")
+        check(all(np.isfinite(losses)), f"ZeRO-{zero}: non-finite loss")
+        per = cfg.n_layers * plan.n_micro_max * m.size * MOE_TRAIN_STEPS
+        want = {"grouped_matmul": 6 * per, "grouped_matmul_wgmma": 6 * per,
+                "grouped_matmul_bwd": 6 * per, "grouped_matmul_bwd_dx_wgmma": 3 * per,
+                "grouped_matmul_bwd_dw_wgmma": 3 * per, "flash_attention_fwd": 2 * per,
+                "flash_attention_bwd": per, "collective_reduce": 0}
+        n_adjoint = gathers * plan.n_micro_max * MOE_TRAIN_STEPS if zero == 3 else 0
+        if zero == 3:
+            want.update(ring_reduce_scatter=n_adjoint + len(shapes) * MOE_TRAIN_STEPS,
+                        ring_all_gather=len(shapes) * MOE_TRAIN_STEPS)
+        else:
+            want.update(ring_reduce_scatter=n_buckets * MOE_TRAIN_STEPS,
+                        ring_all_gather=(n_buckets + len(shapes)) * MOE_TRAIN_STEPS)
+        for key, n in want.items():
+            print(f"  ZeRO-{zero} {key}: {launches[key]} launches, {n} expected  "
+                  f"{'ok' if launches[key] == n else 'FAIL'}")
+        print(f"  ZeRO-{zero} fused reduce-scatters in the fsdp adjoint: {adjoint[0]}, "
+              f"{n_adjoint} expected  {'ok' if adjoint[0] == n_adjoint else 'FAIL'}")
+        check(all(launches[k] == n for k, n in want.items()) and adjoint[0] == n_adjoint,
+              f"ZeRO-{zero}: the steps did not launch the kernels they imply")
+        out[f"zero{zero}"] = {
+            "losses": losses, "grad_norms": grad_norms, "step_ms": step_ms, "ms_per_step": ms,
+            "tokens_per_s": n_tokens / ms * 1e3, "device_busy_one_more_step": busy,
+            "peak_gib": peak_gib, "memory_step": segs, "scratch_kept_gib": scratch,
+            "launches": launches, "expected_launches": want,
+            "adjoint_rs_launches": adjoint[0], "n_buckets": n_buckets}
+        del state, prog
+        gc.collect()
+        torch.cuda.empty_cache()
+    g3, g1 = out["zero3"]["grad_norms"][0], out["zero1"]["grad_norms"][0]
+    norm_gap = abs(g3 - g1) / g1
+    rel = [((a.cuda().float() - b.cuda().float()).norm() / b.cuda().float().norm()).item()
+           for a, b in zip(after_step0[3], after_step0[1])]
+    diff2 = sum((a.cuda().float() - b.cuda().float()).square().sum().item()
+                for a, b in zip(after_step0[3], after_step0[1]))
+    param_gap = (diff2 / sum(b.cuda().float().square().sum().item()
+                             for b in after_step0[1])) ** 0.5
+    after_step0.clear()
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    print(f"  step-0 gradient norm ZeRO-3 {g3:.6f} vs ZeRO-1 {g1:.6f}: relative difference "
+          f"{norm_gap:.3e} (limit {ZERO_GRAD_NORM_RTOL})  "
+          f"{'ok' if norm_gap <= ZERO_GRAD_NORM_RTOL else 'FAIL'}")
+    print(f"  parameters after step 0, ZeRO-3 (rebuilt from its shards) vs ZeRO-1: relative "
+          f"L2 {param_gap:.3e} (limit {ZERO_PARAM_REL_L2})  "
+          f"{'ok' if param_gap <= ZERO_PARAM_REL_L2 else 'FAIL'}; worst leaf {worst} "
+          f"{rel[worst]:.3e} (limit {MOE_ZERO_LEAF_REL_L2})  "
+          f"{'ok' if rel[worst] <= MOE_ZERO_LEAF_REL_L2 else 'FAIL'}; per leaf "
+          f"{['%.2e' % r for r in rel]}")
+    check(norm_gap <= ZERO_GRAD_NORM_RTOL, "ZeRO-3 and ZeRO-1 step-0 gradient norms disagree")
+    check(param_gap <= ZERO_PARAM_REL_L2 and rel[worst] <= MOE_ZERO_LEAF_REL_L2,
+          "ZeRO-3 and ZeRO-1 parameters after step 0 disagree")
+    copy = adjoint_copy_times(torch, cfg.n_experts, cfg.d_model, cfg.d_ff_expert,
+                              m.shape["data"])
+    print(f"  fsdp adjoint at an expert stack ({cfg.n_experts}, {cfg.d_model}, "
+          f"{cfg.d_ff_expert}) bf16, {copy['bytes'] / 1e6:.1f} MB: layout copy "
+          f"{copy['moved_copy_ms']:.4f} ms with the dim moved first, "
+          f"{copy['own_copy_ms']:.4f} ms into the shard's layout (not run); the add of the "
+          f"result into the f32 shard sum {copy['moved_add_ms']:.4f} / "
+          f"{copy['own_add_ms']:.4f} ms")
+    out.update(arch=cfg.name, layers=cfg.n_layers, capacity=C, seq=MOE_TRAIN_SEQ,
+               tokens_per_step=n_tokens, params=model.n_params(), gathers_per_micro_step=gathers,
+               grad_norm_gap=norm_gap, param_rel_l2_after_step0=param_gap,
+               worst_leaf_rel_l2_after_step0=rel[worst], adjoint_copy=copy)
     gc.collect()
     torch.cuda.empty_cache()
-    return {"arch": cfg.name, "layers": cfg.n_layers, "capacity": C, "seq": MOE_TRAIN_SEQ,
-            "tokens_per_step": n_tokens, "losses": losses, "step_ms": step_ms,
-            "ms_per_step": ms, "tokens_per_s": n_tokens / ms * 1e3,
-            "device_busy_one_more_step": busy, "peak_gib": peak_gib, "launches": launches,
-            "expected_launches": want, "n_buckets": n_buckets, "step0_gate": gate,
-            "params": model.n_params()}
+    return out
 
 
 def phase_gmm_bwd_times(torch, gmm, ref, bench_codec):
@@ -3339,7 +3463,7 @@ def main() -> int:
         gmm_bwd = phase_gmm_bwd_kernels(torch, gmm, ref, ops)
 
     with phase(f"[25] MoE training: {MOE_TRAIN_ARCH} at full width, {MOE_TRAIN_LAYERS} layer, "
-               "ZeRO-1", walls):
+               "ZeRO-3 and ZeRO-1 on four ranks", walls):
         moe_train = phase_moe_train(torch, np, get_config, build, mesh_mod, hetccl, gmm, ref,
                                     counters)
 
@@ -3428,6 +3552,10 @@ def main() -> int:
             "replaces": replaces, "launches": train_launches[kname], "max_abs_err": 0.0,
             "check": "pass (bitwise)", "cases_checked": n_quant_cases,
             **{key: val for key, val in t.items() if not key.endswith("_readings")}})
+
+    def moe_launches(key):         # [25]'s two stages
+        return sum(moe_train[z]["launches"][key] for z in ("zero3", "zero1"))
+
     tp, td = gtimes["prefill_w13"], gtimes["decode_w13"]
     err = gmm_cases["mixtral_prefill_w13"]
     kernels.append({
@@ -3451,7 +3579,7 @@ def main() -> int:
         "routes": {r: moe["serve"]["launches"][f"grouped_matmul_{r}"] for r in gmm.ROUTES},
         "prefill_w2_ms": gtimes["prefill_w2"]["ms"],
         "prefill_w2_library_ms": gtimes["prefill_w2"]["library_ms"],
-        "moonshot_train_launches": moe_train["launches"]["grouped_matmul"],
+        "moonshot_train_launches": moe_launches("grouped_matmul"),
         "check": "pass", "cases_checked": len(gmm_cases)})
     for which in ("dx", "dw"):
         t = btimes[f"mixtral_w13_{which}"]
@@ -3462,9 +3590,9 @@ def main() -> int:
             "replaces": "src/repro/kernels/grouped_matmul.py:25",
             "note": "backward of the forward kernel (dx = dy w^T, dw = x^T dy); the TPU kernel "
                     "is forward-only and the reference differentiates its einsums",
-            "launches": moe_train["launches"][f"grouped_matmul_bwd_{which}_wgmma"]
-            + moe_train["launches"][f"grouped_matmul_bwd_{which}_simt"],
-            "routes": {r: moe_train["launches"][f"grouped_matmul_bwd_{r}"]
+            "launches": moe_launches(f"grouped_matmul_bwd_{which}_wgmma")
+            + moe_launches(f"grouped_matmul_bwd_{which}_simt"),
+            "routes": {r: moe_launches(f"grouped_matmul_bwd_{r}")
                        for r in gmm.BWD_ROUTES if r.startswith(which)},
             "max_abs_err": err["max_abs_err"], "rel_l2": err["rel_l2"],
             "worst_row": err["worst_row"], "ms": t["ms"], "graph_ms": t["graph_ms"],

@@ -279,6 +279,47 @@ def _make_buckets(leaves, bucket_bytes: int) -> list[list[int]]:
     return buckets
 
 
+def bucket_zeros(like, cfg=None, *, dtype=None):
+    """Zero leaves of the shapes of ``like`` (a list of tensors), in
+    ``dtype`` or each in its own, laid out as :func:`tree_all_reduce`
+    buckets them (DDP's gradient buckets): the leaves of a bucket are
+    consecutive views of one flat buffer that also holds the bucket's pad to
+    a multiple of the world size.  ``tree_all_reduce`` reduces such a bucket
+    in its buffer, without a ``torch.cat``, and returns these same leaves: a
+    tree of them is donated to it (the trainer's gradient sums).  Per-rank
+    code (the world size sets the pad)."""
+    c = _as_communicator(cfg)
+    metas = [torch.empty(t.shape, dtype=dtype or t.dtype, device="meta") for t in like]
+    world = max(world_size(c), 1)
+    out = [None] * len(like)
+    for bucket in _make_buckets(metas, c.bucket_bytes):
+        n = sum(metas[i].numel() for i in bucket)
+        buf = torch.zeros(n + (-n) % world, dtype=metas[bucket[0]].dtype,
+                          device=like[bucket[0]].device)
+        buf._hetccl_bucket = True
+        off = 0
+        for i in bucket:
+            out[i] = buf[off:off + metas[i].numel()].view(metas[i].shape)
+            off += metas[i].numel()
+    return out
+
+
+def _bucket_buffer(leaves, bucket, world: int):
+    """The buffer of a :func:`bucket_zeros` bucket whose leaves are exactly
+    ``bucket``'s, in order and padded for ``world`` ranks, or None."""
+    base = leaves[bucket[0]]._base
+    if base is None or not getattr(base, "_hetccl_bucket", False):
+        return None
+    off = 0
+    for i in bucket:
+        lf = leaves[i]
+        if (lf._base is not base or not lf.is_contiguous()
+                or lf.storage_offset() - base.storage_offset() != off):
+            return None
+        off += lf.numel()
+    return base if base.numel() == off + (-off) % world else None
+
+
 def tree_all_reduce(tree, cfg=None, *, mean_by=None):
     """All-reduce every leaf of ``tree``, fused into ~bucket_bytes buckets.
 
@@ -288,14 +329,27 @@ def tree_all_reduce(tree, cfg=None, *, mean_by=None):
     With a ``cross_dtype`` policy each bucket takes the fused all_reduce
     instead (cross-stage compression only exists there).  ``mean_by``:
     optional scalar every floating leaf is divided by after the reduction.
+
+    Leaves are new tensors, except for a bucket made by
+    :func:`bucket_zeros`: it is reduced in its own buffer, each bucket's
+    result written back before the next bucket's is gathered, and its leaves
+    are returned themselves (the same values, bit for bit; DESIGN_TORCH.md
+    §19).
     """
     c = _as_communicator(cfg)
     leaves, rebuild = _flatten(tree)
     buckets = _make_buckets(leaves, c.bucket_bytes)
     world = world_size(c)
 
-    flats, pads = [], []
+    flats, pads, donated = [], [], []
     for bucket in buckets:
+        buf = _bucket_buffer(leaves, bucket, max(world, 1))
+        if buf is not None:
+            n = sum(leaves[i].numel() for i in bucket)
+            flats.append(buf)
+            pads.append(buf.numel() - n)
+            donated.append(True)
+            continue
         flat = torch.cat([leaves[i].reshape(-1) for i in bucket]) \
             if len(bucket) > 1 else leaves[bucket[0]].reshape(-1)
         pad = (-flat.shape[0]) % max(world, 1)
@@ -303,20 +357,34 @@ def tree_all_reduce(tree, cfg=None, *, mean_by=None):
             flat = torch.nn.functional.pad(flat, (0, pad))
         flats.append(flat)
         pads.append(pad)
+        donated.append(False)
+
+    def written_back(k, red):
+        """Bucket k's reduced values into its donated buffer (the pad keeps
+        its zeros); the buffer stands for them from here on."""
+        if not donated[k]:
+            return red
+        n = red.shape[0] - pads[k]
+        flats[k][:n].copy_(red[:n])
+        return flats[k]
 
     big = max((f.numel() * f.element_size() for f in flats), default=0)
+    indexed = list(enumerate(flats))
     if world > 1 and c.policy("all_reduce", big).cross_dtype is None:
         reduced = _coll.software_pipeline(
-            flats,
-            (lambda f: reduce_scatter(f, c, dim=0),
-             lambda s: all_gather(s, c, dim=0)))
+            indexed,
+            (lambda kf: (kf[0], reduce_scatter(kf[1], c, dim=0)),
+             lambda ks: written_back(ks[0], all_gather(ks[1], c, dim=0))))
     elif world > 1:
-        reduced = _coll.software_pipeline(flats, (lambda f: all_reduce(f, c),))
+        reduced = _coll.software_pipeline(
+            indexed, (lambda kf: written_back(kf[0], all_reduce(kf[1], c)),))
     else:
         reduced = flats
 
     out = list(leaves)
-    for bucket, red, pad in zip(buckets, reduced, pads):
+    for bucket, red, pad, own in zip(buckets, reduced, pads, donated):
+        if own:
+            continue
         if pad:
             red = red[:red.shape[0] - pad]
         off = 0
@@ -325,7 +393,9 @@ def tree_all_reduce(tree, cfg=None, *, mean_by=None):
             out[i] = red[off:off + sz].reshape(leaves[i].shape)
             off += sz
     if mean_by is not None:
-        out = [o / torch.as_tensor(mean_by, dtype=o.dtype, device=o.device)
-               if o.is_floating_point() else o for o in out]
+        own = {i for bucket, d in zip(buckets, donated) if d for i in bucket}
+        for i, o in enumerate(out):
+            if o.is_floating_point():
+                div = torch.as_tensor(mean_by, dtype=o.dtype, device=o.device)
+                out[i] = o.div_(div) if i in own else o / div
     return rebuild(out)
-

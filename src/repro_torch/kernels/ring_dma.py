@@ -392,25 +392,25 @@ def scratch_sizes(R: int, c: int, esize: int, reduce: bool) -> tuple[int, int]:
 
 
 class _Scratch:
-    """Slots, partials, flags and the error word of the launches over R ranks
-    on one device: allocated before a launch, grown when a larger payload
-    comes, and kept.  Flags carry a per-call tag, so they are zeroed once."""
+    """Flags and the error word of the launches over R ranks on one device,
+    kept: flags carry a per-call tag, so they are zeroed once.  The partials
+    and slots are sized by each launch (:meth:`buffers`) and go back to the
+    caching allocator once it is queued, so that a step's other tensors can
+    use them: the next allocation on the stream runs after the kernel."""
 
     def __init__(self, device, R: int, ctas: int):
         self.ctas = ctas
         n_flags = R * 2 * NUM_BUFFERS * MAX_STRIPES * ctas + R * 2 * ctas
         self.flags = torch.zeros(n_flags, dtype=torch.int64, device=device)
         self.err = torch.zeros(4, dtype=torch.int32, device=device)
-        self.acc = torch.empty(0, dtype=torch.float32, device=device)
-        self.slots = torch.empty(0, dtype=torch.uint8, device=device)
         self.seq = 0
 
-    def reserve(self, acc_elems: int, slot_bytes: int):
-        if self.acc.numel() < acc_elems:
-            self.acc = torch.empty(acc_elems, dtype=torch.float32, device=self.acc.device)
-        if self.slots.numel() < slot_bytes:
-            self.slots = torch.empty(slot_bytes, dtype=torch.uint8, device=self.slots.device)
+    def buffers(self, acc_elems: int, slot_bytes: int):
+        """(f32 partials, slot bytes) for one launch; the call tag advances."""
         self.seq += 1
+        dev = self.flags.device
+        return (torch.empty(acc_elems, dtype=torch.float32, device=dev),
+                torch.empty(slot_bytes, dtype=torch.uint8, device=dev))
 
 
 _scratch: dict = {}
@@ -463,7 +463,7 @@ def _launch(kind, in_code, wire_code, esize, n, c, direction, S, pos, dst, src, 
         if ctas < 1:
             raise RuntimeError(f"the ring kernel cannot keep {R} ranks resident at once")
         sc = _scratch[key] = _Scratch(device, R, ctas)
-    sc.reserve(*scratch_sizes(R, c, esize, kind == 0))
+    acc, slots = sc.buffers(*scratch_sizes(R, c, esize, kind == 0))
     ints = ctypes.c_int * R
     ptrs = ctypes.c_ulonglong * R
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -472,7 +472,7 @@ def _launch(kind, in_code, wire_code, esize, n, c, direction, S, pos, dst, src, 
                           ints(*pos), ints(*dst), ints(*src),
                           ptrs(*(t.data_ptr() for t in ins)),
                           ptrs(*(t.data_ptr() for t in outs)),
-                          sc.slots.data_ptr(), sc.acc.data_ptr(), sc.flags.data_ptr(),
+                          slots.data_ptr(), acc.data_ptr(), sc.flags.data_ptr(),
                           sc.err.data_ptr(), sc.seq, stream)
     if err:
         raise RuntimeError(f"ring kernel launch failed: "

@@ -11,7 +11,7 @@ mesh of ranks.
 (``configs.ARCH_IDS`` and the paper's models, ``configs.PAPER_IDS``); the
 SSM and hybrid families raise (ROADMAP A7).  ``--zero 3`` shards the
 parameters over the mesh's "data" axis and gathers them per block inside the
-forward (the dense family; the MoE family raises, ROADMAP A6b).
+forward, the MoE family's router and expert stacks among them.
 
 The ranks of ``--mesh-shape pod,data`` are threads of this process sharing
 one device (a ``ThreadMesh``).  Runs on the card unless ``--device cpu`` is

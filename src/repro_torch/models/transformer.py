@@ -13,13 +13,15 @@ one shared attention + MLP block (its weights shared, its KV cache one per
 group), then a tail of the ``n_layers % attn_every`` blocks left.  The VLM
 and enc-dec families wait for their slice (ROADMAP A8).
 
-ZeRO-3 (dense family): the forward takes an
+ZeRO-3 (dense and MoE families): the forward takes an
 :class:`~repro_torch.core.collectives.FsdpScope` and gathers each block's
 sharded leaves over "data" at the top of the block (:func:`maybe_gather`,
 the reference's ``PlanLeaf`` / ``gather_plan_of`` / ``maybe_gather``), so
 under ``remat`` the gather sits inside the checkpointed block, as in the
 reference's scan body: the gathered weights are not kept for the backward
-but gathered again there.
+but gathered again there.  A MoE block's router and expert stacks are
+gathered on their "embed" dim like the rest (a layer's router on dim 0, w1
+and w3 on dim 1, w2 on dim 2).
 
 bf16 rounding points follow the reference: the projections are matmuls in
 the activation dtype (f32 accumulation inside, result rounded to it),
@@ -391,13 +393,14 @@ def forward_lm(params, tokens, cfg: ModelConfig, *, remat: bool = False,
     checkpointing per block (the reference's ``jax.checkpoint`` over the scan
     body).  ``fsdp`` (an ``FsdpScope``) with ``rules`` (``make_rules``):
     ZeRO-3, the stacked blocks' leaves sharded and gathered per block (the
-    dense family; the embedding and final norm come gathered)."""
+    dense and MoE families; the embedding and final norm come gathered)."""
     positions = _positions_for(tokens)
     x = embed_lookup(params["embed"], tokens).to(_dtype(cfg))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if fsdp is not None:
-        if cfg.family != "dense":
-            raise NotImplementedError(f"ZeRO-3 runs the dense family, not {cfg.family!r}")
+        if cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(f"ZeRO-3 runs the dense and MoE families, not "
+                                      f"{cfg.family!r}")
         gplan = gather_plan_of(abstract_params(cfg)["blocks"], rules, scanned=True)
         fns = [functools.partial(_gathered_block_out, params["blocks"], i, gplan, fsdp,
                                  positions, cfg) for i in range(cfg.n_layers)]

@@ -105,21 +105,42 @@ def _f32(x: float, like) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
-def adam_update(g, m, v, master, step: int, rc: RunConfig, decay_mask: float = 1.0):
+# Elements per piece of an Adam update: the update is elementwise, so it runs
+# over the flat leaf in pieces of this size, and its f32 temporaries stay a
+# piece's size whatever the leaf's (four ranks of moonshot's 1.34 GB f32
+# embedding share one card).
+ADAM_PIECE = 1 << 24
+
+
+def adam_update(g, m, v, master, step: int, rc: RunConfig, decay_mask: float = 1.0,
+                scale=None):
     """One AdamW update in f32, all arguments shard-shaped; ``step`` is the
-    number of updates before this one.  The bias corrections are taken in
-    f32, as the reference takes them from its f32 step counter.  ``m``,
-    ``v`` and ``master`` (f32) are updated in place and returned as
-    ``(master, m, v)``: each in-place op is the functional op it replaces,
-    so the numbers are the same bits."""
-    g = g.float()
+    number of updates before this one; ``scale`` (optional) multiplies the
+    f32 gradient first (the clip).  The bias corrections are taken in f32,
+    as the reference takes them from its f32 step counter.  ``m``, ``v`` and
+    ``master`` (f32, contiguous) are updated in place, a piece of
+    ``ADAM_PIECE`` elements at a time, and returned as ``(master, m, v)``:
+    each in-place op is the functional op it replaces, and every op is
+    elementwise, so the numbers are the same bits."""
+    n = g.numel()
+    if n > ADAM_PIECE:
+        flat = [g.reshape(-1), m.view(-1), v.view(-1), master.view(-1)]
+        for lo in range(0, n, ADAM_PIECE):
+            _adam_piece(*(t[lo:lo + ADAM_PIECE] for t in flat), step, rc, decay_mask, scale)
+    else:
+        _adam_piece(g, m, v, master, step, rc, decay_mask, scale)
+    return master, m, v
+
+
+def _adam_piece(g, m, v, master, step, rc, decay_mask, scale):
+    g = g.float() if scale is None else g.float() * scale
     m.mul_(rc.beta1).add_((1 - rc.beta1) * g)
     v.mul_(rc.beta2).add_((1 - rc.beta2) * g * g)
     t = _f32(step + 1.0, g)
     mhat = m / (1 - torch.pow(_f32(rc.beta1, g), t))
     vhat = v / (1 - torch.pow(_f32(rc.beta2, g), t))
     upd = mhat / (torch.sqrt(vhat) + rc.eps) + rc.weight_decay * decay_mask * master
-    return master.sub_(rc.learning_rate * upd), m, v
+    master.sub_(rc.learning_rate * upd)
 
 
 # ---------------------------------------------------------------------------
@@ -165,23 +186,32 @@ def zero1_step(params, grads, opt, step: int, rc: RunConfig, comm):
 
     gnorm = global_norm(grads)
     scale = clip_scale(gnorm, rc.grad_clip)
+    gs = leaves(grads)
+    del grads                       # each gradient goes once its shard is read
 
     def one(p, g, m, v, master):
-        g_sh = _shard_of(g.reshape(-1), rank, world).float() * scale  # the shard alone
         decay = 0.0 if p.dim() <= 1 else 1.0          # no decay on norms/biases
-        new_master, m, v = adam_update(g_sh, m, v, master, step, rc, decay)
+        new_master, m, v = adam_update(_shard_of(g.reshape(-1), rank, world), m, v, master,
+                                       step, rc, decay, scale)
         # the parameter AllGather (the ZeRO-1 optimizer-state gather, Table 3)
         full = hetccl.all_gather(new_master.to(p.dtype), comm, dim=0)
         return full[:p.numel()].reshape(p.shape), m, v, new_master
 
     ps, rebuild = flatten(params)
-    out = [one(*args) for args in zip(ps, leaves(grads), leaves(opt["m"]),
-                                      leaves(opt["v"]), leaves(opt["master"]))]
+    out = [one(p, _popped(gs, i), m, v, master) for i, (p, m, v, master) in enumerate(
+        zip(ps, leaves(opt["m"]), leaves(opt["v"]), leaves(opt["master"])))]
     new_opt = {"m": rebuild([o[1] for o in out]), "v": rebuild([o[2] for o in out]),
                "master": rebuild([o[3] for o in out])}
     if ef is not None:
         new_opt["ef"] = ef
     return rebuild([o[0] for o in out]), new_opt, gnorm
+
+
+def _popped(items: list, i: int):
+    """``items[i]``, the list's reference dropped: a donated gradient's memory
+    goes as soon as its update has read it, not at the end of the step."""
+    item, items[i] = items[i], None
+    return item
 
 
 # ---------------------------------------------------------------------------
@@ -222,18 +252,20 @@ def zero3_step(params, grads, opt, step: int, rc: RunConfig, comm, fsdp_leaf_mas
         return g if is_fsdp else hetccl.all_reduce(g, comm)
 
     gs, rebuild = flatten(grads)
+    del grads                       # a reduced leaf replaces its sum, one at a time
     mask = leaves(fsdp_leaf_mask)
-    gs = [sync(g, f) for g, f in zip(gs, mask)]
+    for i, f in enumerate(mask):
+        gs[i] = sync(gs[i], f)
     gnorm = global_norm_sharded(gs, mask, comm)
     scale = clip_scale(gnorm, rc.grad_clip)
 
     def one(p, g, m, v, master):
         decay = 0.0 if p.dim() <= 1 else 1.0
-        new_master, m, v = adam_update(g.float() * scale, m, v, master, step, rc, decay)
+        new_master, m, v = adam_update(g, m, v, master, step, rc, decay, scale)
         return new_master.to(p.dtype), m, v, new_master
 
-    out = [one(*args) for args in zip(leaves(params), gs, leaves(opt["m"]), leaves(opt["v"]),
-                                      leaves(opt["master"]))]
+    out = [one(p, _popped(gs, i), m, v, master) for i, (p, m, v, master) in enumerate(
+        zip(leaves(params), leaves(opt["m"]), leaves(opt["v"]), leaves(opt["master"])))]
     new_opt = {"m": rebuild([o[1] for o in out]), "v": rebuild([o[2] for o in out]),
                "master": rebuild([o[3] for o in out])}
     if ef is not None:

@@ -26,7 +26,10 @@ autograd runs CUDA backward work on its own thread, which belongs to no mesh
 rank (``FsdpScope`` says how ZeRO-3's adjoint gets out of it).  Gradients
 are summed and scaled in place, and the optimizer state is donated to the
 step (``optim``): at llama-1b on one card the four ranks' copies would not
-fit twice.
+fit twice.  ZeRO-1's f32 sums are views into the buckets of
+``hetccl.tree_all_reduce`` (``hetccl.bucket_zeros``), donated to the step,
+which reduces them in their own storage: four ranks of moonshot-v1-16b-a3b
+(one layer) fit one card so (DESIGN_TORCH.md §19).
 """
 from __future__ import annotations
 
@@ -83,8 +86,9 @@ def _dp_axes_of(m) -> tuple[tuple[str, ...], str | None]:
 
 def _donated(acc: list, rebuild):
     """The tree of ``acc``'s gradient sums, the list emptied: passed straight
-    into the optimizer step, it is the step's alone, so each sum's memory
-    goes once the step has reduced it (the step rebinds its argument)."""
+    into the optimizer step, it is the step's alone: ZeRO-1's
+    ``tree_all_reduce`` writes the reduced values into the sums' own
+    buckets, and each sum's memory goes once the update has read it."""
     tree = rebuild(acc)
     acc.clear()
     return tree
@@ -97,11 +101,6 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
     single-policy facade."""
     if rc.zero_stage not in (1, 3):
         raise ValueError(f"zero_stage={rc.zero_stage}: the stages are 1 and 3")
-    if model.cfg.family == "moe" and rc.zero_stage == 3:
-        raise NotImplementedError(
-            "ZeRO-3 of the MoE family: the gather plan would shard the expert leaves "
-            "on their 'embed' dim, which the MoE sublayer does not gather; not ported "
-            "yet (ROADMAP A6b)")
     if model.cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"{model.cfg.family} training needs a backward of the SSD scan kernel, "
@@ -165,7 +164,10 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
             req = [p.detach().requires_grad_() for p in ps]
             p_req = rebuild(req)
             fsdp = FsdpScope(req, "data", comm) if any(fsdp_mask) else None
-            g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=device) for p in ps]
+            # ZeRO-1's sums lie in tree_all_reduce's buckets, which it reduces
+            # in place; ZeRO-3's are shard-shaped and reduced leaf by leaf
+            g_acc = ([torch.zeros(p.shape, dtype=torch.float32, device=device) for p in ps]
+                     if zero3 else hetccl.bucket_zeros(ps, comm, dtype=torch.float32))
             loss_sum = torch.zeros((), dtype=torch.float32, device=device)
             count = torch.zeros((), dtype=torch.float32, device=device)
             for i in range(plan.n_micro_max):

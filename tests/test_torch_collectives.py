@@ -198,6 +198,73 @@ def test_tree_all_reduce_matches_jax(jax_mesh, mode, backend):
             np.testing.assert_allclose(port.numpy(), w, **RTOL)
 
 
+# (shapes, dtypes, bucket_bytes): buckets of one leaf each, of many leaves,
+# leaves whose buckets need padding to the world of 4, and f32 with bf16
+IN_PLACE_LAYOUTS = {
+    "one_leaf_buckets": ([(64, 3), (128,), (5, 4, 8)], ["float32"] * 3, 64),
+    "many_leaf_buckets": ([(64, 3), (128,), (5, 4, 8), (2, 6)], ["float32"] * 4, 1 << 20),
+    "padded": ([(7,), (3, 5), (11, 2), (1,), (13,)], ["float32"] * 5, 100),
+    "mixed_dtypes": ([(9, 3), (6,), (5, 5), (4, 2), (33,)],
+                     ["float32", "bfloat16", "float32", "bfloat16", "float32"], 96),
+}
+IN_PLACE_BACKENDS = {"xla": dict(backend="xla"), "pallas": dict(backend="pallas"),
+                     "pallas-int8": dict(backend="pallas", wire_quant="int8")}
+
+
+@pytest.mark.parametrize("layout", sorted(IN_PLACE_LAYOUTS))
+@pytest.mark.parametrize("backend", sorted(IN_PLACE_BACKENDS))
+def test_tree_all_reduce_in_place_is_bit_equal(backend, layout):
+    """``tree_all_reduce`` of ``bucket_zeros`` leaves (hier, (pod=2, data=2))
+    reduces each bucket in its own buffer: the same bits as the copying
+    reduction of the same values (with ``mean_by``), the returned leaves are
+    the donated ones, their storage the buffers'; the copying reduction's
+    leaves are new.  A tree whose leaves do not fill their buckets exactly
+    is reduced by copying, its inputs untouched."""
+    shapes, dtypes, bucket_bytes = IN_PLACE_LAYOUTS[layout]
+    cfg = hetccl.HetCCLConfig(mode="hier", local_axes=("data",), pod_axis="pod",
+                              bucket_bytes=bucket_bytes, **IN_PLACE_BACKENDS[backend])
+    rng = np.random.RandomState(sorted(IN_PLACE_LAYOUTS).index(layout))
+    vals = [[torch.from_numpy(rng.randn(*sh).astype(np.float32)).to(getattr(torch, dt))
+             for sh, dt in zip(shapes, dtypes)] for _ in range(4)]
+
+    def rank(xs):
+        donated = hetccl.bucket_zeros(xs, cfg)
+        for d, x in zip(donated, xs):
+            d.copy_(x)
+        ptrs = [d.data_ptr() for d in donated]
+        copied = hetccl.tree_all_reduce({"g": list(xs)}, cfg, mean_by=4.0)["g"]
+        in_place = hetccl.tree_all_reduce({"g": list(donated)}, cfg, mean_by=4.0)["g"]
+        fresh = hetccl.bucket_zeros(xs, cfg)
+        for d, x in zip(fresh, xs):
+            d.copy_(x)
+        # a bucket without its first leaf is not filled: its other leaves copy
+        cut = next((b for b in hetccl._make_buckets(xs, bucket_bytes) if len(b) > 1), [0])
+        keep = [i for i in range(len(xs)) if i != cut[0]]
+        got = hetccl.tree_all_reduce({"g": [fresh[i] for i in keep]}, cfg)["g"]
+        partial = [(fresh[i], got[keep.index(i)], xs[i]) for i in cut[1:]]
+        return xs, copied, in_place, donated, ptrs, partial
+
+    outs = mesh.ThreadMesh({"pod": 2, "data": 2}, device="cpu").run(rank, vals)
+    buckets = hetccl._make_buckets(vals[0], bucket_bytes)
+    sizes = [sum(vals[0][i].numel() for i in b) for b in buckets]
+    assert {"one_leaf_buckets": all(len(b) == 1 for b in buckets),
+            "many_leaf_buckets": len(buckets) == 1,
+            "padded": any(n % 4 for n in sizes) and max(map(len, buckets)) > 1,
+            "mixed_dtypes": len({vals[0][b[0]].dtype for b in buckets}) == 2}[layout]
+    for xs, copied, in_place, donated, ptrs, partial in outs:
+        for c, p, d, x, ptr in zip(copied, in_place, donated, xs, ptrs):
+            assert c.dtype == p.dtype == x.dtype
+            assert torch.equal(c.view(torch.int16) if c.dtype == torch.bfloat16 else c,
+                               p.view(torch.int16) if p.dtype == torch.bfloat16 else p)
+            assert p is d and p.data_ptr() == ptr
+            assert c.data_ptr() != x.data_ptr()
+        assert partial or layout == "one_leaf_buckets"
+        for f, q, x in partial:
+            assert q.data_ptr() != f.data_ptr() and torch.equal(f, x)
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[3][1]))
+
+
+
 def test_bf16_rings_against_the_f32_accumulate_oracle(jax_mesh):
     """bf16 all_reduce (hier, both backends) against the f32-accumulate
     oracle: the sum of the bf16 inputs taken in f32 (``ref.collective_reduce``

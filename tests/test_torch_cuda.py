@@ -600,6 +600,94 @@ def test_zero3_steps_on_the_card_match_zero1(gen):
     assert max(abs(a - b) for a, b in zip(losses[3], losses[1])) <= 5e-3, losses
 
 
+# Reduced moonshot (f32) one step under each stage on the card: the step-0
+# loss within MOE_ZERO_LOSS_RTOL, the gradient norm within
+# MOE_ZERO_GRAD_NORM_RTOL and every leaf's parameters after the step within
+# MOE_ZERO_LEAF_REL_L2 (CPU readings: equal losses, norms 0-8.7e-8 apart,
+# leaves 9.2e-9 at worst; a shard's offset shifted in the adjoint moves w1
+# and w3 by 2.2e-3 and the norm by 1.1e-7: only the per-leaf check sees it).
+MOE_ZERO_LOSS_RTOL, MOE_ZERO_GRAD_NORM_RTOL, MOE_ZERO_LEAF_REL_L2 = 1e-6, 1e-5, 1e-6
+
+
+def _moe_zero_stages_on_the_card(plant=None):
+    """(losses, gradient norms, per-leaf relative L2 after the step, the
+    fsdp adjoint's fused reduce-scatter launches and the gathers a
+    micro-step) of one ZeRO-3 and one ZeRO-1 step of reduced moonshot from
+    one init on a CUDA ThreadMesh (pod=2, data=2), hier, pallas, remat;
+    ``plant`` patches ZeRO-3's run."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.convert import unshard_params
+    from repro_torch.core import balance, collectives
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models import build
+    from repro_torch.models.common import fsdp_dims, make_rules, meta_leaves
+    from repro_torch.train.trainer import make_train_program
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    model = build(cfg)
+    m = mesh.ThreadMesh({"pod": 2, "data": 2}, device="cuda")
+    plan = balance.uniform_plan(2, 4, micro_batch=1)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.float32)
+    batch = synthetic_batch(0, 0, plan.n_micro_max, plan.micro_batch * 4, 64, cfg.vocab)
+    metas = model.abstract_params()
+    gathers = sum(cfg.n_layers if mt.axes[0] == "layers" else 1
+                  for d, mt in zip(fsdp_dims(metas, make_rules(3, 2)), meta_leaves(metas))
+                  if d is not None)
+    out = {}
+    for zero in (3, 1):
+        prog = make_train_program(model, m, RunConfig(
+            zero_stage=zero, collective_mode="hier", backend="pallas", learning_rate=1e-3,
+            param_dtype="float32"), plan)
+        state = prog.init_fn(params)
+        with pytest.MonkeyPatch.context() as mp:
+            if plant is not None and zero == 3:
+                plant(mp)
+            with smoke.adjoint_rs_counter(collectives, ring_dma) as adjoint:
+                state, met = prog.step_fn(state, batch)
+        full = (unshard_params([state[0]["params"], state[1]["params"]], metas)
+                if zero == 3 else state[0]["params"])
+        out[zero] = (met["loss"].item(), met["grad_norm"].item(), leaves(full), adjoint[0])
+    rel = [((a - b).norm() / b.norm()).item() for a, b in zip(out[3][2], out[1][2])]
+    return ((out[3][0], out[1][0]), (out[3][1], out[1][1]), rel, (out[3][3], out[1][3]),
+            gathers * plan.n_micro_max)
+
+
+def test_moe_zero3_on_the_card_matches_zero1_at_step_0(gen):
+    """Reduced moonshot on the card: ZeRO-3's step 0 against ZeRO-1's within
+    the limits above, the expert leaves among those the fsdp adjoint
+    reduce-scatters (one fused launch per gathered leaf and layer a
+    micro-step, none under ZeRO-1)."""
+    (l3, l1), (g3, g1), rel, (a3, a1), want = _moe_zero_stages_on_the_card()
+    print(f"\n  loss {l3} / {l1}, grad norm {g3} / {g1}, worst leaf {max(rel):.3e}, "
+          f"adjoint launches {a3} / {a1}")
+    assert abs(l3 - l1) <= MOE_ZERO_LOSS_RTOL * abs(l1)
+    assert abs(g3 - g1) <= MOE_ZERO_GRAD_NORM_RTOL * g1
+    assert max(rel) <= MOE_ZERO_LEAF_REL_L2, rel
+    assert (a3, a1) == (want, 0)
+
+
+def test_moe_zero3_planted_adjoint_fault_fails_on_the_card(gen):
+    """One shard's offset shifted in the adjoint's reduce-scatter of w1 and
+    w3 (an expert stack gathered on dim 1): the check above fails on those
+    two leaves."""
+    def plant(mp):
+        from repro_torch.core import collectives
+        real = collectives.fsdp_reduce_scatter
+
+        def shifted(g, axis, dim=0, comm=None):
+            if g.dim() == 3 and dim == 1 and mesh.axis_index("data") == 0:
+                g = torch.roll(g, g.shape[dim] // 4, dims=dim)
+            return real(g, axis, dim, comm)
+
+        mp.setattr(collectives, "fsdp_reduce_scatter", shifted)
+
+    _, _, rel, _, _ = _moe_zero_stages_on_the_card(plant)
+    bad = [i for i, r in enumerate(rel) if r > MOE_ZERO_LEAF_REL_L2]
+    print(f"\n  planted fault: leaves {bad} out of the limit, worst {max(rel):.3e}")
+    assert bad == [7, 9]      # blocks.moe.w1, blocks.moe.w3 in flatten order
+
+
 def test_flash_d100_through_ops_in_model_layout(gen):
     """llama-3b's prefill path: ``ops.flash_attention`` on (B, S, H, 100)
     bf16 tensors (heads 200 bytes apart) copies q, k, v into padded rows and

@@ -59,7 +59,6 @@ from repro_torch.models import build  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
-from repro_torch.train.trainer import make_train_program  # noqa: E402
 
 LOGIT_REL = 5e-4              # of the largest |logit| (module docstring)
 MOE_ATOL = 1e-5
@@ -485,15 +484,3 @@ def test_batcher_matches_jax(mixtral, jax_interpret):
         n_sure = next((n for n, v in enumerate(m) if v <= 1), r.max_new)
         assert n_sure > 0
         assert r.out[:n_sure] == jr.out[:n_sure]
-
-
-def test_moe_training_is_not_ported_yet():
-    """ZeRO-3 of the MoE family is not ported (ZeRO-1 is: tests/
-    test_torch_moe_train.py); it raises when the program is built, naming
-    its ROADMAP item, not inside a step."""
-    from repro_torch.configs.base import RunConfig
-    from repro_torch.core import balance, mesh
-    model = build(get_config("mixtral-8x7b").reduced())
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
-        make_train_program(model, mesh.ThreadMesh({"data": 1}, device="cpu"),
-                           RunConfig(zero_stage=3), balance.uniform_plan(1, 1, micro_batch=1))

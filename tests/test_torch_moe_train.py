@@ -2,7 +2,9 @@
 
 The grouped matmul's backward (the plain version and the autograd Function
 around the kernel), ``moe_ffn``'s gradients, the MoE models' loss and
-gradients, and whole ZeRO-1 steps of reduced mixtral.  Inputs come from
+gradients, whole ZeRO-1 steps of reduced mixtral, and ZeRO-3 of the MoE
+family: its gather plan, the shards, and whole steps of reduced mixtral and
+moonshot.  Inputs come from
 seeded numpy RandomStates; model weights are the JAX ``init`` tree carried
 across with ``params_from_jax``.  The reference has no Pallas backward: its
 MoE trains through the VJP of its einsums (``repro/models/moe.py:44-55``),
@@ -31,7 +33,15 @@ Tolerances, from the readings on these inputs:
   1.00e-2 at step 2, 3.8e-4 at step 1): routing is discontinuous, so once
   Adam's sign-sized first step has moved the two packages' weights apart by
   their gradients' rounding, a token whose top-k flips moves the loss by a
-  step.
+  step.  ZeRO-3 steps are held to the same tolerances (readings: losses
+  within 2.99e-2 at moonshot's step 2 on xla, its ZeRO-1 reading too;
+  parameters 1.44e-3), their parameters after ``unshard_params``;
+* the port's ZeRO-3 against its own ZeRO-1 at step 0: the same loss bit for
+  bit, the gradient norm within ZERO_GRAD_NORM_RTOL (4e-7; readings 8.7e-8
+  mixtral, 0 moonshot) and each leaf's parameters within ZERO_PARAM_REL_L2
+  (4e-8; readings 6.6e-9, 9.2e-9) of ZeRO-1's.  Per leaf: the embedding's
+  gradient sets the norm, so a planted fault in an expert stack's
+  reduce-scatter moves the norm by 1.1e-7 and the stack by 2.2e-3.
 """
 import numpy as np
 import pytest
@@ -49,23 +59,29 @@ from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.models import Ctx  # noqa: E402
 from repro.models import build as jax_build  # noqa: E402
 from repro.models import moe as jax_moe  # noqa: E402
+from repro.models import transformer as jax_tf  # noqa: E402
+from repro.models.common import make_rules as jax_make_rules  # noqa: E402
 from repro.train.trainer import make_train_program as jax_make_train_program  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import RunConfig  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
-from repro_torch.core import balance, mesh  # noqa: E402
+from repro_torch.convert import params_from_jax, shard_params, unshard_params  # noqa: E402
+from repro_torch.core import balance, collectives, mesh  # noqa: E402
 from repro_torch.core.tree import flatten, leaves  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gmm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.common import make_rules  # noqa: E402
+from repro_torch.train import optim  # noqa: E402
 from repro_torch.train.trainer import make_train_program  # noqa: E402
 
 CTX = Ctx(rules={"_axis_sizes": {}, "_zero_stage": 1}, manual=False, dp_axes=("data",))
 FFN_GRAD_TOL = 1e-5           # of each leaf's largest element
 MODEL_GRAD_REL_L2 = 5e-4      # of each leaf's norm
 STEP0_ATOL, LOSS_ATOL, PARAM_REL_L2 = 1e-5, 3e-2, 2e-3
+ZERO_GRAD_NORM_RTOL, ZERO_PARAM_REL_L2 = 4e-7, 4e-8
 SEQ = 32
 
 
@@ -407,14 +423,180 @@ def test_zero1_trainer_matches_jax_on_mixtral(mesh3, one_thread, backend):
 
 
 # ---------------------------------------------------------------------------
-# (f) ZeRO-3 of the MoE family raises at build; (g) the launcher
+# (f) ZeRO-3 of the MoE family: the gather plan, the shards, whole steps
 # ---------------------------------------------------------------------------
 
-def test_moe_zero3_raises_at_build_from_the_launcher():
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "moonshot-v1-16b-a3b"])
+def test_moe_gather_plan_and_shards_match_the_reference(mesh3, arch):
+    """ZeRO-3's gather plan of the MoE blocks equals the reference's
+    (``gather_plan_of`` over its ``make_rules`` at ``zero_stage=3`` on
+    ``mesh3``): a layer's router on dim 0, w1 and w3 on dim 1, w2 on dim 2;
+    ``shard_params`` cuts each expert leaf there and ``unshard_params``
+    gives the full tree back."""
+    cfg, jmodel, jparams, model, params = _carried(arch)
+    jplan = jax_tf.gather_plan_of(jmodel.abstract_params()["blocks"],
+                                  jax_make_rules(jax_get_config(arch).reduced(), mesh3, 3),
+                                  scanned=True)
+    plan = tf.gather_plan_of(model.abstract_params()["blocks"], make_rules(3, 2), scanned=True)
+    assert [p.dim for p in jax.tree.leaves(jplan, is_leaf=lambda x: hasattr(x, "dim"))] == \
+        [p.dim for p in leaves(plan)]
+    assert {k: v.dim for k, v in plan["moe"].items()} == {"router": 0, "w1": 1, "w3": 1, "w2": 2}
+    metas = model.abstract_params()
+    shards = [shard_params(params, metas, i, 2) for i in range(2)]
+    L, D, E, F = cfg.n_layers, cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    assert {k: tuple(v.shape) for k, v in shards[1]["blocks"]["moe"].items()} == {
+        "router": (L, D // 2, E), "w1": (L, E, D // 2, F), "w3": (L, E, D // 2, F),
+        "w2": (L, E, F, D // 2)}
+    assert torch.equal(shards[1]["blocks"]["moe"]["w2"], params["blocks"]["moe"]["w2"][..., D // 2:])
+    assert all(torch.equal(a, b) for a, b in zip(leaves(unshard_params(shards, metas)),
+                                                 leaves(params)))
+
+
+def _trainer_steps(prog, state, cfg, n_steps=3):
+    losses, norms = [], []
+    for s in range(n_steps):
+        nm, gmb, _ = prog.batch_shape(SEQ)
+        state, m = prog.step_fn(state, pipeline.synthetic_batch(0, s, nm, gmb, SEQ, cfg.vocab))
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    return state, losses, norms
+
+
+ZERO3_CASES = {"hier-xla": dict(backend="xla"), "hier-pallas": dict(backend="pallas"),
+               "hier-pallas-int8-ef": dict(backend="pallas", wire_quant="int8")}
+
+
+@pytest.mark.parametrize("case", sorted(ZERO3_CASES))
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "moonshot-v1-16b-a3b"])
+def test_zero3_trainer_matches_jax_on_moe(mesh3, one_thread, arch, case):
+    """3 ZeRO-3 steps of reduced mixtral and moonshot (hier) against the JAX
+    trainer at ``zero_stage=3`` from the same init and batches, with the
+    ZeRO-1 tolerances of the module note: step-0 loss, losses, and the
+    parameters after ``unshard_params`` rebuilds full leaves from the "data"
+    ranks' shards; the EF state is there iff a codec resolves, and both pods
+    hold the same shards."""
+    cfg, jmodel, jparams, model, params = _carried(arch)
+    rc_kw = dict(zero_stage=3, learning_rate=1e-3, param_dtype="float32",
+                 collective_mode="hier", **ZERO3_CASES[case])
+    jprog = jax_make_train_program(jmodel, mesh3, JaxRunConfig(**rc_kw),
+                                   jax_balance.uniform_plan(2, 4, 1))
+    jstate = jprog.init_fn(jax.random.PRNGKey(0))
+    prog = make_train_program(model, mesh.ThreadMesh({"pod": 2, "data": 2}, device="cpu"),
+                              RunConfig(**rc_kw), balance.uniform_plan(2, 4, 1))
+    state = prog.init_fn(params)
+    want = []
+    for s in range(3):
+        nm, gmb, _ = prog.batch_shape(SEQ)
+        jb = jax_pipeline.synthetic_batch(0, s, nm, gmb, SEQ, cfg.vocab)
+        jstate, jm = jprog.step_fn(jstate, {k: jnp.asarray(v) for k, v in jb.items()})
+        want.append(float(jm["loss"]))
+    state, got, _ = _trainer_steps(prog, state, cfg)
+    metas = model.abstract_params()
+    full = unshard_params([state[0]["params"], state[1]["params"]], metas)
+    jleaves = [np.asarray(x) for x in jax.tree.leaves(jax.device_get(jstate["params"]))]
+    num = sum(float(((g.numpy() - w) ** 2).sum()) for g, w in zip(leaves(full), jleaves))
+    rel = (num / sum(float((w ** 2).sum()) for w in jleaves)) ** 0.5
+    print(f"\n  zero3 {arch} {case}: losses JAX {want}\n    port {got}; params relative L2 "
+          f"{rel:.3e}")
+    assert abs(got[0] - want[0]) <= STEP0_ATOL
+    np.testing.assert_allclose(got, want, rtol=0, atol=LOSS_ATOL)
+    assert rel <= PARAM_REL_L2
+    codec = optim.ef_codec(RunConfig(**rc_kw))
+    assert all(("ef" in s["opt"]) == (codec is not None) for s in state)
+    assert ("ef" in jstate["opt"]) == (codec is not None)
+    assert state[0]["params"]["embed"].shape == (cfg.padded_vocab, cfg.d_model // 2)
+    for a, b in ((2, 0), (3, 1)):
+        assert all(torch.equal(x, y) for x, y in zip(leaves(state[a]["params"]),
+                                                     leaves(state[b]["params"])))
+
+
+def _shifted_adjoint(monkeypatch):
+    """A planted fault: the fsdp adjoint's reduce-scatter of w1 and w3 (an
+    expert stack gathered on dim 1) reads "data" rank 0's gradient a
+    quarter of the dim off (its shard's offset shifted)."""
+    real = collectives.fsdp_reduce_scatter
+
+    def shifted(g, axis, dim=0, comm=None):
+        if g.dim() == 3 and dim == 1 and mesh.axis_index("data") == 0:
+            g = torch.roll(g, g.shape[dim] // 4, dims=dim)
+        return real(g, axis, dim, comm)
+
+    monkeypatch.setattr(collectives, "fsdp_reduce_scatter", shifted)
+
+
+def _zero_stages_at_step_0(arch, plant=None):
+    """Step 0 of the port's ZeRO-3 and ZeRO-1 from one init and batch (hier,
+    pallas, remat; ``plant`` patches ZeRO-3's run): (the two losses, the
+    two gradient norms, each leaf's relative L2 between the parameters after
+    the step, ZeRO-3's rebuilt by ``unshard_params``)."""
+    cfg, _, _, model, params = _carried(arch)
+    out = {}
+    for zero in (3, 1):
+        prog = make_train_program(model, mesh.ThreadMesh({"pod": 2, "data": 2}, device="cpu"),
+                                  RunConfig(zero_stage=zero, learning_rate=1e-3,
+                                            param_dtype="float32", collective_mode="hier",
+                                            backend="pallas"),
+                                  balance.uniform_plan(2, 4, 1))
+        with pytest.MonkeyPatch.context() as mp:
+            if plant is not None and zero == 3:
+                plant(mp)
+            state, losses, norms = _trainer_steps(prog, prog.init_fn(params), cfg, 1)
+        full = (unshard_params([state[0]["params"], state[1]["params"]],
+                               model.abstract_params()) if zero == 3 else state[0]["params"])
+        out[zero] = (losses[0], norms[0], leaves(full))
+    rel = [float((a - b).norm() / b.norm()) for a, b in zip(out[3][2], out[1][2])]
+    return (out[3][0], out[1][0]), (out[3][1], out[1][1]), rel
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "moonshot-v1-16b-a3b"])
+def test_moe_zero3_matches_zero1_at_step_0(one_thread, arch):
+    """The port's ZeRO-3 against its own ZeRO-1 from one init and batch: the
+    same step-0 loss bit for bit (the gathers concatenate the shards
+    exactly, so the forward is the same), the step-0 gradient norm within
+    ZERO_GRAD_NORM_RTOL and every leaf's parameters after step 0 (ZeRO-3's
+    rebuilt by ``unshard_params``) within ZERO_PARAM_REL_L2 of ZeRO-1's:
+    the two stages sum the same gradients in another order (the adjoint's
+    reduce-scatter over "data", then the pod ring)."""
+    (l3, l1), (g3, g1), rel = _zero_stages_at_step_0(arch)
+    print(f"\n  {arch}: step-0 loss {l3} / {l1}, grad norm {g3} / {g1} (relative "
+          f"{abs(g3 - g1) / g1:.3e}); params after step 0, worst leaf relative L2 {max(rel):.3e}")
+    assert l3 == l1
+    assert abs(g3 - g1) <= ZERO_GRAD_NORM_RTOL * g1
+    assert max(rel) <= ZERO_PARAM_REL_L2
+
+
+def test_moe_zero3_planted_adjoint_fault_fails_the_step_0_check(one_thread):
+    """With one shard's offset shifted in the adjoint's reduce-scatter of
+    w1 and w3 (reduced moonshot), the step-0 check fails on those leaves'
+    parameters; the loss and the gradient norm alone would not show it (the
+    embedding's gradient sets the norm)."""
+    (l3, l1), (g3, g1), rel = _zero_stages_at_step_0("moonshot-v1-16b-a3b", _shifted_adjoint)
+    names = [n for n, _ in _named_leaves(build(get_config("moonshot-v1-16b-a3b").reduced())
+                                         .abstract_params())]
+    bad = sorted(n for n, r in zip(names, rel) if r > ZERO_PARAM_REL_L2)
+    print(f"\n  planted fault: leaves out of the limit {bad}, worst {max(rel):.3e}; grad norm "
+          f"relative {abs(g3 - g1) / g1:.3e}")
+    assert bad == ["blocks.moe.w1", "blocks.moe.w3"]
+    assert l3 == l1
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named_leaves(tree[k], f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+# ---------------------------------------------------------------------------
+# (g) the launcher
+# ---------------------------------------------------------------------------
+
+def test_train_launcher_runs_moe_zero3_on_the_cpu(capsys):
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
-        train.main(["--device", "cpu", "--steps", "1", "--seq", "16", "--zero", "3",
-                    "--arch", "moonshot-v1-16b-a3b"])
+    hist = train.main(["--device", "cpu", "--steps", "2", "--seq", "16", "--zero", "3",
+                       "--arch", "moonshot-v1-16b-a3b", "--reduced", "--backend", "pallas"])
+    assert len(hist) == 2 and np.isfinite(hist).all()
+    out = capsys.readouterr().out
+    assert "arch=moonshot-v1-16b-a3b-reduced" in out and "zero=3" in out
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "moonshot-v1-16b-a3b"])

@@ -376,12 +376,13 @@ def test_slot_pitch(esize, c, want4, want2):
 @pytest.mark.parametrize("R,c,esize", [(4, 1_000_003, 4), (4, 1_000_003, 2), (2, 7, 4),
                                        (3, 100_003, 2), (4, 14_155_776, 4)])
 def test_scratch_holds_every_slot_at_the_pitch(kind, R, c, esize):
-    """_Scratch reserves what scratch_sizes says: for the all-gather two
+    """_Scratch allocates what scratch_sizes says: for the all-gather two
     slots per rank at the pitch of its ``esize``-byte words and no partials;
     for the reduce-scatter, which pulls, no slots and two f32 partials per
     rank at the f32 pitch (whatever the wire's size).  The last buffer's
-    last element lies inside the reservation, and every buffer starts
-    16-byte aligned."""
+    last element lies inside the allocation, and every buffer starts
+    16-byte aligned.  The buffers are sized by each launch and not kept: a
+    smaller launch after a larger one gets its own size."""
     acc_elems, slot_bytes = ring_dma.scratch_sizes(R, c, esize, kind == "rs")
     unit = 4 if kind == "rs" else esize
     pitch = ring_dma.slot_pitch(c, unit)
@@ -391,8 +392,9 @@ def test_scratch_holds_every_slot_at_the_pitch(kind, R, c, esize):
     assert all(o % 16 == 0 for o in offsets)
     assert offsets[-1] + c * unit <= max(slot_bytes, acc_elems * 4)
     sc = ring_dma._Scratch("cpu", R, ctas=3)
-    sc.reserve(acc_elems, slot_bytes)
-    assert sc.slots.numel() == slot_bytes and sc.acc.numel() == acc_elems
-    sc.reserve(*ring_dma.scratch_sizes(R, c // 2 + 1, esize, kind == "rs"))
-    assert sc.slots.numel() == slot_bytes and sc.acc.numel() == acc_elems   # kept
+    acc, slots = sc.buffers(acc_elems, slot_bytes)
+    assert slots.numel() == slot_bytes and acc.numel() == acc_elems
+    smaller = ring_dma.scratch_sizes(R, c // 2 + 1, esize, kind == "rs")
+    acc, slots = sc.buffers(*smaller)
+    assert (acc.numel(), slots.numel()) == smaller
     assert sc.seq == 2

@@ -211,6 +211,24 @@ def test_adam_update_matches_the_reference(step):
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("piece", [64, 333, 1000])
+def test_adam_update_in_pieces_is_bit_equal(monkeypatch, piece):
+    """The update of a leaf larger than ``ADAM_PIECE`` runs piece by piece
+    (ragged last piece included) over a non-contiguous gradient, with the
+    clip's scale: the same bits as one whole update, in place."""
+    rng = np.random.RandomState(piece)
+    g = torch.from_numpy(rng.randn(25, 40).astype(np.float32)).t()
+    m, master = (torch.from_numpy(rng.randn(40, 25).astype(np.float32)) for _ in range(2))
+    v = torch.from_numpy(np.abs(rng.randn(40, 25)).astype(np.float32))
+    rc, scale = RunConfig(learning_rate=3e-3, weight_decay=0.1), torch.tensor(0.37)
+    whole = [t.clone() for t in (m, v, master)]
+    optim.adam_update(g.float() * scale, *whole[:2], whole[2], 4, rc, 1.0)
+    monkeypatch.setattr(optim, "ADAM_PIECE", piece)
+    got = optim.adam_update(g, m, v, master, 4, rc, 1.0, scale)
+    assert got[0] is master and got[1] is m and got[2] is v
+    assert all(torch.equal(a, b) for a, b in zip((m, v, master), whole))
+
+
 def test_error_feedback_resolution_matches_the_reference():
     for kw in (dict(), dict(wire_quant="int8"), dict(wire_quant="int8", backend="pallas"),
                dict(wire_quant="fp8", backend="pallas", error_feedback="off"),
