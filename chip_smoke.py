@@ -178,12 +178,45 @@ Phases, in order; any failure exits non-zero before the last line:
    and moonshot's (480) shapes, L2 cold, in turns with ``torch.bmm`` on the
    same transposed views (a yardstick the port never calls), back to back
    and from CUDA graphs, beside the plain version and the operations bound;
-27. a JSON line listing every kernel (the flash forward with its five
-   main-path shapes under ``shapes``, the backward's d-100 shape, the
-   grouped matmul's and the SSD scan's launches per route under
+27. SSD backward vs plain: ``ssd_scan_model_bwd`` (``csrc/ssd_scan_bwd.cu``:
+   the reverse state scan, the chunks' gradients, the head sum) after a
+   forward launch that writes the chunk states, against its plain version
+   case by case (``SSD_BWD_CASES``: [28]'s two training shapes, f32, dt
+   near 20, a slow decay with an initial state and dfin, G 2 and G = H,
+   chunks of 100 and 32, P 128 and 16), dx, ddt, da, dB, dC and d init each
+   within ``SSD_BWD_LIMITS``, bit-equal on a second run, the counts moved by
+   exactly the launches made; and flash's backward at head dim 112
+   (``FLASH_D112_BWD_CASES``: zamba2's training shape, a ragged f32 case)
+   within ``BWD_LIMITS``;
+28. SSM and hybrid training at full width: mamba2-2.7b cut to 16 of 64
+   layers and zamba2-7b cut to 7 of 81 (one group of six Mamba2 blocks, the
+   shared attention block, one tail block), bf16 parameters with f32 master
+   state, weights from a seed, ZeRO-1 on a (pod=2, data=2) ThreadMesh, one
+   micro-step of 1 x 4096 tokens a rank, remat, hier, pallas, no codec: the
+   step-0 gate (every SSD backward launch against the plain backward of its
+   inputs, every d-112 flash backward launch against its plain version),
+   then 3 steps from one init, the counts set to 0 just before and read
+   just after: 2 SSD forward launches (remat's recompute the second) and 1
+   backward call per Mamba2 block, micro-step and rank, 2 flash forward and
+   1 backward per shared block, the fused rings per bucket and leaf; finite
+   losses; step 0's loss against the same batch with every kernel op plain
+   (``SSM_STEP0_LOSS_ATOL``, a sanity check) beside planted faults' gaps,
+   one of which it must catch (``SSM_LOSS_FAULTS``); ms a step, tokens/s,
+   busy share, peak memory (under ``SSM_TRAIN_PEAK_GIB``);
+29. SSD backward times at [28]'s two shapes: each of its three launches and
+   the whole backward, L2 cold, back to back and from CUDA graphs, in turns
+   with the plain backward, the backward beside the function's bound (its
+   inputs read and outputs written once) and each launch beside its own
+   traffic, a diagnostic (no library yardstick: no one PyTorch call
+   computes it); and flash's backward at
+   d 112 against SDPA's;
+30. a JSON line listing every kernel (the flash forward with its five
+   main-path shapes under ``shapes``, the backward's d-100 and d-112
+   shapes, the grouped matmul's and the SSD scan's launches per route under
    ``routes``, the grouped matmul's backward products with their routes'
-   launches in the MoE training run);
-28. the last line, ``{"ok": true, "device": {...}}``.
+   launches in the MoE training run, the SSD backward with its three
+   launches under ``stages`` and its launches in [28]);
+31. the last line, ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.
 
@@ -585,6 +618,67 @@ MOE_TRAIN_LR, MOE_TRAIN_LOSS_CHUNK = 1e-3, 1024
 # 1.58e-4, the head: ZeRO-3 rounds its reduce-scattered gradient to bf16, as
 # the reference does, where ZeRO-1 sums in f32; the expert stacks 2.2e-6).
 MOE_ZERO_LEAF_REL_L2 = 6e-4
+# The SSD backward (csrc/ssd_scan_bwd.cu) against its plain version
+# (ssd_scan.ssd_scan_model_bwd_plain over ref.ssd_scan_bwd), case by case: dx,
+# ddt, da, dB, dC and, with an initial state, d init, each as gmm_error and
+# held to the limits of its own type (dx, dB and dC in the inputs' type; ddt,
+# da and d init f32).  f32: both sum the same f32 products in other orders;
+# on these cases' inputs at H 4 to 8 the plain backward in f32 lies 1.5e-7 to
+# 5.2e-7 (relative L2) and up to 5.7e-6 (worst row: da at dt near 20) from
+# the same in float64 on the CPU, so SSD_LIMITS' f32 values leave a margin of
+# 35 and more.  bf16 outputs: both round their f32 sums once.  Stated before
+# the first run on the card.
+SSD_BWD_LIMITS = SSD_LIMITS
+SSD_BWD_OUTPUTS = ("dx", "ddt", "da", "dB", "dC", "dinit")
+# (name, B, S, H, P, G, N, chunk Q, dtype, dt scale, initial state, dfin):
+# ssd_inputs' inputs at the model's layout, dy unit normals, dfin unit
+# normals where set.  The two training shapes of [28] (mamba2 H 80 / N 128,
+# zamba2 H 112 / N 64, one sequence of 4096); f32; dt near 20 (a falls by
+# thousands within a chunk); a slow decay with an initial state and dfin
+# (the state's gradient carried through every chunk); G 2 and G = H; chunks
+# of 100 (not a multiple of the 32-row tile) and 32; P 128 and P 16.
+SSD_BWD_CASES = [
+    ("mamba2_train", 1, 4096, 80, 64, 1, 128, 256, "bfloat16", 1.0, False, False),
+    ("zamba2_train", 1, 4096, 112, 64, 1, 64, 256, "bfloat16", 1.0, False, False),
+    ("mamba2_f32", 1, 1024, 80, 64, 1, 128, 256, "float32", 1.0, False, False),
+    ("dt_to_20", 1, 1024, 16, 64, 1, 128, 256, "bfloat16", 8.0, False, False),
+    ("slow_decay_init_dfin", 2, 1024, 8, 64, 1, 64, 256, "float32", 0.01, True, True),
+    ("g2_h8_init_dfin", 2, 512, 8, 64, 2, 64, 256, "float32", 1.0, True, True),
+    ("g2_h8_init_dfin_bf16", 2, 512, 8, 64, 2, 64, 256, "bfloat16", 1.0, True, True),
+    ("q100_three_chunks", 2, 300, 8, 64, 1, 64, 100, "float32", 1.0, True, True),
+    ("q100_p32_g2_bf16", 2, 300, 8, 32, 2, 128, 100, "bfloat16", 1.0, False, True),
+    ("q32_g16", 2, 512, 16, 64, 16, 64, 32, "bfloat16", 1.0, False, False),
+    ("p128_n64_init", 1, 512, 4, 128, 1, 64, 256, "float32", 1.0, True, False),
+    ("p16_n8_g4", 2, 256, 8, 16, 4, 8, 64, "bfloat16", 1.0, False, False),
+]
+# The flash backward at head dim 112 (BWD_CASES' fields): zamba2's shared
+# attention at [28]'s shape, and a ragged f32 case with GQA.
+FLASH_D112_BWD_CASES = [
+    ("zamba2_train_d112", 1, 32, 32, 4096, 112, "causal", 0, None, "bfloat16", True),
+    ("f32_d112_gqa2_s300", 2, 4, 2, 300, 112, "causal", 0, None, "float32", False),
+]
+# SSM and hybrid training at full width (ROADMAP A7), ZeRO-1 on a (pod=2,
+# data=2) ThreadMesh, ``uniform_plan(2, 2, 1)``: one micro-step of 1 x 4096
+# tokens a rank, 16384 a step; remat, hier, pallas, no codec, bf16
+# parameters with f32 master state, lr 1e-3, 3 steps from one init, loss
+# chunks of 1024 tokens.  Depth cut to fit four ranks in 75 GiB:
+# mamba2-2.7b 16 of 64 layers (0.90 B parameters); zamba2-7b 7 of 81 (one
+# group of six Mamba2 blocks, the shared attention block and one tail
+# block, 0.98 B), so the tail path runs.
+SSM_TRAIN = {"mamba2-2.7b": 16, "zamba2-7b": 7}
+SSM_TRAIN_SEQ, SSM_TRAIN_STEPS, SSM_TRAIN_LR, SSM_TRAIN_LOSS_CHUNK = 4096, 3, 1e-3, 1024
+SSM_TRAIN_MESH, SSM_TRAIN_MICRO = {"pod": 2, "data": 2}, 2
+SSM_TRAIN_PEAK_GIB = 75.0
+# The step-0 loss of each run against the same batch's loss with every kernel
+# op on its plain version (the SSD op's chunk loop, plain attention), both in
+# bf16: the mean of 16384 token losses near ln(vocab).  The limit is about 3x
+# the larger of the two models' readings on an H100 (9.8e-5, 1.93e-4).  It is
+# a sanity check: at random init a fault moves this mean little, so [28]
+# prints planted faults' gaps beside it (``SSM_LOSS_FAULTS``) and requires
+# only that the one named by SSM_LOSS_FAULT_CAUGHT be caught; the per-launch
+# gates (``ssm_grad_gate``, [27]) are what hold the kernels.
+SSM_STEP0_LOSS_ATOL = 6e-4
+SSM_LOSS_FAULT_CAUGHT = "ssd_dt_one_late"
 
 
 class SmokeFailure(RuntimeError):
@@ -3234,6 +3328,501 @@ def phase_gmm_bwd_times(torch, gmm, ref, bench_codec):
     return out
 
 
+# ---------------------------------------------------------------------------
+# SSM and hybrid training: the SSD backward, flash's backward at d 112
+# ---------------------------------------------------------------------------
+
+def ssd_bwd_inputs(torch, gen, B, S, H, P, G, N, Q, dtype, dt_scale, with_init, with_dfin):
+    """``ssd_inputs`` at the model's layout, with dy (B,S,H,P) f32 and dfin
+    (B,H,N,P) f32 or None."""
+    inp = ssd_inputs(torch, gen, B, S, H, P, G, N, Q, dtype, dt_scale, with_init, "model")
+    inp["dy"] = torch.randn(B, S, H, P, generator=gen, device="cuda")
+    inp["dfin"] = (torch.randn(B, H, N, P, generator=gen, device="cuda") if with_dfin
+                   else None)
+    return inp
+
+
+def ssd_bwd_run(ssd, inp, plain):
+    """The six gradients (``SSD_BWD_OUTPUTS``) of the kernels (one forward
+    launch that writes the chunk states, then the backward's launches) or of
+    the plain backward."""
+    args = (inp["x"], inp["dt"], inp["a"], inp["B"], inp["C"], inp["Q"], inp["dy"],
+            inp["dfin"], inp["init"])
+    if plain:
+        return ssd.ssd_scan_model_bwd_plain(*args)
+    states = ssd.ssd_scan_model_states(*args[:6], inp["init"])[2]
+    return ssd.ssd_scan_model_bwd(*args, states)
+
+
+def ssd_bwd_errors(got, want):
+    """gmm_error of each gradient both sides have, with its type; ok when each
+    is within SSD_BWD_LIMITS of its type."""
+    out = {}
+    for name, g, w in zip(SSD_BWD_OUTPUTS, got, want):
+        if g is not None and w is not None:
+            out[name] = {**gmm_error(g, w), "dtype": str(g.dtype).removeprefix("torch.")}
+    ok = all(gmm_ok(e, e["dtype"], SSD_BWD_LIMITS) for e in out.values())
+    return out, ok
+
+
+def format_ssd_bwd(errs):
+    return "  ".join(f"{k} {e['dtype'][:4]} rel_l2 {e['rel_l2']:.2e} row {e['worst_row']:.2e}"
+                     for k, e in errs.items())
+
+
+def flash_bwd_case(torch, fa, ref, gen, case):
+    """One BWD_CASES-style case of the flash backward against its plain
+    version: (worst of dq / dk / dv's errors, ok, the inputs)."""
+    name, B, Hq, Hkv, S, d, kind, window, k_len, dt, model_layout = case
+    dtype = getattr(torch, dt)
+    q, k, v = attention_inputs(gen, B, Hq, Hkv, S, S, d, dtype, model_layout)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    kw = dict(kind=kind, window=window, k_len=S if k_len is None else k_len)
+    o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, ref.attention_lse(q, k, **kw), **kw)
+    torch.cuda.synchronize()
+    errs = [bwd_error(g, w) for g, w in zip(got, want)]
+    worst = {key: max(e[key] for e in errs) for key in errs[0]}
+    rel_lim, row_lim = BWD_LIMITS[dt]
+    ok = (worst["rel_l2"] <= rel_lim and worst["worst_row"] <= row_lim
+          and all(bool(torch.isfinite(g).all()) for g in got))
+    return worst, ok, (q, k, v, o, do, lse, kw)
+
+
+def phase_ssd_bwd_kernels(torch, ssd, fa, ref):
+    """The SSD backward against its plain version case by case
+    (SSD_BWD_CASES), each gradient within SSD_BWD_LIMITS, bit-equal on a
+    second run, the counts moved by exactly the launches made (per run one
+    forward launch and one backward call of three launches); then the flash
+    backward at d 112 (FLASH_D112_BWD_CASES) within BWD_LIMITS."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    results, failed = {}, []
+    for name, B, S, H, P, G, N, Q, dt, scale, init, dfin in SSD_BWD_CASES:
+        inp = ssd_bwd_inputs(torch, gen, B, S, H, P, G, N, Q, dt, scale, init, dfin)
+        before = (ssd.launches, ssd.bwd_launches, dict(ssd.bwd_stage_launches))
+        got = ssd_bwd_run(ssd, inp, plain=False)
+        again = ssd_bwd_run(ssd, inp, plain=False)
+        torch.cuda.synchronize()
+        counted = (ssd.launches - before[0] == 2 and ssd.bwd_launches - before[1] == 2
+                   and all(ssd.bwd_stage_launches[st] - before[2][st] == 2
+                           for st in ssd.BWD_STAGES))
+        same = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+        del again
+        want = ssd_bwd_run(ssd, inp, plain=True)
+        shapes = all((g is None) == (w is None) and (g is None or (
+            g.shape == w.shape and g.dtype == w.dtype)) for g, w in zip(got, want))
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got if g is not None)
+        errs, ok = ssd_bwd_errors(got, want)
+        ok = ok and same and counted and shapes and finite
+        print(f"  {name:22s} B{B} S{S} H{H} P{P} G{G} N{N} Q{Q} {dt:8s} {format_ssd_bwd(errs)}; "
+              f"bit-equal on repeat {same}, counts {counted}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+        results[name] = {**errs, "bit_equal_on_repeat": same}
+        del inp, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  limits (rel L2, worst row) by output type: {SSD_BWD_LIMITS}")
+    check(not failed, f"the SSD backward disagrees with its plain version in {failed}")
+    flash = {}
+    for case in FLASH_D112_BWD_CASES:
+        before = fa.bwd_launches
+        worst, ok, inputs = flash_bwd_case(torch, fa, ref, gen, case)
+        ok = ok and fa.bwd_launches == before + 1
+        dt = case[9]
+        print(f"  flash backward {case[0]:20s} {dt:8s} dq/dk/dv worst: rel_l2 "
+              f"{worst['rel_l2']:.3e} worst_row {worst['worst_row']:.3e} (limits "
+              f"{BWD_LIMITS[dt]})  {'ok' if ok else 'FAIL'}")
+        check(ok, f"flash's backward at d 112 disagrees with its plain version in {case[0]}")
+        flash[case[0]] = {**worst, "inputs": inputs} if case[0] == "zamba2_train_d112" else worst
+    return results, flash
+
+
+def ssm_grad_gate(torch, ssd, fa, ref, model, params, batch):
+    """The step-0 gate on ``batch`` (rank 0's micro-batch), remat as in the
+    step: every SSD backward launch against the plain backward of the same
+    inputs within SSD_BWD_LIMITS, and every flash backward launch (d 112)
+    against its plain version within BWD_LIMITS."""
+    from repro_torch.core.tree import flatten
+    ps, rebuild = flatten(params)
+    ssd_log, fa_log = [], []
+    real_ssd, real_fa = ssd.ssd_scan_model_bwd, fa.flash_attention_bwd
+
+    def rec_ssd(*a, **kw):
+        out = real_ssd(*a, **kw)
+        ssd_log.append((a, out))
+        return out
+
+    def rec_fa(q, k, v, o, do, lse, **kw):
+        out = real_fa(q, k, v, o, do, lse, **kw)
+        fa_log.append(((q, k, v, o, do), kw, out))
+        return out
+
+    with patched(ssd, "ssd_scan_model_bwd", rec_ssd), patched(fa, "flash_attention_bwd", rec_fa):
+        req = [p.detach().requires_grad_() for p in ps]
+        ls, cnt, aux = model.loss(rebuild(req), batch, remat=True)
+        torch.autograd.grad(ls + aux * cnt, req)
+        del req
+    torch.cuda.synchronize()
+    worst, ok, n_ssd = {}, True, len(ssd_log)
+    while ssd_log:
+        (x, dt, a, Bm, Cm, chunk, dy, dfin, init, _states), got = ssd_log.pop(0)
+        errs, good = ssd_bwd_errors(got, ssd.ssd_scan_model_bwd_plain(x, dt, a, Bm, Cm, chunk,
+                                                                      dy, dfin, init))
+        ok &= good
+        for k, e in errs.items():
+            for m in ("rel_l2", "worst_row"):
+                worst.setdefault(k, {})[m] = max(worst.get(k, {}).get(m, 0.0), e[m])
+            worst[k]["dtype"] = e["dtype"]
+    print(f"  step 0, {n_ssd} SSD backward launches against the plain backward, worst: "
+          f"{format_ssd_bwd(worst)}  {'ok' if ok else 'FAIL'}")
+    flash_worst, n_fa = {"rel_l2": 0.0, "worst_row": 0.0}, len(fa_log)
+    while fa_log:
+        (q, k, v, o, do), kw, got = fa_log.pop(0)
+        lse = ref.attention_lse(q, k, kind=kw["kind"], window=kw["window"], k_len=kw["k_len"],
+                                scale=kw["scale"])
+        want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+        for g, w in zip(got, want):
+            e = bwd_error(g, w)
+            for m in flash_worst:
+                flash_worst[m] = max(flash_worst[m], e[m])
+        del want, lse
+    if n_fa:
+        rel_lim, row_lim = BWD_LIMITS["bfloat16"]
+        fa_ok = flash_worst["rel_l2"] <= rel_lim and flash_worst["worst_row"] <= row_lim
+        ok &= fa_ok
+        print(f"  step 0, {n_fa} flash backward launches (d {model.cfg.head_dim_}) against the "
+              f"plain backward, worst: rel_l2 {flash_worst['rel_l2']:.3e} worst_row "
+              f"{flash_worst['worst_row']:.3e} (limits {BWD_LIMITS['bfloat16']})  "
+              f"{'ok' if fa_ok else 'FAIL'}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(ok, "the step-0 gradient gate failed")
+    return {"ssd_launches": n_ssd, "ssd_worst": worst, "flash_launches": n_fa,
+            "flash_worst": flash_worst if n_fa else None}
+
+
+def forward_step_loss(torch, tacc, model, params, batch, plan, ranks, variants):
+    """Step 0's loss over every rank's micro-batches of ``batch`` (the
+    trainer's sum of token losses over its token count), forward only, with
+    each op of ``variants`` ({op: fn}) in place of its ``cuda`` variant."""
+    loss, count = 0.0, 0.0
+    with contextlib.ExitStack() as stack:
+        for op, fn in variants.items():
+            stack.enter_context(patched_variant(tacc, op, "cuda", fn))
+        stack.enter_context(torch.inference_mode())
+        for i in range(plan.n_micro_max):
+            for r in range(ranks):
+                mb = {k: torch.as_tensor(batch[k][i, r * plan.micro_batch:(r + 1)
+                                                  * plan.micro_batch]).to("cuda", torch.long)
+                      for k in ("tokens", "labels")}
+                ls, cnt, _ = model.loss(params, mb, remat=False)
+                loss += ls.item()
+                count += cnt.item()
+    return loss / count
+
+
+def ssd_state_dropped(real):
+    """A planted fault of the SSD op, a control of [28]'s loss check:
+    ``real`` run on each chunk as a sequence of its own, so that no state
+    passes from chunk to chunk (the final state is the last chunk's)."""
+    def fn(x, dt, a_cum, B_in, C_in, chunk, init_state=None):
+        Bb, S = x.shape[:2]
+        nc = S // chunk
+
+        def cut(t):
+            return t.reshape(Bb * nc, chunk, *t.shape[2:])
+
+        y, fin = real(cut(x), cut(dt), cut(a_cum), cut(B_in), cut(C_in), chunk)
+        return y.reshape(Bb, S, *y.shape[2:]), fin.reshape(Bb, nc, *fin.shape[1:])[:, -1]
+    return fn
+
+
+def ssd_dt_one_late(real):
+    """A planted fault of the SSD op: ``real`` reading each position's dt
+    one position late (an index off by one)."""
+    def fn(x, dt, a_cum, B_in, C_in, chunk, init_state=None):
+        return real(x, dt.roll(1, 1), a_cum, B_in, C_in, chunk, init_state)
+    return fn
+
+
+def attention_unmasked(real):
+    """A planted fault of the attention op: ``real`` with no causal mask."""
+    def fn(q, k, v, **kw):
+        return real(q, k, v, **{**kw, "kind": "bidir"})
+    return fn
+
+
+# [28]'s planted faults of the loss check: {name: (op, fault)}; the
+# attention fault only where the model has attention
+SSM_LOSS_FAULTS = {"ssd_dt_one_late": ("ssd_scan", ssd_dt_one_late),
+                   "ssd_state_dropped": ("ssd_scan", ssd_state_dropped),
+                   "attention_unmasked": ("attention", attention_unmasked)}
+
+
+def phase_ssm_train(torch, np, get_config, build, mesh_mod, hetccl, tacc, ssd, fa, ref,
+                    counters, arch):
+    """``arch`` at full width cut to SSM_TRAIN[arch] layers (SSM_TRAIN's
+    note), ZeRO-1 on a SSM_TRAIN_MESH ThreadMesh: the step-0 gate, then
+    SSM_TRAIN_STEPS steps from one init, the counts set to 0 just before and
+    read just after: per Mamba2 block, micro-step and rank 2 SSD forward
+    launches (remat's recompute the second) and 1 backward call (three
+    launches), per shared attention block 2 flash forward and 1 backward at
+    d 112, the fused rings once per bucket (reduce-scatter) and per bucket
+    and leaf (all-gather); finite losses; step 0's loss against the same
+    batch with every kernel op plain (SSM_STEP0_LOSS_ATOL), and the planted
+    faults' gaps beside it (SSM_LOSS_FAULTS); ms a step (the
+    steps after the first), tokens/s, the card's busy share over one more
+    step, the peak memory (under SSM_TRAIN_PEAK_GIB)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import balance
+    from repro_torch.core.tree import leaves as tree_leaves
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.train.trainer import make_train_program
+    layers = SSM_TRAIN[arch]
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers, loss_chunk=SSM_TRAIN_LOSS_CHUNK)
+    model = build(cfg)
+    m = mesh_mod.ThreadMesh(SSM_TRAIN_MESH, device="cuda")
+    plan = balance.uniform_plan(2, SSM_TRAIN_MICRO, micro_batch=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED), dtype=torch.bfloat16)
+    batches = [synthetic_batch(SEED, s, plan.n_micro_max, plan.micro_batch * m.size,
+                               SSM_TRAIN_SEQ, cfg.vocab) for s in range(SSM_TRAIN_STEPS)]
+    n_tokens = int(np.prod(batches[0]["tokens"].shape))
+    n_shared = layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    print(f"  {cfg.name}: {layers} of {full.n_layers} layers"
+          + (f" ({n_shared} group of {cfg.attn_every}, the shared attention block, "
+             f"{layers - n_shared * cfg.attn_every} tail)" if n_shared else "")
+          + f", d_model {cfg.d_model}, {cfg.n_ssm_heads} SSD heads x {cfg.ssm_headdim}, state "
+          f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab}, "
+          f"{model.n_params() / 1e9:.3f}B params, bf16 params, f32 master state; mesh {m.shape}, "
+          f"{plan.n_micro_max} micro-step of {plan.micro_batch} x {SSM_TRAIN_SEQ} per rank, "
+          f"{n_tokens} tokens per step; remat on; ZeRO-1, hier, pallas, no codec")
+    b0 = {k: torch.as_tensor(batches[0][k][0, :plan.micro_batch]).to("cuda", torch.long)
+          for k in ("tokens", "labels")}
+    gate = ssm_grad_gate(torch, ssd, fa, ref, model, params, b0)
+    del b0
+    plain_loss = forward_step_loss(torch, tacc, model, params, batches[0], plan, m.size,
+                                   {op: tacc.resolve(op, "cpu") for op in ("ssd_scan", "attention")})
+    kernel_loss = forward_step_loss(torch, tacc, model, params, batches[0], plan, m.size, {})
+    fault_losses = {
+        name: forward_step_loss(torch, tacc, model, params, batches[0], plan, m.size,
+                                {op: fault(tacc.resolve(op, "cuda"))})
+        for name, (op, fault) in SSM_LOSS_FAULTS.items() if op != "attention" or n_shared}
+    shapes = [p.shape for p in tree_leaves(params)]
+    prog = make_train_program(model, m, RunConfig(
+        zero_stage=1, collective_mode="hier", backend="pallas", learning_rate=SSM_TRAIN_LR), plan)
+    n_buckets = len(hetccl._make_buckets(
+        [torch.empty(sh, dtype=torch.float32, device="meta") for sh in shapes],
+        prog.comm.bucket_bytes))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = prog.init_fn(params)
+    del params                      # the ZeRO-1 ranks share the init's tensors
+    counters.reset()
+    losses, grad_norms, step_ms = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = prog.step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(met["loss"].item())
+        grad_norms.append(met["grad_norm"].item())
+    launches = counters.read()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ms = statistics.median(step_ms[1:])
+
+    def one_more():
+        nonlocal state
+        state, _ = prog.step_fn(state, batches[-1])
+
+    busy = device_busy_share(torch, one_more, 1)
+    per = plan.n_micro_max * m.size * SSM_TRAIN_STEPS
+    want = {"ssd_scan": 2 * layers * per, "ssd_scan_mma": 2 * layers * per,
+            "ssd_scan_bwd": layers * per,
+            **{f"ssd_scan_bwd_{st}": layers * per for st in ssd.BWD_STAGES},
+            "flash_attention_fwd": 2 * n_shared * per,
+            "flash_attention_fwd_d112": 2 * n_shared * per,
+            "flash_attention_bwd": n_shared * per, "grouped_matmul": 0, "collective_reduce": 0,
+            "quant_int8": 0, "ring_reduce_scatter": n_buckets * SSM_TRAIN_STEPS,
+            "ring_all_gather": (n_buckets + len(shapes)) * SSM_TRAIN_STEPS}
+    gap = abs(losses[0] - plain_loss)
+    print(f"  losses {['%.6f' % x for x in losses]}; grad norms "
+          f"{['%.6f' % x for x in grad_norms]}; ms per step {['%.1f' % x for x in step_ms]}, "
+          f"{n_tokens / ms * 1e3:.1f} tokens/s (steps after the first); card busy share of one "
+          f"more step (torch.profiler) {busy}; peak memory {peak_gib:.2f} GiB (limit "
+          f"{SSM_TRAIN_PEAK_GIB})")
+    print(f"  step-0 loss {losses[0]:.6f}; the same batch forward only: kernels "
+          f"{kernel_loss:.6f}, every kernel op plain {plain_loss:.6f}; step 0 vs plain "
+          f"{gap:.3e} (limit {SSM_STEP0_LOSS_ATOL})  "
+          f"{'ok' if gap <= SSM_STEP0_LOSS_ATOL else 'FAIL'}")
+    fault_gaps = {name: abs(v - plain_loss) for name, v in fault_losses.items()}
+    for name, v in fault_losses.items():
+        caught = fault_gaps[name] > SSM_STEP0_LOSS_ATOL
+        print(f"  planted fault {name}: loss {v:.6f}, {fault_gaps[name]:.3e} from plain, "
+              f"{'caught' if caught else 'not caught'} by the limit"
+              + (("  ok" if caught else "  FAIL") if name == SSM_LOSS_FAULT_CAUGHT else ""))
+    print(f"  per step: {2 * layers * plan.n_micro_max * m.size} SSD forward launches, "
+          f"{layers * plan.n_micro_max * m.size} SSD backward calls, "
+          f"{2 * n_shared * plan.n_micro_max * m.size} flash forward and "
+          f"{n_shared * plan.n_micro_max * m.size} flash backward launches (d "
+          f"{cfg.head_dim_ if n_shared else '-'})")
+    for key, n in want.items():
+        print(f"  {key}: {launches[key]} launches, {n} expected  "
+              f"{'ok' if launches[key] == n else 'FAIL'}")
+    check(all(np.isfinite(losses)), f"{arch}: non-finite loss")
+    check(gap <= SSM_STEP0_LOSS_ATOL, f"{arch}: step 0's loss is {gap:.3e} from the plain ops'")
+    check(fault_gaps[SSM_LOSS_FAULT_CAUGHT] > SSM_STEP0_LOSS_ATOL,
+          f"{arch}: the loss check does not catch {SSM_LOSS_FAULT_CAUGHT} "
+          f"({fault_gaps[SSM_LOSS_FAULT_CAUGHT]:.3e})")
+    check(all(launches[k] == n for k, n in want.items()),
+          f"{arch}: the steps did not launch the kernels they imply")
+    check(peak_gib <= SSM_TRAIN_PEAK_GIB, f"{arch}: peak memory {peak_gib:.2f} GiB")
+    out = {"arch": cfg.name, "layers": layers, "params": model.n_params(),
+           "tokens_per_step": n_tokens, "losses": losses, "grad_norms": grad_norms,
+           "step_ms": step_ms, "ms_per_step": ms, "tokens_per_s": n_tokens / ms * 1e3,
+           "device_busy_one_more_step": busy, "peak_gib": peak_gib, "launches": launches,
+           "expected_launches": want, "step0_gate": gate, "step0_plain_loss": plain_loss,
+           "step0_kernel_forward_loss": kernel_loss, "step0_loss_gap": gap,
+           "step0_fault_losses": fault_losses, "step0_fault_gaps": fault_gaps,
+           "n_buckets": n_buckets}
+    del state, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssd_bwd_bound(inp, states, grads):
+    """(bound ms, "bytes" or "operations") of the backward as a function:
+    its inputs (x, dt, a, B, C, dy, the chunk-entry states, dfin and init
+    where given) read once and its outputs (``grads``: dx, ddt, da, dB, dC,
+    d init where asked) written once over the memory rate, against the
+    operations this data needs over the bf16 peak: the reverse state scan's
+    products, the chunks' products over the causal pairs j <= i of each
+    chunk and their state terms, the adds of each group's head sum."""
+    B, S, H, P = inp["x"].shape
+    G, N = inp["B"].shape[2:]
+    Q = inp["Q"]
+    tensors = [inp[k] for k in ("x", "dt", "a", "B", "C", "dy", "dfin", "init")]
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in [*tensors, states, *grads] if t is not None)
+    rows, pairs = B * S * H, B * H * (S // Q) * Q * (Q + 1) // 2
+    flops = (2 * rows * N * P + 2 * pairs * (3 * N + 2 * P) + 3 * 2 * rows * N * P
+             + 2 * B * S * (H - G) * N)
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def ssd_bwd_launch_bounds(B, S, H, P, G, N, Q, elem):
+    """{launch: (ms, "bytes" or "operations")}, a diagnostic of this design,
+    not the function's bound (``ssd_bwd_bound``): each launch's own inputs
+    read once and outputs written once, so the per-head dB and dC and the g
+    of every chunk count twice (written, then read again) and dy twice, and
+    the operations of the causal pairs j <= i of each chunk, not the
+    kernel's recomputed ones, over the bf16 peak."""
+    nc = S // Q
+    st = B * H * nc * N * P * 4                                 # a (B,H,nc,N,P) f32 tensor
+    pairs = B * H * nc * Q * (Q + 1) // 2
+    rows = B * S * H
+    b_state = B * S * G * N * elem + rows * P * 4 + rows * 4 + st
+    f_state = 2 * B * S * H * N * P
+    b_chunks = (rows * P * elem + 2 * rows * 4 + 2 * B * S * G * N * elem + rows * P * 4
+                + 2 * st + rows * P * elem + 2 * rows * 4 + 2 * rows * N * 4)
+    f_chunks = 2 * pairs * (3 * N + 2 * P) + 3 * 2 * B * S * H * N * P
+    b_sum = 2 * rows * N * 4 + 2 * B * S * G * N * elem
+    out = {}
+    for name, nbytes, flops in (("state", b_state, f_state), ("chunks", b_chunks, f_chunks),
+                                ("head_sum", b_sum, 2 * rows * N)):
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        out[name] = (max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+    return out
+
+
+def phase_ssd_bwd_times(torch, ssd, bench_codec):
+    """The backward's launches at [28]'s two shapes (SSD_BWD_CASES'
+    mamba2_train and zamba2_train): the state scan, the chunks and the head
+    sum each alone, and the whole backward, L2 cold before each reading
+    (``bench_codec.ColdReader``), back to back and replayed from CUDA graphs,
+    in turns with the plain backward (back to back); the function's bound
+    (``ssd_bwd_bound``) and, as a diagnostic, each launch's own
+    (``ssd_bwd_launch_bounds``).  No single PyTorch call computes this
+    function: no library yardstick."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    reader = bench_codec.ColdReader()
+    side = torch.cuda.Stream()
+    out = {}
+    for case in SSD_BWD_CASES[:2]:
+        name, B, S, H, P, G, N, Q, dt, scale, init, dfin = case
+        inp = ssd_bwd_inputs(torch, gen, B, S, H, P, G, N, Q, dt, scale, init, dfin)
+        states = ssd.ssd_scan_model_states(inp["x"], inp["dt"], inp["a"], inp["B"], inp["C"],
+                                           Q, inp["init"])[2]
+        buf = ssd.bwd_buffers(inp["x"], inp["B"], inp["init"], Q, (True,) * 6)
+        args = ssd._bwd_args(inp["x"], inp["dt"], inp["a"], inp["B"], inp["C"], inp["dy"],
+                             states, inp["dfin"], buf, Q)
+
+        def stage(bits):
+            return lambda: ssd._launch_bwd(args, bits, inp["x"].device)
+
+        bwd_args = (inp["x"], inp["dt"], inp["a"], inp["B"], inp["C"], Q, inp["dy"],
+                    inp["dfin"], inp["init"])
+        calls = {"state": [stage(1)], "chunks": [stage(2)], "head_sum": [stage(4)],
+                 "backward": [lambda: ssd.ssd_scan_model_bwd(*bwd_args, states)]}
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            stage(7)()                           # gst for the chunks and head-sum readings
+            r = bench_codec.cold_in_turns(reader, calls, 4)
+            plain_r = bench_codec.cold_in_turns(
+                reader, {"backward": calls["backward"],
+                         "plain": [lambda: ssd.ssd_scan_model_bwd_plain(*bwd_args)]}, 3,
+                modes=("stream",))
+        torch.cuda.current_stream().wait_stream(side)
+        grads = ssd.ssd_scan_model_bwd(*bwd_args, states)
+        bound_ms, bound_by = ssd_bwd_bound(inp, states, grads)
+        del grads
+        bounds = ssd_bwd_launch_bounds(B, S, H, P, G, N, Q, inp["x"].element_size())
+        t = out[name] = {
+            "shape": f"B {B} S {S} H {H} P {P} G {G} N {N} Q {Q} {dt}",
+            **{f"{k}_ms": statistics.median(r[k]["stream"]) for k in calls},
+            **{f"{k}_graph_ms": statistics.median(r[k]["graph"]) for k in calls},
+            **{f"{k}_launch_bound_ms": b for k, (b, _) in bounds.items()},
+            **{f"{k}_launch_bound_by": by for k, (_, by) in bounds.items()},
+            "ms": statistics.median(r["backward"]["graph"]),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "launches_bound_ms": sum(b for b, _ in bounds.values()),
+            "plain_ms": statistics.median(plain_r["plain"]["stream"]),
+            "backward_in_turns_with_plain_ms": statistics.median(plain_r["backward"]["stream"]),
+            "library_ms": None,
+            "state_smem_bytes": ssd.bwd_smem_bytes("state", N, P, Q),
+            "chunks_smem_bytes": ssd.bwd_smem_bytes("chunks", N, P, Q)}
+        print(f"  {name} ({t['shape']}): backward {t['ms']:.4f} ms from a graph (back to back "
+              f"{t['backward_ms']:.4f}), plain {t['plain_ms']:.4f} (kernel in the same turns "
+              f"{t['backward_in_turns_with_plain_ms']:.4f}), bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}; the function's inputs read and outputs written once); kernel "
+              f"/ bound {t['ms'] / t['bound_ms']:.1f}; L2 cold, in turns")
+        for k in ("state", "chunks", "head_sum"):
+            g = r[k]["graph"]
+            print(f"    {k:8s} graph {t[k + '_graph_ms']:.4f} ms (readings {min(g):.4f}-"
+                  f"{max(g):.4f}), back to back {t[k + '_ms']:.4f}; the launch's own traffic "
+                  f"(a diagnostic) {t[k + '_launch_bound_ms']:.4f} ms "
+                  f"({t[k + '_launch_bound_by']})")
+        print(f"    the three launches' own traffic summed {t['launches_bound_ms']:.4f} ms: "
+              f"{t['launches_bound_ms'] / t['bound_ms']:.2f}x the function's bound")
+        print(f"    shared memory per block: state {t['state_smem_bytes']} B, chunks "
+              f"{t['chunks_smem_bytes']} B")
+        del inp, states, buf, args, calls, r, plain_r
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 class Counters:
     """The launch counts of every kernel wrapper of the port."""
 
@@ -3259,7 +3848,9 @@ class Counters:
                 **{f"grouped_matmul_{r}": n for r, n in gmm.route_launches.items()},
                 "grouped_matmul_bwd": gmm.bwd_launches,
                 **{f"grouped_matmul_bwd_{r}": n for r, n in gmm.bwd_route_launches.items()},
-                **{f"ssd_scan_{r}": n for r, n in ssd.route_launches.items()}}
+                **{f"ssd_scan_{r}": n for r, n in ssd.route_launches.items()},
+                "ssd_scan_bwd": ssd.bwd_launches,
+                **{f"ssd_scan_bwd_{st}": n for st, n in ssd.bwd_stage_launches.items()}}
 
 
 @contextlib.contextmanager
@@ -3474,7 +4065,34 @@ def main() -> int:
                                            for k, v in btimes.items()},
                           "phase_wall_s": walls, **card}))
 
-    print("[27] kernels")
+    with phase("[27] SSD backward vs plain", walls):
+        ssd_bwd, flash112_bwd = phase_ssd_bwd_kernels(torch, ssd, fa, ref)
+
+    ssm_train = {}
+    for arch, layers in SSM_TRAIN.items():
+        with phase(f"[28] SSM training: {arch} at full width, {layers} layers, ZeRO-1 on four "
+                   "ranks", walls):
+            ssm_train[arch] = phase_ssm_train(torch, np, get_config, build, mesh_mod, hetccl,
+                                              tacc, ssd, fa, ref, counters, arch)
+
+    with phase("[29] SSD backward times", walls):
+        sbtimes = phase_ssd_bwd_times(torch, ssd, bench_codec)
+        case = flash112_bwd["zamba2_train_d112"]
+        q, k, v, o, do, lse, kw = case.pop("inputs")
+        tb112 = phase_train_kernel_times(torch, ref, fa, {"inputs": (q, k, v, o, do, lse),
+                                                          "kw": kw})["flash_attention_bwd"]
+        del q, k, v, o, do, lse
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(json.dumps({"ssd_bwd_errors": ssd_bwd, "flash_d112_bwd_errors": flash112_bwd,
+                          "ssm_train": ssm_train, "kernel_times": {
+                              "ssd_scan_bwd": sbtimes,
+                              "flash_attention_bwd_d112": {
+                                  kk: vv for kk, vv in tb112.items()
+                                  if not kk.endswith("readings")}},
+                          "phase_wall_s": walls, **card}))
+
+    print("[30] kernels")
     sources = {"collective_reduce": ("collective_reduce.cu",
                                      "src/repro/kernels/collective_reduce.py:84"),
                "ring_reduce_scatter": ("ring_dma.cu", "src/repro/kernels/ring_dma.py:252"),
@@ -3541,9 +4159,12 @@ def main() -> int:
         "graph_ms": tb["graph_ms"], "library_graph_ms": tb["library_graph_ms"],
         "check": "pass", "cases_checked": len(bwd), "shape": tb["shape"],
         "llama1b_zero3_launches": zero["zero3"]["launches"]["flash_attention_bwd"],
-        "shapes": {"d100": {key: tb100[key] for key in (
+        "shapes": {label: {key: tt[key] for key in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "graph_ms",
-            "library_graph_ms")}}})
+            "library_graph_ms")} for label, tt in (("d100", tb100), ("d112", tb112))},
+        "zamba2_train_launches": ssm_train[HYBRID_ARCH]["launches"]["flash_attention_bwd"],
+        "d112_max_abs_err": flash112_bwd["zamba2_train_d112"]["max_abs_err"],
+        "d112_rel_l2": flash112_bwd["zamba2_train_d112"]["rel_l2"]})
     for kname, replaces in (("quant_int8", "src/repro/kernels/quant.py:152"),
                             ("dq_accum_int8", "src/repro/kernels/quant.py:161")):
         t = ttimes[kname]
@@ -3620,7 +4241,34 @@ def main() -> int:
         "zamba2_launches": ssm[HYBRID_ARCH]["launches"]["ssd_scan"],
         "routes": {r: ssm[SSM_ARCH]["launches"][f"ssd_scan_{r}"] for r in ssd.ROUTES},
         "smem_bytes": tm["smem_bytes"], "blocks_per_sm": tm["blocks_per_sm"],
+        "train_launches": {a: v["launches"]["ssd_scan"] for a, v in ssm_train.items()},
         "check": "pass", "cases_checked": len(ssd_cases)})
+    t, tz = sbtimes["mamba2_train"], sbtimes["zamba2_train"]
+    err = ssd_bwd["mamba2_train"]
+    grads = [e for e in err.values() if isinstance(e, dict)]
+    kernels.append({
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:29",
+        "note": "backward of the SSD kernel (dx, ddt, da, dB, dC, d init): the reverse state "
+                "scan, the chunks' gradients, the head sum; the TPU kernel is forward-only and "
+                "the reference differentiates its jnp scan",
+        "launches": sum(v["launches"]["ssd_scan_bwd"] for v in ssm_train.values()),
+        "launches_by_arch": {a: v["launches"]["ssd_scan_bwd"] for a, v in ssm_train.items()},
+        "max_abs_err": max(e["max_abs_err"] for e in grads),
+        "rel_l2": max(e["rel_l2"] for e in grads),
+        "worst_row": max(e["worst_row"] for e in grads),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
+        "stages": {k: {"ms": t[f"{k}_graph_ms"], "back_to_back_ms": t[f"{k}_ms"],
+                       "launch_bound_ms": t[f"{k}_launch_bound_ms"],
+                       "launch_bound_by": t[f"{k}_launch_bound_by"]}
+                   for k in ssd.BWD_STAGES},
+        "launches_bound_ms": t["launches_bound_ms"],
+        "zamba2": {key: tz[key] for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                            "state_graph_ms", "chunks_graph_ms",
+                                            "head_sum_graph_ms")},
+        "check": "pass (bit-equal on repeat)", "cases_checked": len(ssd_bwd)})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -14,7 +14,9 @@ collective_reduce -- a ring step's accumulate, acc (f32) + incoming (f32 or
                      bf16); replaces the Pallas ``_reduce_kernel``
 ssd_scan          -- the Mamba2 SSD chunked scan, an (N, P) f32 state carried
                      in shared memory per (batch, head), the final state as
-                     an output; replaces ``_ssd_kernel``
+                     an output; replaces ``_ssd_kernel``; its backward
+                     (``csrc/ssd_scan_bwd.cu``) has no TPU counterpart, and
+                     ``SsdScan`` joins the two
 ring_dma          -- fused ring reduce-scatter / all-gather over every rank
                      of a ThreadMesh on one card, and their emulated
                      schedules, and the quantized rings; replaces

@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("flash_attention", "flash_attention_bwd", "collective_reduce", "ring_dma",
-           "quant", "grouped_matmul", "ssd_scan")
+           "quant", "grouped_matmul", "ssd_scan", "ssd_scan_bwd")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()          # ranks of a ThreadMesh may load from their threads

@@ -61,7 +61,10 @@
 //    product as in the reference, in three passes (the delta pass, a dK/dV
 //    pass over the group's heads, a dQ pass), through shared memory.
 //
-// Head dims 32, 64, 100 and 128.  The bf16 route's k-steps take 16 columns,
+// Head dims 32, 64, 100, 112 and 128.  d 112 (zamba2's shared attention,
+// 3584 / 32) is a whole number of k-steps and of 16-byte chunks (rows of 224
+// bytes): it takes the tiles, shared memory and registers that d 100 takes
+// and needs no padding.  The bf16 route's k-steps take 16 columns,
 // so d 100 (llama-3b) runs as 112 in shared memory: its tiles' copies read
 // the 100 columns of each row (the last 16-byte chunk only its 8 valid
 // bytes) and zero-fill columns 100-111, which then add nothing to S = Q K^T
@@ -1025,7 +1028,7 @@ extern "C" {
 // time per call matters at the training shape), in this order:
 //  0-9    pointers q, k, v, o, dout, lse, delta, dq, dk, dv;
 //  10-16  dtype (0 = float32, 1 = bfloat16: q, k, v, o, dout alike), B, Hq,
-//         Hkv, Sq, Sk, d (32, 64, 100 or 128);
+//         Hkv, Sq, Sk, d (32, 64, 100, 112 or 128);
 //  17-31  element strides (batch, head, row) of q, k, v, o, dout;
 //  32-34  causal, window, k_len.
 // lse: the forward's (B, Hq, Sq) f32; delta: (B, Hq, Sq) f32 scratch; dq
@@ -1051,6 +1054,7 @@ int flash_attention_bwd(const long long* a, float scale, void* stream) {
       case 32: return run_mma<32>(p, st);
       case 64: return run_mma<64>(p, st);
       case 100: return run_mma<100>(p, st);
+      case 112: return run_mma<112>(p, st);
       case 128: return run_mma<128>(p, st);
     }
   } else if (dtype == 0) {
@@ -1058,6 +1062,7 @@ int flash_attention_bwd(const long long* a, float scale, void* stream) {
       case 32: return run_f32<32>(p, st);
       case 64: return run_f32<64>(p, st);
       case 100: return run_f32<100>(p, st);
+      case 112: return run_f32<112>(p, st);
       case 128: return run_f32<128>(p, st);
     }
   }

@@ -10,8 +10,13 @@
 //   y_i = sum_{j <= i} (C_i . B_j) exp(a_i - a_j) dt_j x_j + exp(a_i) C_i . s
 //   s  <- exp(a_Q) s + sum_j exp(a_Q - a_j) B_j (x) dt_j x_j
 //
-// One output beyond the Pallas kernel's: the state after the last chunk,
-// (B, H, N, P) f32, which the model's prefill hands to decode.  An initial
+// Two outputs beyond the Pallas kernel's: the state after the last chunk,
+// (B, H, N, P) f32, which the model's prefill hands to decode, and, when its
+// pointer is given, the state entering each chunk, (B, H, nc, N, P) f32,
+// which training saves for the backward (csrc/ssd_scan_bwd.cu) so that the
+// backward never rescans the forward: the block holds that state in shared
+// memory already, so it costs one store of N x P floats per chunk.  With a
+// null pointer the launch is the serving one, store for store.  An initial
 // state may be given (null: zeros).  y is written in f32 or in the inputs'
 // type; the wrapper adds D*x and casts on the model path, as
 // repro.models.ssm.ssd_scan does after its scan.
@@ -94,6 +99,7 @@ struct Params {
   const float* init;   // (B, H, N, P) contiguous, or null (zeros)
   void* y;             // (b, h, s, p), p dense; f32 or the inputs' type
   float* fin;          // (B, H, N, P) contiguous, or null
+  float* states;       // (B, H, nc, N, P) contiguous, or null: the state entering each chunk
   int H, G, N, Q, nc, y_f32, vec;
   long long x_sb, x_sh, x_ss;
   long long dt_sb, dt_sh, dt_ss;
@@ -192,6 +198,10 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_f32(Params p) {
     }
     __syncthreads();
     const float a_last = a_s[Q - 1];
+    if (p.states != nullptr) {
+      float* out = p.states + (((long long)b * p.H + h) * p.nc + c) * N * P;
+      for (int e = threadIdx.x; e < N * P; e += kThreads) out[e] = s_cur[e];
+    }
 
     // 1. The next state beside the current one:
     //    s_next = exp(a_last) s_cur + sum_j (exp(a_last - a_j) B_j) (x) (dt_j x_j).
@@ -774,6 +784,10 @@ __global__ void __launch_bounds__(kThreads, P <= 64 ? 2 : 1) ssd_scan_mma(Params
     const float a_last = a_s[Q - 1];
     for (int i = threadIdx.x; i < l.rows; i += kThreads)
       f_s[i] = i < Q ? expf(a_last - a_s[i]) * dt_s[i] : 0.f;
+    if (p.states != nullptr) {  // read before mma_state's first sync; written after it
+      float* out = p.states + (((long long)b * p.H + h) * p.nc + c) * N * P;
+      for (int e = threadIdx.x; e < N * P; e += kThreads) out[e] = s_m[(e / P) * l.lds + e % P];
+    }
     // every row reads the state from before the chunk's update
     mma_rows<P>(p, ch);
     mma_state<P>(p, ch, a_last);
@@ -854,10 +868,11 @@ extern "C" {
 // and y and the (b, g, s) axes of B and C; position s = c * Q + i.  vec: 1
 // when every row of x, B and C starts 16-byte aligned (the mma route's tiles
 // then come through cp.async).  init and fin: (B, H, N, P) contiguous f32,
-// or null.  Returns the CUDA error code of the launch (0 on success); the
+// or null; states: (B, H, nc, N, P) contiguous f32, the state entering each
+// chunk, or null.  Returns the CUDA error code of the launch (0 on success); the
 // kernel runs on `stream` and nothing is synchronised here.
 int ssd_scan(const void* x, const float* dt, const float* a, const void* bm,
-             const void* cm, const float* init, void* y, float* fin, int dtype,
+             const void* cm, const float* init, void* y, float* fin, float* states, int dtype,
              int y_f32, int batch, int H, int G, int N, int P, int Q, int nc,
              long long x_sb, long long x_sh, long long x_ss, long long dt_sb,
              long long dt_sh, long long dt_ss, long long a_sb, long long a_sh,
@@ -866,7 +881,7 @@ int ssd_scan(const void* x, const float* dt, const float* a, const void* bm,
              long long y_sh, long long y_ss, int vec, void* stream) {
   if (G <= 0 || H % G != 0 || N <= 0 || Q <= 0 || nc <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{x,     dt,    a,     bm,    cm,    init,  y,     fin,
+  const Params p{x,     dt,    a,     bm,    cm,    init,  y,     fin,   states,
                  H,     G,     N,     Q,     nc,    y_f32, vec,   x_sb,
                  x_sh,  x_ss,  dt_sb, dt_sh, dt_ss, a_sb,  a_sh,  a_ss,
                  b_sb,  b_sg,  b_ss,  c_sb,  c_sg,  c_ss,  y_sb,  y_sh,  y_ss};

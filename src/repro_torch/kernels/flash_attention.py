@@ -46,8 +46,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # configs; 112: zamba2's shared attention (3584 / 32); 100: llama-3b (3200 /
 # 32); 32: every reduced config (the serve launcher's default, ``--reduced``)
 HEAD_DIMS = (32, 64, 100, 112, 128)
-# the backward kernel's: training zamba2 waits for SSM training (ROADMAP A7)
-BWD_HEAD_DIMS = (32, 64, 100, 128)
+BWD_HEAD_DIMS = HEAD_DIMS           # the backward kernel's
 
 # csrc/flash_attention_bwd.cu's kMaxCluster: the portable thread-block cluster
 MAX_CLUSTER = 8

@@ -80,9 +80,11 @@ def expert_ffn_gmm(buf, w1, w3, w2):
 
 
 # ---------------------------------------------------------------------------
-# SSD scan: the model's layout, (y without D*x, final state), one launch per
-# call.  The op sits one level above the reference's per-chunk ``ssd_chunk``
-# (ROADMAP C1): ``models/ssm.py`` registers the ``cpu`` chunk loop.
+# SSD scan: the model's layout, (y without D*x, final state), one forward
+# launch per call; when autograd records, through ``ssd.SsdScan``, whose
+# backward is the backward kernel.  The op sits one level above the
+# reference's per-chunk ``ssd_chunk`` (ROADMAP C1): ``models/ssm.py``
+# registers the ``cpu`` chunk loop (autograd differentiates it there).
 # ---------------------------------------------------------------------------
 
 tacc.register("ssd_scan", "cuda")(ssd.ssd_scan_model)

@@ -6,7 +6,8 @@ oracles; the wire codec's plain versions (``repro/kernels/quant.py:59-128``,
 the software fp8 codec included); and the attention forward's row logsumexp
 and its backward, which the reference gets from autodiff and the port's
 backward kernel computes; and the SSD chunked scan (``ref.py:40-70``),
-with the final state the model needs beside its output.
+with the final state the model needs beside its output, and its backward,
+which the reference also gets from autodiff.
 """
 from __future__ import annotations
 
@@ -109,19 +110,21 @@ def ssd_scan_states(x, dt, a_cum, B_in, C_in, init_state=None):
     """Kernel-layout SSD scan with its state.  x (B,H,nc,Q,P), dt/a_cum
     (B,H,nc,Q) (a_cum the within-chunk cumsum of dt*A), B_in/C_in
     (B,H,nc,Q,N), init_state (B,H,N,P) or None (zeros) -> (y (B,H,nc,Q,P)
-    f32, final state (B,H,N,P) f32).  The exponent is masked before the exp
-    (for i < j it is positive and may overflow)."""
+    f32, final state (B,H,N,P) f32; f64 for f64 inputs, so that
+    ``gradcheck`` can run).  The exponent is masked before the exp (for
+    i < j it is positive and may overflow)."""
     Bb, H, nc, Q, P = x.shape
     N = B_in.shape[-1]
-    a = a_cum.float()
+    ct = _acc_dtype(x)
+    a = a_cum.to(ct)
     causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    xdt = x.float() * dt.float()[..., None]
-    s = (torch.zeros((Bb, H, N, P), dtype=torch.float32, device=x.device)
-         if init_state is None else init_state.float())
+    xdt = x.to(ct) * dt.to(ct)[..., None]
+    s = (torch.zeros((Bb, H, N, P), dtype=ct, device=x.device)
+         if init_state is None else init_state.to(ct))
     ys = []
     for c in range(nc):
         ac = a[:, :, c]                                       # (B,H,Q)
-        Bc, Cc, xc = B_in[:, :, c].float(), C_in[:, :, c].float(), xdt[:, :, c]
+        Bc, Cc, xc = B_in[:, :, c].to(ct), C_in[:, :, c].to(ct), xdt[:, :, c]
         diff = torch.where(causal, ac[..., :, None] - ac[..., None, :], 0.0)
         L = torch.where(causal, torch.exp(diff), 0.0)
         scores = torch.einsum("bhin,bhjn->bhij", Cc, Bc)
@@ -132,6 +135,74 @@ def ssd_scan_states(x, dt, a_cum, B_in, C_in, init_state=None):
         s = torch.exp(ac[..., -1])[..., None, None] * s + s_new
         ys.append(y)
     return torch.stack(ys, dim=2), s
+
+
+def ssd_scan_bwd(x, dt, a_cum, B_in, C_in, dy, init_state=None, dfin=None):
+    """The gradients of ``ssd_scan_states`` for the output gradients dy
+    (B,H,nc,Q,P) and dfin (B,H,N,P) (None: zeros), kernel layout, written
+    out (not autograd through the forward) -> (dx, ddt, da_cum, dB, dC,
+    dinit) in f32 (f64 for f64 inputs), dB and dC per head, dinit None
+    without an initial state.
+
+    Per chunk c, with a the within-chunk cumsum, a_Q its last element,
+    xdt_j = dt_j x_j, s_{c-1} the state entering the chunk and g_c = dL/ds_c
+    (g of the last chunk = dfin), L_ij = exp(a_i - a_j) for j <= i (the
+    exponent masked first), S = C Bᵀ, dS = dy xdtᵀ, M = L o dS, T = L o S and
+    W = S o M:
+
+    * the reverse scan g_{c-1} = exp(a_Q) g_c + sum_i exp(a_i) C_i (x) dy_i,
+      d init = g_{-1};
+    * dC_i = sum_j M_ij B_j + exp(a_i) s_{c-1} dy_i;
+    * dB_j = sum_i M_ij C_i + exp(a_Q - a_j) g_c xdt_j;
+    * dxdt_j = sum_i T_ij dy_i + exp(a_Q - a_j) g_cᵀ B_j, dx = dt dxdt,
+      ddt = x . dxdt;
+    * da = rowsum(W) - colsum(W) + exp(a_i) dy_i . (C_i s_{c-1})
+      - u_j with u_j = exp(a_Q - a_j) B_j . (g_c xdt_j), and at a_Q also
+      exp(a_Q) <g_c, s_{c-1}> + sum_j u_j.
+    """
+    Bb, H, nc, Q, P = x.shape
+    N = B_in.shape[-1]
+    ct = _acc_dtype(x)
+    a = a_cum.to(ct)
+    xdt = x.to(ct) * dt.to(ct)[..., None]
+    Bf, Cf, dyf = B_in.to(ct), C_in.to(ct), dy.to(ct)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.where(causal, torch.exp(torch.where(causal, a[..., :, None] - a[..., None, :],
+                                                  0.0)), 0.0)
+    ea, a_last = torch.exp(a), a[..., -1]
+    ed = torch.exp(a_last[..., None] - a)                     # exp(a_Q - a_j)
+    keep = torch.exp(a_last)                                  # (B,H,nc)
+    s = (torch.zeros((Bb, H, N, P), dtype=ct, device=x.device)
+         if init_state is None else init_state.to(ct))
+    s_in = []
+    for c in range(nc):                                       # the states entering each chunk
+        s_in.append(s)
+        s = keep[:, :, c, None, None] * s + torch.einsum(
+            "bhjn,bhjp->bhnp", Bf[:, :, c] * ed[:, :, c, :, None], xdt[:, :, c])
+    g = (torch.zeros((Bb, H, N, P), dtype=ct, device=x.device)
+         if dfin is None else dfin.to(ct))
+    gs = [None] * nc
+    for c in reversed(range(nc)):                             # g_c = dL/ds_c
+        gs[c] = g
+        g = keep[:, :, c, None, None] * g + torch.einsum(
+            "bhin,bhip->bhnp", Cf[:, :, c] * ea[:, :, c, :, None], dyf[:, :, c])
+    s_in, gs = torch.stack(s_in, dim=2), torch.stack(gs, dim=2)
+    S = torch.einsum("bhcin,bhcjn->bhcij", Cf, Bf)
+    M = L * torch.einsum("bhcip,bhcjp->bhcij", dyf, xdt)
+    W = S * M
+    r = torch.einsum("bhcnp,bhcip->bhcin", s_in, dyf)         # s_{c-1} dy_i
+    gx = torch.einsum("bhcnp,bhcjp->bhcjn", gs, xdt)          # g_c xdt_j
+    dC = torch.einsum("bhcij,bhcjn->bhcin", M, Bf) + ea[..., None] * r
+    dB = torch.einsum("bhcij,bhcin->bhcjn", M, Cf) + ed[..., None] * gx
+    dxdt = (torch.einsum("bhcij,bhcip->bhcjp", L * S, dyf)
+            + ed[..., None] * torch.einsum("bhcjn,bhcnp->bhcjp", Bf, gs))
+    u = ed * (Bf * gx).sum(-1)
+    da = W.sum(-1) - W.sum(-2) + ea * (Cf * r).sum(-1) - u
+    at_last = keep * (gs * s_in).sum((-2, -1)) + u.sum(-1)
+    da = torch.cat([da[..., :-1], da[..., -1:] + at_last[..., None]], dim=-1)
+    dx = dt.to(ct)[..., None] * dxdt
+    ddt = (x.to(ct) * dxdt).sum(-1)
+    return dx, ddt, da, dB, dC, (g if init_state is not None else None)
 
 
 def ssd_scan(x, dt, a_cum, B_in, C_in):

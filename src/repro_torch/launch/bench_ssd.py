@@ -8,7 +8,10 @@ Both libraries are loaded into one process and called on the same inputs
 A B, B A, A B, ... over the rounds; each reading is the mean of CUDA-event
 time over ``--iters`` launches made back to back.  Prints the card's name and
 power limit, every reading, each side's median and the largest difference
-between the two sides' outputs.  Needs the card and nvcc.
+between the two sides' outputs.  The other source must take this one's C
+arguments (``ssd_scan.bind``): nine pointers, the chunk-entry states' among
+them.  A source older than that pointer takes eight, and its arguments
+would not line up: it cannot be compared here.  Needs the card and nvcc.
 """
 from __future__ import annotations
 

@@ -1,12 +1,16 @@
 """The card's memory at the boundaries of a training step.
 
-    PYTHONPATH=src python -m repro_torch.launch.memory_breakdown [--zero 1|3] [--steps 3]
+    PYTHONPATH=src python -m repro_torch.launch.memory_breakdown [--zero 1|3] [--steps 3] \
+        [--arch moonshot-v1-16b-a3b] [--layers 1] [--micro 2]
     PYTHONPATH=src python src/repro_torch/launch/memory_breakdown.py --src build/parent/src
 
-Trains moonshot-v1-16b-a3b at full width cut to one layer on a (pod=2,
-data=2) ThreadMesh, ``chip_smoke.py`` [25]'s configuration (two micro-steps
-of 1 x 4096 tokens a rank, remat, hier, pallas, bf16 parameters, weights
-from seed 0, lr 1e-3), and runs every step under :func:`step_memory`, which
+Trains ``--arch`` (any family; moonshot-v1-16b-a3b by default) at full width
+cut to ``--layers`` layers on a (pod=2, data=2) ThreadMesh, ``chip_smoke.py``
+[25]'s configuration (``--micro`` micro-steps of 1 x 4096 tokens a rank,
+two by default, remat, hier, pallas, bf16 parameters, weights from seed 0,
+lr 1e-3, loss chunks of 1024 tokens; [28]'s is ``--micro 1``, with
+mamba2-2.7b at 16 layers and zamba2-7b at 7), and runs every step under
+:func:`step_memory`, which
 prints the peak of each segment of the step and what is allocated at its
 end.  ``--src`` puts another tree's ``src`` first on the path, so that its
 trainer is the one read: for example the parent commit's, unpacked with
@@ -92,6 +96,9 @@ def main(argv=None):
     ap.add_argument("--zero", type=int, default=1, choices=[1, 3])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--src", default=None, help="a tree's src to read the trainer from")
+    ap.add_argument("--arch", default="moonshot-v1-16b-a3b")
+    ap.add_argument("--layers", type=int, default=1)
+    ap.add_argument("--micro", type=int, default=2, help="micro-steps a rank")
     args = ap.parse_args(argv)
     if args.src:
         sys.path.insert(0, args.src)
@@ -108,11 +115,12 @@ def main(argv=None):
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
-    print(f"trainer from {repro_torch.__file__}; ZeRO-{args.zero}", flush=True)
-    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=1, loss_chunk=1024)
+    print(f"trainer from {repro_torch.__file__}; ZeRO-{args.zero}; {args.arch}, "
+          f"{args.layers} layers, {args.micro} micro-steps a rank", flush=True)
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=args.layers, loss_chunk=1024)
     model = build(cfg)
     m = mesh_mod.ThreadMesh({"pod": 2, "data": 2}, device="cuda")
-    plan = balance.uniform_plan(2, 4, micro_batch=1)
+    plan = balance.uniform_plan(2, 2 * args.micro, micro_batch=1)
     params = model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
     prog = make_train_program(model, m, RunConfig(zero_stage=args.zero, collective_mode="hier",
                                                   backend="pallas", learning_rate=1e-3), plan)

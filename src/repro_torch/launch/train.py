@@ -7,11 +7,13 @@ mesh of ranks.
         [--micro-batch 1] [--n-micro 2] [--mesh-shape 2,2] [--lr 1e-3] \\
         [--seed 0] [--reduced|--full-size] [--device cuda|cpu]
 
-``--arch`` takes every dense and MoE architecture of the port
-(``configs.ARCH_IDS`` and the paper's models, ``configs.PAPER_IDS``); the
-SSM and hybrid families raise (ROADMAP A7).  ``--zero 3`` shards the
-parameters over the mesh's "data" axis and gathers them per block inside the
-forward, the MoE family's router and expert stacks among them.
+``--arch`` takes every architecture of the port (``configs.ARCH_IDS`` and
+the paper's models, ``configs.PAPER_IDS``): dense, MoE, and the SSM and
+hybrid families (mamba2-2.7b, zamba2-7b), whose SSD scan trains through its
+backward kernel.  ``--zero 3`` shards the parameters over the mesh's "data"
+axis and gathers them per block inside the forward, the MoE family's router
+and expert stacks among them; the SSM and hybrid families run ZeRO-1 only
+(their ZeRO-3 is ROADMAP A7b).
 
 The ranks of ``--mesh-shape pod,data`` are threads of this process sharing
 one device (a ``ThreadMesh``).  Runs on the card unless ``--device cpu`` is

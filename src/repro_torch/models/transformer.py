@@ -400,7 +400,7 @@ def forward_lm(params, tokens, cfg: ModelConfig, *, remat: bool = False,
     if fsdp is not None:
         if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(f"ZeRO-3 runs the dense and MoE families, not "
-                                      f"{cfg.family!r}")
+                                      f"{cfg.family!r} (ROADMAP A7b)")
         gplan = gather_plan_of(abstract_params(cfg)["blocks"], rules, scanned=True)
         fns = [functools.partial(_gathered_block_out, params["blocks"], i, gplan, fsdp,
                                  positions, cfg) for i in range(cfg.n_layers)]

@@ -101,10 +101,11 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
     single-policy facade."""
     if rc.zero_stage not in (1, 3):
         raise ValueError(f"zero_stage={rc.zero_stage}: the stages are 1 and 3")
-    if model.cfg.family in ("ssm", "hybrid"):
+    if rc.zero_stage == 3 and model.cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
-            f"{model.cfg.family} training needs a backward of the SSD scan kernel, "
-            "which is not ported yet (ROADMAP A7)")
+            f"ZeRO-3 of the {model.cfg.family} family needs its own gather plan (the hybrid's "
+            "shared block once per forward, a group's blocks once per group), which is not "
+            "ported yet (ROADMAP A7b); ZeRO-1 runs it")
     local_axes, pod_axis = _dp_axes_of(mesh)
     cross = getattr(torch, rc.cross_dtype) if rc.cross_dtype else None
     hcfg = hetccl.HetCCLConfig(

@@ -3,7 +3,8 @@
 Every test here needs an NVIDIA card: each is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false.  The flash-attention kernel is held to
 the limits of ``chip_smoke.py`` (``ATTN_LIMITS``), the grouped matmul to
-``GMM_LIMITS``, the SSD scan to ``SSD_LIMITS``; the collective kernels (``collective_reduce``, the fused ring
+``GMM_LIMITS``, the SSD scan to ``SSD_LIMITS`` and its backward to
+``SSD_BWD_LIMITS``; the collective kernels (``collective_reduce``, the fused ring
 reduce-scatter and all-gather) and the int8 codec's kernels (the chunk-512
 fast path and the generic one) bit for bit.  Planted faults in copies of the kernel sources must fail those checks,
 and a ring fault that stalls the protocol must raise within seconds.  The
@@ -11,6 +12,7 @@ file imports nothing of JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -s --noconftest tests/test_torch_cuda.py
 """
+import contextlib
 import ctypes
 import importlib.util
 import subprocess
@@ -1133,15 +1135,118 @@ def test_ssd_unaligned_views_match_plain(gen, dtype):
     assert ok, {k: smoke.format_gmm(e, dt, smoke.SSD_LIMITS) for k, e in errs.items()}
 
 
-def test_ssd_raises_where_autograd_needs_its_backward(gen):
-    inp = _ssd_case(gen, "g2_h8")
-    x = inp["x"].float().requires_grad_()
-    Bm, Cm = inp["B"].float(), inp["C"].float()
-    with pytest.raises(NotImplementedError, match="backward"):
-        ssd.ssd_scan_model(x, inp["dt"], inp["a"], Bm, Cm, inp["Q"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_function_trains_through_the_kernels(gen, dtype):
+    """The TACC op "ssd_scan" on CUDA tensors that require grad, as
+    ``models.ssm.ssd_scan`` calls it (a_cum the within-chunk cumsum of
+    dt * A, here of a leaf dA, and y + D * x after): one forward launch that
+    writes the chunk states and one backward call (three launches); the
+    gradients of x, dt, dA, B, C, D and the initial state within
+    SSD_BWD_LIMITS of the same Function with its plain backward, and in f32
+    also of the op pinned to its plain variant (the reference's chunk loop
+    under autograd; in bf16 that route rounds dB and dC to bf16 per head and
+    sums the heads in bf16, 2.8e-3 from the f32 sums); under no_grad the
+    serving launch alone.  dA stands for A: A's gradient sums dA's over
+    every position, where f32 sums cancel (tests/test_torch_ssm_train.py
+    holds A's own)."""
+    from repro_torch.core import tacc
+    from repro_torch.models import ssm  # noqa: F401  (registers the op's plain variant)
+    B, S, H, P, G, N, Q = 2, 512, 8, 64, 2, 64, 256
+    dt_ = getattr(torch, dtype)
+    x = torch.randn(B, S, H, P, generator=gen, device="cuda").to(dt_)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen, device="cuda"))
+    dA = -dt * torch.exp(0.25 * torch.randn(H, generator=gen, device="cuda"))
+    Bm, Cm = ((0.5 * torch.randn(B, S, G, N, generator=gen, device="cuda")).to(dt_)
+              for _ in range(2))
+    D = torch.randn(H, generator=gen, device="cuda")
+    init = torch.randn(B, H, N, P, generator=gen, device="cuda")
+    ins = (x, dt, dA, Bm, Cm, D, init)
+    dy = torch.randn(B, S, H, P, generator=gen, device="cuda").to(dt_)
+
+    def op(req):
+        x, dt, dA, Bm, Cm, D, init = req
+        a_cum = torch.cumsum(dA.reshape(B, S // Q, Q, H), dim=2).reshape(B, S, H)
+        y, fin = tacc.dispatch("ssd_scan", x, dt, a_cum, Bm, Cm, Q, init)
+        return (y + x.float() * D[:, None]).to(x.dtype), fin
+
+    def plain_bwd(*a, needs):
+        grads = ssd.ssd_scan_model_bwd_plain(*a[:9])
+        return tuple(g if n else None for g, n in zip(grads, needs))
+
+    def grads(route):
+        req = [t.detach().clone().requires_grad_() for t in ins]
+        with contextlib.ExitStack() as stack:
+            if route == "chunk_loop":
+                stack.enter_context(smoke.patched_variant(tacc, "ssd_scan", "cuda",
+                                                          tacc.resolve("ssd_scan", "cpu")))
+            elif route == "plain_bwd":
+                stack.enter_context(smoke.patched(ssd, "ssd_scan_model_bwd", plain_bwd))
+            y, fin = op(req)
+            obj = (y.float() * dy.float()).sum() + fin.sum()
+            return torch.autograd.grad(obj, req)
+
+    def held(got, want):
+        for name, g, w in zip(("x", "dt", "dA", "B", "C", "D", "init"), got, want):
+            assert g.dtype == w.dtype, name
+            err = smoke.gmm_error(g.reshape(-1, g.shape[-1]), w.reshape(-1, w.shape[-1]))
+            assert smoke.gmm_ok(err, str(g.dtype).removeprefix("torch."),
+                                smoke.SSD_BWD_LIMITS), (name, err)
+
+    ssd.reset_counts()
+    got = grads("kernel")
+    torch.cuda.synchronize()
+    assert ssd.launches == 1 and ssd.bwd_launches == 1
+    assert all(n == 1 for n in ssd.bwd_stage_launches.values())
+    held(got, grads("plain_bwd"))
+    assert ssd.launches == 2 and ssd.bwd_launches == 1
+    if dtype == "float32":
+        held(got, grads("chunk_loop"))
+        assert ssd.launches == 2 and ssd.bwd_launches == 1
     with torch.no_grad():
-        y, s = ssd.ssd_scan_model(x, inp["dt"], inp["a"], Bm, Cm, inp["Q"])
-    assert y.shape == x.shape and s.dtype == torch.float32
+        op(ins)
+    assert ssd.launches == 3 and ssd.bwd_launches == 1
+
+
+@pytest.mark.parametrize("name", [c[0] for c in smoke.SSD_BWD_CASES])
+def test_ssd_bwd_matches_plain(gen, name):
+    """The backward kernels against the plain backward (chip_smoke [27]): each
+    gradient within SSD_BWD_LIMITS, bit-equal on a second run, the counts
+    moved by exactly the launches made."""
+    case = next(c for c in smoke.SSD_BWD_CASES if c[0] == name)
+    inp = smoke.ssd_bwd_inputs(torch, gen, *case[1:])
+    before = (ssd.launches, ssd.bwd_launches, dict(ssd.bwd_stage_launches))
+    got = smoke.ssd_bwd_run(ssd, inp, plain=False)
+    again = smoke.ssd_bwd_run(ssd, inp, plain=False)
+    torch.cuda.synchronize()
+    assert ssd.launches == before[0] + 2 and ssd.bwd_launches == before[1] + 2
+    assert all(ssd.bwd_stage_launches[st] == before[2][st] + 2 for st in ssd.BWD_STAGES)
+    assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+    want = smoke.ssd_bwd_run(ssd, inp, plain=True)
+    errs, ok = smoke.ssd_bwd_errors(got, want)
+    print(f"\n  {name}: {smoke.format_ssd_bwd(errs)}")
+    assert ok, errs
+    assert (got[5] is None) == (inp["init"] is None)
+
+
+@pytest.mark.parametrize("name", ["mamba2_f32", "bf16_init_state", "q100_three_chunks",
+                                  "g2_h8_init_state", "p128_n64"])
+def test_ssd_states_leave_the_serving_launch_unchanged(gen, name):
+    """A forward launch that writes the chunk states gives y and the final
+    state bit for bit as the serving launch (no state pointer); the state
+    entering chunk c is the final state of a scan over the first c chunks
+    (chunk 0's is the initial state, or zeros)."""
+    inp = _ssd_case(gen, name)
+    args = (inp["x"], inp["dt"], inp["a"], inp["B"], inp["C"], inp["Q"], inp["init"])
+    y, fin = ssd.ssd_scan_model(*args)
+    y2, fin2, states = ssd.ssd_scan_model_states(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(fin, fin2)
+    Q = inp["Q"]
+    want0 = inp["init"] if inp["init"] is not None else torch.zeros_like(fin)
+    assert torch.equal(states[:, :, 0], want0.float())
+    for c in range(1, states.shape[2]):
+        pre = ssd.ssd_scan_model(*(t[:, :c * Q] for t in args[:5]), Q, inp["init"])[1]
+        assert torch.equal(states[:, :, c], pre), c
 
 
 def test_ssd_scan_on_the_card_takes_the_kernel(gen):
@@ -1182,11 +1287,49 @@ def test_flash_d112_matches_plain(gen, case):
     _assert_within_limits(got, fa.flash_attention_plain(q, k, v, kind=kind))
 
 
-def test_flash_backward_raises_at_d112(gen):
-    q, k, v = _inputs(gen, 1, 2, 2, 64, 64, 112, torch.bfloat16)
-    o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
-    with pytest.raises(ValueError, match="backward"):
-        fa.flash_attention_bwd(q, k, v, o, torch.ones_like(o), lse)
+# name -> (text in csrc/ssd_scan_bwd.cu, its faulty replacement, the case of
+# SSD_BWD_CASES that reaches the fault)
+SSD_BWD_FAULTS = {
+    "state_gradient_not_carried": ("      g[e] *= keep;", "      g[e] *= 0.f;",
+                                   "slow_decay_init_dfin"),
+    "column_sums_dropped": ("        dac[j0 + tx] += cs;", "        dac[j0 + tx] += 0.f * cs;",
+                            "g2_h8_init_dfin"),
+    "head_reads_group0": ("  const int grp = h / (p.H / p.G);", "  const int grp = 0;",
+                          "g2_h8_init_dfin"),
+    "diagonal_mask_off_by_one": ("const bool ok = j <= i && i < Q;",
+                                 "const bool ok = j < i && i < Q;", "g2_h8_init_dfin"),
+    "head_sum_skips_a_head": ("for (int h = g * hg; h < (g + 1) * hg; ++h)",
+                              "for (int h = g * hg; h < (g + 1) * hg - 1; ++h)",
+                              "g2_h8_init_dfin_bf16"),
+}
+
+
+@pytest.fixture(scope="module")
+def faulty_ssd_bwd_libs(tmp_path_factory):
+    return _compile_faults(tmp_path_factory, "ssd_scan_bwd", SSD_BWD_FAULTS)
+
+
+@pytest.mark.parametrize("fault", sorted(SSD_BWD_FAULTS))
+def test_planted_ssd_bwd_fault_fails_the_limits(gen, faulty_ssd_bwd_libs, monkeypatch, fault):
+    case = next(c for c in smoke.SSD_BWD_CASES if c[0] == SSD_BWD_FAULTS[fault][2])
+    inp = smoke.ssd_bwd_inputs(torch, gen, *case[1:])
+    want = smoke.ssd_bwd_run(ssd, inp, plain=True)
+    good = smoke.ssd_bwd_errors(smoke.ssd_bwd_run(ssd, inp, plain=False), want)
+    monkeypatch.setattr(ssd, "_bwd_fn", ssd.bind_bwd(faulty_ssd_bwd_libs[fault]))
+    bad = smoke.ssd_bwd_errors(smoke.ssd_bwd_run(ssd, inp, plain=False), want)
+    torch.cuda.synchronize()
+    print(f"\n  {fault} kernel: {smoke.format_ssd_bwd(good[0])}\n  {fault} fault : "
+          f"{smoke.format_ssd_bwd(bad[0])}")
+    assert good[1] and not bad[1]
+
+
+@pytest.mark.parametrize("case", smoke.FLASH_D112_BWD_CASES,
+                         ids=[c[0] for c in smoke.FLASH_D112_BWD_CASES])
+def test_flash_backward_at_d112_matches_plain(gen, case):
+    before = fa.bwd_launches
+    worst, ok, _ = smoke.flash_bwd_case(torch, fa, ref, gen, case)
+    assert fa.bwd_launches == before + 1
+    assert ok, worst
 
 
 # name -> (text in csrc/ssd_scan.cu, its faulty replacement, the case of

@@ -62,16 +62,14 @@ from repro.models import ssm as jax_ssm  # noqa: E402
 from repro.models import transformer as jax_tf  # noqa: E402
 from repro.serve import engine as jax_engine  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import RunConfig  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
-from repro_torch.core import balance, mesh, tacc  # noqa: E402
+from repro_torch.core import tacc  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
-from repro_torch.train.trainer import make_train_program  # noqa: E402
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -594,11 +592,3 @@ def test_configs_and_param_counts_match_the_reference(arch):
     assert dataclasses.asdict(red).items() <= dataclasses.asdict(jred).items()
     assert red.n_params() == jred.n_params()
     assert build(cfg).n_params() == jax_build(jcfg).n_params()
-
-
-def test_ssm_training_is_not_ported_yet():
-    for arch in ("mamba2-2.7b", "zamba2-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            make_train_program(build(get_config(arch).reduced()),
-                               mesh.ThreadMesh({"data": 1}, device="cpu"), RunConfig(),
-                               balance.uniform_plan(1, 1, micro_batch=1))
