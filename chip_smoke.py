@@ -179,12 +179,15 @@ Phases, in order; any failure exits non-zero before the last line:
    same transposed views (a yardstick the port never calls), back to back
    and from CUDA graphs, beside the plain version and the operations bound;
 27. SSD backward vs plain: ``ssd_scan_model_bwd`` (``csrc/ssd_scan_bwd.cu``:
-   the reverse state scan, the chunks' gradients, the head sum) after a
-   forward launch that writes the chunk states, against its plain version
+   the state scan, the chunks' gradients, the head sum, on the route the
+   dtype picks: bf16 on tensor cores, ``mma``, f32 on the CUDA cores) after
+   a forward launch that writes the chunk states, against its plain version
    case by case (``SSD_BWD_CASES``: [28]'s two training shapes, f32, dt
-   near 20, a slow decay with an initial state and dfin, G 2 and G = H,
-   chunks of 100 and 32, P 128 and 16), dx, ddt, da, dB, dC and d init each
-   within ``SSD_BWD_LIMITS``, bit-equal on a second run, the counts moved by
+   near 20, a slow decay with an initial state and dfin in either dtype, G
+   2 and G = H, chunks of 100 and 32, P 128 and 16), dx, ddt, da, dB, dC
+   and d init each within ``SSD_BWD_LIMITS``, the bf16 cases of dt scale 1
+   or more also within the mma route's own check (``SSD_BWD_MMA_REL_L2``),
+   bit-equal on a second run, the counts (per stage and per route) moved by
    exactly the launches made; and flash's backward at head dim 112
    (``FLASH_D112_BWD_CASES``: zamba2's training shape, a ragged f32 case)
    within ``BWD_LIMITS``;
@@ -202,13 +205,17 @@ Phases, in order; any failure exits non-zero before the last line:
    losses; step 0's loss against the same batch with every kernel op plain
    (``SSM_STEP0_LOSS_ATOL``, a sanity check) beside planted faults' gaps,
    one of which it must catch (``SSM_LOSS_FAULTS``); ms a step, tokens/s,
-   busy share, peak memory (under ``SSM_TRAIN_PEAK_GIB``);
-29. SSD backward times at [28]'s two shapes: each of its three launches and
-   the whole backward, L2 cold, back to back and from CUDA graphs, in turns
-   with the plain backward, the backward beside the function's bound (its
-   inputs read and outputs written once) and each launch beside its own
-   traffic, a diagnostic (no library yardstick: no one PyTorch call
-   computes it); and flash's backward at
+   busy share, peak memory (under ``SSM_TRAIN_PEAK_GIB``); from the profile
+   of one more step, the SSD backward kernels' card time and the five
+   kernels with the most card time;
+29. SSD backward times at [28]'s two shapes: each launch of its route
+   (``ssd_scan.BWD_LAUNCHES``: the chunks' own terms of the state scan, the
+   combine, the chunks, the group sum) and the whole backward, L2 cold,
+   back to back and from CUDA graphs, in turns with the plain backward,
+   the backward beside the function's bound (its inputs read and outputs
+   written once) and each launch beside its own traffic, a diagnostic (no
+   library yardstick: no one PyTorch call computes it); and flash's
+   backward at
    d 112 against SDPA's;
 30. a JSON line listing every kernel (the flash forward with its five
    main-path shapes under ``shapes``, the backward's d-100 and d-112
@@ -630,19 +637,36 @@ MOE_ZERO_LEAF_REL_L2 = 6e-4
 # the first run on the card.
 SSD_BWD_LIMITS = SSD_LIMITS
 SSD_BWD_OUTPUTS = ("dx", "ddt", "da", "dB", "dC", "dinit")
+# The bf16 (mma) route's own check, beside SSD_BWD_LIMITS (set for a route
+# that rounds no operand): the relative L2 of its f32 gradients (ddt, da
+# and, with an initial state, d init) at most SSD_BWD_MMA_REL_L2, on each
+# bf16 case of dt scale 1 or more.  Basis, stated before the check's first
+# run: the route's first run on an H100 read 2.1e-7 to 5.1e-7 there over
+# the seven bf16 cases (the tensor cores' f32 sums in their own order); its
+# arithmetic emulated in plain torch (tests/test_torch_ssm_train.py) reads
+# 1.1e-7 to 2.0e-7 against the plain backward, 2.3e-6 to 3.8e-6 with lo
+# dropped from every split (16 bits of each f32 operand), and 2.8e-6 to
+# 2.9e-6 on ddt with the mid x mid products dropped.  At dt scale 0.01 the
+# state carries through every chunk, and SSD_BWD_LIMITS alone hold that
+# case, as the forward's SSD_MMA_REL_L2 leaves its slow decay.
+SSD_BWD_MMA_REL_L2 = 1e-6
+SSD_BWD_MMA_CHECKED = ("ddt", "da", "dinit")
 # (name, B, S, H, P, G, N, chunk Q, dtype, dt scale, initial state, dfin):
 # ssd_inputs' inputs at the model's layout, dy unit normals, dfin unit
 # normals where set.  The two training shapes of [28] (mamba2 H 80 / N 128,
 # zamba2 H 112 / N 64, one sequence of 4096); f32; dt near 20 (a falls by
 # thousands within a chunk); a slow decay with an initial state and dfin
-# (the state's gradient carried through every chunk); G 2 and G = H; chunks
-# of 100 (not a multiple of the 32-row tile) and 32; P 128 and P 16.
+# (the state's gradient carried through every chunk), in f32 and, since at
+# dt scale 1 no chunk of 32 or more carries a state the next can see, in
+# bf16 for the mma route; G 2 and G = H; chunks of 100 (not a multiple of
+# the 32-row tile or the 16-row strip) and 32; P 128 and P 16.
 SSD_BWD_CASES = [
     ("mamba2_train", 1, 4096, 80, 64, 1, 128, 256, "bfloat16", 1.0, False, False),
     ("zamba2_train", 1, 4096, 112, 64, 1, 64, 256, "bfloat16", 1.0, False, False),
     ("mamba2_f32", 1, 1024, 80, 64, 1, 128, 256, "float32", 1.0, False, False),
     ("dt_to_20", 1, 1024, 16, 64, 1, 128, 256, "bfloat16", 8.0, False, False),
     ("slow_decay_init_dfin", 2, 1024, 8, 64, 1, 64, 256, "float32", 0.01, True, True),
+    ("slow_decay_init_dfin_bf16", 2, 1024, 8, 64, 1, 64, 256, "bfloat16", 0.01, True, True),
     ("g2_h8_init_dfin", 2, 512, 8, 64, 2, 64, 256, "float32", 1.0, True, True),
     ("g2_h8_init_dfin_bf16", 2, 512, 8, 64, 2, 64, 256, "bfloat16", 1.0, True, True),
     ("q100_three_chunks", 2, 300, 8, 64, 1, 64, 100, "float32", 1.0, True, True),
@@ -1012,6 +1036,13 @@ def device_busy_share(torch, fn, reps):
     ``fn``, from a torch.profiler trace of CUDA activity only (kernels of one
     stream do not overlap, so their sum is the busy time).  None when the
     trace holds no kernel: then the share is not measured."""
+    return device_profile(torch, fn, reps)[0]
+
+
+def device_profile(torch, fn, reps):
+    """(``device_busy_share``'s share, {kernel name: card us summed over
+    the trace}) for ``reps`` calls of ``fn``, from one torch.profiler trace
+    of CUDA activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1021,9 +1052,18 @@ def device_busy_share(torch, fn, reps):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    kernel_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == DeviceType.CUDA)
-    return kernel_us / wall_us if kernel_us > 0 else None
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    kernel_us = sum(by_name.values())
+    return (kernel_us / wall_us if kernel_us > 0 else None), by_name
+
+
+def kernel_label(name, width=72):
+    """A profiler kernel name without its return type and arguments."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(", 1)[0][:width]
 
 
 def phase_times(fa, torch, case):
@@ -3365,6 +3405,12 @@ def ssd_bwd_errors(got, want):
     return out, ok
 
 
+def ssd_bwd_mma_ok(errs):
+    """The mma route's own check: every f32 gradient of SSD_BWD_MMA_CHECKED
+    that ``errs`` holds within SSD_BWD_MMA_REL_L2."""
+    return all(errs[k]["rel_l2"] <= SSD_BWD_MMA_REL_L2 for k in SSD_BWD_MMA_CHECKED if k in errs)
+
+
 def format_ssd_bwd(errs):
     return "  ".join(f"{k} {e['dtype'][:4]} rel_l2 {e['rel_l2']:.2e} row {e['worst_row']:.2e}"
                      for k, e in errs.items())
@@ -3390,23 +3436,38 @@ def flash_bwd_case(torch, fa, ref, gen, case):
     return worst, ok, (q, k, v, o, do, lse, kw)
 
 
+def ssd_bwd_counted(ssd, before, route):
+    """The counts moved by exactly two forward launches and two backward
+    calls (three stages each) on ``route`` since ``before`` (ssd_bwd_counts)."""
+    now = ssd_bwd_counts(ssd)
+    return (now[0] - before[0] == 2 and now[1] - before[1] == 2
+            and all(now[2][st] - before[2][st] == 2 for st in ssd.BWD_STAGES)
+            and all(now[3][r] - before[3][r] == (2 if r == route else 0) for r in ssd.ROUTES))
+
+
+def ssd_bwd_counts(ssd):
+    return (ssd.launches, ssd.bwd_launches, dict(ssd.bwd_stage_launches),
+            dict(ssd.bwd_route_launches))
+
+
 def phase_ssd_bwd_kernels(torch, ssd, fa, ref):
     """The SSD backward against its plain version case by case
-    (SSD_BWD_CASES), each gradient within SSD_BWD_LIMITS, bit-equal on a
-    second run, the counts moved by exactly the launches made (per run one
-    forward launch and one backward call of three launches); then the flash
+    (SSD_BWD_CASES), each gradient within SSD_BWD_LIMITS, the bf16 cases of
+    dt scale 1 or more also within the mma route's own check
+    (SSD_BWD_MMA_REL_L2), bit-equal on a second run, the counts moved by
+    exactly the launches made (per run one forward launch and one backward
+    call of three stages on the route the dtype picks); then the flash
     backward at d 112 (FLASH_D112_BWD_CASES) within BWD_LIMITS."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results, failed = {}, []
     for name, B, S, H, P, G, N, Q, dt, scale, init, dfin in SSD_BWD_CASES:
         inp = ssd_bwd_inputs(torch, gen, B, S, H, P, G, N, Q, dt, scale, init, dfin)
-        before = (ssd.launches, ssd.bwd_launches, dict(ssd.bwd_stage_launches))
+        route = ssd.route(inp["x"].dtype)
+        before = ssd_bwd_counts(ssd)
         got = ssd_bwd_run(ssd, inp, plain=False)
         again = ssd_bwd_run(ssd, inp, plain=False)
         torch.cuda.synchronize()
-        counted = (ssd.launches - before[0] == 2 and ssd.bwd_launches - before[1] == 2
-                   and all(ssd.bwd_stage_launches[st] - before[2][st] == 2
-                           for st in ssd.BWD_STAGES))
+        counted = ssd_bwd_counted(ssd, before, route)
         same = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
         del again
         want = ssd_bwd_run(ssd, inp, plain=True)
@@ -3414,16 +3475,23 @@ def phase_ssd_bwd_kernels(torch, ssd, fa, ref):
             g.shape == w.shape and g.dtype == w.dtype)) for g, w in zip(got, want))
         finite = all(bool(torch.isfinite(g.float()).all()) for g in got if g is not None)
         errs, ok = ssd_bwd_errors(got, want)
-        ok = ok and same and counted and shapes and finite
-        print(f"  {name:22s} B{B} S{S} H{H} P{P} G{G} N{N} Q{Q} {dt:8s} {format_ssd_bwd(errs)}; "
-              f"bit-equal on repeat {same}, counts {counted}  {'ok' if ok else 'FAIL'}")
+        mma_checked = route == "mma" and scale >= 1
+        mma_ok = ssd_bwd_mma_ok(errs) if mma_checked else None
+        ok = ok and same and counted and shapes and finite and mma_ok is not False
+        print(f"  {name:25s} B{B} S{S} H{H} P{P} G{G} N{N} Q{Q} {dt:8s} {route:3s} "
+              f"{format_ssd_bwd(errs)}; "
+              + (f"mma check (rel L2 of {', '.join(SSD_BWD_MMA_CHECKED)} <= "
+                 f"{SSD_BWD_MMA_REL_L2:.0e}) {mma_ok}; " if mma_checked else "")
+              + f"bit-equal on repeat {same}, counts {counted}  {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(name)
-        results[name] = {**errs, "bit_equal_on_repeat": same}
+        results[name] = {**errs, "route": route, "mma_check": mma_ok,
+                         "bit_equal_on_repeat": same}
         del inp, got, want
         gc.collect()
         torch.cuda.empty_cache()
-    print(f"  limits (rel L2, worst row) by output type: {SSD_BWD_LIMITS}")
+    print(f"  limits (rel L2, worst row) by output type: {SSD_BWD_LIMITS}; the mma route's own "
+          f"check {SSD_BWD_MMA_REL_L2:.0e}")
     check(not failed, f"the SSD backward disagrees with its plain version in {failed}")
     flash = {}
     for case in FLASH_D112_BWD_CASES:
@@ -3641,10 +3709,13 @@ def phase_ssm_train(torch, np, get_config, build, mesh_mod, hetccl, tacc, ssd, f
         nonlocal state
         state, _ = prog.step_fn(state, batches[-1])
 
-    busy = device_busy_share(torch, one_more, 1)
+    busy, kernel_us = device_profile(torch, one_more, 1)
+    ssd_bwd_us = {k: v for k, v in kernel_us.items() if "ssd_bwd_" in k}
+    top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:5]
     per = plan.n_micro_max * m.size * SSM_TRAIN_STEPS
     want = {"ssd_scan": 2 * layers * per, "ssd_scan_mma": 2 * layers * per,
-            "ssd_scan_bwd": layers * per,
+            "ssd_scan_bwd": layers * per, "ssd_scan_bwd_mma": layers * per,
+            "ssd_scan_bwd_f32": 0,
             **{f"ssd_scan_bwd_{st}": layers * per for st in ssd.BWD_STAGES},
             "flash_attention_fwd": 2 * n_shared * per,
             "flash_attention_fwd_d112": 2 * n_shared * per,
@@ -3661,6 +3732,13 @@ def phase_ssm_train(torch, np, get_config, build, mesh_mod, hetccl, tacc, ssd, f
           f"{kernel_loss:.6f}, every kernel op plain {plain_loss:.6f}; step 0 vs plain "
           f"{gap:.3e} (limit {SSM_STEP0_LOSS_ATOL})  "
           f"{'ok' if gap <= SSM_STEP0_LOSS_ATOL else 'FAIL'}")
+    card_ms = sum(kernel_us.values()) / 1e3
+    print(f"  one more step's profile: {card_ms:.1f} ms of card time; the SSD backward's kernels "
+          f"{sum(ssd_bwd_us.values()) / 1e3:.2f} ms ("
+          + ", ".join(f"{kernel_label(k, 40)} {v / 1e3:.2f}" for k, v in sorted(
+              ssd_bwd_us.items(), key=lambda kv: -kv[1])) + ")")
+    for k, v in top:
+        print(f"    top kernel {v / 1e3:9.2f} ms {100 * v / 1e3 / card_ms:5.1f}%  {kernel_label(k)}")
     fault_gaps = {name: abs(v - plain_loss) for name, v in fault_losses.items()}
     for name, v in fault_losses.items():
         caught = fault_gaps[name] > SSM_STEP0_LOSS_ATOL
@@ -3686,7 +3764,10 @@ def phase_ssm_train(torch, np, get_config, build, mesh_mod, hetccl, tacc, ssd, f
     out = {"arch": cfg.name, "layers": layers, "params": model.n_params(),
            "tokens_per_step": n_tokens, "losses": losses, "grad_norms": grad_norms,
            "step_ms": step_ms, "ms_per_step": ms, "tokens_per_s": n_tokens / ms * 1e3,
-           "device_busy_one_more_step": busy, "peak_gib": peak_gib, "launches": launches,
+           "device_busy_one_more_step": busy, "card_ms_one_more_step": card_ms,
+           "ssd_bwd_card_ms_one_more_step": sum(ssd_bwd_us.values()) / 1e3,
+           "top_kernels_ms": {kernel_label(k): v / 1e3 for k, v in top},
+           "peak_gib": peak_gib, "launches": launches,
            "expected_launches": want, "step0_gate": gate, "step0_plain_loss": plain_loss,
            "step0_kernel_forward_loss": kernel_loss, "step0_loss_gap": gap,
            "step0_fault_losses": fault_losses, "step0_fault_gaps": fault_gaps,
@@ -3719,26 +3800,35 @@ def ssd_bwd_bound(inp, states, grads):
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
-def ssd_bwd_launch_bounds(B, S, H, P, G, N, Q, elem):
-    """{launch: (ms, "bytes" or "operations")}, a diagnostic of this design,
-    not the function's bound (``ssd_bwd_bound``): each launch's own inputs
-    read once and outputs written once, so the per-head dB and dC and the g
-    of every chunk count twice (written, then read again) and dy twice, and
-    the operations of the causal pairs j <= i of each chunk, not the
-    kernel's recomputed ones, over the bf16 peak."""
+def ssd_bwd_launch_bounds(route, B, S, H, P, G, N, Q, elem, planes):
+    """{launch: (ms, "bytes" or "operations")} of ``route``'s launches
+    (``ssd_scan.BWD_LAUNCHES``), a diagnostic of the design, not the
+    function's bound (``ssd_bwd_bound``): each launch's own inputs read once
+    and outputs written once, so what one launch writes and the next reads
+    (g of every chunk; dB and dC in ``planes`` f32 planes a batch, per head
+    on the f32 route, per cluster of heads on the mma route) counts twice,
+    and dy once a launch that reads it; the operations of the causal pairs
+    j <= i of each chunk and of the state terms, not the kernel's recomputed
+    or split ones, over the bf16 peak."""
     nc = S // Q
     st = B * H * nc * N * P * 4                                 # a (B,H,nc,N,P) f32 tensor
     pairs = B * H * nc * Q * (Q + 1) // 2
     rows = B * S * H
-    b_state = B * S * G * N * elem + rows * P * 4 + rows * 4 + st
-    f_state = 2 * B * S * H * N * P
+    part = 2 * B * S * planes * N * 4                           # dB and dC scratch, f32
+    f_state = 2 * rows * N * P
     b_chunks = (rows * P * elem + 2 * rows * 4 + 2 * B * S * G * N * elem + rows * P * 4
-                + 2 * st + rows * P * elem + 2 * rows * 4 + 2 * rows * N * 4)
-    f_chunks = 2 * pairs * (3 * N + 2 * P) + 3 * 2 * B * S * H * N * P
-    b_sum = 2 * rows * N * 4 + 2 * B * S * G * N * elem
+                + 2 * st + rows * P * elem + 2 * rows * 4 + part)
+    f_chunks = 2 * pairs * (3 * N + 2 * P) + 3 * 2 * rows * N * P
+    b_sum = part + 2 * B * S * G * N * elem
+    if route == "f32":
+        rows_of = {"state": (B * S * G * N * elem + rows * P * 4 + rows * 4 + st, f_state),
+                   "chunks": (b_chunks, f_chunks), "head_sum": (b_sum, 2 * rows * N)}
+    else:
+        rows_of = {"delta": (B * S * G * N * elem + rows * P * 4 + rows * 4 + st, f_state),
+                   "combine": (2 * st + rows * 4 // Q, 2 * st // 4),
+                   "chunks": (b_chunks, f_chunks), "group_sum": (b_sum, part // 4)}
     out = {}
-    for name, nbytes, flops in (("state", b_state, f_state), ("chunks", b_chunks, f_chunks),
-                                ("head_sum", b_sum, 2 * rows * N)):
+    for name, (nbytes, flops) in rows_of.items():
         t_b = nbytes / HBM_BYTES_PER_S * 1e3
         t_o = flops / PEAK_FLOPS["bfloat16"] * 1e3
         out[name] = (max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
@@ -3747,13 +3837,13 @@ def ssd_bwd_launch_bounds(B, S, H, P, G, N, Q, elem):
 
 def phase_ssd_bwd_times(torch, ssd, bench_codec):
     """The backward's launches at [28]'s two shapes (SSD_BWD_CASES'
-    mamba2_train and zamba2_train): the state scan, the chunks and the head
-    sum each alone, and the whole backward, L2 cold before each reading
-    (``bench_codec.ColdReader``), back to back and replayed from CUDA graphs,
-    in turns with the plain backward (back to back); the function's bound
-    (``ssd_bwd_bound``) and, as a diagnostic, each launch's own
-    (``ssd_bwd_launch_bounds``).  No single PyTorch call computes this
-    function: no library yardstick."""
+    mamba2_train and zamba2_train, bf16: the mma route): each launch of the
+    route alone (``ssd_scan.BWD_LAUNCHES``) and the whole backward, L2 cold
+    before each reading (``bench_codec.ColdReader``), back to back and
+    replayed from CUDA graphs, in turns with the plain backward (back to
+    back); the function's bound (``ssd_bwd_bound``) and, as a diagnostic,
+    each launch's own (``ssd_bwd_launch_bounds``).  No single PyTorch call
+    computes this function: no library yardstick."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     reader = bench_codec.ColdReader()
     side = torch.cuda.Stream()
@@ -3761,6 +3851,7 @@ def phase_ssd_bwd_times(torch, ssd, bench_codec):
     for case in SSD_BWD_CASES[:2]:
         name, B, S, H, P, G, N, Q, dt, scale, init, dfin = case
         inp = ssd_bwd_inputs(torch, gen, B, S, H, P, G, N, Q, dt, scale, init, dfin)
+        route = ssd.route(inp["x"].dtype)
         states = ssd.ssd_scan_model_states(inp["x"], inp["dt"], inp["a"], inp["B"], inp["C"],
                                            Q, inp["init"])[2]
         buf = ssd.bwd_buffers(inp["x"], inp["B"], inp["init"], Q, (True,) * 6)
@@ -3772,11 +3863,12 @@ def phase_ssd_bwd_times(torch, ssd, bench_codec):
 
         bwd_args = (inp["x"], inp["dt"], inp["a"], inp["B"], inp["C"], Q, inp["dy"],
                     inp["dfin"], inp["init"])
-        calls = {"state": [stage(1)], "chunks": [stage(2)], "head_sum": [stage(4)],
+        launches = ssd.BWD_LAUNCHES[route]
+        calls = {**{k: [stage(bits)] for k, bits in launches.items()},
                  "backward": [lambda: ssd.ssd_scan_model_bwd(*bwd_args, states)]}
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            stage(7)()                           # gst for the chunks and head-sum readings
+            stage(7)()                           # gst for the readings of a launch alone
             r = bench_codec.cold_in_turns(reader, calls, 4)
             plain_r = bench_codec.cold_in_turns(
                 reader, {"backward": calls["backward"],
@@ -3786,9 +3878,11 @@ def phase_ssd_bwd_times(torch, ssd, bench_codec):
         grads = ssd.ssd_scan_model_bwd(*bwd_args, states)
         bound_ms, bound_by = ssd_bwd_bound(inp, states, grads)
         del grads
-        bounds = ssd_bwd_launch_bounds(B, S, H, P, G, N, Q, inp["x"].element_size())
+        bounds = ssd_bwd_launch_bounds(route, B, S, H, P, G, N, Q, inp["x"].element_size(),
+                                       ssd.bwd_head_planes(H, G, inp["x"].dtype))
         t = out[name] = {
-            "shape": f"B {B} S {S} H {H} P {P} G {G} N {N} Q {Q} {dt}",
+            "shape": f"B {B} S {S} H {H} P {P} G {G} N {N} Q {Q} {dt}", "route": route,
+            "launches": list(launches),
             **{f"{k}_ms": statistics.median(r[k]["stream"]) for k in calls},
             **{f"{k}_graph_ms": statistics.median(r[k]["graph"]) for k in calls},
             **{f"{k}_launch_bound_ms": b for k, (b, _) in bounds.items()},
@@ -3800,23 +3894,26 @@ def phase_ssd_bwd_times(torch, ssd, bench_codec):
             "plain_ms": statistics.median(plain_r["plain"]["stream"]),
             "backward_in_turns_with_plain_ms": statistics.median(plain_r["backward"]["stream"]),
             "library_ms": None,
-            "state_smem_bytes": ssd.bwd_smem_bytes("state", N, P, Q),
-            "chunks_smem_bytes": ssd.bwd_smem_bytes("chunks", N, P, Q)}
-        print(f"  {name} ({t['shape']}): backward {t['ms']:.4f} ms from a graph (back to back "
-              f"{t['backward_ms']:.4f}), plain {t['plain_ms']:.4f} (kernel in the same turns "
-              f"{t['backward_in_turns_with_plain_ms']:.4f}), bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}; the function's inputs read and outputs written once); kernel "
-              f"/ bound {t['ms'] / t['bound_ms']:.1f}; L2 cold, in turns")
-        for k in ("state", "chunks", "head_sum"):
+            "state_smem_bytes": ssd.bwd_smem_bytes("state", N, P, Q, inp["x"].dtype),
+            "chunks_smem_bytes": ssd.bwd_smem_bytes("chunks", N, P, Q, inp["x"].dtype),
+            "head_planes": ssd.bwd_head_planes(H, G, inp["x"].dtype),
+            "active_clusters": ssd.bwd_active_clusters(H, G, N, P, Q) if route == "mma" else None}
+        print(f"  {name} ({t['shape']}, {route} route): backward {t['ms']:.4f} ms from a graph "
+              f"(back to back {t['backward_ms']:.4f}), plain {t['plain_ms']:.4f} (kernel in the "
+              f"same turns {t['backward_in_turns_with_plain_ms']:.4f}), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}; the function's inputs read and outputs "
+              f"written once); kernel / bound {t['ms'] / t['bound_ms']:.1f}; L2 cold, in turns")
+        for k in launches:
             g = r[k]["graph"]
-            print(f"    {k:8s} graph {t[k + '_graph_ms']:.4f} ms (readings {min(g):.4f}-"
+            print(f"    {k:9s} graph {t[k + '_graph_ms']:.4f} ms (readings {min(g):.4f}-"
                   f"{max(g):.4f}), back to back {t[k + '_ms']:.4f}; the launch's own traffic "
                   f"(a diagnostic) {t[k + '_launch_bound_ms']:.4f} ms "
                   f"({t[k + '_launch_bound_by']})")
-        print(f"    the three launches' own traffic summed {t['launches_bound_ms']:.4f} ms: "
+        print(f"    the launches' own traffic summed {t['launches_bound_ms']:.4f} ms: "
               f"{t['launches_bound_ms'] / t['bound_ms']:.2f}x the function's bound")
         print(f"    shared memory per block: state {t['state_smem_bytes']} B, chunks "
-              f"{t['chunks_smem_bytes']} B")
+              f"{t['chunks_smem_bytes']} B; dB and dC scratch {t['head_planes']} f32 planes a "
+              f"batch; clusters the card holds at once {t['active_clusters']}")
         del inp, states, buf, args, calls, r, plain_r
         gc.collect()
         torch.cuda.empty_cache()
@@ -3850,6 +3947,7 @@ class Counters:
                 **{f"grouped_matmul_bwd_{r}": n for r, n in gmm.bwd_route_launches.items()},
                 **{f"ssd_scan_{r}": n for r, n in ssd.route_launches.items()},
                 "ssd_scan_bwd": ssd.bwd_launches,
+                **{f"ssd_scan_bwd_{r}": n for r, n in ssd.bwd_route_launches.items()},
                 **{f"ssd_scan_bwd_{st}": n for st, n in ssd.bwd_stage_launches.items()}}
 
 
@@ -4250,9 +4348,10 @@ def main() -> int:
         "name": "ssd_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:29",
-        "note": "backward of the SSD kernel (dx, ddt, da, dB, dC, d init): the reverse state "
-                "scan, the chunks' gradients, the head sum; the TPU kernel is forward-only and "
-                "the reference differentiates its jnp scan",
+        "note": "backward of the SSD kernel (dx, ddt, da, dB, dC, d init): the state scan, the "
+                "chunks' gradients, the head sum, bf16 on tensor cores (mma), f32 on the CUDA "
+                "cores; the TPU kernel is forward-only and the reference differentiates its jnp "
+                "scan",
         "launches": sum(v["launches"]["ssd_scan_bwd"] for v in ssm_train.values()),
         "launches_by_arch": {a: v["launches"]["ssd_scan_bwd"] for a, v in ssm_train.items()},
         "max_abs_err": max(e["max_abs_err"] for e in grads),
@@ -4260,14 +4359,16 @@ def main() -> int:
         "worst_row": max(e["worst_row"] for e in grads),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
+        "timed_route": t["route"],
+        "routes": {r: sum(v["launches"][f"ssd_scan_bwd_{r}"] for v in ssm_train.values())
+                   for r in ssd.ROUTES},
         "stages": {k: {"ms": t[f"{k}_graph_ms"], "back_to_back_ms": t[f"{k}_ms"],
                        "launch_bound_ms": t[f"{k}_launch_bound_ms"],
                        "launch_bound_by": t[f"{k}_launch_bound_by"]}
-                   for k in ssd.BWD_STAGES},
+                   for k in t["launches"]},
         "launches_bound_ms": t["launches_bound_ms"],
         "zamba2": {key: tz[key] for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                                            "state_graph_ms", "chunks_graph_ms",
-                                            "head_sum_graph_ms")},
+                                            *(f"{k}_graph_ms" for k in tz["launches"]))},
         "check": "pass (bit-equal on repeat)", "cases_checked": len(ssd_bwd)})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

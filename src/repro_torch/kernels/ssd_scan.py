@@ -25,10 +25,15 @@ shapes a route takes and what a block of it takes
 Python, for planning without a card.
 
 The backward (``csrc/ssd_scan_bwd.cu``, no TPU counterpart: the reference
-trains through the VJP of its jnp scan) is three launches: the reverse scan
-of the state's gradient, one block per (b, h); the gradients within each
-chunk, one block per (b, h, chunk); and a fixed-order sum of dB and dC over
-each group's heads.  It reads the state entering each chunk, which the
+trains through the VJP of its jnp scan) has a route per dtype as the
+forward has, chosen by the dtype alone.  f32: the reverse scan of the
+state's gradient, one block per (b, h); the gradients within each chunk,
+one block per (b, h, chunk); and a fixed-order sum of dB and dC over each
+group's heads.  bf16 (``"mma"``, tensor cores): every chunk's own term of
+that scan at once, a combine serial over the chunks only; the chunks'
+gradients in clusters of heads that sum dB and dC over distributed shared
+memory into one f32 partial per cluster; and the fixed-order sum of each
+group's partials.  It reads the state entering each chunk, which the
 forward writes when asked (:func:`ssd_scan_model_states`), so it never
 rescans the forward.  :class:`SsdScan` joins the two for autograd, and
 :func:`ssd_scan_model`, the TACC op's ``cuda`` variant, goes through it when
@@ -42,7 +47,9 @@ runs the plain version (``ref.ssd_scan``, :func:`ssd_scan_model_plain` over
 ``launches`` counts forward launches and nothing else, under a lock;
 ``route_launches`` counts them per route, and its values sum to
 ``launches``.  ``bwd_launches`` counts backward calls that reach the
-kernels (each makes the launches ``bwd_stage_launches`` counts by stage).
+kernels (each makes the launches ``bwd_stage_launches`` counts by stage);
+``bwd_route_launches`` counts them per route, and its values sum to
+``bwd_launches``.
 """
 from __future__ import annotations
 
@@ -58,8 +65,13 @@ launches = 0          # kernel launches made by ssd_scan and ssd_scan_model
 ROUTES = ("f32", "mma")                  # in the order of the C dtype codes
 route_launches = dict.fromkeys(ROUTES, 0)
 bwd_launches = 0      # backward calls through the kernels (ssd_scan_model_bwd)
+bwd_route_launches = dict.fromkeys(ROUTES, 0)
 BWD_STAGES = ("state", "chunks", "head_sum")   # the bits 1, 2 and 4 of the C launch
 bwd_stage_launches = dict.fromkeys(BWD_STAGES, 0)
+# Each route's kernels by the bit of the C launch that makes it alone: on the
+# mma route bit 1 makes "delta" and "combine" together (the state stage)
+BWD_LAUNCHES = {"f32": {"state": 1, "chunks": 2, "head_sum": 4},
+                "mma": {"delta": 8, "combine": 16, "chunks": 2, "group_sum": 4}}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -84,14 +96,13 @@ def bind(lib: ctypes.CDLL):
 def bind_bwd(lib: ctypes.CDLL):
     """(launch, error_string) of a loaded ``ssd_scan_bwd`` library; the
     launch takes its 43 integer arguments packed in one int64 array (the
-    order is in the source's note), the stage mask and the stream."""
+    order is in the source's note), the stage mask and the stream.  Binds
+    nothing else, so a library built from an older source binds too."""
     fn = lib.ssd_scan_bwd
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.ssd_scan_bwd_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_bwd_error_string.restype = ctypes.c_char_p
-    lib.ssd_scan_bwd_smem_bytes.argtypes = [ctypes.c_int] * 4
-    lib.ssd_scan_bwd_smem_bytes.restype = ctypes.c_longlong
     return fn, lib.ssd_scan_bwd_error_string
 
 
@@ -102,7 +113,7 @@ def reset_counts():
     with _lock:
         launches = bwd_launches = 0
         for r in ROUTES:
-            route_launches[r] = 0
+            route_launches[r] = bwd_route_launches[r] = 0
         for st in BWD_STAGES:
             bwd_stage_launches[st] = 0
 
@@ -394,23 +405,50 @@ def ssd_scan_model_bwd_plain(x, dt, a_cum, B_in, C_in, chunk, dy, dfin=None, ini
     return (back(dx).to(x.dtype), back(ddt), back(da), group_sum(dB), group_sum(dC), dinit)
 
 
-def bwd_smem_bytes(stage: str, N: int, P: int, Q: int) -> int:
+def _bwd_lib():
+    """The checkout's backward library, with its shape queries bound."""
+    lib = _build.load("ssd_scan_bwd")
+    lib.ssd_scan_bwd_route_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.ssd_scan_bwd_route_smem_bytes.restype = ctypes.c_longlong
+    lib.ssd_scan_bwd_head_planes.argtypes = [ctypes.c_int] * 3
+    lib.ssd_scan_bwd_head_planes.restype = ctypes.c_int
+    lib.ssd_scan_bwd_active_clusters.argtypes = [ctypes.c_int] * 5
+    lib.ssd_scan_bwd_active_clusters.restype = ctypes.c_int
+    return lib
+
+
+def bwd_smem_bytes(stage: str, N: int, P: int, Q: int, dtype=torch.float32) -> int:
     """Shared memory of one block of the backward's launch ``stage``
-    ("state" or "chunks") at these shapes, from the built library; -1 where
-    the launch refuses them.  Needs nvcc."""
-    _bwd_kernel()
-    return _build.load("ssd_scan_bwd").ssd_scan_bwd_smem_bytes(
-        BWD_STAGES.index(stage) + 1, N, P, Q)
+    ("state" or "chunks"; on the mma route "state" is the chunks' own terms
+    of the scan) of the route for ``dtype`` at these shapes, from the built
+    library; -1 where the launch refuses them.  Needs nvcc."""
+    return _bwd_lib().ssd_scan_bwd_route_smem_bytes(
+        _DTYPE_CODE[dtype], BWD_STAGES.index(stage) + 1, N, P, Q)
+
+
+def bwd_head_planes(H: int, G: int, dtype=torch.float32) -> int:
+    """(S, N) f32 planes a batch of the backward's dB and dC scratch, from
+    the built library: H on the f32 route (per head), H over the cluster
+    size on the mma route (one partial per cluster of heads).  Needs nvcc."""
+    return _bwd_lib().ssd_scan_bwd_head_planes(_DTYPE_CODE[dtype], H, G)
+
+
+def bwd_active_clusters(H: int, G: int, N: int, P: int, Q: int) -> int:
+    """Clusters of the mma route's chunks launch that the card holds at once
+    (its occupancy calculator); needs the card."""
+    return _bwd_lib().ssd_scan_bwd_active_clusters(H, G, N, P, Q)
 
 
 def _check_bwd(x, B_in, C_in, init_state, dy, states, H, G, N, P, Q, nc):
     _check(x, (B_in, C_in), init_state, H, G, N, P, Q)
-    if N > 128:
-        raise ValueError(f"state {N} x {P}: the backward takes N up to 128 (ROADMAP C7)")
+    r = route(x.dtype)
     for stage in ("state", "chunks"):
-        if bwd_smem_bytes(stage, N, P, Q) < 0:
-            raise ValueError(f"state {N} x {P} with chunk {Q}: the backward's {stage} launch "
-                             f"needs more than {MAX_SMEM} bytes of shared memory (ROADMAP C7)")
+        if bwd_smem_bytes(stage, N, P, Q, x.dtype) < 0:
+            raise ValueError(
+                f"state {N} x {P} with chunk {Q}: the backward's {r} route does not take it "
+                f"in its {stage} launch (at most {MAX_SMEM} bytes of shared memory a block; N up "
+                "to 128; f32: P 16 to 128; mma, bfloat16: P 16, 32 or 64, N a multiple of 8, a "
+                "chunk of at most 256; ROADMAP C7)")
     Bb, S = x.shape[0], x.shape[1]
     if tuple(dy.shape) != (Bb, S, H, P) or dy.device != x.device:
         raise ValueError(f"dy {tuple(dy.shape)} on {dy.device}: ({Bb}, {S}, {H}, {P}) on "
@@ -442,7 +480,8 @@ def _bwd_args(x, dt, a_cum, B_in, C_in, dy, states, dfin, out, chunk):
 
 def _launch_bwd(args, stages: int, device):
     """The backward's launches named by the bit mask ``stages`` (1 state, 2
-    chunks, 4 head sum), on the device's current stream."""
+    chunks, 4 head sum; ``BWD_LAUNCHES`` names each kernel's bit), on the
+    device's current stream; ``bwd_stage_launches`` counts bits 1, 2, 4."""
     fn, err_str = _bwd_kernel()
     stream = torch.cuda.current_stream(device).cuda_stream
     addr, _ = args.buffer_info()
@@ -456,12 +495,16 @@ def _launch_bwd(args, stages: int, device):
                 bwd_stage_launches[st] += 1
 
 
-def bwd_buffers(x, B_in, init_state, chunk, needs):
+def bwd_buffers(x, B_in, init_state, chunk, needs, planes=None):
     """The backward's outputs and scratch (``gst``, the state's gradient after
-    each chunk) for ``needs`` (six flags: dx, ddt, da_cum, dB, dC, dinit): a
-    dict of tensors, None where not asked for."""
+    each chunk; ``dbh`` and ``dch``, ``planes`` (S, N) f32 planes a batch,
+    by default :func:`bwd_head_planes` of the route) for ``needs`` (six
+    flags: dx, ddt, da_cum, dB, dC, dinit): a dict of tensors, None where not
+    asked for."""
     Bb, S, H, P = x.shape
     G, N = B_in.shape[2], B_in.shape[3]
+    if planes is None:
+        planes = bwd_head_planes(H, G, x.dtype)
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=x.device)
@@ -470,8 +513,8 @@ def bwd_buffers(x, B_in, init_state, chunk, needs):
            "dinit": f32(Bb, H, N, P) if needs[5] and init_state is not None else None,
            "dx": torch.empty((Bb, S, H, P), dtype=x.dtype, device=x.device) if needs[0] else None,
            "ddt": f32(Bb, S, H) if needs[1] else None, "da": f32(Bb, S, H) if needs[2] else None,
-           "dbh": f32(Bb, H, S, N) if needs[3] else None,
-           "dch": f32(Bb, H, S, N) if needs[4] else None,
+           "dbh": f32(Bb, planes, S, N) if needs[3] else None,
+           "dch": f32(Bb, planes, S, N) if needs[4] else None,
            "db": torch.empty((Bb, S, G, N), dtype=B_in.dtype, device=x.device)
            if needs[3] else None,
            "dc": torch.empty((Bb, S, G, N), dtype=B_in.dtype, device=x.device)
@@ -511,4 +554,5 @@ def ssd_scan_model_bwd(x, dt, a_cum, B_in, C_in, chunk, dy, dfin=None, init_stat
                 x.device)
     with _lock:
         bwd_launches += 1
+        bwd_route_launches[route(x.dtype)] += 1
     return out["dx"], out["ddt"], out["da"], out["db"], out["dc"], out["dinit"]

@@ -41,6 +41,8 @@ Tolerances, from the readings on these inputs:
   loss within STEP0_ATOL and the three losses within LOSS_ATOL.
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -68,6 +70,11 @@ from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.train.trainer import make_train_program  # noqa: E402
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
 
 CTX = Ctx(rules={"_axis_sizes": {}, "_zero_stage": 1}, manual=False, dp_axes=("data",))
 GRAD_L1 = {"float32": 1e-5, "bfloat16": 4e-3}   # of each leaf's summed |value|
@@ -217,6 +224,202 @@ def test_plain_backward_keeps_group_sums_and_f64():
     out64 = ssd.ssd_scan_model_bwd_plain(*(t.double() for t in (x, dt, a, Bm, Cm)), 16,
                                          dy.double(), dfin.double(), init.double())
     assert all(t.dtype == torch.float64 for t in out64)
+
+
+# ---------------------------------------------------------------------------
+# The mma route's arithmetic (csrc/ssd_scan_bwd.cu, bfloat16 inputs), emulated
+# ---------------------------------------------------------------------------
+
+# the six part products of two split f32 operands: (part of a, part of b),
+# 0 hi, 1 mid, 2 lo; the kernel leaves out mid lo, lo mid and lo lo
+SIX_PARTS = ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1))
+
+
+def _split3(v, lo=True):
+    """v (f32) as three bf16-valued f32 parts hi + mid + lo, each the
+    round-to-nearest of what the parts before it leave (split_pair); lo
+    zero when ``lo`` is false (a planted fault)."""
+    hi = v.bfloat16().float()
+    mid = (v - hi).bfloat16().float()
+    return hi, mid, ((v - hi - mid).bfloat16().float() if lo else torch.zeros_like(v))
+
+
+def _mma_bwd_emulation(x, dt, a, Bm, Cm, dy, init=None, dfin=None, lo=True, mid_mid=True):
+    """The bf16 route's arithmetic in plain torch, at the kernel's layout: x
+    (B,H,nc,Q,P), dt and a (B,H,nc,Q), B and C (B,H,nc,Q,N), all f32 holding
+    bf16 values but dt, a and dy (B,H,nc,Q,P) f32 -> {dx, ddt, da, dB, dC
+    (per head), dinit} in f32.  A product of two bf16 values is exact in f32,
+    so an f32 matmul of bf16-valued operands is what the tensor cores compute
+    (f32 sums in another order).  Per product, as the kernel: C B^T exact;
+    an exact operand against the three parts of the f32 one (dy x^T, M B,
+    M^T C, x dy^T, x g^T, B g, C^T (exp(a) o dy)); the six part products
+    where both are f32 (dy s^T, T^T dy).  The state's gradient as the
+    kernel scans it: every chunk's own term D_c first, then g_{c-1} =
+    exp(a_Q) g_c + D_c.  ``lo`` and ``mid_mid`` false plant the faults the
+    route's own check must catch.  A test helper, on no path."""
+    def parts(v):
+        return _split3(v, lo)
+
+    def a_split(f, exact):                     # the f32 operand on the left
+        return sum(q @ exact for q in parts(f))
+
+    def b_split(exact, f):                     # the f32 operand on the right
+        return sum(exact @ q for q in parts(f))
+
+    def six(f, h):
+        pf, ph = parts(f), parts(h)
+        return sum(pf[i] @ ph[j] for i, j in SIX_PARTS if mid_mid or (i, j) != (1, 1))
+
+    Bb, H, nc, Q, P = x.shape
+    N = Bm.shape[-1]
+    causal = torch.ones(Q, Q, dtype=torch.bool).tril()
+    zero = torch.zeros(())
+    ea, keep, ed = torch.exp(a), torch.exp(a[..., -1]), torch.exp(a[..., -1:] - a)
+    s = torch.zeros(Bb, H, N, P) if init is None else init.float()
+    s_in = []                                  # the forward's chunk-entry states
+    for c in range(nc):
+        s_in.append(s)
+        s = keep[:, :, c, None, None] * s + torch.einsum(
+            "bhjn,bhjp->bhnp", Bm[:, :, c] * ed[:, :, c, :, None], x[:, :, c] * dt[:, :, c, :, None])
+    own = [b_split(Cm[:, :, c].transpose(-1, -2), ea[:, :, c, :, None] * dy[:, :, c])
+           for c in range(nc)]
+    g = torch.zeros(Bb, H, N, P) if dfin is None else dfin.float()
+    gs = [g] * nc
+    for c in range(nc - 1, 0, -1):
+        g = keep[:, :, c, None, None] * g + own[c]
+        gs[c - 1] = g
+    out = {k: [] for k in ("dx", "ddt", "da", "dB", "dC")}
+    for c in range(nc):
+        ac, dtc, xc, Bc, Cc, dyc = (t[:, :, c] for t in (a, dt, x, Bm, Cm, dy))
+        L = torch.where(causal, torch.exp(torch.where(causal, ac[..., :, None] - ac[..., None, :],
+                                                      zero)), zero)
+        S = Cc @ Bc.transpose(-1, -2)
+        # pass 1, rows i
+        M = L * dtc[..., None, :] * a_split(dyc, xc.transpose(-1, -2))
+        r = six(dyc, s_in[c].transpose(-1, -2))
+        dC = ea[:, :, c, :, None] * r + a_split(M, Bc)
+        dar = (S * M).sum(-1) + ea[:, :, c] * (Cc * r).sum(-1)
+        # pass 2, rows j: the transposed products
+        LT, ST = L.transpose(-1, -2), S.transpose(-1, -2)
+        MT = LT * dtc[..., :, None] * b_split(xc, dyc.transpose(-1, -2))
+        gx = dtc[..., None] * b_split(xc, gs[c].transpose(-1, -2))
+        edc = ed[:, :, c]
+        u = edc * (Bc * gx).sum(-1)
+        dB = edc[..., None] * gx + a_split(MT, Cc)
+        dxdt = edc[..., None] * b_split(Bc, gs[c]) + six(LT * ST, dyc)
+        da = dar - (ST * MT).sum(-1) - u
+        da[..., -1] += keep[:, :, c] * (gs[c] * s_in[c]).sum((-2, -1)) + u.sum(-1)
+        for k, v in (("dx", dtc[..., None] * dxdt), ("ddt", (xc * dxdt).sum(-1)), ("da", da),
+                     ("dB", dB), ("dC", dC)):
+            out[k].append(v)
+    res = {k: torch.stack(v, 2) for k, v in out.items()}
+    res["dinit"] = keep[:, :, 0, None, None] * g + own[0] if init is not None else None
+    return res
+
+
+def _mma_bwd_model(x, dt, a_cum, B_in, C_in, chunk, dy, dfin=None, init_state=None, states=None,
+                   needs=(True,) * 6, **faults):
+    """The emulation at the model's layout, with ``ssd_scan_model_bwd``'s
+    signature: dB and dC summed over each group's heads in f32."""
+    Bb, S, H, P = x.shape
+    G, N = B_in.shape[2], B_in.shape[3]
+    nc = S // chunk
+
+    def kl(t, heads=None):
+        return ssd._to_kernel_layout(t, nc, chunk, heads).float()
+
+    out = _mma_bwd_emulation(kl(x), kl(dt), kl(a_cum), kl(B_in, H), kl(C_in, H), kl(dy),
+                             init_state, dfin, **faults)
+
+    def back(t):
+        return t.movedim(1, 3).reshape(Bb, S, H, *t.shape[4:])
+
+    grads = (back(out["dx"]), back(out["ddt"]), back(out["da"]),
+             *(back(out[k]).reshape(Bb, S, G, H // G, N).sum(3) for k in ("dB", "dC")),
+             out["dinit"])
+    return tuple(t if n else None for t, n in zip(grads, needs))
+
+
+# (B, nc, chunk Q, H, P, G, N, initial state): chunks of 100 and 32 (not
+# multiples of the 16-row strip, and of the 64-row stage), G 2 and G = H
+MMA_SCAN_CASES = [(2, 3, 100, 4, 32, 2, 16, True), (1, 4, 32, 4, 16, 4, 8, True),
+                  (1, 2, 64, 4, 64, 1, 32, False)]
+
+
+def _bf16_valued(arrs):
+    out = dict(arrs)
+    for k in ("x", "B", "C"):
+        out[k] = np.array(jnp.asarray(arrs[k]).astype(jnp.bfloat16).astype(jnp.float32))
+    return out
+
+
+@pytest.mark.parametrize("case", MMA_SCAN_CASES,
+                         ids=[f"Q{c[2]}G{c[5]}H{c[3]}" for c in MMA_SCAN_CASES])
+def test_mma_route_arithmetic_matches_jax_vjp(monkeypatch, through_function, case):
+    """The bf16 route's arithmetic, emulated, as the Function's backward:
+    every gradient of the port's SSD scan (x, dt, A, B, C, D, the initial
+    state; dfin given) against ``jax.vjp`` of ``repro.models.ssm.ssd_scan``
+    on the same bf16-valued x, B and C and f32 dt, dy and dfin.  Each leaf
+    within SSD_BWD_LIMITS' f32 values (relative L2, worst row); A and D,
+    whose gradients sum over every position, also within GRAD_L1 of their
+    magnitude sums (dA cancels in f32 in both packages)."""
+    arrs, cot = _scan_inputs(*case)
+    arrs = _bf16_valued(arrs)
+    Q, names = case[2], list(arrs)
+
+    def jfn(*vals):
+        kw = dict(zip(names, vals))
+        return jax_ssm.ssd_scan(kw["x"], kw["dt"], kw["A"], kw["B"], kw["C"], kw["D"], Q,
+                                init_state=kw.get("init"))
+
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(arrs[k]) for k in names))
+    want = dict(zip(names, vjp((jnp.asarray(cot[0]), jnp.asarray(cot[1])))))
+    monkeypatch.setattr(ssd, "ssd_scan_model_bwd", _mma_bwd_model)
+    got = _port_scan_grads(arrs, cot, Q, "float32")
+    scale = _magnitude_sums(arrs, cot, Q)
+    errs = {}
+    for k in names:
+        g, w = got[k].double(), torch.from_numpy(np.asarray(want[k], np.float64))
+        assert g.shape == w.shape, k
+        rows = (1, -1) if g.dim() == 1 else (-1, g.shape[-1])
+        errs[k] = smoke.gmm_error(g.reshape(rows), w.reshape(rows))
+        errs[k]["l1"] = float((g - w).abs().sum() / scale[k])
+    print(f"\n  {case}: " + "  ".join(f"{k} {e['rel_l2']:.2e}/{e['worst_row']:.2e}"
+                                      for k, e in errs.items()))
+    assert all(smoke.gmm_ok(e, "float32", smoke.SSD_BWD_LIMITS) for e in errs.values()), errs
+    assert errs["A"]["l1"] <= GRAD_L1["float32"] and errs["D"]["l1"] <= GRAD_L1["float32"]
+
+
+def _emulation_errors(case, **faults):
+    """The emulation (with ``faults``) against the plain backward at the
+    model's layout, on bf16-valued inputs of ``case`` at dt scale 1: the
+    errors of chip_smoke's SSD_BWD_OUTPUTS (ssd_bwd_errors)."""
+    B, nc, Q, H, P, G, N, init = case
+    arrs, cot = _scan_inputs(*case)
+    arrs = _bf16_valued(arrs)
+    t = {k: torch.from_numpy(v) for k, v in arrs.items()}
+    a = torch.cumsum((t["dt"] * t["A"]).reshape(B, nc, Q, H), 2).reshape(B, nc * Q, H)
+    args = (t["x"], t["dt"], a, t["B"], t["C"], Q, torch.from_numpy(cot[0]),
+            torch.from_numpy(cot[1]), t.get("init"))
+    got = _mma_bwd_model(*args, **faults)
+    want = ssd.ssd_scan_model_bwd_plain(*args)
+    return smoke.ssd_bwd_errors(got, want)[0]
+
+
+@pytest.mark.parametrize("fault", [None, "lo", "mid_mid"])
+@pytest.mark.parametrize("case", MMA_SCAN_CASES,
+                         ids=[f"Q{c[2]}G{c[5]}H{c[3]}" for c in MMA_SCAN_CASES])
+def test_mma_route_check_catches_a_dropped_part(case, fault):
+    """chip_smoke's route-own check (SSD_BWD_MMA_REL_L2 on ddt, da and d
+    init): the emulated route passes it against the plain backward, and
+    fails it with lo dropped from every split (16 bits of each f32
+    operand) or with the mid x mid part products left out, which
+    SSD_BWD_LIMITS (set for a route that rounds no operand) let through."""
+    errs = _emulation_errors(case, **({fault: False} if fault else {}))
+    print(f"\n  {case} {fault}: " + "  ".join(
+        f"{k} {errs[k]['rel_l2']:.2e}" for k in smoke.SSD_BWD_MMA_CHECKED if k in errs))
+    assert all(smoke.gmm_ok(e, "float32", smoke.SSD_BWD_LIMITS) for e in errs.values())
+    assert smoke.ssd_bwd_mma_ok(errs) == (fault is None)
 
 
 # ---------------------------------------------------------------------------
