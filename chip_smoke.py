@@ -194,20 +194,25 @@ Phases, in order; any failure exits non-zero before the last line:
 28. SSM and hybrid training at full width: mamba2-2.7b cut to 16 of 64
    layers and zamba2-7b cut to 7 of 81 (one group of six Mamba2 blocks, the
    shared attention block, one tail block), bf16 parameters with f32 master
-   state, weights from a seed, ZeRO-1 on a (pod=2, data=2) ThreadMesh, one
-   micro-step of 1 x 4096 tokens a rank, remat, hier, pallas, no codec: the
+   state, weights from a seed, on a (pod=2, data=2) ThreadMesh, two
+   micro-steps of 1 x 4096 tokens a rank, remat, hier, pallas, no codec: the
    step-0 gate (every SSD backward launch against the plain backward of its
    inputs, every d-112 flash backward launch against its plain version),
-   then 3 steps from one init, the counts set to 0 just before and read
-   just after: 2 SSD forward launches (remat's recompute the second) and 1
-   backward call per Mamba2 block, micro-step and rank, 2 flash forward and
-   1 backward per shared block, the fused rings per bucket and leaf; finite
-   losses; step 0's loss against the same batch with every kernel op plain
-   (``SSM_STEP0_LOSS_ATOL``, a sanity check) beside planted faults' gaps,
-   one of which it must catch (``SSM_LOSS_FAULTS``); ms a step, tokens/s,
-   busy share, peak memory (under ``SSM_TRAIN_PEAK_GIB``); from the profile
-   of one more step, the SSD backward kernels' card time and the five
-   kernels with the most card time;
+   then 3 ZeRO-3 and 3 ZeRO-1 steps from one init and the same batches, the
+   counts set to 0 just before each run and read just after: 2 SSD forward
+   launches (remat's recompute the second) and 1 backward call per Mamba2
+   block, micro-step and rank, 2 flash forward and 1 backward per shared
+   block, the fused rings per bucket and leaf (ZeRO-1) or per gathered key
+   and micro-step in the fsdp adjoint, counted against the gather plan, and
+   per leaf (ZeRO-3); finite losses; step 0's loss against the same batch
+   with every kernel op plain (``SSM_STEP0_LOSS_ATOL``, a sanity check)
+   beside planted faults' gaps, one of which it must catch
+   (``SSM_LOSS_FAULTS``); ZeRO-3 against ZeRO-1: the step losses, step 0's
+   gradient norm, the parameters after step 0 (the tree and each leaf, the
+   replicated and the shared block's named); per stage ms a step,
+   tokens/s, busy share, peak memory (under ``SSM_TRAIN_PEAK_GIB``), from
+   the profile of one more step the SSD backward kernels' card time and the
+   five kernels with the most card time;
 29. SSD backward times at [28]'s two shapes: each launch of its route
    (``ssd_scan.BWD_LAUNCHES``: the chunks' own terms of the state scan, the
    combine, the chunks, the group sum) and the whole backward, L2 cold,
@@ -681,18 +686,33 @@ FLASH_D112_BWD_CASES = [
     ("zamba2_train_d112", 1, 32, 32, 4096, 112, "causal", 0, None, "bfloat16", True),
     ("f32_d112_gqa2_s300", 2, 4, 2, 300, 112, "causal", 0, None, "float32", False),
 ]
-# SSM and hybrid training at full width (ROADMAP A7), ZeRO-1 on a (pod=2,
-# data=2) ThreadMesh, ``uniform_plan(2, 2, 1)``: one micro-step of 1 x 4096
-# tokens a rank, 16384 a step; remat, hier, pallas, no codec, bf16
-# parameters with f32 master state, lr 1e-3, 3 steps from one init, loss
-# chunks of 1024 tokens.  Depth cut to fit four ranks in 75 GiB:
-# mamba2-2.7b 16 of 64 layers (0.90 B parameters); zamba2-7b 7 of 81 (one
-# group of six Mamba2 blocks, the shared attention block and one tail
-# block, 0.98 B), so the tail path runs.
+# SSM and hybrid training at full width (ROADMAP A7, A7b), ZeRO-3 and
+# ZeRO-1 on a (pod=2, data=2) ThreadMesh, ``uniform_plan(2, 4, 1)``: two
+# micro-steps of 1 x 4096 tokens a rank, 32768 a step; remat, hier, pallas,
+# no codec, bf16 parameters with f32 master state, lr 1e-3, 3 steps a stage
+# from one init and the same batches, loss chunks of 1024 tokens.  Depth
+# cut to fit four ranks in 75 GiB: mamba2-2.7b 16 of 64 layers (0.90 B
+# parameters); zamba2-7b 7 of 81 (one group of six Mamba2 blocks, the
+# shared attention block and one tail block, 0.98 B), so the tail path
+# runs.
 SSM_TRAIN = {"mamba2-2.7b": 16, "zamba2-7b": 7}
 SSM_TRAIN_SEQ, SSM_TRAIN_STEPS, SSM_TRAIN_LR, SSM_TRAIN_LOSS_CHUNK = 4096, 3, 1e-3, 1024
-SSM_TRAIN_MESH, SSM_TRAIN_MICRO = {"pod": 2, "data": 2}, 2
+SSM_TRAIN_MESH, SSM_TRAIN_MICRO = {"pod": 2, "data": 2}, 4
 SSM_TRAIN_PEAK_GIB = 75.0
+# ZeRO-3 against ZeRO-1 at step 0: [22]'s limits on the step losses, the
+# gradient norm and the parameters over the whole tree, and
+# SSM_ZERO_LEAF_REL_L2 on each leaf, as [25] holds the MoE family.  Stated
+# before its first run on the card, from the same comparison of the reduced
+# models in bf16 parameters on the CPU (two micro-steps a rank, seq 128):
+# the worst leaf 5.5e-4 (the embedding; the shared block's worst 2.5e-4, a
+# Mamba2 projection's 9.2e-5, the replicated leaves 0): ZeRO-3 rounds each
+# sharded leaf's reduce-scattered gradient to bf16, where ZeRO-1 sums in
+# f32, and a bf16 parameter that lands on the other side of a rounding
+# boundary moves by an ulp (2^-8 of it).  About 4 times that reading; a
+# shard's offset shifted in the shared block's adjoint moves its leaves by
+# 9.2e-4 to 1.7e-2 in f32 (tests/test_torch_ssm_train.py), so this limit
+# catches the gross faults, and the f32 CPU tests the fine ones.
+SSM_ZERO_LEAF_REL_L2 = 2e-3
 # The step-0 loss of each run against the same batch's loss with every kernel
 # op on its plain version (the SSD op's chunk loop, plain attention), both in
 # bf16: the mean of 16384 token losses near ln(vocab).  The limit is about 3x
@@ -2746,6 +2766,26 @@ def phase_dense_serve(torch, np, fa, ops, tacc, engine, build, counters, cfg):
     return out
 
 
+def zero3_gathers(metas, n_data):
+    """The gathered keys of one micro-step under ZeRO-3, from the gather
+    plan: each sharded leaf stacked over "layers" (a block tree, the
+    hybrid's tail) once per layer, the hybrid's "groups" once per group (a
+    group's blocks are gathered at once), any other (the embedding, final
+    norm and head, the hybrid's shared block) once.  The fsdp adjoint
+    reduce-scatters each key once a micro-step."""
+    from repro_torch.models.common import fsdp_dims, make_rules, meta_leaves
+    return sum(mt.shape[0] if mt.axes[0] in ("layers", "group") else 1
+               for d, mt in zip(fsdp_dims(metas, make_rules(3, n_data)), meta_leaves(metas))
+               if d is not None)
+
+
+def leaf_names(tree, prefix=""):
+    """Dotted names of a tree's leaves, in flatten order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
 @contextlib.contextmanager
 def adjoint_rs_counter(collectives, ring_dma):
     """Counts the fused reduce-scatter launches made inside ZeRO-3's fsdp
@@ -2795,7 +2835,7 @@ def phase_zero_train(torch, np, get_config, build, mesh_mod, counters):
     from repro_torch.core.tree import leaves as tree_leaves
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.kernels import ring_dma
-    from repro_torch.models.common import fsdp_dims, make_rules, meta_leaves
+    from repro_torch.models.common import fsdp_dims, make_rules
     from repro_torch.train.trainer import make_train_program
     cfg = get_config(LLAMA_ARCH)
     model = build(cfg)
@@ -2809,8 +2849,7 @@ def phase_zero_train(torch, np, get_config, build, mesh_mod, counters):
     n_tokens = int(np.prod(batches[0]["tokens"].shape))
     metas = model.abstract_params()
     dims = fsdp_dims(metas, make_rules(3, m.shape["data"]))
-    stacked = [len(mt.shape) > 1 and mt.axes[0] == "layers" for mt in meta_leaves(metas)]
-    gathers = sum((cfg.n_layers if st else 1) for d, st in zip(dims, stacked) if d is not None)
+    gathers = zero3_gathers(metas, m.shape["data"])
     print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
           f"{cfg.n_kv_heads} heads x {cfg.head_dim_}, d_ff {cfg.d_ff}, "
           f"{model.n_params() / 1e9:.3f}B params, bf16 params, f32 master state; mesh {m.shape}, "
@@ -3162,7 +3201,7 @@ def phase_moe_train(torch, np, get_config, build, mesh_mod, hetccl, gmm, ref, co
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.kernels import ring_dma
     from repro_torch.launch.memory_breakdown import step_memory
-    from repro_torch.models.common import fsdp_dims, make_rules, meta_leaves
+    from repro_torch.models.common import fsdp_dims, make_rules
     from repro_torch.train.trainer import make_train_program
     cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH), n_layers=MOE_TRAIN_LAYERS,
                               loss_chunk=MOE_TRAIN_LOSS_CHUNK)
@@ -3179,8 +3218,7 @@ def phase_moe_train(torch, np, get_config, build, mesh_mod, hetccl, gmm, ref, co
     C = max(int(T * cfg.top_k * cfg.capacity_factor / cfg.n_experts), 1)
     metas = model.abstract_params()
     dims = fsdp_dims(metas, make_rules(3, m.shape["data"]))
-    gathers = sum(cfg.n_layers if mt.axes[0] == "layers" else 1
-                  for d, mt in zip(dims, meta_leaves(metas)) if d is not None)
+    gathers = zero3_gathers(metas, m.shape["data"])
     print(f"  {cfg.name}: {cfg.n_layers} of 48 layers, d_model {cfg.d_model}, {cfg.n_heads}/"
           f"{cfg.n_kv_heads} heads x {cfg.head_dim_}, {cfg.n_experts} experts top-{cfg.top_k} "
           f"of d_ff {cfg.d_ff_expert} (capacity {C}), vocab {cfg.vocab}, "
@@ -3629,25 +3667,123 @@ SSM_LOSS_FAULTS = {"ssd_dt_one_late": ("ssd_scan", ssd_dt_one_late),
                    "attention_unmasked": ("attention", attention_unmasked)}
 
 
+def ssm_stage_run(torch, np, hetccl, ssd, collectives, ring_dma, counters, model, m, plan,
+                  batches, zero, init, shapes, gathers):
+    """SSM_TRAIN_STEPS steps of ``model`` under ZeRO-``zero`` from the
+    parameters ``init[0]`` (ZeRO-1 pops them: its ranks share the init's
+    tensors, which go once the first step has replaced them) on the batches, the counts set to 0 just before and read just after,
+    the fsdp adjoint's fused reduce-scatters counted; then one more step
+    under torch.profiler.  Returns the run's readings, the full parameters
+    after step 0 on the host (ZeRO-3's rebuilt by ``unshard_params``) and
+    the launches expected from the layer count and, under ZeRO-3, the
+    gather plan (``zero3_gathers``)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.convert import unshard_params
+    from repro_torch.core.tree import leaves as tree_leaves
+    from repro_torch.train.trainer import make_train_program
+    cfg = model.cfg
+    layers = cfg.n_layers
+    n_shared = layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    prog = make_train_program(model, m, RunConfig(
+        zero_stage=zero, collective_mode="hier", backend="pallas", learning_rate=SSM_TRAIN_LR),
+        plan)
+    n_buckets = len(hetccl._make_buckets(
+        [torch.empty(sh, dtype=torch.float32, device="meta") for sh in shapes],
+        prog.comm.bucket_bytes))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = prog.init_fn(init[0] if zero == 3 else init.pop())
+    counters.reset()
+    losses, grad_norms, step_ms, after_step0 = [], [], [], None
+    with adjoint_rs_counter(collectives, ring_dma) as adjoint:
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, met = prog.step_fn(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(met["loss"].item())
+            grad_norms.append(met["grad_norm"].item())
+            if i == 0:                 # full leaves after step 0, on the host
+                full = (unshard_params([state[0]["params"], state[1]["params"]],
+                                       model.abstract_params())
+                        if zero == 3 else state[0]["params"])
+                after_step0 = [p.to("cpu") for p in tree_leaves(full)]
+                del full
+    launches = counters.read()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ms = statistics.median(step_ms[1:])
+
+    def one_more():
+        nonlocal state
+        state, _ = prog.step_fn(state, batches[-1])
+
+    busy, kernel_us = device_profile(torch, one_more, 1)
+    per = plan.n_micro_max * m.size * SSM_TRAIN_STEPS
+    n_adjoint = gathers * plan.n_micro_max * SSM_TRAIN_STEPS if zero == 3 else 0
+    want = {"ssd_scan": 2 * layers * per, "ssd_scan_mma": 2 * layers * per,
+            "ssd_scan_bwd": layers * per, "ssd_scan_bwd_mma": layers * per,
+            "ssd_scan_bwd_f32": 0,
+            **{f"ssd_scan_bwd_{st}": layers * per for st in ssd.BWD_STAGES},
+            "flash_attention_fwd": 2 * n_shared * per,
+            "flash_attention_fwd_d112": 2 * n_shared * per,
+            "flash_attention_bwd": n_shared * per, "grouped_matmul": 0, "collective_reduce": 0,
+            "quant_int8": 0}
+    if zero == 3:
+        want.update(ring_reduce_scatter=n_adjoint + len(shapes) * SSM_TRAIN_STEPS,
+                    ring_all_gather=len(shapes) * SSM_TRAIN_STEPS)
+    else:
+        want.update(ring_reduce_scatter=n_buckets * SSM_TRAIN_STEPS,
+                    ring_all_gather=(n_buckets + len(shapes)) * SSM_TRAIN_STEPS)
+    del state, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssd_bwd_us = {k: v for k, v in kernel_us.items() if "ssd_bwd_" in k}
+    top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:5]
+    n_tokens = int(np.prod(batches[0]["tokens"].shape))
+    run = {"losses": losses, "grad_norms": grad_norms, "step_ms": step_ms, "ms_per_step": ms,
+           "tokens_per_s": n_tokens / ms * 1e3, "device_busy_one_more_step": busy,
+           "card_ms_one_more_step": sum(kernel_us.values()) / 1e3,
+           "ssd_bwd_card_ms_one_more_step": sum(ssd_bwd_us.values()) / 1e3,
+           "ssd_bwd_card_ms_by_kernel": {kernel_label(k, 40): v / 1e3
+                                         for k, v in ssd_bwd_us.items()},
+           "top_kernels_ms": {kernel_label(k): v / 1e3 for k, v in top},
+           "peak_gib": peak_gib, "launches": launches, "expected_launches": want,
+           "adjoint_rs_launches": adjoint[0], "expected_adjoint_rs_launches": n_adjoint,
+           "n_buckets": n_buckets}
+    return run, after_step0
+
+
 def phase_ssm_train(torch, np, get_config, build, mesh_mod, hetccl, tacc, ssd, fa, ref,
                     counters, arch):
     """``arch`` at full width cut to SSM_TRAIN[arch] layers (SSM_TRAIN's
-    note), ZeRO-1 on a SSM_TRAIN_MESH ThreadMesh: the step-0 gate, then
-    SSM_TRAIN_STEPS steps from one init, the counts set to 0 just before and
-    read just after: per Mamba2 block, micro-step and rank 2 SSD forward
-    launches (remat's recompute the second) and 1 backward call (three
-    launches), per shared attention block 2 flash forward and 1 backward at
-    d 112, the fused rings once per bucket (reduce-scatter) and per bucket
-    and leaf (all-gather); finite losses; step 0's loss against the same
+    note) on a SSM_TRAIN_MESH ThreadMesh: the step-0 gate, then
+    SSM_TRAIN_STEPS ZeRO-3 steps and SSM_TRAIN_STEPS ZeRO-1 steps from one
+    init and the same batches (``ssm_stage_run``), the counts set to 0 just
+    before each run and read just after: per Mamba2 block, micro-step and
+    rank 2 SSD forward launches (remat's recompute the second) and 1
+    backward call (three launches), per shared attention block 2 flash
+    forward and 1 backward at d 112; the fused rings under ZeRO-1 once per
+    bucket (reduce-scatter) and per bucket and leaf (all-gather), under
+    ZeRO-3 once per gathered key and micro-step in the fsdp adjoint (the
+    keys counted from the gather plan, ``zero3_gathers``) and once per leaf
+    in the pod all-reduce; finite losses; step 0's loss against the same
     batch with every kernel op plain (SSM_STEP0_LOSS_ATOL), and the planted
-    faults' gaps beside it (SSM_LOSS_FAULTS); ms a step (the
-    steps after the first), tokens/s, the card's busy share over one more
-    step, the peak memory (under SSM_TRAIN_PEAK_GIB)."""
-    from repro_torch.configs.base import RunConfig
-    from repro_torch.core import balance
+    faults' gaps beside it (SSM_LOSS_FAULTS); ZeRO-3 against ZeRO-1: the
+    step losses within ZERO_LOSS_ATOL (step 0's difference printed), step
+    0's gradient norms within ZERO_GRAD_NORM_RTOL, the parameters after
+    step 0 within ZERO_PARAM_REL_L2 over the tree and SSM_ZERO_LEAF_REL_L2
+    per leaf; per stage ms a step (the steps after the first), tokens/s,
+    the card's busy share over one more step, the peak memory (under
+    SSM_TRAIN_PEAK_GIB) and the kernels with the most card time.  Returns
+    the ZeRO-1 run's readings at the top level and the ZeRO-3 run's under
+    "zero3"."""
+    from repro_torch.core import balance, collectives
     from repro_torch.core.tree import leaves as tree_leaves
     from repro_torch.data.pipeline import synthetic_batch
-    from repro_torch.train.trainer import make_train_program
+    from repro_torch.kernels import ring_dma
+    from repro_torch.models.common import fsdp_dims, make_rules
     layers = SSM_TRAIN[arch]
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=layers, loss_chunk=SSM_TRAIN_LOSS_CHUNK)
@@ -3661,14 +3797,21 @@ def phase_ssm_train(torch, np, get_config, build, mesh_mod, hetccl, tacc, ssd, f
                                SSM_TRAIN_SEQ, cfg.vocab) for s in range(SSM_TRAIN_STEPS)]
     n_tokens = int(np.prod(batches[0]["tokens"].shape))
     n_shared = layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    metas = model.abstract_params()
+    dims = fsdp_dims(metas, make_rules(3, m.shape["data"]))
+    gathers = zero3_gathers(metas, m.shape["data"])
+    names = leaf_names(metas)
+    replicated = [n for n, d in zip(names, dims) if d is None]
     print(f"  {cfg.name}: {layers} of {full.n_layers} layers"
           + (f" ({n_shared} group of {cfg.attn_every}, the shared attention block, "
              f"{layers - n_shared * cfg.attn_every} tail)" if n_shared else "")
           + f", d_model {cfg.d_model}, {cfg.n_ssm_heads} SSD heads x {cfg.ssm_headdim}, state "
           f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab}, "
           f"{model.n_params() / 1e9:.3f}B params, bf16 params, f32 master state; mesh {m.shape}, "
-          f"{plan.n_micro_max} micro-step of {plan.micro_batch} x {SSM_TRAIN_SEQ} per rank, "
-          f"{n_tokens} tokens per step; remat on; ZeRO-1, hier, pallas, no codec")
+          f"{plan.n_micro_max} micro-steps of {plan.micro_batch} x {SSM_TRAIN_SEQ} per rank, "
+          f"{n_tokens} tokens per step; remat on; hier, pallas, no codec; ZeRO-3 shards "
+          f"{len(dims) - len(replicated)} of {len(dims)} leaves over data (replicated: "
+          f"{', '.join(replicated)}), {gathers} gathered keys a micro-step")
     b0 = {k: torch.as_tensor(batches[0][k][0, :plan.micro_batch]).to("cuda", torch.long)
           for k in ("tokens", "labels")}
     gate = ssm_grad_gate(torch, ssd, fa, ref, model, params, b0)
@@ -3681,64 +3824,42 @@ def phase_ssm_train(torch, np, get_config, build, mesh_mod, hetccl, tacc, ssd, f
                                 {op: fault(tacc.resolve(op, "cuda"))})
         for name, (op, fault) in SSM_LOSS_FAULTS.items() if op != "attention" or n_shared}
     shapes = [p.shape for p in tree_leaves(params)]
-    prog = make_train_program(model, m, RunConfig(
-        zero_stage=1, collective_mode="hier", backend="pallas", learning_rate=SSM_TRAIN_LR), plan)
-    n_buckets = len(hetccl._make_buckets(
-        [torch.empty(sh, dtype=torch.float32, device="meta") for sh in shapes],
-        prog.comm.bucket_bytes))
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    state = prog.init_fn(params)
-    del params                      # the ZeRO-1 ranks share the init's tensors
-    counters.reset()
-    losses, grad_norms, step_ms = [], [], []
-    for batch in batches:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        state, met = prog.step_fn(state, batch)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        losses.append(met["loss"].item())
-        grad_norms.append(met["grad_norm"].item())
-    launches = counters.read()
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    ms = statistics.median(step_ms[1:])
-
-    def one_more():
-        nonlocal state
-        state, _ = prog.step_fn(state, batches[-1])
-
-    busy, kernel_us = device_profile(torch, one_more, 1)
-    ssd_bwd_us = {k: v for k, v in kernel_us.items() if "ssd_bwd_" in k}
-    top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:5]
-    per = plan.n_micro_max * m.size * SSM_TRAIN_STEPS
-    want = {"ssd_scan": 2 * layers * per, "ssd_scan_mma": 2 * layers * per,
-            "ssd_scan_bwd": layers * per, "ssd_scan_bwd_mma": layers * per,
-            "ssd_scan_bwd_f32": 0,
-            **{f"ssd_scan_bwd_{st}": layers * per for st in ssd.BWD_STAGES},
-            "flash_attention_fwd": 2 * n_shared * per,
-            "flash_attention_fwd_d112": 2 * n_shared * per,
-            "flash_attention_bwd": n_shared * per, "grouped_matmul": 0, "collective_reduce": 0,
-            "quant_int8": 0, "ring_reduce_scatter": n_buckets * SSM_TRAIN_STEPS,
-            "ring_all_gather": (n_buckets + len(shapes)) * SSM_TRAIN_STEPS}
-    gap = abs(losses[0] - plain_loss)
-    print(f"  losses {['%.6f' % x for x in losses]}; grad norms "
-          f"{['%.6f' % x for x in grad_norms]}; ms per step {['%.1f' % x for x in step_ms]}, "
-          f"{n_tokens / ms * 1e3:.1f} tokens/s (steps after the first); card busy share of one "
-          f"more step (torch.profiler) {busy}; peak memory {peak_gib:.2f} GiB (limit "
-          f"{SSM_TRAIN_PEAK_GIB})")
-    print(f"  step-0 loss {losses[0]:.6f}; the same batch forward only: kernels "
-          f"{kernel_loss:.6f}, every kernel op plain {plain_loss:.6f}; step 0 vs plain "
-          f"{gap:.3e} (limit {SSM_STEP0_LOSS_ATOL})  "
-          f"{'ok' if gap <= SSM_STEP0_LOSS_ATOL else 'FAIL'}")
-    card_ms = sum(kernel_us.values()) / 1e3
-    print(f"  one more step's profile: {card_ms:.1f} ms of card time; the SSD backward's kernels "
-          f"{sum(ssd_bwd_us.values()) / 1e3:.2f} ms ("
-          + ", ".join(f"{kernel_label(k, 40)} {v / 1e3:.2f}" for k, v in sorted(
-              ssd_bwd_us.items(), key=lambda kv: -kv[1])) + ")")
-    for k, v in top:
-        print(f"    top kernel {v / 1e3:9.2f} ms {100 * v / 1e3 / card_ms:5.1f}%  {kernel_label(k)}")
+    init = [params]
+    del params
+    runs, after_step0 = {}, {}
+    for zero in (3, 1):
+        runs[zero], after_step0[zero] = ssm_stage_run(
+            torch, np, hetccl, ssd, collectives, ring_dma, counters, model, m, plan, batches,
+            zero, init, shapes, gathers)
+    out = runs[1]
+    gaps = {}
+    for zero in (3, 1):
+        r = runs[zero]
+        gaps[zero] = abs(r["losses"][0] - plain_loss)
+        print(f"  ZeRO-{zero}: losses {['%.6f' % x for x in r['losses']]}; grad norms "
+              f"{['%.6f' % x for x in r['grad_norms']]}; ms per step "
+              f"{['%.1f' % x for x in r['step_ms']]}, {r['tokens_per_s']:.1f} tokens/s (steps "
+              f"after the first); card busy share of one more step (torch.profiler) "
+              f"{r['device_busy_one_more_step']}; peak memory {r['peak_gib']:.2f} GiB (limit "
+              f"{SSM_TRAIN_PEAK_GIB})")
+        print(f"  ZeRO-{zero} one more step's profile: {r['card_ms_one_more_step']:.1f} ms of "
+              f"card time; the SSD backward's kernels {r['ssd_bwd_card_ms_one_more_step']:.2f} "
+              f"ms (" + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                  r["ssd_bwd_card_ms_by_kernel"].items(), key=lambda kv: -kv[1])) + ")")
+        for k, v in r["top_kernels_ms"].items():
+            print(f"    top kernel {v:9.2f} ms {100 * v / r['card_ms_one_more_step']:5.1f}%  {k}")
+        print(f"  ZeRO-{zero} step-0 loss {r['losses'][0]:.6f}; the same batch forward only: "
+              f"kernels {kernel_loss:.6f}, every kernel op plain {plain_loss:.6f}; step 0 vs "
+              f"plain {gaps[zero]:.3e} (limit {SSM_STEP0_LOSS_ATOL})  "
+              f"{'ok' if gaps[zero] <= SSM_STEP0_LOSS_ATOL else 'FAIL'}")
+        for key, n in r["expected_launches"].items():
+            print(f"  ZeRO-{zero} {key}: {r['launches'][key]} launches, {n} expected  "
+                  f"{'ok' if r['launches'][key] == n else 'FAIL'}")
+        print(f"  ZeRO-{zero} fused reduce-scatters in the fsdp adjoint: "
+              f"{r['adjoint_rs_launches']}, {r['expected_adjoint_rs_launches']} expected"
+              + (f" ({gathers} gathered keys x {plan.n_micro_max} micro-steps x "
+                 f"{SSM_TRAIN_STEPS} steps)" if zero == 3 else "")
+              + f"  {'ok' if r['adjoint_rs_launches'] == r['expected_adjoint_rs_launches'] else 'FAIL'}")
     fault_gaps = {name: abs(v - plain_loss) for name, v in fault_losses.items()}
     for name, v in fault_losses.items():
         caught = fault_gaps[name] > SSM_STEP0_LOSS_ATOL
@@ -3749,30 +3870,74 @@ def phase_ssm_train(torch, np, get_config, build, mesh_mod, hetccl, tacc, ssd, f
           f"{layers * plan.n_micro_max * m.size} SSD backward calls, "
           f"{2 * n_shared * plan.n_micro_max * m.size} flash forward and "
           f"{n_shared * plan.n_micro_max * m.size} flash backward launches (d "
-          f"{cfg.head_dim_ if n_shared else '-'})")
-    for key, n in want.items():
-        print(f"  {key}: {launches[key]} launches, {n} expected  "
-              f"{'ok' if launches[key] == n else 'FAIL'}")
-    check(all(np.isfinite(losses)), f"{arch}: non-finite loss")
-    check(gap <= SSM_STEP0_LOSS_ATOL, f"{arch}: step 0's loss is {gap:.3e} from the plain ops'")
+          f"{cfg.head_dim_ if n_shared else '-'}); ZeRO-3 {gathers * plan.n_micro_max} fsdp "
+          f"adjoint reduce-scatters")
+    r3, r1 = runs[3], runs[1]
+    step0_gap = r3["losses"][0] - r1["losses"][0]
+    loss_gap = max(abs(a - b) for a, b in zip(r3["losses"], r1["losses"]))
+    norm_gap = abs(r3["grad_norms"][0] - r1["grad_norms"][0]) / r1["grad_norms"][0]
+    rel, diff2, ref2 = [], 0.0, 0.0
+    for a, b in zip(after_step0[3], after_step0[1]):
+        a, b = a.cuda().float(), b.cuda().float()
+        d2, r2 = (a - b).square().sum().item(), b.square().sum().item()
+        rel.append((d2 / r2) ** 0.5)
+        diff2, ref2 = diff2 + d2, ref2 + r2
+    param_gap = (diff2 / ref2) ** 0.5
+    del a, b
+    after_step0.clear()
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    shared = [i for i, n in enumerate(names) if n.startswith("shared.")]
+    print(f"  ZeRO-3 vs ZeRO-1: ms per step {r3['ms_per_step']:.1f} / {r1['ms_per_step']:.1f} "
+          f"({r3['ms_per_step'] / r1['ms_per_step']:.3f}x), tokens/s {r3['tokens_per_s']:.1f} / "
+          f"{r1['tokens_per_s']:.1f}, busy {r3['device_busy_one_more_step']:.3f} / "
+          f"{r1['device_busy_one_more_step']:.3f}, peak {r3['peak_gib']:.2f} / "
+          f"{r1['peak_gib']:.2f} GiB")
+    print(f"  step-0 loss ZeRO-3 - ZeRO-1: {step0_gap:.3e} (the gathers concatenate the shards, "
+          f"so the forward is the same: 0 expected); step losses, largest difference "
+          f"{loss_gap:.3e} (limit {ZERO_LOSS_ATOL})  {'ok' if loss_gap <= ZERO_LOSS_ATOL else 'FAIL'}")
+    print(f"  step-0 gradient norm ZeRO-3 {r3['grad_norms'][0]:.6f} vs ZeRO-1 "
+          f"{r1['grad_norms'][0]:.6f}: relative difference {norm_gap:.3e} (limit "
+          f"{ZERO_GRAD_NORM_RTOL})  {'ok' if norm_gap <= ZERO_GRAD_NORM_RTOL else 'FAIL'}")
+    print(f"  parameters after step 0, ZeRO-3 (rebuilt from its shards) vs ZeRO-1: relative L2 "
+          f"{param_gap:.3e} (limit {ZERO_PARAM_REL_L2})  "
+          f"{'ok' if param_gap <= ZERO_PARAM_REL_L2 else 'FAIL'}; worst leaf {names[worst]} "
+          f"{rel[worst]:.3e} (limit {SSM_ZERO_LEAF_REL_L2})  "
+          f"{'ok' if rel[worst] <= SSM_ZERO_LEAF_REL_L2 else 'FAIL'}")
+    for label, idx in (("replicated", [names.index(n) for n in replicated]),
+                       ("shared block", shared),
+                       ("other", [i for i in range(len(names)) if dims[i] is not None
+                                  and i not in shared])):
+        if idx:
+            print(f"    {label} leaves: " + ", ".join(f"{names[i]} {rel[i]:.2e}" for i in idx))
+    for zero in (3, 1):
+        r = runs[zero]
+        check(all(np.isfinite(r["losses"])), f"{arch} ZeRO-{zero}: non-finite loss")
+        check(gaps[zero] <= SSM_STEP0_LOSS_ATOL,
+              f"{arch} ZeRO-{zero}: step 0's loss is {gaps[zero]:.3e} from the plain ops'")
+        check(all(r["launches"][k] == n for k, n in r["expected_launches"].items())
+              and r["adjoint_rs_launches"] == r["expected_adjoint_rs_launches"],
+              f"{arch} ZeRO-{zero}: the steps did not launch the kernels they imply")
+        check(r["peak_gib"] <= SSM_TRAIN_PEAK_GIB,
+              f"{arch} ZeRO-{zero}: peak memory {r['peak_gib']:.2f} GiB")
     check(fault_gaps[SSM_LOSS_FAULT_CAUGHT] > SSM_STEP0_LOSS_ATOL,
           f"{arch}: the loss check does not catch {SSM_LOSS_FAULT_CAUGHT} "
           f"({fault_gaps[SSM_LOSS_FAULT_CAUGHT]:.3e})")
-    check(all(launches[k] == n for k, n in want.items()),
-          f"{arch}: the steps did not launch the kernels they imply")
-    check(peak_gib <= SSM_TRAIN_PEAK_GIB, f"{arch}: peak memory {peak_gib:.2f} GiB")
-    out = {"arch": cfg.name, "layers": layers, "params": model.n_params(),
-           "tokens_per_step": n_tokens, "losses": losses, "grad_norms": grad_norms,
-           "step_ms": step_ms, "ms_per_step": ms, "tokens_per_s": n_tokens / ms * 1e3,
-           "device_busy_one_more_step": busy, "card_ms_one_more_step": card_ms,
-           "ssd_bwd_card_ms_one_more_step": sum(ssd_bwd_us.values()) / 1e3,
-           "top_kernels_ms": {kernel_label(k): v / 1e3 for k, v in top},
-           "peak_gib": peak_gib, "launches": launches,
-           "expected_launches": want, "step0_gate": gate, "step0_plain_loss": plain_loss,
-           "step0_kernel_forward_loss": kernel_loss, "step0_loss_gap": gap,
-           "step0_fault_losses": fault_losses, "step0_fault_gaps": fault_gaps,
-           "n_buckets": n_buckets}
-    del state, prog
+    check(loss_gap <= ZERO_LOSS_ATOL, f"{arch}: ZeRO-3 and ZeRO-1 step losses disagree")
+    check(norm_gap <= ZERO_GRAD_NORM_RTOL,
+          f"{arch}: ZeRO-3 and ZeRO-1 step-0 gradient norms disagree")
+    check(param_gap <= ZERO_PARAM_REL_L2 and rel[worst] <= SSM_ZERO_LEAF_REL_L2,
+          f"{arch}: ZeRO-3 and ZeRO-1 parameters after step 0 disagree")
+    out.update({"arch": cfg.name, "layers": layers, "params": model.n_params(),
+                "tokens_per_step": n_tokens, "step0_gate": gate,
+                "step0_plain_loss": plain_loss, "step0_kernel_forward_loss": kernel_loss,
+                "step0_loss_gap": gaps[1], "step0_fault_losses": fault_losses,
+                "step0_fault_gaps": fault_gaps,
+                "zero3": {**r3, "step0_loss_gap": gaps[3]},
+                "zero3_vs_zero1": {
+                    "step0_loss_difference": step0_gap, "loss_gap": loss_gap,
+                    "grad_norm_gap": norm_gap, "param_rel_l2_after_step0": param_gap,
+                    "leaf_rel_l2_after_step0": dict(zip(names, rel)),
+                    "replicated_leaves": replicated, "gathers_per_micro_step": gathers}})
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -4168,8 +4333,8 @@ def main() -> int:
 
     ssm_train = {}
     for arch, layers in SSM_TRAIN.items():
-        with phase(f"[28] SSM training: {arch} at full width, {layers} layers, ZeRO-1 on four "
-                   "ranks", walls):
+        with phase(f"[28] SSM training: {arch} at full width, {layers} layers, ZeRO-3 and "
+                   "ZeRO-1 on four ranks", walls):
             ssm_train[arch] = phase_ssm_train(torch, np, get_config, build, mesh_mod, hetccl,
                                               tacc, ssd, fa, ref, counters, arch)
 
@@ -4221,6 +4386,8 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
             "launches": coll["launches"][kname], "max_abs_err": ring_err[kname],
             "llama1b_zero3_launches": zero["zero3"]["launches"][kname],
+            "ssm_zero3_launches": {a: v["zero3"]["launches"][kname]
+                                   for a, v in ssm_train.items()},
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "check": "pass (bitwise)", "cases_checked": n_ring_cases, "shape": t["shape"]})
@@ -4340,6 +4507,8 @@ def main() -> int:
         "routes": {r: ssm[SSM_ARCH]["launches"][f"ssd_scan_{r}"] for r in ssd.ROUTES},
         "smem_bytes": tm["smem_bytes"], "blocks_per_sm": tm["blocks_per_sm"],
         "train_launches": {a: v["launches"]["ssd_scan"] for a, v in ssm_train.items()},
+        "zero3_train_launches": {a: v["zero3"]["launches"]["ssd_scan"]
+                                 for a, v in ssm_train.items()},
         "check": "pass", "cases_checked": len(ssd_cases)})
     t, tz = sbtimes["mamba2_train"], sbtimes["zamba2_train"]
     err = ssd_bwd["mamba2_train"]
@@ -4354,6 +4523,8 @@ def main() -> int:
                 "scan",
         "launches": sum(v["launches"]["ssd_scan_bwd"] for v in ssm_train.values()),
         "launches_by_arch": {a: v["launches"]["ssd_scan_bwd"] for a, v in ssm_train.items()},
+        "zero3_launches_by_arch": {a: v["zero3"]["launches"]["ssd_scan_bwd"]
+                                   for a, v in ssm_train.items()},
         "max_abs_err": max(e["max_abs_err"] for e in grads),
         "rel_l2": max(e["rel_l2"] for e in grads),
         "worst_row": max(e["worst_row"] for e in grads),

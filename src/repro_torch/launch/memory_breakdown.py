@@ -8,8 +8,8 @@ Trains ``--arch`` (any family; moonshot-v1-16b-a3b by default) at full width
 cut to ``--layers`` layers on a (pod=2, data=2) ThreadMesh, ``chip_smoke.py``
 [25]'s configuration (``--micro`` micro-steps of 1 x 4096 tokens a rank,
 two by default, remat, hier, pallas, bf16 parameters, weights from seed 0,
-lr 1e-3, loss chunks of 1024 tokens; [28]'s is ``--micro 1``, with
-mamba2-2.7b at 16 layers and zamba2-7b at 7), and runs every step under
+lr 1e-3, loss chunks of 1024 tokens; [28]'s too, with mamba2-2.7b at
+16 layers and zamba2-7b at 7), and runs every step under
 :func:`step_memory`, which
 prints the peak of each segment of the step and what is allocated at its
 end.  ``--src`` puts another tree's ``src`` first on the path, so that its

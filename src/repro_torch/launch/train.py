@@ -11,9 +11,10 @@ mesh of ranks.
 the paper's models, ``configs.PAPER_IDS``): dense, MoE, and the SSM and
 hybrid families (mamba2-2.7b, zamba2-7b), whose SSD scan trains through its
 backward kernel.  ``--zero 3`` shards the parameters over the mesh's "data"
-axis and gathers them per block inside the forward, the MoE family's router
-and expert stacks among them; the SSM and hybrid families run ZeRO-1 only
-(their ZeRO-3 is ROADMAP A7b).
+axis and gathers them inside the forward, every family: per block, the MoE
+family's router and expert stacks among them; the hybrid's shared block
+once per forward and each group's Mamba2 blocks once per group (a Mamba2
+block's leaves without an "embed" dim stay whole on every rank).
 
 The ranks of ``--mesh-shape pod,data`` are threads of this process sharing
 one device (a ``ThreadMesh``).  Runs on the card unless ``--device cpu`` is

@@ -13,15 +13,26 @@ one shared attention + MLP block (its weights shared, its KV cache one per
 group), then a tail of the ``n_layers % attn_every`` blocks left.  The VLM
 and enc-dec families wait for their slice (ROADMAP A8).
 
-ZeRO-3 (dense and MoE families): the forward takes an
-:class:`~repro_torch.core.collectives.FsdpScope` and gathers each block's
-sharded leaves over "data" at the top of the block (:func:`maybe_gather`,
-the reference's ``PlanLeaf`` / ``gather_plan_of`` / ``maybe_gather``), so
-under ``remat`` the gather sits inside the checkpointed block, as in the
-reference's scan body: the gathered weights are not kept for the backward
-but gathered again there.  A MoE block's router and expert stacks are
-gathered on their "embed" dim like the rest (a layer's router on dim 0, w1
-and w3 on dim 1, w2 on dim 2).
+ZeRO-3 (every family): the forward takes an
+:class:`~repro_torch.core.collectives.FsdpScope` and gathers the sharded
+leaves over "data" (:func:`maybe_gather`, on the plans of
+:func:`blocks_gplan`: the reference's ``PlanLeaf`` / ``gather_plan_of`` /
+``_blocks_gplan`` / ``maybe_gather``).  A dense, MoE or Mamba2 block
+gathers its own at its top, so under ``remat`` the gather sits inside the
+checkpointed block, as in the reference's scan body: the gathered weights
+are not kept for the backward but gathered again there.  A MoE block's
+router and expert stacks are gathered on their "embed" dim like the rest (a
+layer's router on dim 0, w1 and w3 on dim 1, w2 on dim 2).  The hybrid
+follows the reference's plan: its shared block is gathered once per
+forward, outside every checkpoint, and kept for the backward (one adjoint
+per leaf and micro-step); a group's ``attn_every`` Mamba2 blocks are
+gathered at once, as the slice ``groups[g]``, once in the forward and once
+more in the backward (:class:`_GroupGather`); the tail's blocks are
+gathered one by one.  The checkpoint unit stays the block, where the
+reference checkpoints the group body whole: four ranks of zamba2-7b's
+group recompute at once do not fit one card (DESIGN_TORCH.md §22).  A
+Mamba2 block's convolutions, ``A_log``, ``dt_bias``, ``D`` and ``gnorm``
+have no "embed" dim and stay whole on every rank.
 
 bf16 rounding points follow the reference: the projections are matmuls in
 the activation dtype (f32 accumulation inside, result rounded to it),
@@ -178,6 +189,20 @@ def gather_plan_of(metas, rules, scanned: bool):
         dim = fsdp_dim(m, rules)
         return PlanLeaf(None if dim is None else dim - (1 if scanned else 0))
     return tree_map_meta(one, metas)
+
+
+def blocks_gplan(cfg: ModelConfig, rules) -> dict:
+    """The gather plans of the stacked block trees ("blocks", "groups",
+    "tail": one layer's slice, or one group's, at a time) and of the
+    hybrid's unstacked "shared" block (the reference's ``_blocks_gplan``).
+    A group's slice ``groups[g]`` keeps its ``attn_every`` dim, so its
+    leaves gather on the "embed" dim less one, as a layer's do."""
+    metas = abstract_params(cfg)
+    out = {k: gather_plan_of(metas[k], rules, scanned=True)
+           for k in ("blocks", "groups", "tail") if k in metas}
+    if "shared" in metas:
+        out["shared"] = gather_plan_of(metas["shared"], rules, scanned=False)
+    return out
 
 
 def maybe_gather(params, gather_plan, fsdp, layer: int | None = None):
@@ -380,9 +405,66 @@ def _layers(params, cfg):
     return out
 
 
-def _gathered_block_out(blocks, i, gplan, fsdp, positions, cfg, x):
-    """``_block_out`` of layer ``i``, its sharded leaves gathered first."""
-    return _block_out(maybe_gather(blocks, gplan, fsdp, layer=i), positions, cfg, x)
+def _gathered_block_out(blocks, i, gplan, fsdp, positions, cfg, out_fn, x):
+    """``out_fn`` (``_block_out`` or ``_ssm_out_only``) of layer ``i`` of
+    the stacked ``blocks``, its sharded leaves gathered first."""
+    return out_fn(maybe_gather(blocks, gplan, fsdp, layer=i), positions, cfg, x)
+
+
+class _GroupGather:
+    """ZeRO-3's gather of the hybrid's group ``g``, shared by its Mamba2
+    blocks: the slice ``groups[g]`` is gathered at once when a block first
+    reads it, kept while the group's blocks run, and dropped after the last
+    of them: block ``attn_every - 1`` in the forward, block 0 in remat's
+    recompute, which runs the blocks in reverse.  So a group is gathered
+    once per forward and once more in the backward, and the gathered
+    leaves live only while their group runs (the blocks' checkpoints hold
+    this object, not the leaves)."""
+
+    def __init__(self, groups, g: int, gplan, fsdp, n_blocks: int):
+        self._args = (groups, gplan, fsdp, g)
+        self._n = n_blocks
+        self._gp, self._last = None, None
+
+    def layer(self, li: int) -> dict:
+        """Block ``li``'s parameters: views of the gathered group."""
+        if self._gp is None:
+            groups, gplan, fsdp, g = self._args
+            self._gp = maybe_gather(groups, gplan, fsdp, layer=g)
+            self._last = self._n - 1 if li == 0 else 0
+        p = layer_params(self._gp, li)
+        if li == self._last:
+            self._gp = None
+        return p
+
+
+def _group_block_out(gg: _GroupGather, li, positions, cfg, x):
+    return ssm_block(gg.layer(li), x, cfg)[0], 0.0
+
+
+def _gathered_blocks(params, positions, cfg, fsdp, gplans):
+    """ZeRO-3's blocks of the forward, each a function of x returning (x,
+    aux) that reads its sharded leaves gathered: a block of the dense, MoE
+    and SSM families gathers its own at its top; the hybrid's shared block
+    is gathered here, once, outside every block, and a group's Mamba2
+    blocks share one gather of the group (:class:`_GroupGather`); the tail
+    gathers per block."""
+    if cfg.family != "hybrid":
+        out_fn = _ssm_out_only if cfg.family == "ssm" else _block_out
+        return [functools.partial(_gathered_block_out, params["blocks"], i, gplans["blocks"],
+                                  fsdp, positions, cfg, out_fn) for i in range(cfg.n_layers)]
+    shared = maybe_gather(params["shared"], gplans["shared"], fsdp)
+    fns = []
+    for g in range(cfg.n_layers // cfg.attn_every):
+        gg = _GroupGather(params["groups"], g, gplans["groups"], fsdp, cfg.attn_every)
+        fns += [functools.partial(_group_block_out, gg, li, positions, cfg)
+                for li in range(cfg.attn_every)]
+        fns.append(functools.partial(_block_out, shared, positions, cfg))
+    if "tail" in params:
+        fns += [functools.partial(_gathered_block_out, params["tail"], i, gplans["tail"], fsdp,
+                                  positions, cfg, _ssm_out_only)
+                for i in range(params["tail"]["ln"].shape[0])]
+    return fns
 
 
 def forward_lm(params, tokens, cfg: ModelConfig, *, remat: bool = False,
@@ -392,18 +474,14 @@ def forward_lm(params, tokens, cfg: ModelConfig, *, remat: bool = False,
     the other families), as in the reference.  ``remat``: activation
     checkpointing per block (the reference's ``jax.checkpoint`` over the scan
     body).  ``fsdp`` (an ``FsdpScope``) with ``rules`` (``make_rules``):
-    ZeRO-3, the stacked blocks' leaves sharded and gathered per block (the
-    dense and MoE families; the embedding and final norm come gathered)."""
+    ZeRO-3, the stacked blocks' leaves sharded and gathered on the
+    reference's plan (:func:`_gathered_blocks`; the embedding and final norm
+    come gathered); ``remat`` checkpoints each block as without ZeRO-3."""
     positions = _positions_for(tokens)
     x = embed_lookup(params["embed"], tokens).to(_dtype(cfg))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if fsdp is not None:
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(f"ZeRO-3 runs the dense and MoE families, not "
-                                      f"{cfg.family!r} (ROADMAP A7b)")
-        gplan = gather_plan_of(abstract_params(cfg)["blocks"], rules, scanned=True)
-        fns = [functools.partial(_gathered_block_out, params["blocks"], i, gplan, fsdp,
-                                 positions, cfg) for i in range(cfg.n_layers)]
+        fns = _gathered_blocks(params, positions, cfg, fsdp, blocks_gplan(cfg, rules))
     else:
         fns = [functools.partial(_ssm_out_only if kind == "ssm" else _block_out, p,
                                  positions, cfg) for kind, p in _layers(params, cfg)]

@@ -16,10 +16,13 @@ gradients scaled by 1/tokens, and the optimizer step:
   ``tree_all_reduce``, the shard update, HetCCL ``all_gather``);
 * ZeRO-3: each rank holds its shard of every leaf whose "embed" dim splits
   over "data" (sliced out of the full init, as the reference's
-  ``init_body`` does); the forward gathers them per block through an
+  ``init_body`` does); the forward gathers them per block (the hybrid:
+  its shared block once per forward, a group's blocks at once) through an
   ``FsdpScope``, each micro-step's gathered gradients are reduce-scattered
-  into shard-shaped f32 sums, and :func:`optim.zero3_step` finishes the
-  reduction and updates the shards.
+  into shard-shaped f32 sums (a stacked leaf's slice, a layer's or a
+  group's, into that slice of the sum), the replicated leaves' gradients
+  come from autograd, and :func:`optim.zero3_step` finishes the reduction
+  and updates the shards.
 
 The collectives run on the rank's own thread and never inside autograd:
 autograd runs CUDA backward work on its own thread, which belongs to no mesh
@@ -101,11 +104,6 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
     single-policy facade."""
     if rc.zero_stage not in (1, 3):
         raise ValueError(f"zero_stage={rc.zero_stage}: the stages are 1 and 3")
-    if rc.zero_stage == 3 and model.cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"ZeRO-3 of the {model.cfg.family} family needs its own gather plan (the hybrid's "
-            "shared block once per forward, a group's blocks once per group), which is not "
-            "ported yet (ROADMAP A7b); ZeRO-1 runs it")
     local_axes, pod_axis = _dp_axes_of(mesh)
     cross = getattr(torch, rc.cross_dtype) if rc.cross_dtype else None
     hcfg = hetccl.HetCCLConfig(

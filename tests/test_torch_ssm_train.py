@@ -4,7 +4,11 @@ The SSD scan's plain backward (``ref.ssd_scan_bwd`` through the autograd
 Function ``ssd_scan.SsdScan``), the Function itself, the models' loss and
 gradients (reduced mamba2-2.7b, reduced zamba2-7b, and zamba2 cut to 7
 layers so that its tail runs), whole ZeRO-1 steps of both reduced models,
-and ZeRO-3's refusal of the two families.  Inputs come from seeded numpy
+and ZeRO-3 of both families: the gather plans against the reference's
+``_blocks_gplan``, the shards, the hybrid's gather counts (zamba2 at 13
+layers: two groups and a tail), whole steps against the JAX trainer at
+``zero_stage=3``, the port's ZeRO-3 against its ZeRO-1, and a gloo
+``DistMesh`` against a ``ThreadMesh``.  Inputs come from seeded numpy
 RandomStates; model weights are the JAX ``init`` tree carried across with
 ``params_from_jax``.  The reference has no Pallas backward: it trains
 through the VJP of its jnp scan (``repro/models/ssm.py:67-92``), so the JAX
@@ -38,10 +42,28 @@ Tolerances, from the readings on these inputs:
   port and the port's 4.6e-4 (the hybrid's f32 noise, as its logits'
   in ``tests/test_torch_ssm.py``); zamba2 at 7 layers 2.8e-4;
 * ZeRO-1 steps: ``tests/test_torch_moe_train.py``'s bounds, the step-0
-  loss within STEP0_ATOL and the three losses within LOSS_ATOL.
+  loss within STEP0_ATOL and the three losses within LOSS_ATOL.  ZeRO-3
+  steps the same, and the parameters after 3 steps (``unshard_params``)
+  within PARAM_REL_L2, 2e-3, that module's and the smollm trainer's bound:
+  readings 3.4e-5 (6.2e-5 int8) for mamba2 and 1.01e-3 (9.3e-4) for zamba2
+  at 13 layers, the hybrid's f32 gradient noise (MODEL_GRAD_REL_L2) carried
+  through Adam's sign-sized steps;
+* the port's ZeRO-3 against its own ZeRO-1 at step 0: the loss bit for bit,
+  the gradient norm within ZERO_GRAD_NORM_RTOL (4e-7, the MoE module's;
+  readings 6.3e-8 mamba2, 0 zamba2) and each leaf's parameters after the
+  step within ZERO_PARAM_REL_L2 (2.5e-7, about 4x the readings 5.8e-8 and
+  5.9e-8: the same sums in another order).  Per leaf: a shard's offset
+  shifted in the adjoint of zamba2's shared block moves its nine leaves by
+  9.2e-4 to 1.7e-2 and no other leaf beyond 5.9e-8, and the norm not at all
+  in f32 (the embedding's gradient sets it).
 """
+import collections
 import dataclasses
+import functools
 import importlib.util
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -59,16 +81,21 @@ from repro.data import pipeline as jax_pipeline  # noqa: E402
 from repro.models import Ctx  # noqa: E402
 from repro.models import build as jax_build  # noqa: E402
 from repro.models import ssm as jax_ssm  # noqa: E402
+from repro.models import transformer as jax_tf  # noqa: E402
+from repro.models.common import make_rules as jax_make_rules  # noqa: E402
 from repro.train.trainer import make_train_program as jax_make_train_program  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import RunConfig  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
-from repro_torch.core import balance, mesh, tacc  # noqa: E402
-from repro_torch.core.tree import flatten  # noqa: E402
+from repro_torch.convert import params_from_jax, shard_params, unshard_params  # noqa: E402
+from repro_torch.core import balance, collectives, mesh, tacc  # noqa: E402
+from repro_torch.core.tree import flatten, leaves  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.common import make_rules  # noqa: E402
+from repro_torch.train import optim  # noqa: E402
 from repro_torch.train.trainer import make_train_program  # noqa: E402
 
 _spec = importlib.util.spec_from_file_location(
@@ -79,7 +106,8 @@ _spec.loader.exec_module(smoke)
 CTX = Ctx(rules={"_axis_sizes": {}, "_zero_stage": 1}, manual=False, dp_axes=("data",))
 GRAD_L1 = {"float32": 1e-5, "bfloat16": 4e-3}   # of each leaf's summed |value|
 MODEL_GRAD_REL_L2 = {"ssm": 2e-4, "hybrid": 2e-3}   # of each leaf's norm
-STEP0_ATOL, LOSS_ATOL = 1e-5, 3e-2
+STEP0_ATOL, LOSS_ATOL, PARAM_REL_L2 = 1e-5, 3e-2, 2e-3
+ZERO_GRAD_NORM_RTOL, ZERO_PARAM_REL_L2 = 4e-7, 2.5e-7
 SEQ = 64                      # two chunks of the reduced configs' 32
 
 
@@ -543,7 +571,7 @@ def test_model_loss_and_gradients_match_jax(carried, through_function):
 
 
 # ---------------------------------------------------------------------------
-# (d) ZeRO-1 steps against the JAX trainer; ZeRO-3 refused
+# (d) ZeRO-1 steps against the JAX trainer
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
@@ -582,20 +610,408 @@ def test_zero1_trainer_matches_jax(mesh3, one_thread, through_function, arch, ba
     print(f"\n  {arch} {backend}: losses JAX {want}\n    port {got}")
     assert abs(got[0] - want[0]) <= STEP0_ATOL
     np.testing.assert_allclose(got, want, rtol=0, atol=LOSS_ATOL)
-    from repro_torch.core.tree import leaves
     for s in state[1:]:
         assert all(torch.equal(a, b) for a, b in zip(leaves(s["params"]),
                                                      leaves(state[0]["params"])))
 
 
+# ---------------------------------------------------------------------------
+# (e) ZeRO-3 of the SSM and hybrid families: the gather plans, the shards,
+#     the hybrid's gather counts, whole steps
+# ---------------------------------------------------------------------------
+
+REPLICATED = {"conv_x", "conv_B", "conv_C", "A_log", "dt_bias", "D", "gnorm"}
+ZERO3_ARCHS = {"mamba2": ("mamba2-2.7b", {}), "zamba2_13": ("zamba2-7b", {"n_layers": 13})}
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named_leaves(tree[k], f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+@pytest.mark.parametrize("name", sorted(ZERO3_ARCHS))
+def test_ssm_gather_plans_and_shards_match_the_reference(mesh3, name):
+    """ZeRO-3's gather plans ("blocks", "groups", "tail", "shared") equal
+    the reference's ``_blocks_gplan`` over its ``make_rules`` at
+    ``zero_stage=3`` on ``mesh3``, leaf by leaf; the seven leaves of a
+    Mamba2 block without an "embed" dim are the replicated ones (no gather
+    dim), a group's slice gathers one dim further than a layer's, and
+    ``shard_params`` / ``unshard_params`` cut and rebuild "groups" (two
+    stacked dims, "embed" at dim 2) and keep the replicated leaves whole."""
+    arch, over = ZERO3_ARCHS[name]
+    cfg, jmodel, jparams, model, params = _carried(arch, **over)
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), **over)
+    jplans = jax_tf._blocks_gplan(jcfg, jax_make_rules(jcfg, mesh3, 3))
+    plans = tf.blocks_gplan(cfg, make_rules(3, 2))
+    assert sorted(plans) == sorted(jplans)
+    for key in plans:
+        assert [p.dim for p in jax.tree.leaves(jplans[key], is_leaf=lambda x: hasattr(x, "dim"))] \
+            == [p.dim for p in leaves(plans[key])], key
+    stacked = [k for k in ("blocks", "groups", "tail") if k in plans]
+    for key in stacked:
+        assert {k for k, v in plans[key].items() if v.dim is None} == REPLICATED
+    if cfg.family == "hybrid":
+        assert sorted(plans) == ["groups", "shared", "tail"]
+        assert {k: v.dim for k, v in plans["groups"].items() if v.dim is not None} == {
+            k: v.dim + 1 for k, v in plans["tail"].items() if v.dim is not None}
+        assert all(p.dim is not None for p in leaves(plans["shared"]))
+    metas = model.abstract_params()
+    shards = [shard_params(params, metas, i, 2) for i in range(2)]
+    D = cfg.d_model
+    for key in stacked:
+        for k, full in params[key].items():
+            got = shards[1][key][k]
+            if k in REPLICATED:
+                assert got is full
+            else:
+                dim = list(metas[key][k].axes).index("embed")
+                assert got.shape[dim] == D // 2
+                assert torch.equal(got, full.narrow(dim, D // 2, D // 2))
+    if "groups" in params:
+        assert shards[0]["groups"]["w_z"].shape == (cfg.n_layers // cfg.attn_every,
+                                                    cfg.attn_every, D // 2, cfg.d_inner)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(unshard_params(shards, metas)),
+                                                 leaves(params)))
+
+
+def _gather_log(monkeypatch, prog, cfg, state):
+    """One step of ``prog`` with every rank's fsdp gathers and adjoint
+    hand-offs counted by key: ({rank: Counter of gathered keys}, {rank:
+    Counter of keys handed to the adjoint})."""
+    import collections
+    gathers, pend = collections.defaultdict(collections.Counter), \
+        collections.defaultdict(collections.Counter)
+    real_gather, real_pending = collectives.FsdpScope._all_gather, collectives.FsdpScope.pending
+
+    def gather(self, x, key, dim):
+        gathers[self.rank][key] += 1
+        return real_gather(self, x, key, dim)
+
+    def pending(self, key, dim, g):
+        pend[self.rank][key] += 1
+        return real_pending(self, key, dim, g)
+
+    monkeypatch.setattr(collectives.FsdpScope, "_all_gather", gather)
+    monkeypatch.setattr(collectives.FsdpScope, "pending", pending)
+    nm, gmb, _ = prog.batch_shape(SEQ)
+    prog.step_fn(state, pipeline.synthetic_batch(0, 0, nm, gmb, SEQ, cfg.vocab))
+    return gathers, pend
+
+
+def _plan_violations(gathers, pend, names, cfg, n_micro, remat):
+    """What a rank's counts break of the reference's plan, per micro-step:
+    a group's key (leaf, g) and a tail layer's gathered once, and once more
+    in remat's recompute; the shared block's keys (leaf, None) and the top
+    leaves' once, under either setting; every key handed to the adjoint
+    once."""
+    n_groups = cfg.n_layers // cfg.attn_every
+    n_tail = cfg.n_layers % cfg.attn_every
+    want = {}
+    for j, n in enumerate(names):
+        top = n.split(".")[0]
+        if n.split(".")[-1] in REPLICATED:
+            continue
+        if top == "groups":
+            want.update({(j, g): 2 if remat else 1 for g in range(n_groups)})
+        elif top == "tail":
+            want.update({(j, i): 2 if remat else 1 for i in range(n_tail)})
+        else:
+            want[(j, None)] = 1
+    bad = []
+    for r in sorted(gathers):
+        for key in sorted(set(want) | set(gathers[r]), key=str):
+            if gathers[r][key] != want.get(key, 0) * n_micro:
+                bad.append(f"rank {r} gathered {names[key[0]]}[{key[1]}] {gathers[r][key]} times, "
+                           f"{want.get(key, 0) * n_micro} in the plan")
+        for key in sorted(set(want) | set(pend[r]), key=str):
+            if pend[r][key] != n_micro:
+                bad.append(f"rank {r} handed {names[key[0]]}[{key[1]}] to the adjoint "
+                           f"{pend[r][key]} times, {n_micro} in the plan")
+    return bad
+
+
+def _gathered_shared_out(shared, plan, fsdp, positions, cfg, x):
+    return tf._block_out(tf.maybe_gather(shared, plan, fsdp), positions, cfg, x)
+
+
+def _shared_per_group(params, positions, cfg, fsdp, gplans):
+    """A planted variant: the shared block gathered in each group's use."""
+    fns = []
+    for g in range(cfg.n_layers // cfg.attn_every):
+        gg = tf._GroupGather(params["groups"], g, gplans["groups"], fsdp, cfg.attn_every)
+        fns += [functools.partial(tf._group_block_out, gg, li, positions, cfg)
+                for li in range(cfg.attn_every)]
+        fns.append(functools.partial(_gathered_shared_out, params["shared"], gplans["shared"],
+                                     fsdp, positions, cfg))
+    return fns + [functools.partial(tf._gathered_block_out, params["tail"], i, gplans["tail"],
+                                    fsdp, positions, cfg, tf._ssm_out_only)
+                  for i in range(cfg.n_layers % cfg.attn_every)]
+
+
+def _group_per_block(self, li):
+    """A planted variant: a group's leaves gathered again for each block."""
+    groups, gplan, fsdp, g = self._args
+    return tf.layer_params(tf.maybe_gather(groups, gplan, fsdp, layer=g), li)
+
+
+GATHER_CASES = {"remat": (True, None), "no_remat": (False, None),
+                "remat_shared_per_group": (True, (tf, "_gathered_blocks", _shared_per_group)),
+                "no_remat_shared_per_group": (False, (tf, "_gathered_blocks", _shared_per_group)),
+                "remat_group_per_block": (True, (tf._GroupGather, "layer", _group_per_block))}
+
+
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+def test_hybrid_gather_counts_follow_the_reference_plan(monkeypatch, one_thread, case):
+    """Reduced zamba2 at 13 layers (two groups and a tail), one ZeRO-3 step
+    of two micro-steps a rank: every rank's gathers and adjoint hand-offs
+    counted by key (``FsdpScope``'s (leaf, index of the stacked dim)) hold
+    the reference's plan (``_plan_violations``): the shared block once per
+    forward and outside every checkpoint, a group once per group (again in
+    its recompute), the tail per block; each key to the adjoint once per
+    micro-step.  The planted variants (the shared block gathered per group,
+    a group's leaves per block) break it."""
+    remat, plant = GATHER_CASES[case]
+    cfg, _, _, model, params = _carried("zamba2-7b", n_layers=13)
+    prog = make_train_program(model, mesh.ThreadMesh({"pod": 2, "data": 2}, device="cpu"),
+                              RunConfig(zero_stage=3, learning_rate=1e-3, param_dtype="float32",
+                                        collective_mode="hier", backend="pallas", remat=remat),
+                              balance.uniform_plan(2, 4, 1))
+    state = prog.init_fn(params)
+    if plant is not None:
+        monkeypatch.setattr(*plant)
+    gathers, pend = _gather_log(monkeypatch, prog, cfg, state)
+    names = [n for n, _ in _named_leaves(model.abstract_params())]
+    bad = _plan_violations(gathers, pend, names, cfg, prog.plan.n_micro_max, remat)
+    print(f"\n  {case}: {len(bad)} departures from the plan" + "".join(
+        f"\n    {b}" for b in bad[:4]))
+    assert sorted(gathers) == [0, 1, 2, 3]
+    assert (len(bad) > 0) == (plant is not None)
+    if plant is None:
+        shared = {k for k in gathers[0] if names[k[0]].startswith("shared.")}
+        assert len(shared) == 9 and len(gathers[0]) == 7 * 2 + 9 + 7 + 3
+
+
+def _trainer_steps(prog, state, cfg, n_steps=3):
+    losses, norms = [], []
+    for s in range(n_steps):
+        nm, gmb, _ = prog.batch_shape(SEQ)
+        state, m = prog.step_fn(state, pipeline.synthetic_batch(0, s, nm, gmb, SEQ, cfg.vocab))
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    return state, losses, norms
+
+
+ZERO3_CASES = {"hier-xla": dict(backend="xla"), "hier-pallas": dict(backend="pallas"),
+               "hier-pallas-int8-ef": dict(backend="pallas", wire_quant="int8")}
+
+
+@pytest.mark.parametrize("case", sorted(ZERO3_CASES))
+@pytest.mark.parametrize("name", sorted(ZERO3_ARCHS))
+def test_zero3_trainer_matches_jax_on_ssm(mesh3, one_thread, through_function, name, case):
+    """3 ZeRO-3 steps of reduced mamba2 and of zamba2 at 13 layers (hier)
+    against the JAX trainer at ``zero_stage=3`` from the same init and
+    batches: the step-0 loss within STEP0_ATOL, the losses within
+    LOSS_ATOL, the parameters after ``unshard_params`` within PARAM_REL_L2;
+    the EF state is there iff a codec resolves, both pods hold the same
+    shards, and the replicated leaves are equal on all four ranks."""
+    arch, over = ZERO3_ARCHS[name]
+    cfg, jmodel, jparams, model, params = _carried(arch, **over)
+    rc_kw = dict(zero_stage=3, learning_rate=1e-3, param_dtype="float32",
+                 collective_mode="hier", **ZERO3_CASES[case])
+    jprog = jax_make_train_program(jmodel, mesh3, JaxRunConfig(**rc_kw),
+                                   jax_balance.uniform_plan(2, 4, 1))
+    jstate = jprog.init_fn(jax.random.PRNGKey(0))
+    prog = make_train_program(model, mesh.ThreadMesh({"pod": 2, "data": 2}, device="cpu"),
+                              RunConfig(**rc_kw), balance.uniform_plan(2, 4, 1))
+    state = prog.init_fn(params)
+    want = []
+    for s in range(3):
+        nm, gmb, _ = prog.batch_shape(SEQ)
+        jb = jax_pipeline.synthetic_batch(0, s, nm, gmb, SEQ, cfg.vocab)
+        jstate, jm = jprog.step_fn(jstate, {k: jnp.asarray(v) for k, v in jb.items()})
+        want.append(float(jm["loss"]))
+    state, got, _ = _trainer_steps(prog, state, cfg)
+    metas = model.abstract_params()
+    full = unshard_params([state[0]["params"], state[1]["params"]], metas)
+    jleaves = [np.asarray(x) for x in jax.tree.leaves(jax.device_get(jstate["params"]))]
+    num = sum(float(((g.numpy() - w) ** 2).sum()) for g, w in zip(leaves(full), jleaves))
+    rel = (num / sum(float((w ** 2).sum()) for w in jleaves)) ** 0.5
+    print(f"\n  zero3 {name} {case}: losses JAX {want}\n    port {got}; params relative L2 "
+          f"{rel:.3e}")
+    assert abs(got[0] - want[0]) <= STEP0_ATOL
+    np.testing.assert_allclose(got, want, rtol=0, atol=LOSS_ATOL)
+    assert rel <= PARAM_REL_L2
+    codec = optim.ef_codec(RunConfig(**rc_kw))
+    assert all(("ef" in s["opt"]) == (codec is not None) for s in state)
+    assert ("ef" in jstate["opt"]) == (codec is not None)
+    stacked = "blocks" if "blocks" in metas else "groups"
+    assert state[0]["params"][stacked]["w_x"].shape[-2] == cfg.d_model // 2
+    for a, b in ((2, 0), (3, 1)):
+        assert all(torch.equal(x, y) for x, y in zip(leaves(state[a]["params"]),
+                                                     leaves(state[b]["params"])))
+    repl = [i for i, (n, _) in enumerate(_named_leaves(metas)) if n.split(".")[-1] in REPLICATED]
+    assert len(repl) == 7 * (1 if stacked == "blocks" else 2)
+    for s in state[1:]:
+        ls, l0 = leaves(s["params"]), leaves(state[0]["params"])
+        assert all(torch.equal(ls[i], l0[i]) for i in repl)
+
+
+def _shifted_shared_adjoint(monkeypatch):
+    """A planted fault: the fsdp adjoint of the hybrid's shared block reads
+    "data" rank 0's gradient a quarter of the gathered dim off (its shard's
+    offset shifted) before the reduce-scatter."""
+    real = collectives.FsdpScope.reduce_pending
+    metas = build(dataclasses.replace(get_config("zamba2-7b").reduced(), n_layers=13)) \
+        .abstract_params()
+    shared = {j for j, (n, _) in enumerate(_named_leaves(metas)) if n.startswith("shared.")}
+
+    def shifted(self):
+        if mesh.axis_index("data") == 0:
+            self._pending = [(k, d, torch.roll(g, g.shape[d] // 4, dims=d)
+                              if k[0] in shared else g) for k, d, g in self._pending]
+        return real(self)
+
+    monkeypatch.setattr(collectives.FsdpScope, "reduce_pending", shifted)
+
+
+def _zero_stages_at_step_0(name, plant=None):
+    """Step 0 of the port's ZeRO-3 and ZeRO-1 from one init and batch (hier,
+    pallas, remat, two micro-steps a rank; ``plant`` patches ZeRO-3's run):
+    (the two losses, the two gradient norms, each leaf's relative L2
+    between the parameters after the step, ZeRO-3's rebuilt by
+    ``unshard_params``)."""
+    arch, over = ZERO3_ARCHS[name]
+    cfg, _, _, model, params = _carried(arch, **over)
+    out = {}
+    for zero in (3, 1):
+        prog = make_train_program(model, mesh.ThreadMesh({"pod": 2, "data": 2}, device="cpu"),
+                                  RunConfig(zero_stage=zero, learning_rate=1e-3,
+                                            param_dtype="float32", collective_mode="hier",
+                                            backend="pallas"),
+                                  balance.uniform_plan(2, 4, 1))
+        with pytest.MonkeyPatch.context() as mp:
+            if plant is not None and zero == 3:
+                plant(mp)
+            state, losses, norms = _trainer_steps(prog, prog.init_fn(params), cfg, 1)
+        full = (unshard_params([state[0]["params"], state[1]["params"]],
+                               model.abstract_params()) if zero == 3 else state[0]["params"])
+        out[zero] = (losses[0], norms[0], leaves(full))
+    rel = [float((a - b).norm() / b.norm()) for a, b in zip(out[3][2], out[1][2])]
+    return (out[3][0], out[1][0]), (out[3][1], out[1][1]), rel
+
+
+@pytest.mark.parametrize("name", sorted(ZERO3_ARCHS))
+def test_ssm_zero3_matches_zero1_at_step_0(one_thread, through_function, name):
+    """The port's ZeRO-3 against its own ZeRO-1 from one init and batch: the
+    same step-0 loss bit for bit (the gathers concatenate the shards
+    exactly), the gradient norm within ZERO_GRAD_NORM_RTOL and every leaf's
+    parameters after step 0 within ZERO_PARAM_REL_L2 of ZeRO-1's."""
+    (l3, l1), (g3, g1), rel = _zero_stages_at_step_0(name)
+    print(f"\n  {name}: step-0 loss {l3} / {l1}, grad norm {g3} / {g1} (relative "
+          f"{abs(g3 - g1) / g1:.3e}); params after step 0, worst leaf relative L2 {max(rel):.3e}")
+    assert l3 == l1
+    assert abs(g3 - g1) <= ZERO_GRAD_NORM_RTOL * g1
+    assert max(rel) <= ZERO_PARAM_REL_L2
+
+
+def test_ssm_zero3_planted_shared_adjoint_fault_fails_the_step_0_check(one_thread,
+                                                                       through_function):
+    """With one shard's offset shifted in the adjoint of zamba2's shared
+    block (13 layers), the step-0 check fails on exactly the shared block's
+    nine leaves."""
+    (l3, l1), (g3, g1), rel = _zero_stages_at_step_0("zamba2_13", _shifted_shared_adjoint)
+    names = [n for n, _ in _named_leaves(build(dataclasses.replace(
+        get_config("zamba2-7b").reduced(), n_layers=13)).abstract_params())]
+    bad = sorted(n for n, r in zip(names, rel) if r > ZERO_PARAM_REL_L2)
+    shared = [r for n, r in zip(names, rel) if n.startswith("shared.")]
+    rest = [r for n, r in zip(names, rel) if not n.startswith("shared.")]
+    print(f"\n  planted fault: leaves out of the limit {bad}; the shared block's leaves "
+          f"{min(shared):.3e} .. {max(shared):.3e}, the others at most {max(rest):.3e}; grad "
+          f"norm relative {abs(g3 - g1) / g1:.3e}")
+    assert bad == sorted(n for n in names if n.startswith("shared."))
+    assert l3 == l1
+
+
+# ---------------------------------------------------------------------------
+# (f) the launcher, and ZeRO-3 across processes
+# ---------------------------------------------------------------------------
+
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
-def test_zero3_of_the_ssm_families_raises_at_build(arch):
-    """ZeRO-3 of the SSM and hybrid families needs its own gather plan
-    (ROADMAP A7b): the trainer refuses it when the program is built, before
-    any step; ZeRO-1 builds."""
-    model = build(get_config(arch).reduced())
-    m = mesh.ThreadMesh({"pod": 2, "data": 2}, device="cpu")
-    plan = balance.uniform_plan(2, 2, micro_batch=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        make_train_program(model, m, RunConfig(zero_stage=3), plan)
-    assert make_train_program(model, m, RunConfig(zero_stage=1), plan).model is model
+def test_train_launcher_runs_ssm_zero3_on_the_cpu(capsys, arch):
+    from repro_torch.launch import train
+    hist = train.main(["--device", "cpu", "--steps", "2", "--seq", "64", "--zero", "3",
+                       "--arch", arch, "--reduced", "--backend", "pallas"])
+    assert len(hist) == 2 and np.isfinite(hist).all()
+    out = capsys.readouterr().out
+    assert f"arch={arch}-reduced" in out and "zero=3" in out
+
+
+DIST_RANK = r"""
+import dataclasses, sys, torch, torch.distributed as dist
+torch.set_num_threads(1)
+from repro_torch.configs import get_config
+from repro_torch.configs.base import RunConfig
+from repro_torch.core import balance, mesh
+from repro_torch.core.tree import leaves
+from repro_torch.data.pipeline import synthetic_batch
+from repro_torch.models import build
+from repro_torch.train.trainer import make_train_program
+rank, init, out, seq = int(sys.argv[1]), sys.argv[2], sys.argv[3], int(sys.argv[5])
+dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+cfg = dataclasses.replace(get_config("zamba2-7b").reduced(), n_layers=13)
+m = mesh.DistMesh({"pod": 1, "data": 2}, device="cpu")
+prog = make_train_program(build(cfg), m, RunConfig(zero_stage=3, collective_mode="hier",
+                          backend="pallas", wire_quant="int8", param_dtype="float32",
+                          learning_rate=1e-3), balance.uniform_plan(1, 2, 1))
+state = prog.init_fn(torch.load(sys.argv[4]))
+losses = []
+for s in range(2):
+    nm, gmb, _ = prog.batch_shape(seq)
+    state, met = prog.step_fn(state, synthetic_batch(0, s, nm, gmb, seq, cfg.vocab))
+    losses.append(met["loss"].item())
+torch.save({"losses": losses, "params": leaves(state["params"]),
+            "ef": leaves(state["opt"]["ef"])}, out)
+dist.destroy_process_group()
+"""
+
+
+def test_dist_mesh_gloo_zero3_matches_thread_mesh_on_zamba2(tmp_path, one_thread):
+    """ZeRO-3 of zamba2 at 13 layers on a gloo DistMesh (pod=1, data=2, one
+    process per rank): each process holds half of every sharded leaf and the
+    replicated leaves whole, and gathers through the process group (the
+    shared block once a forward, a group's blocks in its checkpoint and
+    again in the backward), int8 with EF, against the same program on a
+    ThreadMesh, whose gathers read the peers' shards: the same bits."""
+    cfg = dataclasses.replace(get_config("zamba2-7b").reduced(), n_layers=13)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), dtype=torch.float32)
+    torch.save(params, tmp_path / "params.pt")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    init = f"file://{tmp_path / 'rendezvous'}"
+    procs = [subprocess.Popen([sys.executable, "-c", DIST_RANK, str(r), init,
+                               str(tmp_path / f"out{r}.pt"), str(tmp_path / "params.pt"),
+                               str(SEQ)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    for p in procs:
+        log, _ = p.communicate(timeout=240)
+        assert p.returncode == 0, log
+    m = mesh.ThreadMesh({"pod": 1, "data": 2}, device="cpu")
+    prog = make_train_program(model, m, RunConfig(zero_stage=3, collective_mode="hier",
+                                                  backend="pallas", wire_quant="int8",
+                                                  param_dtype="float32", learning_rate=1e-3),
+                              balance.uniform_plan(1, 2, 1))
+    state = prog.init_fn(params)
+    losses = []
+    for s in range(2):
+        nm, gmb, _ = prog.batch_shape(SEQ)
+        state, met = prog.step_fn(state, pipeline.synthetic_batch(0, s, nm, gmb, SEQ, cfg.vocab))
+        losses.append(met["loss"].item())
+    for r in range(2):
+        got = torch.load(tmp_path / f"out{r}.pt")
+        assert got["losses"] == losses
+        assert all(torch.equal(a, b) for a, b in zip(got["params"], leaves(state[r]["params"])))
+        assert all(torch.equal(a, b) for a, b in zip(got["ef"], leaves(state[r]["opt"]["ef"])))
+    assert state[0]["params"]["groups"]["w_x"].shape[-2] == cfg.d_model // 2
+    assert state[0]["params"]["groups"]["conv_x"].shape == params["groups"]["conv_x"].shape
