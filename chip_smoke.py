@@ -222,13 +222,37 @@ Phases, in order; any failure exits non-zero before the last line:
    library yardstick: no one PyTorch call computes it); and flash's
    backward at
    d 112 against SDPA's;
+31. planned training (runs before [30]'s line, which carries its launches):
+   full-width smollm-135m on a (pod=2, data=2) ThreadMesh with [11]'s batch,
+   configured by the launcher's own code (``launch.train.plan_run``), four
+   runs of ``PLANNED_STEPS`` steps from one init (``PLANNED_RUNS``): (a) the
+   default ``--policy auto``, the planner's per-op table on H100 islands,
+   uniform shares; (b) ``--plan auto`` priced on the paper's V100 + W7800
+   testbed: shares (3, 1) (pod 1 masks two of its three micro-steps), int8
+   on the large rows beside uncompressed medium and small ones; (c) (b)
+   with ``--cross-dtype bfloat16`` (ROADMAP A5b); (d) the oracle, (b)'s
+   shares on the legacy facade, hier/xla in f32.  The counts set to 0 just
+   before each run and read just after: the collective calls per (op, size
+   class, variant, policy) row (``hetccl.dispatches``) and the fused ring
+   launches per row and stripes (``tacc.row_launches``) equal what the
+   leaves, the buckets and the table imply (``planned_expectations``); the
+   codec launches only under int8 rows (and error feedback); flash per
+   layer and micro-step.  Step 0's loss of (b) and (c) is (d)'s bit for bit,
+   (a)'s (the same tokens under other shares) within
+   ``PLANNED_STEP0_LOSS_RTOL``; (b)'s losses within [11]'s int8 limit of
+   (d)'s; step 0's reduced gradients of (b) within ``int8_reduction_bound``
+   of (d)'s element by element (derived from the codec's step), of (c)
+   within ``bf16_cross_bound`` of the f32-accumulate oracle on every rank;
+   per run ms a step, tokens/s, busy share, peak memory and, for the
+   planned runs, the planner's modeled step time of the priced cluster;
 30. a JSON line listing every kernel (the flash forward with its five
    main-path shapes under ``shapes``, the backward's d-100 and d-112
    shapes, the grouped matmul's and the SSD scan's launches per route under
    ``routes``, the grouped matmul's backward products with their routes'
    launches in the MoE training run, the SSD backward with its three
-   launches under ``stages`` and its launches in [28]);
-31. the last line, ``{"ok": true, "device": {...}}``.
+   launches under ``stages`` and its launches in [28], and every kernel's
+   launches in [31]'s runs under ``planned_launches``);
+32. the last line, ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.
 
@@ -723,6 +747,39 @@ SSM_ZERO_LEAF_REL_L2 = 2e-3
 # gates (``ssm_grad_gate``, [27]) are what hold the kernels.
 SSM_STEP0_LOSS_ATOL = 6e-4
 SSM_LOSS_FAULT_CAUGHT = "ssd_dt_one_late"
+
+# [31] planned training (ROADMAP A10a, A5b): full-width smollm-135m (bf16
+# parameters, f32 master state, weights from SEED) on a (pod=2, data=2)
+# ThreadMesh with [11]'s batch, 8192 live tokens a step (micro-batch 2 x
+# seq 512, two micro-steps a pod under uniform shares), configured by the
+# launcher's own code path (``launch.train.plan_run`` on these flags), four
+# runs from one init, PLANNED_STEPS steps each on one memorize batch:
+#   a: the default, ``--policy auto`` on H100 islands, uniform shares;
+#   b: ``--plan auto`` priced on the paper's V100 + W7800 testbed mapped
+#      onto the mesh: shares (3, 1), so pod 1 masks two of its three
+#      micro-steps, and int8 rows in the large class;
+#   c: b with ``--cross-dtype bfloat16`` (A5b; the launcher then prices the
+#      rows without a codec, whose all-reduce rows all take the bf16 stage);
+#   d: the oracle, b's shares on the legacy facade, hier/xla in f32.
+PLANNED_MESH = {"pod": 2, "data": 2}
+PLANNED_FLAGS = ["--full-size", "--seq", str(TRAIN_SEQ), "--micro-batch",
+                 str(TRAIN_MICRO_BATCH), "--n-micro", "2", "--lr", str(TRAIN_LR)]
+PLANNED_RUNS = {"a": [], "b": ["--plan", "auto", "--chips", "v100,w7800"],
+                "c": ["--plan", "auto", "--chips", "v100,w7800", "--cross-dtype", "bfloat16"],
+                "d": ["--policy", "legacy", "--mode", "hier", "--backend", "xla"]}
+# Steps a run (step 0 also keeps the reduced gradients for the gates), and
+# the runs whose card time one more step is profiled for (the default and
+# the planned path): torch.profiler triples the wall of these host-bound
+# steps, so the busy share is that step's card time over step 1's wall,
+# unprofiled, and the other runs' is not measured (it would add ~25 s each).
+PLANNED_STEPS = 2
+PLANNED_PROFILED = ("a", "b")
+# Step 0's loss of a against d's: the same 8192 token losses (a's batch
+# holds d's live micro-batches, pod 0's third moved to pod 1), summed in
+# another grouping over ranks and micro-steps in f32: a few f32 roundings
+# of the mean.  b and c run d's shares and batch: their step-0 loss must be
+# d's bit for bit (the collectives come after it).
+PLANNED_STEP0_LOSS_RTOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -4085,6 +4142,439 @@ def phase_ssd_bwd_times(torch, ssd, bench_codec):
     return out
 
 
+# ---------------------------------------------------------------------------
+# [31] Planned training: the planner's table and shares on the card
+# ---------------------------------------------------------------------------
+
+# bf16's unit roundoff (8 significant bits)
+BF16_U = 2.0 ** -8
+# The int8 codec: each chunk of QUANT_CHUNK elements is scaled by its absmax
+# / 127, so an element rounds to within half a step, absmax / 254
+QUANT_CHUNK, INT8_HALF_STEP = 512, 1.0 / 254
+
+
+def bf16_cross_bound(torch, shards_by_pod):
+    """(oracle, bound) of a cross-island reduction in bf16 whose accumulator
+    is f32.  ``shards_by_pod[p]`` is pod p's f32 sum over its local ranks.
+    The oracle rounds each pod's shard to bf16 and sums those in float64;
+    the ring rounds its running partial to bf16 once per hop (P - 1 hops)
+    and the gathered result once more, each rounding within u = 2**-8 of
+    what it rounds, so every element lies within P u sum_p |bf16(shard_p)|
+    of the oracle (P the number of pods, the terms of the sum)."""
+    b = [s.to(torch.bfloat16).double() for s in shards_by_pod]
+    return sum(b), len(b) * BF16_U * sum(x.abs() for x in b)
+
+
+def _chunk_absmax(torch, flat):
+    """Each element's codec chunk's absmax (chunks of QUANT_CHUNK from the
+    start of ``flat``, as the codec pads and splits a flat payload)."""
+    n = flat.numel()
+    pad = (-n) % QUANT_CHUNK
+    a = torch.nn.functional.pad(flat.abs(), (0, pad)).view(-1, QUANT_CHUNK).amax(1)
+    return a.repeat_interleave(QUANT_CHUNK)[:n]
+
+
+def int8_reduction_bound(torch, grads_by_rank, buckets, n_pods):
+    """Per leaf, each element's bound on |reduced - f32 sum| of a ZeRO-1
+    gradient reduction whose rows carry the int8 codec with error feedback
+    at step 0 (residuals zero), from the ranks' local f32 gradients
+    ``grads_by_rank[r][leaf]`` and the reduction's ``buckets`` (leaf indices
+    in bucket order, ``hetccl._make_buckets``).
+
+    Every quantization rounds an element to within half its chunk's step,
+    absmax / 254 (the codec's step is absmax / 127).  Error feedback
+    quantizes each rank's gradient per leaf (chunks from the leaf's start):
+    M_e / 254 at most, M_e the sum over ranks of e's chunk absmax.  Every
+    value a ring hop carries (one rank's quantized gradient, a pod's sum, the
+    reduced value) is at most M_e (1 + 1/127) in magnitude, and a hop's
+    codec chunk is a contiguous run of QUANT_CHUNK elements of the bucket's
+    flat buffer (the pipelined rings' halves on (pod=2, data=2)), so within
+    the aligned blocks of QUANT_CHUNK before, at and after e: its absmax is
+    at most W_e (1 + 1/127), W_e the largest M there.  Each element crosses
+    P - 1 quantized reduce-scatter hops and one quantized all-gather hop, so
+    |err_e| <= M_e / 254 + P W_e (1 + 1/127) / 254, plus 4 f32 roundings of
+    M_e for the sums' other order."""
+    R, L = len(grads_by_rank), len(grads_by_rank[0])
+    M = [sum(_chunk_absmax(torch, grads_by_rank[r][j].reshape(-1).float()) for r in range(R))
+         for j in range(L)]
+    W = [None] * L
+    for bucket in buckets:
+        flat = torch.cat([M[j] for j in bucket])
+        n = flat.numel()
+        blocks = torch.nn.functional.pad(flat, (0, (-n) % QUANT_CHUNK)).view(-1, QUANT_CHUNK)
+        bm = blocks.amax(1)
+        nb = torch.maximum(bm, torch.maximum(torch.nn.functional.pad(bm[1:], (0, 1)),
+                                             torch.nn.functional.pad(bm[:-1], (1, 0))))
+        wide = nb.repeat_interleave(QUANT_CHUNK)[:n]
+        off = 0
+        for j in bucket:
+            W[j] = wide[off:off + M[j].numel()]
+            off += M[j].numel()
+    return [(M[j] * INT8_HALF_STEP + n_pods * W[j] * (1 + 1 / 127) * INT8_HALF_STEP
+             + 4 * 2.0 ** -24 * M[j]).view(grads_by_rank[0][j].shape) for j in range(L)]
+
+
+def planned_row(hetccl, comm, op, nbytes):
+    """The dispatch row ``hetccl`` counts for one call: (op, size class,
+    variant, policy)."""
+    from repro_torch.comm.policy import size_class
+    pol = comm.policy(op, nbytes)
+    return (op, size_class(nbytes, comm.table.bounds), comm.variant_for(op, pol), pol)
+
+
+def _halves(c):
+    """A bidirectional ring's per-direction element counts for c elements."""
+    return (c,) if c < 2 else (c // 2, c - c // 2)
+
+
+def _splits(n, parts):
+    """torch.tensor_split's piece lengths of n into ``parts``."""
+    q, r = divmod(n, parts)
+    return [q + 1] * r + [q] * (parts - r)
+
+
+def fused_ring_launches(collectives, ring_dma, op, variant, pol, n, esize, n_pods, n_data,
+                        chunk_bytes=None):
+    """Fused ring kernel launches of one call of ``op`` on every rank of a
+    (pod, data) ThreadMesh (one launch covers every rank), under ``pol``
+    without a codec: ``{"ring_reduce_scatter/S<k>" | "ring_all_gather/S<k>":
+    n}``.  ``n`` is the op's input elements on a rank (the padded bucket, a
+    shard), ``esize`` their bytes.  From the schedule each (op, variant)
+    runs: pipelined rows split into the channels ``resolve_channels`` gives,
+    each on the bidirectional cross-pod rings (two launches, one a
+    direction); hier one cross-pod ring; flat pallas a ring on each axis;
+    each launch's stripes the row's, clamped to its elements (reduce) or
+    words (gather)."""
+    out = Counter()
+    W, P, D = n_pods * n_data, n_pods, n_data
+
+    def rs(c):                        # c: elements of one ring chunk
+        out[f"ring_reduce_scatter/S{ring_dma._clamp_stripes(pol.n_stripes, c)}"] += 1
+
+    def ag(c, eb):                    # c: elements a rank contributes
+        words = c * eb // 4 if (c * eb) % 4 == 0 else c * eb // 2
+        out[f"ring_all_gather/S{ring_dma._clamp_stripes(pol.n_stripes, words)}"] += 1
+
+    if pol.backend != "pallas" or pol.wire_quant is not None or n == 0:
+        return out
+    nbytes = n * esize
+    if op == "reduce_scatter":
+        if variant == "pipelined":
+            s = n // W
+            C = collectives.resolve_channels(nbytes, pol.n_channels, chunk_bytes, s,
+                                             pol.n_stripes)
+            for sj in (_splits(s, C) if C > 1 else [s]):
+                for h in _halves(W * sj // P):
+                    rs(h)
+        elif variant == "hier":
+            rs(n // P)
+        else:
+            rs(n // P)
+            rs(n // P // D)
+    elif op == "all_gather":
+        if variant == "pipelined":
+            C = collectives.resolve_channels(nbytes, pol.n_channels, chunk_bytes, n,
+                                             pol.n_stripes)
+            for lj in (_splits(n, C) if C > 1 else [n]):
+                for h in _halves(D * lj):
+                    ag(h, esize)
+        elif variant == "hier":
+            ag(D * n, esize)
+        else:
+            ag(n, esize)
+            ag(D * n, esize)
+    elif op == "all_reduce":
+        wire = 2 if pol.cross_dtype is not None else esize
+        if variant == "pipelined":
+            C = collectives.resolve_channels(nbytes, pol.n_channels, chunk_bytes,
+                                             max(n // (D * P), 1), pol.n_stripes)
+            per = (n + (-n) % (C * D * P)) // (C * D * P)
+            for _ in range(C):
+                for h in _halves(per):
+                    rs(h)
+                for h in _halves(per):
+                    ag(h, wire)
+        elif variant == "hier":
+            per = (n + (-n) % (D * P)) // (D * P)
+            rs(per)
+            ag(per, wire)
+        else:
+            for axis_n in (D, P):
+                rs(-(-n // axis_n))
+                ag(-(-n // axis_n), esize)
+    return out
+
+
+def planned_expectations(hetccl, collectives, ring_dma, comm, grad_leaves, param_leaves,
+                         n_pods, n_data):
+    """What one ZeRO-1 step must dispatch and launch on a (pod, data)
+    ThreadMesh, derived from the model's leaves, the communicator's buckets
+    and its table alone: ``(dispatches, fused)``, ``dispatches[row]`` the
+    calls summed over ranks (each bucket's reduce-scatter and all-gather, or
+    its all-reduce when the largest bucket's all-reduce row carries a cross
+    dtype; each parameter's all-gather), ``fused[(row, kernel)]`` the fused
+    ring launches (``fused_ring_launches``)."""
+    W = n_pods * n_data
+    disp, fused = Counter(), Counter()
+
+    def add(op, n, esize):
+        # the payload the table keys on: an all-gather's gathered buffer
+        # when the table has rows (hetccl._payload_bytes), else the input
+        gathered = op == "all_gather" and comm.table.rows
+        row = planned_row(hetccl, comm, op, n * esize * (W if gathered else 1))
+        disp[row] += W
+        for k, v in fused_ring_launches(collectives, ring_dma, op, row[2], row[3], n, esize,
+                                        n_pods, n_data, comm.pipeline_chunk_bytes).items():
+            fused[(row, k)] += v
+
+    sizes = []
+    for bucket in hetccl._make_buckets(grad_leaves, comm.bucket_bytes):
+        n = sum(grad_leaves[i].numel() for i in bucket)
+        sizes.append((n + (-n) % W, grad_leaves[bucket[0]].element_size()))
+    big = max(n * e for n, e in sizes)
+    all_reduce = comm.policy("all_reduce", big).cross_dtype is not None
+    for n, e in sizes:
+        if all_reduce:
+            add("all_reduce", n, e)
+        else:
+            add("reduce_scatter", n, e)
+            add("all_gather", n // W, e)
+    for p in param_leaves:
+        add("all_gather", (p.numel() + (-p.numel()) % W) // W, p.element_size())
+    return disp, fused
+
+
+def reduction_capture(hetccl, mesh_mod, keep_inputs):
+    """A stand-in for ``hetccl.tree_all_reduce`` (the ZeRO-1 gradient
+    reduction) that keeps each rank's returned leaves (f32 copies) and, when
+    ``keep_inputs``, the leaves it was given; ``(wrapper, seen)``."""
+    from repro_torch.core.tree import leaves as tree_leaves
+    real = hetccl.tree_all_reduce
+    seen = {"in": {}, "out": {}}
+
+    def wrapper(tree, cfg=None, **kw):
+        _, r = mesh_mod.current()
+        if keep_inputs:
+            seen["in"][r] = [t.detach().float().clone() for t in tree_leaves(tree)]
+        out = real(tree, cfg, **kw)
+        seen["out"][r] = [t.detach().float().clone() for t in tree_leaves(out)]
+        return out
+
+    return wrapper, seen
+
+
+def planned_batches(np, synthetic_batch, vocab, n_ranks):
+    """d's batch (3 micro-steps of n_ranks x micro-batch rows, pod-major)
+    and a's (2 micro-steps) holding the same live micro-batches under (3, 1)
+    and (2, 2) shares: pod 0's third micro-batch becomes pod 1's second."""
+    b3 = synthetic_batch(SEED, 0, 3, TRAIN_MICRO_BATCH * n_ranks, TRAIN_SEQ, vocab)
+    half = TRAIN_MICRO_BATCH * n_ranks // 2
+    b2 = {}
+    for k, v in b3.items():
+        a = np.array(v[:2])
+        a[1, half:] = v[2, :half]
+        b2[k] = a
+    return b2, b3
+
+
+def _rel(a, b):
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def phase_planned_train(torch, np, get_config, build, mesh_mod, hetccl, tacc, collectives,
+                        ring_dma, counters):
+    from repro_torch.core.tree import leaves as tree_leaves
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import optim
+    from repro_torch.train.trainer import make_train_program
+    cfg = get_config(ARCH)
+    model = build(cfg)
+    m = mesh_mod.ThreadMesh(PLANNED_MESH, device="cuda")
+    P, D = m.shape["pod"], m.shape["data"]
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED), dtype=torch.bfloat16)
+    p_leaves = tree_leaves(params)
+    g_leaves = [torch.empty(p.shape, dtype=torch.float32, device="meta") for p in p_leaves]
+    configs = {}
+    for name, flags in PLANNED_RUNS.items():
+        args = launcher.parser().parse_args(PLANNED_FLAGS + flags)
+        configs[name] = list(launcher.plan_run(args, m, cfg))
+    configs["d"][1] = configs["b"][1]                   # the oracle takes b's shares
+    for name, (rc, plan, tp) in configs.items():
+        table = rc.policies
+        print(f"  {name}: shares {plan.micro_per_pod} (micro-batch {plan.micro_batch} x "
+              f"{TRAIN_SEQ}), bucket {rc.bucket_bytes >> 20} MiB, "
+              + (f"{len(table.rows)} policy rows" if table else
+                 f"facade {rc.collective_mode}/{rc.backend}")
+              + f", cross_dtype {rc.cross_dtype}, error feedback {optim.ef_codec(rc)}")
+        if tp is not None:
+            print(f"     {launcher.plan_line(tp)} (the planner's model of the priced "
+                  f"V100 + W7800 cluster, not this card)")
+    check(configs["b"][1].micro_per_pod == configs["c"][1].micro_per_pod == (3, 1),
+          f"the planned shares are {configs['b'][1].micro_per_pod}, "
+          f"{configs['c'][1].micro_per_pod}; (3, 1) expected")
+    batch_a, batch_3 = planned_batches(np, synthetic_batch, cfg.vocab, m.size)
+    n_tokens = TRAIN_MICRO_BATCH * m.size // P * TRAIN_SEQ * 4   # 4 live micro-steps a step
+
+    runs, oracle = {}, {}
+    for name in ("d", "a", "b", "c"):
+        rc, plan, tp = configs[name]
+        batch = batch_a if name == "a" else batch_3
+        prog = make_train_program(model, m, rc, plan)
+        state = prog.init_fn(params)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counters.reset()
+        hetccl.reset_dispatches()
+        tacc.reset_row_launches()
+        wrapper, seen = reduction_capture(hetccl, mesh_mod, keep_inputs=name in ("d", "c"))
+        losses, ms = [], []
+        for step in range(PLANNED_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with patched(hetccl, "tree_all_reduce", wrapper) if step == 0 \
+                    else contextlib.nullcontext():
+                state, met = prog.step_fn(state, batch)
+            losses.append(met["loss"].item())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            if step == 0:
+                gnorm0, tokens0 = met["grad_norm"].item(), int(met["tokens"].item())
+        launches = counters.read()
+        disp, rows = Counter(hetccl.dispatches), Counter(tacc.row_launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step_ms = statistics.median(ms[1:])
+        busy = None
+        if name in PLANNED_PROFILED:
+            _, by_name = device_profile(torch, lambda: prog.step_fn(state, batch), 1)
+            busy = sum(by_name.values()) / 1e3 / step_ms
+        runs[name] = {"losses": losses, "grad_norm0": gnorm0, "tokens": tokens0,
+                      "launches": launches, "step_ms": ms, "median_ms": step_ms,
+                      "tokens_per_s": n_tokens / step_ms * 1e3, "busy": busy, "peak_gib": peak,
+                      "modeled_step_s": tp.modeled_step_s if tp is not None else None}
+        print(f"  {name}: losses {['%.6f' % x for x in losses]}; step-0 grad norm {gnorm0:.6f}; "
+              f"ms per step {[round(x, 1) for x in ms]} (host clock; median after step 0, "
+              f"which carries the captures, {step_ms:.1f}: {n_tokens / step_ms * 1e3:.1f} "
+              f"tokens/s); busy share (one more, profiled step's card time over step 1's "
+              f"wall) "
+              f"{'not measured' if busy is None else f'{busy:.4f}'}; peak {peak:.2f} GiB")
+        # the dispatch and launch gates
+        want_disp, want_fused = planned_expectations(hetccl, collectives, ring_dma, prog.comm,
+                                                     g_leaves, p_leaves, P, D)
+        want_disp = Counter({k: v * PLANNED_STEPS for k, v in want_disp.items()})
+        got_fused = Counter({k: v for k, v in rows.items() if k[1].startswith("ring_")})
+        want_fused = Counter({k: v * PLANNED_STEPS for k, v in want_fused.items()})
+        for (op, cls, variant, pol), n in sorted(disp.items(), key=lambda kv: str(kv[0][:3])):
+            row = (op, cls, variant, pol)
+            ring = {k: v for (r, k), v in got_fused.items() if r == row}
+            codec = {k: v for (r, k), v in rows.items() if r == row and k in
+                     ("quant_int8", "dq_accum_int8")}
+            print(f"     {op}/{cls} -> {variant} {pol.backend} C{pol.n_channels} "
+                  f"S{pol.n_stripes} codec {pol.wire_quant} cross {pol.cross_dtype}: "
+                  f"{n} calls (expected {want_disp.get(row, 0)}); fused {ring} (expected "
+                  f"{ {k: v for (r, k), v in want_fused.items() if r == row} }); codec {codec}")
+        check(disp == want_disp, f"{name}: the dispatches by row differ from the table's rows "
+                                 f"for this step's buckets and leaves")
+        check(got_fused == want_fused, f"{name}: the fused ring launches by row differ from "
+                                       f"the rows' channels and stripes")
+        check(launches["ring_reduce_scatter"] == sum(
+            v for (_, k), v in got_fused.items() if k.startswith("ring_reduce_scatter"))
+            and launches["ring_all_gather"] == sum(
+            v for (_, k), v in got_fused.items() if k.startswith("ring_all_gather")),
+            f"{name}: fused ring launches outside a dispatched row")
+        codec_rows = {r for (r, k), v in rows.items() if k in ("quant_int8", "dq_accum_int8")}
+        int8_rows = {r for r in disp if r[3].wire_quant == "int8"}
+        ef = optim.ef_codec(rc) is not None
+        check(codec_rows - {None} == int8_rows and ((None in codec_rows) == ef),
+              f"{name}: codec launches under rows {codec_rows}; the int8 rows are {int8_rows}, "
+              f"error feedback {ef}")
+        check(launches["quant_int8"] + launches["dq_accum_int8"] == sum(
+            v for (_, k), v in rows.items() if k in ("quant_int8", "dq_accum_int8")),
+            f"{name}: codec launches outside the counted rows")
+        n_micro = plan.n_micro_max
+        for key, per_step in (("flash_attention_fwd", 2 * cfg.n_layers * n_micro * m.size),
+                              ("flash_attention_bwd", cfg.n_layers * n_micro * m.size)):
+            check(launches[key] == per_step * PLANNED_STEPS,
+                  f"{name}: {launches[key]} {key} launches, {per_step * PLANNED_STEPS} expected")
+        print(f"     gates: dispatches {sum(disp.values())} calls over {len(disp)} rows, fused "
+              f"rings {sum(got_fused.values())} launches, codec "
+              f"{launches['quant_int8'] + launches['dq_accum_int8']} launches under "
+              f"{len(int8_rows)} int8 rows (error feedback {ef}), flash "
+              f"{launches['flash_attention_fwd']} / {launches['flash_attention_bwd']}: ok")
+        check(tokens0 == n_tokens, f"{name}: {tokens0} tokens counted, {n_tokens} live")
+        # the reduced gradients of step 0 (rank 0's, and every rank's for c)
+        if name == "d":
+            grads = [seen["in"][r] for r in range(m.size)]
+            b_buckets = hetccl._make_buckets(g_leaves, configs["b"][0].bucket_bytes)
+            oracle["out"] = seen["out"][0]
+            oracle["bound"] = int8_reduction_bound(torch, grads, b_buckets, P)
+            del grads
+        elif name == "b":
+            got, want, bound = seen["out"][0], oracle["out"], oracle["bound"]
+            err = [(g - w).abs() for g, w in zip(got, want)]
+            over = max(float((e - b).max()) for e, b in zip(err, bound))
+            norm_b = float(torch.sqrt(sum((g.double() ** 2).sum() for g in got)))
+            norm_d = float(torch.sqrt(sum((w.double() ** 2).sum() for w in want)))
+            norm_bound = float(torch.sqrt(sum((b.double() ** 2).sum() for b in bound))) / norm_d
+            leaf = [(_rel(g.double(), w.double()), float(b.double().norm() / w.double().norm()),
+                     j) for j, (g, w, b) in enumerate(zip(got, want, bound))]
+            worst = max(leaf)
+            runs["b"]["grads"] = {"norm_rel": abs(norm_b - norm_d) / norm_d,
+                                  "norm_bound": norm_bound, "worst_leaf": worst[2],
+                                  "worst_leaf_rel_l2": worst[0], "worst_leaf_bound": worst[1],
+                                  "elementwise_over": over}
+            print(f"  b vs d, step 0's reduced gradients (rank 0; int8 bound from the codec's "
+                  f"step, int8_reduction_bound): global norm rel diff {abs(norm_b - norm_d) / norm_d:.3e} "
+                  f"(bound {norm_bound:.3e}); worst leaf #{worst[2]} rel L2 {worst[0]:.3e} "
+                  f"(its bound {worst[1]:.3e}); every element within its bound "
+                  f"(largest excess {over:.3e})  {'ok' if over <= 0 else 'FAIL'}")
+            check(over <= 0 and all(r <= b for r, b, _ in leaf)
+                  and abs(norm_b - norm_d) / norm_d <= norm_bound,
+                  "b's reduced gradients stray beyond the int8 bound")
+            del oracle["bound"]
+        elif name == "c":
+            worst, acted = 0.0, False
+            n_leaves = len(seen["in"][0])
+            for j in range(n_leaves):
+                shards = [seen["in"][D * p][j] + seen["in"][D * p + 1][j] for p in range(P)]
+                want, bound = bf16_cross_bound(torch, shards)
+                f32_sum = sum(shards).double()
+                for r in range(m.size):
+                    got = seen["out"][r][j].double()
+                    excess = float(((got - want).abs() - bound).max())
+                    worst = max(worst, float(((got - want).abs() / bound.clamp(min=1e-30)).max()))
+                    check(excess <= 0, f"c: leaf {j} on rank {r} strays beyond the bf16 bound "
+                                       f"by {excess:.3e}")
+                    acted |= bool((got != f32_sum).any())
+            runs["c"]["grads"] = {"worst_over_bound": worst, "bf16_acted": acted}
+            print(f"  c vs the f32-accumulate oracle (each pod's shard rounded to bf16, summed; "
+                  f"bf16_cross_bound), step 0, every rank: worst |c - oracle| / bound "
+                  f"{worst:.3f} (limit 1); the bf16 stage acted: {acted}  "
+                  f"{'ok' if worst <= 1 and acted else 'FAIL'}")
+            check(acted, "c: the reduction equals the f32 sum: the bf16 stage never ran")
+        del seen, state, prog
+        gc.collect()
+        torch.cuda.empty_cache()
+    oracle.clear()
+    for name, r in runs.items():
+        check(all(np.isfinite(r["losses"])), f"{name}: non-finite loss")
+    d0 = runs["d"]["losses"][0]
+    rel_a = abs(runs["a"]["losses"][0] - d0) / d0
+    print(f"  step-0 losses: d {d0:.7f}; b and c equal to d bit for bit: "
+          f"{runs['b']['losses'][0] == runs['c']['losses'][0] == d0}; a (uniform shares, the "
+          f"same tokens) {runs['a']['losses'][0]:.7f}, rel {rel_a:.3e} (limit "
+          f"{PLANNED_STEP0_LOSS_RTOL})")
+    check(runs["b"]["losses"][0] == runs["c"]["losses"][0] == d0, "b's or c's step-0 loss is "
+                                                                  "not d's")
+    check(rel_a <= PLANNED_STEP0_LOSS_RTOL, "a's step-0 loss strays from d's")
+    gaps = [abs(x - y) for x, y in zip(runs["b"]["losses"], runs["d"]["losses"])]
+    print(f"  b's losses against d's: largest gap {max(gaps):.4e} (limit "
+          f"{TRAIN_INT8_LOSS_TOL})  {'ok' if max(gaps) <= TRAIN_INT8_LOSS_TOL else 'FAIL'}")
+    check(max(gaps) <= TRAIN_INT8_LOSS_TOL, "b strays from the oracle beyond the int8 limit")
+    return runs
+
+
 class Counters:
     """The launch counts of every kernel wrapper of the port."""
 
@@ -4139,7 +4629,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core import hetccl, tacc
+    from repro_torch.core import collectives, hetccl, tacc
     from repro_torch.core import mesh as mesh_mod
     from repro_torch.kernels import _build
     from repro_torch.kernels import collective_reduce as cr
@@ -4355,6 +4845,15 @@ def main() -> int:
                                   if not kk.endswith("readings")}},
                           "phase_wall_s": walls, **card}))
 
+    with phase("[31] planned training: smollm-135m at full width on the planner's tables and "
+               "shares, four runs on four ranks", walls):
+        planned = phase_planned_train(torch, np, get_config, build, mesh_mod, hetccl, tacc,
+                                      collectives, ring_dma, counters)
+        print(json.dumps({"planned_train": planned, "phase_wall_s": walls, **card}))
+
+    def planned_launches(key):         # [31]'s runs
+        return {run: v["launches"][key] for run, v in planned.items()}
+
     print("[30] kernels")
     sources = {"collective_reduce": ("collective_reduce.cu",
                                      "src/repro/kernels/collective_reduce.py:84"),
@@ -4388,6 +4887,7 @@ def main() -> int:
             "llama1b_zero3_launches": zero["zero3"]["launches"][kname],
             "ssm_zero3_launches": {a: v["zero3"]["launches"][kname]
                                    for a, v in ssm_train.items()},
+            "planned_launches": planned_launches(kname),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "check": "pass (bitwise)", "cases_checked": n_ring_cases, "shape": t["shape"]})
@@ -4402,6 +4902,7 @@ def main() -> int:
     kernels[0]["dense_launches"] = {a: v["launches"]["flash_attention_fwd"]
                                     for a, v in dense.items()}
     kernels[0]["llama1b_zero3_launches"] = zero["zero3"]["launches"]["flash_attention_fwd"]
+    kernels[0]["planned_launches"] = planned_launches("flash_attention_fwd")
     shape_launches = {"smollm": launches,
                       "mixtral_prefill": moe["serve"]["launches"]["flash_attention_fwd"],
                       "mixtral_window": moe["window"]["launches"]["flash_attention_fwd"],
@@ -4428,6 +4929,7 @@ def main() -> int:
             "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "graph_ms",
             "library_graph_ms")} for label, tt in (("d100", tb100), ("d112", tb112))},
         "zamba2_train_launches": ssm_train[HYBRID_ARCH]["launches"]["flash_attention_bwd"],
+        "planned_launches": planned_launches("flash_attention_bwd"),
         "d112_max_abs_err": flash112_bwd["zamba2_train_d112"]["max_abs_err"],
         "d112_rel_l2": flash112_bwd["zamba2_train_d112"]["rel_l2"]})
     for kname, replaces in (("quant_int8", "src/repro/kernels/quant.py:152"),
@@ -4436,6 +4938,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": "src/repro_torch/kernels/csrc/quant.cu",
             "replaces": replaces, "launches": train_launches[kname], "max_abs_err": 0.0,
+            "planned_launches": planned_launches(kname),
             "check": "pass (bitwise)", "cases_checked": n_quant_cases,
             **{key: val for key, val in t.items() if not key.endswith("_readings")}})
 

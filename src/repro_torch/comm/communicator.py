@@ -4,15 +4,16 @@ Counterpart of ``repro/comm/communicator.py:37-225``.  A
 :class:`Communicator` holds the group identity (``local_axes``, ``pod_axis``,
 pod-major like everything else, DESIGN.md §3) and a **resolved**
 :class:`~repro_torch.comm.policy.PolicyTable` mapping ``(op, size_class) ->
-CommPolicy``.
+CommPolicy``, and the transport binding: the link inventory is bound **at
+creation**, not per call, so a communicator on a degraded island stripes
+over the links that island has (DESIGN.md §11).
 
-Not ported yet: the transport binding (a link inventory that clamps stripes
-to an island's healthy links; one card has no links), the tracer binding
-(ROADMAP A10) and ``deadline_table`` (the elastic slice).
+Not ported yet: the tracer binding and ``deadline_table`` (ROADMAP A10b).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 from repro_torch.comm.policy import (CommPolicy, DEFAULT_SIZE_CLASS_BOUNDS,
                                      PolicyTable, RING_BACKED_OPS)
@@ -61,8 +62,11 @@ class Communicator:
     """A per-group collective context: axes + resolved policy table.
 
     Accepted everywhere an ``HetCCLConfig`` is (the ``cfg`` argument of
-    every ``hetccl`` op, ``hetccl.install``/``use``).  Compares equal to a
-    legacy ``HetCCLConfig`` whose facade compile gives the same table.
+    every ``hetccl`` op, ``hetccl.install``/``use``); ``dataclasses.replace``
+    works on it, e.g. ZeRO-3's pod-only projection ``replace(c,
+    local_axes=())``, which keeps the table and the inventory.  Compares
+    equal to a legacy ``HetCCLConfig`` whose facade compile gives the same
+    table.
     """
 
     local_axes: tuple[str, ...] = ("data",)
@@ -70,6 +74,9 @@ class Communicator:
     table: PolicyTable = PolicyTable()
     bucket_bytes: int = DEFAULT_BUCKET_BYTES
     pipeline_chunk_bytes: int | None = None
+    # transport binding (DESIGN.md §11); identity only: health is mutable
+    # state, not part of the communicator's value
+    inventory: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def _value(self):
         return (self.local_axes, self.pod_axis, self.table,
@@ -118,23 +125,50 @@ def create(local_axes: tuple[str, ...] = ("data",),
            policies=None, default: CommPolicy | None = None,
            bounds: tuple[int, int] = DEFAULT_SIZE_CLASS_BOUNDS,
            bucket_bytes: int = DEFAULT_BUCKET_BYTES,
-           pipeline_chunk_bytes: int | None = None) -> Communicator:
+           pipeline_chunk_bytes: int | None = None,
+           topology_slice=None, link_inventory=None) -> Communicator:
     """Create a communicator for one group (the ``ncclCommInitRank``
-    analogue, DESIGN.md §12): ``table``, or ``policies`` rows
-    ``{(op, size_class) | op: CommPolicy}`` with a ``default``; every row
-    is resolved here."""
+    analogue, DESIGN.md §12).
+
+    Args:
+        local_axes: intra-island mesh axes carrying data parallelism.
+        pod_axis: the island-boundary axis (None on single-island meshes).
+        table: a prebuilt :class:`PolicyTable`; or build one from
+        policies: ``{(op, size_class) | op: CommPolicy}`` rows, with
+        default: the fallback policy (flat/xla when omitted).
+        bounds: size-class boundaries of a table built here.
+        bucket_bytes: gradient fusion bucket size.
+        pipeline_chunk_bytes: alternative channel sizing for pipelined rows.
+        topology_slice: optional ``core.topology.ClusterSpec`` this group
+            runs on; binds the slowest island's link inventory (the
+            endpoint that bounds every cross-island pair, paper §5.2).
+        link_inventory: an explicit ``transport.LinkInventory`` to bind
+            instead.  Stripes are clamped to its *healthy* links here, at
+            creation, not per call (DESIGN.md §11).
+    Returns:
+        A :class:`Communicator` with every table row resolved.
+    """
     if table is None:
         table = PolicyTable.of(policies or {}, default=default, bounds=bounds)
     elif policies is not None or default is not None:
         raise ValueError("pass either table= or policies=/default=, not both")
+    if link_inventory is None and topology_slice is not None:
+        pods = list(getattr(topology_slice, "pods", ()) or ())
+        if pods:
+            slow = min(pods, key=lambda p: topology_slice.effective_link_bw(p))
+            link_inventory = topology_slice.inventory(slow)
+    cap = MAX_STRIPES
+    if link_inventory is not None:
+        cap = min(cap, max(len(link_inventory.healthy_links()), 1))
     resolved = PolicyTable(
-        rows=tuple((k, _resolve_policy(p, pod_axis, MAX_STRIPES, op=k[0]))
+        rows=tuple((k, _resolve_policy(p, pod_axis, cap, op=k[0]))
                    for k, p in table.rows),
-        default=_resolve_policy(table.default, pod_axis, MAX_STRIPES),
+        default=_resolve_policy(table.default, pod_axis, cap),
         bounds=table.bounds)
     return Communicator(local_axes=tuple(local_axes), pod_axis=pod_axis,
                         table=resolved, bucket_bytes=int(bucket_bytes),
-                        pipeline_chunk_bytes=pipeline_chunk_bytes)
+                        pipeline_chunk_bytes=pipeline_chunk_bytes,
+                        inventory=link_inventory)
 
 
 def from_config(cfg) -> Communicator:
@@ -144,3 +178,34 @@ def from_config(cfg) -> Communicator:
                   table=PolicyTable.single(cfg.to_policy()),
                   bucket_bytes=cfg.bucket_bytes,
                   pipeline_chunk_bytes=cfg.pipeline_chunk_bytes)
+
+
+def check_runnable(table: PolicyTable) -> PolicyTable:
+    """Raise ``ValueError``, naming the row, for any row of ``table`` that
+    the port cannot run as written, instead of letting it degrade quietly:
+    a stripe count above ``MAX_STRIPES`` (the most the ring kernels take), a
+    mode the row's op has no TACC registration for, or a ``pallas`` row on
+    an op whose implementation does not take the backend.  The planner's
+    tables pass (their candidates are pruned the same way); the trainer
+    checks ``RunConfig.policies`` with it before creating its communicator.
+    Returns ``table``."""
+    from repro_torch.core import hetccl    # registers the collectives
+    ops = hetccl._SWAPPABLE_OPS
+    for (op, cls), p in table.rows:
+        where = f"policy row ({op!r}, {cls!r}) = {p}"
+        if int(p.n_stripes) > MAX_STRIPES:
+            raise ValueError(f"{where}: {p.n_stripes} stripes, the ring kernels take at "
+                             f"most {MAX_STRIPES}")
+        if p.mode == "auto":
+            continue
+        for o in (ops if op == "*" else (op,)):
+            if p.mode not in tacc.variants(o):
+                raise ValueError(f"{where}: {o} has no {p.mode!r} implementation "
+                                 f"(registered: {tacc.variants(o)})")
+            if p.backend == "pallas" and "backend" not in tacc.policy_fields(o, p.mode):
+                raise ValueError(f"{where}: {o}/{p.mode} does not take a backend, so a "
+                                 "pallas row would run as xla")
+    if int(table.default.n_stripes) > MAX_STRIPES:
+        raise ValueError(f"default policy {table.default}: {table.default.n_stripes} "
+                         f"stripes, the ring kernels take at most {MAX_STRIPES}")
+    return table

@@ -6,7 +6,8 @@ collectives and the HetCCL front door.
     mesh         ThreadMesh / DistMesh: the counterpart of shard_map's axes
     collectives  flat / hier / pipelined collectives, xla rings
     hetccl       HetCCLConfig, install/use, all_reduce ... tree_all_reduce
-
-Balancing, topology and the simulator are not ported yet.
+    balance      per-island micro-batch shares (HetPlan), profiling
+    topology     chips, islands, clusters: what the planner prices
+    simulator    the α-β model the planner prices with
 """
 from repro_torch.core import tacc  # noqa: F401

@@ -8,15 +8,20 @@ one shape, and an island with a smaller share masks its trailing
 micro-steps; gradients are weighted by true token counts, so the math is the
 paper's weighted data parallelism.
 
-Not ported yet: ``plan_from_cluster`` (it needs the topology model) and
-``profile_throughput`` (the short profiling run), ROADMAP A10.
+:func:`plan_from_cluster` seeds the split from the topology model's
+effective FLOP/s, :func:`profile_throughput` measures an island's tokens/s in
+a short profiling run, and :func:`imbalance` scores a plan's straggler
+factor.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import time
+from typing import Callable, Sequence
 
 import numpy as np
+
+from repro_torch.core.topology import ClusterSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,3 +114,63 @@ def uniform_plan(n_pods: int, total_micro: int, micro_batch: int,
         micro_batch=micro_batch,
     )
 
+
+
+def plan_from_cluster(cluster: ClusterSpec, total_micro: int,
+                      micro_batch: int) -> HetPlan:
+    """:func:`make_plan` seeded from the topology model instead of a
+    measured profile: each island's speed is its modeled effective FLOP/s
+    (``topology.PodSpec.effective_flops``), the pre-profiling default the
+    plan autotuner also starts from (``repro_torch.plan``)."""
+    profiles = [PodProfile(p.name, p.effective_flops, p.n_chips)
+                for p in cluster.pods]
+    return make_plan(profiles, total_micro, micro_batch)
+
+
+def profile_throughput(step_fn: Callable[[], object], tokens_per_step: int,
+                       warmup: int = 1, iters: int = 3, *,
+                       device=None) -> tuple[float, float]:
+    """The paper's short profiling run: ``warmup`` steps, then the median of
+    ``iters`` timed steps.
+
+    ``step_fn`` runs one training step of this island.  On a CUDA
+    ``device`` each timed step is bracketed by ``torch.cuda.synchronize``,
+    so the host clock covers the card's work (a step returns before its
+    kernels end); elsewhere the host clock alone.  Returns ``(tokens_per_s,
+    profiling_seconds)``: the speed that seeds :func:`make_plan` (or
+    ``plan.refine``) and the run's whole overhead.
+    """
+    sync = _synchronizer(device)
+    t_start = time.perf_counter()
+    for _ in range(warmup):
+        step_fn()
+    sync()
+    samples = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        step_fn()
+        sync()
+        samples.append(time.perf_counter() - t0)
+    dt = float(np.median(samples))
+    return tokens_per_step / dt, time.perf_counter() - t_start
+
+
+def _synchronizer(device):
+    if device is None:
+        return lambda: None
+    import torch
+    device = torch.device(device)
+    if device.type == "cuda":
+        return lambda: torch.cuda.synchronize(device)
+    return lambda: None
+
+
+def imbalance(plan: HetPlan, profiles: Sequence[PodProfile]) -> float:
+    """Straggler factor of a plan: max_i(b_i/s_i) / mean_i(b_i/s_i).
+
+    1.0 means every island finishes its micro-steps together (the collective
+    never waits); the uniform plan on a 2:1 fleet scores ~1.33.
+    """
+    t = np.array([m / p.tokens_per_s
+                  for m, p in zip(plan.micro_per_pod, profiles)])
+    return float(t.max() / t.mean())

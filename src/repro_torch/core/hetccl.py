@@ -16,19 +16,22 @@ then all-gather on a wavefront across buckets).
 
 Not ported yet: the collective watchdog and the tracer hooks of the
 reference's ``_call`` (``hetccl.py:290-356``); they come with the
-observability and elastic slice (ROADMAP A10).
+observability and elastic slice (ROADMAP A10b).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import threading
 from typing import Any, Sequence
 
 import torch
 
 from repro_torch.comm.communicator import Communicator, from_config
-from repro_torch.comm.policy import CommPolicy, PolicyTable
+from repro_torch.comm.policy import CommPolicy, PolicyTable, size_class
 from repro_torch.core import collectives as _coll
+from repro_torch.core import mesh as _mesh
 from repro_torch.core import tacc
 from repro_torch.core.tree import flatten as _flatten
 from repro_torch.transport.stripe import MAX_STRIPES
@@ -193,16 +196,36 @@ def _payload_bytes(op: str, x, c: Communicator) -> int:
     return nbytes
 
 
+# Calls per collective row, ``(op, size class, variant, CommPolicy) ->
+# calls`` summed over ranks: each rank's call counts once.  The card checks
+# hold it to the rows a training step must reach; ``reset_dispatches``
+# zeroes it.
+_dispatch_lock = threading.Lock()
+dispatches: collections.Counter = collections.Counter()
+
+
+def reset_dispatches() -> None:
+    with _dispatch_lock:
+        dispatches.clear()
+
+
 def _call(op: str, x, cfg, **kw):
     """Resolve this payload's policy from the communicator's table, then let
-    tacc.dispatch map exactly the fields the resolved variant declared."""
+    tacc.dispatch map exactly the fields the resolved variant declared.  The
+    call counts in :data:`dispatches` under its row, which is this thread's
+    current row (``tacc.in_row``) while it runs."""
     c = _as_communicator(cfg)
-    pol = c.policy(op, _payload_bytes(op, x, c))
+    nbytes = _payload_bytes(op, x, c)
+    pol = c.policy(op, nbytes)
     variant = c.variant_for(op, pol)
     if variant == "pipelined" and c.pipeline_chunk_bytes:
         kw.setdefault("pipeline_chunk_bytes", c.pipeline_chunk_bytes)
-    return tacc.dispatch(op, x, c.local_axes, c.pod_axis,
-                         variant=variant, policy=pol, **kw)
+    row = (op, size_class(nbytes, c.table.bounds), variant, pol)
+    with _dispatch_lock:
+        dispatches[row] += 1
+    with tacc.in_row(row):
+        return tacc.dispatch(op, x, c.local_axes, c.pod_axis,
+                             variant=variant, policy=pol, **kw)
 
 
 def all_reduce(x, cfg=None, **kw):
@@ -332,9 +355,10 @@ def tree_all_reduce(tree, cfg=None, *, mean_by=None):
 
     Leaves are new tensors, except for a bucket made by
     :func:`bucket_zeros`: it is reduced in its own buffer, each bucket's
-    result written back before the next bucket's is gathered, and its leaves
-    are returned themselves (the same values, bit for bit; DESIGN_TORCH.md
-    §19).
+    result written back before the next bucket's is gathered (on the
+    all_reduce path, once every rank has issued its reads of every bucket),
+    and its leaves are returned themselves (the same values, bit for bit;
+    DESIGN_TORCH.md §19).
     """
     c = _as_communicator(cfg)
     leaves, rebuild = _flatten(tree)
@@ -376,8 +400,13 @@ def tree_all_reduce(tree, cfg=None, *, mean_by=None):
             (lambda kf: (kf[0], reduce_scatter(kf[1], c, dim=0)),
              lambda ks: written_back(ks[0], all_gather(ks[1], c, dim=0))))
     elif world > 1:
-        reduced = _coll.software_pipeline(
-            indexed, (lambda kf: written_back(kf[0], all_reduce(kf[1], c)),))
+        reduced = _coll.software_pipeline(indexed, (lambda kf: all_reduce(kf[1], c),))
+        if any(donated):
+            # a flat all_reduce reads the peers' buckets by reference
+            # (ThreadMesh.psum): no rank writes its bucket back before every
+            # rank has issued its reads
+            _mesh.barrier()
+            reduced = [written_back(k, red) for k, red in enumerate(reduced)]
     else:
         reduced = flats
 

@@ -107,6 +107,12 @@ class ThreadMesh(_Mesh):
     caller passes ``"cpu"``.  An exception in one rank aborts the barrier, so
     the others raise instead of waiting; :meth:`run` re-raises the first
     rank's own error, and gives up after ``timeout`` seconds.
+
+    ``psum``, ``psum_scatter``, ``all_gather`` and ``all_to_all`` read the
+    peers' tensors by reference, after the exchange: a rank that writes one
+    of its inputs in place after such a collective must first wait for
+    every rank's reads (:meth:`barrier`; on the card the ranks share one
+    stream, so reads enqueued before the barrier run before the write).
     """
 
     def __init__(self, shape: dict[str, int], device="cuda"):
@@ -175,6 +181,10 @@ class ThreadMesh(_Mesh):
         out = list(self._slots)
         self._wait()
         return out
+
+    def barrier(self, rank: int) -> None:
+        """Every rank of the mesh has reached this point."""
+        self._wait()
 
     def rendezvous(self, rank: int, value, launch: Callable[[list], list]):
         """Every rank deposits ``value``; the last to arrive calls
@@ -299,6 +309,10 @@ class DistMesh(_Mesh):
                 w.wait()
         return out
 
+    def barrier(self, rank: int) -> None:
+        """Nothing to wait for: this mesh's collectives copy what they read
+        from the peers (``ThreadMesh.barrier`` orders in-place writes)."""
+
     def _gather(self, rank, x, axes):
         import torch.distributed as dist
         pg, grp = self._ordered(axes)
@@ -363,6 +377,12 @@ def axis_index(axes: Axes) -> int:
 
 def axis_size(axes: Axes) -> int:
     return current()[0].axis_size(axes)
+
+
+def barrier() -> None:
+    """The calling rank waits until every rank of its mesh has come here."""
+    m, r = current()
+    m.barrier(r)
 
 
 def ppermute(x, axis: str, perm):

@@ -24,6 +24,8 @@ exactly those fields onto keyword arguments, and nothing else (DESIGN.md
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import threading
 from typing import Any, Callable, Dict, Tuple
 
@@ -38,6 +40,44 @@ _PLATFORM: str | None = None     # pin; None -> per-call device type
 
 class TaccError(KeyError):
     pass
+
+
+# The collective row a rank's thread is running (set by ``hetccl``'s
+# dispatch for the length of the call) and the kernel launches made under
+# each row, ``(row, kernel) -> launches``: the kernel wrappers count into it
+# where they launch.  A row is ``(op, size class, variant, CommPolicy)``;
+# launches outside any collective (error feedback) count under None.  Read
+# by the card checks; ``reset_row_launches`` zeroes it.
+_row = threading.local()
+_row_lock = threading.Lock()
+row_launches: collections.Counter = collections.Counter()
+
+
+@contextlib.contextmanager
+def in_row(row):
+    """Run the block with ``row`` as this thread's current collective row."""
+    prev = getattr(_row, "row", None)
+    _row.row = row
+    try:
+        yield
+    finally:
+        _row.row = prev
+
+
+def current_row():
+    """This thread's current collective row, or None outside a collective."""
+    return getattr(_row, "row", None)
+
+
+def count_row_launch(kernel: str) -> None:
+    """One launch of ``kernel`` under the calling thread's current row."""
+    with _row_lock:
+        row_launches[(current_row(), kernel)] += 1
+
+
+def reset_row_launches() -> None:
+    with _row_lock:
+        row_launches.clear()
 
 
 def register(op: str, variant: str, *, default: bool = False,

@@ -137,6 +137,7 @@ def wire_quantize_int8(x2):
     _raise_on(err, "quant_int8", lib)
     with _lock:
         quant_launches += 1
+    tacc.count_row_launch("quant_int8")
     return codes, scales
 
 
@@ -172,6 +173,7 @@ def wire_dequant_accum_int8(acc2, codes2, scales):
     _raise_on(err, "dq_accum_int8", lib)
     with _lock:
         dq_launches += 1
+    tacc.count_row_launch("dq_accum_int8")
     return out
 
 

@@ -530,6 +530,7 @@ def reduce_scatter_fused(inputs, rings, *, direction: int = 1, wire_dtype=None,
     _launch(0, _RS_CODE[xs[0].dtype], _RS_CODE[wire], 4, n, c, direction, S, pos,  # f32 partials
             dst, src, xs, outs, check)
     rs_launches += 1
+    tacc.count_row_launch(f"ring_reduce_scatter/S{S}")
     return outs
 
 
@@ -565,6 +566,7 @@ def all_gather_fused(inputs, rings, *, direction: int = 1, n_stripes: int = 1,
         esize = 4 if word == torch.int32 else 2
         _launch(1, esize, 0, esize, n, c, direction, S, pos, dst, src, xs, outs, check)
         ag_launches += 1
+        tacc.count_row_launch(f"ring_all_gather/S{S}")
     return [o.view(torch.uint8).view(dtype).reshape((n,) + shape) for o in outs]
 
 

@@ -1,9 +1,11 @@
 """Training launcher of the port: ZeRO-1 or ZeRO-3 data parallelism over a
-mesh of ranks.
+mesh of ranks, on the plan and policy table HetCCL's planner picks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
-        [--zero 1|3] [--steps 5] [--mode hier] [--backend xla|pallas] \\
-        [--wire-quant int8] [--error-feedback auto|on|off] [--seq 128] \\
+        [--zero 1|3] [--steps 5] [--plan manual|auto] [--policy auto|flat|legacy] \\
+        [--mode hier] [--backend xla|pallas] [--stripes auto|N] \\
+        [--chips h100|v100,w7800|...] [--wire-quant int8] \\
+        [--error-feedback auto|on|off] [--cross-dtype bfloat16] [--seq 128] \\
         [--micro-batch 1] [--n-micro 2] [--mesh-shape 2,2] [--lr 1e-3] \\
         [--seed 0] [--reduced|--full-size] [--device cuda|cpu]
 
@@ -16,6 +18,33 @@ family's router and expert stacks among them; the hybrid's shared block
 once per forward and each group's Mamba2 blocks once per group (a Mamba2
 block's leaves without an "embed" dim stay whole on every rank).
 
+The collective configuration comes from the planner (``repro_torch.plan``,
+DESIGN.md §9, §12), with the reference launcher's flags and defaults:
+
+* ``--policy auto`` (the default): a per-op, size-classed ``PolicyTable``
+  from ``plan.policy_table_for`` on the mesh's modeled cluster
+  (``launch.mesh.cluster_for_mesh``); ``legacy``: the single-policy facade
+  of ``--mode``/``--backend``/``--stripes``; ``flat``: flat everywhere.
+* ``--plan auto``: ``plan.autotune_policies`` (``plan.autotune`` under
+  ``--policy legacy``) picks the mode, backend, channels, stripes, bucket and
+  the per-pod shares of the batch together; the step trains on its
+  ``HetPlan`` and ``run_config``, and the plan is printed
+  (``plan auto: mode=... shares=... modeled_step=...``).  The batch
+  contract (micro-batch x micro-steps) is kept; ``--zero`` is kept.
+* ``--stripes auto`` lets the planner (or, for a manual pallas run,
+  ``transport.plan_stripes``) choose; an integer pins it.
+
+``--chips`` names the chip sheets of ``core.topology`` the mesh's islands
+are priced as (one, or one per pod): ``h100`` (the default: the card the
+ranks run on), ``v100``, ``w7800`` (the paper's testbed), ``mi300x``,
+``v5e``, ``v4``.  Every modeled time is the planner's model of that cluster,
+not a measurement.  The port's own flags compose with the plan: a run-level
+``--wire-quant`` fills only the rows without a codec; ``--cross-dtype``
+fills every row without one, and the planner then searches the rows
+without a codec (a codec row owns its wire format and would take no cross
+dtype); ``--error-feedback auto`` turns error feedback on wherever the
+gradient rows quantize.
+
 The ranks of ``--mesh-shape pod,data`` are threads of this process sharing
 one device (a ``ThreadMesh``).  Runs on the card unless ``--device cpu`` is
 given; with no card it raises.  Weights are random, made from ``--seed``;
@@ -25,21 +54,42 @@ reference's launcher).  Prints loss, tokens and grad norm per step, then
 tokens/s (and the card's peak memory).
 
 Not ported: the reference launcher's checkpoint, elastic, watchdog, trace
-and ``--plan auto`` options (ROADMAP A10).
+and metrics options (ROADMAP A10b).
 """
 import argparse
+import dataclasses
 import time
 
+CHIP_SHEETS = {"h100": "H100_NVLINK", "v100": "V100_PCIE", "w7800": "W7800",
+               "mi300x": "MI300X_XGMI", "v5e": "TPU_V5E", "v4": "TPU_V4"}
 
-def main(argv=None):
+
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--zero", type=int, default=1, choices=[1, 3])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--mode", default="hier")
-    ap.add_argument("--backend", default="xla", choices=["xla", "pallas"])
+    ap.add_argument("--backend", default="xla", choices=["xla", "pallas"],
+                    help="ring backend of the legacy facade; --plan auto and the policy "
+                         "table choose it per row")
+    ap.add_argument("--stripes", default="auto",
+                    help="per-link stripes of the pallas rings: auto = planner-chosen "
+                         "(--plan auto searches it, a manual pallas run asks "
+                         "transport.plan_stripes); an integer pins it")
+    ap.add_argument("--plan", default="manual", choices=["manual", "auto"],
+                    help="auto: repro_torch.plan picks mode/channels/bucket/shares")
+    ap.add_argument("--policy", default="auto", choices=["auto", "flat", "legacy"],
+                    help="auto = per-op, size-classed PolicyTable; legacy = the "
+                         "single-policy facade of --mode/--backend/--stripes; flat = "
+                         "flat everywhere")
+    ap.add_argument("--chips", default="h100",
+                    help=f"chip sheet(s) the islands are priced as, one or one per pod: "
+                         f"{', '.join(CHIP_SHEETS)}")
     ap.add_argument("--wire-quant", default=None, choices=["int8", "fp8"])
     ap.add_argument("--error-feedback", default="auto", choices=["auto", "on", "off"])
+    ap.add_argument("--cross-dtype", default=None, choices=["bfloat16", "float16"],
+                    help="cross-island dtype of the all-reduce (rows without a codec)")
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--micro-batch", type=int, default=1)
     ap.add_argument("--n-micro", type=int, default=2, help="micro-steps per pod")
@@ -49,13 +99,93 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full-size", dest="reduced", action="store_false")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def chip_sheets(names: str):
+    """``--chips``: the ``core.topology`` sheets it names, one per pod or
+    one for every pod."""
+    from repro_torch.core import topology
+    sheets = []
+    for n in names.split(","):
+        if n not in CHIP_SHEETS:
+            raise ValueError(f"--chips {n!r}: expected one of {', '.join(CHIP_SHEETS)}")
+        sheets.append(getattr(topology, CHIP_SHEETS[n]))
+    return sheets[0] if len(sheets) == 1 else sheets
+
+
+def plan_run(args, mesh, cfg):
+    """The launcher's run configuration, shares and plan for ``args`` on
+    ``mesh`` (the reference launcher's ``--plan`` / ``--policy`` /
+    ``--stripes`` semantics, ``repro/launch/train.py:113-166``).
+
+    Returns ``(rc, plan, tp)``: the ``RunConfig``, the ``HetPlan`` of
+    per-pod shares, and the planner's ``TrainPlan`` under ``--plan auto``
+    (else None).
+    """
+    from repro_torch import plan as plan_mod
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.balance import uniform_plan
+    from repro_torch.launch.mesh import cluster_for_mesh, mesh_axis_sizes, resolve_stripes
+    from repro_torch.transport.stripe import MAX_STRIPES
+
+    if args.stripes != "auto" and not 1 <= int(args.stripes) <= MAX_STRIPES:
+        raise ValueError(f"--stripes {args.stripes}: the ring kernels take 1 to "
+                         f"{MAX_STRIPES} stripes")
+    sizes = mesh_axis_sizes(mesh)
+    n_pods, data_axis = sizes.get("pod", 1), sizes.get("data", 1)
+    cluster = cluster_for_mesh(mesh, chip_sheets(args.chips))
+    rc = RunConfig(zero_stage=args.zero,
+                   collective_mode="flat" if args.policy == "flat" else args.mode,
+                   backend=args.backend, wire_quant=args.wire_quant,
+                   error_feedback=args.error_feedback, cross_dtype=args.cross_dtype,
+                   learning_rate=args.lr, seed=args.seed,
+                   # --plan auto searches the count and replaces this
+                   n_stripes=resolve_stripes(args.stripes, args.backend, mesh),
+                   param_dtype="float32" if args.reduced else "bfloat16")
+    space = plan_mod.DEFAULT_SPACE
+    if args.stripes != "auto":
+        space = dataclasses.replace(space, stripe_counts=(int(args.stripes),))
+    if args.cross_dtype:
+        # a codec row owns its wire format and takes no cross dtype
+        # (PolicyTable.with_cross_dtype): with one asked for, the planner
+        # searches the rows without a codec
+        space = dataclasses.replace(space, wire_quants=(None,))
+    if args.plan == "auto":
+        req = plan_mod.plan_request(
+            cluster, cfg, global_batch=args.n_micro * n_pods * args.micro_batch * data_axis,
+            seq_len=args.seq, data_axis=data_axis, zero_stage=args.zero,
+            micro_tokens=args.micro_batch * args.seq)
+        if args.policy == "flat":
+            space = dataclasses.replace(space, modes=("flat",), backends=("xla",),
+                                        per_op=False)
+        elif args.policy == "legacy":
+            space = dataclasses.replace(space, per_op=False)
+        tp = (plan_mod.autotune_policies(req, space) if args.policy == "auto"
+              else plan_mod.autotune(req, space))
+        return tp.run_config(rc), tp.plan, tp
+    plan = uniform_plan(n_pods, args.n_micro * n_pods, args.micro_batch)
+    if args.policy == "auto":
+        rc = dataclasses.replace(rc, policies=plan_mod.policy_table_for(
+            cluster, space, bucket_bytes=rc.bucket_bytes, zero_stage=args.zero))
+    return rc, plan, None
+
+
+def plan_line(tp) -> str:
+    """The reference launcher's ``--plan auto`` line."""
+    n_rows = len(tp.policies.rows) if tp.policies is not None else 0
+    return (f"plan auto: mode={tp.mode} backend={tp.backend} C={tp.n_channels} "
+            f"stripes={tp.n_stripes} bucket={tp.bucket_bytes >> 20}MiB "
+            f"policy_rows={n_rows} shares={tp.plan.micro_per_pod} "
+            f"modeled_step={tp.modeled_step_s:.4f}s")
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
 
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import RunConfig
-    from repro_torch.core.balance import uniform_plan
     from repro_torch.core.mesh import ThreadMesh
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.models import build
@@ -68,16 +198,15 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     model = build(cfg)
-    rc = RunConfig(zero_stage=args.zero, collective_mode=args.mode, backend=args.backend,
-                   wire_quant=args.wire_quant, error_feedback=args.error_feedback,
-                   learning_rate=args.lr, seed=args.seed,
-                   param_dtype="float32" if args.reduced else "bfloat16")
-    plan = uniform_plan(n_pods, args.n_micro * n_pods, args.micro_batch)
+    rc, plan, tp = plan_run(args, mesh, cfg)
+    if tp is not None:
+        print(plan_line(tp), flush=True)
     prog = make_train_program(model, mesh, rc, plan)
     print(f"arch={cfg.name} params={model.n_params():,} zero={rc.zero_stage} mesh={mesh.shape} "
-          f"device={mesh.device} mode={prog.hcfg.resolved_mode()} backend={rc.backend} "
-          f"wire_quant={rc.wire_quant} error_feedback={optim.ef_codec(rc) is not None}",
-          flush=True)
+          f"device={mesh.device} policy={args.policy} mode={prog.comm.resolved_mode()} "
+          f"policy_rows={len(prog.comm.table.rows)} shares={plan.micro_per_pod} "
+          f"wire_quant={rc.wire_quant} cross_dtype={rc.cross_dtype} "
+          f"error_feedback={optim.ef_codec(rc) is not None}", flush=True)
     state = prog.init_fn()
     pipe = DataPipeline(seed=args.seed, plan=plan, dp_world=prog.dp_world(),
                         seq_len=args.seq, vocab=cfg.vocab)

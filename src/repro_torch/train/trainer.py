@@ -100,8 +100,11 @@ def _donated(acc: list, rebuild):
 def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> TrainProgram:
     """The ZeRO-1 or ZeRO-3 program (``rc.zero_stage``) of ``model`` on
     ``mesh`` (axes "pod" and/or "data"), with the communicator built from
-    ``rc``: its policy table when ``rc.policies`` is set, else the
-    single-policy facade."""
+    ``rc``: its policy table when ``rc.policies`` is set (a planner's table;
+    a row the port cannot run raises here, ``comm.check_runnable``), else
+    the single-policy facade.  ``plan``'s shares may be uneven: an island
+    with fewer micro-steps masks the rest, and the loss and gradients weigh
+    by the live tokens."""
     if rc.zero_stage not in (1, 3):
         raise ValueError(f"zero_stage={rc.zero_stage}: the stages are 1 and 3")
     local_axes, pod_axis = _dp_axes_of(mesh)
@@ -114,7 +117,7 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
     hcfg.resolved_mode()        # typos fail at build, not inside a step
     hcfg.resolved_stripes()
     if rc.policies is not None:
-        table = rc.policies
+        table = comm_mod.check_runnable(rc.policies)
         if cross is not None:
             table = table.with_cross_dtype(cross)
         comm = comm_mod.create(local_axes, pod_axis,
