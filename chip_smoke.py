@@ -198,7 +198,7 @@ Phases, in order; any failure exits non-zero before the last line:
    micro-steps of 1 x 4096 tokens a rank, remat, hier, pallas, no codec: the
    step-0 gate (every SSD backward launch against the plain backward of its
    inputs, every d-112 flash backward launch against its plain version),
-   then 3 ZeRO-3 and 3 ZeRO-1 steps from one init and the same batches, the
+   then 2 ZeRO-3 and 2 ZeRO-1 steps from one init and the same batches, the
    counts set to 0 just before each run and read just after: 2 SSD forward
    launches (remat's recompute the second) and 1 backward call per Mamba2
    block, micro-step and rank, 2 flash forward and 1 backward per shared
@@ -243,8 +243,27 @@ Phases, in order; any failure exits non-zero before the last line:
    (d)'s; step 0's reduced gradients of (b) within ``int8_reduction_bound``
    of (d)'s element by element (derived from the codec's step), of (c)
    within ``bf16_cross_bound`` of the f32-accumulate oracle on every rank;
-   per run ms a step, tokens/s, busy share, peak memory and, for the
+   per run ms a step, tokens/s, peak memory, (a)'s busy share and, for the
    planned runs, the planner's modeled step time of the priced cluster;
+32. checkpoints, telemetry and the roofline (runs after [31], before [30]'s
+   line): full-width smollm-135m on (pod=2, data=2) through
+   ``launch.train.run`` on [31]'s flags (its run (a): the default table on
+   H100 islands) with ``--trace``, ``--metrics-out``, ``--ckpt-dir`` and
+   ``--ckpt-every 2``: (a) 4 traced steps, the spans per row equal to
+   ``hetccl.dispatches``, every collective span priced by the model, the
+   Chrome trace and the flight dump valid, ``rows_from_flight`` equal to
+   the tracer's cells, the first calibration rows of the card and the step
+   time with and without ``--trace``; (b) (a)'s 2 steps and their save,
+   then a fresh program that restores it and runs 2 more steps untraced:
+   losses and final state equal to (a)'s 4 straight steps bit for bit; (c) the ZeRO-1 checkpoint restored onto
+   (pod=1, data=2) and a ZeRO-3 state saved on (2, 2) restored onto (pod=1,
+   data=4), params, master and moments equal to the saved full arrays bit
+   for bit; (d) one step counted on the card (CUDA kernels) and on ``meta``
+   (plain versions), equal in dot FLOPs and wire bytes, the one-card
+   roofline terms and MFU of the measured step, and of [31]'s run (a);
+   (e) two dry-run cells (``launch.dryrun.run_cell``): smollm-135m
+   ``train_4k`` on the multi mesh with ``--plan auto``, and mamba2-2.7b's
+   ``decode_32k`` on one card;
 30. a JSON line listing every kernel (the flash forward with its five
    main-path shapes under ``shapes``, the backward's d-100 and d-112
    shapes, the grouped matmul's and the SSD scan's launches per route under
@@ -263,6 +282,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -405,7 +425,9 @@ TRAIN_RUNS = {"int8_ef": dict(backend="pallas", wire_quant="int8"),
 # all-gather (ROADMAP C2); 5 steps at lr 1e-3 from one init.  About 3 times
 # the reading on an H100 (5.25e-2, PERF.md).
 TRAIN_INT8_LOSS_TOL = 0.15
-TRAIN_TIMING_REPS = 2
+# host-clock timing steps a run, in turns after the checked runs (one since
+# [32] joined: the script keeps inside its time limit)
+TRAIN_TIMING_REPS = 1
 
 
 # The MoE slice: full-width mixtral-8x7b cut to 8 of its 32 layers (every
@@ -713,14 +735,15 @@ FLASH_D112_BWD_CASES = [
 # SSM and hybrid training at full width (ROADMAP A7, A7b), ZeRO-3 and
 # ZeRO-1 on a (pod=2, data=2) ThreadMesh, ``uniform_plan(2, 4, 1)``: two
 # micro-steps of 1 x 4096 tokens a rank, 32768 a step; remat, hier, pallas,
-# no codec, bf16 parameters with f32 master state, lr 1e-3, 3 steps a stage
+# no codec, bf16 parameters with f32 master state, lr 1e-3, 2 steps a stage
+# (3 before [32] joined: the script keeps inside its time limit)
 # from one init and the same batches, loss chunks of 1024 tokens.  Depth
 # cut to fit four ranks in 75 GiB: mamba2-2.7b 16 of 64 layers (0.90 B
 # parameters); zamba2-7b 7 of 81 (one group of six Mamba2 blocks, the
 # shared attention block and one tail block, 0.98 B), so the tail path
 # runs.
 SSM_TRAIN = {"mamba2-2.7b": 16, "zamba2-7b": 7}
-SSM_TRAIN_SEQ, SSM_TRAIN_STEPS, SSM_TRAIN_LR, SSM_TRAIN_LOSS_CHUNK = 4096, 3, 1e-3, 1024
+SSM_TRAIN_SEQ, SSM_TRAIN_STEPS, SSM_TRAIN_LR, SSM_TRAIN_LOSS_CHUNK = 4096, 2, 1e-3, 1024
 SSM_TRAIN_MESH, SSM_TRAIN_MICRO = {"pod": 2, "data": 2}, 4
 SSM_TRAIN_PEAK_GIB = 75.0
 # ZeRO-3 against ZeRO-1 at step 0: [22]'s limits on the step losses, the
@@ -768,12 +791,23 @@ PLANNED_RUNS = {"a": [], "b": ["--plan", "auto", "--chips", "v100,w7800"],
                 "c": ["--plan", "auto", "--chips", "v100,w7800", "--cross-dtype", "bfloat16"],
                 "d": ["--policy", "legacy", "--mode", "hier", "--backend", "xla"]}
 # Steps a run (step 0 also keeps the reduced gradients for the gates), and
-# the runs whose card time one more step is profiled for (the default and
-# the planned path): torch.profiler triples the wall of these host-bound
-# steps, so the busy share is that step's card time over step 1's wall,
-# unprofiled, and the other runs' is not measured (it would add ~25 s each).
+# the runs whose card time one more step is profiled for (the default; the
+# planned path's too before [32] joined): torch.profiler triples
+# the wall of these host-bound steps, so the busy share is that step's card
+# time over step 1's wall, unprofiled, and the other runs' is not measured
+# (it adds ~25-35 s a run).
 PLANNED_STEPS = 2
-PLANNED_PROFILED = ("a", "b")
+PLANNED_PROFILED = ("a",)
+
+# [32] checkpoints, telemetry and the roofline (ROADMAP A10c, A10b's
+# checkpoint and observability half): [31]'s run (a) through the launcher,
+# CKPT_STEPS traced steps with a checkpoint every CKPT_EVERY, then the steps
+# after the first save again, in a fresh program restored from it; the
+# reshard targets of (c); and the dry-run cells of (e).
+CKPT_STEPS, CKPT_EVERY = 4, 2
+RESHARD_ZERO1, RESHARD_ZERO3 = {"pod": 1, "data": 2}, {"pod": 1, "data": 4}
+DRYRUN_CELLS = (("smollm-135m", "train_4k", "multi", "auto"),
+                ("mamba2-2.7b", "decode_32k", "single", "manual"))
 # Step 0's loss of a against d's: the same 8192 token losses (a's batch
 # holds d's live micro-batches, pod 0's third moved to pod 1), summed in
 # another grouping over ranks and micro-steps in f32: a few f32 roundings
@@ -4575,6 +4609,238 @@ def phase_planned_train(torch, np, get_config, build, mesh_mod, hetccl, tacc, co
     return runs
 
 
+def _states_equal(torch, a, b) -> bool:
+    """Two trees of tensors and ints equal bit for bit (dtype included)."""
+    from repro_torch.core.tree import leaves
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x == y if not isinstance(x, torch.Tensor) else
+        (x.dtype == y.dtype and x.shape == y.shape and torch.equal(x.to(y.device), y))
+        for x, y in zip(la, lb))
+
+
+def phase_ckpt_obs(torch, np, get_config, build, mesh_mod, hetccl, planned, card,
+                   flags=PLANNED_FLAGS, device="cuda", dryrun_cells=DRYRUN_CELLS):
+    """[32]: the launcher's supervised loop with checkpoints and telemetry,
+    the resharding restore, the step counter on the card, the dry run.
+    ``flags`` and ``device`` let a test run it reduced on the CPU."""
+    import shutil
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.tree import flatten
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as launcher
+    from repro_torch.plan.measured import flight_cells, rows_from_flight
+    from repro_torch.roofline import analysis, hw
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.trainer import make_train_program
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    out = {}
+    try:
+        def run(extra):
+            gc.collect()
+            torch.cuda.empty_cache()
+            hetccl.reset_dispatches()
+            args = launcher.parser().parse_args(flags + ["--device", device] + extra)
+            return launcher.run(args)
+
+        t_part = time.perf_counter()
+
+        def part_done(label):
+            nonlocal t_part
+            print(f"  ({label} took {time.perf_counter() - t_part:.1f} s)")
+            t_part = time.perf_counter()
+
+        # (a) traced
+        a = run(["--steps", str(CKPT_STEPS), "--ckpt-every", str(CKPT_EVERY),
+                 "--ckpt-dir", str(tmp / "a"), "--trace", str(tmp / "trace"),
+                 "--metrics-out", str(tmp / "metrics.jsonl")])
+        disp = Counter(hetccl.dispatches)
+        tel = a["telemetry"]
+        rows = tel.tracer.dispatch_rows()
+        spans = tel.tracer.collective_spans()
+        check(rows == disp, f"(a) spans per row {dict(rows)} differ from hetccl.dispatches")
+        check(all(sp.modeled_s and sp.modeled_s > 0 for sp in spans),
+              "(a) a collective span without a modeled time")
+        obs.load_chrome_trace(tmp / "trace" / "trace.json")
+        (dump_path,) = tel.dump_paths
+        dump = obs.load_dump(dump_path)
+        cal = rows_from_flight(dump)
+        check(set(flight_cells(cal)) == tel.tracer.dispatched_cells(),
+              "(a) rows_from_flight does not reproduce the tracer's cells")
+        (line,) = obs.read_metric_lines(tmp / "metrics.jsonl")
+        in_step = [sp for sp in spans if not sp.tags.get("probe")]
+        print(f"  (a) {len(spans)} collective spans ({len(in_step)} in the steps, "
+              f"{len(spans) - len(in_step)} probes) over {len(rows)} rows, equal to "
+              f"hetccl.dispatches; every span priced; trace, flight dump "
+              f"({dump['n_total']} entries, {dump['dropped']} dropped) and metric line "
+              f"({line['kind']}) valid; rows_from_flight covers the "
+              f"{len(tel.tracer.dispatched_cells())} dispatched cells")
+        print(f"  first calibration rows of the card ({card['nvidia_smi']}; measured = host "
+              f"wall of a dispatch on its rank's thread, enqueue and barrier waits; modeled on "
+              f"H100 islands):")
+        for r in sorted(cal, key=lambda r: (r.op, r.size_class, r.backend))[:8]:
+            print(f"     {r.op:<15} {r.size_class:<7} {r.backend:<7} measured "
+                  f"{r.measured_s * 1e3:9.3f} ms  modeled {r.modeled_s * 1e3:8.4f} ms  "
+                  f"ratio {r.ratio:9.2f}")
+        out["calibration_rows"] = [dataclasses.asdict(r) for r in cal]
+        part_done("a")
+
+        # (b) (a)'s first CKPT_EVERY steps and their save, then a fresh
+        # program that restores that save and runs the rest untraced
+        mid = f"step_{CKPT_EVERY:08d}"
+        (tmp / "b" / mid).mkdir(parents=True)
+        for f in (tmp / "a" / mid).iterdir():
+            os.link(f, tmp / "b" / mid / f.name)
+        b2 = run(["--steps", str(CKPT_STEPS), "--ckpt-every", str(CKPT_EVERY),
+                  "--ckpt-dir", str(tmp / "b")])
+        la = [h["loss"] for h in a["history"]]
+        lb = la[:CKPT_EVERY] + [h["loss"] for h in b2["history"]]
+        same_losses = la == lb
+        same_state = _states_equal(torch, a["state"], b2["state"])
+        print(f"  (b) losses straight {la}; resumed {lb} (steps "
+              f"{[h['step'] for h in b2['history']]} after the restore): equal bit for bit "
+              f"{same_losses}; final states (params, master, moments, EF residuals of every "
+              f"rank) equal bit for bit {same_state}")
+        check(same_losses and same_state, "(b) the resumed run differs from the straight run")
+        traced_ms = statistics.median(h["step_s"] for h in a["history"][1:]) * 1e3
+        plain_ms = statistics.median(h["step_s"] for h in b2["history"][1:]) * 1e3
+        print(f"  step time (host clock, the metrics' read included; after each run's first "
+              f"step): with --trace {traced_ms:.1f} ms (median of {CKPT_STEPS - 1}), without "
+              f"{plain_ms:.1f} ms ({CKPT_STEPS - CKPT_EVERY - 1} step)")
+        out.update(losses=la, traced_step_ms=traced_ms, step_ms=plain_ms)
+        del b2
+        part_done("b")
+
+        # (c) reshard: ZeRO-1's checkpoint, and a ZeRO-3 state, onto other meshes
+        prog_a = a["prog"]
+        cfg = prog_a.model.cfg
+        model = prog_a.model
+        saved_step = ck.latest_step(str(tmp / "a"))
+        # the arrays of (a)'s last save: its final state's (b) read them back
+        saved = ck.StateLayout(prog_a).logical_state(a["state"])
+        check(saved["step"] == saved_step, "(c) the last save is not of the final state")
+
+        def prog_on(shape, extra):
+            m = mesh_mod.ThreadMesh(shape, device=device)
+            args = launcher.parser().parse_args(flags + extra)
+            rc, plan, _ = launcher.plan_run(args, m, cfg)
+            return make_train_program(model, m, rc, plan)
+
+        p1 = prog_on(RESHARD_ZERO1, ["--error-feedback", "off"])
+        r1 = ck.restore(str(tmp / "a"), saved_step, None, p1)
+        got1 = ck.StateLayout(p1).logical_state(r1)
+        ok1 = _states_equal(torch, got1, {**saved, "opt": {k: v for k, v in saved["opt"].items()
+                                                            if k != "ef"}})
+        try:
+            ck.restore(str(tmp / "a"), saved_step, None, prog_on(RESHARD_ZERO1, []))
+            ef_refused = False
+        except ValueError:
+            ef_refused = True
+        del r1, got1
+        p3 = prog_on(PLANNED_MESH, ["--zero", "3", "--error-feedback", "off"])
+        flat = {k: saved["opt"][k] for k in ("m", "v", "master")}
+        pl, rebuild = flatten(saved["params"])
+        tree3 = {"params": saved["params"], "step": saved["step"],
+                 "opt": {k: rebuild([t.reshape(p.shape) for t, p in
+                                     zip(flatten(v)[0], pl)]) for k, v in flat.items()}}
+        s3 = ck.StateLayout(p3).place(tree3)
+        ck.save(str(tmp / "z3"), saved_step, s3, p3)
+        want3 = ck.StateLayout(p3).logical_state(s3)
+        q3 = prog_on(RESHARD_ZERO3, ["--zero", "3", "--error-feedback", "off"])
+        r3 = ck.restore(str(tmp / "z3"), saved_step, None, q3)
+        ok3 = _states_equal(torch, ck.StateLayout(q3).logical_state(r3), want3)
+        print(f"  (c) ZeRO-1 step {saved_step} of (2, 2) onto {RESHARD_ZERO1}: params, master, "
+              f"moments equal to the saved full arrays bit for bit {ok1}; onto the same mesh "
+              f"with error feedback on, refused (the residuals are each rank's own) "
+              f"{ef_refused}; ZeRO-3 saved on (2, 2) onto {RESHARD_ZERO3}: equal bit for bit "
+              f"{ok3}")
+        check(ok1 and ok3 and ef_refused, "(c) a resharded restore differs")
+        del s3, r3, want3, saved, tree3, flat, pl
+        gc.collect()
+        torch.cuda.empty_cache()
+        part_done("c")
+
+        # (d) the counter: a step on the card and the same step on meta
+        prog = a["prog"]
+        seq = int(flags[flags.index("--seq") + 1])
+        pipe_batch = DataPipeline(seed=SEED, plan=prog.plan, dp_world=prog.dp_world(),
+                                  seq_len=seq, vocab=cfg.vocab).batch_at(CKPT_STEPS)
+        with analysis.counting() as on_card:
+            prog.step_fn(a["state"], pipe_batch)
+        del a
+        gc.collect()
+        shape_mesh = mesh_mod.ShapeMesh(PLANNED_MESH)
+        first = {}            # one run for the pods of equal shares
+        shape_mesh.same_pods([first.setdefault(tuple(row), p)
+                              for p, row in enumerate(prog.plan.live_mask())])
+        meta_prog = make_train_program(model, shape_mesh, prog.rc, prog.plan)
+        states_m = meta_prog.init_fn(dryrun.meta_params(model, getattr(torch,
+                                                                       prog.rc.param_dtype)))
+        with analysis.counting() as on_meta:
+            meta_prog.step_fn(states_m, {k: np.zeros_like(v) for k, v in pipe_batch.items()})
+        # meta runs one rank for the pods of equal shares: each card rank
+        # against its pod's stand-in
+        per_pod = shape_mesh.per_pod
+        for r, c in sorted(on_card.ranks.items()):
+            mt = on_meta.ranks[shape_mesh.stand_in[r // per_pod] * per_pod]
+            print(f"  (d) rank {r}'s step counted on the card (CUDA kernels): dot "
+                  f"{c.dot_flops:.6e} FLOP, wire {c.wire_bytes:.6e} B (cross-pod "
+                  f"{c.cross_pod_bytes:.6e}), HBM {c.hbm_bytes:.6e} B; on meta (plain "
+                  f"versions): dot {mt.dot_flops:.6e}, wire {mt.wire_bytes:.6e} (cross-pod "
+                  f"{mt.cross_pod_bytes:.6e}), HBM {mt.hbm_bytes:.6e}")
+            check(c.dot_flops == mt.dot_flops and c.wire_bytes == mt.wire_bytes
+                  and c.cross_pod_bytes == mt.cross_pod_bytes,
+                  f"(d) rank {r}: the card's count differs from meta's in dot FLOPs or wire "
+                  f"bytes")
+        rows_per_step = prog.plan.micro_batch * prog.plan.n_micro_max * prog.dp_world()
+        shape = ShapeConfig("smollm_step", seq, rows_per_step, "train")
+        flops = dryrun.model_flops_spec(cfg, shape)
+        roof = analysis.roofline_of(on_card, arch=ARCH, shape=shape.name, mesh="one card",
+                                    model_flops=flops, shared=True)
+        out["roofline"] = {k: roof.row()[k] for k in (
+            "compute_s", "memory_s", "collective_s", "dominant", "model_flops",
+            "hlo_dot_flops_per_chip", "hbm_bytes_per_chip", "wire_bytes_per_chip",
+            "useful_flops_frac", "roofline_frac")}
+        out["meta_hbm_bytes_rank0"] = on_meta.ranks[0].hbm_bytes
+        out["card_hbm_bytes_rank0"] = on_card.ranks[0].hbm_bytes
+        runs = {"[32]": plain_ms, "[31] a": planned["a"]["median_ms"]}
+        out["mfu"] = {}
+        for label, ms in runs.items():
+            mfu = flops / (hw.H100.peak_flops * ms / 1e3)
+            out["mfu"][label] = mfu
+            print(f"  one-card roofline ({card['nvidia_smi']}; the 4 ranks' sums on "
+                  f"{hw.H100_SHARED.name}): compute {roof.compute_s * 1e3:.3f} ms, memory "
+                  f"{roof.memory_s * 1e3:.3f} ms, collective (HBM) {roof.collective_s * 1e3:.3f} "
+                  f"ms, dominant {roof.dominant}; {label} measured step {ms:.1f} ms; MFU = "
+                  f"model_flops_spec {flops:.4e} / (989e12 x step) = {mfu:.4e}; the step at "
+                  f"{roof.step_s / (ms / 1e3):.4e} of its roofline")
+
+        part_done("d")
+
+        # (e) the dry run
+        out["dryrun"] = {}
+        for arch, shape_name, mesh_kind, plan_mode, *cut in dryrun_cells:
+            t = time.perf_counter()
+            rec = dryrun.run_cell(arch, shape_name, mesh_kind, plan_mode=plan_mode,
+                                  verbose=False, **(cut[0] if cut else {}))
+            check(rec["status"] == "ok", f"(e) dry run {arch} {shape_name} {mesh_kind}: "
+                                         f"{rec.get('error')}")
+            keep = {k: rec[k] for k in ("compute_s", "memory_s", "collective_s", "dominant",
+                                        "roofline_frac", "state_bytes_per_rank",
+                                        "live_peak_bytes", "fits")}
+            out["dryrun"][f"{arch}/{shape_name}/{mesh_kind}"] = keep
+            print(f"  (e) dry run {arch} {shape_name} on {mesh_kind} (plan {plan_mode}): ok in "
+                  f"{time.perf_counter() - t:.1f} s; {keep}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 class Counters:
     """The launch counts of every kernel wrapper of the port."""
 
@@ -4850,6 +5116,11 @@ def main() -> int:
         planned = phase_planned_train(torch, np, get_config, build, mesh_mod, hetccl, tacc,
                                       collectives, ring_dma, counters)
         print(json.dumps({"planned_train": planned, "phase_wall_s": walls, **card}))
+
+    with phase("[32] checkpoints, telemetry and the roofline: smollm-135m at full width "
+               "through the launcher", walls):
+        ckpt_obs = phase_ckpt_obs(torch, np, get_config, build, mesh_mod, hetccl, planned, card)
+        print(json.dumps({"ckpt_obs": ckpt_obs, "phase_wall_s": walls, **card}))
 
     def planned_launches(key):         # [31]'s runs
         return {run: v["launches"][key] for run, v in planned.items()}

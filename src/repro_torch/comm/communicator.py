@@ -8,7 +8,9 @@ CommPolicy``, and the transport binding: the link inventory is bound **at
 creation**, not per call, so a communicator on a degraded island stripes
 over the links that island has (DESIGN.md §11).
 
-Not ported yet: the tracer binding and ``deadline_table`` (ROADMAP A10b).
+The ``tracer`` field pins an ``obs.Tracer`` to the communicator's
+dispatches.  Not ported yet: ``deadline_table``, which comes with the
+watchdog in the elastic slice (ROADMAP A10b).
 """
 from __future__ import annotations
 
@@ -77,6 +79,10 @@ class Communicator:
     # transport binding (DESIGN.md §11); identity only: health is mutable
     # state, not part of the communicator's value
     inventory: Any = dataclasses.field(default=None, compare=False, repr=False)
+    # telemetry binding (DESIGN.md §16): a pinned repro_torch.obs.Tracer
+    # records this group's dispatches, taking precedence over the installed
+    # process tracer; like the inventory, an observer, not identity
+    tracer: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def _value(self):
         return (self.local_axes, self.pod_axis, self.table,

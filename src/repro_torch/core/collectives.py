@@ -114,6 +114,7 @@ def _ring_rs_chunks(chunks, axis: str, direction: int = 1):
     return acc[idx]
 
 
+@tacc.stage("reduce-scatter")
 def ring_reduce_scatter(x, axis: str):
     """x: (n*c, ...) tiled on dim 0 -> this rank's reduced chunk (c, ...)."""
     n = mesh.axis_size(axis)
@@ -122,6 +123,7 @@ def ring_reduce_scatter(x, axis: str):
     return _ring_rs_chunks(chunked(x, n), axis, 1)
 
 
+@tacc.stage("reduce-scatter")
 def ring_reduce_scatter_bidir(x, axis: str):
     """Bidirectional ring reduce-scatter: the payload's two halves travel
     clockwise and counterclockwise in one loop."""
@@ -144,6 +146,7 @@ def ring_reduce_scatter_bidir(x, axis: str):
     return torch.cat([af[idx], ab[idx]], 0)
 
 
+@tacc.stage("reduce-scatter")
 def ring_reduce_scatter_mixed(x, axis: str, wire_dtype=None):
     """Ring reduce-scatter with a narrow wire and f32 accumulation: the
     payload crosses in ``wire_dtype`` (default x.dtype), the accumulator
@@ -175,6 +178,7 @@ def _ring_ag_stack(x, axis: str, direction: int = 1):
     return torch.stack(out, 0)
 
 
+@tacc.stage("all-gather")
 def ring_all_gather(x, axis: str):
     """x: (c, ...) per-rank chunk -> (n*c, ...) rank-major, all ranks equal."""
     n = mesh.axis_size(axis)
@@ -183,6 +187,7 @@ def ring_all_gather(x, axis: str):
     return _ring_ag_stack(x, axis, 1).reshape((n * x.shape[0],) + tuple(x.shape[1:]))
 
 
+@tacc.stage("all-gather")
 def ring_all_gather_bidir(x, axis: str):
     """Bidirectional ring all-gather: each half of every rank's chunk
     circulates in its own direction."""
@@ -207,6 +212,7 @@ def ring_all_gather_bidir(x, axis: str):
     return out.reshape((n * c,) + tuple(x.shape[1:]))
 
 
+@tacc.stage("all-reduce")
 def ring_all_reduce(x, axis: str):
     """Bandwidth-optimal ring all-reduce (reduce-scatter + all-gather)."""
     n = mesh.axis_size(axis)
@@ -701,6 +707,13 @@ class FsdpScope:
         return fsdp_all_gather(x, self.axis, dim, self, (self._index[id(leaf)], layer))
 
     def _all_gather(self, x, key, dim: int):
+        # one all-gather stage over the axis (it may run on autograd's
+        # thread, outside the mesh: the group is given here)
+        return tacc.staged("all-gather", (self.mesh.axis_size(self.axis),
+                                          self.axis == "pod"),
+                           self._gather, x, key, dim)
+
+    def _gather(self, x, key, dim: int):
         if self._peers is None:
             return self.mesh.all_gather(self.rank, x, self.axis, dim, True)
         j, layer = key

@@ -14,9 +14,10 @@ facade, compiled into a one-row table.
 flattened into fixed-size fusion buckets, each reduced as reduce-scatter
 then all-gather on a wavefront across buckets).
 
-Not ported yet: the collective watchdog and the tracer hooks of the
-reference's ``_call`` (``hetccl.py:290-356``); they come with the
-observability and elastic slice (ROADMAP A10b).
+An installed (or communicator-pinned) ``obs.Tracer`` records every
+dispatch as a span (:func:`install_tracer`, the reference's
+``hetccl.py:307-350``).  Not ported yet: the collective watchdog
+(``arm_watchdog``), which comes with the elastic slice (ROADMAP A10b).
 """
 from __future__ import annotations
 
@@ -209,11 +210,39 @@ def reset_dispatches() -> None:
         dispatches.clear()
 
 
+# Telemetry hook (DESIGN.md §16): an installed repro_torch.obs.Tracer records
+# every dispatch as a policy-tagged span; install/uninstall are stack-safe,
+# like the communicator's.
+_TRACER = None
+_TRACER_STACK: list = []
+
+
+def install_tracer(tracer) -> None:
+    """Make ``tracer`` the process dispatch-span recorder.  Stack-safe:
+    :func:`uninstall_tracer` restores whatever was installed before."""
+    global _TRACER
+    _TRACER_STACK.append(_TRACER)
+    _TRACER = tracer
+
+
+def uninstall_tracer() -> None:
+    global _TRACER
+    _TRACER = _TRACER_STACK.pop() if _TRACER_STACK else None
+
+
+def current_tracer():
+    """The tracer observing dispatches, if any (communicator-pinned tracers
+    take precedence inside :func:`_call` itself)."""
+    return _TRACER
+
+
 def _call(op: str, x, cfg, **kw):
     """Resolve this payload's policy from the communicator's table, then let
     tacc.dispatch map exactly the fields the resolved variant declared.  The
     call counts in :data:`dispatches` under its row, which is this thread's
-    current row (``tacc.in_row``) while it runs."""
+    current row (``tacc.in_row``) while it runs; a tracer (pinned to the
+    communicator, else the installed one) records it as a span of that row,
+    so the spans grouped by row equal :data:`dispatches`."""
     c = _as_communicator(cfg)
     nbytes = _payload_bytes(op, x, c)
     pol = c.policy(op, nbytes)
@@ -223,7 +252,12 @@ def _call(op: str, x, cfg, **kw):
     row = (op, size_class(nbytes, c.table.bounds), variant, pol)
     with _dispatch_lock:
         dispatches[row] += 1
-    with tacc.in_row(row):
+    tr = c.tracer if c.tracer is not None else _TRACER
+    if tr is None or not tr.enabled:
+        with tacc.in_row(row):
+            return tacc.dispatch(op, x, c.local_axes, c.pod_axis,
+                                 variant=variant, policy=pol, **kw)
+    with tr.collective(op, nbytes, pol, size_class=row[1], row=row), tacc.in_row(row):
         return tacc.dispatch(op, x, c.local_axes, c.pod_axis,
                              variant=variant, policy=pol, **kw)
 

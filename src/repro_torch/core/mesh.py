@@ -32,6 +32,7 @@ several axes is ordered by those axes' coordinates, the first axis major.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import threading
@@ -39,12 +40,17 @@ from typing import Callable, Sequence
 
 import torch
 
+from repro_torch.core import tacc
 from repro_torch.core.device import resolve_device
 
 Axes = str | Sequence[str]
 
 _tls = threading.local()
 _PROCESS_MESH: "DistMesh | None" = None
+# A context factory ``hook(rank)`` every ThreadMesh rank's thread enters
+# around its function (the step counter installs it while it counts; None
+# otherwise): a thread does not inherit its starter's dispatch mode.
+RANK_HOOK: "Callable | None" = None
 
 
 def _axes_tuple(axes: Axes) -> tuple[str, ...]:
@@ -147,12 +153,15 @@ class ThreadMesh(_Mesh):
         results: list = [None] * self.size
         errors: list = [None] * self.size
 
+        hook = RANK_HOOK
+
         def body(r):
             _tls.mesh, _tls.rank = self, r
             try:
                 if self.device.type == "cuda":
                     torch.cuda.set_device(self.device)
-                results[r] = fn(*(a[r] for a in per_rank))
+                with hook(r) if hook is not None else contextlib.nullcontext():
+                    results[r] = fn(*(a[r] for a in per_rank))
             except BaseException as e:          # noqa: BLE001  (re-raised below)
                 errors[r] = e
                 self._barrier.abort()
@@ -240,6 +249,89 @@ class ThreadMesh(_Mesh):
         parts, me = self._gather(rank, x, axes)
         n = len(parts)
         return torch.cat([p.chunk(n, split_axis)[me] for p in parts], concat_axis)
+
+
+class ShapeMesh(ThreadMesh):
+    """A mesh of ranks on the ``meta`` device that runs one rank per island:
+    the dry run's mesh (``launch.dryrun``).
+
+    Every collective is a shape-only stand-in: it returns a tensor of the
+    shape the real collective would return and reads no peer (there is no
+    data on ``meta``).  So the live ranks need not meet: :meth:`run` runs
+    the first rank of every pod (of every pod whose work differs, after
+    :meth:`same_pods`), one after the other, each on a thread of its own
+    (the per-rank functions read the thread's rank), and gives every rank
+    its pod's result.  Pods differ only in their live micro-steps
+    (``HetPlan.live_mask``), which the step computes all the same.
+    """
+
+    def __init__(self, shape: dict[str, int]):
+        _Mesh.__init__(self, shape)
+        self.device = torch.device("meta")
+        self.per_pod = self.size // self.shape.get("pod", 1)
+        self.stand_in = list(range(self.shape.get("pod", 1)))
+        self.live = [p * self.per_pod for p in range(self.shape.get("pod", 1))]
+
+    def same_pods(self, stand_in: Sequence[int]) -> None:
+        """Run pod ``stand_in[p]``'s rank for pod ``p`` (pods whose work is
+        the same, e.g. equal shares of the batch, need one run)."""
+        self.stand_in = [int(p) for p in stand_in]
+        self.live = [p * self.per_pod for p in sorted(set(self.stand_in))]
+
+    def run(self, fn: Callable, *per_rank: Sequence, timeout: float = 600.0) -> list:
+        for a in per_rank:
+            if len(a) != self.size:
+                raise ValueError(f"{len(a)} inputs for a mesh of {self.size} ranks")
+        out: dict[int, object] = {}
+        hook = RANK_HOOK
+
+        def body(r):
+            _tls.mesh, _tls.rank = self, r
+            try:
+                with hook(r) if hook is not None else contextlib.nullcontext():
+                    out[r] = fn(*(a[r] for a in per_rank))
+            except BaseException as e:          # noqa: BLE001  (re-raised below)
+                out[r] = e
+            finally:
+                _tls.mesh = None
+
+        for r in self.live:
+            t = threading.Thread(target=body, args=(r,), daemon=True, name=f"shape-rank-{r}")
+            t.start()
+            t.join(timeout)
+            if isinstance(out.get(r), BaseException):
+                raise out[r]
+        return [out[self.stand_in[r // self.per_pod] * self.per_pod]
+                for r in range(self.size)]
+
+    def barrier(self, rank: int) -> None:
+        pass
+
+    def rendezvous(self, rank: int, value, launch):
+        raise RuntimeError("a ShapeMesh runs no fused kernel")
+
+    def ppermute(self, rank, x, axis, perm):
+        return torch.empty_like(x)
+
+    def share(self, rank, value, axes):
+        return [value] * self.axis_size(axes)
+
+    def psum(self, rank, x, axes):
+        return x.clone()
+
+    def psum_scatter(self, rank, x, axes, scatter_dimension=0, tiled=False):
+        n = self.axis_size(axes)
+        if tiled:
+            return x.chunk(n, scatter_dimension)[0].clone()
+        return x.select(scatter_dimension, 0).clone()
+
+    def all_gather(self, rank, x, axes, axis=0, tiled=False):
+        parts = [x] * self.axis_size(axes)
+        return torch.cat(parts, axis) if tiled else torch.stack(parts, axis)
+
+    def all_to_all(self, rank, x, axes, split_axis=0, concat_axis=0):
+        n = self.axis_size(axes)
+        return torch.cat([x.chunk(n, split_axis)[0]] * n, concat_axis)
 
 
 class DistMesh(_Mesh):
@@ -385,26 +477,31 @@ def barrier() -> None:
     m.barrier(r)
 
 
+@tacc.stage("collective-permute")
 def ppermute(x, axis: str, perm):
     m, r = current()
     return m.ppermute(r, x, axis, list(perm))
 
 
+@tacc.stage("all-reduce")
 def psum(x, axes: Axes):
     m, r = current()
     return m.psum(r, x, axes)
 
 
+@tacc.stage("reduce-scatter")
 def psum_scatter(x, axes: Axes, *, scatter_dimension: int = 0, tiled: bool = False):
     m, r = current()
     return m.psum_scatter(r, x, axes, scatter_dimension, tiled)
 
 
+@tacc.stage("all-gather")
 def all_gather(x, axes: Axes, *, axis: int = 0, tiled: bool = False):
     m, r = current()
     return m.all_gather(r, x, axes, axis, tiled)
 
 
+@tacc.stage("all-to-all")
 def all_to_all(x, axes: Axes, *, split_axis: int = 0, concat_axis: int = 0):
     m, r = current()
     return m.all_to_all(r, x, axes, split_axis, concat_axis)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import threading
 from typing import Any, Callable, Dict, Tuple
 
@@ -178,7 +179,46 @@ def dispatch(op: str, *args: Any, variant: str | None = None,
     if policy is not None:
         for f in _POLICY_FIELDS.get((op, vname), ()):
             kwargs.setdefault(f, getattr(policy, f))
+    obs = _OBSERVER
+    if obs is not None:
+        return obs.kernel(op, _TABLE[op][vname], args, kwargs)
     return _TABLE[op][vname](*args, **kwargs)
+
+
+# The step counter (``repro_torch.roofline.analysis``) observes two kinds of
+# calls while it counts, and nothing else ever sets ``_OBSERVER``: every
+# :func:`dispatch` (its kernel ops are priced by the function they compute,
+# whichever variant runs) and every collective *stage* (a function marked
+# with :func:`stage`: one reduce-scatter, all-gather, all-reduce, all-to-all
+# or permute over a group of ranks, priced by its payload, whichever
+# schedule or kernel carries it).  With no observer a marked function costs
+# one global read.
+_OBSERVER = None
+
+
+def stage(kind: str):
+    """Mark ``fn(x, axes, ...)`` as one collective stage of ``kind`` (an
+    HLO collective's name: "all-reduce", "reduce-scatter", "all-gather",
+    "all-to-all", "collective-permute") over the mesh axes ``axes``."""
+    def deco(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            obs = _OBSERVER
+            if obs is None:
+                return fn(*args, **kwargs)
+            return obs.stage(kind, fn, args, kwargs)
+        return wrapper
+    return deco
+
+
+def staged(kind: str, group: tuple[int, bool], fn: Callable, *args, **kwargs):
+    """``fn(*args, **kwargs)`` as one collective stage of ``kind`` over
+    ``group`` = (ranks, crosses an island), for a stage whose group is not
+    the mesh axes of its second argument."""
+    obs = _OBSERVER
+    if obs is None:
+        return fn(*args, **kwargs)
+    return obs.stage(kind, fn, args, kwargs, group=group)
 
 
 def table() -> Dict[str, Dict[str, str]]:

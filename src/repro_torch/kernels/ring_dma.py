@@ -624,6 +624,7 @@ def _schedule(op: str) -> str:
 # (direction, wire_dtype, n_stripes) default to the xla rings' behaviour.
 # ---------------------------------------------------------------------------
 
+@tacc.stage("reduce-scatter")
 def ring_reduce_scatter(x, axis: str, *, direction: int = 1, wire_dtype=None,
                         n_stripes: int = 1, wire_quant: str | None = None):
     """x (n*c, ...) tiled on dim 0 -> this rank's reduced chunk (c, ...).
@@ -647,6 +648,7 @@ def ring_reduce_scatter(x, axis: str, *, direction: int = 1, wire_dtype=None,
     return out.to(x.dtype)
 
 
+@tacc.stage("reduce-scatter")
 def ring_reduce_scatter_bidir(x, axis: str, *, wire_dtype=None, n_stripes: int = 1,
                               wire_quant: str | None = None):
     """The payload's halves travel in opposite directions (one ring call per
@@ -677,6 +679,7 @@ def _ag(x, axis, direction, n_stripes, wire_quant=None):
     return tacc.dispatch(op, x, axis, direction, n_stripes, variant=_schedule(op))
 
 
+@tacc.stage("all-gather")
 def ring_all_gather(x, axis: str, *, direction: int = 1, n_stripes: int = 1,
                     wire_quant: str | None = None):
     """x (c, ...) per-rank chunk -> (n*c, ...) rank-major, exactly (no
@@ -689,6 +692,7 @@ def ring_all_gather(x, axis: str, *, direction: int = 1, n_stripes: int = 1,
     return out.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
 
 
+@tacc.stage("all-gather")
 def ring_all_gather_bidir(x, axis: str, *, n_stripes: int = 1,
                           wire_quant: str | None = None):
     """Bidirectional ring all-gather (each half in its own direction)."""
@@ -704,6 +708,7 @@ def ring_all_gather_bidir(x, axis: str, *, n_stripes: int = 1,
     return out.reshape((n * c,) + tuple(x.shape[1:]))
 
 
+@tacc.stage("all-reduce")
 def ring_all_reduce(x, axis: str, *, wire_dtype=None, n_stripes: int = 1,
                     wire_quant: str | None = None):
     """Ring all-reduce (reduce-scatter + all-gather), f32 accumulation,

@@ -6,8 +6,8 @@ Counterpart of the jax-free part of ``repro/launch/mesh.py``
 ``resolve_stripes``), for the port's meshes: a
 :class:`~repro_torch.core.mesh.ThreadMesh` or
 :class:`~repro_torch.core.mesh.DistMesh` (``shape`` a dict of axis sizes,
-``axes``, ``size``; no ``.devices``).  The reference's production and smoke
-JAX-mesh builders have no counterpart here (ROADMAP A10c).
+``axes``, ``size``; no ``.devices``), and the port's production and smoke
+meshes (:func:`make_production_mesh`, :func:`make_smoke_mesh`).
 
 One deliberate departure (DESIGN_TORCH.md §23): ``cluster_for_mesh`` with
 ``chips=None`` models every island as ``topology.H100_NVLINK``, the card the
@@ -16,6 +16,14 @@ Pass ``chips`` to price another fleet (e.g. the paper's V100 + W7800
 testbed) on the same mesh.
 """
 from __future__ import annotations
+
+# The port's production meshes of ranks (DESIGN_TORCH.md §24).  The
+# reference's are (data 16, model 16) and (pod 4, data 8, model 16): 512
+# chips with a model axis.  The port has no model axis, so every chip is a
+# data-parallel rank, and ``TRAIN_4K``'s global batch of 256 sequences takes
+# at most 256 of them (``global_batch % dp == 0``): 256 ranks on one island,
+# or on four islands of 64 (the reference's four islands, each half as big).
+PRODUCTION_SHAPES = {"single": {"data": 256}, "multi": {"pod": 4, "data": 64}}
 
 
 def mesh_axis_sizes(mesh) -> dict[str, int]:
@@ -81,3 +89,19 @@ def resolve_stripes(stripes: str, backend: str, mesh) -> int:
     from repro_torch.transport import auto_stripes
     return auto_stripes(cluster_for_mesh(mesh),
                         RunConfig().bucket_bytes // sizes.get("data", 1))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The port's production mesh, as the dry run sees it: a
+    ``core.mesh.ShapeMesh`` of :data:`PRODUCTION_SHAPES` on ``meta`` (one
+    rank per island runs; the collectives are shape-only)."""
+    from repro_torch.core.mesh import ShapeMesh
+    return ShapeMesh(PRODUCTION_SHAPES["multi" if multi_pod else "single"])
+
+
+def make_smoke_mesh(n_pods: int = 1, data: int = 1, *, device="cuda"):
+    """A small ``ThreadMesh`` (on the card unless ``device="cpu"``): axes
+    ("pod", "data") with more than one pod, else ("data",)."""
+    from repro_torch.core.mesh import ThreadMesh
+    shape = {"pod": n_pods, "data": data} if n_pods > 1 else {"data": data}
+    return ThreadMesh(shape, device=device)

@@ -7,7 +7,8 @@ mesh of ranks, on the plan and policy table HetCCL's planner picks.
         [--chips h100|v100,w7800|...] [--wire-quant int8] \\
         [--error-feedback auto|on|off] [--cross-dtype bfloat16] [--seq 128] \\
         [--micro-batch 1] [--n-micro 2] [--mesh-shape 2,2] [--lr 1e-3] \\
-        [--seed 0] [--reduced|--full-size] [--device cuda|cpu]
+        [--seed 0] [--reduced|--full-size] [--device cuda|cpu] \\
+        [--ckpt-dir DIR] [--ckpt-every 25] [--trace DIR] [--metrics-out PATH]
 
 ``--arch`` takes every architecture of the port (``configs.ARCH_IDS`` and
 the paper's models, ``configs.PAPER_IDS``): dense, MoE, and the SSM and
@@ -51,14 +52,28 @@ given; with no card it raises.  Weights are random, made from ``--seed``;
 the data is the deterministic synthetic stream of ``data.pipeline``.  Full
 size trains in bf16 parameters with f32 master state, reduced in f32 (as the
 reference's launcher).  Prints loss, tokens and grad norm per step, then
-tokens/s (and the card's peak memory).
+tokens/s over the steps' own time (and the card's peak memory).
 
-Not ported: the reference launcher's checkpoint, elastic, watchdog, trace
-and metrics options (ROADMAP A10b).
+As in the reference, the steps run under ``train.ft.run_supervised``: a
+checkpoint of the full logical state at step 0 (of a fresh run), then every
+``--ckpt-every`` steps and at the end; a run whose ``--ckpt-dir`` holds
+checkpoints resumes from the latest, on a mesh of any size
+(``train.checkpoint``).
+``--trace DIR`` / ``--metrics-out PATH`` install ``obs.Telemetry``: every
+collective of every rank becomes a span with the simulator's modeled time on
+the ``--chips`` cluster, the policy rows are probed between steps, and the
+run writes ``trace.json``, ``metrics.json``, ``report.txt`` and the metric
+line.
+
+Not ported yet: the reference launcher's ``--elastic``, ``--chaos`` and
+``--watchdog`` (ROADMAP A10b).
 """
 import argparse
 import dataclasses
-import time
+
+# flight-recorder ring of a traced run: a full-width step of four ranks
+# dispatches a few hundred collectives, and the end-of-run dump keeps them all
+FLIGHT_CAPACITY = 1 << 16
 
 CHIP_SHEETS = {"h100": "H100_NVLINK", "v100": "V100_PCIE", "w7800": "W7800",
                "mi300x": "MI300X_XGMI", "v5e": "TPU_V5E", "v4": "TPU_V4"}
@@ -99,6 +114,18 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full-size", dest="reduced", action="store_false")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory; a run resumes from its latest step (default: "
+                         "a temporary directory, removed at the end)")
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="telemetry plane (repro_torch.obs): record every collective "
+                         "dispatch as a policy-tagged span with its modeled time, probe "
+                         "every policy row between steps, and write trace.json, "
+                         "metrics.json, report.txt and flight dumps to DIR")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="append a unified-schema metric line (the fleet snapshot) to "
+                         "this JSONL file at the end of the run")
     return ap
 
 
@@ -180,16 +207,26 @@ def plan_line(tp) -> str:
             f"modeled_step={tp.modeled_step_s:.4f}s")
 
 
-def main(argv=None):
-    args = parser().parse_args(argv)
+def run(args) -> dict:
+    """Train as ``args`` say: the reference launcher's supervised loop
+    (``ft.run_supervised``; a fresh run's checkpoint at step 0, then every
+    ``--ckpt-every`` steps and at the end; a restart resumes from the
+    latest), with the telemetry plane under ``--trace`` / ``--metrics-out``.
+    Returns ``{"prog", "state", "history", "telemetry"}``: the program, its
+    final per-rank states, ``run_supervised``'s history and the telemetry
+    bundle (None without ``--trace`` / ``--metrics-out``)."""
+    import shutil
+    import tempfile
 
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core.mesh import ThreadMesh
     from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.mesh import cluster_for_mesh
     from repro_torch.models import build
-    from repro_torch.train import optim
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import ft, optim
     from repro_torch.train.trainer import make_train_program
 
     n_pods, n_data = (int(x) for x in args.mesh_shape.split(","))
@@ -210,25 +247,66 @@ def main(argv=None):
     state = prog.init_fn()
     pipe = DataPipeline(seed=args.seed, plan=plan, dp_world=prog.dp_world(),
                         seq_len=args.seq, vocab=cfg.vocab)
+    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_torch_train_ckpt_")
+    start = ck.latest_step(ckpt_dir)          # a run resumes from the latest
+    fresh = start is None
+    if fresh:
+        start = 0
+        ck.save(ckpt_dir, 0, state, prog, blocking=False)
     cuda = mesh.device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(mesh.device)
-    tokens = 0
-    t0 = time.perf_counter()
-    hist = []
-    for step in range(args.steps):
-        state, m = prog.step_fn(state, pipe.batch_at(step))
-        loss, tok, gn = m["loss"].item(), int(m["tokens"].item()), m["grad_norm"].item()
-        tokens += tok
-        hist.append(loss)
-        print(f"step {step:4d}  loss {loss:.4f}  tokens {tok}  grad_norm {gn:.3f}",
-              flush=True)
-    dt = time.perf_counter() - t0
+
+    def log(step, m):
+        print(f"step {step:4d}  loss {m['loss']:.4f}  tokens {int(m['tokens'])}  "
+              f"grad_norm {m['grad_norm']:.3f}", flush=True)
+
+    telemetry, cb = None, log
+    if args.trace or args.metrics_out:
+        from repro_torch import obs
+        telemetry = obs.Telemetry(cluster=cluster_for_mesh(mesh, chip_sheets(args.chips)),
+                                  out_dir=args.trace, device=args.device,
+                                  capacity=FLIGHT_CAPACITY)
+        telemetry.bind(comm=prog.comm)
+        telemetry.install()
+        telemetry.tracer.set_step(start)
+
+        def cb(step, m):
+            telemetry.on_step(step, m, dur_s=m.get("step_s"))
+            telemetry.probe_step(step)
+            telemetry.tracer.set_step(step + 1)     # the next step's dispatches
+            log(step, m)
+    try:
+        state, hist = ft.run_supervised(
+            prog.step_fn, state, pipe.batch_at, ckpt_dir=ckpt_dir,
+            ckpt_every=args.ckpt_every, n_steps=args.steps, layout=prog,
+            start_step=0 if fresh else None,   # a fresh run trusts its init
+            monitor=ft.StragglerMonitor(), metrics_cb=cb)
+    finally:
+        if telemetry is not None:
+            telemetry.uninstall()
+        if not args.ckpt_dir:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if telemetry is not None:
+        telemetry.dump_postmortem("end", step=args.steps)   # the run's flight record
+        paths = telemetry.write(metrics_out=args.metrics_out)
+        paths.update({f"flight {i}": p for i, p in enumerate(telemetry.dump_paths)})
+        print(telemetry.step_report())
+        for k, path in paths.items():
+            print(f"telemetry {k}: {path}")
+    tokens = sum(int(h["tokens"]) for h in hist)
+    dt = sum(h["step_s"] for h in hist)
     peak = (f", peak memory {torch.cuda.max_memory_allocated(mesh.device) / 2**30:.2f} GiB"
             if cuda else "")
-    print(f"done: loss {hist[0]:.4f} -> {hist[-1]:.4f}, {tokens} tokens in {dt:.2f} s "
-          f"({tokens / dt:.1f} tokens/s){peak}")
-    return hist
+    if hist:
+        print(f"done: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, {tokens} tokens "
+              f"in {dt:.2f} s ({tokens / dt:.1f} tokens/s){peak}")
+    return {"prog": prog, "state": state, "history": hist, "telemetry": telemetry}
+
+
+def main(argv=None):
+    """The launcher's command line; returns the losses of the steps run."""
+    return [h["loss"] for h in run(parser().parse_args(argv))["history"]]
 
 
 if __name__ == "__main__":

@@ -63,7 +63,9 @@ class TrainProgram:
     batch)`` takes the global batch (``batch_shape(seq)`` int arrays
     "tokens" and "labels", numpy or torch) and returns ``(state, metrics)``
     with the metrics ("loss", "grad_norm", "tokens") as 0-dim tensors,
-    equal on every rank.  ``comm`` is the program's communicator.
+    equal on every rank.  ``comm`` is the program's communicator;
+    ``fsdp_dims`` the dim of each parameter leaf (flatten order) sharded over
+    "data", None where it is whole on every rank (ZeRO-1: all None).
     """
 
     model: Model
@@ -74,6 +76,7 @@ class TrainProgram:
     comm: comm_mod.Communicator
     step_fn: Callable
     init_fn: Callable
+    fsdp_dims: list | None = None
 
     def batch_shape(self, seq_len: int) -> tuple[int, int, int]:
         return (self.plan.n_micro_max, self.plan.micro_batch * self.dp_world(), seq_len)
@@ -228,4 +231,4 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
         return mesh.run(rank_step, state, rank_batch(batch, mesh.rank))
 
     return TrainProgram(model=model, mesh=mesh, rc=rc, plan=plan, hcfg=hcfg, comm=comm,
-                        step_fn=step_fn, init_fn=init_fn)
+                        step_fn=step_fn, init_fn=init_fn, fsdp_dims=dims)

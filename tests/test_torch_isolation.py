@@ -63,6 +63,23 @@ from repro_torch.train import optim, trainer
 hist = train.main(["--device", "cpu", "--steps", "1", "--seq", "16", "--backend", "pallas",
                    "--wire-quant", "int8"])
 assert len(hist) == 1
+import tempfile
+from repro_torch import obs
+from repro_torch.launch import dryrun
+from repro_torch.roofline import analysis
+from repro_torch.train import checkpoint, ft
+tmp = tempfile.mkdtemp()
+out = train.run(train.parser().parse_args(["--device", "cpu", "--steps", "2", "--seq", "16",
+                                           "--trace", tmp + "/trace", "--ckpt-dir",
+                                           tmp + "/ckpt", "--ckpt-every", "1"]))
+assert out["telemetry"].tracer.dispatch_rows() and checkpoint.latest_step(tmp + "/ckpt") == 2
+obs.load_chrome_trace(tmp + "/trace/trace.json")
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+rec = dryrun.run_cell("smollm-135m", "train_4k", "multi", verbose=False,
+                      cfg=get_config("smollm-135m").reduced(),
+                      shape_cfg=ShapeConfig("train_256", 256, 256, "train"))
+assert rec["status"] == "ok" and rec["hlo_dot_flops_per_chip"] > 0, rec
 print(json.dumps(sorted(m for m in sys.modules if re.match(r"{FOREIGN}", m))))
 """
 
