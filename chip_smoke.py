@@ -243,8 +243,10 @@ Phases, in order; any failure exits non-zero before the last line:
    (d)'s; step 0's reduced gradients of (b) within ``int8_reduction_bound``
    of (d)'s element by element (derived from the codec's step), of (c)
    within ``bf16_cross_bound`` of the f32-accumulate oracle on every rank;
-   per run ms a step, tokens/s, peak memory, (a)'s busy share and, for the
-   planned runs, the planner's modeled step time of the priced cluster;
+   per run ms a step, tokens/s, peak memory and, for the planned runs, the
+   planner's modeled step time of the priced cluster (the busy share of a
+   profiled step only for the runs in ``PLANNED_PROFILED``, none since
+   [33] joined);
 32. checkpoints, telemetry and the roofline (runs after [31], before [30]'s
    line): full-width smollm-135m on (pod=2, data=2) through
    ``launch.train.run`` on [31]'s flags (its run (a): the default table on
@@ -264,16 +266,37 @@ Phases, in order; any failure exits non-zero before the last line:
    (e) two dry-run cells (``launch.dryrun.run_cell``): smollm-135m
    ``train_4k`` on the multi mesh with ``--plan auto``, and mamba2-2.7b's
    ``decode_32k`` on one card;
+33. the elastic control plane (runs after [32], before [30]'s line):
+   full-width smollm-135m on (pod=2, data=2) through ``launch.train.run``
+   with ``--elastic --watchdog`` on [31]'s flags and the fused rings
+   (``ELASTIC_FLAGS``), two runs of ``ELASTIC_STEPS`` (3) steps from one
+   init: (a) ZeRO-3, a collective stall at step 1 (the watchdog's ladder:
+   retry, retry, a rebuilt communicator on both pods), pod 1 lost at step 2
+   and recovered from pod 0's ranks alone (pod 1's states overwritten with
+   NaN first): checkpointless, the survivor program without a "pod" axis,
+   steps 0-1 equal to an uninterrupted ``ft.run_supervised`` and step 2 to
+   the survivor program stepped from that run's step-2 state, bit for bit;
+   (b) ZeRO-1 with a checkpoint every 2 steps, pod 1 lost at step 2: the
+   flat optimizer shards gone with it, the step-2 checkpoint restored onto
+   the survivors, step 2 equal to that checkpoint restored onto the
+   survivor program and stepped, bit for bit.  Each run's launches of the flash
+   forward and backward and the fused ring reduce-scatter and all-gather
+   equal what its layers, leaves, buckets, gathers and steps imply
+   (``elastic_launches``); ms a step on 4 and on 2 ranks, each recovery's
+   wall time and each rebuild's modeled recovery times (the simulator's, of
+   the H100 islands);
 30. a JSON line listing every kernel (the flash forward with its five
    main-path shapes under ``shapes``, the backward's d-100 and d-112
    shapes, the grouped matmul's and the SSD scan's launches per route under
    ``routes``, the grouped matmul's backward products with their routes'
    launches in the MoE training run, the SSD backward with its three
    launches under ``stages`` and its launches in [28], and every kernel's
-   launches in [31]'s runs under ``planned_launches``);
+   launches in [31]'s runs under ``planned_launches`` and in [33]'s under
+   ``elastic_launches``);
 32. the last line, ``{"ok": true, "device": {...}}``.
 
-Each phase prints its wall time.
+Each phase prints its wall time.  ``phase_ckpt_obs`` and ``phase_elastic``
+take ``flags`` and ``device``, so the tests run them reduced on the CPU.
 
 It needs the repository around it: run alone, or where
 ``torch.cuda.is_available()`` is false, it exits non-zero and prints no result.
@@ -417,13 +440,15 @@ BWD_CASES = [
 QUANT_ROWS = [("one_row", 1, "randn"), ("seven_rows", 7, "randn"), ("zero_chunks", 1000, "zeros"),
               ("half_way", 600, "half"), ("nan_chunk", 300, "nan"), ("wide_range", 5000, "randn")]
 
-TRAIN_SEQ, TRAIN_MICRO_BATCH, TRAIN_STEPS, TRAIN_LR = 512, 2, 5, 1e-3
+TRAIN_SEQ, TRAIN_MICRO_BATCH, TRAIN_STEPS, TRAIN_LR = 512, 2, 3, 1e-3
 TRAIN_RUNS = {"int8_ef": dict(backend="pallas", wire_quant="int8"),
               "pallas": dict(backend="pallas"), "xla": dict(backend="xla")}
 # The int8 run's final loss against the run without a codec, absolute.  The
 # codec quantizes the gradients (with error feedback) and the parameter
-# all-gather (ROADMAP C2); 5 steps at lr 1e-3 from one init.  About 3 times
-# the reading on an H100 (5.25e-2, PERF.md).
+# all-gather (ROADMAP C2); TRAIN_STEPS steps at lr 1e-3 from one init (5
+# until [33] joined: the script keeps inside its time limit).  About 3 times
+# the reading on an H100 after 5 steps (5.25e-2, PERF.md); after 3 it read
+# 4.48e-2.
 TRAIN_INT8_LOSS_TOL = 0.15
 # host-clock timing steps a run, in turns after the checked runs (one since
 # [32] joined: the script keeps inside its time limit)
@@ -791,13 +816,12 @@ PLANNED_RUNS = {"a": [], "b": ["--plan", "auto", "--chips", "v100,w7800"],
                 "c": ["--plan", "auto", "--chips", "v100,w7800", "--cross-dtype", "bfloat16"],
                 "d": ["--policy", "legacy", "--mode", "hier", "--backend", "xla"]}
 # Steps a run (step 0 also keeps the reduced gradients for the gates), and
-# the runs whose card time one more step is profiled for (the default; the
-# planned path's too before [32] joined): torch.profiler triples
-# the wall of these host-bound steps, so the busy share is that step's card
-# time over step 1's wall, unprofiled, and the other runs' is not measured
-# (it adds ~25-35 s a run).
+# the runs whose card time one more step is profiled for (the default's
+# until [33] joined, and the planned path's before [32] did): torch.profiler
+# triples the wall of these host-bound steps, so the busy share is that
+# step's card time over step 1's wall, unprofiled; it adds ~25-35 s a run.
 PLANNED_STEPS = 2
-PLANNED_PROFILED = ("a",)
+PLANNED_PROFILED = ()
 
 # [32] checkpoints, telemetry and the roofline (ROADMAP A10c, A10b's
 # checkpoint and observability half): [31]'s run (a) through the launcher,
@@ -808,6 +832,19 @@ CKPT_STEPS, CKPT_EVERY = 4, 2
 RESHARD_ZERO1, RESHARD_ZERO3 = {"pod": 1, "data": 2}, {"pod": 1, "data": 4}
 DRYRUN_CELLS = (("smollm-135m", "train_4k", "multi", "auto"),
                 ("mamba2-2.7b", "decode_32k", "single", "manual"))
+# [33] the elastic control plane (ROADMAP A10b): [31]'s flags on the fused
+# rings (hier, pallas: every ring kernel on the path, no codec, so no EF,
+# whose residuals would bar a checkpointless recovery) under --elastic
+# --watchdog, ELASTIC_STEPS steps a run.  (b) loses its pod where its
+# last checkpoint stands, so no step runs twice (4 steps and a loss at 3
+# took ~30 s more on a slow host).
+ELASTIC_STEPS = 3
+ELASTIC_FLAGS = ["--policy", "legacy", "--mode", "hier", "--backend", "pallas", "--elastic",
+                 "--watchdog", "--steps", str(ELASTIC_STEPS)]
+ELASTIC_RUNS = {"a": ["--zero", "3", "--chaos", "hang:pod0@1;kill:pod1@2"],
+                "b": ["--zero", "1", "--ckpt-every", "2", "--chaos", "kill:pod1@2"]}
+ELASTIC_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "ring_reduce_scatter",
+                   "ring_all_gather")
 # Step 0's loss of a against d's: the same 8192 token losses (a's batch
 # holds d's live micro-batches, pod 0's third moved to pod 1), summed in
 # another grouping over ranks and micro-steps in f32: a few f32 roundings
@@ -4841,6 +4878,214 @@ def phase_ckpt_obs(torch, np, get_config, build, mesh_mod, hetccl, planned, card
     return out
 
 
+def elastic_launches(zero, n_layers, n_leaves, n_buckets, gathers, segments):
+    """The launches an elastic run of [33] implies, from its segments
+    ``[(ranks, micro-steps a rank, steps, has a pod axis)]``: the flash
+    forward twice per layer and micro-step on every rank (remat), the
+    backward once; under hier/pallas the fused rings run the cross-pod stage
+    (one launch for every rank), so a survivor mesh without a pod axis
+    launches them only in ZeRO-3's fsdp adjoint (one reduce-scatter over
+    "data" per gathered key and micro-step).  ZeRO-3 all-reduces each leaf
+    across the pods (one reduce-scatter and one all-gather); ZeRO-1
+    reduce-scatters and gathers each bucket and gathers each parameter."""
+    out = dict.fromkeys(ELASTIC_KERNELS, 0)
+    for ranks, n_micro, steps, pod in segments:
+        out["flash_attention_fwd"] += 2 * n_layers * n_micro * ranks * steps
+        out["flash_attention_bwd"] += n_layers * n_micro * ranks * steps
+        if zero == 3:
+            out["ring_reduce_scatter"] += (gathers * n_micro + (n_leaves if pod else 0)) * steps
+            out["ring_all_gather"] += (n_leaves if pod else 0) * steps
+        elif pod:
+            out["ring_reduce_scatter"] += n_buckets * steps
+            out["ring_all_gather"] += (n_buckets + n_leaves) * steps
+    return out
+
+
+def phase_elastic(torch, np, mesh_mod, hetccl, counters, card, flags=PLANNED_FLAGS,
+                  device="cuda"):
+    """[33]: the elastic loop through the launcher, a hang and a pod loss
+    under ZeRO-3 and a pod loss under ZeRO-1 (``ELASTIC_RUNS``).  ``flags``
+    and ``device`` let a test run it reduced on the CPU, with a ``counters``
+    that counts there."""
+    import math
+    import shutil
+    import tempfile
+
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.elastic import recover as recover_mod
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import ft
+    from repro_torch.train.trainer import make_train_program
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_elastic_"))
+    out = {}
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    def batches(p, args):
+        cfg = p.model.cfg
+        return DataPipeline(seed=args.seed, plan=p.plan, dp_world=p.dp_world(),
+                            seq_len=args.seq, vocab=cfg.vocab).batch_at
+
+    def losses_of(hist):
+        return [h["loss"] for h in hist]
+
+    def stepped(p, state, args, start):
+        """``p`` stepped from ``state`` over steps start.. with the run's
+        batches: the losses (no checkpoint written)."""
+        losses, batch_at = [], batches(p, args)
+        for s in range(start, ELASTIC_STEPS):
+            state, met = p.step_fn(state, batch_at(s))
+            losses.append(met["loss"].item())
+        return losses
+
+    try:
+        for name, extra in ELASTIC_RUNS.items():
+            gc.collect()
+            if device != "cpu":
+                torch.cuda.empty_cache()
+            args = launcher.parser().parse_args(
+                flags + ELASTIC_FLAGS + extra + ["--device", device, "--ckpt-dir",
+                                                 str(tmp / name)])
+            recoveries = []
+            real = recover_mod.recover_state
+
+            def nan_then_recover(state, step, new_prog, dead, **kw):
+                # the lost pod's ranks to NaN, so a read of them would show;
+                # they share no storage with a live rank
+                live = {t.untyped_storage().data_ptr() for r, st in enumerate(state)
+                        if r not in dead for t in leaves(st) if isinstance(t, torch.Tensor)}
+                for r in dead:
+                    for t in leaves(state[r]):
+                        if isinstance(t, torch.Tensor) and t.is_floating_point():
+                            check(t.untyped_storage().data_ptr() not in live,
+                                  f"({name}) a lost rank's tensor shares a live rank's storage")
+                            t.fill_(float("nan"))
+                sync()
+                t0 = time.perf_counter()
+                rec = real(state, step, new_prog, dead, **kw)
+                sync()
+                recoveries.append({"wall_s": time.perf_counter() - t0, "dead": list(dead),
+                                   "method": rec.method})
+                return rec
+
+            counters.reset()
+            t_run = time.perf_counter()
+            with patched(recover_mod, "recover_state", nan_then_recover):
+                res = launcher.run(args)
+            wall = time.perf_counter() - t_run
+            launches = counters.read()
+            report, sprog = res["report"], res["prog"]
+            prog0 = None
+            hist = report.history
+            lost_at = report.recoveries[0].step if report.recoveries else None
+            steps_ms = [(h["step"], 4 if h["step"] < lost_at else 2, h["step_s"] * 1e3)
+                        for h in hist]
+            print(f"  ({name}) {' '.join(extra)}: losses {['%.6f' % x for x in losses_of(hist)]}; "
+                  f"ms a step (host clock, the metrics' read included; step, ranks, ms) "
+                  f"{[(s, r, round(ms, 1)) for s, r, ms in steps_ms]} ({card['nvidia_smi']}); "
+                  f"run wall {wall:.1f} s")
+            for ev in report.hang_events:
+                print(f"     hang: {ev.op}/{ev.size_class} at step {ev.step} (pod {ev.pod}), "
+                      f"elapsed {ev.elapsed_s}, deadline {ev.deadline_s:.4e} s (modeled), "
+                      f"breach #{ev.breaches} -> {ev.action}")
+            for r in report.rebuilds:
+                print(f"     epoch {r.epoch}: {r.event.kind}:{r.event.pod} at step {r.event.step} "
+                      f"-> pods {[p.name for p in r.cluster.pods]} shares {r.plan.micro_per_pod}; "
+                      f"modeled (simulator, H100 islands, {r.state_bytes / 1e9:.3f} GB of state) "
+                      f"checkpointless {r.modeled_checkpointless_s:.4f} s, checkpoint "
+                      f"{r.modeled_checkpoint_s:.4f} s")
+            for rec, seen in zip(report.recoveries, recoveries):
+                print(f"     recovery: {rec.method} at step {rec.step}, lost ranks "
+                      f"{seen['dead']} (NaN), wall {seen['wall_s']:.3f} s (measured)"
+                      + (f"; missing {len(rec.missing)} leaves, all under ['opt']"
+                         if rec.missing else ""))
+            check([h["step"] for h in hist] == list(range(ELASTIC_STEPS)),
+                  f"({name}) history steps {[h['step'] for h in hist]}")
+            check(all(np.isfinite(losses_of(hist))), f"({name}) a non-finite loss")
+            check("pod" not in sprog.mesh.axes and sprog.mesh.size == 2,
+                  f"({name}) the final mesh is {sprog.mesh.shape}")
+            check([s["dead"] for s in recoveries] == [[2, 3]],
+                  f"({name}) the recoveries lost {[s['dead'] for s in recoveries]}")
+            # what the run's leaves, buckets, gathers and steps imply
+            model = sprog.model
+            metas = model.abstract_params()
+            g_leaves = [torch.empty(t.shape, dtype=torch.float32, device="meta")
+                        for t in leaves(metas)]
+            zero = sprog.rc.zero_stage
+            # steps run on 4 ranks: those before the loss (a stalled step ran
+            # not at all; (b) runs step 2 on 4 ranks, then again on 2)
+            lost = next(r.event.step for r in report.rebuilds if r.event.kind == "pod-dead")
+            want = elastic_launches(
+                zero, model.cfg.n_layers, len(g_leaves),
+                len(hetccl._make_buckets(g_leaves, sprog.rc.bucket_bytes)),
+                zero3_gathers(metas, 2),
+                [(4, args.n_micro, lost, True),
+                 (2, sprog.plan.n_micro_max, ELASTIC_STEPS - lost_at, False)])
+            got = {k: launches[k] for k in ELASTIC_KERNELS}
+            print(f"     launches {got}, expected {want}")
+            check(got == want and all(got.values()),
+                  f"({name}) launches {got} differ from the run's {want}")
+            if name == "a":
+                check(report.hang_actions == ["retry", "retry", "rebuild"],
+                      f"(a) hang actions {report.hang_actions}")
+                check(all(math.isinf(e.elapsed_s) and e.pod == "pod0" and e.step == 1
+                          for e in report.hang_events),
+                      "(a) the watchdog breached on a dispatch, not only the injected stall")
+                check([r.event.kind for r in report.rebuilds] == ["comm-rebuild", "pod-dead"]
+                      and [p.name for p in report.rebuilds[0].cluster.pods] == ["pod0", "pod1"],
+                      "(a) the rebuilds are not a communicator rebuild on both pods, then the "
+                      "loss")
+                check(report.recovery_methods == ["checkpointless"] and lost_at == 2,
+                      f"(a) recoveries {report.recovery_methods} at {lost_at}")
+                # the uninterrupted run from the launcher's init
+                rc, plan, _ = launcher.plan_run(args, mesh_mod.ThreadMesh(
+                    {"pod": 2, "data": 2}, device=device), model.cfg)
+                prog0 = make_train_program(model, mesh_mod.ThreadMesh({"pod": 2, "data": 2},
+                                                                      device=device), rc, plan)
+                state, h01 = ft.run_supervised(prog0.step_fn, prog0.init_fn(),
+                                               batches(prog0, args),
+                                               ckpt_dir=str(tmp / "a_truth"), ckpt_every=100,
+                                               n_steps=lost_at, start_step=0, layout=prog0)
+                tree = ck.StateLayout(prog0).gather(state, ())[0]
+                del state
+                placed = ck.place_tree(leaves(tree), ck.StateLayout(sprog).logical_like(), sprog)
+                del tree
+                want_l = losses_of(h01) + stepped(sprog, placed, args, lost_at)
+            else:
+                rec = report.recoveries[0]
+                check(report.recovery_methods == ["checkpoint"] and lost_at == 2
+                      and rec.missing and all(p.startswith("['opt']") for p in rec.missing),
+                      f"(b) recoveries {report.recovery_methods} at {lost_at}, missing "
+                      f"{rec.missing[:3]}")
+                base = ck.restore(str(tmp / name), lost_at, None, sprog)
+                want_l = losses_of(hist[:lost_at]) + stepped(sprog, base, args, lost_at)
+            same = losses_of(hist) == want_l
+            after = (f"step {lost_at}" if lost_at == ELASTIC_STEPS - 1
+                     else f"steps {lost_at}-{ELASTIC_STEPS - 1}")
+            print(f"     against the uninterrupted and continued runs: {['%.6f' % x for x in want_l]}"
+                  f" ({'steps 0-1 run_supervised from the same init, ' if name == 'a' else ''}"
+                  f"{after} the survivor program stepped from "
+                  f"{'that run' if name == 'a' else 'the step-2 checkpoint'}): equal bit for bit "
+                  f"{same}")
+            check(same, f"({name}) the elastic run's losses differ from the uninterrupted and "
+                        f"continued runs")
+            out[name] = {"losses": losses_of(hist), "launches": got, "steps_ms": steps_ms,
+                         "run_wall_s": wall, "recovery_wall_s": [s["wall_s"] for s in recoveries],
+                         "hang_actions": report.hang_actions,
+                         "recovery_methods": report.recovery_methods,
+                         "modeled_s": [(r.event.kind, r.modeled_checkpointless_s,
+                                        r.modeled_checkpoint_s) for r in report.rebuilds]}
+            del res, report, sprog, prog0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 class Counters:
     """The launch counts of every kernel wrapper of the port."""
 
@@ -5122,8 +5367,16 @@ def main() -> int:
         ckpt_obs = phase_ckpt_obs(torch, np, get_config, build, mesh_mod, hetccl, planned, card)
         print(json.dumps({"ckpt_obs": ckpt_obs, "phase_wall_s": walls, **card}))
 
+    with phase("[33] the elastic control plane: smollm-135m at full width through the "
+               "launcher, a hang and a pod loss under ZeRO-3, a pod loss under ZeRO-1", walls):
+        elastic_out = phase_elastic(torch, np, mesh_mod, hetccl, counters, card)
+        print(json.dumps({"elastic": elastic_out, "phase_wall_s": walls, **card}))
+
     def planned_launches(key):         # [31]'s runs
         return {run: v["launches"][key] for run, v in planned.items()}
+
+    def elastic_launches_of(key):      # [33]'s runs
+        return {run: v["launches"][key] for run, v in elastic_out.items()}
 
     print("[30] kernels")
     sources = {"collective_reduce": ("collective_reduce.cu",
@@ -5159,6 +5412,8 @@ def main() -> int:
             "ssm_zero3_launches": {a: v["zero3"]["launches"][kname]
                                    for a, v in ssm_train.items()},
             "planned_launches": planned_launches(kname),
+            **({"elastic_launches": elastic_launches_of(kname)}
+               if kname in ELASTIC_KERNELS else {}),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "check": "pass (bitwise)", "cases_checked": n_ring_cases, "shape": t["shape"]})
@@ -5174,6 +5429,7 @@ def main() -> int:
                                     for a, v in dense.items()}
     kernels[0]["llama1b_zero3_launches"] = zero["zero3"]["launches"]["flash_attention_fwd"]
     kernels[0]["planned_launches"] = planned_launches("flash_attention_fwd")
+    kernels[0]["elastic_launches"] = elastic_launches_of("flash_attention_fwd")
     shape_launches = {"smollm": launches,
                       "mixtral_prefill": moe["serve"]["launches"]["flash_attention_fwd"],
                       "mixtral_window": moe["window"]["launches"]["flash_attention_fwd"],
@@ -5201,6 +5457,7 @@ def main() -> int:
             "library_graph_ms")} for label, tt in (("d100", tb100), ("d112", tb112))},
         "zamba2_train_launches": ssm_train[HYBRID_ARCH]["launches"]["flash_attention_bwd"],
         "planned_launches": planned_launches("flash_attention_bwd"),
+        "elastic_launches": elastic_launches_of("flash_attention_bwd"),
         "d112_max_abs_err": flash112_bwd["zamba2_train_d112"]["max_abs_err"],
         "d112_rel_l2": flash112_bwd["zamba2_train_d112"]["rel_l2"]})
     for kname, replaces in (("quant_int8", "src/repro/kernels/quant.py:152"),

@@ -9,8 +9,8 @@ creation**, not per call, so a communicator on a degraded island stripes
 over the links that island has (DESIGN.md §11).
 
 The ``tracer`` field pins an ``obs.Tracer`` to the communicator's
-dispatches.  Not ported yet: ``deadline_table``, which comes with the
-watchdog in the elastic slice (ROADMAP A10b).
+dispatches; :meth:`Communicator.deadline_table` prices the table's rows as
+the collective watchdog's deadlines (``elastic.watchdog``).
 """
 from __future__ import annotations
 
@@ -123,6 +123,18 @@ class Communicator:
     def resolved_mode(self) -> str:
         """The mode of the large-class all_reduce policy."""
         return self.class_policy("all_reduce", "large").mode
+
+    def deadline_table(self, cluster, bench_comm=None, *, tolerance=None):
+        """This communicator's collective deadlines on ``cluster`` (DESIGN.md
+        §15): every row of the policy table priced by the simulator,
+        calibrated against ``bench_comm`` (a measured bench record) when
+        given.  Front door to
+        :func:`repro_torch.elastic.watchdog.derive_deadlines`, imported
+        here so the comm layer does not depend on the elastic one."""
+        from repro_torch.elastic.watchdog import DEFAULT_TOLERANCE, derive_deadlines
+        return derive_deadlines(cluster, self.table, bench_comm,
+                                tolerance=(DEFAULT_TOLERANCE if tolerance is None
+                                           else tolerance))
 
 
 def create(local_axes: tuple[str, ...] = ("data",),

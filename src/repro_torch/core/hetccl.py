@@ -16,8 +16,11 @@ then all-gather on a wavefront across buckets).
 
 An installed (or communicator-pinned) ``obs.Tracer`` records every
 dispatch as a span (:func:`install_tracer`, the reference's
-``hetccl.py:307-350``).  Not ported yet: the collective watchdog
-(``arm_watchdog``), which comes with the elastic slice (ROADMAP A10b).
+``hetccl.py:307-350``).  An armed collective watchdog
+(:func:`arm_watchdog`, ``elastic.watchdog``) times every dispatch made
+outside a train program's step against its deadline; the ranks of a
+``ThreadMesh`` that time one collective give it one verdict
+(DESIGN_TORCH.md §25).
 """
 from __future__ import annotations
 
@@ -236,13 +239,75 @@ def current_tracer():
     return _TRACER
 
 
+# Armed collective watchdog (DESIGN.md §15), or None: module-global like the
+# active communicator, so no call site threads it through.
+_WATCHDOG = None
+_scope = threading.local()
+
+
+def arm_watchdog(wd) -> None:
+    """Install a :class:`repro_torch.elastic.watchdog.CollectiveWatchdog` on
+    the dispatch path: every collective dispatched outside a train program
+    (:func:`unwatched`) is timed against its deadline, and a breach raises
+    ``CollectiveHangError`` on every rank of the collective.
+
+    The reference watches eager dispatches only; a dispatch traced inside
+    the jitted train step passes unwatched, and a stall there is the elastic
+    loop's ``watchdog.stall``.  The port's steps are eager, so a program's
+    step and init scope their rank threads as unwatched instead: on one
+    card a step's dispatch is host time on a rank thread (barrier waits,
+    other ranks' work), far from any modeled deadline (DESIGN_TORCH.md
+    §25)."""
+    global _WATCHDOG
+    _WATCHDOG = wd
+
+
+def disarm_watchdog() -> None:
+    global _WATCHDOG
+    _WATCHDOG = None
+
+
+def armed_watchdog():
+    """The armed watchdog, if any."""
+    return _WATCHDOG
+
+
+@contextlib.contextmanager
+def unwatched():
+    """The calling thread's dispatches pass the armed watchdog unwatched
+    while inside (the counterpart of the reference's traced dispatches: a
+    train program runs its per-rank step and init in this scope)."""
+    prev = getattr(_scope, "unwatched", False)
+    _scope.unwatched = True
+    try:
+        yield
+    finally:
+        _scope.unwatched = prev
+
+
+def _one_verdict():
+    """``watch``'s ``group`` for the calling rank: on a ThreadMesh the ranks
+    that time one collective meet once more, and the last to arrive asks the
+    watchdog for one verdict on the largest of their times, which every rank
+    gets; elsewhere (a DistMesh process, the one-rank meshes) each caller's
+    own time is the verdict's."""
+    m, r = _mesh.current()
+    if type(m) is not _mesh.ThreadMesh or m.size == 1:
+        return None
+
+    def group(elapsed, verdict):
+        return m.rendezvous(r, elapsed, lambda es: [verdict(max(es))] * len(es))
+    return group
+
+
 def _call(op: str, x, cfg, **kw):
     """Resolve this payload's policy from the communicator's table, then let
     tacc.dispatch map exactly the fields the resolved variant declared.  The
     call counts in :data:`dispatches` under its row, which is this thread's
     current row (``tacc.in_row``) while it runs; a tracer (pinned to the
     communicator, else the installed one) records it as a span of that row,
-    so the spans grouped by row equal :data:`dispatches`."""
+    so the spans grouped by row equal :data:`dispatches`; an armed watchdog
+    times it, outside a program's step (:func:`arm_watchdog`)."""
     c = _as_communicator(cfg)
     nbytes = _payload_bytes(op, x, c)
     pol = c.policy(op, nbytes)
@@ -253,11 +318,17 @@ def _call(op: str, x, cfg, **kw):
     with _dispatch_lock:
         dispatches[row] += 1
     tr = c.tracer if c.tracer is not None else _TRACER
-    if tr is None or not tr.enabled:
+    wd = _WATCHDOG if not getattr(_scope, "unwatched", False) else None
+    if (tr is None or not tr.enabled) and wd is None:
         with tacc.in_row(row):
             return tacc.dispatch(op, x, c.local_axes, c.pod_axis,
                                  variant=variant, policy=pol, **kw)
-    with tr.collective(op, nbytes, pol, size_class=row[1], row=row), tacc.in_row(row):
+    with contextlib.ExitStack() as stack:
+        if tr is not None and tr.enabled:
+            stack.enter_context(tr.collective(op, nbytes, pol, size_class=row[1], row=row))
+        if wd is not None:
+            stack.enter_context(wd.watch(op, nbytes, group=_one_verdict()))
+        stack.enter_context(tacc.in_row(row))
         return tacc.dispatch(op, x, c.local_axes, c.pod_axis,
                              variant=variant, policy=pol, **kw)
 

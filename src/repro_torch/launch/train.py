@@ -8,7 +8,8 @@ mesh of ranks, on the plan and policy table HetCCL's planner picks.
         [--error-feedback auto|on|off] [--cross-dtype bfloat16] [--seq 128] \\
         [--micro-batch 1] [--n-micro 2] [--mesh-shape 2,2] [--lr 1e-3] \\
         [--seed 0] [--reduced|--full-size] [--device cuda|cpu] \\
-        [--ckpt-dir DIR] [--ckpt-every 25] [--trace DIR] [--metrics-out PATH]
+        [--ckpt-dir DIR] [--ckpt-every 25] [--trace DIR] [--metrics-out PATH] \\
+        [--elastic] [--chaos SCRIPT] [--watchdog]
 
 ``--arch`` takes every architecture of the port (``configs.ARCH_IDS`` and
 the paper's models, ``configs.PAPER_IDS``): dense, MoE, and the SSM and
@@ -65,8 +66,17 @@ the ``--chips`` cluster, the policy rows are probed between steps, and the
 run writes ``trace.json``, ``metrics.json``, ``report.txt`` and the metric
 line.
 
-Not ported yet: the reference launcher's ``--elastic``, ``--chaos`` and
-``--watchdog`` (ROADMAP A10b).
+``--elastic`` (implied by ``--chaos`` and ``--watchdog``) runs the steps
+under the elastic control plane instead (``repro_torch.elastic.run_elastic``,
+DESIGN.md §13, §15): failures detected, a lost pod survived by a rebuilt
+program on the surviving ranks and a checkpointless ZeRO-3 recovery (the
+checkpoint chain under ZeRO-1), ``--chaos`` the deterministic fault script
+(``elastic.parse_script``), ``--watchdog`` the collective hang watchdog on
+deadlines modeled on the ``--chips`` cluster (no bench record: the
+repository's describes the JAX package's CPU runs).  The batches are
+rebuilt per epoch from the re-planned program's plan and DP world; the run
+prints the reference's hang, epoch and recovery lines.  An elastic run
+starts at step 0 (a fresh ``--ckpt-dir``).
 """
 import argparse
 import dataclasses
@@ -126,6 +136,21 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="append a unified-schema metric line (the fleet snapshot) to "
                          "this JSONL file at the end of the run")
+    ap.add_argument("--elastic", action="store_true",
+                    help="run under the elastic control plane (repro_torch.elastic, "
+                         "DESIGN.md §13): failure detection armed, pod loss survived by a "
+                         "rebuilt program on the surviving ranks and checkpointless ZeRO-3 "
+                         "recovery instead of a job restart")
+    ap.add_argument("--chaos", default=None,
+                    help="deterministic fault script (implies --elastic), e.g. "
+                         "'degrade:pod0.1x0.25@2;kill:pod1@4;revive:pod1@8' or the "
+                         "gray-failure ops 'slow:pod1x2.5@3-10;hang:pod0@12' (DESIGN.md "
+                         "§15); see elastic.parse_script")
+    ap.add_argument("--watchdog", action="store_true",
+                    help="arm the collective hang watchdog (implies --elastic): per-(op, "
+                         "size class) deadlines from the simulator's modeled times on the "
+                         "--chips cluster; breaches escalate retry -> communicator rebuild "
+                         "-> evict (DESIGN.md §15)")
     return ap
 
 
@@ -212,9 +237,12 @@ def run(args) -> dict:
     (``ft.run_supervised``; a fresh run's checkpoint at step 0, then every
     ``--ckpt-every`` steps and at the end; a restart resumes from the
     latest), with the telemetry plane under ``--trace`` / ``--metrics-out``.
-    Returns ``{"prog", "state", "history", "telemetry"}``: the program, its
-    final per-rank states, ``run_supervised``'s history and the telemetry
-    bundle (None without ``--trace`` / ``--metrics-out``)."""
+    Under ``--elastic`` the steps run through :func:`run_elastic` instead.
+    Returns ``{"prog", "state", "history", "telemetry", "report"}``: the
+    program (an elastic run's last epoch's), its final per-rank states, the
+    history (one record a step), the telemetry bundle (None without
+    ``--trace`` / ``--metrics-out``) and the ``elastic.ElasticReport`` (None
+    without ``--elastic``)."""
     import shutil
     import tempfile
 
@@ -250,6 +278,11 @@ def run(args) -> dict:
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_torch_train_ckpt_")
     start = ck.latest_step(ckpt_dir)          # a run resumes from the latest
     fresh = start is None
+    elastic = args.elastic or args.chaos or args.watchdog
+    if elastic and not fresh:
+        raise ValueError(f"--ckpt-dir {ckpt_dir} holds step {start}: an elastic run starts at "
+                         "step 0, and its checkpoint fallback must not restore another run's "
+                         "state")
     if fresh:
         start = 0
         ck.save(ckpt_dir, 0, state, prog, blocking=False)
@@ -261,27 +294,36 @@ def run(args) -> dict:
         print(f"step {step:4d}  loss {m['loss']:.4f}  tokens {int(m['tokens'])}  "
               f"grad_norm {m['grad_norm']:.3f}", flush=True)
 
-    telemetry, cb = None, log
+    telemetry, report = None, None
     if args.trace or args.metrics_out:
         from repro_torch import obs
         telemetry = obs.Telemetry(cluster=cluster_for_mesh(mesh, chip_sheets(args.chips)),
                                   out_dir=args.trace, device=args.device,
                                   capacity=FLIGHT_CAPACITY)
-        telemetry.bind(comm=prog.comm)
-        telemetry.install()
-        telemetry.tracer.set_step(start)
-
-        def cb(step, m):
-            telemetry.on_step(step, m, dur_s=m.get("step_s"))
-            telemetry.probe_step(step)
-            telemetry.tracer.set_step(step + 1)     # the next step's dispatches
-            log(step, m)
     try:
-        state, hist = ft.run_supervised(
-            prog.step_fn, state, pipe.batch_at, ckpt_dir=ckpt_dir,
-            ckpt_every=args.ckpt_every, n_steps=args.steps, layout=prog,
-            start_step=0 if fresh else None,   # a fresh run trusts its init
-            monitor=ft.StragglerMonitor(), metrics_cb=cb)
+        if elastic:
+            state, report = run_elastic(args, prog, state, tp, telemetry, ckpt_dir)
+            hist = report.history
+            for h in hist:
+                log(h["step"], h)
+            print_report(report)
+        else:
+            cb = log
+            if telemetry is not None:
+                telemetry.bind(comm=prog.comm)
+                telemetry.install()
+                telemetry.tracer.set_step(start)
+
+                def cb(step, m):
+                    telemetry.on_step(step, m, dur_s=m.get("step_s"))
+                    telemetry.probe_step(step)
+                    telemetry.tracer.set_step(step + 1)     # the next step's dispatches
+                    log(step, m)
+            state, hist = ft.run_supervised(
+                prog.step_fn, state, pipe.batch_at, ckpt_dir=ckpt_dir,
+                ckpt_every=args.ckpt_every, n_steps=args.steps, layout=prog,
+                start_step=0 if fresh else None,   # a fresh run trusts its init
+                monitor=ft.StragglerMonitor(), metrics_cb=cb)
     finally:
         if telemetry is not None:
             telemetry.uninstall()
@@ -301,7 +343,65 @@ def run(args) -> dict:
     if hist:
         print(f"done: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, {tokens} tokens "
               f"in {dt:.2f} s ({tokens / dt:.1f} tokens/s){peak}")
-    return {"prog": prog, "state": state, "history": hist, "telemetry": telemetry}
+    if report is not None:
+        prog = report.final_prog
+    return {"prog": prog, "state": state, "history": hist, "telemetry": telemetry,
+            "report": report}
+
+
+def run_elastic(args, prog, state, tp, telemetry, ckpt_dir):
+    """The launcher's steps under ``elastic.run_elastic`` (the reference
+    launcher's ``--elastic`` branch, ``repro/launch/train.py:192-230``): the
+    detector with a straggler tracker, the watchdog under ``--watchdog``,
+    the batches rebuilt per epoch from the program's plan and DP world.
+    Returns ``(state, report)``."""
+    from repro_torch import elastic
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.mesh import cluster_for_mesh
+    from repro_torch.train import checkpoint as ck
+
+    cluster = cluster_for_mesh(prog.mesh, chip_sheets(args.chips))
+    script = elastic.parse_script(args.chaos) if args.chaos else None
+    # detection armed for the gray middle too: per-pod step attribution
+    # feeding the quarantine ladder (DESIGN.md §15)
+    detector = elastic.FailureDetector(cluster, straggler=elastic.StragglerTracker())
+    watchdog = None
+    if args.watchdog:
+        watchdog = elastic.CollectiveWatchdog(prog.comm.deadline_table(cluster))
+        print(f"watchdog armed: {len(watchdog.deadlines.rows)} derived deadlines, tolerance "
+              f"{watchdog.deadlines.tolerance}x (modeled on the --chips cluster, no bench "
+              f"record)", flush=True)
+    # the logical state's bytes (each replica once), as the reference counts
+    state_bytes = float(sum(t.numel() * t.element_size()
+                            for t in leaves(ck.StateLayout(prog).logical_like())
+                            if hasattr(t, "numel")))
+    cfg = prog.model.cfg
+
+    def make_batches(p):
+        return DataPipeline(seed=args.seed, plan=p.plan, dp_world=p.dp_world(),
+                            seq_len=args.seq, vocab=cfg.vocab).batch_at
+
+    return elastic.run_elastic(
+        prog, state, make_batches, cluster=cluster, ckpt_dir=ckpt_dir,
+        n_steps=args.steps, script=script, train_plan=tp, detector=detector,
+        watchdog=watchdog, telemetry=telemetry, ckpt_every=args.ckpt_every,
+        state_bytes=state_bytes)
+
+
+def print_report(report) -> None:
+    """The reference launcher's hang, epoch and recovery lines."""
+    for ev in report.hang_events:
+        print(f"hang: {ev.op}/{ev.size_class} at step {ev.step} "
+              f"(pod={ev.pod}) breach #{ev.breaches} -> {ev.action}")
+    for r in report.rebuilds:
+        print(f"epoch {r.epoch}: {r.event.kind}:{r.event.pod} at step "
+              f"{r.event.step} -> pods={[p.name for p in r.cluster.pods]}"
+              f" shares={r.plan.micro_per_pod} "
+              f"modeled {r.modeled_checkpointless_s:.2f}s vs ckpt "
+              f"{r.modeled_checkpoint_s:.2f}s")
+    for rec in report.recoveries:
+        print(f"recovery: {rec.method}@{rec.step}")
 
 
 def main(argv=None):

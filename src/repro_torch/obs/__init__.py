@@ -17,8 +17,7 @@ Counterpart of ``repro/obs/__init__.py``, with its schemas byte for byte
 :class:`Telemetry` is the pre-wired bundle the launchers construct: it fans
 the tracer into the metrics registry and the flight recorder, installs the
 dispatch hook stack-safely, runs probes between steps, and owns the
-dump-on-fault policy (the elastic loop that triggers it on faults comes with
-ROADMAP A10b).
+dump-on-fault policy (``elastic.run_elastic`` triggers it on faults).
 """
 from __future__ import annotations
 

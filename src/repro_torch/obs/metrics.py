@@ -3,13 +3,12 @@ and the unified metric-line envelope (DESIGN.md §16).
 
 Counterpart of ``repro/obs/metrics.py``, with the same edges, snapshot and
 envelope, so the same events give the same JSON in both packages.  The
-elastic layer's events (pod events, hangs) arrive with the elastic slice
-(ROADMAP A10b); their subscribers are here already.
+elastic layer's events (pod events, hangs) come from ``repro_torch.elastic``.
 
 The registry turns the stack's fire-and-forget typed events — transport
 :class:`~repro_torch.transport.flow.FailoverEvent`\\ s, watchdog
-:class:`~repro.elastic.watchdog.HangEvent`\\ s, elastic
-:class:`~repro.elastic.detect.PodEvent`\\ s (quarantine transitions,
+:class:`~repro_torch.elastic.watchdog.HangEvent`\\ s, elastic
+:class:`~repro_torch.elastic.detect.PodEvent`\\ s (quarantine transitions,
 membership epoch changes), and the tracer's spans — into queryable state:
 ``snapshot()`` returns a schema-versioned dict, deterministic in content
 and ordering for identical event streams.

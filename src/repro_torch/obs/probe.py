@@ -60,7 +60,8 @@ def run_probes(probe_comm, *, cells=None, step: int | None = None,
     """Dispatch one collective per cell through ``probe_comm`` on a one-rank
     mesh on ``device``.  Returns the number of probe dispatches; the tracer
     pinned to ``probe_comm`` (or the installed one) records each as a
-    collective span tagged ``probe=True``."""
+    collective span tagged ``probe=True``; an armed watchdog is disarmed for
+    the duration, as in the reference (a probe is not a step's collective)."""
     import torch
 
     from repro_torch.core import hetccl
@@ -86,5 +87,11 @@ def run_probes(probe_comm, *, cells=None, step: int | None = None,
         return len(cells)
 
     ctx = tracer.extra(probe=True) if tracer is not None else contextlib.nullcontext()
-    with ctx:
-        return mesh.run(body, [None])[0]
+    wd = hetccl.armed_watchdog()
+    hetccl.disarm_watchdog()
+    try:
+        with ctx:
+            return mesh.run(body, [None])[0]
+    finally:
+        if wd is not None:
+            hetccl.arm_watchdog(wd)

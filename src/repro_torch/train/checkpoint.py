@@ -21,7 +21,9 @@ Counterpart of ``repro/train/checkpoint.py``, in its format:
 
 A train program's state is a list of per-rank states (``ThreadMesh``);
 passing the program as ``layout`` makes :func:`save` write its full logical
-arrays and :func:`restore` place them back (DESIGN_TORCH.md §24):
+arrays and :func:`restore` place them back (DESIGN_TORCH.md §24), and
+:meth:`StateLayout.gather` assembles them from the live ranks alone after a
+pod is lost (``elastic.recover``, DESIGN_TORCH.md §25):
 
 * params: the full leaves (ZeRO-3 shards concatenated on their
   ``fsdp_dim`` over "data");
@@ -227,8 +229,8 @@ def place_tree(host_flat: list, state_like, layout=None):
     :func:`restore`.
 
     Args:
-        host_flat: full logical CPU tensors, in ``state_like``'s flatten
-            order.
+        host_flat: full logical tensors (on the host, or on any device),
+            in ``state_like``'s flatten order; an int for an int leaf.
         state_like: a tree (tensors, meta tensors or ints) giving the
             structure and the expected shapes.
         layout: a train program (or its :class:`StateLayout`): returns its
@@ -240,7 +242,7 @@ def place_tree(host_flat: list, state_like, layout=None):
     out = []
     for path, like, t in zip(paths, like_leaves, host_flat):
         expect = tuple(like.shape) if hasattr(like, "shape") else ()
-        if tuple(t.shape) != expect:
+        if tuple(getattr(t, "shape", ())) != expect:
             raise ValueError(f"shape mismatch {path}: {tuple(t.shape)} vs {expect}")
         out.append(int(t) if isinstance(like, int) else t)
     tree = rebuild(out)
@@ -336,13 +338,18 @@ class StateLayout:
         ranks = range(self.mesh.size)
         return sorted(ranks, key=lambda r: self.mesh.axis_index(r, self.dp_axes))
 
-    def _data_ranks(self) -> list[int]:
-        """One rank per "data" index (pod 0's), in data order."""
-        ranks = [r for r in range(self.mesh.size)
-                 if "pod" not in self.mesh.axes or self.mesh.axis_index(r, "pod") == 0]
+    def _data_ranks(self, dead: frozenset = frozenset()) -> list[int] | None:
+        """One live rank per "data" index (the first pod's that has it), in
+        data order; None when some index has no live rank."""
+        alive = [r for r in range(self.mesh.size) if r not in dead]
         if "data" not in self.mesh.axes:
-            return ranks[:1]
-        return sorted(ranks, key=lambda r: self.mesh.axis_index(r, "data"))
+            return alive[:1] or None
+        first: dict[int, int] = {}
+        for r in alive:
+            first.setdefault(self.mesh.axis_index(r, "data"), r)
+        if len(first) < self.n_data:
+            return None
+        return [first[i] for i in range(self.n_data)]
 
     def logical_like(self):
         """The logical skeleton: meta tensors of the full shapes, an int step."""
@@ -366,16 +373,38 @@ class StateLayout:
     def logical_state(self, states):
         """The full logical arrays of every rank's state (on the mesh's
         device; :func:`save` copies them to the host)."""
+        return self.gather(states)[0]
+
+    def gather(self, states, dead=()):
+        """``(tree, missing)``: the logical state from the ranks not in
+        ``dead`` alone (the counterpart of the reference's
+        ``assemble_from_survivors``), and the paths of the leaves they
+        cannot tile, which are None in ``tree``.  Dead ranks' states are
+        never read (they may be None).
+
+        ZeRO-3's parameters and f32 state are sharded over "data" and
+        replicated over "pod": any pod's live ranks that cover every data
+        index give them.  ZeRO-1's flat optimizer shards and the EF
+        residuals span the whole DP world: a dead rank takes its piece with
+        it.  Replicated leaves come from the first live rank."""
         if len(states) != self.mesh.size:
             raise ValueError(f"{len(states)} rank states for a mesh of {self.mesh.size}")
-        order, data_ranks = self._dp_order(), self._data_ranks()
-        _, rebuild = flatten(states[0]["params"])
+        dead = frozenset(int(r) for r in dead)
+        alive = [r for r in range(self.mesh.size) if r not in dead]
+        if not alive:
+            raise ValueError("every rank of the mesh is dead")
+        whole = not dead
+        order, data_ranks = self._dp_order(), self._data_ranks(dead)
+        first = states[alive[0]]
+        _, rebuild = flatten(first["params"])
 
         def sharded(key, j, leaf_of):
             d = self.dims[j]
             if self.zero3 and d is not None:
+                if data_ranks is None:
+                    return None
                 return torch.cat([leaf_of(states[r], key)[j] for r in data_ranks], d)
-            return leaf_of(states[0], key)[j]
+            return leaf_of(first, key)[j]
 
         def p_of(s, _):
             return flatten(s["params"])[0]
@@ -392,11 +421,13 @@ class StateLayout:
             else:
                 opt[key] = rebuild([
                     torch.cat([o_of(states[r], key)[j] for r in order])
-                    [:int(np.prod(self.metas[j].shape))] for j in range(n_leaves)])
+                    [:int(np.prod(self.metas[j].shape))] if whole else None
+                    for j in range(n_leaves)])
         if self.ef:
             opt["ef"] = rebuild([torch.cat([o_of(states[r], "ef")[j] for r in order])
-                                 for j in range(n_leaves)])
-        return {"params": params, "opt": opt, "step": int(states[0]["step"])}
+                                 if whole else None for j in range(n_leaves)])
+        tree = {"params": params, "opt": opt, "step": int(first["step"])}
+        return tree, [path for path, leaf in leaf_paths(tree) if leaf is None]
 
     def place(self, tree):
         """Every rank's state of the program from a full logical ``tree``

@@ -50,9 +50,8 @@ class StragglerMonitor:
     instead of being absorbed into the baseline after a few observations
     (which would both silence the flag and mis-calibrate the planner with
     degraded step times).  Per-pod attribution and the graded
-    quarantine response live in the reference's ``elastic.quarantine``
-    (DESIGN.md §15; the port's elastic slice, ROADMAP A10b); this monitor is
-    the fleet-aggregate tripwire.
+    quarantine response live in ``repro_torch.elastic.quarantine``
+    (DESIGN.md §15); this monitor is the fleet-aggregate tripwire.
     """
 
     alpha: float = 0.1
@@ -153,7 +152,7 @@ def run_supervised(step_fn: Callable, state, batches, *, ckpt_dir: str,
     real transient collective failures (a flapped link mid-all-reduce, a
     preempted host) recover exactly like injected ones.  Anything outside
     the tuple propagates (pod loss escalates to the elastic control plane,
-    DESIGN.md §13; the port's elastic slice, ROADMAP A10b).  Each retry backs off exponentially
+    ``repro_torch.elastic``, DESIGN.md §13).  Each retry backs off exponentially
     (``backoff_base * 2^k`` capped at ``backoff_cap``) with deterministic
     jitter, bounded by ``max_restarts``.
     ``start_step``: trust ``(state, start_step)`` and skip the

@@ -145,6 +145,9 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
     dims = fsdp_dims(model.abstract_params(), rules)
     fsdp_mask = [d is not None for d in dims]
 
+    # a program's init and step are the counterpart of the reference's traced
+    # code: an armed watchdog leaves their dispatches alone (hetccl.arm_watchdog)
+    @hetccl.unwatched()
     def rank_init(params):
         ps, rebuild = flatten(params)
         ps = [p.to(device=device, dtype=param_dtype) for p in ps]
@@ -161,6 +164,7 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
             opt["ef"] = optim.ef_init(params)
         return {"params": params, "opt": opt, "step": 0}
 
+    @hetccl.unwatched()
     def rank_step(state, batch):
         params, opt, step = state["params"], state["opt"], state["step"]
         live = live_mask[mesh_mod.axis_index(pod_axis) if pod_axis else 0]
@@ -232,3 +236,20 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
 
     return TrainProgram(model=model, mesh=mesh, rc=rc, plan=plan, hcfg=hcfg, comm=comm,
                         step_fn=step_fn, init_fn=init_fn, fsdp_dims=dims)
+
+
+def rebuild_program(prog: TrainProgram, mesh, rc: RunConfig | None = None,
+                    plan: HetPlan | None = None) -> TrainProgram:
+    """``prog``'s model on a new mesh: the elastic path's rebuild
+    (``repro_torch.elastic``, DESIGN.md §13; the reference's
+    ``trainer.py:272-287``).
+
+    The run knobs carry over from ``prog`` unless the re-planned ``rc`` and
+    ``plan`` (``ft.replan_auto`` or ``ft.replan``) are passed.  The new
+    program builds a new communicator, the reference's communicator
+    rebuild; its collective axes come from the new mesh, so a one-pod
+    survivor mesh has no pod axis and the communicator degrades to flat.
+    The fused rings' kept flags are per (device, rank count): a rebuild on
+    the same ranks reuses them, a survivor mesh of another size gets its
+    own (``kernels.ring_dma``)."""
+    return make_train_program(prog.model, mesh, rc or prog.rc, plan or prog.plan)

@@ -156,6 +156,33 @@ def test_error_feedback_residuals_do_not_reshard(tmp_path):
                                                  wire_quant="int8"))
 
 
+@pytest.mark.parametrize("dead_pod", [0, 1])
+def test_zero3_gather_reads_only_the_live_pod(dead_pod):
+    """A ZeRO-3 state whose dead pod's ranks hold NaN still gathers, from the
+    other pod, equal to the logical state: the gather reads no dead rank
+    (it read pod 0's ranks, and rank 0's replicated leaves, whatever was
+    dead).  ZeRO-1's flat shards and the EF residuals name every leaf they
+    lose."""
+    prog = _prog(zero=3)
+    state = _stepped(prog)
+    want = ck.StateLayout(prog).logical_state(state)
+    dead = [r for r in range(4) if prog.mesh.coords(r)["pod"] == dead_pod]
+    for r in dead:
+        for t in leaves(state[r]):
+            if isinstance(t, torch.Tensor):
+                t.fill_(float("nan"))
+    got, missing = ck.StateLayout(prog).gather(state, dead)
+    assert missing == [] and _same(got, want)
+    with pytest.raises(ValueError, match="every rank"):
+        ck.StateLayout(prog).gather(state, range(4))
+    prog1 = _prog(zero=1, backend="pallas", wire_quant="int8")
+    tree, missing1 = ck.StateLayout(prog1).gather(_stepped(prog1), dead)
+    paths = [path for path, _ in ck.leaf_paths(tree)]
+    assert missing1 == [p for p in paths if p.startswith("['opt']")]
+    assert all(p.startswith("['params']") or p == "['step']"
+               for p in paths if p not in missing1)
+
+
 def test_straggler_monitor_and_replan():
     mon = ft.StragglerMonitor(alpha=0.5, tolerance=0.2)
     assert not mon.observe(1.0)

@@ -80,6 +80,12 @@ rec = dryrun.run_cell("smollm-135m", "train_4k", "multi", verbose=False,
                       cfg=get_config("smollm-135m").reduced(),
                       shape_cfg=ShapeConfig("train_256", 256, 256, "train"))
 assert rec["status"] == "ok" and rec["hlo_dot_flops_per_chip"] > 0, rec
+from repro_torch import elastic
+from repro_torch.elastic import chaos, detect, membership, quarantine, recover, watchdog
+hist = train.main(["--device", "cpu", "--steps", "3", "--seq", "16", "--zero", "3",
+                   "--policy", "legacy", "--backend", "pallas", "--watchdog",
+                   "--chaos", "hang:pod0@1;kill:pod1@2"])
+assert len(hist) == 3
 print(json.dumps(sorted(m for m in sys.modules if re.match(r"{FOREIGN}", m))))
 """
 
@@ -92,6 +98,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert "arch=mamba2-2.7b-reduced: served 2 reqs, 6 tokens" in r.stdout
     assert "arch=zamba2-7b-reduced: served 2 reqs, 6 tokens" in r.stdout
     assert "error_feedback=True" in r.stdout and "tokens/s" in r.stdout
+    assert "-> rebuild" in r.stdout and "recovery: checkpointless@2" in r.stdout
     assert json.loads(r.stdout.strip().splitlines()[-1]) == []
 
 
