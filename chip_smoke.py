@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build: every kernel source of the port compiled with nvcc for sm_90a;
 3. kernel vs plain: ``flash_attention_fwd`` on the card against its plain
    version at the main path's prefill shapes (smollm, Mixtral's prefill and
-   its window run, llama-3b's at head dim 100) and the edge cases
+   its window run, llama-3b's at head dim 100, qwen2-vl's at d 128 GQA 8,
+   whisper's encoder, decoder and cross-attention) and the edge cases
    (``KERNEL_CASES``), each case with its tolerance;
 4. serve: full-width smollm-135m (30 layers, d_model 576, bf16, weights made
    from a seed) answers 8 requests of 512 prompt tokens, 32 new tokens each,
@@ -68,7 +69,7 @@ Phases, in order; any failure exits non-zero before the last line:
    codec at the rows ``bench_codec.codec_launch_rows`` counts from the
    model's leaves and buckets.  Step-0 loss is the same in all three, losses
    are finite and fall, and the int8 run ends within a stated limit of the
-   run without a codec.  Then ms per step (runs in turns), tokens/s, the
+   run without a codec.  Then ms per step (the checked steps), tokens/s, the
    split of a step, the card's busy share and the peak memory;
 12. times of the codec kernels at (6912, 512) and at the largest leaf
    (55296, 512), L2 cold before each reading, back to back and replayed
@@ -285,7 +286,33 @@ Phases, in order; any failure exits non-zero before the last line:
    (``elastic_launches``); ms a step on 4 and on 2 ranks, each recovery's
    wall time and each rebuild's modeled recovery times (the simulator's, of
    the H100 islands);
-30. a JSON line listing every kernel (the flash forward with its five
+34. the VLM at full width (runs after [33], before [30]'s line):
+   qwen2-vl-72b (d_model 8192, 64/8 heads x 128, d_ff 29568, vocab 152064,
+   M-RoPE sections (16, 24, 24)) cut to 8 of its 80 layers (9.51 B
+   parameters, 19.0 GB of bf16), weights from a seed (the stacked
+   projections at std 1/sqrt(fan-in), ``redraw_projections``) and its norm
+   scales perturbed from it: 8 requests of 512 prompt tokens and 32 new through
+   ``Batcher`` (text-only M-RoPE positions), the counts set to 0 just
+   before and read just after: 8 flash launches at d 128, none in decode;
+   tokens in the vocab, finite logits; one more prefill on an image block
+   laid out by ``mrope_grid`` (64 text tokens, a 16 x 16 grid, text):
+   each layer's kernel against its plain version, the last-position logits
+   against attention pinned to plain, and against the text-only positions,
+   which must differ (the sections act); tokens/s, prefill and decode ms,
+   busy shares, peak memory; the flash forward's times at its shape;
+35. the encoder-decoder at full width and depth (after [34]):
+   whisper-medium (24 encoder + 24 decoder layers, d_model 1024, 16 heads
+   x 64, 1500 frames), its projections redrawn as [34]'s and its biases
+   and LayerNorms perturbed from the seed:
+   8 requests of 1500 frames (seeded normals for the stubbed frontend) and
+   64 prompt tokens, 32 new, through ``Batcher``: 72 flash launches a
+   prefill (24 encoder bidir 1500 x 1500, 24 decoder causal 64, 24 cross
+   bidir 64 x 1500; each counted by shape), none in decode; each kind's
+   kernel against its plain version, layer by layer; the whole model's
+   logits against attention pinned to plain, in bf16 and in f32;
+   the cached ``cross_k`` and ``cross_v`` bit-equal before and after 32
+   decode steps; the same figures as [34] and the three shapes' times;
+30. a JSON line listing every kernel (the flash forward with its nine
    main-path shapes under ``shapes``, the backward's d-100 and d-112
    shapes, the grouped matmul's and the SSD scan's launches per route under
    ``routes``, the grouped matmul's backward products with their routes'
@@ -305,6 +332,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -347,12 +375,23 @@ KERNEL_CASES = [
     # llama-1b's training forward (phase 22): the paper's 1 x 8192 a rank,
     # GQA 32/4, model layout
     ("llama1b_train", 1, 32, 4, 8192, 8192, 64, "causal", 0, None, "bfloat16", True),
+    # qwen2-vl-72b's prefill (phase 34): d 128, GQA 64/8
+    ("qwen2vl_prefill", 8, 64, 8, 512, 512, 128, "causal", 0, None, "bfloat16", True),
+    # whisper-medium's prefill (phase 35): the encoder over 1500 frames (no
+    # tile size divides 1500: ragged tiles), the decoder over 64 prompt
+    # tokens, the cross-attention of 64 queries over the 1500 frames
+    ("whisper_enc_bidir_1500", 8, 16, 16, 1500, 1500, 64, "bidir", 0, None, "bfloat16", True),
+    ("whisper_dec_causal_64", 8, 16, 16, 64, 64, 64, "causal", 0, None, "bfloat16", True),
+    ("whisper_cross_sq64_sk1500", 8, 16, 16, 64, 1500, 64, "bidir", 0, None, "bfloat16",
+     True),
 ]
 # The flash forward's main-path shapes (the kernel case timed for each, in
 # phase 5, and zamba2's in phase 20) and the launch count each one's run reads
 FLASH_TIMED = {"smollm": "serve_prefill", "mixtral_prefill": "mixtral_prefill",
                "mixtral_window": "mixtral_window4096", "zamba2": "zamba2_d112",
-               "llama3b": "llama3b_prefill"}
+               "llama3b": "llama3b_prefill", "qwen2vl": "qwen2vl_prefill",
+               "whisper_enc": "whisper_enc_bidir_1500", "whisper_dec": "whisper_dec_causal_64",
+               "whisper_cross": "whisper_cross_sq64_sk1500"}
 
 # Kernel against its plain version, both errors relative to the plain output:
 # (relative L2 of the whole output, worst relative L2 of one output row).  The
@@ -450,9 +489,6 @@ TRAIN_RUNS = {"int8_ef": dict(backend="pallas", wire_quant="int8"),
 # the reading on an H100 after 5 steps (5.25e-2, PERF.md); after 3 it read
 # 4.48e-2.
 TRAIN_INT8_LOSS_TOL = 0.15
-# host-clock timing steps a run, in turns after the checked runs (one since
-# [32] joined: the script keeps inside its time limit)
-TRAIN_TIMING_REPS = 1
 
 
 # The MoE slice: full-width mixtral-8x7b cut to 8 of its 32 layers (every
@@ -577,6 +613,15 @@ SSD_CASES = [
 DENSE_ARCHS = ("gpt-125m", "gpt-355m", "smollm-360m", "llama-1b", "llama-3b",
                "starcoder2-7b", "deepseek-coder-33b")
 DENSE_REQUESTS, DENSE_PROMPT, DENSE_NEW = 8, 512, 32
+# The serving phases' times ([18], [19], [21], [34], [35]; ``serve_times``):
+# decode ms a step is the median of SERVE_DECODE_TIMED steps and the busy
+# share is read over SERVE_DECODE_PROFILED steps.  Before [34] and [35]
+# joined these were 30 and 16 (new tokens - 2 and new tokens / 2): their
+# decode steps alone took 31 s of [21]'s 131.5 s on an H100 (46 steps of the
+# seven configs' 0.668 s summed, PERF.md), besides the profiler's
+# processing of every kernel event of its steps, and the script needed the
+# room for [34] and [35].
+SERVE_DECODE_TIMED, SERVE_DECODE_PROFILED = 8, 4
 # The paper's training shape for llama-1b (paper_figs.py: micro-batch 1 x
 # seq 8192), full width on the (pod=2, data=2) ThreadMesh, remat, hier,
 # backend pallas: ZeRO-3 and ZeRO-1 from one init and the same batches.
@@ -851,6 +896,49 @@ ELASTIC_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "ring_reduce_sc
 # of the mean.  b and c run d's shares and batch: their step-0 loss must be
 # d's bit for bit (the collectives come after it).
 PLANNED_STEP0_LOSS_RTOL = 1e-5
+# [34] the VLM (ROADMAP A8b): qwen2-vl-72b at full width cut in depth to
+# VLM_LAYERS of its 80 (9.51 B parameters, 19.0 GB of bf16: 8 x 0.878 B in
+# the blocks, 2.49 B in the untied embedding and head), its RMSNorm scales
+# perturbed from the seed.  Traffic through ``Batcher`` (text-only M-RoPE
+# positions), then one prefill on an image block laid out by
+# ``mrope_grid``: VLM_GRID_START text tokens, a VLM_GRID_SIDE^2 grid, text.
+VLM_ARCH, VLM_LAYERS = "qwen2-vl-72b", 8
+VLM_REQUESTS, VLM_PROMPT, VLM_NEW = 8, 512, 32
+VLM_GRID_START, VLM_GRID_SIDE = 64, 16
+# [35] the encoder-decoder (ROADMAP A8c): whisper-medium whole (24 + 24
+# layers, 0.845 B parameters in its tree), its biases and LayerNorms
+# perturbed from the seed: batched transcription of 30-second clips (1500
+# frames each, seeded unit normals standing for the stubbed frontend's
+# output) with a text prompt.  A prefill launches flash 72 times: the
+# encoder's 24 (bidir, 1500 x 1500), the decoder's 24 (causal, 64) and the
+# cross-attention's 24 (bidir, 64 x 1500).
+ENCDEC_ARCH = "whisper-medium"
+ENCDEC_REQUESTS, ENCDEC_PROMPT, ENCDEC_NEW = 8, 64, 32
+# [34]'s and [35]'s logits through the kernel against attention pinned to
+# plain (last position, rel L2), bf16.  The reference's init reads the
+# fan-in of a stacked weight from its layer axis (ROADMAP C5): at std
+# 1/sqrt(24) whisper's attention scores had std ~40, the softmax was near
+# one-hot and the whole model amplified rounding to O(1) at the logits (0.81
+# bf16, 0.73 f32 on an H100, PERF.md).  So both models' stacked projections
+# are redrawn at std 1/sqrt(fan-in) (``redraw_projections``): scores of std
+# ~1, a softmax spread over many keys, and logits that a rounding
+# difference moves in proportion.  Each limit is 3.5 to 4.5 times its
+# configuration's own reading on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+# qwen2-vl 1.435e-2 over 8 layers, whisper 1.147e-2 over 24 + 24 (plain
+# bf16 vs plain f32 1.219e-2).  The f32 gate is F32_LOGITS_REL_TOL (whisper
+# read 5.4e-7).
+VLM_BF16_LOGITS_REL_TOL = 5e-2
+ENCDEC_BF16_LOGITS_REL_TOL = 5e-2
+
+
+# [34]'s and [35]'s stacked projections and the number of input dims each
+# contracts (``wo`` takes heads x head dim): redrawn at std 1/sqrt(fan-in)
+PROJ_FAN_IN_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w1": 1, "w2": 1, "w3": 1}
+# the leaves of [34]'s and [35]'s models that init leaves at zeros or ones:
+# a bias or a norm read from the wrong leaf would not show; each is drawn
+# from the seed instead (a bias 0.1 N(0, 1), a norm scale 1 + 0.1 N(0, 1))
+BIAS_LEAVES = ("bq", "bv", "bo", "b1", "b2")
+NORM_LEAVES = ("ln1", "ln2", "ln3", "enc_norm", "final_norm")
 
 
 class SmokeFailure(RuntimeError):
@@ -914,6 +1002,25 @@ def in_turns(fns, rounds=4, timer=median_ms):
         for n in (names if r % 2 == 0 else names[::-1]):
             out[n].append(timer(fns[n]))
     return out
+
+
+def mrope_grid(np, B, S, start, side):
+    """(3, B, S) int64 M-RoPE positions of a prompt holding one image, laid
+    out by qwen2-vl's ``get_rope_index`` rule (arXiv:2409.12191 §2.1): text
+    at t = h = w = i before ``start``, then a ``side`` x ``side`` grid of
+    vision tokens (t = start; h and w = start + the row and the column),
+    then text again from the grid's largest position + 1 (start + side).
+    The three streams differ, so M-RoPE's sections act (three equal
+    streams are plain RoPE)."""
+    n = side * side
+    assert start + n <= S, (start, side, S)
+    pos = np.tile(np.arange(S, dtype=np.int64), (3, 1))
+    cell = np.arange(n)
+    pos[0, start:start + n] = start
+    pos[1, start:start + n] = start + cell // side
+    pos[2, start:start + n] = start + cell % side
+    pos[:, start + n:] = start + side + np.arange(S - start - n)
+    return np.ascontiguousarray(np.broadcast_to(pos[:, None], (3, B, S)))
 
 
 def attention_inputs(gen, B, Hq, Hkv, Sq, Sk, d, dtype, model_layout):
@@ -1005,34 +1112,100 @@ def phase_kernels(fa, torch):
     return results
 
 
-def phase_layers(torch, tacc, ops, fa, model, params, batch):
-    """The kernel on the inputs each layer of a real prefill gives it, against
-    its plain version on the same inputs: the bf16 check at full depth that
-    the model's amplification of rounding cannot blur."""
-    errs = []
+def attention_records(torch, tacc, ops, fa, run):
+    """Runs ``run()`` with the attention op on a recording variant: each call
+    goes through the kernel wrapper and, where it launched the kernel, its
+    output is held against the plain version on the same inputs.  Returns
+    [(kind, Sq, Sk, d, errors)] in call order."""
+    records = []
 
     def recorded(q, k, v, **kw):
+        before = fa.launches
         out = ops.flash_attention(q, k, v, **kw)
-        want = fa.flash_attention_plain(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            kind=kw["kind"], window=kw["window"]).transpose(1, 2)
-        errs.append(attention_error(out, want))
+        if fa.launches > before:
+            want = fa.flash_attention_plain(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                kind=kw["kind"], window=kw.get("window", 0)).transpose(1, 2)
+            records.append((kw["kind"], q.shape[1], k.shape[1], q.shape[3],
+                            attention_error(out, want)))
         return out
 
     tacc.register("attention", "cuda_layer_check")(recorded)
     tacc.set_platform("cuda_layer_check")
     try:
         with torch.inference_mode():
-            model.prefill(params, batch)
+            run()
     finally:
         tacc.set_platform(None)
-    dt = model.cfg.dtype
-    worst = {key: max(e[key] for e in errs) for key in errs[0]}
-    ok = len(errs) == model.cfg.n_layers and all(within_limits(e, dt) for e in errs)
-    print(f"  per layer ({len(errs)} layers), worst: {format_error(worst, dt)}  "
-          f"{'ok' if ok else 'FAIL'}")
-    check(ok, "the kernel disagrees with its plain version on a layer's inputs")
-    return worst
+    return records
+
+
+def worst_by_shape(records, dtype_name, expected):
+    """The worst errors of each (kind, Sq, Sk, d) of ``records``: every
+    record within ``ATTN_LIMITS``, and each shape launched ``expected[key]``
+    times (once a layer)."""
+    out, counts = {}, Counter()
+    for kind, Sq, Sk, d, err in records:
+        key = f"{kind}_sq{Sq}_sk{Sk}_d{d}"
+        counts[key] += 1
+        out[key] = {k: max(v, out.get(key, {}).get(k, 0.0)) for k, v in err.items()}
+        check(within_limits(err, dtype_name),
+              f"{key}: the kernel disagrees with its plain version on a layer's inputs: "
+              + format_error(err, dtype_name))
+    for key, worst in out.items():
+        print(f"  per layer, {key} ({counts[key]} layers), worst: "
+              f"{format_error(worst, dtype_name)}  ok")
+    check(dict(counts) == expected,
+          f"kernel launches by shape {dict(counts)}, expected {expected}")
+    return out
+
+
+def last_logits_pinned(torch, tacc, prefill, plain, vocab):
+    """Last-position f32 logits over the ``vocab`` real tokens (the padded
+    vocab's -1e30 would overflow a norm) of ``prefill()``, attention on the
+    kernel route or pinned to the plain variant."""
+    tacc.set_platform("cpu" if plain else None)
+    try:
+        with torch.inference_mode():
+            return prefill()[0][:, -1, :vocab].float()
+    finally:
+        tacc.set_platform(None)
+
+
+def _rel_l2(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+
+def served_model(torch, build, cfg):
+    """(model, params, init seconds) of ``cfg`` at full width: weights from
+    the seed, the stacked projections redrawn (``redraw_projections``),
+    biases and norms perturbed (``perturb_leaves``)."""
+    model = build(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    n_proj = redraw_projections(torch, params, SEED + 2)
+    n = perturb_leaves(torch, params, SEED + 1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    print(f"  {cfg.name}: {model.n_params() / 1e9:.4f}B parameters in the tree (the config's "
+          f"analytic count {cfg.n_params() / 1e9:.4f}B), {n_proj} stacked projections "
+          f"redrawn at std 1/sqrt(fan-in), {n} bias and norm leaves perturbed; "
+          f"init {init_s:.2f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return model, params, init_s
+
+
+def phase_layers(torch, tacc, ops, fa, model, params, batch):
+    """The kernel on the inputs each layer of a real prefill gives it, against
+    its plain version on the same inputs: the bf16 check at full depth that
+    the model's amplification of rounding cannot blur.  One launch a layer."""
+    cfg, S = model.cfg, batch["tokens"].shape[1]
+    worst = worst_by_shape(
+        attention_records(torch, tacc, ops, fa, lambda: model.prefill(params, batch)),
+        cfg.dtype, {f"causal_sq{S}_sk{S}_d{cfg.head_dim_}": cfg.n_layers})
+    return next(iter(worst.values()))
 
 
 def _tree_map(fn, tree):
@@ -1106,15 +1279,7 @@ def phase_serve(torch, np, fa, ops, tacc, get_config, build, engine):
     layers = phase_layers(torch, tacc, ops, fa, model, params, batch)
 
     def last_logits(m, p, plain):
-        tacc.set_platform("cpu" if plain else None)
-        try:
-            with torch.inference_mode():
-                return m.prefill(p, batch)[0][:, -1].float()
-        finally:
-            tacc.set_platform(None)
-
-    def rel(a, b):
-        return ((a - b).norm() / b.norm()).item()
+        return last_logits_pinned(torch, tacc, lambda: m.prefill(p, batch), plain, cfg.vocab)
 
     lk = last_logits(model, params, plain=False)
     lp = last_logits(model, params, plain=True)
@@ -1124,10 +1289,10 @@ def phase_serve(torch, np, fa, ops, tacc, get_config, build, engine):
     lfk = last_logits(m32, p32, plain=False)
     for t in (lk, lp, lf, lfk):
         check(bool(torch.isfinite(t).all()), "non-finite prefill logits")
-    agree = {"bf16_kernel_vs_plain": rel(lk, lp),
-             "bf16_plain_vs_f32": rel(lp, lf),
-             "bf16_kernel_vs_f32": rel(lk, lf),
-             "f32_kernel_vs_plain": rel(lfk, lf),
+    agree = {"bf16_kernel_vs_plain": _rel_l2(lk, lp),
+             "bf16_plain_vs_f32": _rel_l2(lp, lf),
+             "bf16_kernel_vs_f32": _rel_l2(lk, lf),
+             "f32_kernel_vs_plain": _rel_l2(lfk, lf),
              "bf16_same_argmax": (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()}
     print("  prefill last-position logits, rel L2: " + ", ".join(
         f"{k} {v:.3e}" for k, v in agree.items()))
@@ -1792,21 +1957,28 @@ def phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters, bench_
     check(got_rows == {k: {r: n * m.size for r, n in v.items()} for k, v in want_rows.items()},
           f"the int8 step's codec launches by rows {got_rows} differ from the count from its "
           f"leaves and buckets {want_rows} (per rank)")
-    runs, launches = {}, {}
+    # each step of the checked runs timed on the host clock, ended by a
+    # synchronise (three more steps, the runs in turns, timed them before [34]
+    # and [35] joined)
+    runs, launches, ms = {}, {}, {}
     for name, prog in progs.items():
         state = prog.init_fn(params)
         if name == "int8_ef":
             check(all("ef" in s["opt"] for s in state), "int8 run: no error-feedback state")
             torch.cuda.reset_peak_memory_stats()
         counters.reset()
-        losses = []
+        losses, ms[name] = [], []
         for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
             state, met = prog.step_fn(state, batch)
             losses.append(met["loss"].item())
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t) * 1e3)
         launches[name] = counters.read()
         if name == "int8_ef":
             peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            int8_state = state
         runs[name] = {"losses": losses, "grad_norm": met["grad_norm"].item(),
                       "tokens": int(met["tokens"].item())}
         print(f"  {name:8s} losses {['%.6f' % x for x in losses]}; launches {launches[name]}")
@@ -1834,21 +2006,13 @@ def phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters, bench_
     check(launches["xla"]["ring_reduce_scatter"] == 0 and launches["int8_ef"]["quant_int8"] > 0,
           "a run took another route than its backend")
 
-    # host-clock ms per step, runs in turns; the split of one int8 step
-    states = {name: prog.init_fn(params) for name, prog in progs.items()}
-    ms = {name: [] for name in progs}
-    for _ in range(TRAIN_TIMING_REPS):
-        for name, prog in progs.items():
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            states[name], _ = prog.step_fn(states[name], batch)
-            torch.cuda.synchronize()
-            ms[name].append((time.perf_counter() - t) * 1e3)
+    # host-clock ms per step (the checked steps'); the split of one int8 step
     step_ms = {name: statistics.median(v) for name, v in ms.items()}
+    states = {"int8_ef": int8_state}
     split = step_split(torch, mesh_mod, optim, hetccl, progs["int8_ef"], states, batch)
     busy = device_busy_share(
         torch, lambda: progs["int8_ef"].step_fn(states["int8_ef"], batch), 1)
-    print(f"  ms per step (host clock, median of {TRAIN_TIMING_REPS}, runs in turns): "
+    print(f"  ms per step (host clock, median of the {TRAIN_STEPS} checked steps): "
           f"{json.dumps({k: round(v, 1) for k, v in step_ms.items()})}; tokens/s "
           f"{json.dumps({k: round(n_tokens / v * 1e3, 1) for k, v in step_ms.items()})}")
     print(f"  int8 step split (rank 0, ms): {json.dumps(split)}; card busy share of an int8 "
@@ -2660,11 +2824,12 @@ def timed_ms(torch, fn, reps):
 
 
 def batched_serve(torch, engine, counters, progs, params, prompts, prompt_len, max_len,
-                  new_tokens):
+                  new_tokens, frames=None):
     """``prompts`` through ``Batcher`` with ``new_tokens`` new each, after a
     warm-up of 2: the counts set to 0 just before the measured run and read
-    just after.  Returns (finished requests, host seconds, launch counts,
-    peak GiB, whether every logit was finite)."""
+    just after; ``frames``: each request's frame embeddings (an
+    encoder-decoder's).  Returns (finished requests, host seconds, launch
+    counts, peak GiB, whether every logit was finite)."""
     dev = torch.device("cuda")
     finite = [torch.ones((), dtype=torch.bool, device=dev)]
 
@@ -2679,7 +2844,8 @@ def batched_serve(torch, engine, counters, progs, params, prompts, prompt_len, m
                                         decode_fn=watched(progs.decode_fn))
 
     def serve(new):
-        reqs = [engine.Request(i, p, new) for i, p in enumerate(prompts)]
+        reqs = [engine.Request(i, p, new, frames=None if frames is None else frames[i])
+                for i, p in enumerate(prompts)]
         return engine.Batcher(watched_progs, params, batch_slots=len(prompts),
                               prompt_len=prompt_len, max_len=max_len).run(reqs)
 
@@ -2695,11 +2861,12 @@ def batched_serve(torch, engine, counters, progs, params, prompts, prompt_len, m
             bool(finite[0]))
 
 
-def serve_times(torch, progs, params, toks, new_tokens):
-    """Prefill ms (median of 3) and decode ms a step (median of new_tokens -
-    2) on the host clock, then the card's busy share of a prefill and of
-    new_tokens / 2 decode steps (torch.profiler; run last)."""
-    batch = {"tokens": toks}
+def serve_times(torch, progs, params, toks, extra=None):
+    """Prefill ms (median of 3) and decode ms a step (median of
+    SERVE_DECODE_TIMED) on the host clock, then the card's busy share of a
+    prefill and of SERVE_DECODE_PROFILED decode steps (torch.profiler; run
+    last).  ``extra``: the batch's other leaves (``mrope``, ``frames``)."""
+    batch = {"tokens": toks, **(extra or {})}
     out = {"prefill_ms": timed_ms(torch, lambda: progs.prefill_fn(params, batch), 3)}
     _, cache = progs.prefill_fn(params, batch)
     cur = toks[:, -1:]
@@ -2708,11 +2875,11 @@ def serve_times(torch, progs, params, toks, new_tokens):
         nonlocal cache
         _, cache = progs.decode_fn(params, cache, cur)
 
-    out["decode_ms_per_step"] = timed_ms(torch, step, new_tokens - 2)
+    out["decode_ms_per_step"] = timed_ms(torch, step, SERVE_DECODE_TIMED)
     out["device_busy_prefill"] = device_busy_share(
         torch, lambda: progs.prefill_fn(params, batch), 1)
     _, cache = progs.prefill_fn(params, batch)
-    out["device_busy_decode"] = device_busy_share(torch, step, new_tokens // 2)
+    out["device_busy_decode"] = device_busy_share(torch, step, SERVE_DECODE_PROFILED)
     return out
 
 
@@ -2764,7 +2931,7 @@ def phase_ssm_serve(torch, np, ssd, tacc, engine, build, counters, cfg, model, p
     cfg32, p32 = ssm_first_layers(cfg, params)
     out["vs_plain_f32"] = ssm_vs_plain(torch, tacc, build, build(cfg32), p32, batch)
     del p32
-    out.update(serve_times(torch, progs, params, toks, SSM_NEW))
+    out.update(serve_times(torch, progs, params, toks))
     print(f"  prefill {out['prefill_ms']:.2f} ms (batch {SSM_REQUESTS} x {SSM_PROMPT}), decode "
           f"{out['decode_ms_per_step']:.2f} ms per step, {out['tokens_per_s']:.1f} tokens/s end "
           f"to end; card busy share prefill {out['device_busy_prefill']}, decode "
@@ -2885,7 +3052,7 @@ def phase_dense_serve(torch, np, fa, ops, tacc, engine, build, counters, cfg):
            "init_s": init_s}
     if d % 8:
         out["layer_worst_error"] = phase_layers(torch, tacc, ops, fa, model, params, batch)
-    out.update(serve_times(torch, progs, params, toks, DENSE_NEW))
+    out.update(serve_times(torch, progs, params, toks))
     del params
     print(f"  prefill {out['prefill_ms']:.2f} ms (batch {DENSE_REQUESTS} x {DENSE_PROMPT}), "
           f"decode {out['decode_ms_per_step']:.2f} ms per step, {out['tokens_per_s']:.1f} "
@@ -5086,6 +5253,273 @@ def phase_elastic(torch, np, mesh_mod, hetccl, counters, card, flags=PLANNED_FLA
     return out
 
 
+# ---------------------------------------------------------------------------
+# [34] the VLM and [35] the encoder-decoder served at full width (ROADMAP
+# A8b, A8c)
+# ---------------------------------------------------------------------------
+
+def perturb_leaves(torch, params, seed):
+    """Every bias (``BIAS_LEAVES``, and the LayerNorm shifts ``*_b``) drawn
+    as 0.1 N(0, 1) and every norm scale (``NORM_LEAVES``) as 1 + 0.1 N(0,
+    1), in place, from ``seed``, leaf by leaf in sorted order.  Returns the
+    number of leaves drawn."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = 0
+
+    def walk(tree):
+        nonlocal n
+        for name in sorted(tree):
+            t = tree[name]
+            if isinstance(t, dict):
+                walk(t)
+                continue
+            bias = name in BIAS_LEAVES or name.endswith("_b")
+            if bias or name in NORM_LEAVES:
+                draw = torch.randn(t.shape, generator=gen, device="cuda") * 0.1
+                t.copy_(draw if bias else draw + 1)
+                n += 1
+
+    walk(params)
+    return n
+
+
+def redraw_projections(torch, params, seed):
+    """Every projection (``PROJ_FAN_IN_DIMS``) of a stacked block tree
+    (``blocks``, ``enc_blocks``, ``dec_blocks``) drawn again as N(0, 1) /
+    sqrt(fan-in), the product of the dims it contracts after the layer
+    axis, in place on its device, from ``seed``, leaf by leaf in sorted
+    order and layer by layer (a transient of one layer).  Returns the number
+    of leaves drawn."""
+    gen = None
+    n = 0
+
+    def walk(tree, stacked):
+        nonlocal gen, n
+        for name in sorted(tree):
+            t = tree[name]
+            if isinstance(t, dict):
+                walk(t, stacked or name.endswith("blocks"))
+                continue
+            dims = PROJ_FAN_IN_DIMS.get(name)
+            if dims is None or not stacked:
+                continue
+            gen = gen or torch.Generator(device=t.device).manual_seed(seed)
+            std = math.prod(t.shape[1:1 + dims]) ** -0.5
+            for layer in t:
+                layer.copy_(torch.randn(layer.shape, generator=gen, device=t.device) * std)
+            n += 1
+
+    walk(params, False)
+    return n
+
+
+def served_checks(cfg, done, n_requests, new_tokens, finite):
+    check(len(done) == n_requests and all(len(r.out) == new_tokens for r in done),
+          f"{cfg.name}: not every request got its tokens")
+    check(all(0 <= tok < cfg.vocab for r in done for tok in r.out),
+          f"{cfg.name}: a token is outside the vocab")
+    check(finite, f"{cfg.name}: non-finite logits in the serve run")
+
+
+def phase_vlm_serve(torch, np, fa, ops, tacc, engine, build, counters, cfg, cases):
+    """qwen2-vl-72b cut to ``VLM_LAYERS``: VLM_REQUESTS x VLM_PROMPT +
+    VLM_NEW through ``Batcher`` (the counts set to 0 just before and read
+    just after: one flash launch per layer at d 128, none in decode), then a
+    prefill on the ``mrope_grid`` layout: each layer's kernel against its
+    plain version, the last-position logits against attention pinned to
+    plain and against the text-only positions (which must differ); times,
+    busy shares, peak memory; the kernel's times at this prefill's shape."""
+    dev = torch.device("cuda")
+    model, params, init_s = served_model(torch, build, cfg)
+    L, d = cfg.n_layers, cfg.head_dim_
+    max_len = VLM_PROMPT + VLM_NEW
+    progs = engine.make_serve_programs(model, seq_len=VLM_PROMPT, max_len=max_len, device=dev)
+    rng = np.random.RandomState(SEED + L)
+    prompts = [rng.randint(0, cfg.vocab, VLM_PROMPT).astype(np.int32)
+               for _ in range(VLM_REQUESTS)]
+    done, serve_s, launches, peak_gib, finite = batched_serve(
+        torch, engine, counters, progs, params, prompts, VLM_PROMPT, max_len, VLM_NEW)
+    n_tok = sum(len(r.out) for r in done)
+    print(f"  served {len(done)} requests x {VLM_PROMPT} prompt tokens, {n_tok} new tokens in "
+          f"{serve_s:.3f} s; flash launches {launches['flash_attention_fwd']} ({L} per prefill, "
+          f"none in decode), at d {d}: {launches[f'flash_attention_fwd_d{d}']}")
+    check(launches["flash_attention_fwd"] == L and launches[f"flash_attention_fwd_d{d}"] == L,
+          f"{cfg.name}: flash launched {launches['flash_attention_fwd']} times, {L} expected")
+    served_checks(cfg, done, VLM_REQUESTS, VLM_NEW, finite)
+
+    toks = torch.as_tensor(np.stack(prompts).astype(np.int64), device=dev)
+    grid = torch.as_tensor(mrope_grid(np, VLM_REQUESTS, VLM_PROMPT, VLM_GRID_START,
+                                      VLM_GRID_SIDE), device=dev)
+    text = torch.arange(VLM_PROMPT, device=dev)[None, None].expand(3, VLM_REQUESTS, VLM_PROMPT)
+    grid_batch = {"tokens": toks, "mrope": grid}
+    counters.reset()
+    _, cache = progs.prefill_fn(params, grid_batch)
+    prefill_launches = counters.read()["flash_attention_fwd"]
+    for _ in range(2):
+        _, cache = progs.decode_fn(params, cache, toks[:, -1:])
+    torch.cuda.synchronize()
+    decode_launches = counters.read()["flash_attention_fwd"] - prefill_launches
+    del cache
+    check(prefill_launches == L and decode_launches == 0,
+          f"{cfg.name}: a grid prefill launched flash {prefill_launches} times ({L} expected), "
+          f"two decode steps {decode_launches} (0 expected)")
+    layers = worst_by_shape(
+        attention_records(torch, tacc, ops, fa, lambda: model.prefill(params, grid_batch)),
+        cfg.dtype, {f"causal_sq{VLM_PROMPT}_sk{VLM_PROMPT}_d{d}": L})
+    V = cfg.vocab
+    lk = last_logits_pinned(torch, tacc, lambda: model.prefill(params, grid_batch), False, V)
+    lp = last_logits_pinned(torch, tacc, lambda: model.prefill(params, grid_batch), True, V)
+    lt = last_logits_pinned(torch, tacc, lambda: model.prefill(
+        params, {"tokens": toks, "mrope": text}), False, V)
+    for t in (lk, lp, lt):
+        check(bool(torch.isfinite(t).all()), f"{cfg.name}: non-finite prefill logits")
+    agree = {"bf16_kernel_vs_plain": _rel_l2(lk, lp), "grid_vs_text_only": _rel_l2(lk, lt),
+             "bf16_same_argmax": (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()}
+    print("  grid prefill's last-position logits, rel L2: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in agree.items()))
+    check(agree["bf16_kernel_vs_plain"] <= VLM_BF16_LOGITS_REL_TOL,
+          f"{cfg.name}: the kernel route is {agree['bf16_kernel_vs_plain']:.3e} from the plain "
+          f"route, beyond {VLM_BF16_LOGITS_REL_TOL}")
+    check(agree["grid_vs_text_only"] > 2 * agree["bf16_kernel_vs_plain"],
+          f"{cfg.name}: the grid's positions move the logits {agree['grid_vs_text_only']:.3e}, "
+          "not beyond twice the kernel-vs-plain gap: M-RoPE's sections do not act")
+    out = {"arch": cfg.name, "n_layers": L, "head_dim": d, "params_b": model.n_params() / 1e9,
+           "requests": len(done), "prompt_len": VLM_PROMPT, "new_tokens_per_request": VLM_NEW,
+           "serve_s": serve_s, "tokens_per_s": n_tok / serve_s, "launches": launches,
+           "peak_gib": peak_gib, "init_s": init_s, "grid_prefill_launches": prefill_launches,
+           "decode_launches": decode_launches, "layer_worst_error": layers,
+           "prefill_logits_rel_l2": agree}
+    out.update(serve_times(torch, progs, params, toks, {"mrope": text}))
+    del params
+    print(f"  prefill {out['prefill_ms']:.2f} ms (batch {VLM_REQUESTS} x {VLM_PROMPT}), decode "
+          f"{out['decode_ms_per_step']:.2f} ms per step, {out['tokens_per_s']:.1f} tokens/s end "
+          f"to end; card busy share prefill {out['device_busy_prefill']}, decode "
+          f"{out['device_busy_decode']}; peak memory {peak_gib:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["flash_times"] = {"qwen2vl": phase_times(fa, torch, cases[FLASH_TIMED["qwen2vl"]])}
+    return out
+
+
+def phase_encdec_serve(torch, np, fa, ops, tacc, engine, build, counters, cfg, cases):
+    """whisper-medium whole: ENCDEC_REQUESTS x (n_frames frames,
+    ENCDEC_PROMPT prompt tokens) + ENCDEC_NEW through ``Batcher`` (the counts
+    set to 0 just before and read just after: 72 flash launches per prefill,
+    none in decode, each shape counted by (kind, Sq, Sk)); then a prefill
+    with each of the three attention kinds' kernel output against its plain
+    version, layer by layer, the whole model's logits against attention
+    pinned to plain in bf16 and in f32, and the cross k and v read by
+    ENCDEC_NEW decode steps and left bit-equal; times, busy shares, peak
+    memory; the kernel's times at the three shapes."""
+    dev = torch.device("cuda")
+    model, params, init_s = served_model(torch, build, cfg)
+    Le, Ld, F, d = cfg.n_enc_layers, cfg.n_layers, cfg.n_frames, cfg.head_dim_
+    n_flash = Le + 2 * Ld
+    max_len = ENCDEC_PROMPT + ENCDEC_NEW
+    progs = engine.make_serve_programs(model, seq_len=ENCDEC_PROMPT, max_len=max_len,
+                                       device=dev)
+    P = ENCDEC_PROMPT
+    kinds = {"whisper_enc": (f"flash_attention_fwd_bidir_sq{F}_sk{F}", Le),
+             "whisper_dec": (f"flash_attention_fwd_causal_sq{P}_sk{P}", Ld),
+             "whisper_cross": (f"flash_attention_fwd_bidir_sq{P}_sk{F}", Ld)}
+    by_shape = dict(kinds.values())
+    rng = np.random.RandomState(SEED + Ld)
+    prompts = [rng.randint(0, cfg.vocab, ENCDEC_PROMPT).astype(np.int32)
+               for _ in range(ENCDEC_REQUESTS)]
+    frames = [rng.randn(F, cfg.d_model).astype(np.float32) for _ in range(ENCDEC_REQUESTS)]
+    done, serve_s, launches, peak_gib, finite = batched_serve(
+        torch, engine, counters, progs, params, prompts, ENCDEC_PROMPT, max_len, ENCDEC_NEW,
+        frames=frames)
+    n_tok = sum(len(r.out) for r in done)
+    print(f"  served {len(done)} requests x ({F} frames, {ENCDEC_PROMPT} prompt tokens), "
+          f"{n_tok} new tokens in {serve_s:.3f} s; flash launches "
+          f"{launches['flash_attention_fwd']} ({n_flash} per prefill: {Le} encoder, {Ld} "
+          f"decoder, {Ld} cross; none in decode), at d {d}: "
+          f"{launches[f'flash_attention_fwd_d{d}']}; by shape "
+          f"{ {k: launches.get(k, 0) for k in by_shape} }")
+    check(launches["flash_attention_fwd"] == n_flash
+          and launches[f"flash_attention_fwd_d{d}"] == n_flash
+          and all(launches.get(k, 0) == n for k, n in by_shape.items()),
+          f"{cfg.name}: flash launched {launches['flash_attention_fwd']} times, {n_flash} "
+          f"expected, by shape {by_shape}")
+    served_checks(cfg, done, ENCDEC_REQUESTS, ENCDEC_NEW, finite)
+
+    toks = torch.as_tensor(np.stack(prompts).astype(np.int64), device=dev)
+    fr = torch.as_tensor(np.stack(frames), device=dev)
+    batch = {"tokens": toks, "frames": fr}
+    layers = worst_by_shape(
+        attention_records(torch, tacc, ops, fa, lambda: model.prefill(params, batch)),
+        cfg.dtype, {f"bidir_sq{F}_sk{F}_d{d}": Le,
+                    f"causal_sq{ENCDEC_PROMPT}_sk{ENCDEC_PROMPT}_d{d}": Ld,
+                    f"bidir_sq{ENCDEC_PROMPT}_sk{F}_d{d}": Ld})
+    # the whole model's logits against attention pinned to plain, in bf16 and
+    # with the same weights in f32
+    m32 = build(dataclasses.replace(cfg, dtype="float32"))
+    p32 = _tree_map(lambda t: t.float(), params)
+    ls = [last_logits_pinned(torch, tacc, lambda m=m, q=q: m.prefill(q, batch), plain, cfg.vocab)
+          for m, q in ((model, params), (m32, p32)) for plain in (False, True)]
+    del p32
+    for t in ls:
+        check(bool(torch.isfinite(t).all()), f"{cfg.name}: non-finite prefill logits")
+    lk, lp, lfk, lf = ls
+    agree = {"bf16_kernel_vs_plain": _rel_l2(lk, lp), "bf16_plain_vs_f32": _rel_l2(lp, lf),
+             "f32_kernel_vs_plain": _rel_l2(lfk, lf),
+             "bf16_same_argmax": (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()}
+    print("  prefill last-position logits, rel L2: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in agree.items()))
+    check(agree["bf16_kernel_vs_plain"] <= ENCDEC_BF16_LOGITS_REL_TOL,
+          f"{cfg.name}: the kernel route is {agree['bf16_kernel_vs_plain']:.3e} from the plain "
+          f"route, beyond {ENCDEC_BF16_LOGITS_REL_TOL}")
+    check(agree["f32_kernel_vs_plain"] <= F32_LOGITS_REL_TOL,
+          f"{cfg.name}: the f32 kernel route is {agree['f32_kernel_vs_plain']:.3e} from the "
+          f"plain route, beyond {F32_LOGITS_REL_TOL}")
+
+    # decode reads the cached cross k and v and never writes them
+    counters.reset()
+    _, cache = progs.prefill_fn(params, batch)
+    prefill_launches = counters.read()["flash_attention_fwd"]
+    cross = (cache["cross_k"].clone(), cache["cross_v"].clone())
+    check(cache["cross_k"].dtype == getattr(torch, cfg.dtype)
+          and tuple(cache["cross_k"].shape) == (Ld, ENCDEC_REQUESTS, F, cfg.n_kv_heads, d),
+          f"{cfg.name}: cross_k {tuple(cache['cross_k'].shape)} {cache['cross_k'].dtype}")
+    cur = toks[:, -1:]
+    for _ in range(ENCDEC_NEW):
+        logits, cache = progs.decode_fn(params, cache, cur)
+        cur = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    decode_launches = counters.read()["flash_attention_fwd"] - prefill_launches
+    same = torch.equal(cache["cross_k"], cross[0]) and torch.equal(cache["cross_v"], cross[1])
+    print(f"  cache: cross_k and cross_v {tuple(cross[0].shape)} {cross[0].dtype} "
+          f"({2 * cross[0].numel() * cross[0].element_size() / 2**30:.3f} GiB), bit-equal after "
+          f"{ENCDEC_NEW} decode steps: {same}; flash launches: prefill {prefill_launches}, "
+          f"decode {decode_launches}")
+    check(same, f"{cfg.name}: decode changed the cached cross k or v")
+    check(prefill_launches == n_flash and decode_launches == 0,
+          f"{cfg.name}: prefill launched flash {prefill_launches} times ({n_flash} expected), "
+          f"decode {decode_launches} (0 expected)")
+    del cache, cross
+    out = {"arch": cfg.name, "n_enc_layers": Le, "n_layers": Ld, "n_frames": F, "head_dim": d,
+           "params_b": model.n_params() / 1e9, "analytic_params_b": cfg.n_params() / 1e9,
+           "requests": len(done), "prompt_len": ENCDEC_PROMPT,
+           "new_tokens_per_request": ENCDEC_NEW, "serve_s": serve_s,
+           "tokens_per_s": n_tok / serve_s, "launches": launches, "peak_gib": peak_gib,
+           "init_s": init_s, "decode_launches": decode_launches, "cross_kv_bit_equal": same,
+           "launches_by_kind": {name: launches[key] for name, (key, _) in kinds.items()},
+           "layer_worst_error": layers, "prefill_logits_rel_l2": agree}
+    out.update(serve_times(torch, progs, params, toks, {"frames": fr}))
+    del params
+    print(f"  prefill {out['prefill_ms']:.2f} ms (batch {ENCDEC_REQUESTS} x ({F} frames, "
+          f"{ENCDEC_PROMPT} tokens)), decode {out['decode_ms_per_step']:.2f} ms per step, "
+          f"{out['tokens_per_s']:.1f} tokens/s end to end; card busy share prefill "
+          f"{out['device_busy_prefill']}, decode {out['device_busy_decode']}; peak memory "
+          f"{peak_gib:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["flash_times"] = {name: phase_times(fa, torch, cases[FLASH_TIMED[name]])
+                          for name in ("whisper_enc", "whisper_dec", "whisper_cross")}
+    return out
+
+
 class Counters:
     """The launch counts of every kernel wrapper of the port."""
 
@@ -5104,6 +5538,8 @@ class Counters:
         fa, quant, ring_dma, cr, gmm, ssd = self.mods
         return {"flash_attention_fwd": fa.launches, "flash_attention_bwd": fa.bwd_launches,
                 **{f"flash_attention_fwd_d{d}": fa.d_launches.get(d, 0) for d in fa.HEAD_DIMS},
+                **{f"flash_attention_fwd_{kind}_sq{sq}_sk{sk}": n
+                   for (kind, sq, sk), n in fa.shape_launches.items()},
                 "quant_int8": quant.quant_launches, "dq_accum_int8": quant.dq_launches,
                 "ring_reduce_scatter": ring_dma.rs_launches,
                 "ring_all_gather": ring_dma.ag_launches, "collective_reduce": cr.launches,
@@ -5372,6 +5808,28 @@ def main() -> int:
         elastic_out = phase_elastic(torch, np, mesh_mod, hetccl, counters, card)
         print(json.dumps({"elastic": elastic_out, "phase_wall_s": walls, **card}))
 
+    vlm_cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    with phase(f"[34] VLM serve: {VLM_ARCH} at full width, {VLM_LAYERS} of 80 layers", walls):
+        print(f"  {vlm_cfg.name}: d_model {vlm_cfg.d_model}, {vlm_cfg.n_heads}/"
+              f"{vlm_cfg.n_kv_heads} heads x {vlm_cfg.head_dim_}, d_ff {vlm_cfg.d_ff}, vocab "
+              f"{vlm_cfg.vocab}, M-RoPE sections {vlm_cfg.mrope_sections}, theta "
+              f"{vlm_cfg.rope_theta:g}, {vlm_cfg.dtype}")
+        vlm = phase_vlm_serve(torch, np, fa, ops, tacc, engine, build, counters, vlm_cfg,
+                              cases)
+        print(json.dumps({"vlm_serve": vlm, "phase_wall_s": walls, **card}))
+
+    encdec_cfg = get_config(ENCDEC_ARCH)
+    with phase(f"[35] encoder-decoder serve: {ENCDEC_ARCH} at full width and depth", walls):
+        print(f"  {encdec_cfg.name}: {encdec_cfg.n_enc_layers} encoder + {encdec_cfg.n_layers} "
+              f"decoder layers, d_model {encdec_cfg.d_model}, {encdec_cfg.n_heads} heads x "
+              f"{encdec_cfg.head_dim_}, d_ff {encdec_cfg.d_ff}, {encdec_cfg.n_frames} frames, "
+              f"vocab {encdec_cfg.vocab}, {encdec_cfg.dtype}")
+        encdec = phase_encdec_serve(torch, np, fa, ops, tacc, engine, build, counters,
+                                    encdec_cfg, cases)
+        print(json.dumps({"encdec_serve": encdec, "phase_wall_s": walls, **card}))
+    flash_times.update(vlm.pop("flash_times"))
+    flash_times.update(encdec.pop("flash_times"))
+
     def planned_launches(key):         # [31]'s runs
         return {run: v["launches"][key] for run, v in planned.items()}
 
@@ -5427,6 +5885,8 @@ def main() -> int:
     kernels[0]["d112_library_ms"] = stimes["flash_d112"]["library_ms"]
     kernels[0]["dense_launches"] = {a: v["launches"]["flash_attention_fwd"]
                                     for a, v in dense.items()}
+    kernels[0]["vlm_launches"] = vlm["launches"]["flash_attention_fwd"]
+    kernels[0]["encdec_launches"] = encdec["launches"]["flash_attention_fwd"]
     kernels[0]["llama1b_zero3_launches"] = zero["zero3"]["launches"]["flash_attention_fwd"]
     kernels[0]["planned_launches"] = planned_launches("flash_attention_fwd")
     kernels[0]["elastic_launches"] = elastic_launches_of("flash_attention_fwd")
@@ -5434,7 +5894,10 @@ def main() -> int:
                       "mixtral_prefill": moe["serve"]["launches"]["flash_attention_fwd"],
                       "mixtral_window": moe["window"]["launches"]["flash_attention_fwd"],
                       "zamba2": ssm[HYBRID_ARCH]["launches"]["flash_attention_fwd"],
-                      "llama3b": dense["llama-3b"]["launches"]["flash_attention_fwd_d100"]}
+                      "llama3b": dense["llama-3b"]["launches"]["flash_attention_fwd_d100"],
+                      "qwen2vl": vlm["launches"]["flash_attention_fwd_d128"],
+                      # [35]'s three shapes, each counted by (kind, Sq, Sk)
+                      **encdec["launches_by_kind"]}
     kernels[0]["shapes"] = {name: {"launches": shape_launches[name], **flash_times[name]}
                             for name in FLASH_TIMED}
     tb = ttimes["flash_attention_bwd"]

@@ -1,11 +1,11 @@
 """Model architecture config: the port's own copy of ``ModelConfig``.
 
-Counterpart of ``repro/configs/base.py:10-204``, reduced to the fields of the
-families that the port runs: dense, MoE with its sliding window (mixtral),
-SSM (Mamba2 / SSD) and the SSM + shared-attention hybrid (zamba2).  Each
-field, ``n_params`` / ``n_active_params``, ``full_attention`` and the
-``reduced()`` cut are the reference's, so a config means the same model in
-both packages; the encoder-decoder and VLM fields arrive with their slices.
+Counterpart of ``repro/configs/base.py:10-204``, every family included:
+dense, MoE with its sliding window (mixtral), SSM (Mamba2 / SSD), the SSM +
+shared-attention hybrid (zamba2), the encoder-decoder (whisper) and the VLM
+with M-RoPE (qwen2-vl).  Each field, ``n_params`` / ``n_active_params``,
+``full_attention`` and the ``reduced()`` cut are the reference's, so a
+config means the same model in both packages.
 ``ShapeConfig`` and the four shapes (``SHAPES``) and ``RunConfig`` are the
 reference's (``base.py:138-204``), every field included.
 """
@@ -19,7 +19,7 @@ from repro_torch.comm.policy import PolicyTable
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe | ssm | hybrid
+    family: str                     # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -44,6 +44,11 @@ class ModelConfig:
     attn_every: int = 0             # shared attention block every k ssm layers
     # --- sliding window (mixtral) ---
     window: int = 0
+    # --- encoder-decoder (whisper) ---
+    n_enc_layers: int = 0
+    n_frames: int = 0
+    # --- vlm (qwen2-vl) ---
+    mrope_sections: tuple[int, ...] = ()
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     attn_chunk: int = 512           # KV chunk of the plain online-softmax path
@@ -72,8 +77,10 @@ class ModelConfig:
         return self.family in ("dense", "moe", "encdec", "vlm") and self.window == 0
 
     def n_params(self) -> float:
-        """Analytic parameter count of the reference (norms not counted; the
-        hybrid's shared block counted once)."""
+        """Analytic parameter count of the reference (norms and biases not
+        counted; the hybrid's shared block counted once; the encoder-decoder's
+        decoder MLP priced as gated, 3·d·d_ff, where its tree holds 2·d·d_ff:
+        ROADMAP C8)."""
         d, hd = self.d_model, self.head_dim_
         attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
         mlp = 3 * d * self.d_ff if self.d_ff else 0
@@ -90,7 +97,11 @@ class ModelConfig:
             return float(self.n_layers * ssm + 2 * self.vocab * d)
         if self.family == "hybrid":
             return float(self.n_layers * ssm + attn + 3 * d * self.d_ff + 2 * self.vocab * d)
-        return float(self.n_layers * (attn + mlp + moe) + 2 * self.vocab * d)
+        total = self.n_layers * (attn + mlp + moe)
+        if self.family == "encdec":
+            total += self.n_enc_layers * (d * d * 4 + 2 * d * self.d_ff)   # encoder blocks
+            total += self.n_layers * (d * d * 4)                            # cross-attention
+        return float(total + 2 * self.vocab * d)
 
     def n_active_params(self) -> float:
         """Active parameters per token (an MoE token uses top_k experts)."""
@@ -118,7 +129,10 @@ class ModelConfig:
             ssm_state=min(self.ssm_state, 16),
             ssm_headdim=32 if self.ssm_state else self.ssm_headdim,
             ssm_chunk=32,
+            n_enc_layers=min(self.n_enc_layers, 2),
+            n_frames=min(self.n_frames, 64),
             window=min(self.window, 64) if self.window else 0,
+            mrope_sections=(4, 6, 6) if self.mrope_sections else (),
             attn_chunk=64,
             loss_chunk=1024,
             dtype="float32",

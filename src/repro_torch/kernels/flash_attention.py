@@ -40,6 +40,9 @@ from repro_torch.kernels.ref import attention_bwd as flash_attention_bwd_plain
 launches = 0          # kernel launches made by flash_attention_fwd
 bwd_launches = 0      # kernel launches (two passes each in bf16, three in f32) by flash_attention_bwd
 d_launches: dict[int, int] = {}   # flash_attention_fwd's launches by head dim
+# flash_attention_fwd's launches by (kind, Sq, Sk): the shapes of one head dim
+# (whisper's encoder, decoder and cross-attention, all d 64) counted apart
+shape_launches: dict[tuple[str, int, int], int] = {}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # 64: smollm, the gpt models, llama-1b and smollm-360m; 128: the larger dense
@@ -114,6 +117,7 @@ def reset_counts():
     with _lock:
         launches = bwd_launches = 0
         d_launches.clear()
+        shape_launches.clear()
 
 
 def _aligned(t) -> bool:
@@ -224,6 +228,8 @@ def flash_attention_fwd(q, k, v, *, kind: str = "causal", window: int = 0,
     with _lock:
         launches += 1
         d_launches[d] = d_launches.get(d, 0) + 1
+        key = (kind, Sq, Sk)
+        shape_launches[key] = shape_launches.get(key, 0) + 1
     return (o, lse) if return_lse else o
 
 

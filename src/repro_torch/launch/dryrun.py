@@ -14,6 +14,10 @@ which is the nature of a dry run: no chip, no data.
   group, bytes, whether it crosses an island) by the step counter.
 * A serve cell is one card serving the whole batch: a prefill of
   ``global_batch x seq_len``, or one decode step on a cache of ``seq_len``.
+  The VLM's prefill takes an ``mrope`` leaf (3, B, S), the
+  encoder-decoder's ``frames`` (B, n_frames, d_model) in bf16, as the
+  reference's cells do.  Their train cells are skipped until the trainer
+  takes those leaves (ROADMAP item A8d).
 
 Each cell reports the step's roofline terms on the H100 sheet
 (``roofline.hw.H100``, one chip per rank), ``model_flops_spec`` (the
@@ -72,6 +76,19 @@ def meta_params(model, dtype: torch.dtype):
     _, rebuild = flatten(metas)
     return rebuild([torch.empty(tuple(m.shape), dtype=dtype, device="meta")
                     for m in meta_leaves(metas)])
+
+
+def serve_batch(cfg: ModelConfig, B: int, S: int) -> dict:
+    """A prefill cell's batch on ``meta``: the tokens, the VLM's ``mrope``
+    (3, B, S) and the encoder-decoder's ``frames`` (B, n_frames, d_model)
+    in bf16 (the reference's ``_serve_batch_sds``)."""
+    batch = {"tokens": torch.zeros((B, S), dtype=torch.long, device="meta")}
+    if cfg.family == "vlm":
+        batch["mrope"] = torch.zeros((3, B, S), dtype=torch.long, device="meta")
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((B, cfg.n_frames, cfg.d_model), dtype=torch.bfloat16,
+                                      device="meta")
+    return batch
 
 
 def _nbytes(tree) -> int:
@@ -142,6 +159,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, zero: int = 3,
         rec["status"] = "skipped"
         rec["reason"] = "long_500k requires sub-quadratic attention (DESIGN.md §4)"
         return rec
+    if shape.kind == "train" and cfg.family in ("vlm", "encdec"):
+        rec["status"] = "skipped"
+        rec["reason"] = f"training of the {cfg.family} family is ROADMAP item A8d"
+        return rec
     model = build(cfg)
     t0 = time.time()
     try:
@@ -183,8 +204,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, zero: int = 3,
             progs = make_serve_programs(model, S, device="meta")
             with analysis.counting(live=True) as sc:
                 if shape.kind == "prefill":
-                    progs.prefill_fn(params, {"tokens": torch.zeros((B, S), dtype=torch.long,
-                                                                    device="meta")})
+                    progs.prefill_fn(params, serve_batch(cfg, B, S))
                 else:
                     cache = progs.init_cache(B, S)
                     state_bytes += _nbytes(cache)

@@ -1,8 +1,10 @@
-"""Serving launcher of the port: prefill/decode a dense, MoE, SSM or hybrid
-architecture (``configs.ARCH_IDS`` and the paper's models,
-``configs.PAPER_IDS``; the VLM and enc-dec archs raise naming their ROADMAP
-item).  For the SSM families the prompt length must be at most the chunk
-(``ssm_chunk``, 32 reduced) or a multiple of it, as in the reference.
+"""Serving launcher of the port: prefill/decode any architecture
+(``configs.ARCH_IDS`` and the paper's models, ``configs.PAPER_IDS``):
+dense, MoE, SSM, hybrid, the VLM (qwen2-vl-72b: text-only M-RoPE positions)
+and the encoder-decoder (whisper-medium: each request's frame embeddings
+(n_frames, d_model) are unit normals drawn from ``--seed``).  For the SSM
+families the prompt length must be at most the chunk (``ssm_chunk``, 32
+reduced) or a multiple of it, as in the reference.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         [--batch 4] [--prompt-len 32] [--max-new 16] [--reduced|--full-size] \\
@@ -48,6 +50,9 @@ def main(argv=None):
     reqs = [Request(i, rng.randint(0, cfg.vocab, args.prompt_len // 2)
                     .astype(np.int32), args.max_new)
             for i in range(args.batch)]
+    if cfg.family == "encdec":          # the stubbed audio frontend's output
+        for r in reqs:
+            r.frames = rng.randn(cfg.n_frames, cfg.d_model).astype(np.float32)
     b = Batcher(progs, params, batch_slots=args.batch,
                 prompt_len=args.prompt_len, max_len=max_len)
     t0 = time.perf_counter()

@@ -12,13 +12,15 @@ mesh of ranks, on the plan and policy table HetCCL's planner picks.
         [--elastic] [--chaos SCRIPT] [--watchdog]
 
 ``--arch`` takes every architecture of the port (``configs.ARCH_IDS`` and
-the paper's models, ``configs.PAPER_IDS``): dense, MoE, and the SSM and
-hybrid families (mamba2-2.7b, zamba2-7b), whose SSD scan trains through its
-backward kernel.  ``--zero 3`` shards the parameters over the mesh's "data"
-axis and gathers them inside the forward, every family: per block, the MoE
-family's router and expert stacks among them; the hybrid's shared block
-once per forward and each group's Mamba2 blocks once per group (a Mamba2
-block's leaves without an "embed" dim stay whole on every rank).
+the paper's models, ``configs.PAPER_IDS``) but the VLM and the
+encoder-decoder, which serve only (their training is ROADMAP item A8d):
+dense, MoE, and the SSM and hybrid families (mamba2-2.7b, zamba2-7b), whose
+SSD scan trains through its backward kernel.  ``--zero 3`` shards the
+parameters over the mesh's "data" axis and gathers them inside the
+forward, every family: per block, the MoE family's router and expert
+stacks among them; the hybrid's shared block once per forward and each
+group's Mamba2 blocks once per group (a Mamba2 block's leaves without an
+"embed" dim stay whole on every rank).
 
 The collective configuration comes from the planner (``repro_torch.plan``,
 DESIGN.md §9, §12), with the reference launcher's flags and defaults:

@@ -1,5 +1,5 @@
 """Shared model machinery: parameter metadata, init, sharding rule, norms,
-RoPE.
+RoPE and M-RoPE.
 
 Counterpart of ``repro/models/common.py:24-57, 121-210``.  Parameters are
 plain nested dicts of tensors with the reference's tree layout, so weights
@@ -14,6 +14,7 @@ tensors over a TPU's "model" axis, which the port does not have.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any, Callable
 
@@ -133,6 +134,16 @@ def rms_norm(x, scale, eps=1e-5):
     return out.to(x.dtype)
 
 
+def layer_norm(x, scale, bias, eps=1e-5):
+    """f32 statistics (the population variance, as ``jnp.var``), scale and
+    shift; result cast back to x.dtype."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    out = (x32 - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    return out.to(x.dtype)
+
+
 def embed_lookup(table, tokens):
     return table[tokens]
 
@@ -145,18 +156,40 @@ def rope_freqs(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x, positions, theta: float):
+def mrope_pair_positions(positions, sections: tuple[int, ...], head_dim: int):
+    """M-RoPE's (3, B, S) stream positions (temporal, height, width) as the
+    (B, S, head_dim/2) position of each frequency pair, read from the stream
+    that owns it (``sections`` pairs each, in order; their sum is
+    head_dim/2).  The stream index is built on the positions' device, as
+    the frequencies are.  A forward takes it once for all its layers."""
+    assert sum(sections) == head_dim // 2, (sections, head_dim)
+    pair = torch.arange(head_dim // 2, device=positions.device)
+    stream = torch.zeros_like(pair)                                 # stream of each pair
+    for start in itertools.accumulate(sections[:-1]):
+        stream += pair >= start
+    return positions.movedim(0, -1)[..., stream]
+
+
+def apply_rope(x, positions, theta: float, sections: tuple[int, ...] = (),
+               pairwise: bool = False):
     """Rotary embedding, split-half convention.
 
-    x: (..., S, H, hd); positions: (..., S) int.  The product with the f32
-    sin/cos is taken in f32 and cast back to x.dtype, as in the reference
-    (there JAX promotes bf16 * f32 to f32; torch promotes the same way, and
-    the explicit ``float()`` states it).  M-RoPE (qwen2-vl) waits for the VLM
-    slice.
+    x: (..., S, H, hd); positions: (..., S) int, or with ``sections``
+    (M-RoPE, qwen2-vl) (3, B, S): the temporal, height and width streams
+    (``mrope_pair_positions``), or with ``pairwise`` already one position
+    per frequency pair, (..., S, hd/2).  The product with the f32 sin/cos
+    is taken in f32 and cast back to x.dtype, as in the reference (there JAX
+    promotes bf16 * f32 to f32; torch promotes the same way, and the
+    explicit ``float()`` states it).
     """
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)                         # (hd/2,)
-    angles = positions.float()[..., None] * freqs                   # (..., S, hd/2)
+    if sections:
+        positions, pairwise = mrope_pair_positions(positions, sections, hd), True
+    if pairwise:
+        angles = positions.float() * freqs                          # (..., S, hd/2)
+    else:
+        angles = positions.float()[..., None] * freqs               # (..., S, hd/2)
     angles = angles[..., None, :]                                   # broadcast over heads
     sin, cos = torch.sin(angles), torch.cos(angles)
     x1, x2 = x[..., : hd // 2].float(), x[..., hd // 2:].float()

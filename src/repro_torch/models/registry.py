@@ -1,11 +1,12 @@
-"""Model registry: one interface over the families the port serves.
+"""Model registry: one interface over every family of the reference.
 
 Counterpart of ``repro/models/registry.py:24-113``.  ``build(cfg)`` gives a
 :class:`Model` with ``abstract_params`` / ``init`` / ``n_params`` /
 ``loss`` / ``prefill`` / ``decode`` / ``cache_metas``.  There is no sharding
 context: the reference's ``ctx`` arguments place tensors on a mesh, and one
 card has none; ZeRO-3's parameter sharding comes to ``loss`` as an
-``FsdpScope`` and its rules.
+``FsdpScope`` and its rules.  The encoder-decoder's batch carries
+``frames`` (B, n_frames, d_model), the VLM's may carry ``mrope`` (3, B, S).
 """
 from __future__ import annotations
 
@@ -15,11 +16,13 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import init_params, meta_leaves
 
 # the stacked (and shared) block trees: gathered per block inside the forward
-_SCANNED_KEYS = frozenset({"blocks", "groups", "tail", "shared"})
+_SCANNED_KEYS = frozenset({"blocks", "groups", "tail", "shared", "enc_blocks",
+                           "dec_blocks"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +30,8 @@ class Model:
     cfg: ModelConfig
 
     def abstract_params(self):
+        if self.cfg.family == "encdec":
+            return encdec_mod.abstract_params(self.cfg)
         return tf.abstract_params(self.cfg)
 
     def init(self, generator: torch.Generator, dtype: torch.dtype | None = None):
@@ -52,10 +57,17 @@ class Model:
         "tokens" and "labels" (B, S) and an optional f32 "mask"; aux is the
         forward's MoE aux losses (0 for the other families).  ``remat``:
         activation checkpointing per block.  ``fsdp`` and ``rules``: ZeRO-3
-        (``params`` are this rank's shards; ``forward_lm``)."""
+        (``params`` are this rank's shards; ``forward_lm``).  The
+        encoder-decoder's forward has no ZeRO-3 plan yet (ROADMAP item A8d)."""
+        if self.cfg.family == "encdec" and fsdp is not None:
+            raise NotImplementedError("ZeRO-3 of the encoder-decoder: ROADMAP item A8d")
         params = self._gather_top(params, fsdp, rules)
-        hidden, aux = tf.forward_lm(params, batch["tokens"], self.cfg, remat=remat,
-                                    fsdp=fsdp, rules=rules)
+        if self.cfg.family == "encdec":
+            hidden, aux = encdec_mod.forward(params, batch, self.cfg, remat=remat)
+        else:
+            hidden, aux = tf.forward_lm(params, batch["tokens"], self.cfg,
+                                        mrope=batch.get("mrope"), remat=remat,
+                                        fsdp=fsdp, rules=rules)
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones(batch["labels"].shape, dtype=torch.float32,
@@ -65,9 +77,14 @@ class Model:
         return loss_sum, count, aux
 
     def prefill(self, params, batch, max_len: int | None = None):
-        return tf.prefill_lm(params, batch["tokens"], self.cfg, max_len=max_len)
+        if self.cfg.family == "encdec":
+            return encdec_mod.prefill(params, batch, self.cfg, max_len=max_len)
+        return tf.prefill_lm(params, batch["tokens"], self.cfg, mrope=batch.get("mrope"),
+                             max_len=max_len)
 
     def decode(self, params, cache, tokens):
+        if self.cfg.family == "encdec":
+            return encdec_mod.decode_step(params, cache, tokens, self.cfg)
         return tf.decode_lm(params, cache, tokens, self.cfg)
 
     def cache_metas(self, batch: int, max_len: int):

@@ -1,5 +1,6 @@
-"""Decoder LM, dense / MoE / SSM / hybrid families: parameters, blocks,
-forward, loss, prefill, decode.
+"""Decoder LM, dense / MoE / VLM / SSM / hybrid families: parameters,
+blocks, forward, loss, prefill, decode; and the blocks the encoder-decoder
+(``models/encdec.py``) is built from.
 
 Counterpart of those paths of ``repro/models/transformer.py``, the sliding
 window's rolling cache included (mixtral).  The reference scans over stacked
@@ -11,7 +12,11 @@ recomputes the block's forward inside the backward.  The SSM family
 attn_every`` groups of ``attn_every`` Mamba2 blocks, each group followed by
 one shared attention + MLP block (its weights shared, its KV cache one per
 group), then a tail of the ``n_layers % attn_every`` blocks left.  The VLM
-and enc-dec families wait for their slice (ROADMAP A8).
+(qwen2-vl) is the dense family with M-RoPE: its positions are three streams
+(3, B, S), the batch's ``mrope`` leaf or, without one, the text-only
+positions broadcast to three streams (the reference's rule, decode's
+too).  The encoder-decoder's blocks add biases (``bq``, ``bv``, ``bo``;
+``b1``, ``b2``), the ungated GELU MLP and no RoPE.
 
 ZeRO-3 (every family): the forward takes an
 :class:`~repro_torch.core.collectives.FsdpScope` and gathers the sharded
@@ -35,12 +40,14 @@ Mamba2 block's convolutions, ``A_log``, ``dt_bias``, ``D`` and ``gnorm``
 have no "embed" dim and stay whole on every rank.
 
 bf16 rounding points follow the reference: the projections are matmuls in
-the activation dtype (f32 accumulation inside, result rounded to it),
-``rms_norm`` keeps f32 statistics, RoPE multiplies in f32, and SiLU runs in
-f32 before the cast back.  The Mamba2 block keeps the reference's points
-too: the short convolutions sum in f32 and SiLU runs in f32 before the cast
-back, dt = softplus(f32), and the SSD state is f32 (``ssd_scan`` returns it
-so; the cache keeps it so).
+the activation dtype (f32 accumulation inside, result rounded to it), each
+bias added in that dtype after the product, ``rms_norm`` and ``layer_norm``
+keep f32 statistics, RoPE multiplies in f32, and SiLU and GELU (the tanh
+approximation, ``jax.nn.gelu``'s default) run in f32 before the cast back.
+The Mamba2 block keeps the reference's points too: the short convolutions
+sum in f32 and SiLU runs in f32 before the cast back, dt = softplus(f32),
+and the SSD state is f32 (``ssd_scan`` returns it so; the cache keeps it
+so).
 """
 from __future__ import annotations
 
@@ -57,7 +64,10 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamMeta, apply_rope, embed_lookup,
-                                       fsdp_dim, rms_norm, tree_map_meta)
+                                       fsdp_dim, mrope_pair_positions, rms_norm,
+                                       tree_map_meta)
+
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -65,36 +75,51 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Dense and MoE (each with or without a sliding window), SSM, hybrid."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not in the port yet (ROADMAP A8)")
+    """Every family of the reference: dense and MoE (each with or without a
+    sliding window), VLM, SSM, hybrid and the encoder-decoder."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}: the families are "
+                         f"{', '.join(FAMILIES)}")
 
 
 # ---------------------------------------------------------------------------
 # Parameter metadata
 # ---------------------------------------------------------------------------
 
-def _attn_metas(cfg: ModelConfig, L: int | None = None) -> dict:
-    """Stacked over L layers, or one block's (the hybrid's shared block)."""
+def _attn_metas(cfg: ModelConfig, L: int | None = None, bias: bool = False) -> dict:
+    """Stacked over L layers, or one block's (the hybrid's shared block).
+    ``bias`` (the encoder-decoder's): ``bq``, ``bv`` and ``bo``; whisper's
+    key projection has none."""
     D, Hq, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     pre, pax = ((L,), ("layers",)) if L else ((), ())
-    return {
+    m = {
         "wq": ParamMeta(pre + (D, Hq, hd), pax + ("embed", "q_heads", "head")),
         "wk": ParamMeta(pre + (D, Hkv, hd), pax + ("embed", "kv_heads", "head")),
         "wv": ParamMeta(pre + (D, Hkv, hd), pax + ("embed", "kv_heads", "head")),
         "wo": ParamMeta(pre + (Hq, hd, D), pax + ("q_heads", "head", "embed")),
     }
+    if bias:
+        m["bq"] = ParamMeta(pre + (Hq, hd), pax + ("q_heads", "head"), "zeros")
+        m["bv"] = ParamMeta(pre + (Hkv, hd), pax + ("kv_heads", "head"), "zeros")
+        m["bo"] = ParamMeta(pre + (D,), pax + ("embed",), "zeros")
+    return m
 
 
-def _mlp_metas(cfg: ModelConfig, L: int | None = None) -> dict:
+def _mlp_metas(cfg: ModelConfig, L: int | None = None, gated: bool = True,
+               bias: bool = False) -> dict:
+    """Gated-SiLU (``w3``) or, ungated, GELU; ``bias``: ``b1`` and ``b2``."""
     D, F_ = cfg.d_model, cfg.d_ff
     pre, pax = ((L,), ("layers",)) if L else ((), ())
-    return {
+    m = {
         "w1": ParamMeta(pre + (D, F_), pax + ("embed", "mlp")),
         "w2": ParamMeta(pre + (F_, D), pax + ("mlp", "embed")),
-        "w3": ParamMeta(pre + (D, F_), pax + ("embed", "mlp")),
     }
+    if gated:
+        m["w3"] = ParamMeta(pre + (D, F_), pax + ("embed", "mlp"))
+    if bias:
+        m["b1"] = ParamMeta(pre + (F_,), pax + ("mlp",), "zeros")
+        m["b2"] = ParamMeta(pre + (D,), pax + ("embed",), "zeros")
+    return m
 
 
 def _moe_metas(cfg: ModelConfig, L: int) -> dict:
@@ -130,8 +155,12 @@ def _ssm_metas(cfg: ModelConfig, pre: tuple[int, ...], pax: tuple[str, ...]) -> 
 
 
 def abstract_params(cfg: ModelConfig) -> dict:
-    """Meta tree of every family the port runs.  Vocab dims use padded_vocab."""
+    """Meta tree of the decoder families (the encoder-decoder's is
+    ``encdec.abstract_params``).  Vocab dims use padded_vocab; the VLM's
+    tree is the dense one."""
     check_supported(cfg)
+    if cfg.family == "encdec":
+        raise ValueError("the encoder-decoder's tree is models.encdec.abstract_params")
     D, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
     base = {
         "embed": ParamMeta((V, D), ("vocab", "embed"), "normal", 0.02),
@@ -224,9 +253,22 @@ def _qkv(p, x, positions, cfg: ModelConfig):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if cfg.family != "encdec":                       # whisper has no RoPE
+        # M-RoPE's positions come one per frequency pair (_layer_positions)
+        pairwise = bool(cfg.mrope_sections)
+        q = apply_rope(q, positions, cfg.rope_theta, pairwise=pairwise)
+        k = apply_rope(k, positions, cfg.rope_theta, pairwise=pairwise)
     return q, k, v
+
+
+def out_proj(p, out, dtype):
+    """The attention output's projection (B, S, Hq, hd) -> (B, S, D), with
+    ``bo`` where the block has one."""
+    proj = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
+    return proj + p["bo"].to(dtype) if "bo" in p else proj
 
 
 def attn_sublayer(p, h, positions, cfg: ModelConfig, *, kind="causal",
@@ -254,16 +296,22 @@ def attn_sublayer(p, h, positions, cfg: ModelConfig, *, kind="causal",
                                      q_offset=pos, k_len=pos + q.shape[1],
                                      chunk=cfg.attn_chunk)
         new_cache = (ck, cv)
-    proj = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(h.dtype))
-    return proj, new_cache
+    return out_proj(p, out, h.dtype), new_cache
 
 
 def mlp_sublayer(p, h, cfg: ModelConfig):
-    """Gated-SiLU FFN over pre-normed input; SiLU in f32."""
+    """FFN over pre-normed input: gated-SiLU where ``w3`` is present, else
+    GELU (tanh approximation); each in f32 before the cast back."""
     h1 = torch.einsum("bsd,df->bsf", h, p["w1"].to(h.dtype))
-    h3 = torch.einsum("bsd,df->bsf", h, p["w3"].to(h.dtype))
-    hh = F.silu(h1.float()).to(h.dtype) * h3
-    return torch.einsum("bsf,fd->bsd", hh, p["w2"].to(h.dtype))
+    if "b1" in p:
+        h1 = h1 + p["b1"].to(h.dtype)
+    if "w3" in p:
+        h3 = torch.einsum("bsd,df->bsf", h, p["w3"].to(h.dtype))
+        hh = F.silu(h1.float()).to(h.dtype) * h3
+    else:
+        hh = F.gelu(h1.float(), approximate="tanh").to(h.dtype)
+    out = torch.einsum("bsf,fd->bsd", hh, p["w2"].to(h.dtype))
+    return out + p["b2"].to(h.dtype) if "b2" in p else out
 
 
 def ffn_sublayer(p, h2, cfg: ModelConfig):
@@ -296,7 +344,7 @@ def _prefill_block(p, x, positions, cfg):
     q, k, v = _qkv(p["attn"], hn, positions, cfg)
     out = attn_mod.attention(q, k, v, kind="causal", window=cfg.window,
                              chunk=cfg.attn_chunk)
-    x = x + torch.einsum("bshk,hkd->bsd", out, p["attn"]["wo"].to(x.dtype))
+    x = x + out_proj(p["attn"], out, x.dtype)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + ffn_sublayer(p, h2, cfg)[0], k, v
 
@@ -371,10 +419,25 @@ def ssm_prefill_block(p, x, cfg: ModelConfig):
 # Whole-model forwards
 # ---------------------------------------------------------------------------
 
-def _positions_for(tokens, offset=0):
+def _positions_for(cfg: ModelConfig, tokens, offset=0, mrope=None):
+    """(B, S) positions from ``offset``; with M-RoPE (3, B, S): ``mrope``
+    where the batch has it, else the text-only positions broadcast to the
+    three streams (the reference's default, decode's positions too)."""
     B, S = tokens.shape
-    pos = offset + torch.arange(S, device=tokens.device)
-    return pos[None, :].expand(B, S)
+    if cfg.mrope_sections and mrope is not None:
+        return mrope
+    pos = (offset + torch.arange(S, device=tokens.device))[None, :].expand(B, S)
+    return pos[None].expand(3, B, S) if cfg.mrope_sections else pos
+
+
+def _layer_positions(cfg: ModelConfig, tokens, offset=0, mrope=None):
+    """The positions every layer's ``_qkv`` takes: ``_positions_for``'s, with
+    M-RoPE's three streams turned, once a forward, into each frequency
+    pair's (B, S, head_dim/2) (``mrope_pair_positions``)."""
+    pos = _positions_for(cfg, tokens, offset, mrope)
+    if cfg.mrope_sections:
+        return mrope_pair_positions(pos, cfg.mrope_sections, cfg.head_dim_)
+    return pos
 
 
 def _block_out(p, positions, cfg, x):
@@ -467,7 +530,7 @@ def _gathered_blocks(params, positions, cfg, fsdp, gplans):
     return fns
 
 
-def forward_lm(params, tokens, cfg: ModelConfig, *, remat: bool = False,
+def forward_lm(params, tokens, cfg: ModelConfig, *, mrope=None, remat: bool = False,
                fsdp=None, rules=None):
     """Token ids (B, S) -> (final normed hidden states (B, S, D), aux), aux
     the f32 sum over layers of ``moe_aux`` * 0.01 + ``moe_z`` * 1e-3 (0 for
@@ -476,8 +539,9 @@ def forward_lm(params, tokens, cfg: ModelConfig, *, remat: bool = False,
     body).  ``fsdp`` (an ``FsdpScope``) with ``rules`` (``make_rules``):
     ZeRO-3, the stacked blocks' leaves sharded and gathered on the
     reference's plan (:func:`_gathered_blocks`; the embedding and final norm
-    come gathered); ``remat`` checkpoints each block as without ZeRO-3."""
-    positions = _positions_for(tokens)
+    come gathered); ``remat`` checkpoints each block as without ZeRO-3.
+    ``mrope``: the VLM's (3, B, S) positions (``_positions_for``)."""
+    positions = _layer_positions(cfg, tokens, mrope=mrope)
     x = embed_lookup(params["embed"], tokens).to(_dtype(cfg))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if fsdp is not None:
@@ -550,7 +614,8 @@ def cache_metas(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     With a sliding window the cache holds ``min(max_len, window)`` positions.
     SSM: per layer the SSD state ``s`` and the conv states; hybrid: those
     under ``groups`` (n_groups, attn_every, ...) and ``tail``, and the shared
-    block's k/v once per group."""
+    block's k/v once per group; encoder-decoder: the decoder's k/v and the
+    cross-attention's ``cross_k`` / ``cross_v`` over the encoder's frames."""
     hd = cfg.head_dim_
     pos = ParamMeta((), (), "zeros")
     if cfg.family == "ssm":
@@ -568,9 +633,14 @@ def cache_metas(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     S = min(max_len, cfg.window) if cfg.window else max_len
     shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, hd)
     axes = ("layers", "cbatch", "cseq", "kv_heads", "head")
-    return {"k": ParamMeta(shape, axes, "zeros"),
-            "v": ParamMeta(shape, axes, "zeros"),
-            "pos": pos}
+    out = {"k": ParamMeta(shape, axes, "zeros"),
+           "v": ParamMeta(shape, axes, "zeros"),
+           "pos": pos}
+    if cfg.family == "encdec":
+        cross = ParamMeta((cfg.n_layers, batch, cfg.n_frames, cfg.n_kv_heads, hd),
+                          ("layers", "cbatch", "frames", "kv_heads", "head"), "zeros")
+        out["cross_k"] = out["cross_v"] = cross
+    return out
 
 
 def zeros_cache(metas: dict, dtype: torch.dtype, device) -> dict:
@@ -619,7 +689,7 @@ def decode_lm(params, cache, tokens, cfg: ModelConfig):
     cache's buffers (k/v; SSD and conv states) are updated in place and
     returned with pos + 1."""
     pos = int(cache["pos"])
-    positions = _positions_for(tokens, offset=pos)
+    positions = _layer_positions(cfg, tokens, offset=pos)
     x = embed_lookup(params["embed"], tokens).to(_dtype(cfg))
     if cfg.family in ("ssm", "hybrid"):
         views = _ssm_cache_layers(cache, cfg)
@@ -637,16 +707,19 @@ def decode_lm(params, cache, tokens, cfg: ModelConfig):
     return logits, {**cache, "pos": pos + 1}
 
 
-def prefill_lm(params, tokens, cfg: ModelConfig, *, max_len: int | None = None):
+def prefill_lm(params, tokens, cfg: ModelConfig, *, mrope=None,
+               max_len: int | None = None):
     """Prefill: forward over the prompt, returning last-position logits + a
     cache positioned at S, ready for decode.  The cache holds ``max_len``
     (>= S) positions, except with a sliding window and S >= window: then it
     is the rolling cache of ``window`` slots, the last ``window`` positions
-    at slot ``pos % window`` (the reference's rule)."""
+    at slot ``pos % window`` (the reference's rule).  ``mrope``: the VLM's
+    (3, B, S) positions; decode goes on from the cache position, broadcast
+    to the three streams, as in the reference (ROADMAP C8)."""
     B, S = tokens.shape
     max_len = max(max_len or S, S)
     dtype = _dtype(cfg)
-    positions = _positions_for(tokens)
+    positions = _layer_positions(cfg, tokens, mrope=mrope)
     x = embed_lookup(params["embed"], tokens).to(dtype)
     if cfg.family in ("ssm", "hybrid"):
         return _prefill_ssm(params, x, positions, cfg, max_len)

@@ -5,7 +5,15 @@ pjit programs with shardings over a mesh; serving has no cross-pod
 collectives, so on one card the programs reduce to the model's eager prefill
 and decode under ``torch.inference_mode``, and ``serve_rules`` has nothing
 to place.  The :class:`Batcher` keeps the reference's left padding and dummy
-slots.
+slots, and the VLM's text-only M-RoPE positions (``arange`` broadcast to
+three streams).
+
+Departure (ROADMAP C8, DESIGN_TORCH.md §26): the reference's ``Batcher``
+builds no ``frames`` leaf, so it cannot serve the encoder-decoder (its
+prefill reads ``batch["frames"]``).  The port's :class:`Request` carries an
+optional ``frames`` (n_frames, d_model), which the batcher stacks for an
+``encdec`` model (zeros for a dummy slot); a request without them raises a
+``ValueError`` naming ``frames``.
 """
 from __future__ import annotations
 
@@ -61,6 +69,7 @@ class Request:
     prompt: np.ndarray          # (S,) int32
     max_new: int
     out: list = dataclasses.field(default_factory=list)
+    frames: Any = None          # (n_frames, d_model) frame embeddings (encdec)
 
 
 class Batcher:
@@ -75,8 +84,29 @@ class Batcher:
         self.prompt_len = prompt_len
         self.max_len = max_len
 
+    def _frames(self, group: list[Request]) -> torch.Tensor:
+        """The group's frames stacked (slots, n_frames, d_model) on the
+        card; a dummy slot's are zeros."""
+        cfg, dev = self.p.model.cfg, self.p.device
+        shape = (cfg.n_frames, cfg.d_model)
+        out = []
+        for r in group:
+            if r.uid < 0:
+                out.append(torch.zeros(shape, device=dev))
+                continue
+            if r.frames is None:
+                raise ValueError(f"request {r.uid}: an encoder-decoder request needs its "
+                                 f"frames {shape}")
+            f = torch.as_tensor(r.frames)
+            if tuple(f.shape) != shape:
+                raise ValueError(f"request {r.uid}: frames of shape {tuple(f.shape)}, "
+                                 f"expected {shape}")
+            out.append(f.to(dev, torch.float32))
+        return torch.stack(out)
+
     def run(self, requests: list[Request]) -> list[Request]:
         done: list[Request] = []
+        family = self.p.model.cfg.family
         for i in range(0, len(requests), self.slots):
             group = requests[i:i + self.slots]
             while len(group) < self.slots:
@@ -86,6 +116,11 @@ class Batcher:
                 s = min(len(r.prompt), self.prompt_len)
                 toks[j, -s:] = r.prompt[:s]
             batch = {"tokens": torch.as_tensor(toks, device=self.p.device)}
+            if family == "vlm":         # text-only positions on three streams
+                pos = torch.arange(self.prompt_len, device=self.p.device)
+                batch["mrope"] = pos[None, None].expand(3, self.slots, self.prompt_len)
+            elif family == "encdec":
+                batch["frames"] = self._frames(group)
             logits, cache = self.p.prefill_fn(self.params, batch)
             cur = logits[:, -1].argmax(-1)[:, None]
             n_new = max(r.max_new for r in group)

@@ -110,6 +110,10 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
     by the live tokens."""
     if rc.zero_stage not in (1, 3):
         raise ValueError(f"zero_stage={rc.zero_stage}: the stages are 1 and 3")
+    if model.cfg.family in ("vlm", "encdec"):
+        raise NotImplementedError(
+            f"{model.cfg.name}: training of the {model.cfg.family} family (its batch leaves "
+            f"and gather plans) comes with ROADMAP item A8d; it serves now")
     local_axes, pod_axis = _dp_axes_of(mesh)
     cross = getattr(torch, rc.cross_dtype) if rc.cross_dtype else None
     hcfg = hetccl.HetCCLConfig(

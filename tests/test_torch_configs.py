@@ -1,11 +1,11 @@
 """The port's architecture registry against the reference's.
 
-Every architecture of the reference (``ARCH_IDS``) and every model of the
-paper (``PAPER_IDS``) is either ported or pending with its ROADMAP item: a
-pending one raises ``NotImplementedError`` naming that item, never a bare
-``KeyError``.  Each ported config equals the reference's field by field,
-with its parameter count, head dim, padded vocab and ``full_attention``;
-the shapes (``SHAPES``) are the reference's.
+Every architecture of the reference (``ARCH_IDS``, in its order) and every
+model of the paper (``PAPER_IDS``) is ported: ``PENDING`` is empty, and an
+unknown name raises ``KeyError`` listing the known ones.  Each config
+equals the reference's field by field, with its parameter count, head dim,
+padded vocab and ``full_attention``; the shapes (``SHAPES``) are the
+reference's.
 """
 import dataclasses
 
@@ -22,22 +22,18 @@ from repro_torch.configs import (ARCH_IDS, PAPER_IDS, PENDING, SHAPES,  # noqa: 
                                  all_configs, get_config)
 from repro_torch.launch import serve  # noqa: E402
 
-# the configs this slice ports (ROADMAP A8a)
+# the configs of the dense slice (ROADMAP A8a), the VLM (A8b) and the
+# encoder-decoder (A8c)
 NEW_ARCHS = ("gpt-125m", "gpt-355m", "llama-1b", "llama-3b", "smollm-360m",
-             "starcoder2-7b", "deepseek-coder-33b")
+             "starcoder2-7b", "deepseek-coder-33b", "qwen2-vl-72b", "whisper-medium")
 
 
 @pytest.mark.parametrize("arch", REF_ARCH_IDS + REF_PAPER_IDS)
 def test_every_reference_arch_is_ported_or_pending(arch):
-    ported = arch in ARCH_IDS or arch in PAPER_IDS
-    assert ported != (arch in PENDING)
-    if arch in PENDING:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A8[bc] "):
-            get_config(arch)
-    else:
-        assert get_config(arch).name == arch
-    assert PAPER_IDS == REF_PAPER_IDS
-    assert set(PENDING) == {"qwen2-vl-72b", "whisper-medium"}
+    assert arch in ARCH_IDS or arch in PAPER_IDS
+    assert get_config(arch).name == arch
+    assert PAPER_IDS == REF_PAPER_IDS and ARCH_IDS == REF_ARCH_IDS
+    assert PENDING == {}
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)
@@ -45,7 +41,8 @@ def test_config_equals_the_reference(arch):
     got, want = get_config(arch), ref_get_config(arch)
     for f in dataclasses.fields(got):
         assert getattr(got, f.name) == getattr(want, f.name), f.name
-    assert (want.n_enc_layers, want.n_frames, want.mrope_sections) == (0, 0, ())
+    assert [f.name for f in dataclasses.fields(got)] == \
+        [f.name for f in dataclasses.fields(want)]
     assert got.n_params() == want.n_params()
     assert got.n_active_params() == want.n_active_params()
     assert (got.head_dim_, got.padded_vocab, got.full_attention) == \
@@ -67,11 +64,13 @@ def test_shapes_and_all_configs_equal_the_reference():
 
 
 def test_unknown_arch_lists_known_and_pending():
-    with pytest.raises(KeyError, match="smollm-135m.*pending.*qwen2-vl-72b"):
+    with pytest.raises(KeyError, match="'gpt-999m': the port has whisper-medium, .*"
+                                       "qwen2-vl-72b, mamba2-2.7b, gpt-125m.*llama-3b"):
         get_config("gpt-999m")
 
 
 def test_serve_launcher_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError,
-                       match="qwen2-vl-72b is not in the port yet: ROADMAP A8b"):
-        serve.main(["--arch", "qwen2-vl-72b", "--device", "cpu"])
+    """The launcher serves the architectures that were pending."""
+    done = serve.main(["--arch", "qwen2-vl-72b", "--device", "cpu", "--batch", "2",
+                       "--max-new", "2"])
+    assert len(done) == 2 and all(len(r.out) == 2 for r in done)

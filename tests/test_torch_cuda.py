@@ -1471,3 +1471,55 @@ def test_planted_ssd_fault_fails_the_limits(gen, faulty_ssd_libs, monkeypatch, f
         assert smoke.ssd_mma_ok(good[0]) and not smoke.ssd_mma_ok(bad[0])
     else:
         assert not bad[1]
+
+
+# ---------------------------------------------------------------------------
+# The VLM and the encoder-decoder on the card (ROADMAP A8b, A8c)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "whisper-medium"])
+def test_vlm_and_encdec_prefill_take_the_kernel(gen, arch):
+    """Reduced qwen2-vl-72b (M-RoPE on ``chip_smoke.mrope_grid``) and
+    whisper-medium in f32, the stacked projections redrawn at std
+    1/sqrt(fan-in) as chip_smoke's [34] and [35] draw them (at the
+    reference's std 1/sqrt(n_layers), ROADMAP C5, whisper's 2 + 4 layers
+    are f32-chaotic; redrawn, the CPU's f32 prefill lies 5e-7 from float64),
+    biases and norms perturbed: a prefill launches flash once per attention
+    (the VLM's 4 layers; whisper's 2 encoder, 4 decoder and 4 cross, each
+    counted by shape), decode launches none, and the last-position logits
+    agree with attention pinned to the plain variant within
+    ``chip_smoke.F32_LOGITS_REL_TOL``."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import tacc
+    from repro_torch.models import build
+    cfg = get_config(arch).reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    assert smoke.redraw_projections(torch, params, 2) > 0
+    assert smoke.perturb_leaves(torch, params, 1) > 0
+    B, S = 2, 96
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":
+        batch["mrope"] = torch.as_tensor(smoke.mrope_grid(np, B, S, 16, 6), device="cuda")
+        by_shape = {("causal", S, S): cfg.n_layers}
+    else:
+        F = cfg.n_frames
+        batch["frames"] = torch.randn(B, F, cfg.d_model, generator=gen, device="cuda")
+        by_shape = {("bidir", F, F): cfg.n_enc_layers, ("causal", S, S): cfg.n_layers,
+                    ("bidir", S, F): cfg.n_layers}
+    n_flash = sum(by_shape.values())
+    fa.reset_counts()
+    with torch.inference_mode():
+        logits, cache = model.prefill(batch=batch, params=params, max_len=S + 2)
+        torch.cuda.synchronize()
+        assert fa.launches == n_flash and fa.shape_launches == by_shape
+        for _ in range(2):
+            _, cache = model.decode(params, cache, toks[:, -1:])
+        torch.cuda.synchronize()
+    assert fa.launches == n_flash
+    plain = smoke.last_logits_pinned(torch, tacc, lambda: model.prefill(params, batch), True,
+                                     cfg.vocab)
+    assert smoke._rel_l2(logits[:, -1, :cfg.vocab].float(), plain) <= smoke.F32_LOGITS_REL_TOL

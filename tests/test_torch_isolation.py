@@ -47,8 +47,12 @@ for arch in ("mamba2-2.7b", "zamba2-7b"):
     done = serve.main(["--arch", arch, "--device", "cpu", "--reduced", "--batch", "2",
                        "--prompt-len", "64", "--max-new", "3"])
     assert len(done) == 2 and all(len(r.out) == 3 for r in done)
+for arch in ("qwen2-vl-72b", "whisper-medium"):
+    done = serve.main(["--arch", arch, "--device", "cpu", "--reduced", "--batch", "2",
+                       "--prompt-len", "16", "--max-new", "3"])
+    assert len(done) == 2 and all(len(r.out) == 3 for r in done)
 from repro_torch.kernels import grouped_matmul, ops, ssd_scan
-from repro_torch.models import moe, ssm
+from repro_torch.models import encdec, moe, ssm
 import torch
 from repro_torch.core import hetccl, mesh
 cfg = hetccl.HetCCLConfig(mode="pipelined", backend="pallas", n_channels=2)
@@ -97,6 +101,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert "arch=mixtral-8x7b-reduced: served 2 reqs, 6 tokens" in r.stdout
     assert "arch=mamba2-2.7b-reduced: served 2 reqs, 6 tokens" in r.stdout
     assert "arch=zamba2-7b-reduced: served 2 reqs, 6 tokens" in r.stdout
+    assert "arch=qwen2-vl-72b-reduced: served 2 reqs, 6 tokens" in r.stdout
+    assert "arch=whisper-medium-reduced: served 2 reqs, 6 tokens" in r.stdout
     assert "error_feedback=True" in r.stdout and "tokens/s" in r.stdout
     assert "-> rebuild" in r.stdout and "recovery: checkpointless@2" in r.stdout
     assert json.loads(r.stdout.strip().splitlines()[-1]) == []
