@@ -56,8 +56,11 @@ Phases, in order; any failure exits non-zero before the last line:
    bit (NaN where NaN), up to the largest leaf (55296 rows of 512);
 10. flash backward vs plain: ``flash_attention_bwd``
    (``csrc/flash_attention_bwd.cu``) against its plain version at the
-   training shape, at head dim 100 and the edge cases, each with its
-   limits, and the forward's row logsumexp against its plain version;
+   training shape, at head dim 100, at whisper's three training shapes
+   (the cross-attention's Sq 448 against Sk 1500) and qwen2-vl's (1,
+   64/8, 4096, 128), two f32 cases with Sq below and above Sk, and the
+   edge cases (``BWD_CASES``), each with its limits, and the forward's row
+   logsumexp against its plain version;
 11. training at full width: ZeRO-1 steps of full-width smollm-135m (bf16
    parameters, f32 master state, weights from a seed) on a ThreadMesh
    (pod=2, data=2), ``uniform_plan(2, 4, micro_batch=2)``, seq 512, one
@@ -77,8 +80,9 @@ Phases, in order; any failure exits non-zero before the last line:
    ``torch.addcmul`` in turns with ``dq_accum_int8``, with the bounds, the
    plain versions and the wrappers' host time per call; the codec's card
    time per int8+EF step, launches x graph time over every shape the step
-   launches; and the flash backward at the training shape and at d 100
-   against SDPA's autograd in turns (also from CUDA graphs);
+   launches; and the flash backward at the training shape, at d 100 and
+   at the shapes of [36] and [37] (``BWD_TIMED``) against SDPA's autograd
+   in turns (also from CUDA graphs);
 13. grouped matmul vs plain: ``grouped_matmul`` (``csrc/grouped_matmul.cu``)
    against its plain version, case by case (``GMM_CASES``: the sweep shapes
    of tests/test_kernels.py in f32 and bf16, Mixtral's prefill and decode
@@ -142,7 +146,8 @@ Phases, in order; any failure exits non-zero before the last line:
    memory;
 22. llama-1b trained at full width at the paper's shape (micro-batch 1 x
    seq 8192 per rank, remat, hier, pallas) on a (pod=2, data=2) ThreadMesh:
-   3 ZeRO-3 steps and 3 ZeRO-1 steps from one init and the same batches,
+   2 ZeRO-3 steps and 2 ZeRO-1 steps (3 until [36] and [37] joined) from
+   one init and the same batches,
    the counts set to 0 just before each run and read just after; step
    losses within 5e-3 of each other; the fused reduce-scatter launched once
    per gathered (leaf, layer) by the fsdp adjoint; ms a step, tokens/s,
@@ -192,7 +197,7 @@ Phases, in order; any failure exits non-zero before the last line:
    exactly the launches made; and flash's backward at head dim 112
    (``FLASH_D112_BWD_CASES``: zamba2's training shape, a ragged f32 case)
    within ``BWD_LIMITS``;
-28. SSM and hybrid training at full width: mamba2-2.7b cut to 16 of 64
+28. SSM and hybrid training at full width: mamba2-2.7b cut to 4 of 64
    layers and zamba2-7b cut to 7 of 81 (one group of six Mamba2 blocks, the
    shared attention block, one tail block), bf16 parameters with f32 master
    state, weights from a seed, on a (pod=2, data=2) ThreadMesh, two
@@ -312,9 +317,37 @@ Phases, in order; any failure exits non-zero before the last line:
    logits against attention pinned to plain, in bf16 and in f32;
    the cached ``cross_k`` and ``cross_v`` bit-equal before and after 32
    decode steps; the same figures as [34] and the three shapes' times;
+36. the VLM trained (after [35]): qwen2-vl-72b at full width cut to 1 of
+   its 80 layers (3.37 B parameters, 60.6 GB of state at 18 bytes a
+   parameter: one rank, VLM_TRAIN_LAYERS' note), ZeRO-1 on a one-rank
+   ThreadMesh, two micro-steps of 1 x 4096 a step, each sequence holding a
+   32 x 32 image grid in its ``mrope`` leaf, remat, hier, pallas, no
+   codec, bf16 parameters with f32 master state, its projections redrawn:
+   step 0's attention gradients on the grid against text-only positions
+   (they must differ by VLM_GRID_GRAD_FLOOR), then 2 steps, the counts set
+   to 0 just before and read just after (8 flash forward and 4 backward
+   launches at (causal, 4096, 4096), d 128); finite losses and gradient
+   norms; ms a step, tokens/s, busy share, peak memory;
+37. the encoder-decoder trained (after [36]): whisper-medium whole on a
+   (pod=2, data=2) ThreadMesh, two micro-steps of 4 clips (1500 frames,
+   448 decoder tokens) a rank, 32 clips a step, remat, hier, pallas, no
+   codec, bf16 with f32 master state, projections redrawn and biases and
+   norms perturbed as [35]'s: the step-0 gate (each shape's first flash
+   backward launch against the plain backward with the kernel's bf16
+   rounding points, BWD_BF16_POINTS_LIMITS, the f32 plain printed), then 2
+   ZeRO-3 and 2 ZeRO-1 steps from one init on the same batches, the counts
+   set to 0 just before each run and read just after: flash forward and
+   backward launches by (kind, Sq, Sk), the fused rings, the fsdp
+   adjoint's reduce-scatters against the gather plan; finite losses;
+   ZeRO-3 against ZeRO-1 ([22]'s loss and gradient-norm limits,
+   ENCDEC_ZERO_PARAM_REL_L2 over the tree, ENCDEC_ZERO_LEAF_REL_L2 per
+   leaf); ms a step, tokens/s, peak memory, and each stage's busy share
+   from its second step, run under torch.profiler;
 30. a JSON line listing every kernel (the flash forward with its nine
-   main-path shapes under ``shapes``, the backward's d-100 and d-112
-   shapes, the grouped matmul's and the SSD scan's launches per route under
+   main-path shapes under ``shapes`` and its launches in [36] and [37],
+   the backward's d-100, d-112 and [36]'s and [37]'s shapes, its launches
+   there and its Sq != Sk cases' errors, the grouped matmul's and the SSD
+   scan's launches per route under
    ``routes``, the grouped matmul's backward products with their routes'
    launches in the MoE training run, the SSD backward with its three
    launches under ``stages`` and its launches in [28], and every kernel's
@@ -453,39 +486,65 @@ COLL_TIMING_REPS = 5
 # Limits: about 3 times the largest reading over these cases on an H100
 # (1.70e-3 and 3.87e-3 in bf16, 7.80e-7 and 1.22e-6 in f32; PERF.md).
 BWD_LIMITS = {"bfloat16": (5e-3, 1e-2), "float32": (3e-6, 4e-6)}
-# (name, B, Hq, Hkv, S, d, kind, window, k_len, dtype, model_layout)
+# (name, B, Hq, Hkv, Sq, Sk, d, kind, window, k_len, dtype, model_layout), as
+# KERNEL_CASES
 BWD_CASES = [
-    ("train", 2, 9, 3, 512, 64, "causal", 0, None, "bfloat16", True),
-    ("train_f32", 2, 9, 3, 512, 64, "causal", 0, None, "float32", True),
-    ("ragged_s300_bidir_klen201", 1, 4, 2, 300, 64, "bidir", 0, 201, "bfloat16", False),
-    ("window48_d32", 2, 4, 1, 256, 32, "causal", 48, None, "bfloat16", False),
-    ("d128_hq8_hkv2", 1, 8, 2, 200, 128, "causal", 0, None, "bfloat16", False),
-    ("f32_d128_bidir_window40_klen130", 1, 4, 1, 150, 128, "bidir", 40, 130, "float32", False),
-    ("f32_d32_s100", 2, 4, 2, 100, 32, "causal", 0, None, "float32", True),
+    ("train", 2, 9, 3, 512, 512, 64, "causal", 0, None, "bfloat16", True),
+    ("train_f32", 2, 9, 3, 512, 512, 64, "causal", 0, None, "float32", True),
+    ("ragged_s300_bidir_klen201", 1, 4, 2, 300, 300, 64, "bidir", 0, 201, "bfloat16", False),
+    ("window48_d32", 2, 4, 1, 256, 256, 32, "causal", 48, None, "bfloat16", False),
+    ("d128_hq8_hkv2", 1, 8, 2, 200, 200, 128, "causal", 0, None, "bfloat16", False),
+    ("f32_d128_bidir_window40_klen130", 1, 4, 1, 150, 150, 128, "bidir", 40, 130, "float32",
+     False),
+    ("f32_d32_s100", 2, 4, 2, 100, 100, 32, "causal", 0, None, "float32", True),
     # a GQA group of 16: the bf16 dK/dV pass's clusters hold 8 blocks, so
     # each rank takes two heads
-    ("gqa16_cluster8", 1, 16, 1, 256, 64, "causal", 0, None, "bfloat16", False),
+    ("gqa16_cluster8", 1, 16, 1, 256, 256, 64, "causal", 0, None, "bfloat16", False),
     # d 100 (llama-3b's heads, 112 wide in shared memory): its training shape
     # at one sequence of 2048, model layout; GQA with a window and a ragged
     # S; the f32 route with a k_len cut
-    ("d100_llama3b", 1, 32, 32, 2048, 100, "causal", 0, None, "bfloat16", True),
-    ("d100_gqa4_window64_s300", 2, 8, 2, 300, 100, "causal", 64, None, "bfloat16", False),
-    ("f32_d100_bidir_klen101", 1, 4, 2, 130, 100, "bidir", 0, 101, "float32", True),
+    ("d100_llama3b", 1, 32, 32, 2048, 2048, 100, "causal", 0, None, "bfloat16", True),
+    ("d100_gqa4_window64_s300", 2, 8, 2, 300, 300, 100, "causal", 64, None, "bfloat16", False),
+    ("f32_d100_bidir_klen101", 1, 4, 2, 130, 130, 100, "bidir", 0, 101, "float32", True),
     # llama-1b's training backward (phase 22): 1 x 8192, GQA group 8 (the
     # dK/dV pass's clusters of 8), model layout
-    ("llama1b_train", 1, 32, 4, 8192, 64, "causal", 0, None, "bfloat16", True),
+    ("llama1b_train", 1, 32, 4, 8192, 8192, 64, "causal", 0, None, "bfloat16", True),
+    # whisper-medium's training shapes (phase 37: 4 clips a micro-step, 448
+    # decoder tokens): the encoder over 1500 frames (ragged against every
+    # tile), the decoder causal, and the cross-attention, 448 queries over
+    # 1500 keys: the first cases with Sq != Sk
+    ("whisper_enc_train", 4, 16, 16, 1500, 1500, 64, "bidir", 0, None, "bfloat16", True),
+    ("whisper_dec_train", 4, 16, 16, 448, 448, 64, "causal", 0, None, "bfloat16", True),
+    ("whisper_cross_train", 4, 16, 16, 448, 1500, 64, "bidir", 0, None, "bfloat16", True),
+    # qwen2-vl-72b's training shape (phase 36): 1 x 4096, d 128, GQA 64/8
+    ("qwen2vl_train", 1, 64, 8, 4096, 4096, 128, "causal", 0, None, "bfloat16", True),
+    # the f32 route with Sq below and above Sk, neither a tile multiple, and
+    # a k_len cut: a key-block grid sized from Sq, or a query loop bounded by
+    # Sk, fails one of the two
+    ("f32_sq70_sk200_bidir_klen150", 1, 4, 2, 70, 200, 64, "bidir", 0, 150, "float32", False),
+    ("f32_sq200_sk70_bidir_klen50", 2, 4, 2, 200, 70, 64, "bidir", 0, 50, "float32", True),
 ]
+# The flash backward's times in phase 12 (``phase_train_kernel_times``):
+# {label: BWD_CASES name}, beside the training shape's
+BWD_TIMED = {"d100": "d100_llama3b", "whisper_enc": "whisper_enc_train",
+             "whisper_dec": "whisper_dec_train", "whisper_cross": "whisper_cross_train",
+             "qwen2vl": "qwen2vl_train"}
+# rounds of turns with SDPA's backward (``in_turns``): two for the shapes
+# [36] and [37] brought, whose timing is first readings, for the room
+BWD_TIMED_ROUNDS = {"d100": 4, "whisper_enc": 2, "whisper_dec": 2, "whisper_cross": 2,
+                    "qwen2vl": 2}
 # Codec cases: (name, rows of 512, fill); each also as an odd-width view
 QUANT_ROWS = [("one_row", 1, "randn"), ("seven_rows", 7, "randn"), ("zero_chunks", 1000, "zeros"),
               ("half_way", 600, "half"), ("nan_chunk", 300, "nan"), ("wide_range", 5000, "randn")]
 
-TRAIN_SEQ, TRAIN_MICRO_BATCH, TRAIN_STEPS, TRAIN_LR = 512, 2, 3, 1e-3
+TRAIN_SEQ, TRAIN_MICRO_BATCH, TRAIN_STEPS, TRAIN_LR = 512, 2, 2, 1e-3
 TRAIN_RUNS = {"int8_ef": dict(backend="pallas", wire_quant="int8"),
               "pallas": dict(backend="pallas"), "xla": dict(backend="xla")}
 # The int8 run's final loss against the run without a codec, absolute.  The
 # codec quantizes the gradients (with error feedback) and the parameter
 # all-gather (ROADMAP C2); TRAIN_STEPS steps at lr 1e-3 from one init (5
-# until [33] joined: the script keeps inside its time limit).  About 3 times
+# until [33] joined, 3 until [36] and [37] did: the script keeps inside its
+# time limit).  About 3 times
 # the reading on an H100 after 5 steps (5.25e-2, PERF.md); after 3 it read
 # 4.48e-2.
 TRAIN_INT8_LOSS_TOL = 0.15
@@ -627,9 +686,11 @@ SERVE_DECODE_TIMED, SERVE_DECODE_PROFILED = 8, 4
 # backend pallas: ZeRO-3 and ZeRO-1 from one init and the same batches.
 # Their step losses agree within the reference's bound for this comparison
 # (tests/test_train.py::test_zero_stages_and_modes_agree, atol 5e-3).
-LLAMA_ARCH, LLAMA_SEQ, LLAMA_STEPS, LLAMA_LR = "llama-1b", 8192, 3, 1e-3
+# 2 steps a stage (3 until [36] and [37] joined: the script keeps inside its
+# time limit).
+LLAMA_ARCH, LLAMA_SEQ, LLAMA_STEPS, LLAMA_LR = "llama-1b", 8192, 2, 1e-3
 ZERO_LOSS_ATOL = 5e-3
-# The loss alone moves too little in 3 steps to show a gradient that is
+# The loss alone moves too little in a few steps to show a gradient that is
 # scaled wrongly or misses a rank (Adam ignores the scale), so the two runs
 # are also held to each other on step 0's gradient norm (relative) and on
 # the parameters after step 0 (ZeRO-3's rebuilt from its "data" shards by
@@ -799,8 +860,8 @@ SSD_BWD_CASES = [
 # The flash backward at head dim 112 (BWD_CASES' fields): zamba2's shared
 # attention at [28]'s shape, and a ragged f32 case with GQA.
 FLASH_D112_BWD_CASES = [
-    ("zamba2_train_d112", 1, 32, 32, 4096, 112, "causal", 0, None, "bfloat16", True),
-    ("f32_d112_gqa2_s300", 2, 4, 2, 300, 112, "causal", 0, None, "float32", False),
+    ("zamba2_train_d112", 1, 32, 32, 4096, 4096, 112, "causal", 0, None, "bfloat16", True),
+    ("f32_d112_gqa2_s300", 2, 4, 2, 300, 300, 112, "causal", 0, None, "float32", False),
 ]
 # SSM and hybrid training at full width (ROADMAP A7, A7b), ZeRO-3 and
 # ZeRO-1 on a (pod=2, data=2) ThreadMesh, ``uniform_plan(2, 4, 1)``: two
@@ -808,11 +869,11 @@ FLASH_D112_BWD_CASES = [
 # no codec, bf16 parameters with f32 master state, lr 1e-3, 2 steps a stage
 # (3 before [32] joined: the script keeps inside its time limit)
 # from one init and the same batches, loss chunks of 1024 tokens.  Depth
-# cut to fit four ranks in 75 GiB: mamba2-2.7b 16 of 64 layers (0.90 B
-# parameters); zamba2-7b 7 of 81 (one group of six Mamba2 blocks, the
-# shared attention block and one tail block, 0.98 B), so the tail path
-# runs.
-SSM_TRAIN = {"mamba2-2.7b": 16, "zamba2-7b": 7}
+# cut to fit four ranks in 75 GiB: mamba2-2.7b 4 of 64 layers (16 until [36]
+# and [37] joined: the script keeps inside its time limit); zamba2-7b 7 of
+# 81 (one group of six Mamba2 blocks, the shared attention block and one
+# tail block, 0.98 B), so the tail path runs.
+SSM_TRAIN = {"mamba2-2.7b": 4, "zamba2-7b": 7}
 SSM_TRAIN_SEQ, SSM_TRAIN_STEPS, SSM_TRAIN_LR, SSM_TRAIN_LOSS_CHUNK = 4096, 2, 1e-3, 1024
 SSM_TRAIN_MESH, SSM_TRAIN_MICRO = {"pod": 2, "data": 2}, 4
 SSM_TRAIN_PEAK_GIB = 75.0
@@ -929,6 +990,85 @@ ENCDEC_REQUESTS, ENCDEC_PROMPT, ENCDEC_NEW = 8, 64, 32
 # read 5.4e-7).
 VLM_BF16_LOGITS_REL_TOL = 5e-2
 ENCDEC_BF16_LOGITS_REL_TOL = 5e-2
+# [36] the VLM trained (ROADMAP A8d): qwen2-vl-72b at full width cut in
+# depth to VLM_TRAIN_LAYERS of its 80 (3.37 B parameters, 2.49 B of them
+# the untied 152064 x 8192 embedding and head), projections redrawn as
+# [34]'s, on a one-rank ThreadMesh under ZeRO-1: bf16 parameters, f32
+# gradient sums, f32 master and two moments, 18 bytes a parameter, 60.6
+# GB.  Four ranks do not fit one card: under ZeRO-1 they hold four copies of
+# the f32 state (36 bytes a parameter over the four: 121 GB), and under
+# ZeRO-3 the four ranks' shards add up to the same 60.6 GB on the one card
+# while each rank thread also holds the gathered embedding and head (5 GB
+# of bf16) and their gradients until the reduce-scatter (about 100 GB in
+# all).  Two micro-steps of 1 x VLM_TRAIN_SEQ a step, each sequence an
+# image block laid out by ``mrope_grid`` (VLM_TRAIN_GRID_START text tokens,
+# a VLM_TRAIN_GRID_SIDE^2 grid, text), VLM_TRAIN_STEPS steps, remat, hier,
+# pallas, no codec, loss chunks of TRAIN_LOSS_CHUNK tokens.
+VLM_TRAIN_LAYERS, VLM_TRAIN_SEQ, VLM_TRAIN_MICRO, VLM_TRAIN_STEPS = 1, 4096, 2, 2
+VLM_TRAIN_GRID_START, VLM_TRAIN_GRID_SIDE = 256, 32
+TRAIN_LOSS_CHUNK, FAMILY_TRAIN_LR = 1024, 1e-3
+# [36]'s step-0 gate of the sections in training: the gradients of the
+# block's attention projections (wq, wk, wv, wo) on the grid positions
+# against those on text-only positions, from the same init and tokens.
+# Without M-RoPE acting (three equal streams, or the leaf dropped) the two
+# are the same bits (the kernels are deterministic); bf16 rounding moves a
+# gradient by about the backward's own limit (BWD_LIMITS, 5e-3).  The floor
+# is 4 times that, stated before the first run on the card.
+VLM_GRID_GRAD_FLOOR = 2e-2
+# [37] the encoder-decoder trained (ROADMAP A8d): whisper-medium whole (24 +
+# 24 layers, 0.845 B parameters, 15.2 GB of state at 18 bytes a parameter,
+# 30.4 GB for four ZeRO-1 ranks), projections redrawn and biases and norms
+# perturbed as [35]'s, on a (pod=2, data=2) ThreadMesh, ``uniform_plan(2,
+# 4, ENCDEC_TRAIN_CLIPS)``: two micro-steps of ENCDEC_TRAIN_CLIPS clips a
+# rank, each clip n_frames (1500) frame embeddings (seeded unit normals in
+# bf16, the stubbed frontend's output) and ENCDEC_TRAIN_SEQ decoder tokens
+# (whisper's decoder context), 32 clips a step; remat, hier, pallas, no
+# codec; ENCDEC_TRAIN_STEPS ZeRO-3 steps, then as many ZeRO-1 steps, from
+# one init and on the same batches.
+# Each stage's second step runs under torch.profiler (its busy share), and
+# its ms a step is the first step's: the steps are host-bound (a ZeRO-3
+# step took 19 s on the card) and the profiler doubles their wall, so one
+# more step per stage would cost the script ~60 s.
+ENCDEC_TRAIN_CLIPS, ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_STEPS = 4, 448, 2
+# ZeRO-3 against ZeRO-1 at step 0, per leaf (beside [22]'s limits over the
+# tree), stated before the first run on the card from [37] itself run at
+# reduced whisper's widths in bf16 parameters on the CPU (2 + 4 layers, 64
+# or 32 frames, 32 decoder tokens): worst leaf 4.7e-4 and 1.25e-3 (a
+# LayerNorm shift of 256 elements).  As SSM_ZERO_LEAF_REL_L2: ZeRO-3
+# reduce-scatters each gathered leaf's bf16 gradient in bf16 where ZeRO-1
+# sums the ranks' in f32, and Adam's first step moves a parameter by +-lr
+# whatever its gradient's size, so an element whose gradient rounds to the
+# other sign moves by 2 lr.  About 4 times the larger reading.
+ENCDEC_ZERO_LEAF_REL_L2 = 5e-3
+# ZeRO-3 against ZeRO-1 over the whole tree after step 0, whisper: [22]'s
+# ZERO_PARAM_REL_L2 (3e-4) is 4 times llama-1b's reading at the reference's
+# init, whose stacked weights have std 1/sqrt(16) = 0.25 (C5).  Adam's first
+# step moves every weight by +-lr whatever its gradient's size, so an element
+# whose gradient rounds to the other sign in ZeRO-3's bf16 reduce-scatter
+# moves by 2 lr, and a given share of such elements reads in proportion to
+# 1 / std.  [37]'s projections are redrawn at std 1/sqrt(fan-in), 0.031 and
+# 0.016: 8 to 16 times smaller than llama's, so the same share reads 8 to 16
+# times larger.  The first card run read 5.4e-4 over the tree and 1.3e-3 in
+# the worst leaf (an MLP's w2), with the step-0 losses equal and the
+# gradient norms 3.8e-6 apart (an NVIDIA H100 80GB HBM3 at 700 W,
+# PERF.md); on the CPU the same comparison in f32 reads 1.7e-7
+# (tests/test_torch_vlm_encdec_train.py).  The limit is [22]'s scaled by 8,
+# the smaller of the two factors.
+ENCDEC_ZERO_PARAM_REL_L2 = 8 * ZERO_PARAM_REL_L2
+# [37]'s step-0 gate holds each shape's first backward launch against the
+# plain backward with P and dS rounded to bf16 where the kernel rounds them
+# (``ref.attention_bwd(..., product_dtype=bfloat16)``): on whisper's own
+# inputs the f32 plain backward is not a yardstick for the bf16 route.  Its
+# q and k carry a large component common to every position (the LayerNorm
+# shifts and biases: |mean| / rms of the rest 15.9 for the cross-attention's
+# q), so dK = dS^T Q cancels, and the rounding of dS to bf16 shows at 2.3e-2
+# of a row (the cross-attention's dk, worst row) in the kernel, in that
+# emulation and in SDPA's backward alike (2.3e-2; its dq 0.23), where
+# random inputs read 3.9e-3.  The kernel against the emulation read rel L2
+# 5.4e-5 and worst row 1.8e-3 at most over dq, dk, dv (the cross shape, on
+# an NVIDIA H100 80GB HBM3 at 700 W, PERF.md): the
+# limits are about 10 and 5 times that.  The f32 comparison is printed.
+BWD_BF16_POINTS_LIMITS = (5e-4, 1e-2)
 
 
 # [34]'s and [35]'s stacked projections and the number of input dims each
@@ -1176,7 +1316,7 @@ def _rel_l2(a, b):
     return ((a - b).norm() / b.norm()).item()
 
 
-def served_model(torch, build, cfg):
+def served_model(torch, build, cfg, device="cuda"):
     """(model, params, init seconds) of ``cfg`` at full width: weights from
     the seed, the stacked projections redrawn (``redraw_projections``),
     biases and norms perturbed (``perturb_leaves``)."""
@@ -1185,7 +1325,7 @@ def served_model(torch, build, cfg):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    params = model.init(torch.Generator(device=device).manual_seed(SEED))
     n_proj = redraw_projections(torch, params, SEED + 2)
     n = perturb_leaves(torch, params, SEED + 1)
     torch.cuda.synchronize()
@@ -1855,31 +1995,22 @@ def bwd_error(got, want):
 def phase_flash_bwd(torch, fa, ref):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     failed, results = [], {}
-    for name, B, Hq, Hkv, S, d, kind, window, k_len, dt, model_layout in BWD_CASES:
-        dtype = getattr(torch, dt)
-        q, k, v = attention_inputs(gen, B, Hq, Hkv, S, S, d, dtype, model_layout)
-        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-        kl = S if k_len is None else k_len
-        kw = dict(kind=kind, window=window, k_len=kl)
-        o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
-        lse_plain = ref.attention_lse(q, k, **kw)
-        got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
-        want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse_plain, **kw)
-        torch.cuda.synchronize()
-        errs = [bwd_error(g, w) for g, w in zip(got, want)]
-        worst = {key: max(e[key] for e in errs) for key in errs[0]}
-        lse_err = (lse - lse_plain).abs().max().item()
+    for case in BWD_CASES:
+        name, dt = case[0], case[10]
+        worst, ok, (q, k, v, o, do, lse, kw) = flash_bwd_case(torch, fa, ref, gen, case)
+        lse_err = (lse - ref.attention_lse(q, k, **kw)).abs().max().item()
+        ok = ok and lse_err <= 1e-4
         rel_lim, row_lim = BWD_LIMITS[dt]
-        ok = (worst["rel_l2"] <= rel_lim and worst["worst_row"] <= row_lim and lse_err <= 1e-4
-              and all(bool(torch.isfinite(g).all()) for g in got))
-        print(f"  {name:32s} {dt:8s} dq/dk/dv worst: max_abs_err {worst['max_abs_err']:.3e} "
-              f"rel_l2 {worst['rel_l2']:.3e} (limit {rel_lim:.0e}) worst_row "
-              f"{worst['worst_row']:.3e} (limit {row_lim:.0e}); lse max abs err {lse_err:.2e}"
-              f"  {'ok' if ok else 'FAIL'}")
+        print(f"  {name:32s} {dt:8s} Sq {q.shape[2]:5d} Sk {k.shape[2]:5d} dq/dk/dv worst: "
+              f"max_abs_err {worst['max_abs_err']:.3e} rel_l2 {worst['rel_l2']:.3e} (limit "
+              f"{rel_lim:.0e}) worst_row {worst['worst_row']:.3e} (limit {row_lim:.0e}); lse "
+              f"max abs err {lse_err:.2e}  {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(name)
         results[name] = {**worst, "lse_err": lse_err,
                          "inputs": (q, k, v, o, do, lse), "kw": kw}
+        gc.collect()
+        torch.cuda.empty_cache()
     check(not failed, f"flash backward disagrees with its plain version in {failed}")
     return results
 
@@ -2131,16 +2262,17 @@ def phase_codec_times(torch, quant, ref, bench_codec, step_rows, ranks):
     return out
 
 
-def phase_train_kernel_times(torch, ref, fa, bwd_case):
+def phase_train_kernel_times(torch, ref, fa, bwd_case, rounds=4):
     import torch.nn.functional as F
     out = {}
     q, k, v, o, do, lse = bwd_case["inputs"]
     kw = bwd_case["kw"]
-    B, Hq, S, d = q.shape
+    B, Hq, Sq, d = q.shape
+    Sk = k.shape[2]
     lse_plain = ref.attention_lse(q, k, **kw)
     elem = q.element_size()
     nbytes = (q.numel() * 3 + k.numel() * 2) * elem + lse.numel() * 4         + (q.numel() + 2 * k.numel()) * 4                     # dq, dk, dv written in f32
-    flops = 5 * 2 * d * B * Hq * valid_pairs(S, S, kw["kind"], kw["window"], kw["k_len"])
+    flops = 5 * 2 * d * B * Hq * valid_pairs(Sq, Sk, kw["kind"], kw["window"], kw["k_len"])
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(q.dtype).removeprefix("torch.")] * 1e3
     t = out["flash_attention_bwd"] = {
@@ -2161,10 +2293,11 @@ def phase_train_kernel_times(torch, ref, fa, bwd_case):
         fns = {"": lambda: fa.flash_attention_bwd(q, k, v, o, do, lse, **kw),
                "library_": lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do,
                                                        retain_graph=True)}
-        for prefix, ms in in_turns(fns).items():
+        for prefix, ms in in_turns(fns, rounds).items():
             t[prefix + "ms"] = statistics.median(ms)
             t[prefix + "ms_readings"] = ms
-        for prefix, ms in in_turns(fns, timer=lambda fn: graph_ms(fn, stream=side)).items():
+        for prefix, ms in in_turns(fns, rounds,
+                                   timer=lambda fn: graph_ms(fn, stream=side)).items():
             t[prefix + "graph_ms"] = statistics.median(ms)
             t[prefix + "graph_ms_readings"] = ms
     torch.cuda.current_stream().wait_stream(side)
@@ -3752,11 +3885,11 @@ def format_ssd_bwd(errs):
 def flash_bwd_case(torch, fa, ref, gen, case):
     """One BWD_CASES-style case of the flash backward against its plain
     version: (worst of dq / dk / dv's errors, ok, the inputs)."""
-    name, B, Hq, Hkv, S, d, kind, window, k_len, dt, model_layout = case
+    name, B, Hq, Hkv, Sq, Sk, d, kind, window, k_len, dt, model_layout = case
     dtype = getattr(torch, dt)
-    q, k, v = attention_inputs(gen, B, Hq, Hkv, S, S, d, dtype, model_layout)
+    q, k, v = attention_inputs(gen, B, Hq, Hkv, Sq, Sk, d, dtype, model_layout)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-    kw = dict(kind=kind, window=window, k_len=S if k_len is None else k_len)
+    kw = dict(kind=kind, window=window, k_len=Sk if k_len is None else k_len)
     o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
     got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     want = fa.flash_attention_bwd_plain(q, k, v, o, do, ref.attention_lse(q, k, **kw), **kw)
@@ -3831,7 +3964,7 @@ def phase_ssd_bwd_kernels(torch, ssd, fa, ref):
         before = fa.bwd_launches
         worst, ok, inputs = flash_bwd_case(torch, fa, ref, gen, case)
         ok = ok and fa.bwd_launches == before + 1
-        dt = case[9]
+        dt = case[10]
         print(f"  flash backward {case[0]:20s} {dt:8s} dq/dk/dv worst: rel_l2 "
               f"{worst['rel_l2']:.3e} worst_row {worst['worst_row']:.3e} (limits "
               f"{BWD_LIMITS[dt]})  {'ok' if ok else 'FAIL'}")
@@ -3964,57 +4097,17 @@ SSM_LOSS_FAULTS = {"ssd_dt_one_late": ("ssd_scan", ssd_dt_one_late),
 
 def ssm_stage_run(torch, np, hetccl, ssd, collectives, ring_dma, counters, model, m, plan,
                   batches, zero, init, shapes, gathers):
-    """SSM_TRAIN_STEPS steps of ``model`` under ZeRO-``zero`` from the
-    parameters ``init[0]`` (ZeRO-1 pops them: its ranks share the init's
-    tensors, which go once the first step has replaced them) on the batches, the counts set to 0 just before and read just after,
-    the fsdp adjoint's fused reduce-scatters counted; then one more step
-    under torch.profiler.  Returns the run's readings, the full parameters
-    after step 0 on the host (ZeRO-3's rebuilt by ``unshard_params``) and
-    the launches expected from the layer count and, under ZeRO-3, the
-    gather plan (``zero3_gathers``)."""
-    from repro_torch.configs.base import RunConfig
-    from repro_torch.convert import unshard_params
-    from repro_torch.core.tree import leaves as tree_leaves
-    from repro_torch.train.trainer import make_train_program
+    """``train_stage_run`` of the SSM and hybrid models (SSM_TRAIN_LR, one
+    more step profiled), with the launches expected from the layer count
+    and, under ZeRO-3, the gather plan (``zero3_gathers``), and the SSD
+    backward's card time and the five kernels with the most card time in
+    the profiled step."""
     cfg = model.cfg
     layers = cfg.n_layers
     n_shared = layers // cfg.attn_every if cfg.family == "hybrid" else 0
-    prog = make_train_program(model, m, RunConfig(
-        zero_stage=zero, collective_mode="hier", backend="pallas", learning_rate=SSM_TRAIN_LR),
-        plan)
-    n_buckets = len(hetccl._make_buckets(
-        [torch.empty(sh, dtype=torch.float32, device="meta") for sh in shapes],
-        prog.comm.bucket_bytes))
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    state = prog.init_fn(init[0] if zero == 3 else init.pop())
-    counters.reset()
-    losses, grad_norms, step_ms, after_step0 = [], [], [], None
-    with adjoint_rs_counter(collectives, ring_dma) as adjoint:
-        for i, batch in enumerate(batches):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            state, met = prog.step_fn(state, batch)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t) * 1e3)
-            losses.append(met["loss"].item())
-            grad_norms.append(met["grad_norm"].item())
-            if i == 0:                 # full leaves after step 0, on the host
-                full = (unshard_params([state[0]["params"], state[1]["params"]],
-                                       model.abstract_params())
-                        if zero == 3 else state[0]["params"])
-                after_step0 = [p.to("cpu") for p in tree_leaves(full)]
-                del full
-    launches = counters.read()
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    ms = statistics.median(step_ms[1:])
-
-    def one_more():
-        nonlocal state
-        state, _ = prog.step_fn(state, batches[-1])
-
-    busy, kernel_us = device_profile(torch, one_more, 1)
+    run, after_step0 = train_stage_run(torch, np, hetccl, collectives, ring_dma, counters,
+                                       model, m, plan, batches, zero, init, lr=SSM_TRAIN_LR)
+    kernel_us = run.pop("kernel_us")
     per = plan.n_micro_max * m.size * SSM_TRAIN_STEPS
     n_adjoint = gathers * plan.n_micro_max * SSM_TRAIN_STEPS if zero == 3 else 0
     want = {"ssd_scan": 2 * layers * per, "ssd_scan_mma": 2 * layers * per,
@@ -4025,28 +4118,15 @@ def ssm_stage_run(torch, np, hetccl, ssd, collectives, ring_dma, counters, model
             "flash_attention_fwd_d112": 2 * n_shared * per,
             "flash_attention_bwd": n_shared * per, "grouped_matmul": 0, "collective_reduce": 0,
             "quant_int8": 0}
-    if zero == 3:
-        want.update(ring_reduce_scatter=n_adjoint + len(shapes) * SSM_TRAIN_STEPS,
-                    ring_all_gather=len(shapes) * SSM_TRAIN_STEPS)
-    else:
-        want.update(ring_reduce_scatter=n_buckets * SSM_TRAIN_STEPS,
-                    ring_all_gather=(n_buckets + len(shapes)) * SSM_TRAIN_STEPS)
-    del state, prog
-    gc.collect()
-    torch.cuda.empty_cache()
+    want.update(ring_expectations(zero, n_adjoint, len(shapes), run["n_buckets"],
+                                  SSM_TRAIN_STEPS))
     ssd_bwd_us = {k: v for k, v in kernel_us.items() if "ssd_bwd_" in k}
     top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:5]
-    n_tokens = int(np.prod(batches[0]["tokens"].shape))
-    run = {"losses": losses, "grad_norms": grad_norms, "step_ms": step_ms, "ms_per_step": ms,
-           "tokens_per_s": n_tokens / ms * 1e3, "device_busy_one_more_step": busy,
-           "card_ms_one_more_step": sum(kernel_us.values()) / 1e3,
-           "ssd_bwd_card_ms_one_more_step": sum(ssd_bwd_us.values()) / 1e3,
-           "ssd_bwd_card_ms_by_kernel": {kernel_label(k, 40): v / 1e3
-                                         for k, v in ssd_bwd_us.items()},
-           "top_kernels_ms": {kernel_label(k): v / 1e3 for k, v in top},
-           "peak_gib": peak_gib, "launches": launches, "expected_launches": want,
-           "adjoint_rs_launches": adjoint[0], "expected_adjoint_rs_launches": n_adjoint,
-           "n_buckets": n_buckets}
+    run.update({"ssd_bwd_card_ms_one_more_step": sum(ssd_bwd_us.values()) / 1e3,
+                "ssd_bwd_card_ms_by_kernel": {kernel_label(k, 40): v / 1e3
+                                              for k, v in ssd_bwd_us.items()},
+                "top_kernels_ms": {kernel_label(k): v / 1e3 for k, v in top},
+                "expected_launches": want, "expected_adjoint_rs_launches": n_adjoint})
     return run, after_step0
 
 
@@ -5263,11 +5343,11 @@ def perturb_leaves(torch, params, seed):
     as 0.1 N(0, 1) and every norm scale (``NORM_LEAVES``) as 1 + 0.1 N(0,
     1), in place, from ``seed``, leaf by leaf in sorted order.  Returns the
     number of leaves drawn."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = None
     n = 0
 
     def walk(tree):
-        nonlocal n
+        nonlocal gen, n
         for name in sorted(tree):
             t = tree[name]
             if isinstance(t, dict):
@@ -5275,7 +5355,8 @@ def perturb_leaves(torch, params, seed):
                 continue
             bias = name in BIAS_LEAVES or name.endswith("_b")
             if bias or name in NORM_LEAVES:
-                draw = torch.randn(t.shape, generator=gen, device="cuda") * 0.1
+                gen = gen or torch.Generator(device=t.device).manual_seed(seed)
+                draw = torch.randn(t.shape, generator=gen, device=t.device) * 0.1
                 t.copy_(draw if bias else draw + 1)
                 n += 1
 
@@ -5520,6 +5601,358 @@ def phase_encdec_serve(torch, np, fa, ops, tacc, engine, build, counters, cfg, c
     return out
 
 
+def ring_expectations(zero, n_adjoint, n_leaves, n_buckets, steps):
+    """The fused ring launches of ``steps`` steps on (pod=2, data=2), hier,
+    pallas, no codec: under ZeRO-1 the gradient buckets' reduce-scatter and
+    all-gather and each leaf's parameter all-gather; under ZeRO-3 the fsdp
+    adjoint's reduce-scatters (``n_adjoint``) and each leaf's all-reduce
+    across the pods."""
+    if zero == 3:
+        return {"ring_reduce_scatter": n_adjoint + n_leaves * steps,
+                "ring_all_gather": n_leaves * steps}
+    return {"ring_reduce_scatter": n_buckets * steps,
+            "ring_all_gather": (n_buckets + n_leaves) * steps}
+
+
+def flash_by_shape(launches, shapes, n_fwd, n_bwd):
+    """{launch key: (count, expected)} of the flash forward and backward at
+    each (kind, Sq, Sk) of ``shapes`` ({(kind, Sq, Sk): layers}): ``n_fwd``
+    and ``n_bwd`` launches per layer."""
+    out = {}
+    for (kind, sq, sk), layers in shapes.items():
+        for way, n in (("fwd", n_fwd), ("bwd", n_bwd)):
+            key = f"flash_attention_{way}_{kind}_sq{sq}_sk{sk}"
+            out[key] = (launches.get(key, 0), n * layers)
+    return out
+
+
+def train_stage_run(torch, np, hetccl, collectives, ring_dma, counters, model, m, plan,
+                    batches, zero, init, profile="extra", lr=FAMILY_TRAIN_LR):
+    """The steps of ``batches`` under ZeRO-``zero`` (hier, pallas, no codec)
+    from ``init[0]`` (ZeRO-1 pops it: its ranks share the init's tensors,
+    which go once the first step replaces them), the counts set to 0 just
+    before and read just after, the fsdp adjoint's fused reduce-scatters
+    counted.  ``profile``: "extra", one more step under torch.profiler;
+    "last", the last of the steps under it (ms a step then from the
+    unprofiled steps); its card time by kernel under "kernel_us".  Returns
+    the run's readings and the full parameters after step 0 on the host
+    (ZeRO-3's rebuilt by ``unshard_params``)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.convert import unshard_params
+    from repro_torch.core.tree import leaves as tree_leaves
+    from repro_torch.train.trainer import make_train_program
+    prog = make_train_program(model, m, RunConfig(
+        zero_stage=zero, collective_mode="hier", backend="pallas", learning_rate=lr), plan)
+    n_buckets = len(hetccl._make_buckets(
+        [torch.empty(p.shape, dtype=torch.float32, device="meta") for p in tree_leaves(init[0])],
+        prog.comm.bucket_bytes))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = prog.init_fn(init[0] if zero == 3 else init.pop())
+    counters.reset()
+    losses, grad_norms, step_ms, after_step0 = [], [], [], None
+    busy, kernel_us = None, {}
+
+    def step(batch):
+        nonlocal state
+        state, met = prog.step_fn(state, batch)
+        losses.append(met["loss"].item())
+        grad_norms.append(met["grad_norm"].item())
+
+    with adjoint_rs_counter(collectives, ring_dma) as adjoint:
+        for i, batch in enumerate(batches):
+            if profile == "last" and i == len(batches) - 1:
+                busy, kernel_us = device_profile(torch, lambda: step(batch), 1)
+                continue
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            if i == 0:                 # full leaves after step 0, on the host
+                full = (unshard_params([state[r]["params"] for r in m.group(0, "data")],
+                                       model.abstract_params())
+                        if zero == 3 else state[0]["params"])
+                after_step0 = [p.to("cpu") for p in tree_leaves(full)]
+                del full
+    launches = counters.read()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if profile == "extra":
+        busy, kernel_us = device_profile(
+            torch, lambda: prog.step_fn(state, batches[-1]), 1)
+    card_ms = sum(kernel_us.values()) / 1e3 if kernel_us else None
+    del state, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_tokens = int(np.prod(batches[0]["tokens"].shape))
+    ms = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
+    return {"losses": losses, "grad_norms": grad_norms, "step_ms": step_ms, "ms_per_step": ms,
+            "tokens_per_s": n_tokens / ms * 1e3, "device_busy_one_more_step": busy,
+            "card_ms_one_more_step": card_ms, "peak_gib": peak_gib, "launches": launches,
+            "adjoint_rs_launches": adjoint[0], "n_buckets": n_buckets,
+            "kernel_us": kernel_us}, after_step0
+
+
+def print_stage(label, r):
+    print(f"  {label}: losses {['%.6f' % x for x in r['losses']]}; grad norms "
+          f"{['%.6f' % x for x in r['grad_norms']]}; ms per unprofiled step "
+          f"{['%.1f' % x for x in r['step_ms']]}, {r['tokens_per_s']:.1f} tokens/s; card busy "
+          f"share of the profiled step (torch.profiler) {r['device_busy_one_more_step']}, its "
+          f"card time {r['card_ms_one_more_step']} ms; peak memory {r['peak_gib']:.2f} GiB")
+
+
+def phase_vlm_train(torch, np, fa, build, mesh_mod, hetccl, counters, cfg, device="cuda"):
+    """qwen2-vl-72b cut to VLM_TRAIN_LAYERS, trained on one rank (the notes
+    of VLM_TRAIN_LAYERS): step 0's attention gradients on the grid positions
+    against the text-only ones (VLM_GRID_GRAD_FLOOR), then VLM_TRAIN_STEPS
+    ZeRO-1 steps on batches whose ``mrope`` holds the grid, the counts set
+    to 0 just before and read just after: 2 flash forward launches (remat's
+    recompute the second) and 1 backward per layer and micro-step, at
+    (causal, 4096, 4096), d 128; finite losses and gradient norms; ms a
+    step, tokens/s, busy share, peak memory."""
+    from repro_torch.core import balance, collectives
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels import ring_dma
+    model, params, _ = served_model(torch, build, cfg, device)
+    m = mesh_mod.ThreadMesh({"data": 1}, device=device)
+    plan = balance.uniform_plan(1, VLM_TRAIN_MICRO, micro_batch=1)
+    S, L = VLM_TRAIN_SEQ, cfg.n_layers
+    grid = mrope_grid(np, 1, S, VLM_TRAIN_GRID_START, VLM_TRAIN_GRID_SIDE)
+    batches = []
+    for s in range(VLM_TRAIN_STEPS):
+        b = synthetic_batch(SEED, s, plan.n_micro_max, plan.micro_batch, S, cfg.vocab)
+        b["mrope"] = np.ascontiguousarray(np.broadcast_to(grid, (plan.n_micro_max, *grid.shape)))
+        batches.append(b)
+    n_tokens = int(np.prod(batches[0]["tokens"].shape))
+    print(f"  {cfg.name}: {L} of 80 layers, {model.n_params() / 1e9:.3f}B params (the "
+          f"embedding and head {2 * cfg.vocab * cfg.d_model / 1e9:.3f}B), bf16 params, f32 "
+          f"master state: {18 * model.n_params() / 1e9:.1f} GB of state at 18 bytes a "
+          f"parameter; mesh {m.shape}, ZeRO-1, {plan.n_micro_max} micro-steps of 1 x {S} "
+          f"({VLM_TRAIN_GRID_SIDE} x {VLM_TRAIN_GRID_SIDE} grid from {VLM_TRAIN_GRID_START}), "
+          f"{n_tokens} tokens per step; remat on; hier, pallas, no codec")
+    # step 0's attention gradients, grid against text-only positions
+    attn = params["blocks"]["attn"]
+    names = sorted(attn)
+    mb = {k: torch.as_tensor(batches[0][k][0]).to(device, torch.long)
+          for k in ("tokens", "labels", "mrope")}
+    grads = {}
+    for layout in ("grid", "text"):
+        req = {n: attn[n].detach().requires_grad_() for n in names}
+        p = {**params, "blocks": {**params["blocks"], "attn": req}}
+        batch = mb if layout == "grid" else {k: mb[k] for k in ("tokens", "labels")}
+        ls, cnt, _ = model.loss(p, batch, remat=True)
+        grads[layout] = torch.autograd.grad(ls, [req[n] for n in names])
+        del req, p, ls
+    per = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+           for n, a, b in zip(names, grads["grid"], grads["text"])}
+    d2 = sum((a.float() - b.float()).square().sum().item()
+             for a, b in zip(grads["grid"], grads["text"]))
+    r2 = sum(b.float().square().sum().item() for b in grads["text"])
+    grid_gap = (d2 / r2) ** 0.5
+    del grads
+    print(f"  step 0, the attention projections' gradients on the grid positions against "
+          f"text-only: relative L2 {grid_gap:.3e} (floor {VLM_GRID_GRAD_FLOOR})  "
+          f"{'ok' if grid_gap >= VLM_GRID_GRAD_FLOOR else 'FAIL'}; per leaf "
+          + ", ".join(f"{n} {v:.3e}" for n, v in per.items()))
+    check(grid_gap >= VLM_GRID_GRAD_FLOOR,
+          f"{cfg.name}: the grid positions do not move the attention gradients")
+    run, _ = train_stage_run(torch, np, hetccl, collectives, ring_dma, counters, model, m,
+                             plan, batches, 1, [params])
+    run.pop("kernel_us")
+    del params
+    print_stage("ZeRO-1", run)
+    per_layer = plan.n_micro_max * m.size * VLM_TRAIN_STEPS
+    expect = flash_by_shape(run["launches"], {("causal", S, S): L}, 2 * per_layer, per_layer)
+    d_key = f"flash_attention_fwd_d{cfg.head_dim_}"
+    expect[d_key] = (run["launches"].get(d_key, 0), 2 * per_layer * L)
+    for key, (n, want) in expect.items():
+        print(f"  {key}: {n} launches, {want} expected  {'ok' if n == want else 'FAIL'}")
+    print(f"  ring launches (one rank: none expected): reduce-scatter "
+          f"{run['launches']['ring_reduce_scatter']}, all-gather "
+          f"{run['launches']['ring_all_gather']}; peak {run['peak_gib']:.2f} GiB against "
+          f"{18 * model.n_params() / 2**30:.2f} GiB of state")
+    check(all(n == want for n, want in expect.values()),
+          f"{cfg.name}: the steps did not launch the flash kernels they imply")
+    check(all(np.isfinite(run["losses"])) and all(np.isfinite(run["grad_norms"])),
+          f"{cfg.name}: a loss or a gradient norm is not finite")
+    run.update(arch=cfg.name, layers=L, params=model.n_params(), tokens_per_step=n_tokens,
+               grid_grad_rel_l2=grid_gap, grid_grad_rel_l2_by_leaf=per,
+               expected_launches={k: w for k, (_, w) in expect.items()},
+               state_gb_at_18_bytes=18 * model.n_params() / 1e9)
+    return run
+
+
+def encdec_grad_gate(torch, fa, ref, model, params, batch, shapes):
+    """The step-0 gate on ``batch`` (rank 0's first micro-batch), remat as
+    in the step: the first flash backward launch of each (kind, Sq, Sk) of
+    ``shapes`` against the plain backward on the same inputs with the
+    kernel's bf16 rounding points, within BWD_BF16_POINTS_LIMITS, and beside
+    it the f32 plain backward (BWD_BF16_POINTS_LIMITS' note)."""
+    from repro_torch.core.tree import flatten
+    ps, rebuild = flatten(params)
+    first = {}
+    real = fa.flash_attention_bwd
+
+    def rec(q, k, v, o, do, lse, **kw):
+        out = real(q, k, v, o, do, lse, **kw)
+        key = (kw["kind"], q.shape[2], k.shape[2])
+        if key not in first:
+            first[key] = ((q, k, v, o, do), kw, out)
+        return out
+
+    with patched(fa, "flash_attention_bwd", rec):
+        req = [p.detach().requires_grad_() for p in ps]
+        ls, cnt, _ = model.loss(rebuild(req), batch, remat=True)
+        torch.autograd.grad(ls, req)
+        del req, ls
+    torch.cuda.synchronize()
+    out, ok = {}, set(first) == set(shapes)
+    rel_lim, row_lim = BWD_BF16_POINTS_LIMITS
+    for key in sorted(first):
+        (q, k, v, o, do), kw, got = first[key]
+        lse = ref.attention_lse(q, k, kind=kw["kind"], window=kw["window"], k_len=kw["k_len"],
+                                scale=kw["scale"])
+        worst = {}
+        for name, dtype in (("bf16_points", torch.bfloat16), ("f32", None)):
+            want = ref.attention_bwd(q, k, v, o, do, lse, **kw, product_dtype=dtype)
+            errs = [bwd_error(g, w) for g, w in zip(got, want)]
+            worst[name] = {m: [e[m] for e in errs] for m in ("rel_l2", "worst_row")}
+            del want
+        w = worst["bf16_points"]
+        good = max(w["rel_l2"]) <= rel_lim and max(w["worst_row"]) <= row_lim
+        ok &= good
+        out["%s_sq%d_sk%d" % key] = worst
+        print(f"  step 0, the first flash backward launch at {key}, dq / dk / dv against the "
+              f"bf16 rounding points: rel_l2 {' / '.join('%.3e' % x for x in w['rel_l2'])}, "
+              f"worst_row {' / '.join('%.3e' % x for x in w['worst_row'])} (limits "
+              f"{BWD_BF16_POINTS_LIMITS})  {'ok' if good else 'FAIL'}; against the f32 plain "
+              f"backward: rel_l2 {' / '.join('%.3e' % x for x in worst['f32']['rel_l2'])}, "
+              f"worst_row {' / '.join('%.3e' % x for x in worst['f32']['worst_row'])}")
+        del lse
+    first.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(ok, f"the step-0 flash backward gate failed (shapes {sorted(out)})")
+    return out
+
+
+def phase_encdec_train(torch, np, fa, ref, build, mesh_mod, hetccl, counters, cfg,
+                       device="cuda"):
+    """whisper-medium whole, trained on four ranks (the notes of
+    ENCDEC_TRAIN_CLIPS): the step-0 gate (``encdec_grad_gate``), then
+    ENCDEC_TRAIN_STEPS ZeRO-3 and ZeRO-1 steps from one init and the same
+    batches, the counts set to 0 just before each run and read just after:
+    per layer, micro-step and rank 2 flash forward launches and 1 backward
+    at each of the three shapes (the encoder's (bidir, 1500, 1500), the
+    decoder's (causal, 448, 448), the cross-attention's (bidir, 448,
+    1500)); the fused rings (``ring_expectations``), the fsdp adjoint's
+    reduce-scatters against the gather plan (``zero3_gathers``); finite
+    losses; ZeRO-3 against ZeRO-1: [22]'s limits on the losses, step 0's
+    gradient norm and the parameters after step 0, and
+    ENCDEC_ZERO_LEAF_REL_L2 per leaf; ms a step, tokens/s, busy share, peak
+    memory."""
+    from repro_torch.core import balance, collectives
+    from repro_torch.core.tree import leaves as tree_leaves
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels import ring_dma
+    from repro_torch.models.common import fsdp_dims, make_rules
+    model, params, _ = served_model(torch, build, cfg, device)
+    m = mesh_mod.ThreadMesh({"pod": 2, "data": 2}, device=device)
+    plan = balance.uniform_plan(2, 4, micro_batch=ENCDEC_TRAIN_CLIPS)
+    Le, Ld, F, S = cfg.n_enc_layers, cfg.n_layers, cfg.n_frames, ENCDEC_TRAIN_SEQ
+    rows = plan.micro_batch * m.size
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    batches = []
+    for s in range(ENCDEC_TRAIN_STEPS):
+        b = synthetic_batch(SEED, s, plan.n_micro_max, rows, S, cfg.vocab)
+        b["frames"] = torch.randn((plan.n_micro_max, rows, F, cfg.d_model), generator=gen,
+                                  device=device).to(getattr(torch, cfg.dtype))
+        batches.append(b)
+    metas = model.abstract_params()
+    dims = fsdp_dims(metas, make_rules(3, m.shape["data"]))
+    gathers = zero3_gathers(metas, m.shape["data"])
+    names = leaf_names(metas)
+    shapes = {("bidir", F, F): Le, ("causal", S, S): Ld, ("bidir", S, F): Ld}
+    print(f"  {cfg.name}: {Le} + {Ld} layers, {model.n_params() / 1e9:.3f}B params, bf16 "
+          f"params, f32 master state; mesh {m.shape}, {plan.n_micro_max} micro-steps of "
+          f"{plan.micro_batch} clips ({F} frames, {S} decoder tokens) a rank, "
+          f"{rows * plan.n_micro_max} clips a step; remat on; hier, pallas, no codec; ZeRO-3 "
+          f"shards {sum(d is not None for d in dims)} of {len(dims)} leaves over data, "
+          f"{gathers} gathered keys a micro-step")
+    mb = {k: torch.as_tensor(batches[0][k][0, :plan.micro_batch]).to(device, torch.long)
+          for k in ("tokens", "labels")}
+    mb["frames"] = batches[0]["frames"][0, :plan.micro_batch]
+    gate = encdec_grad_gate(torch, fa, ref, model, params, mb, shapes)
+    del mb
+    n_leaves = len(tree_leaves(params))
+    init = [params]
+    del params
+    runs, after_step0 = {}, {}
+    for zero in (3, 1):
+        runs[zero], after_step0[zero] = train_stage_run(
+            torch, np, hetccl, collectives, ring_dma, counters, model, m, plan, batches, zero,
+            init, profile="last")
+        runs[zero].pop("kernel_us")
+        print_stage(f"ZeRO-{zero}", runs[zero])
+    per = plan.n_micro_max * m.size * ENCDEC_TRAIN_STEPS
+    ok_counts = True
+    for zero in (3, 1):
+        r = runs[zero]
+        n_adjoint = gathers * plan.n_micro_max * ENCDEC_TRAIN_STEPS if zero == 3 else 0
+        expect = flash_by_shape(r["launches"], shapes, 2 * per, per)
+        expect.update({k: (r["launches"][k], n) for k, n in ring_expectations(
+            zero, n_adjoint, n_leaves, r["n_buckets"], ENCDEC_TRAIN_STEPS).items()})
+        expect["adjoint_rs"] = (r["adjoint_rs_launches"], n_adjoint)
+        for key, (n, want) in expect.items():
+            print(f"  ZeRO-{zero} {key}: {n} launches, {want} expected  "
+                  f"{'ok' if n == want else 'FAIL'}")
+        ok_counts &= all(n == want for n, want in expect.values())
+        r["expected_launches"] = {k: w for k, (_, w) in expect.items()}
+        r["launches_by_shape"] = {k: n for k, (n, _) in expect.items() if k.startswith("flash")}
+        check(all(np.isfinite(r["losses"])), f"{cfg.name} ZeRO-{zero}: non-finite loss")
+    r3, r1 = runs[3], runs[1]
+    loss_gap = max(abs(a - b) for a, b in zip(r3["losses"], r1["losses"]))
+    norm_gap = abs(r3["grad_norms"][0] - r1["grad_norms"][0]) / r1["grad_norms"][0]
+    rel, diff2, ref2 = [], 0.0, 0.0
+    for a, b in zip(after_step0[3], after_step0[1]):
+        a, b = a.to(device).float(), b.to(device).float()
+        d2, q2 = (a - b).square().sum().item(), b.square().sum().item()
+        rel.append((d2 / q2) ** 0.5 if q2 else (0.0 if d2 == 0 else math.inf))
+        diff2, ref2 = diff2 + d2, ref2 + q2
+    param_gap = (diff2 / ref2) ** 0.5
+    after_step0.clear()
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    print(f"  ZeRO-3 vs ZeRO-1: ms per step {r3['ms_per_step']:.1f} / {r1['ms_per_step']:.1f}, "
+          f"tokens/s {r3['tokens_per_s']:.1f} / {r1['tokens_per_s']:.1f}, peak "
+          f"{r3['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB (state {18 * model.n_params() / 1e9:.1f}"
+          f" / {36 * model.n_params() / 1e9:.1f} GB at 18 / 36 bytes a parameter)")
+    print(f"  step losses, largest difference {loss_gap:.3e} (limit {ZERO_LOSS_ATOL})  "
+          f"{'ok' if loss_gap <= ZERO_LOSS_ATOL else 'FAIL'}; step-0 gradient norm relative "
+          f"difference {norm_gap:.3e} (limit {ZERO_GRAD_NORM_RTOL})  "
+          f"{'ok' if norm_gap <= ZERO_GRAD_NORM_RTOL else 'FAIL'}")
+    print(f"  parameters after step 0, relative L2 {param_gap:.3e} (limit "
+          f"{ENCDEC_ZERO_PARAM_REL_L2:.1e})  "
+          f"{'ok' if param_gap <= ENCDEC_ZERO_PARAM_REL_L2 else 'FAIL'}; worst leaf {names[worst]} "
+          f"{rel[worst]:.3e} (limit {ENCDEC_ZERO_LEAF_REL_L2})  "
+          f"{'ok' if rel[worst] <= ENCDEC_ZERO_LEAF_REL_L2 else 'FAIL'}")
+    check(ok_counts, f"{cfg.name}: the steps did not launch the kernels they imply")
+    check(loss_gap <= ZERO_LOSS_ATOL, f"{cfg.name}: ZeRO-3 and ZeRO-1 step losses disagree")
+    check(norm_gap <= ZERO_GRAD_NORM_RTOL,
+          f"{cfg.name}: ZeRO-3 and ZeRO-1 step-0 gradient norms disagree")
+    check(param_gap <= ENCDEC_ZERO_PARAM_REL_L2 and rel[worst] <= ENCDEC_ZERO_LEAF_REL_L2,
+          f"{cfg.name}: ZeRO-3 and ZeRO-1 parameters after step 0 disagree")
+    out = {**r1, "arch": cfg.name, "params": model.n_params(), "step0_gate": gate,
+           "zero3": r3, "zero3_vs_zero1": {
+               "loss_gap": loss_gap, "grad_norm_gap": norm_gap,
+               "param_rel_l2_after_step0": param_gap, "worst_leaf": names[worst],
+               "worst_leaf_rel_l2": rel[worst], "gathers_per_micro_step": gathers},
+           "clips_per_step": rows * plan.n_micro_max}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 class Counters:
     """The launch counts of every kernel wrapper of the port."""
 
@@ -5540,6 +5973,8 @@ class Counters:
                 **{f"flash_attention_fwd_d{d}": fa.d_launches.get(d, 0) for d in fa.HEAD_DIMS},
                 **{f"flash_attention_fwd_{kind}_sq{sq}_sk{sk}": n
                    for (kind, sq, sk), n in fa.shape_launches.items()},
+                **{f"flash_attention_bwd_{kind}_sq{sq}_sk{sk}": n
+                   for (kind, sq, sk), n in fa.bwd_shape_launches.items()},
                 "quant_int8": quant.quant_launches, "dq_accum_int8": quant.dq_launches,
                 "ring_reduce_scatter": ring_dma.rs_launches,
                 "ring_all_gather": ring_dma.ag_launches, "collective_reduce": cr.launches,
@@ -5666,8 +6101,9 @@ def main() -> int:
         ttimes = phase_codec_times(torch, quant, ref, bench_codec, train["codec_launch_rows"],
                                    4)
         ttimes.update(phase_train_kernel_times(torch, ref, fa, bwd["train"]))
-        ttimes["flash_attention_bwd_d100"] = phase_train_kernel_times(
-            torch, ref, fa, bwd["d100_llama3b"])["flash_attention_bwd"]
+        for label, case in BWD_TIMED.items():
+            ttimes[f"flash_attention_bwd_{label}"] = phase_train_kernel_times(
+                torch, ref, fa, bwd[case], BWD_TIMED_ROUNDS[label])["flash_attention_bwd"]
         print(json.dumps({"train": train, "flash_bwd_errors": {
             k: {kk: vv for kk, vv in v.items() if kk not in ("inputs", "kw")}
             for k, v in bwd.items()}, "kernel_times": ttimes, **card}))
@@ -5829,6 +6265,35 @@ def main() -> int:
         print(json.dumps({"encdec_serve": encdec, "phase_wall_s": walls, **card}))
     flash_times.update(vlm.pop("flash_times"))
     flash_times.update(encdec.pop("flash_times"))
+    for c in cases.values():                    # [3]'s inputs: [35] timed the last
+        c.pop("inputs")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # [36] holds 56.5 GiB of state and peaks about 17 GiB above it, with
+    # head-sized (2.3 GiB) gradients: in segments cut by the earlier phases'
+    # allocations it ran out of memory with 5.3 GiB free in pieces (an
+    # NVIDIA H100 80GB HBM3 at 700 W, PERF.md).  Expandable segments map what
+    # the allocator holds into one range; on for [36] and [37] only, which
+    # capture no CUDA graph.
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    print(f"  card memory allocated before [36]: {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB (the earlier phases' leftovers)")
+
+    vlm_train_cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_TRAIN_LAYERS,
+                                        loss_chunk=TRAIN_LOSS_CHUNK)
+    with phase(f"[36] VLM training: {VLM_ARCH} at full width, {VLM_TRAIN_LAYERS} of 80 "
+               "layers, ZeRO-1 on one rank", walls):
+        vlm_train = phase_vlm_train(torch, np, fa, build, mesh_mod, hetccl, counters,
+                                    vlm_train_cfg)
+        print(json.dumps({"vlm_train": vlm_train, "phase_wall_s": walls, **card}))
+
+    encdec_train_cfg = dataclasses.replace(encdec_cfg, loss_chunk=TRAIN_LOSS_CHUNK)
+    with phase(f"[37] encoder-decoder training: {ENCDEC_ARCH} at full width and depth, ZeRO-3 "
+               "and ZeRO-1 on four ranks", walls):
+        encdec_train = phase_encdec_train(torch, np, fa, ref, build, mesh_mod, hetccl,
+                                          counters, encdec_train_cfg)
+        print(json.dumps({"encdec_train": encdec_train, "phase_wall_s": walls, **card}))
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
 
     def planned_launches(key):         # [31]'s runs
         return {run: v["launches"][key] for run, v in planned.items()}
@@ -5887,6 +6352,10 @@ def main() -> int:
                                     for a, v in dense.items()}
     kernels[0]["vlm_launches"] = vlm["launches"]["flash_attention_fwd"]
     kernels[0]["encdec_launches"] = encdec["launches"]["flash_attention_fwd"]
+    kernels[0]["vlm_train_launches"] = vlm_train["launches"]["flash_attention_fwd"]
+    kernels[0]["encdec_train_launches"] = {
+        f"zero{z}": r["launches"]["flash_attention_fwd"]
+        for z, r in ((3, encdec_train["zero3"]), (1, encdec_train))}
     kernels[0]["llama1b_zero3_launches"] = zero["zero3"]["launches"]["flash_attention_fwd"]
     kernels[0]["planned_launches"] = planned_launches("flash_attention_fwd")
     kernels[0]["elastic_launches"] = elastic_launches_of("flash_attention_fwd")
@@ -5901,7 +6370,6 @@ def main() -> int:
     kernels[0]["shapes"] = {name: {"launches": shape_launches[name], **flash_times[name]}
                             for name in FLASH_TIMED}
     tb = ttimes["flash_attention_bwd"]
-    tb100 = ttimes["flash_attention_bwd_d100"]
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -5917,7 +6385,16 @@ def main() -> int:
         "llama1b_zero3_launches": zero["zero3"]["launches"]["flash_attention_bwd"],
         "shapes": {label: {key: tt[key] for key in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "graph_ms",
-            "library_graph_ms")} for label, tt in (("d100", tb100), ("d112", tb112))},
+            "library_graph_ms")} for label, tt in (
+                *((lb, ttimes[f"flash_attention_bwd_{lb}"]) for lb in BWD_TIMED),
+                ("d112", tb112))},
+        "vlm_train_launches": vlm_train["launches"]["flash_attention_bwd"],
+        "encdec_train_launches": {
+            f"zero{z}": r["launches"]["flash_attention_bwd"]
+            for z, r in ((3, encdec_train["zero3"]), (1, encdec_train))},
+        "sq_ne_sk_cases": {name: {key: bwd[name][key] for key in ("rel_l2", "worst_row")}
+                           for name in ("whisper_cross_train", "f32_sq70_sk200_bidir_klen150",
+                                        "f32_sq200_sk70_bidir_klen50")},
         "zamba2_train_launches": ssm_train[HYBRID_ARCH]["launches"]["flash_attention_bwd"],
         "planned_launches": planned_launches("flash_attention_bwd"),
         "elastic_launches": elastic_launches_of("flash_attention_bwd"),

@@ -43,6 +43,8 @@ d_launches: dict[int, int] = {}   # flash_attention_fwd's launches by head dim
 # flash_attention_fwd's launches by (kind, Sq, Sk): the shapes of one head dim
 # (whisper's encoder, decoder and cross-attention, all d 64) counted apart
 shape_launches: dict[tuple[str, int, int], int] = {}
+# flash_attention_bwd's calls by (kind, Sq, Sk), as ``shape_launches``
+bwd_shape_launches: dict[tuple[str, int, int], int] = {}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # 64: smollm, the gpt models, llama-1b and smollm-360m; 128: the larger dense
@@ -118,6 +120,7 @@ def reset_counts():
         launches = bwd_launches = 0
         d_launches.clear()
         shape_launches.clear()
+        bwd_shape_launches.clear()
 
 
 def _aligned(t) -> bool:
@@ -284,6 +287,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, kind: str = "causal",
                            f"{err_str(err).decode()} (cuda error {err})")
     with _lock:
         bwd_launches += 1
+        key = (kind, Sq, Sk)
+        bwd_shape_launches[key] = bwd_shape_launches.get(key, 0) + 1
     return dq, dk, dv
 
 

@@ -59,14 +59,16 @@ def attention_lse(q, k, *, kind="causal", window=0, k_len=None, scale=None):
 
 
 def attention_bwd(q, k, v, o, do, lse, *, kind="causal", window=0, k_len=None,
-                  scale=None):
+                  scale=None, product_dtype=None):
     """Dense attention backward in f32, kernel layout.
 
     q, o, do (B, Hq, Sq, d); k, v (B, Hkv, Sk, d); lse (B, Hq, Sq) from the
     forward.  P is recomputed as exp(s - lse); with D = rowsum(dO * O),
     dS = P * (dO V^T - D), dQ = scale dS K, dK = scale dS^T Q and
     dV = P^T dO, dK and dV summed over the query heads of their kv head.
-    Returns (dq, dk, dv) in f32.
+    Returns (dq, dk, dv) in f32.  ``product_dtype`` (bf16): P and dS
+    rounded to it for the products that take them, where the backward
+    kernel's bf16 route rounds them (its arithmetic in plain torch).
     """
     B, Hq, Sq, d = q.shape
     _, Hkv, Sk, _ = k.shape
@@ -76,8 +78,11 @@ def attention_bwd(q, k, v, o, do, lse, *, kind="causal", window=0, k_len=None,
     p = torch.exp(s - lse.float().reshape(B, Hkv, g, Sq, 1))
     dof = do.float().reshape(B, Hkv, g, Sq, d)
     delta = (dof * o.float().reshape(B, Hkv, g, Sq, d)).sum(-1, keepdim=True)
-    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
-    ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", dof, v.float()) - delta)
+    def rounded(t):
+        return t if product_dtype is None else t.to(product_dtype).float()
+
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", rounded(p), dof)
+    ds = rounded(p * (torch.einsum("bhgqd,bhkd->bhgqk", dof, v.float()) - delta))
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * scale
     dk = torch.einsum("bhgqk,bhgqd->bhkd", ds,
                       q.float().reshape(B, Hkv, g, Sq, d)) * scale

@@ -16,8 +16,9 @@ which is the nature of a dry run: no chip, no data.
   ``global_batch x seq_len``, or one decode step on a cache of ``seq_len``.
   The VLM's prefill takes an ``mrope`` leaf (3, B, S), the
   encoder-decoder's ``frames`` (B, n_frames, d_model) in bf16, as the
-  reference's cells do.  Their train cells are skipped until the trainer
-  takes those leaves (ROADMAP item A8d).
+  reference's cells do; their train cells' batches carry ``mrope``
+  (n_micro, 3, B, S) and ``frames`` (n_micro, B, n_frames, d_model) in
+  bf16 (the reference's ``_train_batch_sds``).
 
 Each cell reports the step's roofline terms on the H100 sheet
 (``roofline.hw.H100``, one chip per rank), ``model_flops_spec`` (the
@@ -91,6 +92,20 @@ def serve_batch(cfg: ModelConfig, B: int, S: int) -> dict:
     return batch
 
 
+def train_batch(cfg: ModelConfig, nm: int, rows: int, S: int) -> dict:
+    """A train cell's global batch: the tokens and labels (n_micro, rows,
+    S), the VLM's ``mrope`` (n_micro, 3, rows, S) and the
+    encoder-decoder's ``frames`` (n_micro, rows, n_frames, d_model) in bf16
+    on ``meta`` (the reference's ``_train_batch_sds``)."""
+    batch = {k: np.zeros((nm, rows, S), np.int64) for k in ("tokens", "labels")}
+    if cfg.family == "vlm":
+        batch["mrope"] = torch.zeros((nm, 3, rows, S), dtype=torch.long, device="meta")
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((nm, rows, cfg.n_frames, cfg.d_model),
+                                      dtype=torch.bfloat16, device="meta")
+    return batch
+
+
 def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in leaves(tree)
                if isinstance(t, torch.Tensor))
@@ -159,10 +174,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, zero: int = 3,
         rec["status"] = "skipped"
         rec["reason"] = "long_500k requires sub-quadratic attention (DESIGN.md §4)"
         return rec
-    if shape.kind == "train" and cfg.family in ("vlm", "encdec"):
-        rec["status"] = "skipped"
-        rec["reason"] = f"training of the {cfg.family} family is ROADMAP item A8d"
-        return rec
     model = build(cfg)
     t0 = time.time()
     try:
@@ -187,8 +198,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, zero: int = 3,
             prog = make_train_program(model, mesh, rc, plan)
             states = prog.init_fn(meta_params(model, getattr(torch, rc.param_dtype)))
             nm, rows = prog.batch_shape(shape.seq_len)[:2]
-            batch = {k: np.zeros((nm, rows, shape.seq_len), np.int64)
-                     for k in ("tokens", "labels")}
+            batch = train_batch(cfg, nm, rows, shape.seq_len)
             state_bytes = max(_nbytes(states[r]) for r in mesh.live)
             n_dev = mesh.size
             with analysis.counting(live=True) as sc:

@@ -12,15 +12,20 @@ mesh of ranks, on the plan and policy table HetCCL's planner picks.
         [--elastic] [--chaos SCRIPT] [--watchdog]
 
 ``--arch`` takes every architecture of the port (``configs.ARCH_IDS`` and
-the paper's models, ``configs.PAPER_IDS``) but the VLM and the
-encoder-decoder, which serve only (their training is ROADMAP item A8d):
-dense, MoE, and the SSM and hybrid families (mamba2-2.7b, zamba2-7b), whose
-SSD scan trains through its backward kernel.  ``--zero 3`` shards the
-parameters over the mesh's "data" axis and gathers them inside the
-forward, every family: per block, the MoE family's router and expert
-stacks among them; the hybrid's shared block once per forward and each
-group's Mamba2 blocks once per group (a Mamba2 block's leaves without an
-"embed" dim stay whole on every rank).
+the paper's models, ``configs.PAPER_IDS``): dense, MoE, the SSM and hybrid
+families (mamba2-2.7b, zamba2-7b), whose SSD scan trains through its
+backward kernel, the VLM (qwen2-vl-72b, on text-only M-RoPE positions, as
+the reference's launcher trains it) and the encoder-decoder
+(whisper-medium).  The reference's data pipeline builds no ``frames``, so
+for the encoder-decoder each step's batch gains frame embeddings drawn as
+``launch/serve`` draws them: unit normals, (n_frames, d_model) a clip, from
+(``--seed``, step), so a resumed run sees the same batch (ROADMAP C8).
+``--zero 3`` shards the parameters over the mesh's "data" axis and gathers
+them inside the forward, every family: per block, the MoE family's router
+and expert stacks among them, the encoder's and decoder's blocks each
+their layer; the hybrid's shared block once per forward and each group's
+Mamba2 blocks once per group (a Mamba2 block's leaves without an "embed"
+dim stay whole on every rank).
 
 The collective configuration comes from the planner (``repro_torch.plan``,
 DESIGN.md §9, §12), with the reference launcher's flags and defaults:
@@ -225,6 +230,29 @@ def plan_run(args, mesh, cfg):
     return rc, plan, None
 
 
+def batch_source(cfg, plan, dp_world: int, seq_len: int, seed: int):
+    """``step -> global batch``: the synthetic token stream of
+    ``data.pipeline`` and, for the encoder-decoder, ``frames`` (n_micro, B,
+    n_frames, d_model) f32 unit normals drawn from (``seed``, step)."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import DataPipeline
+
+    pipe = DataPipeline(seed=seed, plan=plan, dp_world=dp_world, seq_len=seq_len,
+                        vocab=cfg.vocab)
+    if cfg.family != "encdec":
+        return pipe.batch_at
+
+    def batch_at(step: int) -> dict:
+        batch = pipe.batch_at(step)
+        nm, rows = batch["tokens"].shape[:2]
+        rng = np.random.default_rng((seed, step))
+        batch["frames"] = rng.standard_normal((nm, rows, cfg.n_frames, cfg.d_model),
+                                              dtype=np.float32)
+        return batch
+    return batch_at
+
+
 def plan_line(tp) -> str:
     """The reference launcher's ``--plan auto`` line."""
     n_rows = len(tp.policies.rows) if tp.policies is not None else 0
@@ -252,7 +280,6 @@ def run(args) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.core.mesh import ThreadMesh
-    from repro_torch.data.pipeline import DataPipeline
     from repro_torch.launch.mesh import cluster_for_mesh
     from repro_torch.models import build
     from repro_torch.train import checkpoint as ck
@@ -275,8 +302,7 @@ def run(args) -> dict:
           f"wire_quant={rc.wire_quant} cross_dtype={rc.cross_dtype} "
           f"error_feedback={optim.ef_codec(rc) is not None}", flush=True)
     state = prog.init_fn()
-    pipe = DataPipeline(seed=args.seed, plan=plan, dp_world=prog.dp_world(),
-                        seq_len=args.seq, vocab=cfg.vocab)
+    batch_at = batch_source(cfg, plan, prog.dp_world(), args.seq, args.seed)
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_torch_train_ckpt_")
     start = ck.latest_step(ckpt_dir)          # a run resumes from the latest
     fresh = start is None
@@ -322,7 +348,7 @@ def run(args) -> dict:
                     telemetry.tracer.set_step(step + 1)     # the next step's dispatches
                     log(step, m)
             state, hist = ft.run_supervised(
-                prog.step_fn, state, pipe.batch_at, ckpt_dir=ckpt_dir,
+                prog.step_fn, state, batch_at, ckpt_dir=ckpt_dir,
                 ckpt_every=args.ckpt_every, n_steps=args.steps, layout=prog,
                 start_step=0 if fresh else None,   # a fresh run trusts its init
                 monitor=ft.StragglerMonitor(), metrics_cb=cb)
@@ -359,7 +385,6 @@ def run_elastic(args, prog, state, tp, telemetry, ckpt_dir):
     Returns ``(state, report)``."""
     from repro_torch import elastic
     from repro_torch.core.tree import leaves
-    from repro_torch.data.pipeline import DataPipeline
     from repro_torch.launch.mesh import cluster_for_mesh
     from repro_torch.train import checkpoint as ck
 
@@ -381,8 +406,7 @@ def run_elastic(args, prog, state, tp, telemetry, ckpt_dir):
     cfg = prog.model.cfg
 
     def make_batches(p):
-        return DataPipeline(seed=args.seed, plan=p.plan, dp_world=p.dp_world(),
-                            seq_len=args.seq, vocab=cfg.vocab).batch_at
+        return batch_source(cfg, p.plan, p.dp_world(), args.seq, args.seed)
 
     return elastic.run_elastic(
         prog, state, make_batches, cluster=cluster, ckpt_dir=ckpt_dir,

@@ -17,6 +17,14 @@ its numbers:
 * The reference scans over stacked layers; the port loops over the same
   stacked tensors (``remat`` wraps each block in ``torch.utils.checkpoint``
   in the training forward).
+* ZeRO-3 (``fsdp`` and ``rules``): each encoder and decoder block gathers
+  its layer's slice of ``enc_blocks`` / ``dec_blocks`` at its top, on the
+  reference's plan (``gather_plan_of`` over the stacked metas), so under
+  ``remat`` the gather sits inside the block's checkpoint, as in the
+  reference's scan body: once in the forward and once more in the
+  recompute, the gathered weights not kept between them.  The top-level
+  leaves (embedding, ``pos_embed``, the norms, the head) come gathered
+  from ``Model.loss``.
 * Prefill's self-attention runs over the prompt's own k and v (flash with
   Sk = S, as the port's ``transformer._prefill_block`` does), which are
   then written into the cache of ``max_len`` positions; the reference
@@ -100,12 +108,30 @@ def _enc_block(lp, cfg: ModelConfig, h):
     return h + tf.mlp_sublayer(lp["mlp"], _ln(lp, "ln2", h, cfg), cfg)
 
 
-def encode(params, frames, cfg: ModelConfig, *, remat: bool = False):
+def _block_params(blocks, i: int, gplan, fsdp):
+    """Layer ``i`` of a stacked block tree: views, or under ZeRO-3 its
+    sharded leaves gathered over "data" (``tf.maybe_gather``)."""
+    if fsdp is None:
+        return tf.layer_params(blocks, i)
+    return tf.maybe_gather(blocks, gplan, fsdp, layer=i)
+
+
+def _gplan(cfg: ModelConfig, key: str, rules):
+    return tf.gather_plan_of(abstract_params(cfg)[key], rules, scanned=True)
+
+
+def _enc_out(blocks, i, gplan, fsdp, cfg, h):
+    return _enc_block(_block_params(blocks, i, gplan, fsdp), cfg, h)
+
+
+def encode(params, frames, cfg: ModelConfig, *, remat: bool = False, fsdp=None, rules=None):
     """frames (B, F, D) -> the encoder's normed output (B, F, D), in the
-    model dtype."""
+    model dtype.  ``fsdp`` (an ``FsdpScope``) with ``rules``: ZeRO-3, each
+    block's layer gathered inside the block."""
     x = frames.to(tf._dtype(cfg))
+    gplan = _gplan(cfg, "enc_blocks", rules) if fsdp is not None else None
     for i in range(cfg.n_enc_layers):
-        fn = functools.partial(_enc_block, tf.layer_params(params["enc_blocks"], i), cfg)
+        fn = functools.partial(_enc_out, params["enc_blocks"], i, gplan, fsdp, cfg)
         x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
     return layer_norm(x, params["enc_norm"], params["enc_norm_b"], cfg.norm_eps)
 
@@ -123,8 +149,8 @@ def _dec_block(lp, cfg: ModelConfig, h, enc_out):
     return h, k, v, ck, cv
 
 
-def _dec_out(lp, cfg, h, enc_out):
-    return _dec_block(lp, cfg, h, enc_out)[0]
+def _dec_out(blocks, i, gplan, fsdp, cfg, h, enc_out):
+    return _dec_block(_block_params(blocks, i, gplan, fsdp), cfg, h, enc_out)[0]
 
 
 def _dec_embed(params, tokens, cfg: ModelConfig, start: int):
@@ -134,20 +160,24 @@ def _dec_embed(params, tokens, cfg: ModelConfig, start: int):
     return x + params["pos_embed"][start:start + tokens.shape[1]].to(dtype)
 
 
-def decode_train(params, tokens, enc_out, cfg: ModelConfig, *, remat: bool = False):
-    """Teacher-forced decoder forward -> the final normed hidden (B, S, D)."""
+def decode_train(params, tokens, enc_out, cfg: ModelConfig, *, remat: bool = False,
+                 fsdp=None, rules=None):
+    """Teacher-forced decoder forward -> the final normed hidden (B, S, D);
+    ``fsdp`` and ``rules`` as :func:`encode`."""
     x = _dec_embed(params, tokens, cfg, 0)
+    gplan = _gplan(cfg, "dec_blocks", rules) if fsdp is not None else None
     for i in range(cfg.n_layers):
-        fn = functools.partial(_dec_out, tf.layer_params(params["dec_blocks"], i), cfg)
+        fn = functools.partial(_dec_out, params["dec_blocks"], i, gplan, fsdp, cfg)
         x = checkpoint(fn, x, enc_out, use_reentrant=False) if remat else fn(x, enc_out)
     return layer_norm(x, params["final_norm"], params["final_norm_b"], cfg.norm_eps)
 
 
-def forward(params, batch, cfg: ModelConfig, *, remat: bool = False):
+def forward(params, batch, cfg: ModelConfig, *, remat: bool = False, fsdp=None, rules=None):
     """(the decoder's final hidden (B, S, D), aux 0) of a batch with
-    ``frames`` and ``tokens``."""
-    enc_out = encode(params, batch["frames"], cfg, remat=remat)
-    hidden = decode_train(params, batch["tokens"], enc_out, cfg, remat=remat)
+    ``frames`` and ``tokens``; ``fsdp`` and ``rules`` as :func:`encode`."""
+    enc_out = encode(params, batch["frames"], cfg, remat=remat, fsdp=fsdp, rules=rules)
+    hidden = decode_train(params, batch["tokens"], enc_out, cfg, remat=remat, fsdp=fsdp,
+                          rules=rules)
     return hidden, torch.zeros((), dtype=torch.float32, device=hidden.device)
 
 

@@ -45,7 +45,8 @@ class Model:
 
     def _gather_top(self, params, fsdp, rules):
         """ZeRO-3: gather the leaves outside the stacked blocks (embedding,
-        final norm, head) over "data" before use."""
+        final norm, head; the encoder-decoder's ``pos_embed`` on its dim 1,
+        ``enc_norm(_b)`` and ``final_norm_b`` too) over "data" before use."""
         if fsdp is None:
             return params
         top = {k: v for k, v in self.abstract_params().items() if k not in _SCANNED_KEYS}
@@ -57,13 +58,11 @@ class Model:
         "tokens" and "labels" (B, S) and an optional f32 "mask"; aux is the
         forward's MoE aux losses (0 for the other families).  ``remat``:
         activation checkpointing per block.  ``fsdp`` and ``rules``: ZeRO-3
-        (``params`` are this rank's shards; ``forward_lm``).  The
-        encoder-decoder's forward has no ZeRO-3 plan yet (ROADMAP item A8d)."""
-        if self.cfg.family == "encdec" and fsdp is not None:
-            raise NotImplementedError("ZeRO-3 of the encoder-decoder: ROADMAP item A8d")
+        (``params`` are this rank's shards; ``forward_lm``, ``encdec.forward``)."""
         params = self._gather_top(params, fsdp, rules)
         if self.cfg.family == "encdec":
-            hidden, aux = encdec_mod.forward(params, batch, self.cfg, remat=remat)
+            hidden, aux = encdec_mod.forward(params, batch, self.cfg, remat=remat, fsdp=fsdp,
+                                             rules=rules)
         else:
             hidden, aux = tf.forward_lm(params, batch["tokens"], self.cfg,
                                         mrope=batch.get("mrope"), remat=remat,

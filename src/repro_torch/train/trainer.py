@@ -61,7 +61,11 @@ class TrainProgram:
     ThreadMesh a list with one state per rank, on a DistMesh this rank's
     state.  A state is ``{"params", "opt", "step"}``.  ``step_fn(state,
     batch)`` takes the global batch (``batch_shape(seq)`` int arrays
-    "tokens" and "labels", numpy or torch) and returns ``(state, metrics)``
+    "tokens" and "labels", numpy or torch, and the family's extra leaves:
+    the VLM's optional ``mrope`` (n_micro, 3, B, S) int positions, without
+    which it trains on text-only positions; the encoder-decoder's
+    ``frames`` (n_micro, B, n_frames, d_model), floating point, which it
+    needs) and returns ``(state, metrics)``
     with the metrics ("loss", "grad_norm", "tokens") as 0-dim tensors,
     equal on every rank.  ``comm`` is the program's communicator;
     ``fsdp_dims`` the dim of each parameter leaf (flatten order) sharded over
@@ -100,6 +104,19 @@ def _donated(acc: list, rebuild):
     return tree
 
 
+# the dim of each batch leaf that holds the global batch's rows (the
+# reference's ``extra_batch_specs``: frames (n_micro, B, F, D), mrope
+# (n_micro, 3, B, S))
+_BATCH_DIM = {"tokens": 1, "labels": 1, "frames": 1, "mrope": 2}
+
+
+def _batch_leaves(cfg) -> tuple[str, ...]:
+    """The batch leaves a step of ``cfg``'s family reads (the reference's
+    ``mb_tree``)."""
+    extra = {"vlm": ("mrope",), "encdec": ("frames",)}.get(cfg.family, ())
+    return ("tokens", "labels", *extra)
+
+
 def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> TrainProgram:
     """The ZeRO-1 or ZeRO-3 program (``rc.zero_stage``) of ``model`` on
     ``mesh`` (axes "pod" and/or "data"), with the communicator built from
@@ -110,10 +127,6 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
     by the live tokens."""
     if rc.zero_stage not in (1, 3):
         raise ValueError(f"zero_stage={rc.zero_stage}: the stages are 1 and 3")
-    if model.cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(
-            f"{model.cfg.name}: training of the {model.cfg.family} family (its batch leaves "
-            f"and gather plans) comes with ROADMAP item A8d; it serves now")
     local_axes, pod_axis = _dp_axes_of(mesh)
     cross = getattr(torch, rc.cross_dtype) if rc.cross_dtype else None
     hcfg = hetccl.HetCCLConfig(
@@ -185,7 +198,7 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
             count = torch.zeros((), dtype=torch.float32, device=device)
             for i in range(plan.n_micro_max):
                 w = float(live[i])
-                mb = {"tokens": batch["tokens"][i], "labels": batch["labels"][i]}
+                mb = {k: v[i] for k, v in batch.items()}
                 ls, cnt, aux = model.loss(p_req, mb, remat=rc.remat, fsdp=fsdp, rules=rules)
                 grads = torch.autograd.grad((ls + aux * cnt) * w, req,
                                             allow_unused=fsdp is not None)
@@ -212,11 +225,22 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
         metrics = {"loss": loss_total * inv, "grad_norm": gnorm, "tokens": total}
         return {"params": new_params, "opt": new_opt, "step": step + 1}, metrics
 
+    batch_keys = _batch_leaves(model.cfg)
+
     def rank_batch(batch, r: int):
-        """Rank r's rows of the global batch: pod-major DP order."""
+        """Rank r's rows of the global batch: pod-major DP order, each leaf
+        sliced on its batch dim (``_BATCH_DIM``); token ids and positions as
+        int64, ``frames`` in their own floating dtype."""
         mb, i = plan.micro_batch, mesh.axis_index(r, dp_axes)
-        return {k: torch.as_tensor(np.asarray(batch[k])[:, i * mb:(i + 1) * mb])
-                .to(device=device, dtype=torch.long) for k in ("tokens", "labels")}
+        out = {}
+        for k in batch_keys:
+            if k not in batch:
+                continue
+            a = batch[k]
+            a = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+            a = a.narrow(_BATCH_DIM[k], i * mb, mb)
+            out[k] = a.to(device=device, dtype=a.dtype if k == "frames" else torch.long)
+        return out
 
     threads = isinstance(mesh, mesh_mod.ThreadMesh)
 
@@ -232,6 +256,9 @@ def make_train_program(model: Model, mesh, rc: RunConfig, plan: HetPlan) -> Trai
         return mesh.run(rank_init, params)
 
     def step_fn(state, batch):
+        if model.cfg.family == "encdec" and "frames" not in batch:
+            raise ValueError(f"{model.cfg.name}: the batch has no 'frames' leaf (n_micro, B, "
+                             f"n_frames, d_model), which the encoder reads")
         if threads:
             outs = mesh.run(rank_step, state,
                             [rank_batch(batch, r) for r in range(mesh.size)])

@@ -21,6 +21,7 @@ import time
 import types
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -412,11 +413,11 @@ def test_codec_paths_match_plain_bitwise(gen, chunk, rows, fill, offset):
 
 
 def _bwd_case(gen, case):
-    name, B, Hq, Hkv, S, d, kind, window, k_len, dt, model_layout = case
+    name, B, Hq, Hkv, Sq, Sk, d, kind, window, k_len, dt, model_layout = case
     dtype = getattr(torch, dt)
-    q, k, v = smoke.attention_inputs(gen, B, Hq, Hkv, S, S, d, dtype, model_layout)
+    q, k, v = smoke.attention_inputs(gen, B, Hq, Hkv, Sq, Sk, d, dtype, model_layout)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-    kw = dict(kind=kind, window=window, k_len=S if k_len is None else k_len)
+    kw = dict(kind=kind, window=window, k_len=Sk if k_len is None else k_len)
     o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
     want = fa.flash_attention_bwd_plain(q, k, v, o, do, ref.attention_lse(q, k, **kw), **kw)
     return (q, k, v, o, do, lse), kw, want
@@ -435,7 +436,7 @@ def test_flash_bwd_matches_plain(gen, case):
     got = fa.flash_attention_bwd(*args, **kw)
     torch.cuda.synchronize()
     assert fa.bwd_launches == before + 1
-    ok, errs = _bwd_within_limits(got, want, case[9])
+    ok, errs = _bwd_within_limits(got, want, case[10])
     assert ok, errs
     # no atomics: a second launch gives the same bits
     again = fa.flash_attention_bwd(*args, **kw)
@@ -487,6 +488,16 @@ TRAIN_FAULTS = {
     # the bf16 route's causal limit of a row's keys dropped
     "causal_mask_dropped_in_bwd": ("flash_attention_bwd", "if (p.causal) hi = min(hi, r + 1);",
                                    "", smoke.BWD_CASES[0]),
+    # Sq != Sk: the dK/dV pass's key blocks counted from Sq, not Sk (whisper's
+    # cross-attention, 448 queries over 1500 keys: the keys past 448 get no
+    # gradient), on the bf16 route and on the f32 route (Sq 70 < Sk 200)
+    "key_grid_from_sq": ("flash_attention_bwd",
+                         "cfg.gridDim = dim3(p.Hkv * cs, p.B, (p.Sk + kMmaB - 1) / kMmaB);",
+                         "cfg.gridDim = dim3(p.Hkv * cs, p.B, (p.Sq + kMmaB - 1) / kMmaB);",
+                         _BWD_CASE["whisper_cross_train"]),
+    "f32_key_grid_from_sq": ("flash_attention_bwd", "dim3((p.Sk + kSimtB - 1) / kSimtB, p.Hkv, p.B)",
+                             "dim3((p.Sq + kSimtB - 1) / kSimtB, p.Hkv, p.B)",
+                             _BWD_CASE["f32_sq70_sk200_bidir_klen150"]),
 }
 
 
@@ -524,9 +535,12 @@ def test_planted_training_fault_fails(gen, faulty_train_libs, monkeypatch, fault
         assert not all(same)
         return
     args, kw, want = _bwd_case(gen, case)
-    good_ok, _ = _bwd_within_limits(fa.flash_attention_bwd(*args, **kw), want, case[9])
+    # the good gradients stay alive: the faulty launch's outputs must not
+    # reuse their memory (a key block left unwritten would hold their values)
+    good = fa.flash_attention_bwd(*args, **kw)
+    good_ok, _ = _bwd_within_limits(good, want, case[10])
     monkeypatch.setattr(fa, "_bwd_fn", fa.bind_bwd(faulty_train_libs[fault]))
-    bad_ok, errs = _bwd_within_limits(fa.flash_attention_bwd(*args, **kw), want, case[9])
+    bad_ok, errs = _bwd_within_limits(fa.flash_attention_bwd(*args, **kw), want, case[10])
     print(f"\n  {fault}: dq/dk/dv errors {[{k: f'{v:.3e}' for k, v in e.items()} for e in errs]}")
     assert good_ok and not bad_ok
 
@@ -568,10 +582,13 @@ def test_two_training_steps_on_the_card(gen):
 
 
 @pytest.mark.parametrize("arch,layers", [("llama-1b", None), ("mamba2-2.7b", None),
-                                         ("zamba2-7b", 13)])
+                                         ("zamba2-7b", 13), ("qwen2-vl-72b", None),
+                                         ("whisper-medium", None)])
 def test_zero3_steps_on_the_card_match_zero1(gen, arch, layers):
-    """Reduced llama-1b, mamba2 and zamba2 at 13 layers (two groups and a
-    tail), f32 parameters, pallas rings, on a CUDA ThreadMesh (pod=2,
+    """Reduced llama-1b, mamba2, zamba2 at 13 layers (two groups and a
+    tail), qwen2-vl (its batch's ``mrope`` an image grid) and whisper (its
+    ``frames`` unit normals, projections redrawn), f32 parameters, pallas
+    rings, on a CUDA ThreadMesh (pod=2,
     data=2): 2 ZeRO-3 steps against 2 ZeRO-1 steps from the same init,
     losses within the reference's 5e-3 (tests/test_train.py), and the fsdp
     adjoint launches the fused reduce-scatter once per gathered key per
@@ -593,6 +610,13 @@ def test_zero3_steps_on_the_card_match_zero1(gen, arch, layers):
     plan = balance.uniform_plan(2, 4, micro_batch=1)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     batch = synthetic_batch(0, 0, plan.n_micro_max, plan.micro_batch * 4, 64, cfg.vocab)
+    if cfg.family == "vlm":
+        grid = smoke.mrope_grid(np, plan.micro_batch * 4, 64, 8, 6)
+        batch["mrope"] = np.stack([grid] * plan.n_micro_max)
+    if cfg.family == "encdec":
+        smoke.redraw_projections(torch, params, 2)
+        batch["frames"] = torch.randn((plan.n_micro_max, plan.micro_batch * 4, cfg.n_frames,
+                                       cfg.d_model), generator=gen, device="cuda")
     losses = {}
     for zero in (3, 1):
         prog = make_train_program(model, m, RunConfig(

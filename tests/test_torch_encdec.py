@@ -340,12 +340,6 @@ def test_decode_matches_teacher_forcing(deep):
         _close_scaled(logits[:, 0], full[:, t].numpy())
 
 
-def test_zero3_waits_for_its_slice(whisper):
-    cfg, _, _, _, model, params = whisper
-    with pytest.raises(NotImplementedError, match="A8d"):
-        model.loss(params, _torch_batch(_batch(cfg, S, 8)), fsdp=object(), rules={})
-
-
 # ---------------------------------------------------------------------------
 # serving: the batcher's frames, the reference's fault, the launcher
 # ---------------------------------------------------------------------------
@@ -442,5 +436,3 @@ def test_dryrun_decode_32k_on_meta_counts_the_closed_form():
     per_layer = self_attn + cross + 2 * 2 * Bd * D * F
     assert rec["hlo_dot_flops_per_chip"] == cfg.n_layers * per_layer + 2 * Bd * D * cfg.padded_vocab
     assert rec["model_flops"] == dryrun.model_flops_spec(cfg, dryrun.SHAPES["decode_32k"])
-    train = dryrun.run_cell(ARCH, "train_4k", "single", verbose=False)
-    assert train["status"] == "skipped" and "A8d" in train["reason"]

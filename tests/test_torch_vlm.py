@@ -331,12 +331,6 @@ def test_serve_launcher_serves_the_vlm():
     assert len(done) == 2 and all(len(r.out) == 3 for r in done)
 
 
-def test_training_waits_for_its_slice():
-    from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="vlm family.*A8d"):
-        train.main(["--arch", ARCH, "--device", "cpu", "--steps", "1", "--seq", "16"])
-
-
 def test_dryrun_decode_32k_on_meta_counts_the_closed_form():
     """Full-size qwen2-vl-72b (80 layers) on ``meta``: one decode step of
     128 sequences on a fresh cache of 32768; the counter's dot FLOPs equal
