@@ -330,37 +330,53 @@ def _seen_rows(arch, batch):
     return seen
 
 
-def _rows_are_the_ranks(arch, batch) -> bool:
-    try:
-        seen = _seen_rows(arch, batch)
-    except (IndexError, RuntimeError, ValueError):
-        return False
-    ok = len(seen) == 4 * N_MICRO
+def _wrong_leaves(arch, batch) -> set:
+    """The leaves of ``batch`` that some rank's micro-batch does not hold as
+    its own rows (pod-major DP order, one row a rank), in its dtype and
+    shape; "steps" if the micro-batches seen are not one per rank and
+    micro-step."""
+    seen = _seen_rows(arch, batch)
+    wrong = set() if len(seen) == 4 * N_MICRO else {"steps"}
     for (r, i), mb in seen.items():
-        ok &= torch.equal(mb["tokens"], torch.from_numpy(batch["tokens"][i, r:r + 1]).long())
-        ok &= mb["tokens"].dtype == torch.long
+        want = {"tokens": torch.from_numpy(batch["tokens"][i, r:r + 1]).long()}
         if "mrope" in batch:
-            ok &= mb["mrope"].shape == (3, 1, SEQ) and mb["mrope"].dtype == torch.long
-            ok &= torch.equal(mb["mrope"], torch.from_numpy(batch["mrope"][i, :, r:r + 1]).long())
+            want["mrope"] = torch.from_numpy(batch["mrope"][i, :, r:r + 1]).long()
         if "frames" in batch:
-            ok &= mb["frames"].dtype == torch.float32
-            ok &= torch.equal(mb["frames"], torch.from_numpy(batch["frames"][i, r:r + 1]))
-    return bool(ok)
+            want["frames"] = torch.from_numpy(batch["frames"][i, r:r + 1])
+        for k, w in want.items():
+            if mb[k].dtype != w.dtype or mb[k].shape != w.shape or not torch.equal(mb[k], w):
+                wrong.add(k)
+    return wrong
 
 
 def test_rank_batch_gives_each_rank_its_rows(one_thread, monkeypatch):
     """Each rank's micro-batch holds its own rows of every leaf: ``mrope``
-    sliced on its batch dim (2) as int64, ``frames`` on dim 1 in f32; a
-    planted slice of ``mrope`` on its stream axis fails the check; a batch
-    of the encoder-decoder without ``frames`` raises naming the leaf; the
-    VLM trains on text-only positions without ``mrope``."""
+    sliced on its batch dim (2) as int64, ``frames`` on dim 1 in f32.  Two
+    planted faults of ``mrope``'s slice: on its stream axis (dim 1, of size
+    3 where the four ranks need rows 0 to 3) the step raises; at the right
+    dim but each rank's offset moved to the next rank's row, shapes and the
+    other leaves are right and the row comparison alone fails (each row's
+    grid starts at its own token, so a row from another rank shows).  A
+    batch of the encoder-decoder without ``frames`` raises naming the leaf;
+    the VLM trains on text-only positions without ``mrope``."""
     vcfg, ecfg = _carried(VLM)[0], _carried(ENCDEC)[0]
     vbatch, ebatch = _batch(vcfg, 0), _batch(ecfg, 0)
-    assert _rows_are_the_ranks(VLM, vbatch)
-    assert _rows_are_the_ranks(ENCDEC, ebatch)
+    assert _wrong_leaves(VLM, vbatch) == set()
+    assert _wrong_leaves(ENCDEC, ebatch) == set()
     with monkeypatch.context() as mp:
         mp.setitem(trainer._BATCH_DIM, "mrope", 1)
-        assert not _rows_are_the_ranks(VLM, vbatch)
+        with pytest.raises(RuntimeError):
+            _seen_rows(VLM, vbatch)
+    real_narrow = torch.Tensor.narrow
+
+    def next_rank_rows(t, dim, start, length):
+        if t.dim() == 4 and t.shape[1] == 3 and dim == 2:      # mrope (n_micro, 3, B, S)
+            start = (start + length) % t.shape[dim]
+        return real_narrow(t, dim, start, length)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.Tensor, "narrow", next_rank_rows)
+        assert _wrong_leaves(VLM, vbatch) == {"mrope"}
     text = _seen_rows(VLM, {k: vbatch[k] for k in ("tokens", "labels")})
     assert all("mrope" not in mb for mb in text.values())
     _, _, _, model, params = _carried(ENCDEC)
