@@ -344,9 +344,30 @@ Phases, in order; any failure exits non-zero before the last line:
    leaf, and the step-0 update signs that flip between the stages counted
    and held to the difference they predict, ENCDEC_ZERO_FLIP_SHARE and
    ENCDEC_ZERO_PRED_RATIO), with a control run (ZeRO-3's step 0 with one
-   rank's gradient lost) that must fail those limits; step 0's wall,
-   tokens/s at step 0, peak memory, and each stage's busy share from its
-   second step, run under torch.profiler;
+   rank's gradient lost) that must fail those limits; step 0's and step
+   1's wall, tokens/s at step 1, peak memory (the busy share of a profiled
+   second step until [38] joined);
+38. the fused rings across processes (ROADMAP A3, after [37]): four
+   processes spawned by ``launch.mesh.spawn_dist_mesh`` share the card, a
+   gloo DistMesh, weights and inputs from seed 0, each rank launching its
+   own part of the per-rank ring kernels over peer memory (CUDA IPC
+   arenas, ``kernels/peer.py``): (a) R 4 on "pod" at [8]'s ring shape,
+   reduce-scatter with an f32 and a bf16 wire and all-gather of 4- and
+   2-byte words, stripes 1 and 4, both directions, each process's output
+   bit for bit against the plain versions on the same inputs (regenerated
+   in every process), and ms a call beside the one-launch route's at the
+   same shape ("four processes sharing one card: the protocol, not a
+   link"); (b) rank 3 withholds one call: ranks 0-2 must raise the
+   kernel's timeout within PEER_FAULT_BOUND_S and no process may hang;
+   then on a (pod=2, data=2) DistMesh (c) hier/pallas ``tree_all_reduce``
+   of [7]'s f32 gradient trees bit for bit against [7]'s ThreadMesh
+   result, each process launching what [7]'s one launch over all ranks
+   does; (d) 2 ZeRO-1 steps of full-width smollm-135m ([11]'s pallas run,
+   f32 wire) whose losses and parameters equal the same steps on a
+   ThreadMesh run in this process before the spawn, bit for bit; (e) the
+   processes save a checkpoint after step 1 and this process resumes it on
+   a ThreadMesh: its step 2 equals theirs bit for bit.  Times are one
+   card's time-sliced processes; memory per process is printed;
 30. a JSON line listing every kernel (the flash forward with its nine
    main-path shapes under ``shapes`` and its launches in [36] and [37],
    the backward's d-100, d-112 and [36]'s and [37]'s shapes, its launches
@@ -1029,10 +1050,10 @@ VLM_GRID_GRAD_FLOOR = 2e-2
 # (whisper's decoder context), 32 clips a step; remat, hier, pallas, no
 # codec; ENCDEC_TRAIN_STEPS ZeRO-3 steps, then as many ZeRO-1 steps, from
 # one init and on the same batches.
-# Each stage's second step runs under torch.profiler (its busy share), and
-# its ms a step is the first step's: the steps are host-bound (a ZeRO-3
-# step took 19 s on the card) and the profiler doubles their wall, so one
-# more step per stage would cost the script ~60 s.
+# Each stage's second step ran under torch.profiler (its busy share) until
+# [38] joined; the steps are host-bound and the profiler doubles their wall,
+# so both steps now run unprofiled (busy not measured) and ms a step is the
+# second step's.
 ENCDEC_TRAIN_CLIPS, ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_STEPS = 4, 448, 2
 # ZeRO-3 against ZeRO-1 at step 0, per leaf (beside [22]'s limits over the
 # tree), stated before the first run on the card from [37] itself run at
@@ -1707,14 +1728,15 @@ def _leaves(tree):
     return [tree]
 
 
+def rank_grads(torch, shapes, r):
+    """Rank r's f32 gradient tree, values from a generator seeded for r."""
+    gen = torch.Generator(device="cuda").manual_seed(COLL_SEED + r)
+    return _tree_map(lambda shp: torch.randn(shp, generator=gen, device="cuda"), shapes)
+
+
 def make_grads(torch, shapes, R):
-    """Per-rank f32 gradient trees, values from a seeded generator per rank."""
-    out = []
-    for r in range(R):
-        gen = torch.Generator(device="cuda").manual_seed(COLL_SEED + r)
-        out.append(_tree_map(lambda shp: torch.randn(shp, generator=gen, device="cuda"),
-                             shapes))
-    return out
+    """Per-rank f32 gradient trees (``rank_grads`` of each rank)."""
+    return [rank_grads(torch, shapes, r) for r in range(R)]
 
 
 def tree_rel_err(torch, got, grads):
@@ -1755,6 +1777,7 @@ def phase_collectives(torch, hetccl, tacc, mesh_mod, ring_dma, cr, get_config, b
     main = run(m22, grads, "hier", "pallas")
     launches = {"ring_reduce_scatter": ring_dma.rs_launches,
                 "ring_all_gather": ring_dma.ag_launches}
+    results["hier_pallas_tree"] = [t.cpu() for t in _leaves(main)]     # [38]'s reference
     print(f"  (pod=2, data=2) hier/pallas launches per tree_all_reduce: {launches}")
     check(launches["ring_reduce_scatter"] > 0 and launches["ring_all_gather"] > 0,
           "the fused ring kernels did not run on the collective path")
@@ -1960,15 +1983,18 @@ def phase_collective_times(torch, ring_dma, cr, bench_codec, big):
 # ---------------------------------------------------------------------------
 
 def same_bits(a, b):
-    """Equal bit for bit (f32: NaN where NaN, the other bits equal)."""
+    """Equal bit for bit (floating point: NaN where NaN, the other bits
+    equal); ``b`` may lie on another device."""
     import torch
+    b = b.to(a.device)
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
-    if a.dtype != torch.float32:
+    if not a.dtype.is_floating_point:
         return bool(torch.equal(a, b))
+    word = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
     na, nb = torch.isnan(a), torch.isnan(b)
-    return bool(torch.equal(na, nb)) and bool(torch.equal(a[~na].view(torch.int32),
-                                                          b[~nb].view(torch.int32)))
+    return bool(torch.equal(na, nb)) and bool(torch.equal(a[~na].view(word),
+                                                          b[~nb].view(word)))
 
 
 def quant_inputs(torch, gen, rows, fill):
@@ -2092,8 +2118,10 @@ def phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters, bench_
         [p.numel() for p in leaves], [sum(leaves[i].numel() for i in b) for b in buckets],
         m.shape["pod"], m.shape["data"])
 
-    # warm-up step of each run (cuBLAS, allocator), then the checked runs; the
-    # int8 run's records the rows of every codec launch (all ranks)
+    # a warm-up step of the int8 run (cuBLAS, allocator: the other runs share
+    # its shapes; their own warm-up steps went to make room for [38]), then
+    # the checked runs; the warm-up records the rows of every codec launch
+    # (all ranks)
     seen = {k: [] for k in want_rows}
 
     def recording(kernel, fn):
@@ -2102,14 +2130,11 @@ def phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters, bench_
             return fn(a, *rest)
         return run
 
-    for name, prog in progs.items():
-        with contextlib.ExitStack() as stack:
-            if name == "int8_ef":
-                stack.enter_context(patched(quant, "wire_quantize_int8", recording(
-                    "quant_int8", quant.wire_quantize_int8)))
-                stack.enter_context(patched(quant, "wire_dequant_accum_int8", recording(
-                    "dq_accum_int8", quant.wire_dequant_accum_int8)))
-            prog.step_fn(prog.init_fn(params), batch)
+    with patched(quant, "wire_quantize_int8", recording("quant_int8",
+                                                      quant.wire_quantize_int8)), \
+            patched(quant, "wire_dequant_accum_int8", recording(
+                "dq_accum_int8", quant.wire_dequant_accum_int8)):
+        progs["int8_ef"].step_fn(progs["int8_ef"].init_fn(params), batch)
     torch.cuda.synchronize()
     got_rows = {k: dict(Counter(v)) for k, v in seen.items()}
     for kernel, rows in want_rows.items():
@@ -2140,6 +2165,9 @@ def phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters, bench_
         if name == "int8_ef":
             peak_gib = torch.cuda.max_memory_allocated() / 2**30
             int8_state = state
+        if name == "pallas":          # [38]'s reference: its losses and rank 0's parameters
+            pallas_final = {"losses": list(losses), "params": [
+                p.cpu() for p in tree_leaves(state[0]["params"])]}
         runs[name] = {"losses": losses, "grad_norm": met["grad_norm"].item(),
                       "tokens": int(met["tokens"].item())}
         print(f"  {name:8s} losses {['%.6f' % x for x in losses]}; launches {launches[name]}")
@@ -2182,7 +2210,7 @@ def phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters, bench_
             "n_buckets": n_buckets, "codec_launch_rows": want_rows, "step_ms": step_ms,
             "tokens_per_s": {k: n_tokens / v * 1e3 for k, v in step_ms.items()},
             "split_ms": split, "device_busy": busy, "peak_gib": peak_gib,
-            "tokens_per_step": n_tokens}
+            "tokens_per_step": n_tokens, "pallas_final": pallas_final}
 
 
 def step_split(torch, mesh_mod, optim, hetccl, prog, states, batch):
@@ -3286,7 +3314,8 @@ def phase_zero_train(torch, np, get_config, build, mesh_mod, counters):
     launched the fused reduce-scatter for its fsdp adjoint once per
     gathered (leaf, layer) per micro-step; ms a step (host clock, the steps
     after the first), tokens/s, peak memory of each run, and the card's
-    busy share over one more step under torch.profiler."""
+    busy share over one more step under torch.profiler until [38] joined
+    (now not measured)."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.convert import unshard_params
     from repro_torch.core import balance, collectives
@@ -3343,12 +3372,7 @@ def phase_zero_train(torch, np, get_config, build, mesh_mod, counters):
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         shard = sum(p.numel() for p in tree_leaves(state[0]["params"]))
         ms = statistics.median(step_ms[1:])
-
-        def one_more():
-            nonlocal state
-            state, _ = prog.step_fn(state, batches[-1])
-
-        busy = device_busy_share(torch, one_more, 1)   # a step beyond the compared ones
+        busy = None         # one more step under torch.profiler went to make room for [38]
         out[f"zero{zero}"] = {
             "losses": losses, "step_ms": step_ms, "ms_per_step": ms,
             "tokens_per_s": n_tokens / ms * 1e3, "device_busy_one_more_step": busy,
@@ -3357,7 +3381,7 @@ def phase_zero_train(torch, np, get_config, build, mesh_mod, counters):
         print(f"  ZeRO-{zero}: losses {['%.6f' % x for x in losses]}; grad norms "
               f"{['%.6f' % x for x in grad_norms]}; ms per step "
               f"{['%.1f' % x for x in step_ms]}, {n_tokens / ms * 1e3:.1f} tokens/s (steps after "
-              f"the first); card busy share of one more step (torch.profiler) {busy}; "
+              f"the first); card busy share not measured; "
               f"peak memory {peak_gib:.2f} GiB; {shard / 1e9:.3f}B parameters per rank; "
               f"launches {launches}; fused reduce-scatter launches in the fsdp adjoint "
               f"{adjoint[0]}")
@@ -3723,16 +3747,11 @@ def phase_moe_train(torch, np, get_config, build, mesh_mod, hetccl, gmm, ref, co
         launches = counters.read()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         ms = statistics.median(step_ms[1:])
-
-        def one_more():
-            nonlocal state
-            state, _ = prog.step_fn(state, batches[-1])
-
-        busy = device_busy_share(torch, one_more, 1)   # a step beyond the compared ones
+        busy = None         # one more step under torch.profiler went to make room for [38]
         print(f"  ZeRO-{zero}: losses {['%.6f' % x for x in losses]}; grad norms "
               f"{['%.6f' % x for x in grad_norms]}; ms per step "
               f"{['%.1f' % x for x in step_ms]}, {n_tokens / ms * 1e3:.1f} tokens/s (steps after "
-              f"the first); card busy share of one more step (torch.profiler) {busy}; peak "
+              f"the first); card busy share not measured; peak "
               f"memory {peak_gib:.2f} GiB; launches {launches}; fused reduce-scatter launches "
               f"in the fsdp adjoint {adjoint[0]}")
         print(f"  ZeRO-{zero}: memory at the boundaries of one more step:")
@@ -5730,8 +5749,10 @@ def print_stage(label, r):
     print(f"  {label}: losses {['%.6f' % x for x in r['losses']]}; grad norms "
           f"{['%.6f' % x for x in r['grad_norms']]}; ms per unprofiled step "
           f"{['%.1f' % x for x in r['step_ms']]}, {r['tokens_per_s']:.1f} tokens/s; card busy "
-          f"share of the profiled step (torch.profiler) {r['device_busy_one_more_step']}, its "
-          f"card time {r['card_ms_one_more_step']} ms; peak memory {r['peak_gib']:.2f} GiB")
+          + (f"share of the profiled step (torch.profiler) {r['device_busy_one_more_step']}, its "
+             f"card time {r['card_ms_one_more_step']} ms"
+             if r["device_busy_one_more_step"] is not None else "share not measured")
+          + f"; peak memory {r['peak_gib']:.2f} GiB")
 
 
 def phase_vlm_train(torch, np, fa, build, mesh_mod, hetccl, counters, cfg):
@@ -6018,7 +6039,7 @@ def phase_encdec_train(torch, np, fa, ref, build, mesh_mod, hetccl, counters, cf
     for zero in (3, 1):
         runs[zero], after_step0[zero] = train_stage_run(
             torch, np, hetccl, collectives, ring_dma, counters, model, m, plan, batches, zero,
-            init, profile="last", moments=moments[zero])
+            init, profile=None, moments=moments[zero])
         runs[zero].pop("kernel_us")
         print_stage(f"ZeRO-{zero}", runs[zero])
         if zero == 3:                  # the control, while ZeRO-3 still holds the init
@@ -6058,9 +6079,9 @@ def phase_encdec_train(torch, np, fa, ref, build, mesh_mod, hetccl, counters, cf
     control_seen = (ct["grad_rel"] > ENCDEC_ZERO_GRAD_REL_L2
                     and ct["tree_share"] > ENCDEC_ZERO_FLIP_SHARE
                     and ct["tree_rel"] > ENCDEC_ZERO_PARAM_REL_L2)
-    print(f"  ZeRO-3 vs ZeRO-1: step 0's wall (warm-up included; the second step runs under "
-          f"the profiler) {r3['step_ms'][0]:.1f} / {r1['step_ms'][0]:.1f} ms, tokens/s at step 0 "
-          f"{r3['tokens_per_s']:.1f} / {r1['tokens_per_s']:.1f}, peak "
+    print(f"  ZeRO-3 vs ZeRO-1: step 0's wall (warm-up included) {r3['step_ms'][0]:.1f} / "
+          f"{r1['step_ms'][0]:.1f} ms, step 1's {r3['step_ms'][1]:.1f} / {r1['step_ms'][1]:.1f} "
+          f"ms, tokens/s at step 1 {r3['tokens_per_s']:.1f} / {r1['tokens_per_s']:.1f}, peak "
           f"{r3['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB (state {18 * model.n_params() / 1e9:.1f}"
           f" / {36 * model.n_params() / 1e9:.1f} GB at 18 / 36 bytes a parameter)")
     print(f"  step losses, largest difference {loss_gap:.3e} (limit {ZERO_LOSS_ATOL})  "
@@ -6110,6 +6131,316 @@ def phase_encdec_train(torch, np, fa, ref, build, mesh_mod, hetccl, counters, cf
                                                  "pred_update", "pred_sign")}}},
            "step0_wall_ms": {"zero3": r3["step_ms"][0], "zero1": r1["step_ms"][0]},
            "clips_per_step": rows * plan.n_micro_max}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# [38] the fused rings across processes: a DistMesh of four processes on the
+# one card (ROADMAP A3's peer-memory half; DESIGN_TORCH.md §28)
+# ---------------------------------------------------------------------------
+
+# (kind, wire or word size, stripes, direction): every case of (a)
+PEER_RING_CASES = [(kind, w, S, d) for kind, ws in (("rs", ("float32", "bfloat16")),
+                                                    ("ag", (4, 2)))
+                   for w in ws for S in (1, 4) for d in (1, -1)]
+PEER_TIMING_REPS = 5
+# (b): the kernel's bound on a wait (kSpinTimeoutNs, 2 s) plus a margin for
+# the time slices of four processes (a hand-off took up to 27 ms) and the
+# host's synchronise
+PEER_FAULT_BOUND_S = 3.0
+DIST_TIMEOUT_S = 420.0
+DIST_COLL_REPS = 1           # (c)'s timed calls after the checked one
+
+
+def _dist_train_setup(torch, get_config, build, m):
+    """[11]'s pallas run (no codec, f32 wire) on mesh ``m``: (cfg, program,
+    params from the seed, the memorize batch)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import balance
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.train.trainer import make_train_program
+    cfg = get_config(ARCH)
+    model = build(cfg)
+    plan = balance.uniform_plan(2, 4, micro_batch=TRAIN_MICRO_BATCH)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED), dtype=torch.bfloat16)
+    batch = synthetic_batch(SEED, 0, plan.n_micro_max, plan.micro_batch * m.size, TRAIN_SEQ,
+                            cfg.vocab)
+    prog = make_train_program(model, m, RunConfig(collective_mode="hier", learning_rate=TRAIN_LR,
+                                                  **TRAIN_RUNS["pallas"]), plan)
+    return cfg, prog, params, batch
+
+
+def dist_rank(m, job):
+    """One of [38]'s four processes: (a) and (b) on ``m`` (pod=4), then (c),
+    (d) and (e) on a (pod=2, data=2) DistMesh of the same processes.
+    Returns this rank's readings (gates are judged by the parent)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import hetccl
+    from repro_torch.core.mesh import DistMesh
+    from repro_torch.core.tree import leaves as tree_leaves
+    from repro_torch.kernels import ring_dma
+    from repro_torch.models import build
+    from repro_torch.train import checkpoint
+    me = m.rank
+    out = {"rank": me, "local_size": m.local_size, "cases": {}}
+    t_start = time.perf_counter()
+
+    # (a) the rings alone, R 4 on "pod"
+    arena = m.peer_arena("pod")
+    rings = ring_dma._mesh_rings(m, "pod")
+    c, n = job["c"], m.shape["pod"]
+    out["ctas"] = arena.ctas
+    for i, (kind, w, S, d) in enumerate(PEER_RING_CASES):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + i)
+        if kind == "rs":
+            xs = [torch.randn(n, c, generator=gen, device="cuda") for _ in range(m.size)]
+            kw = dict(direction=d, wire_dtype=getattr(torch, w), n_stripes=S)
+            got = ring_dma.reduce_scatter_peer(xs[me], arena, **kw)
+            want = ring_dma.reduce_scatter_fused_plain(xs, rings, **kw)[me]
+        else:
+            dt = torch.float32 if w == 4 else torch.bfloat16
+            xs = [torch.randn(c, generator=gen, device="cuda").to(dt) for _ in range(m.size)]
+            kw = dict(direction=d, n_stripes=S)
+            got = ring_dma.all_gather_peer(xs[me], arena, **kw)
+            want = ring_dma.all_gather_fused_plain(xs, rings, **kw)[me]
+        torch.cuda.synchronize()
+        out["cases"][f"{kind} {w} stripes={S} dir={d:+d}"] = {
+            "bitwise": same_bits(got, want),
+            "max_abs_err": (got.double() - want.double()).abs().max().item()}
+        if S == 1 and d == 1 and w in ("float32", 4):
+            fn = (lambda: ring_dma.reduce_scatter_peer(xs[me], arena, check=False)) \
+                if kind == "rs" else (lambda: ring_dma.all_gather_peer(xs[me], arena, check=False))
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(PEER_TIMING_REPS):
+                fn()
+            ring_dma.raise_if_peer_failed(arena)       # synchronises
+            out[f"{kind}_ms"] = (time.perf_counter() - t) * 1e3 / PEER_TIMING_REPS
+        del xs, got, want
+    out["a_launches"] = {"ring_reduce_scatter": ring_dma.rs_launches,
+                         "ring_all_gather": ring_dma.ag_launches}
+
+    # (b) rank 3 withholds one call (the arena is sized: no call grows it)
+    x = torch.ones(n, 4096, device="cuda")
+    import torch.distributed as dist
+    dist.barrier()
+    if me == m.size - 1:
+        out["withheld"] = {"outcome": "withheld", "s": 0.0}
+    else:
+        t = time.perf_counter()
+        try:
+            ring_dma.reduce_scatter_peer(x, arena)
+            out["withheld"] = {"outcome": "no error", "s": time.perf_counter() - t}
+        except ring_dma.RingProtocolError as e:
+            out["withheld"] = {"outcome": str(e), "s": time.perf_counter() - t}
+    dist.barrier()
+    m.close()                 # (a)'s arena carries the fault; (c) on new ones
+    out["ab_s"] = time.perf_counter() - t_start
+
+    # (c) HetCCL's collective on (pod=2, data=2)
+    m2 = DistMesh({"pod": 2, "data": 2}, device="cuda")
+    try:
+        t = time.perf_counter()
+        model = build(get_config(COLL_ARCH))
+        from repro_torch.models.common import tree_map_meta
+        shapes = tree_map_meta(lambda mm: tuple(mm.shape), model.abstract_params())
+        grads = rank_grads(torch, shapes, m2.rank)
+        cfg = hetccl.HetCCLConfig(mode="hier", backend="pallas")
+        ring_dma.rs_launches = ring_dma.ag_launches = 0
+        got = m2.run(lambda g: hetccl.tree_all_reduce(g, cfg), grads)
+        torch.cuda.synchronize()
+        out["c_launches"] = {"ring_reduce_scatter": ring_dma.rs_launches,
+                             "ring_all_gather": ring_dma.ag_launches}
+        want = torch.load(job["coll_want"], weights_only=True)
+        got_leaves = _leaves(got)
+        out["c_bitwise"] = len(got_leaves) == len(want) and all(
+            same_bits(a, b) for a, b in zip(got_leaves, want))
+        del got, got_leaves, want
+        ms = []
+        for _ in range(DIST_COLL_REPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            m2.run(lambda g: hetccl.tree_all_reduce(g, cfg), grads)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        out["c_ms"] = ms
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["c_s"] = time.perf_counter() - t
+
+        # (d) 2 ZeRO-1 steps, (e) a checkpoint after step 1
+        t = time.perf_counter()
+        _, prog, params, batch = _dist_train_setup(torch, get_config, build, m2)
+        state = prog.init_fn(params)
+        del params
+        torch.cuda.reset_peak_memory_stats()
+        ring_dma.rs_launches = ring_dma.ag_launches = 0
+        losses, step_ms = [], []
+        for step in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, met = prog.step_fn(state, batch)
+            losses.append(met["loss"].item())
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            if step == 0:
+                launches0 = {"ring_reduce_scatter": ring_dma.rs_launches,
+                             "ring_all_gather": ring_dma.ag_launches}
+                t1 = time.perf_counter()
+                checkpoint.save(job["ckpt_dir"], 1, state, layout=prog)
+                out["e_save_s"] = time.perf_counter() - t1
+                ring_dma.rs_launches = ring_dma.ag_launches = 0
+        out["d_launches"] = {k: v + launches0[k] for k, v in {
+            "ring_reduce_scatter": ring_dma.rs_launches,
+            "ring_all_gather": ring_dma.ag_launches}.items()}
+        out["d_losses"], out["d_step_ms"] = losses, step_ms
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        want = torch.load(job["train_want"], weights_only=True)
+        params = tree_leaves(state["params"])
+        out["d_bitwise"] = len(params) == len(want) and all(
+            same_bits(a, b) for a, b in zip(params, want))
+        if me == 0:
+            torch.save([p.cpu() for p in params], job["dist_params"])
+        out["d_s"] = time.perf_counter() - t
+    finally:
+        m2.close()
+    out["reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    return out
+
+
+def phase_dist(torch, get_config, build, mesh_mod, ring_dma, root, c, coll_tree,
+               coll_launches, train_ref):
+    """[38] from this process: the one-launch route's ms at (a)'s shape, then
+    the spawn, then the gates.  ``coll_tree``: [7]'s hier/pallas result on
+    its ThreadMesh (every rank's alike; host copies of its leaves);
+    ``coll_launches``: that run's ring launches (one launch over all ranks
+    each); ``train_ref``: [11]'s pallas run on its ThreadMesh (the same two steps
+    from the same init on the same batch): its losses and rank 0's
+    parameters."""
+    from repro_torch.core.tree import leaves as tree_leaves
+    from repro_torch.launch.mesh import spawn_dist_mesh
+    from repro_torch.train import checkpoint
+    work = root / "build" / "dist38"
+    if work.exists():
+        import shutil
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    job = {"c": c, "coll_want": str(work / "coll_want.pt"),
+           "train_want": str(work / "train_want.pt"), "ckpt_dir": str(work / "ckpt"),
+           "dist_params": str(work / "dist_params.pt")}
+    torch.save(coll_tree, job["coll_want"])
+    torch.save(train_ref["params"], job["train_want"])
+    thread_launches = {k: coll_launches[k] for k in ("ring_reduce_scatter", "ring_all_gather")}
+    thread_losses = train_ref["losses"]
+    out = {}
+
+    R, n = 4, 4
+    rings = [list(range(R))]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    xs = [torch.randn(n, c, generator=gen, device="cuda") for _ in range(R)]
+    ag_in = [torch.randn(c, generator=gen, device="cuda") for _ in range(R)]
+    out["one_launch_ms"] = {
+        "rs": median_ms(lambda: ring_dma.reduce_scatter_fused(xs, rings, check=False)),
+        "ag": median_ms(lambda: ring_dma.all_gather_fused(ag_in, rings, check=False))}
+    ring_dma.check_errors()
+    del xs, ag_in
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    res = spawn_dist_mesh(dist_rank, {"pod": 4}, args=(job,), device="cuda",
+                          timeout=DIST_TIMEOUT_S, workdir=str(work / "ranks"))
+    out["spawn_s"] = time.perf_counter() - t
+
+    # (a)
+    failed = [f"rank {r['rank']}: {name}" for r in res for name, v in r["cases"].items()
+              if not v["bitwise"]]
+    for name in res[0]["cases"]:
+        worst = max(r["cases"][name]["max_abs_err"] for r in res)
+        ok = all(r["cases"][name]["bitwise"] for r in res)
+        print(f"  (a) {name:28s} n=4 c={c} four processes: bit for bit {ok}, max_abs_err "
+              f"{worst:.3e}  {'ok' if ok else 'FAIL'}")
+    check(not failed, f"per-rank ring kernels disagree with their plain versions: {failed}")
+    for kind in ("rs", "ag"):
+        ms = [r[f"{kind}_ms"] for r in res]
+        print(f"  (a) {kind} f32 n=4 c={c}: {statistics.median(ms):.3f} ms a call (ranks "
+              f"{', '.join(f'{v:.3f}' for v in ms)}), one-launch route "
+              f"{out['one_launch_ms'][kind]:.4f} ms at the same shape: four processes sharing "
+              "one card: the protocol, not a link")
+    out["a"] = {"ms": {k: [r[f"{k}_ms"] for r in res] for k in ("rs", "ag")},
+                "cases": len(PEER_RING_CASES), "ctas": res[0]["ctas"],
+                "local_size": res[0]["local_size"],
+                "launches": [r["a_launches"] for r in res]}
+    check(all(r["local_size"] == 4 for r in res), "the processes do not see four ranks on "
+          "the card")
+    # (b)
+    for r in res:
+        w = r["withheld"]
+        print(f"  (b) rank {r['rank']}: {w['outcome']} ({w['s']:.3f} s)")
+    raised = [r["withheld"] for r in res[:-1]]
+    ok = (res[-1]["withheld"]["outcome"] == "withheld"
+          and all(w["outcome"] != "no error" and "per-rank ring" in w["outcome"]
+                  and w["s"] <= PEER_FAULT_BOUND_S for w in raised))
+    print(f"  (b) ranks 0-2 raised within {PEER_FAULT_BOUND_S} s and no process hung: {ok}  "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "the withheld call did not make the other ranks raise within the bound")
+    out["b"] = {"s": [w["s"] for w in raised], "outcomes": [w["outcome"] for w in raised]}
+    # (c): [7]'s one launch over all ranks of each kernel per bucket
+    want_l = thread_launches
+    ok = all(r["c_bitwise"] for r in res) and all(r["c_launches"] == want_l for r in res)
+    print(f"  (c) hier/pallas tree_all_reduce on a (pod=2, data=2) DistMesh: bit for bit "
+          f"against [7]'s ThreadMesh {all(r['c_bitwise'] for r in res)}; launches per process "
+          f"{[r['c_launches'] for r in res]} (the ThreadMesh's one launch over all ranks: "
+          f"{want_l}); ms a call {[['%.1f' % x for x in r['c_ms']] for r in res]} (time-sliced "
+          f"processes)  {'ok' if ok else 'FAIL'}")
+    check(ok, "the DistMesh tree_all_reduce differs from [7]'s or launched otherwise")
+    out["c"] = {"ms": [r["c_ms"] for r in res], "launches": [r["c_launches"] for r in res]}
+    # (d)
+    losses = [r["d_losses"] for r in res]
+    ok = all(r["d_bitwise"] for r in res) and all(lo == thread_losses for lo in losses)
+    print(f"  (d) 2 ZeRO-1 steps of {ARCH} on the DistMesh: losses {losses[0]} (ThreadMesh "
+          f"{thread_losses}), parameters bit for bit {[r['d_bitwise'] for r in res]}; "
+          f"launches per process {[r['d_launches'] for r in res]}; ms a step "
+          f"{[['%.1f' % x for x in r['d_step_ms']] for r in res]} (time-sliced processes); "
+          f"peak {max(r['peak_gib'] for r in res):.2f} GiB allocated, "
+          f"{max(r['reserved_gib'] for r in res):.2f} GiB reserved per process  "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "the DistMesh training steps differ from the ThreadMesh's")
+    check(all(r["d_launches"]["ring_reduce_scatter"] > 0
+              and r["d_launches"]["ring_all_gather"] > 0 for r in res),
+          "the DistMesh training step did not launch the per-rank rings")
+    out["d"] = {"losses": losses[0], "step_ms": [r["d_step_ms"] for r in res],
+                "launches": [r["d_launches"] for r in res],
+                "peak_gib": [r["peak_gib"] for r in res],
+                "reserved_gib": [r["reserved_gib"] for r in res]}
+    # (e)
+    m22 = mesh_mod.ThreadMesh({"pod": 2, "data": 2}, device="cuda")
+    _, prog, params, batch = _dist_train_setup(torch, get_config, build, m22)
+    del params
+    step, state = checkpoint.restore_latest(job["ckpt_dir"], layout=prog)
+    state, met = prog.step_fn(state, batch)
+    theirs = torch.load(job["dist_params"], weights_only=True)
+    same = all(len(tree_leaves(s["params"])) == len(theirs) and all(
+        same_bits(a, b) for a, b in zip(tree_leaves(s["params"]), theirs))
+        for s in state)
+    ok = step == 1 and same and met["loss"].item() == losses[0][-1]
+    print(f"  (e) the processes' checkpoint at step {step} resumed on a ThreadMesh: step 2 loss "
+          f"{met['loss'].item():.6f} (theirs {losses[0][-1]:.6f}), parameters bit for bit "
+          f"{same}; save {max(r['e_save_s'] for r in res):.1f} s  {'ok' if ok else 'FAIL'}")
+    check(ok, "the ThreadMesh resumed from the DistMesh checkpoint differs")
+    out["e"] = {"save_s": [r["e_save_s"] for r in res]}
+    out["rank_walls_s"] = {k: [r[k] for r in res] for k in ("ab_s", "c_s", "d_s")}
+    print(f"  spawn to results {out['spawn_s']:.1f} s; per process (a)+(b) / (c) / (d)+(e): "
+          f"{json.dumps(out['rank_walls_s'])}")
+    del state
+    import shutil
+    shutil.rmtree(work, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -6234,6 +6565,7 @@ def main() -> int:
     with phase("[7] collectives at full width", walls):
         coll = phase_collectives(torch, hetccl, tacc, mesh_mod, ring_dma, cr, get_config,
                                  build)
+        coll_tree = coll.pop("hier_pallas_tree")
 
     with phase("[8] collective kernel times", walls):
         ctimes = phase_collective_times(torch, ring_dma, cr, bench_codec,
@@ -6258,6 +6590,7 @@ def main() -> int:
     with phase("[11] training at full width", walls):
         train = phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters,
                             bench_codec)
+        train_ref = train.pop("pallas_final")
 
     with phase("[12] training kernel times", walls):
         ttimes = phase_codec_times(torch, quant, ref, bench_codec, train["codec_launch_rows"],
@@ -6456,6 +6789,16 @@ def main() -> int:
                                           counters, encdec_train_cfg)
         print(json.dumps({"encdec_train": encdec_train, "phase_wall_s": walls, **card}))
     torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with phase("[38] the fused rings across processes: four processes on the card, a "
+               "DistMesh, per-rank launches over CUDA IPC", walls):
+        dist_out = phase_dist(torch, get_config, build, mesh_mod, ring_dma, root,
+                              coll["largest_bucket_elems"] // 2, coll_tree, coll["launches"],
+                              train_ref)
+        del coll_tree, train_ref
+        print(json.dumps({"dist": dist_out, "phase_wall_s": walls, **card}))
 
     def planned_launches(key):         # [31]'s runs
         return {run: v["launches"][key] for run, v in planned.items()}
@@ -6501,7 +6844,17 @@ def main() -> int:
                if kname in ELASTIC_KERNELS else {}),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "check": "pass (bitwise)", "cases_checked": n_ring_cases, "shape": t["shape"]})
+            "check": "pass (bitwise)", "cases_checked": n_ring_cases, "shape": t["shape"],
+            **({"dist_launches_per_process": {
+                "collective": dist_out["c"]["launches"][0][kname],
+                "train": dist_out["d"]["launches"][0][kname]},
+                "dist_ms_per_call": dist_out["a"]["ms"]["rs" if "reduce" in kname else "ag"],
+                "dist_one_launch_ms": dist_out["one_launch_ms"][
+                    "rs" if "reduce" in kname else "ag"],
+                "dist_note": "per-rank route, four processes sharing one card (time-sliced): "
+                             "the protocol, not a link",
+                "dist_cases_checked": dist_out["a"]["cases"]}
+               if kname != "collective_reduce" else {})})
     train_launches = train["launches"]["int8_ef"]
     kernels[0]["train_launches"] = train_launches["flash_attention_fwd"]
     kernels[0]["mixtral_launches"] = moe["serve"]["launches"]["flash_attention_fwd"]

@@ -21,10 +21,21 @@ Two meshes carry those functions (counterparts of ``repro/core/compat.py``'s
   for every rank of the mesh through :meth:`ThreadMesh.rendezvous`.
 * :class:`DistMesh` is the same interface over ``torch.distributed``: one
   process per rank, a process group per axis.  ``ppermute`` is
-  ``batch_isend_irecv``; the local stage uses the group's collectives (gloo
-  has no reduce_scatter, so there it is ``all_reduce`` plus a slice).  It
-  carries the ``xla`` rings and the emulated ``pallas`` schedule; the fused
-  kernels across processes need peer memory (ROADMAP A3).
+  ``batch_isend_irecv``.  On CUDA ranks the fused ring kernels run one
+  launch per rank over peer memory (:meth:`DistMesh.peer_arena`,
+  ``kernels/peer.py``; DESIGN_TORCH.md §28); on CPU ranks the pallas rings
+  take the emulated schedule.  The local stage ("data" ``psum`` /
+  ``psum_scatter`` / ``all_gather``) runs on the group's backend:
+
+  - gloo (one card shared by several processes, where NCCL refuses two
+    ranks of one device, and the CPU): ``all_gather``, then the sum in
+    group order, as a ThreadMesh sums, so both meshes give the same bits.
+    gloo moves CUDA tensors through host memory itself; its send and recv
+    take host tensors only, so ``ppermute`` copies a CUDA tensor to the
+    host and back (it is off the fused rings' path);
+  - nccl (one card per rank): ``all_reduce``, and ``reduce_scatter_tensor``
+    for an in-order tiled scatter over dim 0.  No test reaches this branch
+    yet: every run so far has one card (ROADMAP A3).
 
 Rank order is pod-major: ``rank = pod * D + data`` for ``{"pod": P,
 "data": D}``, as ``HetCCLConfig.dp_axes`` orders the ranks.  A group over
@@ -340,11 +351,14 @@ class DistMesh(_Mesh):
         dist.init_process_group("gloo", init_method=..., rank=r, world_size=n)
         mesh = DistMesh({"pod": 2, "data": 1}, device="cpu")
         out = mesh.run(fn, x)          # this rank's fn(x)
+        mesh.close()                   # collective: frees the ring arenas
 
     Every rank builds the mesh (it creates one process group per axis
     group, collectively).  ``device`` defaults to ``"cuda"`` (this rank's
-    card, ``rank % device_count``) and raises without a card unless the
-    caller passes ``"cpu"``.
+    card, ``rank % device_count``: every rank on the one card of a
+    one-card host) and raises without a card unless the caller passes
+    ``"cpu"``.  ``local_size`` is the number of the mesh's ranks on this
+    rank's device (the per-rank ring kernels size their grids by it).
     """
 
     def __init__(self, shape: dict[str, int], device="cuda"):
@@ -367,6 +381,27 @@ class DistMesh(_Mesh):
                 grp = tuple(self.group(r, axes))
                 if (axes, grp) not in self._groups and grp[0] == r:
                     self._groups[(axes, grp)] = dist.new_group(list(grp))
+        from repro_torch.kernels import peer
+        self.local_size = peer.ranks_on_device(None, self.device)
+        self._arenas: dict = {}
+
+    def peer_arena(self, axes):
+        """This rank's ``peer.Arena`` for its group over ``axes`` (made on
+        the first call, collectively by the group's ranks)."""
+        pg, grp = self._ordered(axes)
+        key = tuple(grp)
+        arena = self._arenas.get(key)
+        if arena is None:
+            from repro_torch.kernels import peer
+            arena = self._arenas[key] = peer.Arena(grp, self.rank, pg, self.device,
+                                                   self.local_size)
+        return arena
+
+    def close(self) -> None:
+        """Free this rank's ring arenas (collective over each arena's group:
+        every rank closes its mesh)."""
+        for key in sorted(self._arenas):
+            self._arenas.pop(key).close()
 
     def run(self, fn: Callable, *args):
         """This rank's ``fn(*args)`` with the mesh active."""
@@ -390,16 +425,17 @@ class DistMesh(_Mesh):
         import torch.distributed as dist
         grp = self.group(rank, axis)
         me = grp.index(rank)
-        out = torch.zeros_like(x)
-        x = x.contiguous()
-        ops = [dist.P2POp(dist.isend, x, grp[d]) for s, d in perm if s == me]
+        host = x.is_cuda and not self._nccl       # gloo sends host tensors only
+        src = x.contiguous().cpu() if host else x.contiguous()
+        out = torch.zeros_like(src)
+        ops = [dist.P2POp(dist.isend, src, grp[d]) for s, d in perm if s == me]
         recv = [s for s, d in perm if d == me]
         if recv:
             ops.append(dist.P2POp(dist.irecv, out, grp[recv[0]]))
         if ops:
             for w in dist.batch_isend_irecv(ops):
                 w.wait()
-        return out
+        return out.to(x.device) if host else out
 
     def barrier(self, rank: int) -> None:
         """Nothing to wait for: this mesh's collectives copy what they read
@@ -415,6 +451,8 @@ class DistMesh(_Mesh):
 
     def psum(self, rank, x, axes):
         import torch.distributed as dist
+        if not self._nccl:          # in group order, as ThreadMesh.psum
+            return functools.reduce(torch.add, self._gather(rank, x, axes)[0])
         pg, _ = self._ordered(axes)
         out = x.clone()
         dist.all_reduce(out, group=pg)
@@ -424,7 +462,14 @@ class DistMesh(_Mesh):
         import torch.distributed as dist
         pg, grp = self._ordered(axes)
         n, me = len(grp), grp.index(rank)
-        if self._nccl and scatter_dimension == 0 and sorted(grp) == grp:
+        if not self._nccl:          # in group order, as ThreadMesh.psum_scatter
+            parts, _ = self._gather(rank, x, axes)
+            if tiled:
+                parts = [p.chunk(n, scatter_dimension)[me] for p in parts]
+            else:
+                parts = [p.select(scatter_dimension, me) for p in parts]
+            return functools.reduce(torch.add, parts)
+        if scatter_dimension == 0 and sorted(grp) == grp:
             src = x.contiguous()
             out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
                               dtype=x.dtype, device=x.device)

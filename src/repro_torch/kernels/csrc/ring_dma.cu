@@ -37,7 +37,7 @@
 // takes the credit before it overwrites the parity two steps later.  No
 // slot is written: a rank moves 3c elements per step (read the payload,
 // read its own chunk, write), where storing into a receive slot moved 5c.
-// Across cards (ROADMAP A3) the same read becomes a peer load over NVLink.
+// On the per-rank route below (ROADMAP A3) the partial's read is a peer load.
 //
 // What bounds it on an H100: no arithmetic to speak of, so device memory;
 // one card's "wire" is HBM, so these kernels time the protocol plus HBM
@@ -54,10 +54,37 @@
 // partials lie `pitch` elements apart, c rounded up to a whole number of
 // 16-byte vectors, so every one starts 16-byte aligned.  No TMA,
 // cp.async.bulk or multimem stores yet.
+//
+// Per-rank launches over peer memory (ROADMAP A3; DESIGN_TORCH.md §28).  A
+// rank of a DistMesh (one process per rank, on one card or several) launches
+// its own part, grid (ctas), as the reference runs one kernel instance per
+// device.  Each process owns an arena (cudaMalloc, exported with
+// cudaIpcGetMemHandle; kernels/peer.py) holding its flags, error word, f32
+// partials and slots, and maps its two neighbours' arenas.  A flag lives in
+// the arena of the rank that waits on it and is set by a remote release
+// store, so every spin reads local memory; flags are acquired and released
+// at .sys scope.  Each CTA first posts a ready tag (seq, call signature,
+// ring position) to both neighbours and waits for theirs before it touches
+// peer memory: a neighbour still in its previous call is never overwritten,
+// and two processes whose calls differ in order or shape stop with
+// kErrOrder instead of summing wrong data.  Ready tags alternate between two
+// slots by seq parity, since a neighbour can be at most one call ahead.
+// The reduce-scatter's pull cannot read the upstream's input in place
+// across processes (the input's owner may free it once its own part is
+// done), so each rank first stages the one chunk its downstream reads at
+// step 0 into its f32 partial of parity 1 ("step -1", set like a partial,
+// credited like one): 8c more bytes a call and rank, the same sums.  Every
+// wait stays bounded by kSpinTimeoutNs; a rank that gives up writes its own
+// and both neighbours' error words, so a fault stops the ring.  On one card
+// without MPS the processes' kernels are time-sliced: a hand-off waits for
+// the spinning context's slice to end (2.26 ms with two processes, 4.50 ms
+// with four; launch/bench_handoff.py on an NVIDIA H100 80GB HBM3 at
+// 700.00 W), which the bound covers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -400,6 +427,246 @@ __global__ void __launch_bounds__(kThreads) ring_ag_kernel(const Ring g) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Per-rank route: one launch per rank over peer-mapped arenas.
+// ---------------------------------------------------------------------------
+
+constexpr int kErrReady = 3;      // a neighbour never posted its start tag
+constexpr int kErrOrder = 4;      // a neighbour's start tag names another call
+
+struct PeerRing {
+  int n, direction, stripes, ctas;
+  int my, rank;                              // ring position; global rank (for the error word)
+  long long c, pitch;
+  const void* in;                            // this rank's (n, c) input (reduce-scatter) or (c,)
+  void* out;
+  unsigned long long* data_in;               // own [2][kNumBuffers][kMaxStripes][ctas], set by up
+  unsigned long long* cap_in;                // own [2][ctas], set by down
+  unsigned long long* ready_in;              // own [2 seq parity][2: from up, from down][ctas]
+  int* err;                                  // own code, rank, step, cta
+  float* acc;                                // own [2][pitch] f32 partials
+  void* slots;                               // own [2][pitch] words
+  unsigned long long* up_cap_in;             // the upstream's arena
+  unsigned long long* up_ready_in;
+  int* up_err;
+  const float* up_acc;
+  unsigned long long* down_data_in;          // the downstream's arena
+  unsigned long long* down_ready_in;
+  int* down_err;
+  void* down_slots;
+  unsigned long long seq;                    // this call's tag, the same on every rank
+  unsigned int sig;                          // 24 bits of the call's kind and shape
+};
+
+__device__ __forceinline__ unsigned long long peer_tag(const PeerRing& g, int s) {
+  return g.seq * 65536ull + (unsigned long long)(s + 2);      // s >= -1
+}
+
+__device__ __forceinline__ unsigned long long ready_tag(const PeerRing& g, int pos) {
+  return (g.seq << 32) | ((unsigned long long)(g.sig & 0xffffffu) << 8) |
+         (unsigned long long)(pos & 0xff);
+}
+
+__device__ __forceinline__ unsigned long long* data_at(unsigned long long* base, int ctas,
+                                                       int par, int b, int j, int k) {
+  return base + (((long long)par * kNumBuffers + b) * kMaxStripes + j) * ctas + k;
+}
+
+__device__ __forceinline__ unsigned long long* cap_at(unsigned long long* base, int ctas,
+                                                      int par, int k) {
+  return base + (long long)par * ctas + k;
+}
+
+__device__ __forceinline__ unsigned long long* ready_at(unsigned long long* base, int ctas,
+                                                        int par, int side, int k) {
+  return base + ((long long)par * 2 + side) * ctas + k;
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire_sys(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_sys(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// Thread 0: record a failure in an error word (the first one stays).
+__device__ __forceinline__ void put_error(int* err, int code, int rank, int step) {
+  if (atomicCAS_system(err, 0, code) == 0) {
+    err[1] = rank;
+    err[2] = step;
+    err[3] = blockIdx.x;
+    __threadfence_system();
+  }
+}
+
+// Thread 0: this rank gives up; its neighbours' waits stop too.
+__device__ __forceinline__ void peer_fail(const PeerRing& g, int code, int step) {
+  put_error(g.err, code, g.rank, step);
+  put_error(g.up_err, code, g.rank, step);
+  put_error(g.down_err, code, g.rank, step);
+}
+
+// Every thread's stores of this CTA, then the (remote) flag at .sys scope.
+__device__ __forceinline__ void peer_signal(unsigned long long* flag, unsigned long long v) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    st_release_sys(flag, v);
+  }
+}
+
+// Thread 0 spins on a flag of this rank's arena until it reads `want`,
+// bounded in time; true for the whole CTA if it came.  With `ready`, a tag
+// of this call's seq or later that is not `want` is a call-order fault.
+__device__ bool peer_wait(const PeerRing& g, const unsigned long long* flag,
+                          unsigned long long want, int code, int step, bool ready = false) {
+  int ok = 1;
+  if (threadIdx.x == 0) {
+    const unsigned long long t0 = globaltimer();
+    for (;;) {
+      const unsigned long long v = ld_acquire_sys(flag);
+      if (v == want) break;
+      if (ready && (v >> 32) >= (want >> 32)) {
+        peer_fail(g, kErrOrder, step);
+        ok = 0;
+        break;
+      }
+      if (*(volatile int*)g.err != 0) {          // a neighbour (or another CTA) gave up
+        peer_fail(g, *(volatile int*)g.err, step);
+        ok = 0;
+        break;
+      }
+      if (globaltimer() - t0 > kSpinTimeoutNs) {
+        peer_fail(g, code, step);
+        ok = 0;
+        break;
+      }
+    }
+    __threadfence();
+  }
+  return __syncthreads_and(ok);
+}
+
+// Post this rank's ready tag to both neighbours, then wait for theirs.
+__device__ bool peer_handshake(const PeerRing& g) {
+  const int k = blockIdx.x, par = (int)(g.seq & 1);
+  if (threadIdx.x == 0) {
+    st_release_sys(ready_at(g.down_ready_in, g.ctas, par, 0, k), ready_tag(g, g.my));
+    st_release_sys(ready_at(g.up_ready_in, g.ctas, par, 1, k), ready_tag(g, g.my));
+  }
+  const int n = g.n, d = g.direction;
+  return peer_wait(g, ready_at(g.ready_in, g.ctas, par, 0, k), ready_tag(g, wrap(g.my - d, n)),
+                   kErrReady, -1, true) &&
+         peer_wait(g, ready_at(g.ready_in, g.ctas, par, 1, k), ready_tag(g, wrap(g.my + d, n)),
+                   kErrReady, -1, true);
+}
+
+// dst[e] = float(src[e]) for e in [a, b), by the whole CTA.
+template <typename In>
+__device__ __forceinline__ void stage_piece(float* dst, const In* src, long long a, long long b) {
+  for (long long e = a + threadIdx.x; e < b; e += blockDim.x) dst[e] = to_float(src[e]);
+}
+
+template <typename In, typename Wire>
+__global__ void __launch_bounds__(kThreads, 2) ring_rs_peer_kernel(const PeerRing g) {
+  const int k = blockIdx.x;
+  const int n = g.n, d = g.direction, my = g.my, S = g.stripes;
+  const long long c = g.c;
+  const long long lo = c * k / g.ctas, hi = c * (k + 1) / g.ctas;
+  const int pieces = kNumBuffers * S;
+  const In* x = static_cast<const In*>(g.in);
+  float* out = static_cast<float*>(g.out);
+  if (!peer_handshake(g)) return;
+  // step -1: the chunk the downstream adds at its step 0, staged in f32 into
+  // parity 1 (step -1's parity) of this rank's partials
+  const In* own0 = x + (long long)wrap(my - d, n) * c;
+  for (int p = 0; p < pieces; ++p) {
+    stage_piece(g.acc + g.pitch, own0, cut(lo, hi, p, pieces), cut(lo, hi, p + 1, pieces));
+    peer_signal(data_at(g.down_data_in, g.ctas, 1, p / S, p % S, k), peer_tag(g, -1));
+  }
+  for (int s = 0; s < n - 1; ++s) {
+    const int par = s & 1;
+    const bool last = s == n - 2;
+    const long long recv = (long long)wrap(my - d * (s + 2), n) * c;
+    // the downstream read this parity's partial of step s - 2 at step s - 1
+    if (s >= 1 && !last &&
+        !peer_wait(g, cap_at(g.cap_in, g.ctas, par, k), peer_tag(g, s - 2), kErrCredit, s))
+      return;
+    float* dst = last ? out : g.acc + par * g.pitch;
+    for (int p = 0; p < pieces; ++p) {
+      const long long p0 = cut(lo, hi, p, pieces), p1 = cut(lo, hi, p + 1, pieces);
+      if (!peer_wait(g, data_at(g.data_in, g.ctas, par ^ 1, p / S, p % S, k), peer_tag(g, s - 1),
+                     kErrData, s))
+        return;
+      reduce_piece<Wire>(dst, g.up_acc + (par ^ 1) * g.pitch, x + recv, p0, p1);
+      if (!last) peer_signal(data_at(g.down_data_in, g.ctas, par, p / S, p % S, k), peer_tag(g, s));
+    }
+    // the upstream's partial of step s - 1 is read: it may overwrite that
+    // parity at step s + 1, where it waits for this credit
+    if (s <= n - 4) peer_signal(cap_at(g.up_cap_in, g.ctas, par ^ 1, k), peer_tag(g, s - 1));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ring_ag_peer_kernel(const PeerRing g) {
+  const int k = blockIdx.x;
+  const int n = g.n, d = g.direction, my = g.my, S = g.stripes;
+  const long long c = g.c;
+  const long long lo = c * k / g.ctas, hi = c * (k + 1) / g.ctas;
+  const T* x = static_cast<const T*>(g.in);
+  T* out = static_cast<T*>(g.out);
+  const T* slot_me = static_cast<const T*>(g.slots);
+  T* slot_dst = static_cast<T*>(g.down_slots);
+  if (!peer_handshake(g)) return;
+  for (int s = 0; s < n - 1; ++s) {
+    const int par = s & 1, nxt = par ^ 1;
+    // the downstream drained its slot nxt at step s - 1
+    if (s >= 1 &&
+        !peer_wait(g, cap_at(g.cap_in, g.ctas, nxt, k), peer_tag(g, s - 1), kErrCredit, s))
+      return;
+    for (int j = 0; j < S; ++j) {
+      const long long p0 = cut(lo, hi, j, S), p1 = cut(lo, hi, j + 1, S);
+      if (s == 0) {
+        T* const to[2] = {out + my * c, slot_dst + nxt * g.pitch};
+        copy_piece(to, x, p0, p1);
+      } else {
+        T* const to[1] = {slot_dst + nxt * g.pitch};
+        copy_piece(to, slot_me + par * g.pitch, p0, p1);
+      }
+      peer_signal(data_at(g.down_data_in, g.ctas, nxt, 0, j, k), peer_tag(g, s));
+    }
+    // slot par is sent and was copied out at step s - 1: upstream may write it
+    if (s < n - 2) peer_signal(cap_at(g.up_cap_in, g.ctas, par, k), peer_tag(g, s));
+    const long long from = (long long)wrap(my - d * (s + 1), n) * c;
+    for (int j = 0; j < S; ++j) {
+      const long long p0 = cut(lo, hi, j, S), p1 = cut(lo, hi, j + 1, S);
+      if (!peer_wait(g, data_at(g.data_in, g.ctas, nxt, 0, j, k), peer_tag(g, s), kErrData, s))
+        return;
+      T* const to[1] = {out + from};
+      copy_piece(to, slot_me + nxt * g.pitch, p0, p1);
+    }
+    __syncthreads();
+  }
+}
+
+using PeerFn = void (*)(const PeerRing);
+
+PeerFn pick_peer(int kind, int in_code, int wire_code) {
+  if (kind == 0) {
+    if (in_code == 0 && wire_code == 0) return ring_rs_peer_kernel<float, float>;
+    if (in_code == 0 && wire_code == 1) return ring_rs_peer_kernel<float, __nv_bfloat16>;
+    if (in_code == 1 && wire_code == 0) return ring_rs_peer_kernel<__nv_bfloat16, float>;
+    if (in_code == 1 && wire_code == 1) return ring_rs_peer_kernel<__nv_bfloat16, __nv_bfloat16>;
+  } else if (kind == 1) {
+    if (in_code == 4) return ring_ag_peer_kernel<unsigned int>;
+    if (in_code == 2) return ring_ag_peer_kernel<unsigned short>;
+  }
+  return nullptr;
+}
+
 using KernelFn = void (*)(const Ring);
 
 // kind 0: reduce-scatter, in_code/wire_code 0 float32, 1 bfloat16;
@@ -484,6 +751,127 @@ int ring_launch(int kind, int in_code, int wire_code, int R, int n, long long c,
                                   args, 0, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// CTAs per rank of the per-rank route such that R ranks' launches on one
+// device are resident at once (under MPS, or on separate cards a fortiori);
+// 0 if none fits.
+int ring_peer_ctas(int R) {
+  int dev = 0, sms = 0, least = 1 << 30;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int kinds[6][3] = {{0, 0, 0}, {0, 0, 1}, {0, 1, 0}, {0, 1, 1}, {1, 4, 0}, {1, 2, 0}};
+  for (const auto& kd : kinds) {
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pick_peer(kd[0], kd[1], kd[2]),
+                                                  kThreads, 0);
+    least = per_sm < least ? per_sm : least;
+  }
+  return R > 0 ? least * sms / R : 0;
+}
+
+// This rank's part of a ring, one cooperative launch of grid (ctas).  own,
+// up, down: base addresses of this rank's arena and its neighbours' (peer
+// mappings), all of one layout; offs: byte offsets of the data flags, the
+// credit flags, the ready tags, the error word, the f32 partials and the
+// slots in it.  rank: this rank's global rank (for the error word); my: its
+// position in its ring of n.  Zeroes this
+// rank's error word first; returns a cudaError_t (0: launched).
+int ring_peer_launch(int kind, int in_code, int wire_code, int n, int my, long long c,
+                     long long pitch, int direction, int stripes, int ctas, const void* in,
+                     void* out, void* own, void* up, void* down, const long long* offs,
+                     int rank, unsigned long long seq, unsigned int sig, void* stream) {
+  PeerFn fn = pick_peer(kind, in_code, wire_code);
+  if (fn == nullptr || n < 2 || my < 0 || my >= n || stripes < 1 || stripes > kMaxStripes ||
+      ctas < 1 || pitch < c)
+    return (int)cudaErrorInvalidValue;
+  char* a = static_cast<char*>(own);
+  char* u = static_cast<char*>(up);
+  char* w = static_cast<char*>(down);
+  PeerRing g;
+  g.n = n;
+  g.direction = direction;
+  g.stripes = stripes;
+  g.ctas = ctas;
+  g.my = my;
+  g.rank = rank;
+  g.c = c;
+  g.pitch = pitch;
+  g.in = in;
+  g.out = out;
+  g.data_in = reinterpret_cast<unsigned long long*>(a + offs[0]);
+  g.cap_in = reinterpret_cast<unsigned long long*>(a + offs[1]);
+  g.ready_in = reinterpret_cast<unsigned long long*>(a + offs[2]);
+  g.err = reinterpret_cast<int*>(a + offs[3]);
+  g.acc = reinterpret_cast<float*>(a + offs[4]);
+  g.slots = a + offs[5];
+  g.up_cap_in = reinterpret_cast<unsigned long long*>(u + offs[1]);
+  g.up_ready_in = reinterpret_cast<unsigned long long*>(u + offs[2]);
+  g.up_err = reinterpret_cast<int*>(u + offs[3]);
+  g.up_acc = reinterpret_cast<const float*>(u + offs[4]);
+  g.down_data_in = reinterpret_cast<unsigned long long*>(w + offs[0]);
+  g.down_ready_in = reinterpret_cast<unsigned long long*>(w + offs[2]);
+  g.down_err = reinterpret_cast<int*>(w + offs[3]);
+  g.down_slots = w + offs[5];
+  g.seq = seq;
+  g.sig = sig;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(g.err, 0, 4 * sizeof(int), s);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {&g};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fn), dim3(ctas), dim3(kThreads), args,
+                                  0, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The arena of the per-rank route: device memory of its own (never the
+// caching allocator's: an IPC handle names a whole cudaMalloc allocation,
+// and expandable segments cannot be exported this way), zeroed.
+int peer_alloc(long long bytes, unsigned long long* out) {
+  void* p = nullptr;
+  cudaError_t e = cudaMalloc(&p, bytes);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMemset(p, 0, bytes);
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  if (e != cudaSuccess) {
+    cudaFree(p);
+    return (int)e;
+  }
+  *out = reinterpret_cast<unsigned long long>(p);
+  return 0;
+}
+
+int peer_free(unsigned long long p) { return (int)cudaFree(reinterpret_cast<void*>(p)); }
+
+int peer_handle_bytes() { return (int)sizeof(cudaIpcMemHandle_t); }
+
+int peer_export(unsigned long long p, unsigned char* handle) {
+  cudaIpcMemHandle_t h;
+  cudaError_t e = cudaIpcGetMemHandle(&h, reinterpret_cast<void*>(p));
+  if (e != cudaSuccess) {
+    cudaGetLastError();                     // not sticky: clear it
+    return (int)e;
+  }
+  memcpy(handle, &h, sizeof(h));
+  return 0;
+}
+
+int peer_open(const unsigned char* handle, unsigned long long* out) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  void* p = nullptr;
+  cudaError_t e = cudaIpcOpenMemHandle(&p, h, cudaIpcMemLazyEnablePeerAccess);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  *out = reinterpret_cast<unsigned long long>(p);
+  return 0;
+}
+
+int peer_close(unsigned long long p) {
+  return (int)cudaIpcCloseMemHandle(reinterpret_cast<void*>(p));
 }
 
 const char* ring_error_string(int err) {

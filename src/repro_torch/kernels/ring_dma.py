@@ -5,20 +5,28 @@ Counterpart of ``repro/kernels/ring_dma.py``.  Two ways to run a ring
 without a codec, chosen in the open as the reference's ``_on_tpu()``
 chooses:
 
-* **fused**, when every rank of the ring is a :class:`ThreadMesh` rank on one
-  CUDA device: one launch of ``csrc/ring_dma.cu`` covers every rank of the
-  mesh (:func:`reduce_scatter_fused`, :func:`all_gather_fused`), replacing
-  the Pallas TPU kernels ``_rs_dma_kernel`` / ``_ag_dma_kernel``.  The ranks
-  meet in :meth:`ThreadMesh.rendezvous`; the last to arrive launches.  There
-  is no fallback: if the kernel cannot build, launch or keep its ranks
-  resident, or a wait times out, the call raises.
+* **fused**, on a mesh whose ranks are on CUDA devices, replacing the
+  Pallas TPU kernels ``_rs_dma_kernel`` / ``_ag_dma_kernel``:
+
+  - on a :class:`ThreadMesh` one launch of ``csrc/ring_dma.cu`` covers every
+    rank of the mesh (:func:`reduce_scatter_fused`, :func:`all_gather_fused`);
+    the ranks meet in :meth:`ThreadMesh.rendezvous`, the last to arrive
+    launches;
+  - on a :class:`DistMesh` (one process per rank) each rank launches its own
+    part over peer memory (:func:`reduce_scatter_peer`,
+    :func:`all_gather_peer`; ``kernels/peer.py``'s arena, DESIGN_TORCH.md
+    §28), as the reference runs one kernel instance per device.
+
+  There is no fallback: if the kernel cannot build, launch or keep its ranks
+  resident, an arena cannot be made or opened, or a wait times out, the
+  call raises.
 * **emulated** (:func:`_rs_emulated`, :func:`_ag_emulated`): the same
   numerics and wave structure with the wire hop carried by ``ppermute`` and
   the accumulate dispatched through TACC ``collective_reduce`` (the CUDA
   ``_reduce_kernel`` port on CUDA tensors, its plain version on CPU
-  tensors).  It runs on a :class:`DistMesh`, on the CPU, and wherever the
-  TACC defaults of ``ring_reduce_scatter`` / ``ring_all_gather`` are pinned
-  to ``"emulated"`` (the counterpart of the reference tests' interpret pin).
+  tensors).  It runs on the CPU and wherever the TACC defaults of
+  ``ring_reduce_scatter`` / ``ring_all_gather`` are pinned to
+  ``"emulated"`` (the counterpart of the reference tests' interpret pin).
 
 Each fused schedule also has a plain-torch version
 (:func:`reduce_scatter_fused_plain`, :func:`all_gather_fused_plain`): the
@@ -26,7 +34,12 @@ kernel's protocol for all ranks of a launch, stepped in order on the host,
 with its flags and credits as counters (the reduce-scatter's per pulled
 partial in a :class:`PullLedger`, the all-gather's per parity slot).  The
 wrappers run it for CPU tensors; the card checks hold the kernels against
-it bit for bit.
+it bit for bit.  The per-rank route's plain version
+(:func:`_rs_peer_plain`, :func:`_ag_peer_plain`) runs one rank's steps,
+tags and tables over the arena's shared-memory form, across real
+processes; the per-rank wrappers take it for CPU tensors (the CPU tests
+reach it by pinning the ``fused`` variant; the schedule of a CPU mesh is
+``emulated``).
 
 With a ``wire_quant`` codec (DESIGN.md §17) a ring takes the quantized
 emulated schedule on every device, as the reference does on every platform
@@ -45,20 +58,21 @@ import collections
 import ctypes
 import functools
 import threading
+import time
 
 import torch
 
 from repro_torch.core import mesh, tacc
 from repro_torch.core.collectives import chunked
-from repro_torch.kernels import _build, quant
+from repro_torch.kernels import _build, peer, quant
+from repro_torch.kernels.peer import NUM_BUFFERS  # noqa: F401  (streams per ring step)
 from repro_torch.transport.stripe import MAX_STRIPES
 
-# Double-buffer depth: streams per ring step, whose hops overlap the other
-# stream's accumulate.
-NUM_BUFFERS = 2
+# Double-buffer depth (NUM_BUFFERS): streams per ring step, whose hops
+# overlap the other stream's accumulate.
 
-rs_launches = 0       # launches of the fused reduce-scatter kernel
-ag_launches = 0       # launches of the fused all-gather kernel
+rs_launches = 0       # this process's launches of the fused reduce-scatter kernel
+ag_launches = 0       # this process's launches of the fused all-gather kernel
 
 SCHEDULE_OPS = ("ring_reduce_scatter", "ring_all_gather")
 _RS_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -431,6 +445,21 @@ def bind(lib: ctypes.CDLL):
     lib.ring_launch.restype = ctypes.c_int
     lib.ring_error_string.argtypes = [ctypes.c_int]
     lib.ring_error_string.restype = ctypes.c_char_p
+    lib.ring_peer_ctas.argtypes = [ctypes.c_int]
+    lib.ring_peer_ctas.restype = ctypes.c_int
+    lib.ring_peer_launch.argtypes = (
+        [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                                   ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_void_p])
+    lib.ring_peer_launch.restype = ctypes.c_int
+    lib.peer_alloc.argtypes = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.peer_free.argtypes = [ctypes.c_ulonglong]
+    lib.peer_handle_bytes.restype = ctypes.c_int
+    lib.peer_export.argtypes = [ctypes.c_ulonglong, ctypes.c_char_p]
+    lib.peer_open.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.peer_close.argtypes = [ctypes.c_ulonglong]
+    for fn in (lib.peer_alloc, lib.peer_free, lib.peer_export, lib.peer_open, lib.peer_close):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -442,7 +471,10 @@ def _kernel():
         return _lib
 
 
-_ERRORS = {1: "a data flag (a slot's or a partial's) never came", 2: "a credit never came"}
+_ERRORS = {1: "a data flag (a slot's or a partial's) never came", 2: "a credit never came",
+           3: "a neighbour never arrived (start handshake)",
+           4: "a neighbour's start tag names another call (the processes' calls differ in "
+              "order or shape)"}
 
 
 def _launch(kind, in_code, wire_code, esize, n, c, direction, S, pos, dst, src, ins, outs,
@@ -571,7 +603,259 @@ def all_gather_fused(inputs, rings, *, direction: int = 1, n_stripes: int = 1,
 
 
 # ---------------------------------------------------------------------------
-# Per-rank fused entries: the ranks of a ThreadMesh meet, one launch for all.
+# The per-rank route: one launch per rank over peer memory (DistMesh).
+# ---------------------------------------------------------------------------
+
+# The plain version's bound on a wait: its ranks are host processes that the
+# operating system schedules (a busy test host can stall one for seconds),
+# where the kernel's 2 s bound is for a card's time slices.
+PLAIN_TIMEOUT_S = 10.0
+
+
+def _peer_tag(seq: int, s: int) -> int:
+    return seq * 65536 + s + 2                   # the kernel's peer_tag; s >= -1
+
+
+def _ready_tag(seq: int, sig: int, pos: int) -> int:
+    return (seq << 32) | (sig << 8) | (pos & 0xFF)
+
+
+def _didx(ctas, par, b, j, k):
+    return ((par * NUM_BUFFERS + b) * MAX_STRIPES + j) * ctas + k
+
+
+class _PlainPeer:
+    """One rank's call of the per-rank protocol on the CPU: the kernel's
+    flags, tags and waits over the arena's shared-memory form."""
+
+    def __init__(self, arena, direction: int, sig: int):
+        self.a, self.d, self.sig, self.seq = arena, direction, sig, arena.seq
+        self.me = arena.rank
+        self.up, self.down = arena.neighbour(direction)
+        self.flags = {r: {k: arena.view(r, k, torch.int64) for k in ("data", "cap", "ready")}
+                      for r in {self.me, self.up, self.down}}
+        self.errs = {r: arena.view(r, "err", torch.int32, 4)
+                     for r in {self.me, self.up, self.down}}
+        self.errs[self.me].zero_()
+
+    def tag(self, s):
+        return _peer_tag(self.seq, s)
+
+    def fail(self, code: int, step: int, k: int):
+        for r in (self.me, self.up, self.down):     # own first: the first fault stays
+            e = self.errs[r]
+            if int(e[0]) == 0:
+                e.copy_(torch.tensor([code, self.me, step, k], dtype=torch.int32))
+        code, rank, step, k = self.errs[self.me].tolist()
+        raise RingProtocolError(f"per-rank ring (plain): {_ERRORS.get(code, code)} at rank "
+                                f"{rank}, step {step}, CTA {k}")
+
+    def wait(self, region: str, idx: int, want: int, code: int, step: int, k: int,
+             ready: bool = False):
+        flags, err = self.flags[self.me][region], self.errs[self.me]
+        t0 = time.monotonic()
+        while True:
+            v = int(flags[idx])
+            if v == want:
+                return
+            if ready and (v >> 32) >= (want >> 32):
+                self.fail(4, step, k)
+            if int(err[0]):
+                self.fail(int(err[0]), step, k)
+            if time.monotonic() - t0 > PLAIN_TIMEOUT_S:
+                self.fail(code, step, k)
+            time.sleep(20e-6)
+
+    def set(self, rank: int, region: str, idx: int, value: int):
+        self.flags[rank][region][idx] = value
+
+    def handshake(self, k: int):
+        a, ctas = self.a, self.a.ctas
+        par = self.seq & 1
+        mine = _ready_tag(self.seq, self.sig, a.pos)
+        self.set(self.down, "ready", (par * 2 + 0) * ctas + k, mine)
+        self.set(self.up, "ready", (par * 2 + 1) * ctas + k, mine)
+        for side, pos in ((0, a.pos - self.d), (1, a.pos + self.d)):
+            self.wait("ready", (par * 2 + side) * ctas + k,
+                      _ready_tag(self.seq, self.sig, pos % a.n), 3, -1, k, ready=True)
+
+
+def _rs_peer_plain(arena, xs, out, direction: int, wire, S: int, pitch: int, sig: int):
+    """Plain version of one rank's per-rank reduce-scatter (the kernel's
+    steps, tags and tables; the column slices of its CTAs one after
+    another): xs (n, c) this rank's chunks, out (c,) f32."""
+    pp = _PlainPeer(arena, direction, sig)
+    n, my, ctas = arena.n, arena.pos, arena.ctas
+    c = xs.shape[1]
+    acc = arena.view(pp.me, "acc", torch.float32, 2 * pitch).view(2, pitch)
+    up_acc = arena.view(pp.up, "acc", torch.float32, 2 * pitch).view(2, pitch)
+    pieces = NUM_BUFFERS * S
+    for k in range(ctas):
+        lo, hi = c * k // ctas, c * (k + 1) // ctas
+        cut = [lo + (hi - lo) * p // pieces for p in range(pieces + 1)]
+        pp.handshake(k)
+        own0 = (my - direction) % n
+        for p in range(pieces):                # step -1: the staged chunk, parity 1
+            acc[1, cut[p]:cut[p + 1]] = xs[own0, cut[p]:cut[p + 1]].float()
+            pp.set(pp.down, "data", _didx(ctas, 1, p // S, p % S, k), pp.tag(-1))
+        for s in range(n - 1):
+            par, last = s % 2, s == n - 2
+            recv = (my - direction * (s + 2)) % n
+            if s >= 1 and not last:
+                pp.wait("cap", par * ctas + k, pp.tag(s - 2), 2, s, k)
+            dst = out if last else acc[par]
+            for p in range(pieces):
+                p0, p1 = cut[p], cut[p + 1]
+                pp.wait("data", _didx(ctas, par ^ 1, p // S, p % S, k), pp.tag(s - 1), 1, s, k)
+                dst[p0:p1] = xs[recv, p0:p1].float() + up_acc[par ^ 1, p0:p1].to(wire).float()
+                if not last:
+                    pp.set(pp.down, "data", _didx(ctas, par, p // S, p % S, k), pp.tag(s))
+            if s <= n - 4:
+                pp.set(pp.up, "cap", (par ^ 1) * ctas + k, pp.tag(s - 1))
+
+
+def _ag_peer_plain(arena, xs, out, direction: int, S: int, pitch: int, sig: int):
+    """Plain version of one rank's per-rank all-gather: xs (c,) words, out
+    (n, c) words; the kernel's slots, flags and credits in the arena."""
+    pp = _PlainPeer(arena, direction, sig)
+    n, my, ctas = arena.n, arena.pos, arena.ctas
+    c = xs.shape[0]
+    slots = arena.view(pp.me, "slots", xs.dtype, 2 * pitch).view(2, pitch)
+    down_slots = arena.view(pp.down, "slots", xs.dtype, 2 * pitch).view(2, pitch)
+    for k in range(ctas):
+        lo, hi = c * k // ctas, c * (k + 1) // ctas
+        cut = [lo + (hi - lo) * j // S for j in range(S + 1)]
+        pp.handshake(k)
+        for s in range(n - 1):
+            par, nxt = s % 2, (s + 1) % 2
+            if s >= 1:
+                pp.wait("cap", nxt * ctas + k, pp.tag(s - 1), 2, s, k)
+            for j in range(S):
+                p0, p1 = cut[j], cut[j + 1]
+                if s == 0:
+                    out[my, p0:p1] = xs[p0:p1]
+                    down_slots[nxt, p0:p1] = xs[p0:p1]
+                else:
+                    down_slots[nxt, p0:p1] = slots[par, p0:p1]
+                pp.set(pp.down, "data", _didx(ctas, nxt, 0, j, k), pp.tag(s))
+            if s < n - 2:
+                pp.set(pp.up, "cap", par * ctas + k, pp.tag(s))
+            frm = (my - direction * (s + 1)) % n
+            for j in range(S):
+                p0, p1 = cut[j], cut[j + 1]
+                pp.wait("data", _didx(ctas, nxt, 0, j, k), pp.tag(s), 1, s, k)
+                out[frm, p0:p1] = slots[nxt, p0:p1]
+
+
+def raise_if_peer_failed(arena, what: str = "per-rank ring"):
+    """Raise if this rank's latest call over ``arena`` failed (for callers
+    that launched with ``check=False``); synchronises on the card."""
+    code, rank, step, cta = arena.error_word()
+    if code:
+        raise RingProtocolError(f"{what}: {_ERRORS.get(code, code)} at rank {rank}, "
+                                f"step {step}, CTA {cta}")
+
+
+def _launch_peer(arena, kind, in_code, wire_code, n, c, pitch, direction, S, x, out, sig,
+                 check):
+    """This rank's launch of the per-rank kernel over ``arena``; raises on a
+    refused launch and, with ``check``, on a failed wait (it synchronises)."""
+    lib = _kernel()
+    up, down = arena.neighbour(direction)
+    offs = (ctypes.c_longlong * len(peer.OFFSET_KEYS))(*(arena.offs[k] for k in peer.OFFSET_KEYS))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.ring_peer_launch(kind, in_code, wire_code, n, arena.pos, c, pitch, direction, S,
+                               arena.ctas, x.data_ptr(), out.data_ptr(), arena.base,
+                               arena.peers[up], arena.peers[down], offs, arena.rank,
+                               arena.seq, sig, stream)
+    if err:
+        raise RuntimeError(f"per-rank ring kernel launch failed: "
+                           f"{lib.ring_error_string(err).decode()} (cuda error {err})")
+    if check:
+        raise_if_peer_failed(arena, f"per-rank ring {'reduce-scatter' if kind == 0 else 'all-gather'}"
+                                    f" (n={n}, c={c})")
+
+
+def _peer_device(x, arena):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no per-rank ring route for device {x.device}")
+    if x.device.type != arena.device.type:
+        raise ValueError(f"a {x.device} tensor on an arena of {arena.device}")
+
+
+def reduce_scatter_peer(x, arena, *, direction: int = 1, wire_dtype=None, n_stripes: int = 1,
+                        check: bool = True):
+    """This rank's part of a ring reduce-scatter over ``arena`` (a
+    ``peer.Arena`` of its ring group): x (n, c...) this rank's chunks ->
+    its reduced chunk (c,), f32.  Every rank of the ring calls it alike.
+
+    On CUDA tensors: the ``csrc/ring_dma.cu`` per-rank kernel or an error.
+    On CPU tensors: :func:`_rs_peer_plain` over the arena's shared memory.
+    Dtypes as :func:`reduce_scatter_fused`."""
+    global rs_launches
+    _peer_device(x, arena)
+    n = arena.n
+    wire = wire_dtype or x.dtype
+    if wire not in _RS_CODE:
+        raise ValueError(f"wire dtype {wire}: the fused ring takes float32 or bfloat16")
+    xs = x.reshape(n, -1)
+    if xs.dtype not in _RS_CODE:
+        xs = xs.float()
+    xs = xs.contiguous()
+    c = xs.shape[1]
+    out = torch.empty(c, dtype=torch.float32, device=x.device)
+    if c == 0:
+        return out
+    S = _clamp_stripes(n_stripes, c)
+    pitch = slot_pitch(c, 4)
+    arena.ensure(2 * pitch * 4, 0)
+    arena.seq += 1
+    sig = peer.call_signature(0, str(xs.dtype), str(wire), n, c, direction, S)
+    if x.device.type == "cpu":
+        _rs_peer_plain(arena, xs, out, direction, wire, S, pitch, sig)
+        return out
+    _launch_peer(arena, 0, _RS_CODE[xs.dtype], _RS_CODE[wire], n, c, pitch, direction, S, xs,
+                 out, sig, check)
+    rs_launches += 1
+    tacc.count_row_launch(f"ring_reduce_scatter/S{S}")
+    return out
+
+
+def all_gather_peer(x, arena, *, direction: int = 1, n_stripes: int = 1, check: bool = True):
+    """This rank's part of a ring all-gather over ``arena``: x (c...) ->
+    (n, c...), rank order along the ring.  On CUDA tensors the per-rank
+    kernel (4- or 2-byte words, as :func:`all_gather_fused`), on CPU
+    tensors :func:`_ag_peer_plain`."""
+    global ag_launches
+    _peer_device(x, arena)
+    n = arena.n
+    shape, dtype = tuple(x.shape), x.dtype
+    nbytes = x.numel() * x.element_size()
+    if nbytes % 2:
+        raise ValueError(f"{nbytes} bytes per rank: the fused all-gather moves 2-byte words")
+    word = torch.int32 if nbytes % 4 == 0 else torch.int16
+    xs = x.contiguous().reshape(-1).view(torch.uint8).view(word)
+    c = xs.numel()
+    out = torch.empty((n, c), dtype=word, device=x.device)
+    if c:
+        S = _clamp_stripes(n_stripes, c)
+        esize = 4 if word == torch.int32 else 2
+        pitch = slot_pitch(c, esize)
+        arena.ensure(0, 2 * pitch * esize)
+        arena.seq += 1
+        sig = peer.call_signature(1, esize, n, c, direction, S)
+        if x.device.type == "cpu":
+            _ag_peer_plain(arena, xs, out, direction, S, pitch, sig)
+        else:
+            _launch_peer(arena, 1, esize, 0, n, c, pitch, direction, S, xs, out, sig, check)
+            ag_launches += 1
+            tacc.count_row_launch(f"ring_all_gather/S{S}")
+    return out.view(torch.uint8).view(dtype).reshape((n,) + shape)
+
+
+# ---------------------------------------------------------------------------
+# Per-rank fused entries: the ranks of a ThreadMesh meet, one launch for all;
+# a DistMesh rank launches its own part.
 # ---------------------------------------------------------------------------
 
 def _mesh_rings(m, axis: str) -> list[list[int]]:
@@ -583,15 +867,19 @@ def _thread_mesh():
     m, r = mesh.current()
     if not isinstance(m, mesh.ThreadMesh):
         raise NotImplementedError(
-            "the fused ring kernels run over the ranks of one ThreadMesh; across "
-            "processes or cards they need peer memory (ROADMAP A3, fused rings "
-            "across processes)")
+            f"the fused ring kernels run over the ranks of a ThreadMesh or, one launch per "
+            f"rank, of a DistMesh; not on a {type(m).__name__}")
     return m, r
 
 
 @tacc.register("ring_reduce_scatter", "fused", default=True)
 def _rs_fused(chunks, axis: str, direction: int, wire_dtype, n_stripes: int = 1):
     """chunks (n, c, ...) -> this rank's reduced chunk (c, ...), f32."""
+    m, _ = mesh.current()
+    if isinstance(m, mesh.DistMesh):
+        return reduce_scatter_peer(chunks, m.peer_arena(axis), direction=direction,
+                                   wire_dtype=wire_dtype,
+                                   n_stripes=n_stripes).reshape(chunks.shape[1:])
     m, r = _thread_mesh()
     launch = functools.partial(reduce_scatter_fused, rings=_mesh_rings(m, axis),
                                direction=direction, wire_dtype=wire_dtype,
@@ -602,6 +890,10 @@ def _rs_fused(chunks, axis: str, direction: int, wire_dtype, n_stripes: int = 1)
 @tacc.register("ring_all_gather", "fused", default=True)
 def _ag_fused(x, axis: str, direction: int, n_stripes: int = 1):
     """x (c, ...) -> (n, c, ...) rank-stacked."""
+    m, _ = mesh.current()
+    if isinstance(m, mesh.DistMesh):
+        return all_gather_peer(x, m.peer_arena(axis), direction=direction,
+                               n_stripes=n_stripes)
     m, r = _thread_mesh()
     launch = functools.partial(all_gather_fused, rings=_mesh_rings(m, axis),
                                direction=direction, n_stripes=n_stripes)
@@ -609,11 +901,11 @@ def _ag_fused(x, axis: str, direction: int, n_stripes: int = 1):
 
 
 def _schedule(op: str) -> str:
-    """"fused" where every rank of the ring is a ThreadMesh rank on a CUDA
-    device (unless the op's TACC default is pinned to "emulated"), else
-    "emulated" (DistMesh, CPU)."""
+    """The op's TACC default ("fused" unless pinned to "emulated") where the
+    ranks are on CUDA devices: a ThreadMesh (one launch for all ranks) or a
+    DistMesh (one launch per rank); "emulated" on the CPU."""
     m, _ = mesh.current()
-    if isinstance(m, mesh.ThreadMesh) and m.device.type == "cuda":
+    if isinstance(m, (mesh.ThreadMesh, mesh.DistMesh)) and m.device.type == "cuda":
         return tacc.get_default(op)
     return "emulated"
 

@@ -6,8 +6,10 @@ Counterpart of the jax-free part of ``repro/launch/mesh.py``
 ``resolve_stripes``), for the port's meshes: a
 :class:`~repro_torch.core.mesh.ThreadMesh` or
 :class:`~repro_torch.core.mesh.DistMesh` (``shape`` a dict of axis sizes,
-``axes``, ``size``; no ``.devices``), and the port's production and smoke
-meshes (:func:`make_production_mesh`, :func:`make_smoke_mesh`).
+``axes``, ``size``; no ``.devices``), the port's production and smoke
+meshes (:func:`make_production_mesh`, :func:`make_smoke_mesh`), and
+:func:`spawn_dist_mesh`, which starts a ``DistMesh`` of processes and
+returns each rank's result.
 
 One deliberate departure (DESIGN_TORCH.md §23): ``cluster_for_mesh`` with
 ``chips=None`` models every island as ``topology.H100_NVLINK``, the card the
@@ -16,6 +18,12 @@ Pass ``chips`` to price another fleet (e.g. the paper's V100 + W7800
 testbed) on the same mesh.
 """
 from __future__ import annotations
+
+import os
+import shutil
+import tempfile
+import time
+import traceback
 
 # The port's production meshes of ranks (DESIGN_TORCH.md §24).  The
 # reference's are (data 16, model 16) and (pod 4, data 8, model 16): 512
@@ -105,3 +113,123 @@ def make_smoke_mesh(n_pods: int = 1, data: int = 1, *, device="cuda"):
     from repro_torch.core.mesh import ThreadMesh
     shape = {"pod": n_pods, "data": data} if n_pods > 1 else {"data": data}
     return ThreadMesh(shape, device=device)
+
+
+# ---------------------------------------------------------------------------
+# A DistMesh of processes
+# ---------------------------------------------------------------------------
+
+def _dist_rank(rank, world, workdir, shape, device, fn, args):
+    """One spawned rank: its log to ``rank<r>.log``, its result (or its
+    error) to ``rank<r>.pt``."""
+    import sys
+
+    import torch
+    import torch.distributed as dist
+    log = open(os.path.join(workdir, f"rank{rank}.log"), "w", buffering=1)
+    os.dup2(log.fileno(), 1)
+    os.dup2(log.fileno(), 2)
+    sys.stdout = sys.stderr = log
+    out = os.path.join(workdir, f"rank{rank}.pt")
+    try:
+        from repro_torch.core.mesh import DistMesh
+        if str(device).startswith("cuda"):
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        # gloo: NCCL refuses two ranks of one card (DESIGN_TORCH.md §28)
+        dist.init_process_group("gloo", init_method=f"file://{workdir}/rendezvous",
+                                rank=rank, world_size=world)
+        mesh = DistMesh(shape, device=device)
+        try:
+            result = fn(mesh, *args)
+        finally:
+            mesh.close()
+        torch.save({"ok": True, "result": result}, out + ".tmp")
+        os.replace(out + ".tmp", out)
+        dist.destroy_process_group()
+    except BaseException:                        # noqa: BLE001  (reported to the parent)
+        traceback.print_exc()
+        torch.save({"ok": False, "error": traceback.format_exc()}, out + ".tmp")
+        os.replace(out + ".tmp", out)
+        log.flush()
+        os._exit(1)
+    log.flush()
+
+
+def _tail(path: str, n: int = 60) -> str:
+    try:
+        with open(path) as f:
+            return "".join(f.readlines()[-n:])
+    except OSError:
+        return "(no log)"
+
+
+def spawn_dist_mesh(fn, shape: dict[str, int], *, args=(), device="cuda",
+                    timeout: float = 600.0, workdir: str | None = None) -> list:
+    """Run ``fn(mesh, *args)`` on every rank of a ``DistMesh`` of
+    ``shape``, one spawned process per rank, and return the ranks' results
+    in rank order.
+
+    Each process joins the process group (gloo, ``init_method`` a
+    ``file://`` rendezvous in ``workdir``), builds the mesh on ``device``
+    (``"cuda"``: every rank on ``rank % device_count``), calls ``fn`` and
+    closes the mesh.  ``fn`` and ``args`` must pickle (a module-level
+    function); the result goes back through ``torch.save``.  A rank that
+    raises or exits, or a run past ``timeout`` seconds, stops every process
+    and raises with the failing rank's log.  ``workdir`` keeps each rank's
+    log, ``rank<r>.log``; by default a new temporary directory, removed
+    after a run that succeeds."""
+    import torch
+    import torch.multiprocessing as mp
+    world = 1
+    for v in shape.values():
+        world *= int(v)
+    own_dir = workdir is None
+    workdir = workdir or tempfile.mkdtemp(prefix="repro-dist-")
+    os.makedirs(workdir, exist_ok=True)
+    for name in os.listdir(workdir):
+        if name == "rendezvous" or name.startswith("rank"):
+            os.remove(os.path.join(workdir, name))
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dist_rank, daemon=True,
+                         args=(r, world, workdir, dict(shape), str(device), fn, tuple(args)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    failed = None
+    try:
+        while any(p.is_alive() for p in procs):
+            bad = [r for r, p in enumerate(procs) if not p.is_alive() and p.exitcode != 0]
+            if bad:
+                failed = (bad[0], f"exit code {procs[bad[0]].exitcode}")
+                break
+            if time.monotonic() > deadline:
+                late = [r for r, p in enumerate(procs) if p.is_alive()]
+                failed = (late[0], f"still running after {timeout} s (ranks {late})")
+                break
+            time.sleep(0.05)
+        else:
+            bad = [r for r, p in enumerate(procs) if p.exitcode != 0]
+            if bad:
+                failed = (bad[0], f"exit code {procs[bad[0]].exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if failed is not None:
+        r, why = failed
+        raise RuntimeError(f"DistMesh rank {r} of {world} failed ({why}); its log "
+                           f"({workdir}/rank{r}.log), last lines:\n"
+                           f"{_tail(os.path.join(workdir, f'rank{r}.log'))}")
+    results = []
+    for r in range(world):
+        got = torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
+        results.append(got["result"])
+    if own_dir:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return results

@@ -19,11 +19,17 @@ Counterpart of ``repro/train/checkpoint.py``, in its format:
   background save raises at the next save;
 * retention: keep-last-k.
 
-A train program's state is a list of per-rank states (``ThreadMesh``);
-passing the program as ``layout`` makes :func:`save` write its full logical
-arrays and :func:`restore` place them back (DESIGN_TORCH.md §24), and
+A train program's state is a list of per-rank states (``ThreadMesh``) or
+this process's rank's state (``DistMesh``); passing the program as
+``layout`` makes :func:`save` write its full logical arrays and
+:func:`restore` place them back (DESIGN_TORCH.md §24), and
 :meth:`StateLayout.gather` assembles them from the live ranks alone after a
-pod is lost (``elastic.recover``, DESIGN_TORCH.md §25):
+pod is lost (``elastic.recover``, DESIGN_TORCH.md §25).  On a ``DistMesh``
+(DESIGN_TORCH.md §28) every rank copies its state to the host and the
+process group gathers the copies to rank 0, which assembles and writes the
+same files; every rank returns once they are published, and a restore
+places each rank's own shards from them, so a checkpoint moves between the
+two meshes:
 
 * params: the full leaves (ZeRO-3 shards concatenated on their
   ``fsdp_dim`` over "data");
@@ -101,11 +107,14 @@ def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def host_leaves(state, layout=None) -> list[tuple[str, np.ndarray, str]]:
+def host_leaves(state, layout=None) -> list[tuple[str, np.ndarray, str]] | None:
     """``(path, host array, dtype name)`` of every leaf of ``state``'s full
-    logical tree (``layout.logical_state(state)`` when a layout is given)."""
+    logical tree (``layout.logical_state(state)`` when a layout is given);
+    None on a DistMesh rank that does not write."""
     if layout is not None:
         state = StateLayout.of(layout).logical_state(state)
+        if state is None:
+            return None
     return [(path, *_host(leaf)) for path, leaf in leaf_paths(state)]
 
 
@@ -157,7 +166,13 @@ def save(ckpt_dir: str, step: int, state, layout=None, *, keep: int = 3,
     future; a blocking save returns the published directory."""
     if not blocking:
         return save_async(ckpt_dir, step, state, layout, keep=keep)
-    return _write(ckpt_dir, step, host_leaves(state, layout), keep)
+    lay = StateLayout.of(layout) if layout is not None else None
+    leaves = host_leaves(state, lay)
+    final = (_write(ckpt_dir, step, leaves, keep) if leaves is not None
+             else os.path.join(ckpt_dir, f"step_{step:08d}"))
+    if lay is not None:
+        lay.published()
+    return final
 
 
 _EXECUTOR = cf.ThreadPoolExecutor(max_workers=1)
@@ -178,7 +193,11 @@ def _prune_pending():
 
 
 def save_async(ckpt_dir: str, step: int, state, layout=None, *, keep: int = 3) -> cf.Future:
-    """Copy to host memory now, write to disk on the background thread."""
+    """Copy to host memory now, write to disk on the background thread.
+    A DistMesh program saves blocking (:func:`save`): its ranks return
+    once the writer has published."""
+    if layout is not None and StateLayout.of(layout).dist:
+        raise ValueError("a DistMesh program's checkpoint is saved blocking")
     _prune_pending()
     leaves = host_leaves(state, layout)
     fut = _EXECUTOR.submit(_write, ckpt_dir, step, leaves, keep)
@@ -308,15 +327,16 @@ def restore_latest(ckpt_dir: str, state_like=None, layout=None, *, verify: bool 
 class StateLayout:
     """How a train program's state lies on its mesh of ranks: the gather of
     per-rank states into full logical arrays, and the placement back onto
-    the program's ranks (a ``ThreadMesh``)."""
+    the program's ranks (a ``ThreadMesh``'s list of states, or a
+    ``DistMesh`` rank's own state)."""
 
     def __init__(self, prog):
-        from repro_torch.core.mesh import ThreadMesh
+        from repro_torch.core.mesh import DistMesh, ThreadMesh
         from repro_torch.models.common import meta_leaves
         from repro_torch.train import optim
-        if not isinstance(prog.mesh, ThreadMesh):
-            raise NotImplementedError("checkpoints gather the ranks of a ThreadMesh; a "
-                                      "DistMesh rank sees its own shards only")
+        if not isinstance(prog.mesh, (ThreadMesh, DistMesh)):
+            raise NotImplementedError(f"checkpoints of a {type(prog.mesh).__name__}")
+        self.dist = isinstance(prog.mesh, DistMesh)
         self.prog = prog
         self.mesh = prog.mesh
         self.zero3 = prog.rc.zero_stage == 3
@@ -372,8 +392,41 @@ class StateLayout:
 
     def logical_state(self, states):
         """The full logical arrays of every rank's state (on the mesh's
-        device; :func:`save` copies them to the host)."""
+        device; :func:`save` copies them to the host).  On a DistMesh
+        ``states`` is this rank's state: the ranks' host copies are gathered
+        to rank 0 (collective), which returns the tree; the others None."""
+        if self.dist:
+            states = self._gather_to_writer(states)
+            if states is None:
+                return None
         return self.gather(states)[0]
+
+    def _gather_to_writer(self, state):
+        """Every rank's state, on rank 0, as host tensors (gloo gathers
+        host tensors; the checkpoint goes to the host anyway); None
+        elsewhere.  Leaves have equal shapes on every rank (shards, flat
+        optimizer shards, EF residuals)."""
+        import torch.distributed as dist
+        flat, rebuild = flatten(state)
+        me, world = self.mesh.rank, self.mesh.size
+        out = [[None] * len(flat) for _ in range(world)] if me == 0 else None
+        for j, leaf in enumerate(flat):
+            if not isinstance(leaf, torch.Tensor):
+                for r in range(world if me == 0 else 0):
+                    out[r][j] = leaf
+                continue
+            host = leaf.detach().to(_CPU, copy=True).contiguous()
+            got = [torch.empty_like(host) for _ in range(world)] if me == 0 else None
+            dist.gather(host, got, dst=0)
+            for r in range(world if me == 0 else 0):
+                out[r][j] = got[r]
+        return [rebuild(o) for o in out] if me == 0 else None
+
+    def published(self):
+        """On a DistMesh every rank waits here until rank 0 has written."""
+        if self.dist:
+            import torch.distributed as dist
+            dist.barrier()
 
     def gather(self, states, dead=()):
         """``(tree, missing)``: the logical state from the ranks not in
@@ -431,13 +484,14 @@ class StateLayout:
 
     def place(self, tree):
         """Every rank's state of the program from a full logical ``tree``
-        (tensors anywhere; each rank gets its own copies on the device)."""
+        (tensors anywhere; each rank gets its own copies on the device); on
+        a DistMesh this rank's state alone."""
         from repro_torch.models.common import shard_leaf
         dev = self.mesh.device
         p_full, rebuild = flatten(tree["params"])
         opt_full = {k: flatten(v)[0] for k, v in tree["opt"].items()}
         states = []
-        for r in range(self.mesh.size):
+        for r in ([self.mesh.rank] if self.dist else range(self.mesh.size)):
             i = self.mesh.axis_index(r, self.dp_axes)
             di = self.mesh.axis_index(r, "data") if "data" in self.mesh.axes else 0
 
@@ -463,4 +517,4 @@ class StateLayout:
                 opt["ef"] = rebuild([t.to(dev, torch.float32).chunk(self.world)[i].clone()
                                      for t in opt_full["ef"]])
             states.append({"params": params, "opt": opt, "step": int(tree["step"])})
-        return states
+        return states[0] if self.dist else states

@@ -6,8 +6,11 @@ the limits of ``chip_smoke.py`` (``ATTN_LIMITS``), the grouped matmul to
 ``GMM_LIMITS``, the SSD scan to ``SSD_LIMITS`` and its backward to
 ``SSD_BWD_LIMITS``; the collective kernels (``collective_reduce``, the fused ring
 reduce-scatter and all-gather) and the int8 codec's kernels (the chunk-512
-fast path and the generic one) bit for bit.  Planted faults in copies of the kernel sources must fail those checks,
-and a ring fault that stalls the protocol must raise within seconds.  The
+fast path and the generic one) bit for bit; the rings' per-rank route on
+processes of a DistMesh against the one-launch kernel, bit for bit.  Planted
+faults in copies of the kernel sources must fail those checks, and a ring
+fault that stalls the protocol (or a withheld call across processes) must
+raise within seconds.  The
 file imports nothing of JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -s --noconftest tests/test_torch_cuda.py
@@ -273,6 +276,68 @@ def test_fused_ring_raises_instead_of_falling_back(gen):
     xs = [torch.randn(8, generator=gen, device="cuda") for _ in range(2)]
     with pytest.raises(ValueError, match="wire dtype"):
         m.run(lambda v: ring_dma.ring_reduce_scatter(v, "pod", wire_dtype=torch.float16), xs)
+
+
+# ---------------------------------------------------------------------------
+# The per-rank route: processes of a DistMesh on the card, each launching its
+# own part over peer memory (DESIGN_TORCH.md §28)
+# ---------------------------------------------------------------------------
+
+def _spawn_on_card(fn, shape, tmp_path, *args):
+    from repro_torch.launch.mesh import spawn_dist_mesh
+    return spawn_dist_mesh(fn, shape, args=args, device="cuda", timeout=240,
+                           workdir=str(tmp_path))
+
+
+def test_per_rank_ring_kernel_matches_one_launch(gen, tmp_path):
+    """Two processes on the card, each one rank of a ring on "pod": every
+    case of the per-rank kernels (reduce-scatter with an f32 and a bf16 wire,
+    all-gather of 4- and 2-byte words, stripes 1 and 4, both directions; c
+    odd) gives the one-launch kernel's bits on the same inputs, and the plain
+    version's.  Each process counts its own launches: 8 per-rank and 8
+    one-launch calls of each kernel."""
+    import test_torch_dist_ranks
+    got = _spawn_on_card(test_torch_dist_ranks.card_rings, {"pod": 2}, tmp_path, 100003)
+    for r, out in enumerate(got):
+        assert out.pop("launches") == (16, 16), r
+        assert len(out) == 16
+        for case, (one, plain) in out.items():
+            assert one and plain, (r, case, one, plain)
+
+
+def test_peer_arena_refuses_expandable_segments(gen):
+    """The arena's memory is its own cudaMalloc allocation: CUDA refuses an
+    IPC handle for memory of the caching allocator's expandable segments,
+    and the export raises; the arena's own allocation exports."""
+    from repro_torch.kernels import peer
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        t = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        with pytest.raises(RuntimeError, match="export"):
+            peer.export_handle(t.data_ptr())
+        del t
+    finally:
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+        torch.cuda.empty_cache()
+    lib = ring_dma._kernel()
+    ptr = ctypes.c_ulonglong()
+    assert lib.peer_alloc(1 << 20, ctypes.byref(ptr)) == 0
+    try:
+        assert len(peer.export_handle(ptr.value)) == lib.peer_handle_bytes()
+    finally:
+        assert lib.peer_free(ptr.value) == 0
+
+
+def test_per_rank_withheld_call_raises_within_bound(gen, tmp_path):
+    """Two processes on the card; after a good call the second withholds
+    one: the first raises the kernel's start-handshake timeout within the
+    bound chip_smoke.py [38] holds (PEER_FAULT_BOUND_S), and nothing hangs."""
+    import test_torch_dist_ranks
+    got = _spawn_on_card(test_torch_dist_ranks.card_withheld, {"pod": 2}, tmp_path)
+    assert got[1] == ("withheld", 0.0)
+    msg, secs = got[0]
+    assert "never arrived" in msg, msg
+    assert secs <= smoke.PEER_FAULT_BOUND_S, secs
 
 
 # name -> (text in csrc/ring_dma.cu, its faulty replacement, the ring case
