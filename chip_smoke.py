@@ -344,9 +344,9 @@ Phases, in order; any failure exits non-zero before the last line:
    leaf, and the step-0 update signs that flip between the stages counted
    and held to the difference they predict, ENCDEC_ZERO_FLIP_SHARE and
    ENCDEC_ZERO_PRED_RATIO), with a control run (ZeRO-3's step 0 with one
-   rank's gradient lost) that must fail those limits; step 0's and step
-   1's wall, tokens/s at step 1, peak memory (the busy share of a profiled
-   second step until [38] joined);
+   rank's gradient lost) that must fail those limits; step 0's wall,
+   ZeRO-3's step 1 and tokens/s at it, peak memory, and ZeRO-1's busy share
+   from its second step, run under torch.profiler;
 38. the fused rings across processes (ROADMAP A3, after [37]): four
    processes spawned by ``launch.mesh.spawn_dist_mesh`` share the card, a
    gloo DistMesh, weights and inputs from seed 0, each rank launching its
@@ -1050,10 +1050,11 @@ VLM_GRID_GRAD_FLOOR = 2e-2
 # (whisper's decoder context), 32 clips a step; remat, hier, pallas, no
 # codec; ENCDEC_TRAIN_STEPS ZeRO-3 steps, then as many ZeRO-1 steps, from
 # one init and on the same batches.
-# Each stage's second step ran under torch.profiler (its busy share) until
-# [38] joined; the steps are host-bound and the profiler doubles their wall,
-# so both steps now run unprofiled (busy not measured) and ms a step is the
-# second step's.
+# ZeRO-1's second step runs under torch.profiler (its busy share; its ms a
+# step is then step 0's, warm-up in it); ZeRO-3's second step runs
+# unprofiled (busy not measured; ms a step its second step's): the steps
+# are host-bound and the profiler doubles a step's wall, which the script's
+# time limit does not leave room for twice.
 ENCDEC_TRAIN_CLIPS, ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_STEPS = 4, 448, 2
 # ZeRO-3 against ZeRO-1 at step 0, per leaf (beside [22]'s limits over the
 # tree), stated before the first run on the card from [37] itself run at
@@ -2195,13 +2196,18 @@ def phase_train(torch, np, get_config, build, mesh_mod, hetccl, counters, bench_
     check(launches["xla"]["ring_reduce_scatter"] == 0 and launches["int8_ef"]["quant_int8"] > 0,
           "a run took another route than its backend")
 
-    # host-clock ms per step (the checked steps'); the split of one int8 step
-    step_ms = {name: statistics.median(v) for name, v in ms.items()}
+    # host-clock ms per step: the int8 run's checked steps (after its warm-up
+    # step); the pallas and xla runs' warm-up steps went to make room for
+    # [38], so theirs is their second step's alone (the first carries their
+    # first calls); the split of one int8 step
+    step_ms = {name: statistics.median(v) if name == "int8_ef" else v[-1]
+               for name, v in ms.items()}
     states = {"int8_ef": int8_state}
     split = step_split(torch, mesh_mod, optim, hetccl, progs["int8_ef"], states, batch)
     busy = device_busy_share(
         torch, lambda: progs["int8_ef"].step_fn(states["int8_ef"], batch), 1)
-    print(f"  ms per step (host clock, median of the {TRAIN_STEPS} checked steps): "
+    print(f"  ms per step (host clock; int8_ef the median of its {TRAIN_STEPS} checked steps, "
+          f"pallas and xla their second step, each run's first without a warm-up): "
           f"{json.dumps({k: round(v, 1) for k, v in step_ms.items()})}; tokens/s "
           f"{json.dumps({k: round(n_tokens / v * 1e3, 1) for k, v in step_ms.items()})}")
     print(f"  int8 step split (rank 0, ms): {json.dumps(split)}; card busy share of an int8 "
@@ -6039,7 +6045,7 @@ def phase_encdec_train(torch, np, fa, ref, build, mesh_mod, hetccl, counters, cf
     for zero in (3, 1):
         runs[zero], after_step0[zero] = train_stage_run(
             torch, np, hetccl, collectives, ring_dma, counters, model, m, plan, batches, zero,
-            init, profile=None, moments=moments[zero])
+            init, profile="last" if zero == 1 else None, moments=moments[zero])
         runs[zero].pop("kernel_us")
         print_stage(f"ZeRO-{zero}", runs[zero])
         if zero == 3:                  # the control, while ZeRO-3 still holds the init
@@ -6080,8 +6086,9 @@ def phase_encdec_train(torch, np, fa, ref, build, mesh_mod, hetccl, counters, cf
                     and ct["tree_share"] > ENCDEC_ZERO_FLIP_SHARE
                     and ct["tree_rel"] > ENCDEC_ZERO_PARAM_REL_L2)
     print(f"  ZeRO-3 vs ZeRO-1: step 0's wall (warm-up included) {r3['step_ms'][0]:.1f} / "
-          f"{r1['step_ms'][0]:.1f} ms, step 1's {r3['step_ms'][1]:.1f} / {r1['step_ms'][1]:.1f} "
-          f"ms, tokens/s at step 1 {r3['tokens_per_s']:.1f} / {r1['tokens_per_s']:.1f}, peak "
+          f"{r1['step_ms'][0]:.1f} ms, ZeRO-3's step 1 {r3['step_ms'][1]:.1f} ms (ZeRO-1's runs "
+          f"under the profiler: busy {r1['device_busy_one_more_step']}), tokens/s at ZeRO-3's "
+          f"step 1 / ZeRO-1's step 0 {r3['tokens_per_s']:.1f} / {r1['tokens_per_s']:.1f}, peak "
           f"{r3['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB (state {18 * model.n_params() / 1e9:.1f}"
           f" / {36 * model.n_params() / 1e9:.1f} GB at 18 / 36 bytes a parameter)")
     print(f"  step losses, largest difference {loss_gap:.3e} (limit {ZERO_LOSS_ATOL})  "
@@ -6182,15 +6189,15 @@ def dist_rank(m, job):
     from repro_torch.core import hetccl
     from repro_torch.core.mesh import DistMesh
     from repro_torch.core.tree import leaves as tree_leaves
-    from repro_torch.kernels import ring_dma
+    from repro_torch.kernels import peer, ring_dma
     from repro_torch.models import build
     from repro_torch.train import checkpoint
     me = m.rank
-    out = {"rank": me, "local_size": m.local_size, "cases": {}}
+    out = {"rank": me, "local_size": peer.local_ranks(m.device), "cases": {}}
     t_start = time.perf_counter()
 
     # (a) the rings alone, R 4 on "pod"
-    arena = m.peer_arena("pod")
+    arena = peer.arena_for(m, "pod")
     rings = ring_dma._mesh_rings(m, "pod")
     c, n = job["c"], m.shape["pod"]
     out["ctas"] = arena.ctas
@@ -6239,7 +6246,7 @@ def dist_rank(m, job):
         except ring_dma.RingProtocolError as e:
             out["withheld"] = {"outcome": str(e), "s": time.perf_counter() - t}
     dist.barrier()
-    m.close()                 # (a)'s arena carries the fault; (c) on new ones
+    peer.close_arenas()       # (a)'s arena carries the fault; (c) on new ones
     out["ab_s"] = time.perf_counter() - t_start
 
     # (c) HetCCL's collective on (pod=2, data=2)
@@ -6309,7 +6316,7 @@ def dist_rank(m, job):
             torch.save([p.cpu() for p in params], job["dist_params"])
         out["d_s"] = time.perf_counter() - t
     finally:
-        m2.close()
+        peer.close_arenas()
     out["reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
     return out
 
@@ -6340,23 +6347,28 @@ def phase_dist(torch, get_config, build, mesh_mod, ring_dma, root, c, coll_tree,
     thread_losses = train_ref["losses"]
     out = {}
 
-    R, n = 4, 4
-    rings = [list(range(R))]
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    xs = [torch.randn(n, c, generator=gen, device="cuda") for _ in range(R)]
-    ag_in = [torch.randn(c, generator=gen, device="cuda") for _ in range(R)]
-    out["one_launch_ms"] = {
-        "rs": median_ms(lambda: ring_dma.reduce_scatter_fused(xs, rings, check=False)),
-        "ag": median_ms(lambda: ring_dma.all_gather_fused(ag_in, rings, check=False))}
-    ring_dma.check_errors()
-    del xs, ag_in
-    gc.collect()
-    torch.cuda.empty_cache()
+    def one_launch_ms():
+        """The one-launch route at (a)'s shape (R 4, one ring), this process
+        alone on the card."""
+        R, n = 4, 4
+        rings = [list(range(R))]
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        xs = [torch.randn(n, c, generator=gen, device="cuda") for _ in range(R)]
+        ag_in = [torch.randn(c, generator=gen, device="cuda") for _ in range(R)]
+        got = {"rs": median_ms(lambda: ring_dma.reduce_scatter_fused(xs, rings, check=False)),
+               "ag": median_ms(lambda: ring_dma.all_gather_fused(ag_in, rings, check=False))}
+        ring_dma.check_errors()
+        del xs, ag_in
+        gc.collect()
+        torch.cuda.empty_cache()
+        return got
 
+    out["one_launch_ms"] = one_launch_ms()
     t = time.perf_counter()
     res = spawn_dist_mesh(dist_rank, {"pod": 4}, args=(job,), device="cuda",
                           timeout=DIST_TIMEOUT_S, workdir=str(work / "ranks"))
     out["spawn_s"] = time.perf_counter() - t
+    out["one_launch_after_ms"] = one_launch_ms()      # read again, the processes gone
 
     # (a)
     failed = [f"rank {r['rank']}: {name}" for r in res for name, v in r["cases"].items()
@@ -6371,7 +6383,8 @@ def phase_dist(torch, get_config, build, mesh_mod, ring_dma, root, c, coll_tree,
         ms = [r[f"{kind}_ms"] for r in res]
         print(f"  (a) {kind} f32 n=4 c={c}: {statistics.median(ms):.3f} ms a call (ranks "
               f"{', '.join(f'{v:.3f}' for v in ms)}), one-launch route "
-              f"{out['one_launch_ms'][kind]:.4f} ms at the same shape: four processes sharing "
+              f"{out['one_launch_ms'][kind]:.4f} ms at the same shape (read again after the "
+              f"spawn: {out['one_launch_after_ms'][kind]:.4f} ms): four processes sharing "
               "one card: the protocol, not a link")
     out["a"] = {"ms": {k: [r[f"{k}_ms"] for r in res] for k in ("rs", "ag")},
                 "cases": len(PEER_RING_CASES), "ctas": res[0]["ctas"],

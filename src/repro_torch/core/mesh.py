@@ -22,10 +22,11 @@ Two meshes carry those functions (counterparts of ``repro/core/compat.py``'s
 * :class:`DistMesh` is the same interface over ``torch.distributed``: one
   process per rank, a process group per axis.  ``ppermute`` is
   ``batch_isend_irecv``.  On CUDA ranks the fused ring kernels run one
-  launch per rank over peer memory (:meth:`DistMesh.peer_arena`,
-  ``kernels/peer.py``; DESIGN_TORCH.md §28); on CPU ranks the pallas rings
-  take the emulated schedule.  The local stage ("data" ``psum`` /
-  ``psum_scatter`` / ``all_gather``) runs on the group's backend:
+  launch per rank over peer memory (``kernels/peer.py``'s arenas, one per
+  ring group, freed by ``peer.close_arenas``; DESIGN_TORCH.md §28); on CPU
+  ranks the pallas rings take the emulated schedule.  The local stage
+  ("data" ``psum`` / ``psum_scatter`` / ``all_gather``) runs on the group's
+  backend:
 
   - gloo (one card shared by several processes, where NCCL refuses two
     ranks of one device, and the CPU): ``all_gather``, then the sum in
@@ -112,6 +113,31 @@ class _Mesh:
                 i, c[a] = divmod(i, self.shape[a])
             out.append(self.rank_of(c))
         return out
+
+    # -- collectives over ``_gather`` (each mesh's own exchange), in group
+    # order: a ThreadMesh and a gloo DistMesh give the same bits
+
+    def psum(self, rank, x, axes):
+        parts, _ = self._gather(rank, x, axes)
+        return functools.reduce(torch.add, parts)
+
+    def psum_scatter(self, rank, x, axes, scatter_dimension=0, tiled=False):
+        parts, me = self._gather(rank, x, axes)
+        n = len(parts)
+        if tiled:
+            parts = [p.chunk(n, scatter_dimension)[me] for p in parts]
+        else:
+            parts = [p.select(scatter_dimension, me) for p in parts]
+        return functools.reduce(torch.add, parts)
+
+    def all_gather(self, rank, x, axes, axis=0, tiled=False):
+        parts, _ = self._gather(rank, x, axes)
+        return torch.cat(parts, axis) if tiled else torch.stack(parts, axis)
+
+    def all_to_all(self, rank, x, axes, split_axis=0, concat_axis=0):
+        parts, me = self._gather(rank, x, axes)
+        n = len(parts)
+        return torch.cat([p.chunk(n, split_axis)[me] for p in parts], concat_axis)
 
 
 class ThreadMesh(_Mesh):
@@ -239,28 +265,6 @@ class ThreadMesh(_Mesh):
         ``DistMesh`` cannot: ZeRO-3's gathers read the peers' shards."""
         return self._gather(rank, value, axes)[0]
 
-    def psum(self, rank, x, axes):
-        parts, _ = self._gather(rank, x, axes)
-        return functools.reduce(torch.add, parts)
-
-    def psum_scatter(self, rank, x, axes, scatter_dimension=0, tiled=False):
-        parts, me = self._gather(rank, x, axes)
-        n = len(parts)
-        if tiled:
-            parts = [p.chunk(n, scatter_dimension)[me] for p in parts]
-        else:
-            parts = [p.select(scatter_dimension, me) for p in parts]
-        return functools.reduce(torch.add, parts)
-
-    def all_gather(self, rank, x, axes, axis=0, tiled=False):
-        parts, _ = self._gather(rank, x, axes)
-        return torch.cat(parts, axis) if tiled else torch.stack(parts, axis)
-
-    def all_to_all(self, rank, x, axes, split_axis=0, concat_axis=0):
-        parts, me = self._gather(rank, x, axes)
-        n = len(parts)
-        return torch.cat([p.chunk(n, split_axis)[me] for p in parts], concat_axis)
-
 
 class ShapeMesh(ThreadMesh):
     """A mesh of ranks on the ``meta`` device that runs one rank per island:
@@ -351,14 +355,12 @@ class DistMesh(_Mesh):
         dist.init_process_group("gloo", init_method=..., rank=r, world_size=n)
         mesh = DistMesh({"pod": 2, "data": 1}, device="cpu")
         out = mesh.run(fn, x)          # this rank's fn(x)
-        mesh.close()                   # collective: frees the ring arenas
 
     Every rank builds the mesh (it creates one process group per axis
     group, collectively).  ``device`` defaults to ``"cuda"`` (this rank's
     card, ``rank % device_count``: every rank on the one card of a
     one-card host) and raises without a card unless the caller passes
-    ``"cpu"``.  ``local_size`` is the number of the mesh's ranks on this
-    rank's device (the per-rank ring kernels size their grids by it).
+    ``"cpu"``.
     """
 
     def __init__(self, shape: dict[str, int], device="cuda"):
@@ -381,27 +383,6 @@ class DistMesh(_Mesh):
                 grp = tuple(self.group(r, axes))
                 if (axes, grp) not in self._groups and grp[0] == r:
                     self._groups[(axes, grp)] = dist.new_group(list(grp))
-        from repro_torch.kernels import peer
-        self.local_size = peer.ranks_on_device(None, self.device)
-        self._arenas: dict = {}
-
-    def peer_arena(self, axes):
-        """This rank's ``peer.Arena`` for its group over ``axes`` (made on
-        the first call, collectively by the group's ranks)."""
-        pg, grp = self._ordered(axes)
-        key = tuple(grp)
-        arena = self._arenas.get(key)
-        if arena is None:
-            from repro_torch.kernels import peer
-            arena = self._arenas[key] = peer.Arena(grp, self.rank, pg, self.device,
-                                                   self.local_size)
-        return arena
-
-    def close(self) -> None:
-        """Free this rank's ring arenas (collective over each arena's group:
-        every rank closes its mesh)."""
-        for key in sorted(self._arenas):
-            self._arenas.pop(key).close()
 
     def run(self, fn: Callable, *args):
         """This rank's ``fn(*args)`` with the mesh active."""
@@ -451,8 +432,8 @@ class DistMesh(_Mesh):
 
     def psum(self, rank, x, axes):
         import torch.distributed as dist
-        if not self._nccl:          # in group order, as ThreadMesh.psum
-            return functools.reduce(torch.add, self._gather(rank, x, axes)[0])
+        if not self._nccl:          # in group order, as a ThreadMesh sums
+            return super().psum(rank, x, axes)
         pg, _ = self._ordered(axes)
         out = x.clone()
         dist.all_reduce(out, group=pg)
@@ -460,15 +441,10 @@ class DistMesh(_Mesh):
 
     def psum_scatter(self, rank, x, axes, scatter_dimension=0, tiled=False):
         import torch.distributed as dist
+        if not self._nccl:          # in group order, as a ThreadMesh sums
+            return super().psum_scatter(rank, x, axes, scatter_dimension, tiled)
         pg, grp = self._ordered(axes)
         n, me = len(grp), grp.index(rank)
-        if not self._nccl:          # in group order, as ThreadMesh.psum_scatter
-            parts, _ = self._gather(rank, x, axes)
-            if tiled:
-                parts = [p.chunk(n, scatter_dimension)[me] for p in parts]
-            else:
-                parts = [p.select(scatter_dimension, me) for p in parts]
-            return functools.reduce(torch.add, parts)
         if scatter_dimension == 0 and sorted(grp) == grp:
             src = x.contiguous()
             out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
@@ -480,15 +456,6 @@ class DistMesh(_Mesh):
         if tiled:
             return total.chunk(n, scatter_dimension)[me].contiguous()
         return total.select(scatter_dimension, me).contiguous()
-
-    def all_gather(self, rank, x, axes, axis=0, tiled=False):
-        parts, _ = self._gather(rank, x, axes)
-        return torch.cat(parts, axis) if tiled else torch.stack(parts, axis)
-
-    def all_to_all(self, rank, x, axes, split_axis=0, concat_axis=0):
-        parts, me = self._gather(rank, x, axes)
-        n = len(parts)
-        return torch.cat([p.chunk(n, split_axis)[me] for p in parts], concat_axis)
 
 
 # ---------------------------------------------------------------------------

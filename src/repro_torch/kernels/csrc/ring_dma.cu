@@ -77,9 +77,10 @@
 // wait stays bounded by kSpinTimeoutNs; a rank that gives up writes its own
 // and both neighbours' error words, so a fault stops the ring.  On one card
 // without MPS the processes' kernels are time-sliced: a hand-off waits for
-// the spinning context's slice to end (2.26 ms with two processes, 4.50 ms
-// with four; launch/bench_handoff.py on an NVIDIA H100 80GB HBM3 at
-// 700.00 W), which the bound covers.
+// the spinning context's slice to end (a flag passed round a ring of
+// spinning processes took 2.26 ms a hand-off with two processes and 4.50 ms
+// with four, the longest wait 18 ms, on an NVIDIA H100 80GB HBM3 at
+// 700.00 W; PERF.md §6), which the bound covers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

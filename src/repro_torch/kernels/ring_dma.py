@@ -65,7 +65,7 @@ import torch
 from repro_torch.core import mesh, tacc
 from repro_torch.core.collectives import chunked
 from repro_torch.kernels import _build, peer, quant
-from repro_torch.kernels.peer import NUM_BUFFERS  # noqa: F401  (streams per ring step)
+from repro_torch.kernels.peer import NUM_BUFFERS, RingProtocolError
 from repro_torch.transport.stripe import MAX_STRIPES
 
 # Double-buffer depth (NUM_BUFFERS): streams per ring step, whose hops
@@ -76,11 +76,6 @@ ag_launches = 0       # this process's launches of the fused all-gather kernel
 
 SCHEDULE_OPS = ("ring_reduce_scatter", "ring_all_gather")
 _RS_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-class RingProtocolError(RuntimeError):
-    """The ring protocol failed: a wait of the fused kernel timed out on the
-    card, or its plain version found a slot, partial or credit out of order."""
 
 
 def _ring_perm(n: int, direction: int) -> list[tuple[int, int]]:
@@ -445,21 +440,11 @@ def bind(lib: ctypes.CDLL):
     lib.ring_launch.restype = ctypes.c_int
     lib.ring_error_string.argtypes = [ctypes.c_int]
     lib.ring_error_string.restype = ctypes.c_char_p
-    lib.ring_peer_ctas.argtypes = [ctypes.c_int]
-    lib.ring_peer_ctas.restype = ctypes.c_int
     lib.ring_peer_launch.argtypes = (
         [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
         + [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                                    ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_void_p])
     lib.ring_peer_launch.restype = ctypes.c_int
-    lib.peer_alloc.argtypes = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_ulonglong)]
-    lib.peer_free.argtypes = [ctypes.c_ulonglong]
-    lib.peer_handle_bytes.restype = ctypes.c_int
-    lib.peer_export.argtypes = [ctypes.c_ulonglong, ctypes.c_char_p]
-    lib.peer_open.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_ulonglong)]
-    lib.peer_close.argtypes = [ctypes.c_ulonglong]
-    for fn in (lib.peer_alloc, lib.peer_free, lib.peer_export, lib.peer_open, lib.peer_close):
-        fn.restype = ctypes.c_int
     return lib
 
 
@@ -877,7 +862,7 @@ def _rs_fused(chunks, axis: str, direction: int, wire_dtype, n_stripes: int = 1)
     """chunks (n, c, ...) -> this rank's reduced chunk (c, ...), f32."""
     m, _ = mesh.current()
     if isinstance(m, mesh.DistMesh):
-        return reduce_scatter_peer(chunks, m.peer_arena(axis), direction=direction,
+        return reduce_scatter_peer(chunks, peer.arena_for(m, axis), direction=direction,
                                    wire_dtype=wire_dtype,
                                    n_stripes=n_stripes).reshape(chunks.shape[1:])
     m, r = _thread_mesh()
@@ -892,7 +877,7 @@ def _ag_fused(x, axis: str, direction: int, n_stripes: int = 1):
     """x (c, ...) -> (n, c, ...) rank-stacked."""
     m, _ = mesh.current()
     if isinstance(m, mesh.DistMesh):
-        return all_gather_peer(x, m.peer_arena(axis), direction=direction,
+        return all_gather_peer(x, peer.arena_for(m, axis), direction=direction,
                                n_stripes=n_stripes)
     m, r = _thread_mesh()
     launch = functools.partial(all_gather_fused, rings=_mesh_rings(m, axis),

@@ -133,6 +133,7 @@ def _dist_rank(rank, world, workdir, shape, device, fn, args):
     out = os.path.join(workdir, f"rank{rank}.pt")
     try:
         from repro_torch.core.mesh import DistMesh
+        from repro_torch.kernels import peer
         if str(device).startswith("cuda"):
             torch.cuda.set_device(rank % torch.cuda.device_count())
         # gloo: NCCL refuses two ranks of one card (DESIGN_TORCH.md §28)
@@ -142,7 +143,7 @@ def _dist_rank(rank, world, workdir, shape, device, fn, args):
         try:
             result = fn(mesh, *args)
         finally:
-            mesh.close()
+            peer.close_arenas()
         torch.save({"ok": True, "result": result}, out + ".tmp")
         os.replace(out + ".tmp", out)
         dist.destroy_process_group()
@@ -172,8 +173,9 @@ def spawn_dist_mesh(fn, shape: dict[str, int], *, args=(), device="cuda",
     Each process joins the process group (gloo, ``init_method`` a
     ``file://`` rendezvous in ``workdir``), builds the mesh on ``device``
     (``"cuda"``: every rank on ``rank % device_count``), calls ``fn`` and
-    closes the mesh.  ``fn`` and ``args`` must pickle (a module-level
-    function); the result goes back through ``torch.save``.  A rank that
+    frees the ring arenas (``peer.close_arenas``).  ``fn`` and ``args``
+    must pickle (a module-level function); the result goes back through
+    ``torch.save``.  A rank that
     raises or exits, or a run past ``timeout`` seconds, stops every process
     and raises with the failing rank's log.  ``workdir`` keeps each rank's
     log, ``rank<r>.log``; by default a new temporary directory, removed

@@ -432,6 +432,7 @@ def test_mesh_exchanges_hold_under_thread_switching():
 DIST_RANK = r"""
 import sys, torch, torch.distributed as dist
 from repro_torch.core import hetccl, mesh, tacc
+from repro_torch.kernels import peer
 rank, init, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
 m = mesh.DistMesh({"pod": 2, "data": 1}, device="cpu")
@@ -445,7 +446,7 @@ res = {b: m.run(hetccl.all_reduce, x, hetccl.HetCCLConfig(mode="hier", backend=b
 res["fused"] = m.run(lambda v: tacc.dispatch(
     "ring_reduce_scatter", v.reshape(5, -1)[:4].reshape(2, -1), "pod", 1, v.dtype,
     variant="fused"), x)
-m.close()
+peer.close_arenas()
 torch.save(res, out)
 dist.destroy_process_group()
 """

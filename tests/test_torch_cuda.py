@@ -319,7 +319,7 @@ def test_peer_arena_refuses_expandable_segments(gen):
     finally:
         torch.cuda.memory._set_allocator_settings("expandable_segments:False")
         torch.cuda.empty_cache()
-    lib = ring_dma._kernel()
+    lib = peer._kernel_lib()
     ptr = ctypes.c_ulonglong()
     assert lib.peer_alloc(1 << 20, ctypes.byref(ptr)) == 0
     try:

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import tacc
+from repro_torch.kernels import peer
 
 
 def peer_rings(m, rs_inputs, ag_inputs, cases):
@@ -42,25 +43,27 @@ def peer_rings(m, rs_inputs, ag_inputs, cases):
     before = (ring_dma.rs_launches, ring_dma.ag_launches)
     m.run(run)
     assert (ring_dma.rs_launches, ring_dma.ag_launches) == before   # CPU: no kernel
-    out["seq"] = m.peer_arena("pod").seq
+    out["seq"] = peer.arena_for(m, "pod").seq
     return out
 
 
 def peer_faults(m):
-    """Two faults of the per-rank route on the CPU, in order: after a good
-    call (which sizes the arena: a call that grows it meets the other ranks
-    on the host first), the last rank withholds one call and every other
-    rank must raise; then, on a new arena, the first rank calls an
-    all-gather where the others call a reduce-scatter, and the start
-    handshake must name it.  Returns {fault: (outcome, seconds)} for this
-    rank."""
+    """Three faults of the per-rank route on the CPU, in order.  After a
+    good call (which sizes the arena), the last rank withholds one call and
+    every other rank must raise.  Then, on a new arena, the first rank calls
+    an all-gather where the others call a reduce-scatter, and the start
+    handshake must name it.  Then, on a new arena, the last rank withholds
+    a call that grows the arena: the others must raise at the host meeting
+    that grows it, within ``peer.MEET_TIMEOUT_S`` (lowered here to 3 s),
+    and every rank must find the arena broken when it closes it.  Returns {fault: (outcome,
+    seconds)} for this rank."""
     import torch.distributed as dist
 
     from repro_torch.kernels import ring_dma
     out = {}
     x = torch.ones(m.axis_size("pod"), 64)
     last = m.rank == m.size - 1
-    arena = m.peer_arena("pod")
+    arena = peer.arena_for(m, "pod")
     ring_dma.reduce_scatter_peer(x, arena)
     dist.barrier()
     t0 = time.monotonic()
@@ -73,9 +76,8 @@ def peer_faults(m):
         except ring_dma.RingProtocolError as e:
             out["withheld"] = (str(e), time.monotonic() - t0)
     dist.barrier()
-    arena.close()                       # a broken ring: a new arena, counting from 0
-    m._arenas.clear()
-    arena = m.peer_arena("pod")
+    peer.close_arenas()                 # a broken ring: a new arena, counting from 0
+    arena = peer.arena_for(m, "pod")
     arena.ensure(1 << 20, 1 << 20)      # both calls' sizes, so that neither grows it
     dist.barrier()
     t0 = time.monotonic()
@@ -87,6 +89,25 @@ def peer_faults(m):
         out["order"] = ("no error", time.monotonic() - t0)
     except ring_dma.RingProtocolError as e:
         out["order"] = (str(e), time.monotonic() - t0)
+    dist.barrier()
+    peer.close_arenas()
+    peer.MEET_TIMEOUT_S = 3.0
+    arena = peer.arena_for(m, "pod")
+    ring_dma.reduce_scatter_peer(x, arena)
+    big = torch.ones(m.axis_size("pod"), 1 << 19)   # 2 MiB of partials a rank: it grows
+    dist.barrier()
+    t0 = time.monotonic()
+    if last:
+        out["grow"] = ("withheld", 0.0)
+    else:
+        try:
+            ring_dma.reduce_scatter_peer(big, arena)
+            out["grow"] = ("no error", time.monotonic() - t0)
+        except ring_dma.RingProtocolError as e:
+            out["grow"] = (str(e), time.monotonic() - t0)
+    dist.barrier()
+    peer.close_arenas()                 # no meeting: every rank finds the arena broken
+    out["grow_broken"] = arena.broken
     return out
 
 
@@ -128,7 +149,7 @@ def card_rings(m, c):
     inputs, regenerated from the seed) and against the plain version.
     Returns {case: (equal to the one launch, equal to the plain version)}."""
     from repro_torch.kernels import ring_dma
-    arena = m.peer_arena("pod")
+    arena = peer.arena_for(m, "pod")
     rings = ring_dma._mesh_rings(m, "pod")
     n, me = m.shape["pod"], m.rank
     out = {}
@@ -162,7 +183,7 @@ def card_withheld(m):
     import torch.distributed as dist
 
     from repro_torch.kernels import ring_dma
-    arena = m.peer_arena("pod")
+    arena = peer.arena_for(m, "pod")
     x = torch.ones(m.shape["pod"], 4096, device="cuda")
     ring_dma.reduce_scatter_peer(x, arena)
     dist.barrier()

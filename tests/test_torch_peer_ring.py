@@ -32,7 +32,7 @@ from repro.core import tacc as jax_tacc  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402,F401  (registers collective_reduce)
 from repro.kernels import ring_dma as jax_ring  # noqa: E402
 from repro_torch.core import mesh, tacc  # noqa: E402
-from repro_torch.kernels import ring_dma  # noqa: E402
+from repro_torch.kernels import peer, ring_dma  # noqa: E402
 from repro_torch.launch.mesh import spawn_dist_mesh  # noqa: E402
 
 CASES = [(wire, S, d) for wire in ("float32", "bfloat16") for S in (1, 2) for d in (1, -1)]
@@ -104,7 +104,10 @@ def test_peer_faults_raise_on_the_other_ranks(tmp_path):
     neighbour that never arrived or a wait that failed.  Then the first
     rank calls an all-gather where the others call a reduce-scatter: every
     rank raises at once (no bound waited out), the ranks next to the first
-    naming the call-order fault."""
+    naming the call-order fault.  Then the last rank withholds a call that
+    grows the arena: the two others raise at the host meeting within its
+    bound (3 s here, plus margin), naming the missing rank, and no rank
+    waits on the process group; every rank then finds the arena broken."""
     got = spawn_dist_mesh(test_torch_dist_ranks.peer_faults, {"pod": 3}, device="cpu",
                           timeout=120, workdir=str(tmp_path))
     bound = ring_dma.PLAIN_TIMEOUT_S
@@ -118,6 +121,12 @@ def test_peer_faults_raise_on_the_other_ranks(tmp_path):
         msg, secs = got[r]["order"]
         assert "another call" in msg, (r, msg)
         assert secs < bound, (r, secs)
+    assert got[2]["grow"][0] == "withheld"
+    for r in (0, 1):
+        msg, secs = got[r]["grow"]
+        assert "did not come to make, grow or close it" in msg and "[2]" in msg, (r, msg)
+        assert secs < 3.0 + 5.0, (r, secs)
+    assert all(got[r]["grow_broken"] for r in range(3))
 
 
 class _CudaDistMesh(mesh.DistMesh):
@@ -128,9 +137,6 @@ class _CudaDistMesh(mesh.DistMesh):
         mesh._Mesh.__init__(self, {"pod": 2})
         self.rank = 0
         self.device = torch.device("cuda", 0)
-
-    def peer_arena(self, axes):
-        return ("arena", axes)
 
 
 def test_dist_mesh_schedule_and_route(monkeypatch):
@@ -150,6 +156,7 @@ def test_dist_mesh_schedule_and_route(monkeypatch):
 
     monkeypatch.setattr(ring_dma, "reduce_scatter_peer", fake_rs)
     monkeypatch.setattr(ring_dma, "all_gather_peer", fake_ag)
+    monkeypatch.setattr(peer, "arena_for", lambda m, axes: ("arena", axes))
     m = _CudaDistMesh()
     monkeypatch.setattr(mesh, "_PROCESS_MESH", m)
     assert ring_dma._schedule("ring_reduce_scatter") == "fused"
